@@ -23,6 +23,20 @@ Phases, each printing its own lines; any failure exits non-zero:
 7. profile: torch.profiler's device time by kernel group over one denoise
    step and one decode of the same model.
 
+The training path (stage 2) adds:
+
+- kernel A bwd: the dk/dv and dq kernels against the plain backward at the
+  stage-2 shapes (896x512x24f: level 0 with and without the CFG-dropout
+  bias, level 1); keys hidden by the bias must get exactly zero dk and dv;
+- kernel B bwd: the frame-axis backward at the five stage-2 temporal shapes;
+- tiny train: one uncond and one cond stage-2 step of the tiny config on the
+  card (bf16, kernels) and on the CPU (fp32, plain versions), compared;
+- train: full-width stage 2 (grad checkpointing, FF chunks of 1024, fp32
+  masters of the motion modules and the camera encoder), 896x512x24f, bs 1,
+  TRAIN_STEPS steps; checks finite values, that the trainable leaves move
+  and the frozen ones do not, and that all five kernels launched;
+- profile: one more train step, device time by kernel group.
+
 Then one JSON line of per-kernel numbers, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 2 without one.
 
@@ -43,16 +57,24 @@ import time
 
 MAIN_STEPS = 5             # DDIM steps of the main path (the flagship runs 30)
 MAIN_SIZE = (24, 768, 512)  # frames, height, width of the main path
+TRAIN_STEPS = 4            # stage-2 steps of the training path
+TRAIN_SIZE = (24, 896, 512)  # frames, height, width of the stage-2 recipe
 # (relative L2 error, max error / rms(plain)) limits against the plain version.
 # Kernel A rounds unnormalized probabilities to bf16 (sound: 3.1e-3, 0.066);
 # kernel B rounds normalized ones, as its plain version does (sound: 6.9e-5, 0.026).
 FLASH_TOL = (1e-2, 0.2)
 TEMPORAL_TOL = (2e-4, 0.08)
+# The backward kernels, per gradient (dq, dk, dv): both round p and ds to bf16
+# as their plain versions do (sound: kernel A 3.5e-4, 0.070; kernel B 5.4e-5, 0.058).
+FLASH_BWD_TOL = (1e-3, 0.2)
+TEMPORAL_BWD_TOL = (2e-4, 0.2)
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak (data sheet, SXM, 700 W)
 H100_BYTES = 3.35e12       # HBM3 rate (data sheet)
 
 FLASH_SRC = "humanvid_tpu_torch/csrc/flash_attention.cu"
 TEMPORAL_SRC = "humanvid_tpu_torch/csrc/temporal_attention.cu"
+FLASH_BWD_SRC = "humanvid_tpu_torch/csrc/flash_attention_bwd.cu"
+TEMPORAL_BWD_SRC = "humanvid_tpu_torch/csrc/temporal_attention_bwd.cu"
 
 
 def bound(flops: float, nbytes: float):
@@ -220,6 +242,179 @@ def phase_temporal(torch, results, dev, cases):
                             ok=ok))
 
 
+def flash_bwd_cases():
+    """Kernel A's backward at the stage-2 training shapes (896x512x24f):
+    (name, B, Lq, Lk, heads, d, bias rows)."""
+    return [
+        ("level0 cond (ref KV)", 24, 7168, 14336, 8, 40, 0),
+        ("level0 uncond (CFG dropout bias)", 24, 7168, 14336, 8, 40, 24),
+        ("level1 cond (ref KV)", 24, 1792, 3584, 8, 80, 0),
+    ]
+
+
+def _profile_split(torch, fn, keys):
+    """Device ms per call of ``fn`` summed over the CUDA kernels whose names
+    contain each key, from torch.profiler over 3 calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    out = {key: 0.0 for key in keys}
+    for evt in prof.key_averages():
+        for key in keys:
+            if key in evt.key:
+                out[key] += evt.self_device_time_total / 1e3 / 3
+    return out
+
+
+def _sdpa_backward_ms(torch, tensors, g, mask, reps):
+    """Time of the backward of scaled_dot_product_attention through
+    autograd on contiguous head-split copies: the library yardstick."""
+    def run():
+        q, k, v = (t.detach().clone().requires_grad_() for t in tensors)
+        out = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        return q, k, v, out
+
+    def timed():
+        q, k, v, out = state
+        torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+
+    try:
+        state = run()
+    except (torch.OutOfMemoryError, RuntimeError) as err:
+        print(f"  library call unavailable: {type(err).__name__}: {str(err)[:120]}")
+        torch.cuda.empty_cache()
+        return None
+    ms = library_ms(torch, timed, reps)
+    del state
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_flash_bwd(torch, results, dev, cases):
+    """Kernel A's dk/dv and dq kernels against the plain backward (all q
+    rows, through its chunk loop) on the CUDA forward's lse; hidden keys
+    must get exactly zero dk and dv."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
+
+    print(f"[kernel A bwd] flash attention dk/dv + dq vs plain backward (bf16; tol: rel L2 "
+          f"{FLASH_BWD_TOL[0]}, max err {FLASH_BWD_TOL[1]} x rms(plain))")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for name, B, lq, lk, heads, d, bias_rows in cases:
+        c = heads * d
+        q, g = (torch.randn((B, lq, c), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        k, v = (torch.randn((B, lk, c), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        bias = None
+        unmasked = B * lk
+        if bias_rows:
+            # CFG dropout: the uncond rows hide the reference half of the keys
+            bias = torch.zeros((B, lk), device=dev)
+            bias[:bias_rows, lk // 2:] = -1e9
+            unmasked = B * lk - bias_rows * (lk // 2)
+        out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
+        delta = fa.attention_delta(g, out, heads)
+        args = (q, k, v, bias, g, lse, delta, heads)
+        grads = fa.flash_attention_backward_cuda(*args)
+        refs = fa.flash_attention_backward_plain(*args)
+        torch.cuda.synchronize()
+        errs = [agreement(o, r, FLASH_BWD_TOL) for o, r in zip(grads, refs)]
+        ratios = "/".join(f"{e[0] / r.float().pow(2).mean().sqrt().item():.3e}"
+                          for e, r in zip(errs, refs))
+        hidden_zero = True
+        if bias_rows:
+            hidden_zero = all(bool((t[:bias_rows, lk // 2:] == 0).all()) for t in grads[1:])
+        ok = all(e[2] for e in errs) and hidden_zero
+        ms = time_ms(torch, lambda: fa.flash_attention_backward_cuda(*args), 3)
+        split = _profile_split(torch, lambda: fa.flash_attention_backward_cuda(*args),
+                               ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_backward_plain(*args), 1)
+        del refs
+        torch.cuda.empty_cache()
+
+        def heads_first(t):
+            return t.view(B, t.shape[1], heads, d).transpose(1, 2).contiguous()
+
+        mask = None if bias is None else bias.to(torch.bfloat16)[:, None, None, :]
+        lib = _sdpa_backward_ms(torch, [heads_first(t) for t in (q, k, v)], heads_first(g),
+                                mask, 3)
+        flops = 10.0 * heads * lq * unmasked * d
+        nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * (lse.numel() + delta.numel()) \
+            + (0 if bias is None else 4 * bias.numel())
+        b_ms, b_by = bound(flops, nbytes)
+        err = max(e[0] for e in errs)
+        rel = max(e[1] for e in errs)
+        print(f"  {name}: B={B} Lq={lq} Lk={lk} heads={heads} d={d} "
+              f"rel_l2 dq/dk/dv={errs[0][1]:.3e}/{errs[1][1]:.3e}/{errs[2][1]:.3e} "
+              f"max_err/rms dq/dk/dv={ratios} "
+              f"hidden keys zero={hidden_zero} ms={ms:.3f} (dkv {split['flash_bwd_dkv_kernel']:.3f}"
+              f" + dq {split['flash_bwd_dq_kernel']:.3f}) plain_ms={plain_ms:.3f} "
+              f"library_ms={lib} bound_ms={b_ms:.3f} ({b_by}) "
+              f"TFLOP/s={flops / ms / 1e9:.1f} {'ok' if ok else 'FAIL'}")
+        results.append(dict(kernel="flash_bwd", shape=name, max_abs_err=err, rel_l2=rel, ms=ms,
+                            dkv_ms=split["flash_bwd_dkv_kernel"],
+                            dq_ms=split["flash_bwd_dq_kernel"], plain_ms=plain_ms,
+                            library_ms=lib, bound_ms=b_ms, bound_by=b_by, ok=ok))
+        del q, k, v, g, out, lse, delta, grads, args
+        torch.cuda.empty_cache()
+
+
+def temporal_bwd_cases():
+    """Kernel B's backward at the stage-2 training shapes (896x512x24f):
+    (name, b, f, l, c, heads)."""
+    return [
+        ("motion level0", 1, 24, 7168, 320, 8),
+        ("motion level1", 1, 24, 1792, 640, 8),
+        ("motion level2", 1, 24, 448, 1280, 8),
+        ("motion level3/mid", 1, 24, 112, 1280, 8),
+        ("camera encoder", 1, 24, 7168, 320, 8),
+    ]
+
+
+def phase_temporal_bwd(torch, results, dev, cases):
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    print(f"[kernel B bwd] frame-axis attention backward vs plain (bf16; tol: rel L2 "
+          f"{TEMPORAL_BWD_TOL[0]}, max err {TEMPORAL_BWD_TOL[1]} x rms(plain))")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for name, b, f, l, c, heads in cases:
+        d = c // heads
+        q, k, v, g = (torch.randn((b, f, l, c), generator=gen, device=dev).to(torch.bfloat16)
+                      for _ in range(4))
+        grads = ta.temporal_attention_backward_cuda(q, k, v, g, heads)
+        refs = ta.temporal_attention_backward_plain(q, k, v, g, heads)
+        torch.cuda.synchronize()
+        errs = [agreement(o, r, TEMPORAL_BWD_TOL) for o, r in zip(grads, refs)]
+        ratios = "/".join(f"{e[0] / r.float().pow(2).mean().sqrt().item():.3e}"
+                          for e, r in zip(errs, refs))
+        ok = all(e[2] for e in errs)
+        ms = time_ms(torch, lambda: ta.temporal_attention_backward_cuda(q, k, v, g, heads), 10)
+        plain_ms = time_ms(
+            torch, lambda: ta.temporal_attention_backward_plain(q, k, v, g, heads), 3)
+
+        def split(t):  # (b, f, l, c) -> (b*l, heads, f, d), contiguous
+            return t.view(b, f, l, heads, d).permute(0, 2, 3, 1, 4).reshape(b * l, heads, f, d)
+
+        lib = _sdpa_backward_ms(torch, [split(t) for t in (q, k, v)], split(g), None, 10)
+        flops = 10.0 * b * l * heads * f * f * d
+        b_ms, b_by = bound(flops, 2.0 * 7 * q.numel())
+        print(f"  {name}: b={b} f={f} l={l} c={c} heads={heads} "
+              f"rel_l2 dq/dk/dv={errs[0][1]:.3e}/{errs[1][1]:.3e}/{errs[2][1]:.3e} "
+              f"max_err/rms dq/dk/dv={ratios} "
+              f"ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib} "
+              f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+        results.append(dict(kernel="temporal_bwd", shape=name, max_abs_err=max(e[0] for e in errs),
+                            rel_l2=max(e[1] for e in errs), ms=ms, plain_ms=plain_ms,
+                            library_ms=lib, bound_ms=b_ms, bound_by=b_by, ok=ok))
+        del q, k, v, g, grads, refs
+        torch.cuda.empty_cache()
+
+
 def _inputs(np, F, H, W, clip_size, seed):
     from humanvid_tpu_torch.data.camera import (
         get_relative_pose, intrinsics_vector, ray_condition, static_camera)
@@ -274,10 +469,184 @@ def phase_tiny_reference(torch, np, dev):
     return ok
 
 
-def phase_main(torch, np, dev):
-    """Returns (ok, launches by kernel, the pipeline, its inputs)."""
+def _unzero_(torch, system, seed):
+    """Seeded non-zero values for the layers the reference initializes to
+    zero (the motion modules' proj_out, the pose guider's conv_out, the
+    camera encoder's zero convs): at zero, the gradient reaching every
+    frame-axis attention would be exactly zero and a broken backward
+    kernel would pass."""
+    zero_init = {"pose_guider": "conv_out.weight", "camera_encoder": "zero_conv_layers.",
+                 "denoising_unet": ".temporal_transformer.proj_out.weight"}
+    gen = torch.Generator(device=system.device).manual_seed(seed)
+    with torch.no_grad():
+        for component, key in zero_init.items():
+            for name, p in getattr(system, component).named_parameters():
+                if key in name:
+                    p.copy_(torch.randn(p.shape, generator=gen, device=p.device)
+                            * p[0].numel() ** -0.5)
+
+
+def _train_batch(np, b, F, H, W, clip_size, seed):
+    """A seeded synthetic stage-2 batch of the real layout (channel-last)."""
+    rng = np.random.default_rng(seed)
+    plucker = _inputs(np, F, H, W, clip_size, seed)["plucker"]
+    f32 = np.float32
+    return {"tgt": rng.uniform(-1, 1, (b, F, H, W, 3)).astype(f32),
+            "ref": rng.uniform(-1, 1, (b, H, W, 3)).astype(f32),
+            "clip": rng.normal(size=(b, clip_size, clip_size, 3)).astype(f32),
+            "pose": rng.random((b, F, H, W, 3), dtype=f32),
+            "plucker": np.broadcast_to(plucker, (b,) + plucker.shape).copy()}
+
+
+def _launch_counts():
     from humanvid_tpu_torch.ops import flash_attention as fa
     from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    return {"flash_fwd": fa.launches["d<=128"], "flash_fwd_d512": fa.launches["d>128"],
+            "temporal_fwd": ta.launches["temporal"],
+            "flash_bwd": min(fa.launches["bwd_dkv"], fa.launches["bwd_dq"]),
+            "temporal_bwd": ta.launches["temporal_bwd"]}
+
+
+def _reset_launches():
+    from humanvid_tpu_torch.ops import flash_attention as fa
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    fa.reset_launches()
+    ta.reset_launches()
+
+
+def phase_tiny_train(torch, np, dev):
+    """One stage-2 step of the tiny config (grad checkpointing on) on the
+    card (bf16, kernels) and on the CPU (fp32, plain versions) from the same
+    weights, batch and draws, for an uncond and a cond step. At 256x256x4f
+    the UNet's level 0 has 1024 tokens, so kernel A and its backward run as
+    well as kernel B's. The loss and the trainable gradients must come
+    within twice the distance that the CPU's own bf16 run lands from fp32,
+    plus 1e-2 (relative, over all trainable gradients at once)."""
+    from humanvid_tpu_torch.pipelines import CamAnimate, tiny_config
+    from humanvid_tpu_torch.train import (
+        OptimizerConfig, TrainConfig, TrainState, loss_from_draws, sample_draws,
+        stage2_trainable, stage_config)
+
+    F, H, W = 4, 256, 256
+    cfg = stage_config(2, tiny_config())
+    cpu = CamAnimate(cfg, device="cpu").init_random(6)
+    _unzero_(torch, cpu, 7)
+    batch = _train_batch(np, 1, F, H, W, cfg.clip.image_size, 8)
+    gen = torch.Generator().manual_seed(9)
+    draws = sample_draws(gen, 1, F, H, W, 1000, 0.0)
+    draws = [draws._replace(uncond=True), draws]
+    systems = {"cpu_fp32": cpu}
+    for key, device in (("cpu_bf16", "cpu"), ("card_bf16", dev)):
+        systems[key] = CamAnimate(cfg, device=device, dtype=torch.bfloat16)
+        for name, module in systems[key].components().items():
+            module.load_state_dict(getattr(cpu, name).state_dict(), strict=True)
+    runs = {}
+    for key, system in systems.items():
+        if key == "card_bf16":
+            _reset_launches()
+        # warmup 1: step 0 has lr 0, so both steps see the same weights
+        state = TrainState(system, stage2_trainable, OptimizerConfig(warmup_steps=1))
+        sched = system.make_schedule(beta_schedule="scaled_linear")
+        runs[key] = []
+        for d in draws:
+            loss, _ = loss_from_draws(system, sched, TrainConfig(), batch, d)
+            loss.backward()
+            grads = torch.cat([g.flatten().cpu() for g in state.grads()])
+            state.apply_gradients()
+            runs[key].append((loss.item(), grads))
+        if key == "card_bf16":
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+    # the tiny VAE's single head is 16 wide: no d = 512 launch at this config
+    ok = all(n > 0 for name, n in launches.items() if name != "flash_fwd_d512")
+    for i, label in enumerate(("uncond", "cond")):
+        ref_loss, ref_g = runs["cpu_fp32"][i]
+
+        def dist(key):
+            loss, g = runs[key][i]
+            return abs(loss - ref_loss) / abs(ref_loss), ((g - ref_g).norm() / ref_g.norm()).item()
+
+        (l16, g16), (lc, gc) = dist("cpu_bf16"), dist("card_bf16")
+        finite = bool(torch.isfinite(runs["card_bf16"][i][1]).all())
+        step_ok = finite and lc <= 2 * l16 + 1e-2 and gc <= 2 * g16 + 1e-2
+        ok = ok and step_ok
+        print(f"[tiny train] {H}x{W}x{F}f stage 2 {label} step, relative error vs CPU fp32: "
+              f"card bf16 loss {lc:.3e} grads {gc:.3e}; CPU bf16 loss {l16:.3e} grads "
+              f"{g16:.3e} {'ok' if step_ok else 'FAIL'}")
+    print(f"[tiny train] card launches {launches} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_train(torch, np, dev):
+    """The training path: full-width stage 2 (CamAnimateConfig through
+    stage_config(2): grad checkpointing, FF chunks of 1024), bf16 modules
+    with fp32 masters of the motion modules and the camera encoder, AdamW
+    at the recipe's settings (lr 1e-5, warmup 1, wd 1e-2, clip 1.0), a
+    seeded synthetic batch of 896x512x24f, TRAIN_STEPS steps: step 0
+    forced uncond (the reference-KV bias in both backward kernels), the rest
+    cond. Returns (ok, launches, system, state, batch)."""
+    from humanvid_tpu_torch.pipelines import CamAnimate, CamAnimateConfig
+    from humanvid_tpu_torch.train import (
+        OptimizerConfig, TrainConfig, TrainState, sample_draws, stage2_trainable,
+        stage_config, train_step)
+
+    F, H, W = TRAIN_SIZE
+    t0 = time.perf_counter()
+    system = CamAnimate(stage_config(2, CamAnimateConfig()), device=dev,
+                        dtype=torch.bfloat16).init_random(0)
+    _unzero_(torch, system, 1)
+    state = TrainState(system, stage2_trainable, OptimizerConfig(warmup_steps=1))
+    sched = system.make_schedule(beta_schedule="scaled_linear")
+    frozen = {f"{c}/{k}": p.detach().clone() for c, m in system.components().items()
+              for k, p in m.named_parameters() if not p.requires_grad}
+    n_train = sum(m.numel() for m in state.masters)
+    print(f"[train] stage 2, full width: {n_train / 1e6:.1f} M trainable params in "
+          f"{len(state.names)} leaves, {sum(p.numel() for p in frozen.values()) / 1e9:.3f} B "
+          f"frozen; built in {time.perf_counter() - t0:.1f} s")
+    batch = _train_batch(np, 1, F, H, W, system.config.clip.image_size, 10)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    start = [m.clone() for m in state.masters]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    ok, seconds, after = True, [], []
+    for i in range(TRAIN_STEPS):
+        draws = sample_draws(gen, 1, F, H, W, sched.num_train_timesteps, 0.0)
+        draws = draws._replace(uncond=i == 0)
+        t0 = time.perf_counter()
+        out = train_step(system, state, sched, TrainConfig(), batch, draws=draws)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        loss, norm = out["loss"].item(), out["grad_norm"].item()
+        ok = ok and np.isfinite(loss) and np.isfinite(norm)
+        if i < 2:
+            after.append([m.clone() for m in state.masters])
+        print(f"[train] step {i} ({'uncond' if draws.uncond else 'cond'}): "
+              f"{seconds[-1]:.3f} s, loss {loss:.5f}, grad norm {norm:.4f}, t {draws.t.tolist()}")
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step0_still = all(torch.equal(a, b) for a, b in zip(start, after[0]))
+    moved = sum(not torch.equal(a, b) for a, b in zip(after[0], after[1]))
+    finite = all(bool(torch.isfinite(m).all()) for m in state.masters)
+    frozen_same = all(torch.equal(p, frozen[f"{c}/{k}"]) for c, m in system.components().items()
+                      for k, p in m.named_parameters() if not p.requires_grad)
+    ok = (ok and finite and step0_still and moved == len(state.names) and frozen_same
+          and all(n > 0 for n in launches.values()))
+    del frozen
+    print(f"[train] {H}x{W}x{F}f bs 1: s/step (steady, mean of steps 1..) "
+          f"{sum(seconds[1:]) / max(1, len(seconds) - 1):.3f}; peak memory {peak:.2f} GiB")
+    print(f"[train] launches over {TRAIN_STEPS} steps (with checkpointing each forward "
+          f"kernel runs again in the backward's recompute) {launches}")
+    print(f"[train] finite {finite}; step 0 (lr 0) left the masters unchanged "
+          f"{step0_still}; step 1 moved {moved}/{len(state.names)} trainable leaves; frozen "
+          f"leaves unchanged bit for bit {frozen_same} {'ok' if ok else 'FAIL'}")
+    return ok, launches, system, state, batch
+
+
+def phase_main(torch, np, dev):
+    """Returns (ok, launches by kernel, the pipeline, its inputs)."""
     from humanvid_tpu_torch.pipelines import CamAnimate, CamAnimateConfig, Pose2VideoPipeline
 
     F, H, W = MAIN_SIZE
@@ -291,13 +660,12 @@ def phase_main(torch, np, dev):
     pipe = Pose2VideoPipeline(system)
     inputs = _inputs(np, F, H, W, system.config.clip.image_size, 0)
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
-    ta.reset_launches()
+    _reset_launches()
     out = pipe(**inputs, num_inference_steps=steps, guidance_scale=3.5, context_frames=24,
                cfg_mode="sequential", decode_chunk=8,
                generator=torch.Generator(device=dev).manual_seed(0))
-    launches = {"flash_fwd": fa.launches["d<=128"], "flash_fwd_d512": fa.launches["d>128"],
-                "temporal_fwd": ta.launches["temporal"]}
+    # inference runs the three forward kernels only
+    launches = {k: n for k, n in _launch_counts().items() if not k.endswith("_bwd")}
     v = out.videos
     s = out.seconds
     print(f"[main] {H}x{W}x{F}f, {steps} DDIM steps (the flagship runs 30), CFG 3.5 "
@@ -318,7 +686,10 @@ def phase_main(torch, np, dev):
 KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match wins
     ("kernel A (flash_fwd)", ("flash_fwd_kernel",)),
     ("kernel B (temporal_fwd)", ("temporal_fwd_kernel",)),
-    ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "implicit", "winograd", "nchw", "nhwc")),
+    ("kernel A bwd (flash_bwd)", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
+    ("kernel B bwd (temporal_bwd)", ("temporal_bwd_kernel",)),
+    ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "nchw",
+                             "nhwc")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")),
     ("normalization / reductions", ("norm", "reduce", "welford", "softmax")),
 )
@@ -371,41 +742,74 @@ def phase_profile(torch, dev, pipe, inputs):
 
         for label, fn in (("denoise step", step), ("decode", decode)):
             fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            groups, kernels = _group_device_time(torch, prof)
-            busy = sum(groups.values())
-            print(f"[profile] {label}: wall {wall_ms:.1f} ms (profiled), device busy "
-                  f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
-            for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-                print(f"  {group}: {ms:.1f} ms ({ms / busy:.1%})")
-            for ms, count, name in kernels[:8]:
-                print(f"    {ms:8.1f} ms  x{count:<5d} {name}")
+            _profile_print(torch, label, fn)
+
+
+def _profile_print(torch, label, fn):
+    """torch.profiler over one call of ``fn``: device time by kernel group,
+    the top kernels and the device's idle share of the host-clock window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, kernels = _group_device_time(torch, prof)
+    busy = sum(groups.values())
+    print(f"[profile] {label}: wall {wall_ms:.1f} ms (profiled), device busy "
+          f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {group}: {ms:.1f} ms ({ms / busy:.1%})")
+    for ms, count, name in kernels[:8]:
+        print(f"    {ms:8.1f} ms  x{count:<5d} {name}")
+
+
+def phase_profile_train(torch, dev, system, state, batch):
+    """torch.profiler over one more cond stage-2 step of the training path."""
+    from humanvid_tpu_torch.train import TrainConfig, sample_draws, train_step
+
+    F, H, W = TRAIN_SIZE
+    sched = system.make_schedule(beta_schedule="scaled_linear")
+    draws = sample_draws(torch.Generator(device=dev).manual_seed(12), 1, F, H, W,
+                         sched.num_train_timesteps, 0.0)
+    _profile_print(torch, "train step (stage 2, cond)",
+                   lambda: train_step(system, state, sched, TrainConfig(), batch, draws=draws))
 
 
 def kernel_line(results, launches):
+    """The per-kernel JSON line. ``launches`` is each kernel's count in the
+    run of its path (the forward kernels: pose2vid; the backward kernels:
+    the training path); ``launches_by_path`` has both runs' counts."""
     replaces = {
         "flash_fwd": ("humanvid_tpu/ops/flash_attention.py:172", FLASH_SRC),
         "flash_fwd_d512": ("humanvid_tpu/ops/flash_attention.py:96", FLASH_SRC),
         "temporal_fwd": ("humanvid_tpu/ops/temporal_attention.py:81", TEMPORAL_SRC),
+        # _dkv_kernel_t (:415) and _dq_kernel_t (:479), one kernel each
+        "flash_bwd": ("humanvid_tpu/ops/flash_attention.py:415", FLASH_BWD_SRC),
+        "temporal_bwd": ("humanvid_tpu/ops/temporal_attention.py:116", TEMPORAL_BWD_SRC),
     }
     kernels = []
     for name, (rep, src) in replaces.items():
         rows = [r for r in results if r["kernel"] == name]
         head = rows[0]  # the first case of each kernel is its headline shape
+        path = "train" if name.endswith("_bwd") else "pose2vid"
+        extra = {}
+        if name == "flash_bwd":
+            extra = dict(also_replaces="humanvid_tpu/ops/flash_attention.py:479",
+                         dkv_ms=head["dkv_ms"], dq_ms=head["dq_ms"])
         kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=rep,
-            launches=launches.get(name, 0),
+            name=name, route="cuda", source=src, replaces=rep, **extra,
+            launches=launches[path].get(name, 0),
+            launches_by_path={p: counts.get(name, 0) for p, counts in launches.items()},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             shape=head["shape"],
             shapes=[{k: r[k] for k in ("shape", "max_abs_err", "rel_l2", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms")} for r in rows]))
+                                       "bound_ms", "bound_by", "library_ms", "dkv_ms", "dq_ms")
+                      if k in r} for r in rows]))
     return json.dumps({"kernels": kernels})
 
 
@@ -428,12 +832,20 @@ def main() -> int:
     results = []
     phase_flash(torch, results, dev, flash_cases())
     phase_temporal(torch, results, dev, temporal_cases())
+    phase_flash_bwd(torch, results, dev, flash_bwd_cases())
+    phase_temporal_bwd(torch, results, dev, temporal_bwd_cases())
     ok = all(r["ok"] for r in results)
     ok = phase_tiny_reference(torch, np, dev) and ok
-    main_ok, launches, pipe, inputs = phase_main(torch, np, dev)
+    ok = phase_tiny_train(torch, np, dev) and ok
+    main_ok, main_launches, pipe, inputs = phase_main(torch, np, dev)
     ok = ok and main_ok
     phase_profile(torch, dev, pipe, inputs)
-    print(kernel_line(results, launches))
+    del pipe
+    torch.cuda.empty_cache()
+    train_ok, train_launches, system, state, batch = phase_train(torch, np, dev)
+    ok = ok and train_ok
+    phase_profile_train(torch, dev, system, state, batch)
+    print(kernel_line(results, {"pose2vid": main_launches, "train": train_launches}))
     print(card)
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)

@@ -46,7 +46,8 @@ class CameraPoseEncoder(nn.Module):
             attns.append(nn.ModuleList(
                 [TemporalTransformerBlock(
                     ch, cfg.num_heads, len(cfg.attention_block_types),
-                    cfg.position_encoding_max_len, cfg.position_encoding)
+                    cfg.position_encoding_max_len, cfg.position_encoding,
+                    cfg.ff_chunk_tokens)
                  for _ in range(cfg.nums_rb)]))
             zeros.append(nn.Conv2d(ch, ch, 1, bias=False))
             prev = ch

@@ -55,8 +55,10 @@ class UNetConfig:
     motion_position_encoding: bool = True
     motion_max_len: int = 32
 
-    # Training-only fields, kept so both packages read one configuration
-    # schema; inference in this port ignores them.
+    # Training memory levers; both are inert under no_grad / inference_mode.
+    # gradient_checkpointing recomputes each resnet, spatial transformer and
+    # motion module in the backward; ff_chunk_tokens > 0 runs every
+    # feed-forward over token chunks of that length, each recomputed.
     gradient_checkpointing: bool = False
     ff_chunk_tokens: int = 0
 
@@ -89,7 +91,7 @@ class CameraEncoderConfig:
     attention_block_types: Tuple[str, ...] = ("Temporal_Self",)
     position_encoding: bool = True
     position_encoding_max_len: int = 16  # 16 stage 1 / 24 stage 2+inference
-    ff_chunk_tokens: int = 0  # training-only; ignored by this port
+    ff_chunk_tokens: int = 0  # the temporal blocks' feed-forward chunking (training)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,6 +7,11 @@ spatial token layout ``((b f), l, c)`` and attend over frames through
 kernel B, so no module rearranges to ``((b l), f, c)``.
 
 Parameter names follow the reference's diffusers / AnimateDiff state dicts.
+
+Training levers (inert under ``torch.no_grad`` / ``inference_mode``):
+``ff_chunk_tokens`` runs the feed-forward over token chunks, each recomputed
+in the backward, and the UNet's ``gradient_checkpointing`` recomputes each
+resnet, spatial transformer and motion module (:func:`checkpointed`).
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import MultiHeadAttention
 from ..ops.conv import nearest_up2_conv3x3
@@ -35,6 +41,14 @@ def from_tokens(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return x.reshape(n, h, w, c).permute(0, 3, 1, 2)
 
 
+def checkpointed(enabled: bool, fn, *args):
+    """``fn(*args)``; when ``enabled`` and autograd is recording, its
+    activations are dropped and recomputed in the backward."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def gn_silu(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
     return group_norm_act(x, norm.weight, norm.bias, norm.num_groups, norm.eps, "silu")
 
@@ -52,17 +66,30 @@ class GEGLU(nn.Module):
 class FeedForward(nn.Module):
     """diffusers ``FeedForward(activation_fn="geglu")``: net.0 = GEGLU
     (dim -> 2 x 4dim, gated), net.1 = dropout (no parameters), net.2 =
-    Linear(4dim -> dim)."""
+    Linear(4dim -> dim).
 
-    def __init__(self, dim: int, mult: int = 4):
+    ``chunk_tokens > 0`` runs it over token chunks of that length, each
+    recomputed in the backward, so the (B, L, 8 dim) GEGLU activation never
+    exists beyond one chunk; the numbers are those of the unchunked path
+    (the feed-forward is pointwise over tokens)."""
+
+    def __init__(self, dim: int, mult: int = 4, chunk_tokens: int = 0):
         super().__init__()
+        self.chunk_tokens = chunk_tokens
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
                                   nn.Linear(dim * mult, dim)])
 
-    def forward(self, x):
+    def _core(self, x):
         for layer in self.net:
             x = layer(x)
         return x
+
+    def forward(self, x):
+        ct = self.chunk_tokens
+        if not ct or x.shape[1] <= ct:
+            return self._core(x)
+        return torch.cat([checkpointed(True, self._core, xc) for xc in x.split(ct, dim=1)],
+                         dim=1)
 
 
 class ResnetBlock(nn.Module):
@@ -121,14 +148,14 @@ class TransformerBlock(nn.Module):
     ``ref_disable`` rows.
     """
 
-    def __init__(self, dim: int, heads: int, context_dim: int):
+    def __init__(self, dim: int, heads: int, context_dim: int, ff_chunk_tokens: int = 0):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn1 = MultiHeadAttention(dim, heads)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.attn2 = MultiHeadAttention(dim, heads, context_dim=context_dim)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, chunk_tokens=ff_chunk_tokens)
 
     def forward(self, x, context, ref_feature=None, ref_disable=None):
         norm1 = self.norm1(x)
@@ -144,12 +171,12 @@ class SpatialTransformer(nn.Module):
     and ``ref_disable`` are repeated per frame."""
 
     def __init__(self, dim: int, heads: int, context_dim: int, groups: int,
-                 depth: int = 1, norm_eps: float = 1e-6):
+                 depth: int = 1, norm_eps: float = 1e-6, ff_chunk_tokens: int = 0):
         super().__init__()
         self.norm = nn.GroupNorm(groups, dim, norm_eps)
         self.proj_in = nn.Conv2d(dim, dim, 1)
         self.transformer_blocks = nn.ModuleList(
-            [TransformerBlock(dim, heads, context_dim) for _ in range(depth)])
+            [TransformerBlock(dim, heads, context_dim, ff_chunk_tokens) for _ in range(depth)])
         self.proj_out = nn.Conv2d(dim, dim, 1)
 
     def forward(self, x, context, frames: int = 1, ref_feature=None,
@@ -181,7 +208,7 @@ class TemporalTransformerBlock(nn.Module):
     shapes q, k and v."""
 
     def __init__(self, dim: int, heads: int, num_attention_blocks: int = 2,
-                 max_len: int = 32, use_pe: bool = True):
+                 max_len: int = 32, use_pe: bool = True, ff_chunk_tokens: int = 0):
         super().__init__()
         self.max_len = max_len
         self.use_pe = use_pe
@@ -190,7 +217,7 @@ class TemporalTransformerBlock(nn.Module):
              for _ in range(num_attention_blocks)])
         self.norms = nn.ModuleList(
             [nn.LayerNorm(dim, eps=1e-5) for _ in range(num_attention_blocks)])
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, chunk_tokens=ff_chunk_tokens)
         self.ff_norm = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor, frames: int) -> torch.Tensor:
@@ -215,13 +242,13 @@ class TemporalTransformer(nn.Module):
 
     def __init__(self, dim: int, heads: int = 8, depth: int = 1,
                  attention_blocks_per_layer: int = 2, max_len: int = 32,
-                 use_pe: bool = True, norm_eps: float = 1e-6):
+                 use_pe: bool = True, norm_eps: float = 1e-6, ff_chunk_tokens: int = 0):
         super().__init__()
         self.norm = nn.GroupNorm(32, dim, norm_eps)
         self.proj_in = nn.Linear(dim, dim)
         self.transformer_blocks = nn.ModuleList([
             TemporalTransformerBlock(dim, heads, attention_blocks_per_layer,
-                                     max_len, use_pe)
+                                     max_len, use_pe, ff_chunk_tokens)
             for _ in range(depth)])
         self.proj_out = nn.Linear(dim, dim)
 

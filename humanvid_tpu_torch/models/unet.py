@@ -11,7 +11,9 @@
   self-attention keys/values.
 
 Parameter names are the diffusers ``UNet2DConditionModel`` / AnimateDiff
-``UNet3DConditionModel`` state-dict keys.
+``UNet3DConditionModel`` state-dict keys. With ``gradient_checkpointing``
+each resnet, spatial transformer and motion module is recomputed in the
+backward; ``ff_chunk_tokens`` reaches every feed-forward.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from .layers import (
     ResnetBlock,
     SpatialTransformer,
     Upsample,
+    checkpointed,
     gn_silu,
 )
 
@@ -75,13 +78,15 @@ class UNetConditionModel(nn.Module):
 
         def spatial(ch):
             return SpatialTransformer(ch, cfg.attention_heads, cfg.cross_attention_dim,
-                                      cfg.norm_num_groups, cfg.transformer_layers)
+                                      cfg.norm_num_groups, cfg.transformer_layers,
+                                      ff_chunk_tokens=cfg.ff_chunk_tokens)
 
         def motion(ch):
             return MotionModule(
                 ch, heads=cfg.motion_num_heads, depth=cfg.motion_transformer_blocks,
                 attention_blocks_per_layer=len(cfg.motion_attention_types),
-                max_len=cfg.motion_max_len, use_pe=cfg.motion_position_encoding)
+                max_len=cfg.motion_max_len, use_pe=cfg.motion_position_encoding,
+                ff_chunk_tokens=cfg.ff_chunk_tokens)
 
         self.time_embedding = TimestepEmbedding(chans[0], ted)
         self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
@@ -170,10 +175,17 @@ class UNetConditionModel(nn.Module):
 
         collected: List[torch.Tensor] = []
         ref_iter = iter(ref_features) if ref_features is not None else None
+        ckpt = cfg.gradient_checkpointing
+
+        def run_resnet(res, x):
+            return checkpointed(ckpt, res, x, temb)
+
+        def run_motion(mm, x):
+            return checkpointed(ckpt, mm, x, frames)
 
         def run_spatial(st, x):
             ref_in = next(ref_iter) if ref_iter is not None else None
-            x, bank = st(x, context, frames, ref_in, ref_disable)
+            x, bank = checkpointed(ckpt, st, x, context, frames, ref_in, ref_disable)
             if collect_ref_features:
                 collected.append(bank)
             return x
@@ -184,11 +196,11 @@ class UNetConditionModel(nn.Module):
             for j, res in enumerate(block.resnets):
                 if skips is not None:
                     x = torch.cat([x, skips.pop()], dim=1)
-                x = res(x, temb)
+                x = run_resnet(res, x)
                 if attns is not None:
                     x = run_spatial(attns[j], x)
                 if motions is not None:
-                    x = motions[j](x, frames)
+                    x = run_motion(motions[j], x)
                 if skips is None and block is not self.mid_block:
                     res_stack.append(x)
             return x
@@ -205,11 +217,11 @@ class UNetConditionModel(nn.Module):
                 res_stack.append(sample)
 
         mid = self.mid_block
-        sample = mid.resnets[0](sample, temb)
+        sample = run_resnet(mid.resnets[0], sample)
         sample = run_spatial(mid.attentions[0], sample)
         if hasattr(mid, "motion_modules"):
-            sample = mid.motion_modules[0](sample, frames)
-        sample = mid.resnets[1](sample, temb)
+            sample = run_motion(mid.motion_modules[0], sample)
+        sample = run_resnet(mid.resnets[1], sample)
 
         for block in self.up_blocks:
             sample = run_block(block, sample, skips=res_stack)

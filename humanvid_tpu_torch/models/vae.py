@@ -1,5 +1,5 @@
 """SD VAE (diffusers AutoencoderKL, sd-vae-ft-mse operating point): encoder,
-decoder and the diagonal Gaussian's mean.
+decoder, and the diagonal Gaussian's mean and samples.
 
 The mid-block attention is one head over all channels (d = 512 at the
 published widths) with q/k/v biases; at 768x512 it runs over 6144 tokens and
@@ -168,3 +168,12 @@ class VAEDecoder(nn.Module):
 def gaussian_mean(moments: torch.Tensor) -> torch.Tensor:
     """Mean of the diagonal Gaussian given NCHW encoder moments."""
     return moments[:, : moments.shape[1] // 2]
+
+
+def gaussian_sample(moments: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """A sample of the diagonal Gaussian given NCHW encoder moments and a
+    standard-normal draw ``eps`` of the mean's shape (log-variance clipped
+    to [-30, 20])."""
+    mean, logvar = moments.chunk(2, dim=1)
+    std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+    return mean + std * eps.to(mean.dtype)

@@ -8,7 +8,7 @@ converted from the JAX package (``load_jax_params``).
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -121,13 +121,16 @@ class CamAnimate:
                                    strict=True)
         return self
 
-    def make_schedule(self) -> NoiseSchedule:
+    def make_schedule(self, beta_schedule: Optional[str] = None,
+                      prediction_type: Optional[str] = None) -> NoiseSchedule:
+        """The config's noise schedule; training overrides the beta curve
+        with ``beta_schedule="scaled_linear"``, as the reference does."""
         c = self.config
         return make_noise_schedule(
             num_train_timesteps=c.num_train_timesteps,
             beta_start=c.beta_start,
             beta_end=c.beta_end,
-            beta_schedule=c.beta_schedule,
+            beta_schedule=beta_schedule or c.beta_schedule,
             rescale_betas_zero_snr=c.rescale_betas_zero_snr,
-            prediction_type=c.prediction_type,
+            prediction_type=prediction_type or c.prediction_type,
         )

@@ -17,6 +17,11 @@ plain version does (readings 6.9e-5, 0.026).
 
 FLASH_TOL = (1e-2, 0.2)
 TEMPORAL_TOL = (2e-4, 0.08)
+# The backward kernels, per gradient (dq, dk, dv), the same way; both round
+# p and ds to bf16 as their plain versions do (readings: kernel A 3.5e-4,
+# 0.070; kernel B 5.4e-5, 0.058).
+FLASH_BWD_TOL = (1e-3, 0.2)
+TEMPORAL_BWD_TOL = (2e-4, 0.2)
 
 import numpy as np
 import pytest
@@ -34,6 +39,9 @@ def _card():
 def _assert_close(out, ref, tol):
     ref = ref.float()
     diff = out.float() - ref
+    if ref.norm() == 0:  # e.g. dq and dk over a single frame: exactly zero
+        assert diff.abs().max().item() == 0
+        return
     assert (diff.norm() / ref.norm()).item() <= tol[0]
     assert diff.abs().max().item() <= tol[1] * ref.pow(2).mean().sqrt().item()
 
@@ -86,6 +94,72 @@ def test_temporal_kernel_matches_plain(b, f, l, c, heads):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,heads,d,bias_rows", [
+    (2, 300, 700, 8, 40, 1),    # ragged, CFG bias on one row, SD's d = 40
+    (2, 256, 512, 8, 80, 0),
+    (1, 100, 1000, 2, 16, 0),
+])
+def test_flash_backward_kernels_match_plain(b, lq, lk, heads, d, bias_rows):
+    from humanvid_tpu_torch.ops import flash_attention as fa
+
+    dev = _card()
+    q, g = (_randn((b, lq, heads * d), s, dev) for s in (0, 3))
+    k, v = (_randn((b, lk, heads * d), s, dev) for s in (1, 2))
+    bias = None
+    if bias_rows:
+        bias = torch.zeros((b, lk), device=dev)
+        bias[:bias_rows, lk // 2:] = -1e9
+    out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
+    args = (q, k, v, bias, g, lse, fa.attention_delta(g, out, heads), heads)
+    before = dict(fa.launches)
+    grads = fa.flash_attention_backward_cuda(*args)
+    refs = fa.flash_attention_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert fa.launches["bwd_dkv"] == before["bwd_dkv"] + 1
+    assert fa.launches["bwd_dq"] == before["bwd_dq"] + 1
+    for got, ref in zip(grads, refs):
+        _assert_close(got, ref, FLASH_BWD_TOL)
+    for hidden in grads[1:]:  # dk, dv of the keys the bias hides: exactly zero
+        assert (hidden[:bias_rows, lk // 2:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_flash_function_gradient_on_card():
+    """Through autograd, with the strided gradient a transpose hands back."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
+
+    dev = _card()
+    q, k, v = (_randn((2, 200, 320), s, dev).requires_grad_() for s in range(3))
+    out, _ = fa.flash_attention_packed(q, k, v, 8)
+    g = _randn((2, 320, 200), 4, dev).transpose(1, 2)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    ref_out, lse = fa.flash_attention_plain(q.detach(), k.detach(), v.detach(), 8)
+    refs = fa.flash_attention_backward_plain(
+        q.detach(), k.detach(), v.detach(), None, g.contiguous(), lse,
+        fa.attention_delta(g, out.detach(), 8), 8)
+    for got, ref in zip(grads, refs):
+        _assert_close(got, ref, FLASH_BWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,l,c,heads", [
+    (1, 24, 1000, 320, 8), (2, 24, 96, 1280, 8), (1, 7, 33, 64, 2), (1, 1, 5, 16, 2),
+])
+def test_temporal_backward_kernel_matches_plain(b, f, l, c, heads):
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    dev = _card()
+    q, k, v, g = (_randn((b, f, l, c), s, dev) for s in range(4))
+    before = ta.launches["temporal_bwd"]
+    grads = ta.temporal_attention_backward_cuda(q, k, v, g, heads)
+    refs = ta.temporal_attention_backward_plain(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    assert ta.launches["temporal_bwd"] == before + 1
+    for got, ref in zip(grads, refs):
+        _assert_close(got, ref, TEMPORAL_BWD_TOL)
+
+
+@pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take():
     from humanvid_tpu_torch.ops import flash_attention as fa
     from humanvid_tpu_torch.ops import temporal_attention as ta
@@ -106,6 +180,10 @@ def test_kernels_reject_what_they_do_not_take():
     z = torch.zeros((1, 4, 8, 64), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         ta.temporal_attention(z.transpose(1, 2), z.transpose(1, 2), z.transpose(1, 2), 2)
+    x = torch.zeros((1, 64, 512), device=dev, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 1, 64), device=dev)
+    with pytest.raises(ValueError):                     # the VAE's d = 512: no backward
+        fa.flash_attention_backward_cuda(x, x, x, None, x, lse, lse, 1)
 
 
 @pytest.mark.cuda

@@ -1,13 +1,17 @@
-"""Kernel A (flash attention forward, packed heads): the port's plain
-version against the JAX Pallas kernel run in TPU interpret mode. The CUDA
-kernel is held to the plain version on the card in test_torch_cuda.py.
+"""Kernel A (flash attention, packed heads): the port's plain versions of
+the forward and of the backward against the JAX Pallas kernels run in TPU
+interpret mode. The CUDA kernels are held to the plain versions on the card
+in test_torch_cuda.py.
 
-Tolerance 2e-4 (fp32 on the CPU): the two sides sum logits, exponentials
-and the PV product in different orders (the Pallas kernel in 128-key blocks
-with an online softmax in the log2 domain, the plain version in one pass);
-the observed differences are near 1e-6.
+Tolerance 2e-4 for the forward (fp32 on the CPU): the two sides sum logits,
+exponentials and the PV product in different orders (the Pallas kernel in
+128-key blocks with an online softmax in the log2 domain, the plain version
+in one pass); the observed differences are near 1e-6. The backward's
+gradients are held to 5e-4, as the JAX package's own backward test holds
+its kernels to einsum gradients; the observed differences are near 1e-6.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,10 +21,12 @@ from jax.experimental.pallas import tpu as pltpu
 import test_torch_helpers  # noqa: F401  (caps torch threads)
 from humanvid_tpu.ops.common import NEG_INF
 from humanvid_tpu.ops.flash_attention import _flash_fwd
+from humanvid_tpu.ops.flash_attention import flash_attention_packed as jax_flash
 from humanvid_tpu_torch.ops import flash_attention as fa
 from humanvid_tpu_torch.pipelines.system import resolve_device
 
 TOL = 2e-4
+BWD_TOL = 5e-4
 
 
 def _inputs(b, lq, lk, heads, d, with_bias, seed=0):
@@ -57,6 +63,51 @@ def test_plain_matches_pallas_interpret(b, lq, lk, heads, d, with_bias):
     # the JAX kernel keeps its log-sum-exp in log2 units, the port in natural log
     np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse) * np.log(2.0),
                                atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,lq,lk,heads,d,with_bias", [
+    (2, 100, 300, 2, 40, True),      # ragged Lq / Lk, d = 40, the CFG bias
+    (2, 128, 256, 2, 40, False),
+    (1, 64, 96, 3, 16, True),
+])
+def test_plain_backward_matches_pallas_vjp(b, lq, lk, heads, d, with_bias):
+    q, k, v, bias = _inputs(b, lq, lk, heads, d, with_bias, seed=1)
+    g = np.random.default_rng(2).normal(size=q.shape).astype(np.float32)
+    jbias = None if bias is None else jnp.asarray(bias)
+    with pltpu.force_tpu_interpret_mode():
+        out, vjp = jax.vjp(lambda q_, k_, v_: jax_flash(q_, k_, v_, heads, jbias, block_q=128,
+                                                        block_kv=128),
+                           jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        ref_grads = vjp(jnp.asarray(g))
+        _, lse_log2 = _flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jbias, heads,
+                                 block_q=128, block_kv=128, with_lse=True)
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    tbias = None if bias is None else torch.from_numpy(bias)
+    # the JAX kernels keep the log-sum-exp in log2 units, the port in natural log
+    lse = torch.from_numpy(np.asarray(lse_log2) * np.log(2.0)).float()
+    delta = fa.attention_delta(tg, torch.from_numpy(np.array(out)), heads)
+    grads = fa.flash_attention_backward_plain(tq, tk, tv, tbias, tg, lse, delta, heads, chunk=48)
+    for got, ref in zip(grads, ref_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=BWD_TOL, rtol=0)
+    # the same through the port's own forward and autograd Function
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    grads = torch.autograd.grad(fa.flash_attention_packed(*leaves, heads, tbias)[0], leaves, tg)
+    for got, ref in zip(grads, ref_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=BWD_TOL, rtol=0)
+
+
+def test_function_gradient_matches_autograd_through_plain():
+    q, k, v, bias = _inputs(2, 70, 90, 2, 24, True, seed=3)
+    g = torch.from_numpy(np.random.default_rng(4).normal(size=q.shape).astype(np.float32))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    tbias = torch.from_numpy(bias)
+    out, lse = fa.flash_attention_packed(*leaves, 2, tbias)
+    assert not lse.requires_grad
+    got = torch.autograd.grad(out, leaves, g)
+    ref = torch.autograd.grad(fa.flash_attention_plain(*leaves, 2, tbias)[0], leaves, g)
+    for a, b_ in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), b_.numpy(), atol=1e-5, rtol=0)
+    assert (got[1][0, 45:] == 0).all() and (got[2][0, 45:] == 0).all()  # hidden keys
 
 
 def test_cpu_tensors_never_launch():

@@ -1,12 +1,15 @@
-"""Kernel B (frame-axis attention): the port's plain version against the
-JAX Pallas kernel run in TPU interpret mode. The CUDA kernel is held to the
-plain version on the card in test_torch_cuda.py.
+"""Kernel B (frame-axis attention): the port's plain versions of the
+forward and of the backward against the JAX Pallas kernels run in TPU
+interpret mode. The CUDA kernels are held to the plain versions on the card
+in test_torch_cuda.py.
 
 Tolerance 2e-4 (fp32 on the CPU): the Pallas kernel scales q before the dot
 and normalizes after the softmax's exp2 in the log2 domain; the plain
-version scales the logits; the observed differences are near 1e-6.
+version scales the logits; the observed differences are near 1e-6, in the
+gradients as in the output.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,6 +42,34 @@ def test_plain_matches_pallas_interpret(b, f, l, c, heads):
                                 torch.from_numpy(v), heads)
     assert out.shape == (b, f, l, c)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,f,l,c,heads", [
+    (2, 6, 96, 64, 4),
+    (1, 24, 40, 160, 4),   # 24 frames, d = 40
+    (1, 5, 7, 48, 3),      # ragged everything
+])
+def test_plain_backward_matches_pallas_vjp(b, f, l, c, heads):
+    q, k, v = _inputs(b, f, l, c, seed=1)
+    g = np.random.default_rng(2).normal(size=q.shape).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda q_, k_, v_: jax_temporal(q_, k_, v_, heads),
+                         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        ref_grads = vjp(jnp.asarray(g))
+    grads = ta.temporal_attention_backward_plain(
+        *(torch.from_numpy(x) for x in (q, k, v, g)), heads)
+    for got, ref in zip(grads, ref_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL, rtol=0)
+
+
+def test_function_gradient_matches_autograd_through_plain():
+    q, k, v = _inputs(2, 7, 9, 48, seed=3)
+    g = torch.from_numpy(np.random.default_rng(4).normal(size=q.shape).astype(np.float32))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(ta.temporal_attention(*leaves, 3), leaves, g)
+    ref = torch.autograd.grad(ta.temporal_attention_plain(*leaves, 3), leaves, g)
+    for a, b_ in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), b_.numpy(), atol=1e-5, rtol=0)
 
 
 def test_rejects_too_many_frames_and_cpu_launch():
