@@ -34,8 +34,28 @@ The training path (stage 2) adds:
 - train: full-width stage 2 (grad checkpointing, FF chunks of 1024, fp32
   masters of the motion modules and the camera encoder), 896x512x24f, bs 1,
   TRAIN_STEPS steps; checks finite values, that the trainable leaves move
-  and the frozen ones do not, and that all five kernels launched;
+  and the frozen ones do not, and that its kernels launched;
 - profile: one more train step, device time by kernel group.
+
+GroupNorm and stage 1 (pose2img and the stage-1 step) add:
+
+- kernel C: GroupNorm(+SiLU) against its plain version at the decode's, the
+  UNet's and a ragged shape, act None and SiLU, channels_last and
+  contiguous, with ms, plain ms, library ms (``F.group_norm`` + ``F.silu``)
+  and bound ms; and the autograd Function's dx, dgamma and dbeta against
+  plain autograd at the stage-2 level-0 shape;
+- tiny reference: the tiny pose2img too, card bf16 against CPU fp32;
+- stage 1: one full-width stage-1 system (``stage_config(1)``): pose2img
+  at 896x512 with MAIN_STEPS DDIM steps and batched CFG 3.5, then
+  STAGE1_STEPS stage-1 steps at 896x512, bs 8, one frame (step 0 uncond
+  at lr 0); checks finite values, that step 0 moves nothing, that step 1
+  moves every trainable leaf and that the frozen ones stay (per-leaf fp64
+  checksums, no clones), and that the kernels launched; then one more
+  step under the profiler.
+
+Every main-path run (pose2vid, the stage-2 steps, pose2img, the stage-1
+steps, and the denoise step and decode of the profile phase) sets every
+launch count to 0 just before it and reads the counts just after.
 
 Then one JSON line of per-kernel numbers, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 2 without one.
@@ -50,6 +70,7 @@ columns (a ragged tile, a masked key) exceeds.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -59,6 +80,8 @@ MAIN_STEPS = 5             # DDIM steps of the main path (the flagship runs 30)
 MAIN_SIZE = (24, 768, 512)  # frames, height, width of the main path
 TRAIN_STEPS = 4            # stage-2 steps of the training path
 TRAIN_SIZE = (24, 896, 512)  # frames, height, width of the stage-2 recipe
+STAGE1_STEPS = 3           # stage-1 steps
+STAGE1_SIZE = (8, 896, 512)  # batch, height, width of the stage-1 recipe (one frame)
 # (relative L2 error, max error / rms(plain)) limits against the plain version.
 # Kernel A rounds unnormalized probabilities to bf16 (sound: 3.1e-3, 0.066);
 # kernel B rounds normalized ones, as its plain version does (sound: 6.9e-5, 0.026).
@@ -68,18 +91,28 @@ TEMPORAL_TOL = (2e-4, 0.08)
 # as their plain versions do (sound: kernel A 3.5e-4, 0.070; kernel B 5.4e-5, 0.058).
 FLASH_BWD_TOL = (1e-3, 0.2)
 TEMPORAL_BWD_TOL = (2e-4, 0.2)
+# Kernel C and its plain version both compute in fp32 and round once; they
+# differ by summation order and fused multiply-adds, which flip a bf16
+# rounding here and there (sound: 4.1e-5, 0.031).
+GN_TOL = (1.5e-4, 0.1)
+# The Function's gradients (F.group_norm's backward on bf16) against plain
+# autograd in fp32, per gradient (dx, dgamma, dbeta) (sound: 3.2e-3, 0.074).
+GN_GRAD_TOL = (1e-2, 0.25)
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak (data sheet, SXM, 700 W)
+H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores (data sheet)
 H100_BYTES = 3.35e12       # HBM3 rate (data sheet)
 
 FLASH_SRC = "humanvid_tpu_torch/csrc/flash_attention.cu"
 TEMPORAL_SRC = "humanvid_tpu_torch/csrc/temporal_attention.cu"
 FLASH_BWD_SRC = "humanvid_tpu_torch/csrc/flash_attention_bwd.cu"
 TEMPORAL_BWD_SRC = "humanvid_tpu_torch/csrc/temporal_attention_bwd.cu"
+GN_SRC = "humanvid_tpu_torch/csrc/group_norm.cu"
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms the card could take, what bounds it)."""
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES
+def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
+    """(least ms the card could take, what bounds it); ``peak`` is the
+    rate of the operations' type."""
+    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -415,6 +448,102 @@ def phase_temporal_bwd(torch, results, dev, cases):
         torch.cuda.empty_cache()
 
 
+def group_norm_cases():
+    """Kernel C at the paths' shapes: (name, (N, C, H, W), eps). 32 groups."""
+    return [
+        ("decode 768x512", (8, 128, 768, 512), 1e-6),
+        ("decode 384x256", (8, 256, 384, 256), 1e-6),
+        ("decode 192x128", (8, 512, 192, 128), 1e-6),
+        ("UNet level 0 768x512", (24, 320, 96, 64), 1e-5),
+        ("UNet level 2 768x512", (24, 1280, 24, 16), 1e-5),
+        ("stage-2 level 0 896x512", (24, 320, 112, 64), 1e-5),
+        ("UNet level 3 concat", (24, 2560, 12, 8), 1e-5),
+        ("ragged rows 37x29", (3, 320, 37, 29), 1e-6),
+    ]
+
+
+def phase_group_norm(torch, results, dev, cases):
+    """Kernel C against its plain version for act None and SiLU, in both
+    layouts it takes, with its time, the plain version's, the library's
+    (``F.group_norm`` + ``F.silu``, which the port does not call) and the
+    byte bound (x read once, y written once)."""
+    import torch.nn.functional as F
+
+    from humanvid_tpu_torch.ops import group_norm as gn
+
+    print(f"[kernel C] GroupNorm(+SiLU) vs plain (bf16; tol: rel L2 {GN_TOL[0]}, "
+          f"max err {GN_TOL[1]} x rms(plain))")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for name, shape, eps in cases:
+        c = shape[1]
+        base = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(torch.bfloat16)
+        weight = (1 + 0.1 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+        bias = (0.1 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+        for layout, fmt in (("channels_last", torch.channels_last),
+                            ("contiguous", torch.contiguous_format)):
+            x = base.contiguous(memory_format=fmt)
+            for act in ("silu", None):
+                def kernel():
+                    return gn.group_norm_act_cuda(x, weight, bias, 32, eps, act)
+
+                def library():
+                    y = F.group_norm(x, 32, weight, bias, eps)
+                    return F.silu(y) if act else y
+
+                y = kernel()
+                ref = gn.group_norm_act_plain(x, weight, bias, 32, eps, act)
+                torch.cuda.synchronize()
+                err, rel, close = agreement(y, ref, GN_TOL)
+                ratio = err / ref.float().pow(2).mean().sqrt().item()
+                ok = close and y.is_contiguous(memory_format=fmt)
+                del y, ref
+                ms = time_ms(torch, kernel, 20)
+                plain_ms = time_ms(torch, lambda: gn.group_norm_act_plain(
+                    x, weight, bias, 32, eps, act), 3)
+                lib = library_ms(torch, library, 20)
+                b_ms, b_by = bound(x.numel() * (5.0 + 4.0 * (act == "silu")),
+                                   2.0 * 2 * x.numel() + 2 * 2 * 2 * c, H100_FP32_FLOPS)
+                label = f"{name} {layout} act={act}"
+                print(f"  {label}: {tuple(shape)} max_abs_err={err:.3e} max_err/rms={ratio:.3e} "
+                      f"rel_l2={rel:.3e} ms={ms:.4f} plain_ms={plain_ms:.3f} library_ms={lib} "
+                      f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+                results.append(dict(kernel="group_norm", shape=label, max_abs_err=err,
+                                    rel_l2=rel, ms=ms, plain_ms=plain_ms, library_ms=lib,
+                                    bound_ms=b_ms, bound_by=b_by, ok=ok))
+        del base, x
+        torch.cuda.empty_cache()
+
+
+def phase_group_norm_grad(torch, dev):
+    """The autograd Function's dx, dgamma and dbeta on the card (kernel C
+    forward, F.group_norm recompute in the backward, bf16) against plain
+    autograd through the plain version on fp32 copies, at the stage-2
+    level-0 shape."""
+    from humanvid_tpu_torch.ops import group_norm as gn
+
+    shape, eps = (24, 320, 112, 64), 1e-5
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x, g = ((torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(torch.bfloat16)
+            .contiguous(memory_format=torch.channels_last) for _ in range(2))
+    weight = (1 + 0.1 * torch.randn(shape[1], generator=gen, device=dev)).to(torch.bfloat16)
+    bias = (0.1 * torch.randn(shape[1], generator=gen, device=dev)).to(torch.bfloat16)
+    leaves = [t.requires_grad_() for t in (x, weight, bias)]
+    grads = torch.autograd.grad(gn.group_norm_act(*leaves, 32, eps, "silu"), leaves, g)
+    plain = [t.detach().float().requires_grad_() for t in leaves]
+    refs = torch.autograd.grad(gn.group_norm_act_plain(*plain, 32, eps, "silu"), plain,
+                               g.float())
+    torch.cuda.synchronize()
+    errs = [agreement(a, r, GN_GRAD_TOL) for a, r in zip(grads, refs)]
+    ok = all(e[2] for e in errs) and all(a.dtype == t.dtype for a, t in zip(grads, leaves))
+    ratios = "/".join(f"{e[0] / r.float().pow(2).mean().sqrt().item():.3e}"
+                      for e, r in zip(errs, refs))
+    print(f"[kernel C grad] Function vs plain autograd at {shape} (tol: rel L2 "
+          f"{GN_GRAD_TOL[0]}, max err {GN_GRAD_TOL[1]} x rms): rel_l2 dx/dgamma/dbeta="
+          f"{errs[0][1]:.3e}/{errs[1][1]:.3e}/{errs[2][1]:.3e} max_err/rms={ratios} "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
 def _inputs(np, F, H, W, clip_size, seed):
     from humanvid_tpu_torch.data.camera import (
         get_relative_pose, intrinsics_vector, ray_condition, static_camera)
@@ -436,15 +565,18 @@ def phase_tiny_reference(torch, np, dev):
     by itself (changing only where attention rounds its probabilities moves
     the video by ~0.1), so the card must come within twice the distance
     (plus 1e-2) that the CPU's own bf16 run, plain versions only, lands from
-    fp32."""
-    from humanvid_tpu_torch.pipelines import CamAnimate, Pose2VideoPipeline, tiny_config
+    fp32. The tiny pose2img (one frame, batched CFG) is held the same way."""
+    from humanvid_tpu_torch.pipelines import (
+        CamAnimate, Pose2ImagePipeline, Pose2VideoPipeline, tiny_config)
 
     F, H, W = 4, 256, 256
     cfg = tiny_config()
     cpu = CamAnimate(cfg, device="cpu").init_random(3)
     inputs = _inputs(np, F, H, W, cfg.clip.image_size, 4)
-    init = np.random.default_rng(5).normal(size=(F, H // 8, W // 8, 4)).astype(np.float32)
-    runs = {}
+    rng = np.random.default_rng(5)
+    init = rng.normal(size=(F, H // 8, W // 8, 4)).astype(np.float32)
+    init_img = rng.normal(size=(1, H // 8, W // 8, 4)).astype(np.float32)
+    runs, images = {}, {}
     for key, device in (("cpu_fp32", "cpu"), ("cpu_bf16", "cpu"), ("card_bf16", dev)):
         system = cpu
         if key != "cpu_fp32":
@@ -454,18 +586,26 @@ def phase_tiny_reference(torch, np, dev):
         runs[key] = Pose2VideoPipeline(system)(
             **inputs, num_inference_steps=2, guidance_scale=3.5, cfg_mode="sequential",
             init_latents=init)
-    ref = runs["cpu_fp32"]
+        images[key] = Pose2ImagePipeline(system)(
+            inputs["ref_image"], inputs["pose_video"][0], inputs["plucker"][0],
+            inputs["clip_image"], num_inference_steps=2, guidance_scale=3.5,
+            init_latents=init_img)
+    ok = True
+    for label, outs, field in (("pose2vid", runs, "videos"), ("pose2img", images, "images")):
+        ref = outs["cpu_fp32"]
 
-    def errs(key):
-        return (float(np.abs(runs[key].videos - ref.videos).max()),
-                float(np.abs(runs[key].latents - ref.latents).max()))
+        def errs(key):
+            return (float(np.abs(getattr(outs[key], field) - getattr(ref, field)).max()),
+                    float(np.abs(outs[key].latents - ref.latents).max()))
 
-    (v16, l16), (vc, lc) = errs("cpu_bf16"), errs("card_bf16")
-    ok = (bool(np.isfinite(runs["card_bf16"].videos).all())
-          and vc <= 2 * v16 + 1e-2 and lc <= 2 * l16 + 1e-2)
-    print(f"[tiny reference] {H}x{W}x{F}f, max_abs_err vs CPU fp32: card bf16 video {vc:.3e} "
-          f"latents {lc:.3e}; CPU bf16 video {v16:.3e} latents {l16:.3e} "
-          f"{'ok' if ok else 'FAIL'}")
+        (v16, l16), (vc, lc) = errs("cpu_bf16"), errs("card_bf16")
+        good = (bool(np.isfinite(getattr(outs["card_bf16"], field)).all())
+                and vc <= 2 * v16 + 1e-2 and lc <= 2 * l16 + 1e-2)
+        ok = ok and good
+        frames = f"x{F}f" if label == "pose2vid" else ""
+        print(f"[tiny reference] {label} {H}x{W}{frames}, max_abs_err vs CPU fp32: card bf16 "
+              f"{field} {vc:.3e} latents {lc:.3e}; CPU bf16 {field} {v16:.3e} latents "
+              f"{l16:.3e} {'ok' if good else 'FAIL'}")
     return ok
 
 
@@ -500,19 +640,22 @@ def _train_batch(np, b, F, H, W, clip_size, seed):
 
 def _launch_counts():
     from humanvid_tpu_torch.ops import flash_attention as fa
+    from humanvid_tpu_torch.ops import group_norm as gn
     from humanvid_tpu_torch.ops import temporal_attention as ta
 
     return {"flash_fwd": fa.launches["d<=128"], "flash_fwd_d512": fa.launches["d>128"],
             "temporal_fwd": ta.launches["temporal"],
             "flash_bwd": min(fa.launches["bwd_dkv"], fa.launches["bwd_dq"]),
-            "temporal_bwd": ta.launches["temporal_bwd"]}
+            "temporal_bwd": ta.launches["temporal_bwd"], "group_norm": gn.launches["group_norm"]}
 
 
 def _reset_launches():
     from humanvid_tpu_torch.ops import flash_attention as fa
+    from humanvid_tpu_torch.ops import group_norm as gn
     from humanvid_tpu_torch.ops import temporal_attention as ta
 
     fa.reset_launches()
+    gn.reset_launches()
     ta.reset_launches()
 
 
@@ -638,7 +781,8 @@ def phase_train(torch, np, dev):
     print(f"[train] {H}x{W}x{F}f bs 1: s/step (steady, mean of steps 1..) "
           f"{sum(seconds[1:]) / max(1, len(seconds) - 1):.3f}; peak memory {peak:.2f} GiB")
     print(f"[train] launches over {TRAIN_STEPS} steps (with checkpointing each forward "
-          f"kernel runs again in the backward's recompute) {launches}")
+          f"kernel runs again in the backward's recompute; GroupNorm's backward recomputes "
+          f"through F.group_norm) {launches}")
     print(f"[train] finite {finite}; step 0 (lr 0) left the masters unchanged "
           f"{step0_still}; step 1 moved {moved}/{len(state.names)} trainable leaves; frozen "
           f"leaves unchanged bit for bit {frozen_same} {'ok' if ok else 'FAIL'}")
@@ -664,7 +808,7 @@ def phase_main(torch, np, dev):
     out = pipe(**inputs, num_inference_steps=steps, guidance_scale=3.5, context_frames=24,
                cfg_mode="sequential", decode_chunk=8,
                generator=torch.Generator(device=dev).manual_seed(0))
-    # inference runs the three forward kernels only
+    # inference runs the forward kernels only
     launches = {k: n for k, n in _launch_counts().items() if not k.endswith("_bwd")}
     v = out.videos
     s = out.seconds
@@ -688,6 +832,8 @@ KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match wins
     ("kernel B (temporal_fwd)", ("temporal_fwd_kernel",)),
     ("kernel A bwd (flash_bwd)", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
     ("kernel B bwd (temporal_bwd)", ("temporal_bwd_kernel",)),
+    # ahead of the cuDNN group ("nhwc") and the norm group ("norm")
+    ("kernel C (group_norm)", ("gn_stats_", "gn_finalize", "gn_apply_")),
     ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "nchw",
                              "nhwc")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")),
@@ -714,9 +860,8 @@ def phase_profile(torch, dev, pipe, inputs):
     """torch.profiler over one denoise step (the two UNet passes of
     sequential CFG) and one 24-frame decode of the main path's model: device
     time by kernel group, the top kernels, and the device's idle share of
-    the host-clock window."""
-    from torch.profiler import ProfilerActivity, profile
-
+    the host-clock window. Returns the launch counts of one denoise step and
+    one decode."""
     from humanvid_tpu_torch.models.clip_vision import clip_preprocess
     from humanvid_tpu_torch.pipelines.pose2vid import _nchw
 
@@ -740,9 +885,15 @@ def phase_profile(torch, dev, pipe, inputs):
         def decode():
             pipe.decode(x, 8)
 
+        counts = {}
         for label, fn in (("denoise step", step), ("decode", decode)):
+            _reset_launches()
             fn()
+            torch.cuda.synchronize()
+            counts[label] = {k: n for k, n in _launch_counts().items() if n}
+            print(f"[profile] launches per {label}: {counts[label]}")
             _profile_print(torch, label, fn)
+    return counts
 
 
 def _profile_print(torch, label, fn):
@@ -778,10 +929,119 @@ def phase_profile_train(torch, dev, system, state, batch):
                    lambda: train_step(system, state, sched, TrainConfig(), batch, draws=draws))
 
 
+def _checksums(torch, tensors):
+    """Per-tensor fp64 (sum, sum of |x|), as one (n, 2) CPU tensor: a leaf
+    that changes changes its row, and no copy of the leaves is kept."""
+    return torch.stack([torch.stack([t.sum(dtype=torch.float64),
+                                     t.abs().sum(dtype=torch.float64)])
+                        for t in tensors]).cpu()
+
+
+def phase_stage1(torch, np, dev):
+    """The stage-1 path on one full-width system (CamAnimateConfig through
+    stage_config(1): the denoising UNet with the ReferenceNet's topology and
+    no motion modules, camera position table 16, grad checkpointing), bf16
+    modules with fp32 masters of the trained leaves. First pose2img at
+    896x512 (MAIN_STEPS DDIM steps, batched CFG 3.5), then STAGE1_STEPS steps
+    of the stage-1 recipe (AdamW lr 1e-5, warmup 1, wd 1e-2, clip 1.0, min-SNR
+    5, noise offset 0.05, v-prediction on the zero-SNR schedule) on a seeded
+    synthetic batch of 8 single frames: step 0 uncond (lr 0), the rest cond.
+    Returns (ok, {"pose2img": launches, "stage1": launches of step 1})."""
+    from humanvid_tpu_torch.pipelines import CamAnimate, CamAnimateConfig, Pose2ImagePipeline
+    from humanvid_tpu_torch.train import (
+        OptimizerConfig, TrainConfig, TrainState, sample_draws, stage1_trainable,
+        stage_config, train_step)
+
+    b, H, W = STAGE1_SIZE
+    t0 = time.perf_counter()
+    system = CamAnimate(stage_config(1, CamAnimateConfig()), device=dev,
+                        dtype=torch.bfloat16).init_random(0)
+    _unzero_(torch, system, 1)
+    # The reference zero-initializes every bias, and some get no gradient at
+    # all: the norm2 of each transformer block feeds only the queries of a
+    # cross-attention over one CLIP token, whose softmax is 1 whatever the
+    # query. Such a leaf could not move, so the zero leaves of the trained
+    # components get small seeded values and AdamW's decay moves them too.
+    gen = torch.Generator(device=dev).manual_seed(2)
+    with torch.no_grad():
+        for name in ("reference_unet", "denoising_unet", "pose_guider", "camera_encoder"):
+            for p in getattr(system, name).parameters():
+                if not p.any():
+                    p.normal_(0.0, 0.02, generator=gen)
+    torch.cuda.synchronize()
+    print(f"[stage 1] full-width stage-1 system built in {time.perf_counter() - t0:.1f} s")
+
+    inputs = _inputs(np, 1, H, W, system.config.clip.image_size, 13)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    out = Pose2ImagePipeline(system)(
+        inputs["ref_image"], inputs["pose_video"][0], inputs["plucker"][0],
+        inputs["clip_image"], num_inference_steps=MAIN_STEPS, guidance_scale=3.5,
+        generator=torch.Generator(device=dev).manual_seed(14))
+    img_launches = {k: n for k, n in _launch_counts().items() if not k.endswith("_bwd")}
+    img, s = out.images, out.seconds
+    img_ok = (img.shape == (1, H, W, 3) and bool(np.isfinite(img).all())
+              and float(img.min()) >= 0.0 and float(img.max()) <= 1.0
+              and all(img_launches[k] > 0 for k in ("flash_fwd", "temporal_fwd", "group_norm")))
+    print(f"[stage 1] pose2img {H}x{W}, {MAIN_STEPS} DDIM steps, batched CFG 3.5: prepare "
+          f"{s['prepare']:.3f} s, denoise steps {[round(x, 4) for x in s['denoise_steps']]} s, "
+          f"decode {s['decode']:.3f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {img_launches}")
+    print(f"[stage 1] image shape {img.shape} min {float(img.min()):.4f} max "
+          f"{float(img.max()):.4f} mean {float(img.mean()):.4f} {'ok' if img_ok else 'FAIL'}")
+    del out
+
+    state = TrainState(system, stage1_trainable, OptimizerConfig(warmup_steps=1))
+    sched = system.make_schedule(beta_schedule="scaled_linear")
+    frozen = [p for m in system.components().values() for p in m.parameters()
+              if not p.requires_grad]
+    frozen_before = _checksums(torch, frozen)
+    print(f"[stage 1] {sum(m.numel() for m in state.masters) / 1e9:.3f} B trainable params in "
+          f"{len(state.names)} leaves, {sum(p.numel() for p in frozen) / 1e9:.3f} B frozen")
+    batch = _train_batch(np, b, 1, H, W, system.config.clip.image_size, 15)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    sums = [_checksums(torch, state.masters)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ok, seconds, launches = img_ok, [], []
+    for i in range(STAGE1_STEPS):
+        draws = sample_draws(gen, b, 1, H, W, sched.num_train_timesteps, 0.0)
+        draws = draws._replace(uncond=i == 0)
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = train_step(system, state, sched, TrainConfig(), batch, draws=draws)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append(_launch_counts())
+        loss, norm = res["loss"].item(), res["grad_norm"].item()
+        ok = ok and np.isfinite(loss) and np.isfinite(norm)
+        sums.append(_checksums(torch, state.masters))
+        print(f"[stage 1] step {i} ({'uncond' if draws.uncond else 'cond'}): "
+              f"{seconds[-1]:.3f} s, loss {loss:.5f}, grad norm {norm:.4f}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = bool(torch.isfinite(sums[-1]).all())
+    step0_still = torch.equal(sums[0], sums[1])
+    moved = int((sums[1] != sums[2]).any(dim=1).sum())
+    frozen_same = torch.equal(frozen_before, _checksums(torch, frozen))
+    launched = all(c["flash_bwd"] > 0 and c["group_norm"] > 0 for c in launches)
+    ok = ok and finite and step0_still and moved == len(state.names) and frozen_same and launched
+    print(f"[stage 1] {H}x{W} bs {b}: s/step (steady, mean of steps 1..) "
+          f"{sum(seconds[1:]) / max(1, len(seconds) - 1):.3f}; peak memory {peak:.2f} GiB")
+    print(f"[stage 1] launches per step {launches}")
+    print(f"[stage 1] finite {finite}; step 0 (lr 0) left the masters unchanged {step0_still}; "
+          f"step 1 moved {moved}/{len(state.names)} trainable leaves; frozen leaves unchanged "
+          f"{frozen_same} {'ok' if ok else 'FAIL'}")
+    draws = sample_draws(gen, b, 1, H, W, sched.num_train_timesteps, 0.0)
+    _profile_print(torch, "train step (stage 1, cond)",
+                   lambda: train_step(system, state, sched, TrainConfig(), batch, draws=draws))
+    return ok, {"pose2img": img_launches, "stage1": launches[min(1, len(launches) - 1)]}
+
+
 def kernel_line(results, launches):
     """The per-kernel JSON line. ``launches`` is each kernel's count in the
-    run of its path (the forward kernels: pose2vid; the backward kernels:
-    the training path); ``launches_by_path`` has both runs' counts."""
+    run of its path (the forward kernels and kernel C: pose2vid; the
+    backward kernels: the stage-2 training path); ``launches_by_path`` has
+    every run's counts."""
     replaces = {
         "flash_fwd": ("humanvid_tpu/ops/flash_attention.py:172", FLASH_SRC),
         "flash_fwd_d512": ("humanvid_tpu/ops/flash_attention.py:96", FLASH_SRC),
@@ -789,6 +1049,7 @@ def kernel_line(results, launches):
         # _dkv_kernel_t (:415) and _dq_kernel_t (:479), one kernel each
         "flash_bwd": ("humanvid_tpu/ops/flash_attention.py:415", FLASH_BWD_SRC),
         "temporal_bwd": ("humanvid_tpu/ops/temporal_attention.py:116", TEMPORAL_BWD_SRC),
+        "group_norm": ("humanvid_tpu/ops/group_norm.py:52", GN_SRC),
     }
     kernels = []
     for name, (rep, src) in replaces.items():
@@ -799,6 +1060,8 @@ def kernel_line(results, launches):
         if name == "flash_bwd":
             extra = dict(also_replaces="humanvid_tpu/ops/flash_attention.py:479",
                          dkv_ms=head["dkv_ms"], dq_ms=head["dq_ms"])
+        elif name == "group_norm":  # the statistics kernel and the folded apply
+            extra = dict(also_replaces="humanvid_tpu/ops/group_norm.py:145")
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep, **extra,
             launches=launches[path].get(name, 0),
@@ -834,18 +1097,28 @@ def main() -> int:
     phase_temporal(torch, results, dev, temporal_cases())
     phase_flash_bwd(torch, results, dev, flash_bwd_cases())
     phase_temporal_bwd(torch, results, dev, temporal_bwd_cases())
+    phase_group_norm(torch, results, dev, group_norm_cases())
     ok = all(r["ok"] for r in results)
+    ok = phase_group_norm_grad(torch, dev) and ok
     ok = phase_tiny_reference(torch, np, dev) and ok
     ok = phase_tiny_train(torch, np, dev) and ok
     main_ok, main_launches, pipe, inputs = phase_main(torch, np, dev)
     ok = ok and main_ok
-    phase_profile(torch, dev, pipe, inputs)
+    per_call = phase_profile(torch, dev, pipe, inputs)
     del pipe
     torch.cuda.empty_cache()
     train_ok, train_launches, system, state, batch = phase_train(torch, np, dev)
     ok = ok and train_ok
     phase_profile_train(torch, dev, system, state, batch)
-    print(kernel_line(results, {"pose2vid": main_launches, "train": train_launches}))
+    # stage 1 needs the card's memory to itself
+    del system, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    stage1_ok, stage1_launches = phase_stage1(torch, np, dev)
+    ok = ok and stage1_ok
+    print(kernel_line(results, {"pose2vid": main_launches, "train": train_launches,
+                                **stage1_launches, "denoise_step": per_call["denoise step"],
+                                "decode": per_call["decode"]}))
     print(card)
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)

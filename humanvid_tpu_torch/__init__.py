@@ -3,13 +3,15 @@
 Camera-controlled human image animation (HumanVid's CamAnimate) with the
 JAX package's module layout (``ops/``, ``models/``, ``diffusion/``,
 ``pipelines/``, ``data/``, ``utils/``). Tensors are NCHW inside the models;
-the pipeline takes and returns the JAX package's channel-last arrays. The
-attention kernels are hand-written CUDA (``csrc/``), built with ``nvcc`` at
-first use; on CPU tensors every kernel runs its plain PyTorch version.
+the pipelines take and return the JAX package's channel-last arrays. The
+attention and GroupNorm kernels are hand-written CUDA (``csrc/``), built
+with ``nvcc`` at first use; on CPU tensors every kernel runs its plain
+PyTorch version.
 
-Entry points: :class:`pipelines.CamAnimate` and
-:class:`pipelines.Pose2VideoPipeline`. They run on the CUDA card unless the
-caller passes ``device="cpu"``.
+Entry points: :class:`pipelines.CamAnimate`,
+:class:`pipelines.Pose2VideoPipeline`, :class:`pipelines.Pose2ImagePipeline`
+and :func:`train.train_step`. They run on the CUDA card unless the caller
+passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

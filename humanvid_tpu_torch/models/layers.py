@@ -49,8 +49,10 @@ def checkpointed(enabled: bool, fn, *args):
     return fn(*args)
 
 
-def gn_silu(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    return group_norm_act(x, norm.weight, norm.bias, norm.num_groups, norm.eps, "silu")
+def gn(norm: nn.GroupNorm, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+    """``norm``'s GroupNorm (optionally + SiLU) through kernel C; the module
+    only holds the parameters."""
+    return group_norm_act(x, norm.weight, norm.bias, norm.num_groups, norm.eps, act)
 
 
 class GEGLU(nn.Module):
@@ -108,10 +110,10 @@ class ResnetBlock(nn.Module):
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None):
-        h = self.conv1(gn_silu(self.norm1, x))
+        h = self.conv1(gn(self.norm1, x, "silu"))
         if temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(gn_silu(self.norm2, h))
+        h = self.conv2(gn(self.norm2, h, "silu"))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -183,7 +185,7 @@ class SpatialTransformer(nn.Module):
                 ref_disable=None) -> Tuple[torch.Tensor, torch.Tensor]:
         bf, _, h, w = x.shape
         residual = x
-        tokens = to_tokens(self.proj_in(self.norm(x)))
+        tokens = to_tokens(self.proj_in(gn(self.norm, x)))
 
         def per_frame(t):
             if t is None or t.shape[0] == bf:
@@ -254,7 +256,7 @@ class TemporalTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, frames: int) -> torch.Tensor:
         _, _, h, w = x.shape
-        tokens = self.proj_in(to_tokens(self.norm(x)))
+        tokens = self.proj_in(to_tokens(gn(self.norm, x)))
         for block in self.transformer_blocks:
             tokens = block(tokens, frames)
         return x + from_tokens(self.proj_out(tokens), h, w)

@@ -33,7 +33,7 @@ from .layers import (
     SpatialTransformer,
     Upsample,
     checkpointed,
-    gn_silu,
+    gn,
 )
 
 
@@ -228,7 +228,7 @@ class UNetConditionModel(nn.Module):
             if hasattr(block, "upsamplers"):
                 sample = block.upsamplers[0](sample)
 
-        sample = self.conv_out(gn_silu(self.conv_norm_out, sample))
+        sample = self.conv_out(gn(self.conv_norm_out, sample, "silu"))
         if ref_iter is not None and next(ref_iter, None) is not None:
             raise ValueError("more reference features than transformer blocks")
         return sample, tuple(collected)

@@ -14,7 +14,7 @@ from torch import nn
 
 from ..ops.attention import MultiHeadAttention
 from .configs import VAEConfig
-from .layers import Upsample, from_tokens, gn_silu, to_tokens
+from .layers import Upsample, from_tokens, gn, to_tokens
 
 
 class VAEResnet(nn.Module):
@@ -28,8 +28,8 @@ class VAEResnet(nn.Module):
                               if in_channels != out_channels else None)
 
     def forward(self, x):
-        h = self.conv1(gn_silu(self.norm1, x))
-        h = self.conv2(gn_silu(self.norm2, h))
+        h = self.conv1(gn(self.norm1, x, "silu"))
+        h = self.conv2(gn(self.norm2, h, "silu"))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -44,7 +44,7 @@ class VAEAttention(MultiHeadAttention):
 
     def forward(self, x):
         h, w = x.shape[2:]
-        out = super().forward(to_tokens(self.group_norm(x)))
+        out = super().forward(to_tokens(gn(self.group_norm, x)))
         return x + from_tokens(out, h, w)
 
 
@@ -109,7 +109,7 @@ class _Encoder(nn.Module):
         for stage in self.down_blocks:
             x = stage(x)
         x = self.mid_block(x)
-        return self.conv_out(gn_silu(self.conv_norm_out, x))
+        return self.conv_out(gn(self.conv_norm_out, x, "silu"))
 
 
 class _Decoder(nn.Module):
@@ -134,7 +134,7 @@ class _Decoder(nn.Module):
         x = self.mid_block(self.conv_in(z))
         for stage in self.up_blocks:
             x = stage(x)
-        return self.conv_out(gn_silu(self.conv_norm_out, x))
+        return self.conv_out(gn(self.conv_norm_out, x, "silu"))
 
 
 class VAEEncoder(nn.Module):

@@ -1,1 +1,2 @@
-"""Attention kernels (CUDA, with plain PyTorch versions) and small tensor ops."""
+"""Attention and GroupNorm kernels (CUDA, with plain PyTorch versions) and
+small tensor ops."""

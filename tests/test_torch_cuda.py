@@ -22,6 +22,12 @@ TEMPORAL_TOL = (2e-4, 0.08)
 # 0.070; kernel B 5.4e-5, 0.058).
 FLASH_BWD_TOL = (1e-3, 0.2)
 TEMPORAL_BWD_TOL = (2e-4, 0.2)
+# Kernel C and its plain version both compute in fp32 and round once to
+# bf16; they differ by summation order and fused multiply-adds (readings
+# 4.1e-5, 0.031). Its Function's gradients (F.group_norm's bf16 backward)
+# are held against plain autograd in fp32 (readings 3.2e-3, 0.074).
+GN_TOL = (1.5e-4, 0.1)
+GN_GRAD_TOL = (1e-2, 0.25)
 
 import numpy as np
 import pytest
@@ -191,6 +197,7 @@ def test_tiny_pipeline_on_card_goes_through_kernels():
     from humanvid_tpu_torch.data.camera import (
         get_relative_pose, intrinsics_vector, ray_condition, static_camera)
     from humanvid_tpu_torch.ops import flash_attention as fa
+    from humanvid_tpu_torch.ops import group_norm as gn
     from humanvid_tpu_torch.ops import temporal_attention as ta
     from humanvid_tpu_torch.pipelines import CamAnimate, Pose2VideoPipeline, tiny_config
 
@@ -202,8 +209,83 @@ def test_tiny_pipeline_on_card_goes_through_kernels():
     plucker = ray_condition(intrinsics_vector(cams, (W, H)), get_relative_pose(cams), H, W)
     fa.reset_launches()
     ta.reset_launches()
+    gn.reset_launches()
     out = Pose2VideoPipeline(system)(
         rng.random((H, W, 3)), rng.random((F, H, W, 3)), plucker, rng.random((28, 28, 3)),
         num_inference_steps=2, cfg_mode="sequential")
     assert out.videos.shape == (1, F, H, W, 3) and np.isfinite(out.videos).all()
     assert fa.launches["d<=128"] > 0 and ta.launches["temporal"] > 0
+    assert gn.launches["group_norm"] > 0
+
+
+def _group_norm_inputs(shape, fmt, affine_dtype, dev):
+    x = (_randn(shape, 5, dev).float() * 2 + 0.5).to(torch.bfloat16)
+    x = x.contiguous(memory_format=fmt)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    w = (1 + 0.1 * torch.randn(shape[1], generator=gen, device=dev)).to(affine_dtype)
+    b = (0.1 * torch.randn(shape[1], generator=gen, device=dev)).to(affine_dtype)
+    return x, w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "silu"], ids=["none", "silu"])
+@pytest.mark.parametrize("fmt", [torch.channels_last, torch.contiguous_format],
+                         ids=["channels_last", "contiguous"])
+@pytest.mark.parametrize("shape,affine_dtype", [
+    ((2, 320, 37, 29), torch.bfloat16),   # ragged rows
+    ((3, 64, 1, 1), torch.float32),       # H = W = 1: both layouts at once
+    ((2, 2560, 12, 8), torch.bfloat16),   # the UNet's widest concatenation
+    ((4, 128, 64, 48), torch.float32),
+])
+def test_group_norm_kernel_matches_plain(shape, affine_dtype, fmt, act):
+    from humanvid_tpu_torch.ops import group_norm as gn
+
+    dev = _card()
+    x, w, b = _group_norm_inputs(shape, fmt, affine_dtype, dev)
+    before = gn.launches["group_norm"]
+    y = gn.group_norm_act(x, w, b, 32, 1e-6, act)
+    again = gn.group_norm_act(x, w, b, 32, 1e-6, act)
+    ref = gn.group_norm_act_plain(x, w, b, 32, 1e-6, act)
+    torch.cuda.synchronize()
+    assert gn.launches["group_norm"] == before + 2
+    assert y.shape == x.shape and y.dtype == x.dtype and y.is_contiguous(memory_format=fmt)
+    assert torch.equal(y, again)  # no float atomics: a run repeats bit for bit
+    _assert_close(y, ref, GN_TOL)
+
+
+@pytest.mark.cuda
+def test_group_norm_function_gradient_on_card():
+    """dx, dgamma and dbeta through the Function (kernel C forward,
+    F.group_norm recompute) against plain autograd on fp32 copies."""
+    from humanvid_tpu_torch.ops import group_norm as gn
+
+    dev = _card()
+    x, w, b = _group_norm_inputs((4, 320, 37, 29), torch.channels_last, torch.bfloat16, dev)
+    g = _randn(x.shape, 7, dev).contiguous(memory_format=torch.channels_last)
+    leaves = [t.requires_grad_() for t in (x, w, b)]
+    grads = torch.autograd.grad(gn.group_norm_act(*leaves, 32, 1e-5, "silu"), leaves, g)
+    plain = [t.detach().float().requires_grad_() for t in leaves]
+    refs = torch.autograd.grad(gn.group_norm_act_plain(*plain, 32, 1e-5, "silu"), plain,
+                               g.float())
+    for got, ref in zip(grads, refs):
+        _assert_close(got, ref, GN_GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_group_norm_rejects_what_it_does_not_take():
+    from humanvid_tpu_torch.ops import group_norm as gn
+
+    dev = _card()
+    w = torch.ones(64, device=dev, dtype=torch.bfloat16)
+    x = torch.zeros((2, 64, 6, 5), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                     # neither layout
+        gn.group_norm_act(x.transpose(2, 3), w, w, 32, 1e-6)
+    with pytest.raises(ValueError):                     # a channel slice: other strides
+        gn.group_norm_act(torch.zeros((2, 128, 6, 5), device=dev,
+                                      dtype=torch.bfloat16)[:, :64], w, w, 32, 1e-6)
+    with pytest.raises(TypeError):                      # fp32 on the card
+        gn.group_norm_act(x.float(), w, w, 32, 1e-6)
+    v = torch.ones(12, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                     # C % 8 != 0
+        gn.group_norm_act(torch.zeros((1, 12, 4, 4), device=dev, dtype=torch.bfloat16),
+                          v, v, 4, 1e-6)

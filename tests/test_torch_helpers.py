@@ -7,6 +7,7 @@ the reference initializes to zero, so that no path is hidden behind a zero.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -42,6 +43,30 @@ def init_like(module, seed: int, *args, **kwargs):
     """Seeded numpy parameters with the structure of ``module.init``."""
     return fill_params(
         jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *args, **kwargs)), seed)
+
+
+def jax_system_params(js, F: int, H: int, W: int):
+    """Seeded numpy parameters for every component of a JAX ``CamAnimate``
+    ``js``, shaped for F frames at H x W."""
+    c = js.config
+    h8, w8 = H // 8, W // 8
+    ctx = jnp.zeros((1, 1, c.reference_unet.cross_attention_dim))
+    t = jnp.zeros((1,))
+    ref_lat = jnp.zeros((1, h8, w8, 4))
+    pref = init_like(js.reference_unet, 20, ref_lat, t, ctx, collect_ref_features=True)
+    _, feats = jax.eval_shape(lambda: js.reference_unet.apply(
+        pref, ref_lat, t, ctx, collect_ref_features=True))
+    feats = [jnp.zeros(f.shape) for f in feats]
+    return {
+        "reference_unet": pref,
+        "denoising_unet": init_like(js.denoising_unet, 21, jnp.zeros((F, h8, w8, 4)), t, ctx,
+                                    ref_features=feats, frames=F),
+        "pose_guider": init_like(js.pose_guider, 22, jnp.zeros((1, H, W, 3))),
+        "camera_encoder": init_like(js.camera_encoder, 23, jnp.zeros((F, H, W, 6)), F),
+        "vae_encoder": init_like(js.vae_encoder, 24, jnp.zeros((1, H, W, 3))),
+        "vae_decoder": init_like(js.vae_decoder, 25, jnp.zeros((1, h8, w8, 4))),
+        "clip": init_like(js.clip, 26, jnp.zeros((1, 28, 28, 3))),
+    }
 
 
 def nchw(x: np.ndarray) -> torch.Tensor:

@@ -6,12 +6,10 @@ Tolerance 1e-3 on latents and videos, the UNet's tolerance: the pipeline is
 two steps of UNet passes plus encode and decode.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from test_torch_helpers import init_like
+from test_torch_helpers import jax_system_params
 from humanvid_tpu.data.camera import (
     get_relative_pose as j_relative_pose,
     intrinsics_vector as j_intrinsics,
@@ -33,32 +31,10 @@ TOL = 1e-3
 F, H, W = 4, 32, 32
 
 
-def _jax_params(js: JCamAnimate):
-    c = js.config
-    h8, w8 = H // 8, W // 8
-    ctx = jnp.zeros((1, 1, c.reference_unet.cross_attention_dim))
-    t = jnp.zeros((1,))
-    ref_lat = jnp.zeros((1, h8, w8, 4))
-    pref = init_like(js.reference_unet, 20, ref_lat, t, ctx, collect_ref_features=True)
-    _, feats = jax.eval_shape(lambda: js.reference_unet.apply(
-        pref, ref_lat, t, ctx, collect_ref_features=True))
-    feats = [jnp.zeros(f.shape) for f in feats]
-    return {
-        "reference_unet": pref,
-        "denoising_unet": init_like(js.denoising_unet, 21, jnp.zeros((F, h8, w8, 4)), t, ctx,
-                                    ref_features=feats, frames=F),
-        "pose_guider": init_like(js.pose_guider, 22, jnp.zeros((1, H, W, 3))),
-        "camera_encoder": init_like(js.camera_encoder, 23, jnp.zeros((F, H, W, 6)), F),
-        "vae_encoder": init_like(js.vae_encoder, 24, jnp.zeros((1, H, W, 3))),
-        "vae_decoder": init_like(js.vae_decoder, 25, jnp.zeros((1, h8, w8, 4))),
-        "clip": init_like(js.clip, 26, jnp.zeros((1, 28, 28, 3))),
-    }
-
-
 @pytest.fixture(scope="module")
 def systems():
     js = JCamAnimate(jax_tiny_config())
-    params = _jax_params(js)
+    params = jax_system_params(js, F, H, W)
     port = CamAnimate(tiny_config(), device="cpu").load_jax_params(params)
     return js, params, port
 
