@@ -53,9 +53,25 @@ GroupNorm and stage 1 (pose2img and the stage-1 step) add:
   checksums, no clones), and that the kernels launched; then one more
   step under the profiler.
 
+The measurement probes and the wide-head backward add:
+
+- kernel A bwd at d = 512: the dk/dv and dq kernels of the VAE's single
+  512-wide head (8x6144x6144, and a small ragged case with the bias), with
+  SDPA's backward at d = 512 by backend as the library yardstick;
+- probes: kernel 8 (the orientation probe, every arm, and its device time
+  at half the keys, which shows that the unstored products are computed),
+  kernel 9 (the transposed flash forward, beside kernel A at UNet level 0)
+  and kernel 10 (the streaming map, exact, beside ``torch.add`` and a
+  device-to-device copy: the card's measured streaming rate), each against
+  its plain version;
+- microbench: the port's ``humanvid_tpu_torch.tools.microbench`` entry with
+  every probe but ``unet`` and ``vae`` (whose work the main phase times);
+  every probe must pass and launch its kernels.
+
 Every main-path run (pose2vid, the stage-2 steps, pose2img, the stage-1
-steps, and the denoise step and decode of the profile phase) sets every
-launch count to 0 just before it and reads the counts just after.
+steps, the denoise step and decode of the profile phase, and the microbench
+run) sets every launch count to 0 just before it and reads the counts just
+after.
 
 Then one JSON line of per-kernel numbers, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 2 without one.
@@ -98,6 +114,10 @@ GN_TOL = (1.5e-4, 0.1)
 # The Function's gradients (F.group_norm's backward on bf16) against plain
 # autograd in fp32, per gradient (dx, dgamma, dbeta) (sound: 3.2e-3, 0.074).
 GN_GRAD_TOL = (1e-2, 0.25)
+# Kernel 8 and its plain version both accumulate in fp32 and round once to
+# bf16: summation order only. Kernel 9 rounds unnormalized probabilities as
+# kernel A does and takes FLASH_TOL; kernel 10 must be exact.
+DMAJOR_TOL = (4e-3, 0.05)
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak (data sheet, SXM, 700 W)
 H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores (data sheet)
 H100_BYTES = 3.35e12       # HBM3 rate (data sheet)
@@ -107,6 +127,9 @@ TEMPORAL_SRC = "humanvid_tpu_torch/csrc/temporal_attention.cu"
 FLASH_BWD_SRC = "humanvid_tpu_torch/csrc/flash_attention_bwd.cu"
 TEMPORAL_BWD_SRC = "humanvid_tpu_torch/csrc/temporal_attention_bwd.cu"
 GN_SRC = "humanvid_tpu_torch/csrc/group_norm.cu"
+DMAJOR_SRC = "humanvid_tpu_torch/csrc/probe_dmajor.cu"
+PVT_SRC = "humanvid_tpu_torch/csrc/probe_pvt.cu"
+HBM_SRC = "humanvid_tpu_torch/csrc/probe_hbm.cu"
 
 
 def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
@@ -282,6 +305,9 @@ def flash_bwd_cases():
         ("level0 cond (ref KV)", 24, 7168, 14336, 8, 40, 0),
         ("level0 uncond (CFG dropout bias)", 24, 7168, 14336, 8, 40, 24),
         ("level1 cond (ref KV)", 24, 1792, 3584, 8, 80, 0),
+        # the VAE mid block's 512-wide head (no training stage reaches it)
+        ("VAE mid 8x(6144x6144) d512", 8, 6144, 6144, 1, 512, 0),
+        ("ragged d512 with the bias", 2, 300, 700, 1, 512, 1),
     ]
 
 
@@ -328,6 +354,22 @@ def _sdpa_backward_ms(torch, tensors, g, mask, reps):
     return ms
 
 
+def _sdpa_backward_by_backend(torch, tensors, g, mask, reps):
+    """SDPA's backward under each backend that takes the shape: {name: ms};
+    the library yardstick of a head width where the default may not say
+    which backend ran."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        with sdpa_kernel(backend):
+            ms = _sdpa_backward_ms(torch, tensors, g, mask, reps)
+        if ms is not None:
+            times[backend.name] = ms
+    return times
+
+
 def phase_flash_bwd(torch, results, dev, cases):
     """Kernel A's dk/dv and dq kernels against the plain backward (all q
     rows, through its chunk loop) on the CUDA forward's lse; hidden keys
@@ -350,6 +392,7 @@ def phase_flash_bwd(torch, results, dev, cases):
             bias = torch.zeros((B, lk), device=dev)
             bias[:bias_rows, lk // 2:] = -1e9
             unmasked = B * lk - bias_rows * (lk // 2)
+        wide = d > 128
         out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
         delta = fa.attention_delta(g, out, heads)
         args = (q, k, v, bias, g, lse, delta, heads)
@@ -364,8 +407,10 @@ def phase_flash_bwd(torch, results, dev, cases):
             hidden_zero = all(bool((t[:bias_rows, lk // 2:] == 0).all()) for t in grads[1:])
         ok = all(e[2] for e in errs) and hidden_zero
         ms = time_ms(torch, lambda: fa.flash_attention_backward_cuda(*args), 3)
-        split = _profile_split(torch, lambda: fa.flash_attention_backward_cuda(*args),
-                               ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
+        keys = (("flash_bwd_dkv_wide_kernel", "flash_bwd_dq_wide_kernel") if wide
+                else ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
+        split = _profile_split(torch, lambda: fa.flash_attention_backward_cuda(*args), keys)
+        split = dict(zip(("dkv", "dq"), split.values()))
         plain_ms = time_ms(torch, lambda: fa.flash_attention_backward_plain(*args), 1)
         del refs
         torch.cuda.empty_cache()
@@ -374,8 +419,14 @@ def phase_flash_bwd(torch, results, dev, cases):
             return t.view(B, t.shape[1], heads, d).transpose(1, 2).contiguous()
 
         mask = None if bias is None else bias.to(torch.bfloat16)[:, None, None, :]
-        lib = _sdpa_backward_ms(torch, [heads_first(t) for t in (q, k, v)], heads_first(g),
-                                mask, 3)
+        tensors = [heads_first(t) for t in (q, k, v)]
+        backends = {}
+        if wide:
+            backends = _sdpa_backward_by_backend(torch, tensors, heads_first(g), mask, 3)
+            print(f"  SDPA backward at d={d} by backend (ms): {backends}")
+            lib = min(backends.values()) if backends else None
+        else:
+            lib = _sdpa_backward_ms(torch, tensors, heads_first(g), mask, 3)
         flops = 10.0 * heads * lq * unmasked * d
         nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * (lse.numel() + delta.numel()) \
             + (0 if bias is None else 4 * bias.numel())
@@ -385,14 +436,15 @@ def phase_flash_bwd(torch, results, dev, cases):
         print(f"  {name}: B={B} Lq={lq} Lk={lk} heads={heads} d={d} "
               f"rel_l2 dq/dk/dv={errs[0][1]:.3e}/{errs[1][1]:.3e}/{errs[2][1]:.3e} "
               f"max_err/rms dq/dk/dv={ratios} "
-              f"hidden keys zero={hidden_zero} ms={ms:.3f} (dkv {split['flash_bwd_dkv_kernel']:.3f}"
-              f" + dq {split['flash_bwd_dq_kernel']:.3f}) plain_ms={plain_ms:.3f} "
+              f"hidden keys zero={hidden_zero} ms={ms:.3f} (dkv {split['dkv']:.3f}"
+              f" + dq {split['dq']:.3f}) plain_ms={plain_ms:.3f} "
               f"library_ms={lib} bound_ms={b_ms:.3f} ({b_by}) "
               f"TFLOP/s={flops / ms / 1e9:.1f} {'ok' if ok else 'FAIL'}")
-        results.append(dict(kernel="flash_bwd", shape=name, max_abs_err=err, rel_l2=rel, ms=ms,
-                            dkv_ms=split["flash_bwd_dkv_kernel"],
-                            dq_ms=split["flash_bwd_dq_kernel"], plain_ms=plain_ms,
-                            library_ms=lib, bound_ms=b_ms, bound_by=b_by, ok=ok))
+        extra = dict(library_backends=backends) if wide else {}
+        results.append(dict(kernel="flash_bwd_d512" if wide else "flash_bwd", shape=name,
+                            max_abs_err=err, rel_l2=rel, ms=ms, dkv_ms=split["dkv"],
+                            dq_ms=split["dq"], plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                            bound_by=b_by, ok=ok, **extra))
         del q, k, v, g, out, lse, delta, grads, args
         torch.cuda.empty_cache()
 
@@ -544,6 +596,168 @@ def phase_group_norm_grad(torch, dev):
     return ok
 
 
+def phase_probes(torch, results, dev):
+    """Kernels 8-10 against their plain versions at the microbench probes'
+    shapes, with ms (CUDA events over back-to-back calls, as everywhere
+    here), plain ms, library ms (one PyTorch call: the cuBLAS batched
+    product, SDPA, ``torch.add``) and the bound."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
+    from humanvid_tpu_torch.tools import probe_kernels as pk
+
+    print(f"[probes] kernels 8-10 vs plain (bf16; kernel 8 tol: rel L2 {DMAJOR_TOL[0]}, max err "
+          f"{DMAJOR_TOL[1]} x rms(plain); kernel 9: kernel A's; kernel 10: exact)")
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    # kernel 8: every arm at G = 64, 1024 x 2048, d = 40, and the d = 128 control
+    G, lq, lk = 64, 1024, 2048
+    for tag, arm, d in (("qk_d_on_lanes", "qk_d_on_lanes", 40),
+                        ("qk_d_on_sublanes", "qk_d_on_sublanes", 40),
+                        ("pv_d_on_lanes", "pv_d_on_lanes", 40),
+                        ("pv_dmajor_out", "pv_dmajor_out", 40),
+                        ("qk_d128_lanes", "qk_d_on_lanes", 128)):
+        shapes = {"qk_d_on_lanes": ((lq, d), (lk, d)), "qk_d_on_sublanes": ((d, lq), (d, lk)),
+                  "pv_d_on_lanes": ((lq, lk), (lk, d)),
+                  "pv_dmajor_out": ((d, lk), (lq, lk))}[arm]
+        a, b = (randn(G, *sh) for sh in shapes)
+        out = pk.dmajor_cuda(arm, a, b)
+        ref = pk.dmajor_plain(arm, a, b)
+        torch.cuda.synchronize()
+        err, rel, ok = agreement(out, ref, DMAJOR_TOL)
+        if arm == "pv_d_on_lanes":
+            ok = ok and bool((out[:, :, d:] == 0).all())
+        ms = time_ms(torch, lambda: pk.dmajor_cuda(arm, a, b), 20)
+        # device time alone (the wrapper's host time is near the kernel's)
+        dev_ms = _profile_split(torch, lambda: pk.dmajor_cuda(arm, a, b), ("probe_",))["probe_"]
+        extra = {}
+        if arm.startswith("qk"):
+            # the products of the unstored columns are computed: half the
+            # keys take about half the device time
+            half = b[:, :lk // 2].contiguous() if arm == "qk_d_on_lanes" else \
+                b[:, :, :lk // 2].contiguous()
+            extra["device_ms_half_lk"] = _profile_split(
+                torch, lambda: pk.dmajor_cuda(arm, a, half), ("probe_",))["probe_"]
+            ok = ok and extra["device_ms_half_lk"] < 0.8 * dev_ms
+        plain_ms = time_ms(torch, lambda: pk.dmajor_plain(arm, a, b), 3)
+        # cuBLAS's batched product of the same operands (the whole product:
+        # the probe computes it all and stores a slice)
+        lib_fn = {"qk_d_on_lanes": lambda: torch.bmm(a, b.transpose(1, 2)),
+                  "qk_d_on_sublanes": lambda: torch.bmm(a.transpose(1, 2), b),
+                  "pv_d_on_lanes": lambda: torch.bmm(a, b),
+                  "pv_dmajor_out": lambda: torch.bmm(a, b.transpose(1, 2))}[arm]
+        lib = library_ms(torch, lib_fn, 20)
+        b_ms, b_by = bound(2.0 * G * lq * lk * d, 2.0 * (a.numel() + b.numel() + out.numel()))
+        print(f"  dmajor {tag}: G={G} lq={lq} lk={lk} d={d} max_abs_err={err:.3e} "
+              f"rel_l2={rel:.3e} ms={ms:.4f} device_ms={dev_ms:.4f} "
+              f"{'' if not extra else 'device_ms_half_lk=%.4f ' % extra['device_ms_half_lk']}"
+              f"plain_ms={plain_ms:.3f} library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) "
+              f"TFLOP/s={2.0 * G * lq * lk * d / dev_ms / 1e9:.1f} {'ok' if ok else 'FAIL'}")
+        results.append(dict(kernel="probe_dmajor", shape=f"{tag} G={G} {lq}x{lk} d={d}",
+                            max_abs_err=err, rel_l2=rel, ms=ms, device_ms=dev_ms,
+                            plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                            ok=ok, **extra))
+        del a, b, out, ref
+        torch.cuda.empty_cache()
+
+    # kernel 9: UNet level 0 with the reference KV (beside kernel A), and
+    # the JAX probe's numerics shape with every 7th key hidden
+    heads, d = 8, 40
+    for name, B, lq, lk, with_bias in (("level0 cond 24x(6144x12288)", 24, 6144, 12288, False),
+                                       ("every 7th key hidden 2x(1024x2048)", 2, 1024, 2048,
+                                        True)):
+        c = heads * d
+        q, k, v = randn(B, lq, c), randn(B, lk, c), randn(B, lk, c)
+        bias = None
+        if with_bias:
+            bias = torch.where(torch.arange(lk, device=dev) % 7 == 0, -1e9, 0.0)
+            bias = bias.expand(B, lk).contiguous()
+        out, lse = pk.pvt_cuda(q, k, v, heads, bias)
+        rows = torch.cat([torch.arange(64, device=dev), torch.arange(lq - 64, lq, device=dev)])
+        ref, ref_lse = pk.pvt_plain(q[:, rows], k, v, heads, bias)
+        torch.cuda.synchronize()
+        err, rel, close = agreement(out[:, rows], ref, FLASH_TOL)
+        lse_err = (lse[:, :, rows] - ref_lse).abs().max().item()
+        ok = close and lse_err <= 1e-3
+        ms = time_ms(torch, lambda: pk.pvt_cuda(q, k, v, heads, bias), 5)
+        ms_a = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, heads, bias), 5)
+        chunk = max(1, (2 << 30) // (B * heads * lk * 4))
+
+        def plain_full():
+            for i in range(0, lq, chunk):
+                pk.pvt_plain(q[:, i:i + chunk], k, v, heads, bias)
+
+        plain_ms = time_ms(torch, plain_full, 1)
+        qh, kh, vh = (t.view(B, t.shape[1], heads, d).transpose(1, 2) for t in (q, k, v))
+        mask = None if bias is None else bias.to(torch.bfloat16)[:, None, None, :]
+        lib = library_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask), 5)
+        unmasked = B * lk if bias is None else int((bias == 0).sum().item())
+        flops = 4.0 * heads * lq * unmasked * d
+        b_ms, b_by = bound(flops, 2 * (q.numel() + 2 * k.numel() + out.numel())
+                           + 4 * lse.numel() + (0 if bias is None else 4 * bias.numel()))
+        print(f"  pvt {name}: B={B} Lq={lq} Lk={lk} heads={heads} d={d} max_abs_err={err:.3e} "
+              f"rel_l2={rel:.3e} lse_err={lse_err:.3e} ms={ms:.3f} kernel_A_ms={ms_a:.3f} "
+              f"plain_ms={plain_ms:.3f} library_ms={lib} bound_ms={b_ms:.3f} ({b_by}) "
+              f"TFLOP/s={flops / ms / 1e9:.1f} {'ok' if ok else 'FAIL'}")
+        results.append(dict(kernel="probe_pvt", shape=name, max_abs_err=err, rel_l2=rel, ms=ms,
+                            kernel_a_ms=ms_a, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                            bound_by=b_by, ok=ok))
+        del q, k, v, out, lse, ref
+        torch.cuda.empty_cache()
+
+    # kernel 10: the streaming map at the decode's and the UNet's shapes
+    for name, shape in (("vae_hi (8,768,512,128)", (8, 768, 512, 128)),
+                        ("vae_mid (8,384,256,256)", (8, 384, 256, 256)),
+                        ("unet_l0 (24,96,64,320)", (24, 96, 64, 320))):
+        x = (torch.randn(shape, generator=gen, device=dev) * 4).to(torch.bfloat16)
+        y = pk.hbm_map_cuda(x)
+        ref = pk.hbm_map_plain(x)
+        out = torch.empty_like(x)
+        torch.cuda.synchronize()
+        ok = torch.equal(y, ref) and torch.equal(y, torch.add(x, 0.5))
+        err = (y.float() - ref.float()).abs().max().item()
+        ms = time_ms(torch, lambda: pk.hbm_map_cuda(x), 20)
+        plain_ms = time_ms(torch, lambda: pk.hbm_map_plain(x), 5)
+        lib = library_ms(torch, lambda: torch.add(x, 0.5, out=out), 20)
+        copy_ms = time_ms(torch, lambda: out.copy_(x), 20)
+        nbytes = 2.0 * 2 * x.numel()
+        b_ms, b_by = bound(2.0 * x.numel(), nbytes)
+        print(f"  hbm {name}: exact={ok} ms={ms:.4f} ({nbytes / ms / 1e6:.1f} GB/s) "
+              f"plain_ms={plain_ms:.3f} library_ms={lib:.4f} ({nbytes / lib / 1e6:.1f} GB/s) "
+              f"copy_ms={copy_ms:.4f} ({nbytes / copy_ms / 1e6:.1f} GB/s) bound_ms={b_ms:.4f} "
+              f"({b_by}) {'ok' if ok else 'FAIL'}")
+        results.append(dict(kernel="probe_hbm", shape=name, max_abs_err=err, rel_l2=0.0, ms=ms,
+                            plain_ms=plain_ms, library_ms=lib, copy_ms=copy_ms,
+                            gbs=nbytes / ms / 1e6, bound_ms=b_ms, bound_by=b_by, ok=ok))
+        del x, y, ref, out
+        torch.cuda.empty_cache()
+
+
+MICROBENCH_PROBES = ("flash", "temporal", "dmajor", "conv", "gn", "vaeattn", "flash_bwd",
+                     "hbm", "gnstats", "pvt")  # all but unet and vae
+
+
+def phase_microbench(torch):
+    """The port's microbench entry point with every probe but ``unet`` and
+    ``vae``, which the main phase already times. Returns (ok, launches)."""
+    from humanvid_tpu_torch.tools import microbench
+
+    print(f"[microbench] humanvid_tpu_torch.tools.microbench {' '.join(MICROBENCH_PROBES)}")
+    _reset_launches()
+    t0 = time.perf_counter()
+    failed = microbench.run(MICROBENCH_PROBES)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    need = ("probe_dmajor", "probe_pvt", "probe_hbm", "flash_bwd_d512", "flash_fwd",
+            "flash_fwd_d512", "temporal_fwd", "flash_bwd", "group_norm")
+    ok = not failed and all(launches[k] > 0 for k in need)
+    print(f"[microbench] {time.perf_counter() - t0:.1f} s; failed probes {failed}; launches "
+          f"{launches} {'ok' if ok else 'FAIL'}")
+    return ok, launches
+
+
 def _inputs(np, F, H, W, clip_size, seed):
     from humanvid_tpu_torch.data.camera import (
         get_relative_pose, intrinsics_vector, ray_condition, static_camera)
@@ -638,15 +852,26 @@ def _train_batch(np, b, F, H, W, clip_size, seed):
             "plucker": np.broadcast_to(plucker, (b,) + plucker.shape).copy()}
 
 
+# the kernels of the model paths: inference runs the forward ones
+MODEL_FWD_KERNELS = ("flash_fwd", "flash_fwd_d512", "temporal_fwd", "group_norm")
+MODEL_KERNELS = MODEL_FWD_KERNELS + ("flash_bwd", "temporal_bwd")
+
+
 def _launch_counts():
+    """Launches of every kernel since the last reset: the six of the model
+    paths, the wide-head backward and the three probe kernels."""
     from humanvid_tpu_torch.ops import flash_attention as fa
     from humanvid_tpu_torch.ops import group_norm as gn
     from humanvid_tpu_torch.ops import temporal_attention as ta
+    from humanvid_tpu_torch.tools import probe_kernels as pk
 
     return {"flash_fwd": fa.launches["d<=128"], "flash_fwd_d512": fa.launches["d>128"],
             "temporal_fwd": ta.launches["temporal"],
             "flash_bwd": min(fa.launches["bwd_dkv"], fa.launches["bwd_dq"]),
-            "temporal_bwd": ta.launches["temporal_bwd"], "group_norm": gn.launches["group_norm"]}
+            "temporal_bwd": ta.launches["temporal_bwd"],
+            "group_norm": gn.launches["group_norm"],
+            "flash_bwd_d512": min(fa.launches["bwd_dkv_d>128"], fa.launches["bwd_dq_d>128"]),
+            **pk.launches}
 
 
 def _reset_launches():
@@ -654,9 +879,12 @@ def _reset_launches():
     from humanvid_tpu_torch.ops import group_norm as gn
     from humanvid_tpu_torch.ops import temporal_attention as ta
 
+    from humanvid_tpu_torch.tools import probe_kernels as pk
+
     fa.reset_launches()
     gn.reset_launches()
     ta.reset_launches()
+    pk.reset_launches()
 
 
 def phase_tiny_train(torch, np, dev):
@@ -703,7 +931,7 @@ def phase_tiny_train(torch, np, dev):
             torch.cuda.synchronize()
             launches = _launch_counts()
     # the tiny VAE's single head is 16 wide: no d = 512 launch at this config
-    ok = all(n > 0 for name, n in launches.items() if name != "flash_fwd_d512")
+    ok = all(launches[k] > 0 for k in MODEL_KERNELS if k != "flash_fwd_d512")
     for i, label in enumerate(("uncond", "cond")):
         ref_loss, ref_g = runs["cpu_fp32"][i]
 
@@ -776,7 +1004,7 @@ def phase_train(torch, np, dev):
     frozen_same = all(torch.equal(p, frozen[f"{c}/{k}"]) for c, m in system.components().items()
                       for k, p in m.named_parameters() if not p.requires_grad)
     ok = (ok and finite and step0_still and moved == len(state.names) and frozen_same
-          and all(n > 0 for n in launches.values()))
+          and all(launches[k] > 0 for k in MODEL_KERNELS))
     del frozen
     print(f"[train] {H}x{W}x{F}f bs 1: s/step (steady, mean of steps 1..) "
           f"{sum(seconds[1:]) / max(1, len(seconds) - 1):.3f}; peak memory {peak:.2f} GiB")
@@ -808,8 +1036,7 @@ def phase_main(torch, np, dev):
     out = pipe(**inputs, num_inference_steps=steps, guidance_scale=3.5, context_frames=24,
                cfg_mode="sequential", decode_chunk=8,
                generator=torch.Generator(device=dev).manual_seed(0))
-    # inference runs the forward kernels only
-    launches = {k: n for k, n in _launch_counts().items() if not k.endswith("_bwd")}
+    launches = _launch_counts()
     v = out.videos
     s = out.seconds
     print(f"[main] {H}x{W}x{F}f, {steps} DDIM steps (the flagship runs 30), CFG 3.5 "
@@ -821,7 +1048,7 @@ def phase_main(torch, np, dev):
           f"s/decode {s['decode']:.3f}; launches {launches}")
     ok = (v.shape == (1, F, H, W, 3) and bool(np.isfinite(v).all())
           and float(v.min()) >= 0.0 and float(v.max()) <= 1.0
-          and all(n > 0 for n in launches.values()))
+          and all(launches[k] > 0 for k in MODEL_FWD_KERNELS))
     print(f"[main] video shape {v.shape} min {float(v.min()):.4f} max {float(v.max()):.4f} "
           f"mean {float(v.mean()):.4f} {'ok' if ok else 'FAIL'}")
     return ok, launches, pipe, inputs
@@ -890,7 +1117,7 @@ def phase_profile(torch, dev, pipe, inputs):
             _reset_launches()
             fn()
             torch.cuda.synchronize()
-            counts[label] = {k: n for k, n in _launch_counts().items() if n}
+            counts[label] = _launch_counts()
             print(f"[profile] launches per {label}: {counts[label]}")
             _profile_print(torch, label, fn)
     return counts
@@ -978,7 +1205,7 @@ def phase_stage1(torch, np, dev):
         inputs["ref_image"], inputs["pose_video"][0], inputs["plucker"][0],
         inputs["clip_image"], num_inference_steps=MAIN_STEPS, guidance_scale=3.5,
         generator=torch.Generator(device=dev).manual_seed(14))
-    img_launches = {k: n for k, n in _launch_counts().items() if not k.endswith("_bwd")}
+    img_launches = _launch_counts()
     img, s = out.images, out.seconds
     img_ok = (img.shape == (1, H, W, 3) and bool(np.isfinite(img).all())
               and float(img.min()) >= 0.0 and float(img.max()) <= 1.0
@@ -1040,8 +1267,12 @@ def phase_stage1(torch, np, dev):
 def kernel_line(results, launches):
     """The per-kernel JSON line. ``launches`` is each kernel's count in the
     run of its path (the forward kernels and kernel C: pose2vid; the
-    backward kernels: the stage-2 training path); ``launches_by_path`` has
-    every run's counts."""
+    backward kernels: the stage-2 training path; the wide-head backward and
+    the probe kernels, which no model path runs: the microbench run);
+    ``launches_by_path`` has every run's counts."""
+    paths = {"flash_bwd": "train", "temporal_bwd": "train", "flash_bwd_d512": "microbench",
+             "probe_dmajor": "microbench", "probe_pvt": "microbench",
+             "probe_hbm": "microbench"}
     replaces = {
         "flash_fwd": ("humanvid_tpu/ops/flash_attention.py:172", FLASH_SRC),
         "flash_fwd_d512": ("humanvid_tpu/ops/flash_attention.py:96", FLASH_SRC),
@@ -1050,29 +1281,36 @@ def kernel_line(results, launches):
         "flash_bwd": ("humanvid_tpu/ops/flash_attention.py:415", FLASH_BWD_SRC),
         "temporal_bwd": ("humanvid_tpu/ops/temporal_attention.py:116", TEMPORAL_BWD_SRC),
         "group_norm": ("humanvid_tpu/ops/group_norm.py:52", GN_SRC),
+        # _dkv_kernel (:354) and _dq_kernel (:537), taken for d > 128
+        "flash_bwd_d512": ("humanvid_tpu/ops/flash_attention.py:354", FLASH_BWD_SRC),
+        "probe_dmajor": ("tools/microbench.py:220", DMAJOR_SRC),
+        "probe_pvt": ("tools/microbench.py:405", PVT_SRC),
+        "probe_hbm": ("tools/microbench.py:633", HBM_SRC),
     }
     kernels = []
     for name, (rep, src) in replaces.items():
         rows = [r for r in results if r["kernel"] == name]
         head = rows[0]  # the first case of each kernel is its headline shape
-        path = "train" if name.endswith("_bwd") else "pose2vid"
+        path = paths.get(name, "pose2vid")
         extra = {}
         if name == "flash_bwd":
             extra = dict(also_replaces="humanvid_tpu/ops/flash_attention.py:479",
                          dkv_ms=head["dkv_ms"], dq_ms=head["dq_ms"])
+        elif name == "flash_bwd_d512":
+            extra = dict(also_replaces="humanvid_tpu/ops/flash_attention.py:537",
+                         dkv_ms=head["dkv_ms"], dq_ms=head["dq_ms"],
+                         library_backends=head["library_backends"])
         elif name == "group_norm":  # the statistics kernel and the folded apply
             extra = dict(also_replaces="humanvid_tpu/ops/group_norm.py:145")
         kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=rep, **extra,
-            launches=launches[path].get(name, 0),
-            launches_by_path={p: counts.get(name, 0) for p, counts in launches.items()},
+            name=name, route="cuda", source=src, replaces=rep, path=path, **extra,
+            launches=launches[path][name],
+            launches_by_path={p: counts[name] for p, counts in launches.items()},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             shape=head["shape"],
-            shapes=[{k: r[k] for k in ("shape", "max_abs_err", "rel_l2", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms", "dkv_ms", "dq_ms")
-                      if k in r} for r in rows]))
+            shapes=[{k: v for k, v in r.items() if k not in ("kernel", "ok")} for r in rows]))
     return json.dumps({"kernels": kernels})
 
 
@@ -1098,6 +1336,7 @@ def main() -> int:
     phase_flash_bwd(torch, results, dev, flash_bwd_cases())
     phase_temporal_bwd(torch, results, dev, temporal_bwd_cases())
     phase_group_norm(torch, results, dev, group_norm_cases())
+    phase_probes(torch, results, dev)
     ok = all(r["ok"] for r in results)
     ok = phase_group_norm_grad(torch, dev) and ok
     ok = phase_tiny_reference(torch, np, dev) and ok
@@ -1116,9 +1355,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     stage1_ok, stage1_launches = phase_stage1(torch, np, dev)
     ok = ok and stage1_ok
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_ok, bench_launches = phase_microbench(torch)
+    ok = ok and bench_ok
     print(kernel_line(results, {"pose2vid": main_launches, "train": train_launches,
                                 **stage1_launches, "denoise_step": per_call["denoise step"],
-                                "decode": per_call["decode"]}))
+                                "decode": per_call["decode"], "microbench": bench_launches}))
     print(card)
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)

@@ -6,7 +6,8 @@ JAX package's module layout (``ops/``, ``models/``, ``diffusion/``,
 the pipelines take and return the JAX package's channel-last arrays. The
 attention and GroupNorm kernels are hand-written CUDA (``csrc/``), built
 with ``nvcc`` at first use; on CPU tensors every kernel runs its plain
-PyTorch version.
+PyTorch version. ``tools/`` holds the kernel-level measurements
+(``python -m humanvid_tpu_torch.tools.microbench``) and their probe kernels.
 
 Entry points: :class:`pipelines.CamAnimate`,
 :class:`pipelines.Pose2VideoPipeline`, :class:`pipelines.Pose2ImagePipeline`

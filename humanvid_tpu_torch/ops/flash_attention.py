@@ -12,8 +12,9 @@ On a CUDA tensor it launches the hand-written kernel in
 
 The gradient (:class:`FlashAttention`, an autograd Function) recomputes the
 probabilities from the forward's ``lse``: on a CUDA tensor through the
-dk/dv and dq kernels of ``csrc/flash_attention_bwd.cu`` (d <= 80 only), on
-a CPU tensor through :func:`flash_attention_backward_plain`.
+dk/dv and dq kernels of ``csrc/flash_attention_bwd.cu`` (the head widths of
+the forward: d <= 80, and d = 512 in 128-column chunks), on a CPU tensor
+through :func:`flash_attention_backward_plain`.
 """
 
 from __future__ import annotations
@@ -25,10 +26,11 @@ import torch
 
 from . import cuda_build
 
-# Launches of the CUDA kernels: the forward by head-width class, "d<=128"
-# (the UNet's heads) and "d>128" (the VAE's single 512-wide head), and the
+# Launches of the CUDA kernels by head-width class, "d<=128" (the UNet's
+# heads) and "d>128" (the VAE's single 512-wide head): the forward and the
 # backward's two kernels.
-launches = {"d<=128": 0, "d>128": 0, "bwd_dkv": 0, "bwd_dq": 0}
+launches = {"d<=128": 0, "d>128": 0, "bwd_dkv": 0, "bwd_dq": 0,
+            "bwd_dkv_d>128": 0, "bwd_dq_d>128": 0}
 
 
 def reset_launches() -> None:
@@ -150,6 +152,9 @@ def flash_attention_backward_cuda(q, k, v, key_bias, g, lse, delta, heads: int):
     b, lq, c = q.shape
     lk = k.shape[1]
     d = c // heads
+    if d % 8 or (d > 80 and d != 512):
+        raise ValueError(f"head dim {d} unsupported by the backward kernels: "
+                         f"needs d % 8 == 0 and d <= 80, or d == 512")
     for name, t in (("q", q), ("k", k), ("v", v), ("g", g)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be on q's CUDA device, got {t.device}")
@@ -163,9 +168,6 @@ def flash_attention_backward_cuda(q, k, v, key_bias, g, lse, delta, heads: int):
         if t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous() \
                 or tuple(t.shape) != (b, heads, lq):
             raise ValueError(f"{name} must be contiguous fp32 {(b, heads, lq)} on q's device")
-    if d % 8 or d > 80:
-        raise ValueError(f"head dim {d} unsupported by the backward kernels: "
-                         f"needs d % 8 == 0 and d <= 80")
     if key_bias is not None:
         if key_bias.device != q.device or key_bias.dtype != torch.float32 \
                 or not key_bias.is_contiguous():
@@ -181,15 +183,16 @@ def flash_attention_backward_cuda(q, k, v, key_bias, g, lse, delta, heads: int):
     fn = lib.hv_flash_bwd_dkv
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    wide = "_d>128" if d > 128 else ""
     cuda_build.check(fn(*common, dk.data_ptr(), dv.data_ptr(), b, lq, lk, heads, d, stream),
                      "flash attention dk/dv launch")
-    launches["bwd_dkv"] += 1
+    launches["bwd_dkv" + wide] += 1
     fn = lib.hv_flash_bwd_dq
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     cuda_build.check(fn(*common, dq.data_ptr(), b, lq, lk, heads, d, stream),
                      "flash attention dq launch")
-    launches["bwd_dq"] += 1
+    launches["bwd_dq" + wide] += 1
     return dq, dk, dv
 
 

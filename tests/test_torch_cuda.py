@@ -28,6 +28,11 @@ TEMPORAL_BWD_TOL = (2e-4, 0.2)
 # are held against plain autograd in fp32 (readings 3.2e-3, 0.074).
 GN_TOL = (1.5e-4, 0.1)
 GN_GRAD_TOL = (1e-2, 0.25)
+# The probes: kernel 8 and its plain version both accumulate in fp32 and
+# round once to bf16, so they differ by summation order only (a bf16 ulp
+# here and there); kernel 9 rounds unnormalized probabilities as kernel A
+# does and takes kernel A's limits; kernel 10 is exact.
+DMAJOR_TOL = (4e-3, 0.05)
 
 import numpy as np
 import pytest
@@ -104,6 +109,7 @@ def test_temporal_kernel_matches_plain(b, f, l, c, heads):
     (2, 300, 700, 8, 40, 1),    # ragged, CFG bias on one row, SD's d = 40
     (2, 256, 512, 8, 80, 0),
     (1, 100, 1000, 2, 16, 0),
+    (2, 200, 300, 1, 512, 1),   # the VAE's wide head: ragged, bias on one row
 ])
 def test_flash_backward_kernels_match_plain(b, lq, lk, heads, d, bias_rows):
     from humanvid_tpu_torch.ops import flash_attention as fa
@@ -121,8 +127,11 @@ def test_flash_backward_kernels_match_plain(b, lq, lk, heads, d, bias_rows):
     grads = fa.flash_attention_backward_cuda(*args)
     refs = fa.flash_attention_backward_plain(*args)
     torch.cuda.synchronize()
-    assert fa.launches["bwd_dkv"] == before["bwd_dkv"] + 1
-    assert fa.launches["bwd_dq"] == before["bwd_dq"] + 1
+    wide = "_d>128" if d > 128 else ""
+    assert fa.launches["bwd_dkv" + wide] == before["bwd_dkv" + wide] + 1
+    assert fa.launches["bwd_dq" + wide] == before["bwd_dq" + wide] + 1
+    again = fa.flash_attention_backward_cuda(*args)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))  # no atomics
     for got, ref in zip(grads, refs):
         _assert_close(got, ref, FLASH_BWD_TOL)
     for hidden in grads[1:]:  # dk, dv of the keys the bias hides: exactly zero
@@ -186,9 +195,9 @@ def test_kernels_reject_what_they_do_not_take():
     z = torch.zeros((1, 4, 8, 64), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         ta.temporal_attention(z.transpose(1, 2), z.transpose(1, 2), z.transpose(1, 2), 2)
-    x = torch.zeros((1, 64, 512), device=dev, dtype=torch.bfloat16)
+    x = torch.zeros((1, 64, 256), device=dev, dtype=torch.bfloat16)
     lse = torch.zeros((1, 1, 64), device=dev)
-    with pytest.raises(ValueError):                     # the VAE's d = 512: no backward
+    with pytest.raises(ValueError):                     # d = 256: only d <= 80 or 512
         fa.flash_attention_backward_cuda(x, x, x, None, x, lse, lse, 1)
 
 
@@ -289,3 +298,84 @@ def test_group_norm_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):                     # C % 8 != 0
         gn.group_norm_act(torch.zeros((1, 12, 4, 4), device=dev, dtype=torch.bfloat16),
                           v, v, 4, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm,d", [
+    ("qk_d_on_lanes", 40), ("qk_d_on_sublanes", 40), ("pv_d_on_lanes", 40),
+    ("pv_dmajor_out", 40), ("qk_d_on_lanes", 128), ("qk_d_on_sublanes", 128),
+])
+def test_probe_dmajor_kernel_matches_plain(arm, d):
+    from humanvid_tpu_torch.tools import probe_kernels as pk
+
+    dev = _card()
+    G, lq, lk = 3, 192, 320
+    shapes = {"qk_d_on_lanes": ((lq, d), (lk, d)), "qk_d_on_sublanes": ((d, lq), (d, lk)),
+              "pv_d_on_lanes": ((lq, lk), (lk, d)), "pv_dmajor_out": ((d, lk), (lq, lk))}[arm]
+    a, b = (_randn((G,) + s, i, dev) for i, s in enumerate(shapes))
+    before = pk.launches["probe_dmajor"]
+    out = pk.dmajor(arm, a, b)
+    ref = pk.dmajor_plain(arm, a, b)
+    torch.cuda.synchronize()
+    assert pk.launches["probe_dmajor"] == before + 1
+    assert out.shape == ref.shape
+    _assert_close(out, ref, DMAJOR_TOL)
+    if arm == "pv_d_on_lanes":
+        assert (out[:, :, d:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,heads,d,with_bias", [
+    (2, 300, 700, 8, 40, True),   # ragged, every 7th key hidden
+    (1, 256, 512, 8, 80, False),
+])
+def test_probe_pvt_kernel_matches_plain(b, lq, lk, heads, d, with_bias):
+    from humanvid_tpu_torch.tools import probe_kernels as pk
+
+    dev = _card()
+    q, k, v = (_randn((b, n, heads * d), s, dev) for s, n in enumerate((lq, lk, lk)))
+    bias = None
+    if with_bias:
+        bias = torch.where(torch.arange(lk, device=dev) % 7 == 0, -1e9, 0.0)
+        bias = bias.expand(b, lk).contiguous()
+    before = pk.launches["probe_pvt"]
+    out, lse = pk.pvt(q, k, v, heads, bias)
+    ref, ref_lse = pk.pvt_plain(q, k, v, heads, bias)
+    torch.cuda.synchronize()
+    assert pk.launches["probe_pvt"] == before + 1
+    _assert_close(out, ref, FLASH_TOL)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 37, 29), (8, 64, 128), (5,)])
+def test_probe_hbm_kernel_is_exact(shape):
+    from humanvid_tpu_torch.tools import probe_kernels as pk
+
+    dev = _card()
+    x = (_randn(shape, 0, dev).float() * 4).to(torch.bfloat16)
+    before = pk.launches["probe_hbm"]
+    y = pk.hbm_map(x)
+    torch.cuda.synchronize()
+    assert pk.launches["probe_hbm"] == before + 1
+    assert torch.equal(y, pk.hbm_map_plain(x))
+    assert torch.equal(y, torch.add(x, 0.5))  # bf16(1.0001) is exactly 1.0
+
+
+@pytest.mark.cuda
+def test_probe_kernels_reject_what_they_do_not_take():
+    from humanvid_tpu_torch.tools import probe_kernels as pk
+
+    dev = _card()
+    a = torch.zeros((1, 100, 40), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                     # lq not a multiple of 64
+        pk.dmajor("qk_d_on_lanes", a, a)
+    w = torch.zeros((1, 64, 96), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                     # pv arms: d <= 48
+        pk.dmajor("pv_d_on_lanes", torch.zeros((1, 64, 64), device=dev,
+                                               dtype=torch.bfloat16), w)
+    q = torch.zeros((1, 64, 96), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                     # d = 96 > 80
+        pk.pvt(q, q, q, 1)
+    with pytest.raises(TypeError):                      # fp32 on the card
+        pk.hbm_map(torch.zeros(16, device=dev))

@@ -69,6 +69,7 @@ def test_plain_matches_pallas_interpret(b, lq, lk, heads, d, with_bias):
     (2, 100, 300, 2, 40, True),      # ragged Lq / Lk, d = 40, the CFG bias
     (2, 128, 256, 2, 40, False),
     (1, 64, 96, 3, 16, True),
+    (1, 64, 96, 1, 512, True),       # the VAE's wide head: the straight-layout kernels
 ])
 def test_plain_backward_matches_pallas_vjp(b, lq, lk, heads, d, with_bias):
     q, k, v, bias = _inputs(b, lq, lk, heads, d, with_bias, seed=1)
@@ -124,6 +125,14 @@ def test_cuda_path_raises_without_a_card(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_cuda(torch.from_numpy(q), torch.from_numpy(k),
                                 torch.from_numpy(v), 2)
+    # the backward kernels take the forward's head widths, d <= 80 and d = 512
+    x = torch.zeros((1, 16, 256))
+    lse = torch.zeros((1, 1, 16))
+    with pytest.raises(ValueError, match="head dim 256 unsupported"):
+        fa.flash_attention_backward_cuda(x, x, x, None, x, lse, lse, 1)
+    x = torch.zeros((1, 16, 512))
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_backward_cuda(x, x, x, None, x, lse, lse, 1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)

@@ -1,0 +1,188 @@
+"""The measurement probes (``humanvid_tpu_torch.tools``): the plain versions
+of kernels 8-10 against the JAX functions on the CPU, and the microbench
+tool's registry and entry point. The CUDA kernels are held to the plain
+versions on the card in test_torch_cuda.py.
+
+Kernel 8's arms are nested functions of the JAX tool and cannot be
+imported: each is held to ``jax.lax.dot_general`` with the arm's
+contraction dimensions, stored slice and zero padding, in fp32 (2e-4: only
+the summation order differs). Kernel 9's plain version is held to the JAX
+``_flash_fwd(..., with_lse=True)`` (the Pallas kernel in interpret mode),
+out and log2 LSE, in fp32 at 2e-4 as kernel A's. Kernel 10's plain version
+must equal bf16 ``x * 1.0001 + 0.5`` in ``jnp`` bit for bit.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+import test_torch_helpers  # noqa: F401  (caps torch threads)
+from humanvid_tpu.ops.common import NEG_INF
+from humanvid_tpu.ops.flash_attention import _flash_fwd
+from humanvid_tpu_torch.tools import microbench
+from humanvid_tpu_torch.tools import probe_kernels as pk
+
+ROOT = Path(__file__).resolve().parent.parent
+TOL = 2e-4
+
+
+def _dot(a, b, dims):
+    return jax.lax.dot_general(a, b, (dims, ((), ())), preferred_element_type=jnp.float32)
+
+
+def _jax_arm(arm, a, b, d):
+    """The JAX probe's arm (``tools/microbench.py:259-287``), batched over G."""
+    def one(x, y):
+        if arm == "qk_d_on_lanes":
+            return _dot(x, y, ((1,), (1,)))[:, :128]
+        if arm == "qk_d_on_sublanes":
+            return _dot(x, y, ((0,), (0,)))[:, :128]
+        if arm == "pv_d_on_lanes":
+            return jnp.pad(_dot(x, y, ((1,), (0,))), ((0, 0), (0, 128 - d)))
+        return _dot(x, y, ((1,), (1,)))[:, :1024]
+    return jax.vmap(one)(jnp.asarray(a), jnp.asarray(b))
+
+
+@pytest.mark.parametrize("arm,d", [
+    ("qk_d_on_lanes", 40), ("qk_d_on_sublanes", 40), ("pv_d_on_lanes", 40),
+    ("pv_dmajor_out", 40), ("qk_d_on_lanes", 128),  # the last: the d = 128 control
+])
+def test_dmajor_plain_matches_dot_general(arm, d):
+    G, lq, lk = 2, 64, 256
+    shapes = {"qk_d_on_lanes": ((lq, d), (lk, d)), "qk_d_on_sublanes": ((d, lq), (d, lk)),
+              "pv_d_on_lanes": ((lq, lk), (lk, d)), "pv_dmajor_out": ((d, lk), (lq, lk))}[arm]
+    rng = np.random.default_rng(0)
+    a, b = (rng.normal(size=(G,) + s).astype(np.float32) for s in shapes)
+    ref = np.asarray(_jax_arm(arm, a, b, d))
+    got = pk.dmajor(arm, torch.from_numpy(a), torch.from_numpy(b))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, atol=TOL, rtol=0)
+    if arm == "pv_d_on_lanes":
+        assert (got[:, :, d:] == 0).all()
+
+
+@pytest.mark.parametrize("b,lq,lk,with_bias", [
+    (2, 100, 300, True),    # ragged Lq / Lk, every 7th key hidden
+    (2, 128, 256, False),
+])
+def test_pvt_plain_matches_pallas_interpret(b, lq, lk, with_bias):
+    heads, d = 8, 40
+    rng = np.random.default_rng(1)
+    q, k, v = (rng.normal(size=(b, n, heads * d)).astype(np.float32) for n in (lq, lk, lk))
+    bias = None
+    if with_bias:
+        bias = np.where(np.arange(lk) % 7 == 0, NEG_INF, 0.0).astype(np.float32)
+        bias = np.broadcast_to(bias, (b, lk)).copy()
+    with pltpu.force_tpu_interpret_mode():
+        ref_out, ref_lse = _flash_fwd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            None if bias is None else jnp.asarray(bias), heads,
+            block_q=128, block_kv=128, with_lse=True)
+    out, lse = pk.pvt(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), heads,
+                      None if bias is None else torch.from_numpy(bias))
+    assert out.shape == (b, lq, heads * d) and lse.shape == (b, heads, lq)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=TOL, rtol=0)
+    # both keep the log-sum-exp in log2 units
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=TOL, rtol=0)
+
+
+def test_pvt_prescale_rounds_as_jax():
+    """In bf16 the scale folded into q rounds as the JAX probe's does: the
+    constant to bf16, then the product to bf16, bit for bit."""
+    heads, d = 8, 40
+    x = np.random.default_rng(2).normal(size=(2, 64, heads * d)).astype(np.float32)
+    xq = jnp.asarray(x, jnp.bfloat16)
+    ref = (xq * xq.dtype.type(d ** -0.5 * pk.LOG2E)).astype(xq.dtype)
+    got = pk._prescale(torch.from_numpy(x).to(torch.bfloat16), heads)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  np.asarray(ref).view(np.int16))
+
+
+def test_hbm_plain_matches_jnp_bit_for_bit():
+    x = (np.random.default_rng(3).normal(size=(4, 37, 29, 8)) * 4).astype(np.float32)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    ref = np.asarray(jax.jit(lambda t: t * 1.0001 + 0.5)(xj)).view(np.int16)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    got = pk.hbm_map(xt)
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(), ref)
+    np.testing.assert_array_equal(np.asarray(xj * 1.0001 + 0.5).view(np.int16), ref)
+    # the trap: keeping 1.0001 in fp32 through one rounding gives other bits
+    fused = (xt.float() * 1.0001 + 0.5).to(torch.bfloat16)
+    assert not torch.equal(fused, got)
+
+
+def _jax_probe_names():
+    """The keys of ``PROBES`` in the JAX tool, read without importing it."""
+    tree = ast.parse((ROOT / "tools" / "microbench.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "PROBES" for t in node.targets):
+            return {k.value for k in node.value.keys}
+    raise AssertionError("no PROBES in tools/microbench.py")
+
+
+def test_probe_registry_is_the_jax_one_less_what_is_left_behind():
+    jax_names = _jax_probe_names()
+    assert len(jax_names) == 13
+    assert set(microbench.PROBES) == jax_names - set(microbench.LEFT_BEHIND)
+    assert set(microbench.DEFAULT_PROBES) <= set(microbench.PROBES)
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    for name in microbench.LEFT_BEHIND:  # each is listed with its reason
+        assert f"`{name}`" in roadmap
+
+
+def test_entry_point_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        microbench.main(["hbm"])
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        microbench.run(["pvt"])
+    with pytest.raises(SystemExit):  # an unknown probe is refused before anything runs
+        microbench.main(["flash_sweep"])
+
+
+def test_cpu_tensors_never_launch():
+    rng = np.random.default_rng(4)
+    before = dict(pk.launches)
+    a, b = (torch.from_numpy(rng.normal(size=(1, 64, 128)).astype(np.float32)) for _ in range(2))
+    pk.dmajor("qk_d_on_lanes", a, b)
+    q = torch.from_numpy(rng.normal(size=(1, 10, 16)).astype(np.float32))
+    pk.pvt(q, q, q, 2)
+    pk.hbm_map(q.to(torch.bfloat16))
+    assert pk.launches == before
+    for call in (lambda: pk.dmajor_cuda("qk_d_on_lanes", a, b),
+                 lambda: pk.pvt_cuda(q.to(torch.bfloat16), q.to(torch.bfloat16),
+                                     q.to(torch.bfloat16), 2),
+                 lambda: pk.hbm_map_cuda(q.to(torch.bfloat16))):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert pk.launches == before
+
+
+def test_tools_import_nothing_of_jax_or_the_jax_tools():
+    """The port's tools import with jax, flax, humanvid_tpu and the JAX
+    package's ``tools`` made unimportable, and load none of them."""
+    blocked = ("jax", "jaxlib", "flax", "humanvid_tpu", "tools")
+    code = (
+        "import sys\n"
+        f"for name in {blocked!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import humanvid_tpu_torch.tools.microbench, humanvid_tpu_torch.tools.probe_kernels\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{blocked!r} and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr
