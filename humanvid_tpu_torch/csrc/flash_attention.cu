@@ -1,8 +1,8 @@
-// Flash attention forward, packed heads, bf16, for Hopper (sm_90a).
+// Flash attention forward, packed heads, bf16, for Hopper (sm_90a): kernel A.
 //
 // Replaces: humanvid_tpu/ops/flash_attention.py, the Pallas kernels
-// `_fwd_kernel_t` (d + 1 <= 128) and `_fwd_kernel` (wide heads), both
-// launched by `_flash_fwd`.
+// `_fwd_kernel_t` (:172, d + 1 <= 128) and `_fwd_kernel` (:96, wide heads),
+// both launched by `_flash_fwd` (:323).
 //
 // Computes, for each batch row b and head h,
 //   out_h = softmax(q_h k_h^T * d^-1/2 + bias[b]) v_h
@@ -12,145 +12,293 @@
 // The optional bias is fp32 (B, Lk), additive per key (the CFG reference-KV
 // disable uses -1e9). The kernel also writes the per-(row, head)
 // log-sum-exp (B, heads, Lq) in fp32, in NATURAL-log units (the JAX kernel
-// keeps log2 units), for a later backward.
+// keeps log2 units), which the backward kernels recompute p from.
 //
-// What bounds it on the H100: at the UNet shapes (d = 40/80, Lk up to
-// 12288) a level-0 call is ~2.3 TFLOP against ~0.1 GB of traffic, and the
-// VAE's single d = 512 head is ~0.6 TFLOP against ~0.2 GB: the tensor cores
-// bound both, provided the logits never touch device memory.
+// What bounds it on the H100: a call is 4*Lq*Lk*d tensor-core operations
+// against one read of q, k and v (level 0: 2.3 TFLOP, ~0.1 GB; the VAE's
+// d = 512 head: 0.6 TFLOP, 0.2 GB), so the tensor cores bound it on paper.
+// At d = 40, though, a logit is only 176 flops of products (48 + 40 deep)
+// against ~5 instructions of softmax (max, FMA, exp2, sum, half a bf16
+// pack): the consumer warps' instruction issue comes first. At d = 80 the
+// K/V loads (16-byte TMA boxes, below) come first.
 //
-// The simple design (FlashAttention-2 without the Hopper-only parts): one
-// block of 4 warps per (64-row q tile, head, v-column chunk, batch row);
-// each warp owns 16 query rows, so the online-softmax statistics of a row
-// live in the registers of the 4 lanes that hold it and no block-wide
-// reduction is needed. A loop over 64-key tiles loads K, V and the per-key
-// bias into shared memory with 16-byte loads, computes S = Q K^T with
-// `mma.sync.m16n8k16` (bf16 in, fp32 accumulate; operands via `ldmatrix`),
-// scales S in fp32 (the JAX kernel folds scale*log2e into bf16 q), takes
-// the online softmax in the log2 domain on the accumulator registers,
-// re-packs P as bf16 A-operands and accumulates O += P V in registers.
-// Head dims that are not a multiple of the MMA depth 16 (SD's d = 40) are
-// zero-padded to DQK in shared memory; ragged Lq / Lk are masked in the
-// kernel (padded rows are not stored, padded keys get -inf). A 512-wide
-// head's fp32 output accumulator does not fit the registers, so such heads
-// split the v/out columns into 128-wide chunks over blocks that each
-// recompute the logits: same template, a different DV. No wgmma, TMA or
-// cp.async pipelining yet: that is the work of a later, faster version.
+// Design (FlashAttention-3's shape, without its ping-pong scheduling).
+// A block is 1 producer warpgroup and NC consumer warpgroups that run
+// `wgmma`; the producer's first warp keeps TMA loads of K, V and the
+// per-key bias in flight into a ring of stages (full/empty mbarrier
+// pairs), and `setmaxnreg` moves its registers to the consumers. Per key
+// tile a consumer warpgroup computes
+//   S = Q K^T        wgmma, A = Q and B = K from shared memory, K-major;
+//   softmax          in the log2 domain on the fp32 accumulators: one FMA
+//                    folds scale*log2(e) with the bias (or with the running
+//                    max when there is none), row maxima over the 4 lanes of
+//                    a quad; O is rescaled only in warps where a max moved;
+//   O += P V         wgmma, A = P from registers (S's accumulators repacked
+//                    as bf16: they are the A fragment), B = V from shared
+//                    memory, MN-major (keys contracted, d contiguous);
+// then releases the stage. The warpgroups overlap one another: while one
+// runs its softmax, the others' products use the tensor cores. Keys >= Lk
+// get -inf through the bias tile (TMA fills them with zeros, which would
+// give s = 0), rows >= Lq are not stored. No atomics: the same inputs give
+// the same bits.
+//
+// Tiles and layouts, per head width:
+//   d <= 80 (Cfg<48, 40> for d <= 40, Cfg<80, 80> up to 80): 3 consumer
+//     warpgroups own 64 query rows each (BQ = 192) and share each 128-key
+//     tile (BK = 128); 3 stages; 160 registers a consumer thread, 24 in the
+//     producer. Every tile uses the no-swizzle layout: TMA boxes of 8
+//     columns x rows (16 bytes a row) land as column slabs [d/8][rows][8],
+//     the interleaved core-matrix layout for Q and K (K-major: LBO =
+//     rows*16, SBO = 128) and for V (MN-major: LBO = 128, SBO = rows*16).
+//     A box is 8 columns wide because a 40- or 80-column head is no
+//     multiple of a swizzle row (64 columns) and a wider box at column h*40
+//     would read the next head's first columns (at the last head, past C).
+//     QK^T's contracted axis is padded to 48 at d = 40 (to 80 below 80):
+//     the pad slabs of Q and of each K stage are zeroed once at the start
+//     and never written by TMA, so the pad reads zeros. PV's N is d (40):
+//     no pad. Shared memory at d = 40: Q 18 KB + 3 x (K 12 + V 10 + bias
+//     0.5) KB = 86.6 KB with the barriers and alignment; at d = 80: 152.6 KB.
+//   d = 512 (Cfg<512, 256, wide>): a 64 x 512 fp32 O is 256 registers a
+//     thread in one warpgroup, so 2 consumer warpgroups take the same 64
+//     query rows and split O's columns, 256 each (128 registers; 240 a
+//     consumer thread). Each computes the full 512-deep S itself: S is
+//     computed twice per query tile (the mma.sync kernel computed it 4
+//     times, once per 128-column chunk), 2*QK + PV = 1.5x the least
+//     product work, and no exchange between the warpgroups. BK = 32 keys,
+//     2 stages. Tiles use the 128-byte swizzle: TMA boxes of 64 columns x
+//     rows (CU_TENSOR_MAP_SWIZZLE_128B) land as [8][rows][64] (K-major Q and
+//     K: SBO = 1024, a 16-deep step moves the start by 32 bytes inside the
+//     row; MN-major V: LBO = rows*128 between 64-column atoms, SBO = 1024
+//     between 8-key atoms). Shared memory: Q 64 KB + 2 x (K 32 + V 32) KB =
+//     192 KB (193.3 KB with the bias, barriers and alignment) of 227 KB.
+// TMA maps are 3-D (C, L, B), so a ragged last tile reads zeros, never the
+// next batch row's keys or queries. They are encoded on the host for each
+// call (cuTensorMapEncodeTiled through the runtime's driver entry point: the
+// library links no libcuda) and passed as __grid_constant__ parameters.
+// `-Xptxas -v` on the H100: no spills at any width (168 registers a thread
+// at launch with 2 consumers, 128 with 3; setmaxnreg sets the rest).
+//
+// Measured on the H100 against other designs (`python -m
+// humanvid_tpu_torch.tools.flash_variants`, PERF.md section 6): 2 consumer
+// warpgroups (BQ = 128) were ~1.2x slower at level 0 and ~1.4x at level 1;
+// one exp2 in 8 on an FMA polynomial, or P's bf16 pack by integer rounding,
+// slower too (the consumers are bound by instruction issue, not by the
+// SFU). FA3's intra-warpgroup overlap (S of tile j+1 issued before PV of
+// tile j) and cp.async loads from the producer warpgroup were slower as
+// well; row sums from a ones column beside V cost the LSE its accuracy.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "warp_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int BQ = 16 * kWarps;  // query rows per block
-constexpr int BK = 64;           // keys per tile
+using namespace hopper;
+
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Copy `rows` rows of `cols` columns (a multiple of 8) starting at `src`
-// (row stride `ld` elements) into a shared tile with row stride `lds`;
-// rows >= valid_rows and columns >= valid_cols are zero.
-__device__ __forceinline__ void load_tile(bf16* dst, int lds, const bf16* src, int ld,
-                                          int rows, int cols, int valid_rows,
-                                          int valid_cols) {
-  const int vecs = cols / 8;
-  for (int e = threadIdx.x; e < rows * vecs; e += kThreads) {
-    const int r = e / vecs;
-    const int c = (e % vecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid_rows && c < valid_cols) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * lds + c) = val;
-  }
+// DQK: QK^T's contracted depth (d padded to 16); DV: the output columns of
+// one consumer warpgroup; WIDE: d = 512, the warpgroups split the columns;
+// NC: consumer warpgroups.
+template <int DQK_, int DV_, bool WIDE_, int NC_>
+struct Cfg {
+  static constexpr int DQK = DQK_;
+  static constexpr int DV = DV_;
+  static constexpr bool WIDE = WIDE_;
+  static constexpr int NC = NC_;
+  static constexpr int THREADS = 128 * (NC + 1);  // + the producer warpgroup
+  // setmaxnreg: the producer's registers go to the consumers
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = NC == 2 ? 240 : 160;
+  static_assert(128 * (PRODUCER_REGS + NC * CONSUMER_REGS) <= 65536, "registers");
+  static constexpr int BQ = WIDE ? 64 : 64 * NC;  // query rows per block
+  static constexpr int BK = WIDE ? 32 : 128;      // keys per stage
+  static constexpr int STAGES = WIDE ? 2 : 3;
+  static constexpr int DVT = WIDE ? DV * NC : DV;  // v columns in a stage
+  static constexpr int CW = WIDE ? 64 : 8;         // columns of one TMA box
+  static constexpr uint32_t LAYOUT = WIDE ? kSwizzle128B : kNoSwizzle;
+  static constexpr int Q_BYTES = BQ * DQK * 2;
+  static constexpr int K_BYTES = BK * DQK * 2;
+  static constexpr int V_BYTES = BK * DVT * 2;
+  // shared memory: Q, K ring, V ring, bias ring, barriers (1024-aligned tiles)
+  static constexpr int OFF_K = Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * K_BYTES;
+  static constexpr int OFF_BIAS = OFF_V + STAGES * V_BYTES;
+  static constexpr int OFF_BAR = OFF_BIAS + STAGES * BK * 4;
+  static constexpr int SMEM = OFF_BAR + (3 * STAGES + 1) * 8 + 1024;  // + alignment
+  static_assert(Q_BYTES % 1024 == 0 && K_BYTES % 1024 == 0 && V_BYTES % 1024 == 0, "");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// Byte offset of the 16-deep step kk of a K-major tile of `rows` rows.
+template <class C>
+__device__ __forceinline__ uint32_t kmajor_step(int kk, int rows) {
+  if constexpr (C::WIDE) return (kk / 4) * rows * 128 + (kk % 4) * 32;
+  else return 2 * kk * rows * 16;
 }
 
-// DQK: head width padded to a multiple of 16 for Q K^T; DV: the v/out
-// columns one block computes (DQK, or a 128-wide chunk of a wide head).
-template <int DQK, int DV>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const float* __restrict__ bias,
-                 bf16* __restrict__ out, float* __restrict__ lse, int Lq, int Lk,
-                 int heads, int d, float scale_log2) {
-  constexpr int LQK = DQK + 8;  // shared row strides (bf16): an odd multiple
-  constexpr int LV = DV + 8;    // of 16 bytes keeps ldmatrix conflict-free
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * LQK;
-  bf16* sV = sK + BK * LQK;
-  float* sB = reinterpret_cast<float*>(sV + BK * LV);
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, const float* __restrict__ bias,
+                 bf16* __restrict__ out, float* __restrict__ lse, int Lq, int Lk, int heads,
+                 int d, float scale_log2) {
+  constexpr int BQ = C::BQ, BK = C::BK, STAGES = C::STAGES, DQK = C::DQK, DV = C::DV;
+  constexpr int NC = C::NC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sQ = smem;
+  unsigned char* sK = smem + C::OFF_K;
+  unsigned char* sV = smem + C::OFF_V;
+  float* sBias = reinterpret_cast<float*>(smem + C::OFF_BIAS);
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);  // K and bias
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty = full_v + STAGES;
+  uint64_t* full_q = empty + STAGES;
 
-  const int warp = threadIdx.x / 32;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
-  const int n_chunks = (d + DV - 1) / DV;
   const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y / n_chunks;
-  const int v0 = (blockIdx.y % n_chunks) * DV;  // first v/out column of the block
+  const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int C = heads * d;
-
-  const bf16* qb = q + ((size_t)b * Lq + q0) * C + (size_t)h * d;
-  const bf16* kb = k + (size_t)b * Lk * C + (size_t)h * d;
-  const bf16* vb = v + (size_t)b * Lk * C + (size_t)h * d + v0;
-
-  load_tile(sQ, LQK, qb, C, BQ, DQK, Lq - q0, d);
-
-  // per-thread state: rows r0 = 16*warp + lane/4 and r0 + 8
-  float o[DV / 8][4];
-#pragma unroll
-  for (int n = 0; n < DV / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_row[2] = {-INFINITY, -INFINITY};
-  float l_row[2] = {0.f, 0.f};  // partial sums over this lane's columns
-
-  const bf16* q_warp = sQ + (16 * warp) * LQK;
+  const int C_all = heads * d;
   const int n_kv = (Lk + BK - 1) / BK;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers of sK/sV/sB are done
-    load_tile(sK, LQK, kb + (size_t)k0 * C, C, BK, DQK, Lk - k0, d);
-    load_tile(sV, LV, vb + (size_t)k0 * C, C, BK, DV, Lk - k0, d - v0);
-    for (int c = threadIdx.x; c < BK; c += kThreads) {
-      const int key = k0 + c;
-      sB[c] = key >= Lk ? -INFINITY
-                        : (bias ? bias[(size_t)b * Lk + key] * kLog2e : 0.f);
-    }
-    __syncthreads();
+  // column boxes of a q/k/v head: d/8 slabs, or 8 swizzled 64-column blocks
+  const int n_box = d / C::CW;
 
-    // S = Q K^T for this warp's 16 rows x 64 keys: 8 n-tiles of 8 keys
-    float s[BK / 8][4];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_k[s], 32);  // the producer warp's lanes (bias writes)
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], 4 * NC);  // one arrival per consumer warp
+    }
+    mbar_init(full_q, 1);
+    fence_barrier_init();
+  }
+  if constexpr (!C::WIDE) {
+    // Trap: the contracted pad (d = 40 -> 48, or d < 80 -> 80) must read
+    // zeros. TMA writes only the d/8 slabs of a head; the pad slabs of Q and
+    // of every K stage are zeroed here once and never written again.
+    for (int s = -1; s < STAGES; ++s) {
+      unsigned char* tile = s < 0 ? sQ : sK + s * C::K_BYTES;
+      const int rows = s < 0 ? BQ : BK;
+      uint4* pad = reinterpret_cast<uint4*>(tile + n_box * rows * 16);
+      const int n = (DQK / 8 - n_box) * rows;
+      for (int i = threadIdx.x; i < n; i += C::THREADS) pad[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (wg == NC) {
+    // ---------------- producer ----------------
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (warp != 0) return;
+    const int col0 = h * d;
+    if (lane == 0) {
+      tma_prefetch_desc(&q_map);
+      tma_prefetch_desc(&k_map);
+      tma_prefetch_desc(&v_map);
+      mbar_arrive_expect_tx(full_q, BQ * n_box * C::CW * 2);
+      for (int i = 0; i < n_box; ++i)
+        tma_load_3d(sQ + i * BQ * C::CW * 2, &q_map, full_q, col0 + i * C::CW, q0, b);
+    }
+    for (int kt = 0; kt < n_kv; ++kt) {
+      const int s = kt % STAGES;
+      const int k0 = kt * BK;
+      mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+      // the bias tile, log2 units; keys >= Lk are masked here
+      for (int c = lane; c < BK; c += 32) {
+        const int key = k0 + c;
+        sBias[s * BK + c] = key >= Lk ? -INFINITY
+                                      : (bias ? bias[(size_t)b * Lk + key] * kLog2e : 0.f);
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full_k[s], BK * n_box * C::CW * 2);
+        for (int i = 0; i < n_box; ++i)
+          tma_load_3d(sK + s * C::K_BYTES + i * BK * C::CW * 2, &k_map, &full_k[s],
+                      col0 + i * C::CW, k0, b);
+        mbar_arrive_expect_tx(&full_v[s], BK * n_box * C::CW * 2);
+        for (int i = 0; i < n_box; ++i)
+          tma_load_3d(sV + s * C::V_BYTES + i * BK * C::CW * 2, &v_map, &full_v[s],
+                      col0 + i * C::CW, k0, b);
+      } else {
+        mbar_arrive(&full_k[s]);
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumers ----------------
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int qoff = C::WIDE ? 0 : 64 * wg;  // this warpgroup's first query row
+  const int voff = C::WIDE ? DV * wg : 0;  // and first v/out column
+  const int g = lane / 4;
+  const int c2 = 2 * (lane % 4);
+
+  // descriptors without their start offsets
+  const uint32_t q_addr = smem_u32(sQ) + (C::WIDE ? 0 : qoff * 16);
+  const uint64_t q_desc =
+      C::WIDE ? gmma_desc(q_addr, 16, 1024, C::LAYOUT) : gmma_desc(q_addr, BQ * 16, 128, C::LAYOUT);
+  const uint64_t k_desc0 = C::WIDE ? gmma_desc(smem_u32(sK), 16, 1024, C::LAYOUT)
+                                   : gmma_desc(smem_u32(sK), BK * 16, 128, C::LAYOUT);
+  const uint32_t v_addr = smem_u32(sV) + (C::WIDE ? (voff / 64) * BK * 128 : 0);
+  const uint64_t v_desc0 = C::WIDE ? gmma_desc(v_addr, BK * 128, 1024, C::LAYOUT)
+                                   : gmma_desc(v_addr, 128, BK * 16, C::LAYOUT);
+
+  float o[DV / 2];
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  float m_row[2] = {-INFINITY, -INFINITY};  // running max, scaled log2 units
+  float l_row[2] = {0.f, 0.f};              // partial sums over this lane's columns
+  const bool has_bias = bias != nullptr;
+
+  mbar_wait(full_q, 0);
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int s = kt % STAGES;
+    const uint32_t parity = (kt / STAGES) & 1;
+    mbar_wait(&full_k[s], parity);
+
+    // S = Q K^T (64 rows x BK keys)
+    float sc[BK / 2];
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DQK / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a, q_warp + (lane % 16) * LQK + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-      for (int jp = 0; jp < BK / 16; ++jp) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, sK + (jp * 16 + (lane % 8) + (lane / 16) * 8) * LQK + kk * 16 +
-                            ((lane / 8) % 2) * 8);
-        mma_bf16(s[2 * jp], a, bk[0], bk[1]);
-        mma_bf16(s[2 * jp + 1], a, bk[2], bk[3]);
-      }
+      WgmmaSS<BK>::run(sc, q_desc + (kmajor_step<C>(kk, BQ) >> 4),
+                       k_desc0 + ((s * C::K_BYTES + kmajor_step<C>(kk, BK)) >> 4), kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
 
-    // online softmax in the log2 domain; element e of tile j is key
-    // 8j + 2*(lane%4) + (e&1) of row r0 + 8*(e>>1)
+    // online softmax, log2 domain, in place: sc[4j + e] (key 8j + c2 +
+    // (e & 1) of row g + 8 * (e >> 1)) becomes p
+    const float* bt = sBias + s * BK;
+    const bool use_bias = has_bias || (kt + 1) * BK > Lk;
     float mx[2] = {-INFINITY, -INFINITY};
+    if (use_bias) {
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
+      for (int j = 0; j < BK / 8; ++j) {
+        const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * j + c2);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = s[j][e] * scale_log2 + sB[8 * j + 2 * (lane % 4) + (e & 1)];
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        for (int e = 0; e < 4; ++e) {
+          sc[4 * j + e] = fmaf(sc[4 * j + e], scale_log2, (e & 1) ? bb.y : bb.x);
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+        }
       }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      mx[0] *= scale_log2;  // scale > 0: the max commutes with it
+      mx[1] *= scale_log2;
     }
     float alpha[2], m_use[2];
 #pragma unroll
@@ -160,44 +308,48 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float m_new = fmaxf(m_row[r], mx[r]);
       // a row whose keys are all masked so far keeps p = 0, alpha = 0
       m_use[r] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[r] = exp2f(m_row[r] - m_use[r]);
+      alpha[r] = fast_exp2(m_row[r] - m_use[r]);
       m_row[r] = m_new;
       l_row[r] *= alpha[r];
     }
+    // the biased logits are scaled already; raw ones take the scale here
+    const float mul = use_bias ? 1.f : scale_log2;
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - m_use[e >> 1]);
-        l_row[e >> 1] += s[j][e];
-      }
+    for (int i = 0; i < BK / 2; ++i) {
+      sc[i] = fast_exp2(fmaf(sc[i], mul, -m_use[(i >> 1) & 1]));
+      l_row[(i >> 1) & 1] += sc[i];
     }
-#pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P V: the S accumulators of key tiles 2t, 2t+1 are exactly the
-    // A-operand fragment of the 16-key step t
+    // P as bf16: n8 blocks 2t and 2t+1 form the A fragment of the 16-key step t
+    uint32_t p[BK / 16][4];
 #pragma unroll
     for (int t = 0; t < BK / 16; ++t) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * t][0], s[2 * t][1]);
-      a[1] = pack_bf16(s[2 * t][2], s[2 * t][3]);
-      a[2] = pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]);
-      a[3] = pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3]);
 #pragma unroll
-      for (int np = 0; np < DV / 16; ++np) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, sV + (t * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LV +
-                                  np * 16 + (lane / 16) * 8);
-        mma_bf16(o[2 * np], a, bv[0], bv[1]);
-        mma_bf16(o[2 * np + 1], a, bv[2], bv[3]);
+      for (int i = 0; i < 4; ++i) p[t][i] = pack_bf16x2(sc[8 * t + 2 * i], sc[8 * t + 2 * i + 1]);
+    }
+    // O *= alpha, in the warps where a row max moved
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
       }
     }
+
+    // O += P V
+    mbar_wait(&full_v[s], parity);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BK / 16; ++t) {
+      const uint32_t step = C::WIDE ? t * 2048 : t * 256;  // 16 keys
+      WgmmaRS<DV>::run(o, p[t], v_desc0 + ((s * C::V_BYTES + step) >> 4));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 
   // finish the row sums across the 4 lanes that share a row, then store
@@ -206,57 +358,98 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
     l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
   }
-  const int row0 = q0 + 16 * warp + lane / 4;
+  const int row0 = q0 + qoff + 16 * warp + g;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= Lq) continue;
     const float inv = 1.f / l_row[r];
-    bf16* orow = out + ((size_t)b * Lq + row) * C + (size_t)h * d + v0;
+    bf16* orow = out + ((size_t)b * Lq + row) * C_all + (size_t)h * d + voff;
 #pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
-      const int col = 8 * n + 2 * (lane % 4);
-      if (v0 + col < d) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-            __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    for (int j = 0; j < DV / 8; ++j) {
+      if (8 * j < d) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c2) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
       }
     }
-    if (v0 == 0 && lane % 4 == 0) {
+    if (voff == 0 && lane % 4 == 0) {
       lse[((size_t)b * heads + h) * Lq + row] = (m_row[r] + log2f(l_row[r])) * kLn2;
     }
   }
 }
 
-template <int DQK, int DV>
-int launch(const void* q, const void* k, const void* v, const void* bias, void* out,
-           void* lse, int B, int Lq, int Lk, int heads, int d, cudaStream_t stream) {
-  const size_t bytes = sizeof(bf16) * ((BQ + BK) * (DQK + 8) + BK * (DV + 8)) +
-                       sizeof(float) * BK;
-  auto kernel = flash_fwd_kernel<DQK, DV>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int n_chunks = (d + DV - 1) / DV;
-  const dim3 grid((Lq + BQ - 1) / BQ, heads * n_chunks, B);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<bf16*>(out), static_cast<float*>(lse), Lq, Lk, heads, d,
-      kLog2e / sqrtf((float)d));
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D map (C, L, B) of a packed bf16 tensor, boxes of `cols` x `rows`.
+int make_map(CUtensorMap* map, const void* ptr, int C, int L, int B, int cols, int rows,
+             bool swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)L * C * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <class C>
+int launch(const void* q, const void* k, const void* v, const void* bias, void* out, void* lse,
+           int B, int Lq, int Lk, int heads, int d, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const int C_all = heads * d;
+  int err = make_map(&maps[0], q, C_all, Lq, B, C::CW, C::BQ, C::WIDE);
+  if (!err) err = make_map(&maps[1], k, C_all, Lk, B, C::CW, C::BK, C::WIDE);
+  if (!err) err = make_map(&maps[2], v, C_all, Lk, B, C::CW, C::BK, C::WIDE);
+  if (err) return err;
+  auto kernel = flash_fwd_kernel<C>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Lq + C::BQ - 1) / C::BQ, heads, B);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      maps[0], maps[1], maps[2],
+      static_cast<const float*>(bias), static_cast<bf16*>(out),
+      static_cast<float*>(lse), Lq, Lk, heads, d, kLog2e / sqrtf((float)d));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Head widths the kernel takes: d a multiple of 8 with d <= 80 (SD's UNet
-// heads, d = 40 and 80, padded to 48 / 80) or d = 512 (the VAE's one head).
+// heads, d = 40 and 80; QK^T's depth padded to 48 / 80) or d = 512 (the
+// VAE's one head).
 extern "C" int hv_flash_fwd(const void* q, const void* k, const void* v,
                             const void* bias, void* out, void* lse, int B,
                             int Lq, int Lk, int heads, int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 0 || d % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (d <= 48) return launch<48, 48>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, s);
-  if (d <= 80) return launch<80, 80>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, s);
-  if (d == 512) return launch<512, 128>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, s);
+  if (d <= 40)
+    return launch<Cfg<48, 40, false, 3>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, s);
+  if (d <= 80)
+    return launch<Cfg<80, 80, false, 3>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, s);
+  if (d == 512)
+    return launch<Cfg<512, 256, true, 2>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -41,10 +41,13 @@ from . import probe_kernels as pk
 
 DEFAULT_PROBES = ("flash", "temporal", "unet", "vae")
 # The JAX tool's block-size sweep over environment variables; kernel A has
-# one tiling (64 x 64), so there is nothing to sweep.
+# one tiling per head width, so there is nothing to sweep.
 LEFT_BEHIND = ("flash_sweep",)
 NEG_INF = -1e9
-TILE = "64x64"  # kernel A's (and kernel 9's) query x key tile
+# query x key tiles: kernel A at d <= 80 and at d = 512; kernel 9
+TILE = "192x128"
+TILE_D512 = "64x32"
+PVT_TILE = "64x64"
 
 
 def _device() -> torch.device:
@@ -297,7 +300,7 @@ def probe_vaeattn(dev, iters):
     sec, dts = _time(plain, iters, 4)
     _emit("vaeattn_chunked_xla", sec, dts, tflops=flops / sec / 1e12)
     sec, dts = _time(lambda: fa.flash_attention_packed(q, k, v, 1), iters, 4)
-    _emit(f"vaeattn_flash_{TILE}", sec, dts, tflops=flops / sec / 1e12)
+    _emit(f"vaeattn_flash_{TILE_D512}", sec, dts, tflops=flops / sec / 1e12)
 
 
 def probe_flash_bwd(dev, iters):
@@ -309,7 +312,7 @@ def probe_flash_bwd(dev, iters):
     gen = torch.Generator(device=dev).manual_seed(0)
     for name, b, h, lq, lk, d, with_bias in (
             (f"flash_fwdbwd_{TILE}", 24, 8, 7168, 14336, 40, True),
-            (f"flash_fwdbwd_vae_d512_{TILE}", 8, 1, 6144, 6144, 512, False)):
+            (f"flash_fwdbwd_vae_d512_{TILE_D512}", 8, 1, 6144, 6144, 512, False)):
         q, k, v = (_randn(gen, (b, n, h * d), dev).requires_grad_() for n in (lq, lk, lk))
         g = _randn(gen, (b, lq, h * d), dev)
         bias = torch.zeros((b, lk), device=dev) if with_bias else None
@@ -351,7 +354,7 @@ def probe_pvt(dev, iters):
     k1, v1 = (_randn(gen, (b1, lk1, c), dev) for _ in range(2))
     flops = 4 * b1 * heads * lq1 * lk1 * d
     for name, op in ((f"cur_{TILE}", lambda: fa.flash_attention_packed(q1, k1, v1, heads)),
-                     (f"pvt_{TILE}", lambda: pk.pvt(q1, k1, v1, heads))):
+                     (f"pvt_{PVT_TILE}", lambda: pk.pvt(q1, k1, v1, heads))):
         sec, dts = _time(op, iters, 10)
         _emit(f"pvt_{name}", sec, dts, tflops=flops / sec / 1e12)
 

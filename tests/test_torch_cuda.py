@@ -68,6 +68,12 @@ def _randn(shape, seed, dev):
     (2, 256, 512, 8, 80, False),
     (1, 100, 1000, 2, 16, False),
     (2, 200, 200, 1, 512, False),  # the VAE's wide head, v columns split
+    (2, 256, 300, 8, 40, False),   # ragged last key tile at a batch boundary
+    (2, 200, 256, 8, 40, False),   # Lq not a multiple of the block's 128 rows
+    (1, 128, 256, 8, 40, False),   # every head: 0-6 sit beside a neighbour, 7 at C
+    (2, 300, 700, 8, 80, True),    # d = 80, ragged, with the bias
+    (2, 200, 300, 1, 512, True),   # d = 512, ragged Lk at a batch boundary, bias
+    (1, 100, 200, 2, 512, False),  # d = 512 at a head offset
 ])
 def test_flash_kernel_matches_plain(b, lq, lk, heads, d, with_bias):
     from humanvid_tpu_torch.ops import flash_attention as fa
@@ -83,8 +89,14 @@ def test_flash_kernel_matches_plain(b, lq, lk, heads, d, with_bias):
     ref, ref_lse = fa.flash_attention_plain(q, k, v, heads, bias)
     torch.cuda.synchronize()
     assert fa.launches["d<=128" if d <= 128 else "d>128"] == before + 1
-    _assert_close(out, ref, FLASH_TOL)
+    # each head on its own: a head that read its neighbour's columns (or
+    # past the last column) fails alone
+    for h in range(heads):
+        cols = slice(h * d, (h + 1) * d)
+        _assert_close(out[..., cols], ref[..., cols], FLASH_TOL)
     assert (lse - ref_lse).abs().max().item() <= 1e-3
+    again, lse_again = fa.flash_attention_packed(q, k, v, heads, bias)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)  # no atomics
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 """The measurement probes (``humanvid_tpu_torch.tools``): the plain versions
-of kernels 8-10 against the JAX functions on the CPU, and the microbench
-tool's registry and entry point. The CUDA kernels are held to the plain
+of kernels 8-10 against the JAX functions on the CPU, the microbench
+tool's registry and entry point, and kernel A's design variants. The CUDA kernels are held to the plain
 versions on the card in test_torch_cuda.py.
 
 Kernel 8's arms are nested functions of the JAX tool and cannot be
@@ -28,7 +28,8 @@ from jax.experimental.pallas import tpu as pltpu
 import test_torch_helpers  # noqa: F401  (caps torch threads)
 from humanvid_tpu.ops.common import NEG_INF
 from humanvid_tpu.ops.flash_attention import _flash_fwd
-from humanvid_tpu_torch.tools import microbench
+from humanvid_tpu_torch.ops import cuda_build
+from humanvid_tpu_torch.tools import flash_variants, microbench
 from humanvid_tpu_torch.tools import probe_kernels as pk
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -141,8 +142,20 @@ def test_probe_registry_is_the_jax_one_less_what_is_left_behind():
         assert f"`{name}`" in roadmap
 
 
+@pytest.mark.parametrize("name", sorted(flash_variants.VARIANTS))
+def test_flash_variant_edits_apply_to_the_kernel_source(name):
+    """Each of kernel A's design variants finds the text of each of its
+    edits exactly once in the committed source, so the tool builds what it
+    names; only ``kernel`` is the source unchanged."""
+    text = flash_variants.variant_source(name)
+    base = (cuda_build.CSRC / "flash_attention.cu").read_text()
+    assert (text == base) == (name == "kernel")
+
+
 def test_entry_point_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.run(["kernel"])
     with pytest.raises(RuntimeError, match="CUDA card"):
         microbench.main(["hbm"])
     with pytest.raises(RuntimeError, match="CUDA card"):
@@ -178,6 +191,7 @@ def test_tools_import_nothing_of_jax_or_the_jax_tools():
         f"for name in {blocked!r}:\n"
         "    sys.modules[name] = None\n"
         "import humanvid_tpu_torch.tools.microbench, humanvid_tpu_torch.tools.probe_kernels\n"
+        "import humanvid_tpu_torch.tools.flash_variants\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{blocked!r} and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
