@@ -7,7 +7,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. card: name and power limit (``nvidia-smi``);
 2. build: compile every CUDA kernel of ``humanvid_tpu_torch/csrc`` with nvcc
-   into ``build/`` (one nvcc per source, all started together);
+   into ``build/`` (one nvcc per source, all started together), and print
+   each kernel's registers and spills and ptxas's wgmma notes;
 3. kernel A (flash attention forward) against its plain PyTorch version at
    the main path's bf16 shapes; the plain version runs on a slice of query
    rows (the full level-0 fp32 logits would be 58 GB) for the error, and on
@@ -28,7 +29,10 @@ The training path (stage 2) adds:
 
 - kernel A bwd: the dk/dv and dq kernels against the plain backward at the
   stage-2 shapes (896x512x24f: level 0 with and without the CFG-dropout
-  bias, level 1); keys hidden by the bias must get exactly zero dk and dv;
+  bias, level 1) and the stage-1 ReferenceNet's level-0 self-attention;
+  keys hidden by the bias must get exactly zero dk and dv, a repeat launch
+  the same bits, and the key tiles passed over as hidden the same bits as
+  the same tiles computed;
 - kernel B bwd: the frame-axis backward at the five stage-2 temporal shapes;
 - tiny train: one uncond and one cond stage-2 step of the tiny config on the
   card (bf16, kernels) and on the CPU (fp32, plain versions), compared;
@@ -183,18 +187,43 @@ def phase_card():
     return out
 
 
+def _ptxas_report(log):
+    """(kernel, what ptxas said) for each entry function of an ``-Xptxas -v``
+    log: its registers with its spill bytes, and ptxas's notes that wgmma
+    was serialized (C7514) or setmaxnreg ignored (C7508)."""
+    import re
+
+    rows, kernel, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = m.group(1)
+        elif "bytes spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            rows.append([kernel, line.split(":", 1)[-1].strip() + "; " + spill])
+        elif "C7514" in line or "C7508" in line:
+            rows.append([kernel, line.strip()])
+    try:  # readable names where the toolchain has c++filt
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) == len(rows):
+        for row, name in zip(rows, names):
+            name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+            row[0] = name.split("(", 1)[0]
+    return rows
+
+
 def phase_build():
     from humanvid_tpu_torch.ops import cuda_build
 
     seconds, logs = cuda_build.build_all()
     print(f"[build] {seconds:.1f} s for {len(logs)} sources")
     for name, log in logs.items():
-        for line in log.splitlines():
-            # registers and spills of each instantiation, and ptxas's notes
-            # that wgmma was serialized (C7514) or setmaxnreg ignored (C7508)
-            if "registers" in line or "spill" in line and "0 bytes spill" not in line \
-                    or "C7514" in line or "C7508" in line:
-                print(f"  {name}: {line.strip()}")
+        for kernel, said in _ptxas_report(log):
+            print(f"  {name}: {kernel}: {said}")
 
 
 def flash_cases():
@@ -305,12 +334,14 @@ def phase_temporal(torch, results, dev, cases):
 
 
 def flash_bwd_cases():
-    """Kernel A's backward at the stage-2 training shapes (896x512x24f):
-    (name, B, Lq, Lk, heads, d, bias rows)."""
+    """Kernel A's backward at the stage-2 training shapes (896x512x24f) and
+    the stage-1 ReferenceNet's: (name, B, Lq, Lk, heads, d, bias rows)."""
     return [
         ("level0 cond (ref KV)", 24, 7168, 14336, 8, 40, 0),
         ("level0 uncond (CFG dropout bias)", 24, 7168, 14336, 8, 40, 24),
         ("level1 cond (ref KV)", 24, 1792, 3584, 8, 80, 0),
+        # stage 1 (896x512, bs 8): the ReferenceNet's level-0 self-attention
+        ("stage1 refnet level0 self", 8, 7168, 7168, 8, 40, 0),
         # the VAE mid block's 512-wide head (no training stage reaches it)
         ("VAE mid 8x(6144x6144) d512", 8, 6144, 6144, 1, 512, 0),
         ("ragged d512 with the bias", 2, 300, 700, 1, 512, 1),
@@ -382,7 +413,10 @@ def _sdpa_backward_by_backend(torch, tensors, g, mask, reps):
 def phase_flash_bwd(torch, results, dev, cases):
     """Kernel A's dk/dv and dq kernels against the plain backward (all q
     rows, through its chunk loop) on the CUDA forward's lse; hidden keys
-    must get exactly zero dk and dv."""
+    must get exactly zero dk and dv, a repeat launch the same bits, and,
+    with the bias, a bias of -0.99e9 (hidden all the same, but above the
+    -1e9 at which whole hidden key tiles are passed over) the same bits;
+    the profiler must see both kernels."""
     from humanvid_tpu_torch.ops import flash_attention as fa
 
     print(f"[kernel A bwd] flash attention dk/dv + dq vs plain backward (bf16; tol: rel L2 "
@@ -411,15 +445,23 @@ def phase_flash_bwd(torch, results, dev, cases):
         errs = [agreement(o, r, FLASH_BWD_TOL) for o, r in zip(grads, refs)]
         ratios = "/".join(f"{e[0] / r.float().pow(2).mean().sqrt().item():.3e}"
                           for e, r in zip(errs, refs))
-        hidden_zero = True
+        hidden_zero, skip_same = True, True
         if bias_rows:
             hidden_zero = all(bool((t[:bias_rows, lk // 2:] == 0).all()) for t in grads[1:])
-        ok = all(e[2] for e in errs) and hidden_zero
+            computed = fa.flash_attention_backward_cuda(
+                q, k, v, torch.where(bias <= -1e9, -0.99e9, bias), *args[4:])
+            skip_same = all(torch.equal(x, y) for x, y in zip(grads, computed))
+            del computed
+        again = fa.flash_attention_backward_cuda(*args)
+        repeat_same = all(torch.equal(x, y) for x, y in zip(grads, again))
+        del again
         ms = time_ms(torch, lambda: fa.flash_attention_backward_cuda(*args), 3)
         keys = (("flash_bwd_dkv_wide_kernel", "flash_bwd_dq_wide_kernel") if wide
                 else ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
         split = _profile_split(torch, lambda: fa.flash_attention_backward_cuda(*args), keys)
         split = dict(zip(("dkv", "dq"), split.values()))
+        ok = (all(e[2] for e in errs) and hidden_zero and skip_same and repeat_same
+              and split["dkv"] > 0 and split["dq"] > 0)
         plain_ms = time_ms(torch, lambda: fa.flash_attention_backward_plain(*args), 1)
         del refs
         torch.cuda.empty_cache()
@@ -445,7 +487,8 @@ def phase_flash_bwd(torch, results, dev, cases):
         print(f"  {name}: B={B} Lq={lq} Lk={lk} heads={heads} d={d} "
               f"rel_l2 dq/dk/dv={errs[0][1]:.3e}/{errs[1][1]:.3e}/{errs[2][1]:.3e} "
               f"max_err/rms dq/dk/dv={ratios} "
-              f"hidden keys zero={hidden_zero} ms={ms:.3f} (dkv {split['dkv']:.3f}"
+              f"hidden keys zero={hidden_zero} repeat same bits={repeat_same} "
+              f"passed-over tiles same bits={skip_same} ms={ms:.3f} (dkv {split['dkv']:.3f}"
               f" + dq {split['dq']:.3f}) plain_ms={plain_ms:.3f} "
               f"library_ms={lib} bound_ms={b_ms:.3f} ({b_by}) "
               f"TFLOP/s={flops / ms / 1e9:.1f} {'ok' if ok else 'FAIL'}")

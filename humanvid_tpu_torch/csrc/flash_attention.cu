@@ -73,8 +73,9 @@
 //     192 KB (193.3 KB with the bias, barriers and alignment) of 227 KB.
 // TMA maps are 3-D (C, L, B), so a ragged last tile reads zeros, never the
 // next batch row's keys or queries. They are encoded on the host for each
-// call (cuTensorMapEncodeTiled through the runtime's driver entry point: the
-// library links no libcuda) and passed as __grid_constant__ parameters.
+// call (`make_map` in hopper.cuh: cuTensorMapEncodeTiled through the
+// runtime's driver entry point, no libcuda) and passed as __grid_constant__
+// parameters.
 // `-Xptxas -v` on the H100: no spills at any width (168 registers a thread
 // at launch with 2 consumers, 128 with 3; setmaxnreg sets the rest).
 //
@@ -87,7 +88,6 @@
 // tile j) and cp.async loads from the producer warpgroup were slower as
 // well; row sums from a ones column beside V cost the LSE its accuracy.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -376,42 +376,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       lse[((size_t)b * heads + h) * Lq + row] = (m_row[r] + log2f(l_row[r])) * kLn2;
     }
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A 3-D map (C, L, B) of a packed bf16 tensor, boxes of `cols` x `rows`.
-int make_map(CUtensorMap* map, const void* ptr, int C, int L, int B, int cols, int rows,
-             bool swizzle) {
-  EncodeTiledFn fn = encode_tiled();
-  if (!fn) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)L * C * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 template <class C>

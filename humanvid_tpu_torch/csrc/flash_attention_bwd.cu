@@ -1,10 +1,10 @@
 // Flash attention backward, packed heads, bf16, for Hopper (sm_90a).
 //
 // Replaces: humanvid_tpu/ops/flash_attention.py, the Pallas kernels
-// `_dkv_kernel_t` (dk/dv) and `_dq_kernel_t` (dq), both launched by
-// `_flash_bwd_kernel` for heads with d <= 128, and the straight-layout
-// `_dkv_kernel` and `_dq_kernel` it takes for d > 128 (here d = 512, the
-// VAE mid block's single head).
+// `_dkv_kernel_t` (:415, dk/dv; `pallas_call` :636) and `_dq_kernel_t`
+// (:479, dq; :673), launched by `_flash_bwd_kernel` for heads with d <= 128,
+// and the straight-layout `_dkv_kernel` (:354) and `_dq_kernel` (:537) it
+// takes for d > 128 (here d = 512, the VAE mid block's single head).
 //
 // Computes the gradient of out_h = softmax(q_h k_h^T * d^-1/2 + bias[b]) v_h
 // (the forward of csrc/flash_attention.cu) given g = dL/dout, the forward's
@@ -20,32 +20,73 @@
 // in every row, hence exactly zero dk and dv.
 //
 // What bounds it on the H100: the five (Lq x Lk x d) products per head
-// (recomputed s, dp, dv, dk, dq; 10 * Lq * Lk * d FLOPs, ~7.9 TFLOP at the
-// stage-2 level-0 shape, ~1.5 TFLOP at the VAE's 8 x 6144 x 6144, d = 512)
-// against ~0.2 GB of q/k/v/out/g/dq/dk/dv/lse/delta traffic: the tensor
-// cores bound it, as long as no (Lq x Lk) matrix ever reaches device memory.
+// (recomputed s, dp, dv, dk, dq; 10 * Lq * Lk * d FLOPs, 7.9 TFLOP or 8.0 ms
+// at the 989 TFLOP/s peak at the stage-2 level-0 shape, d = 40) against
+// ~0.2 GB of device-memory traffic: the tensor cores, on paper. Three more
+// limits sit close to them. With no atomics, each of the two kernels
+// recomputes p, one SFU exp2 per (q, key) pair: at 16 a clock per SM ~5 ms
+// per kernel at level 0, as long as the products at d = 40. Each block
+// streams the other side's tiles from L2 once (Q and G for every key block,
+// K and V for every q block), in boxes of 16- or 32-byte rows. And each
+// consumer's step is a chain (s and dp, then p, then dv / ds, then dk or
+// dq) that only other warpgroups can overlap.
 //
-// The simple design (the FlashAttention-2 split, as in the JAX package, with
-// no atomics, so the result is deterministic): two kernels of 4 warps.
-//   dk/dv: one block per (64-key tile, head, batch row) keeps its K and V
-//     tile in shared memory and loops over every 64-row q tile (the loop
-//     takes the place of the TPU's sequential grid axis); each warp owns 16
-//     keys and works in the transposed orientation, s^T = K Q^T, so that
-//     its keys' dK and dV rows accumulate in its own fp32 registers over
-//     the whole loop and are written once, in bf16.
-//   dq: one block per (64-row q tile, head, batch row) loops over the
-//     64-key tiles; each warp owns 16 q rows and accumulates dQ in
-//     registers.
-// Every product is `mma.sync.m16n8k16` (bf16 in, fp32 accumulate) with
-// operands from `ldmatrix` (`.trans` where the operand is the transpose of
-// what shared memory holds); an accumulator fragment is re-packed in
-// registers as the A operand of the next product. Head widths are
-// zero-padded to 48 or 80 in shared memory and ragged Lq / Lk are masked in
-// the kernel: padded q rows carry zero g and delta and contribute nothing,
-// padded keys get p = 0 in the dq kernel and are not stored by the dk/dv
-// kernel. No wgmma, TMA or cp.async pipelining yet.
+// Design at d <= 80 (the UNet's heads): FlashAttention-3's block shape, two
+// kernels and no atomics. A block is one producer warp (in a warpgroup of
+// its own, whose registers `setmaxnreg` moves to the consumers) and NC
+// consumer warpgroups of 64 rows each that run `wgmma`. The producer loads
+// the block's own two tiles once by TMA and keeps the streamed two tiles of
+// every step in flight in a 3-stage mbarrier ring (full/empty pairs), with
+// per-row words its lanes read from device memory before the stage is free
+// and write beside them.
+//   dk/dv (`flash_bwd_dkv_kernel`): grid (key blocks, heads, B). Each
+//     consumer owns 64 keys of K and V; the ring carries the Q and G tiles
+//     of 64-row q steps, with -lse*log2e and delta of their rows. Per step:
+//       S^T = K Q^T, dP^T = V G^T   wgmma m64n64k16, both operands from
+//                                   shared memory, K-major, depth d padded
+//                                   to 48 / 80;
+//       P^T, dS^T                   on the fp32 accumulators: the key's bias
+//                                   is a register per row, lse and delta
+//                                   vary along N;
+//       dV += P^T G, dK += dS^T Q   wgmma m64n40k16 / m64n80k16 with A = the
+//                                   accumulators packed to bf16 (registers)
+//                                   and B = G / Q from shared memory,
+//                                   MN-major (q rows contracted); dV's
+//                                   product runs while dS^T is computed.
+//     dK * scale and dV are written once, in bf16. NC = 3 at d <= 40 (192
+//     keys a block: 160 registers hold S^T, dP^T, dK, dV and the packed
+//     P^T, dS^T), 2 at d <= 80 (128 keys; 240 registers, 80 of them dK, dV).
+//   dq (`flash_bwd_dq_kernel`): grid (q blocks, heads, B), the forward's
+//     loop with one more product. Each consumer owns 64 q rows of Q and G;
+//     the ring carries 128-key tiles of K and V and the keys' bias in log2
+//     units (keys >= Lk get -inf: TMA's zero fill would give s = 0 and p !=
+//     0). Per tile: S = Q K^T and dP = G V^T (shared-memory operands,
+//     K-major), P and dS (lse and delta per row), dQ += dS K (A from
+//     registers, B = K, MN-major). At d <= 40 3 consumers (192 rows a
+//     block) fit 160 registers by taking dP in two 64-key halves, the
+//     second half's product beside the first half's dQ; at d <= 80 2
+//     consumers take all 128 keys at once.
+// Layouts: a tile is [boxes][rows][box columns]. At d = 40 (and every d not
+// a multiple of 16) TMA boxes of 8 columns land as the no-swizzle
+// core-matrix layout, as in the forward; at d = 48, 64 and 80, boxes of 16
+// columns in the 32-byte swizzle, which halves the box rows TMA fetches (at
+// level 1 the 16-byte rows bounded both kernels). Either layout serves a
+// tile as a K-major and as an MN-major operand. A box reads only its head's
+// columns, so never past C at the last head; the contracted pad boxes are
+// zeroed once. TMA maps are 3-D (C, L, B): rows past L read zeros, never the
+// next batch row. A padded q row reads zero Q and G, and its -lse*log2e is
+// -inf, so its p is exactly 0.
+// Hidden keys: a 128-key tile all of whose keys carry a bias <= -1e9
+// (NEG_INF of ops/attention.py) contributes exactly 0 to every dq, and its
+// dk and dv are exactly 0, as long as every row sees some key (its lse >
+// -5e8, which the kernels check) and |s * scale| < 4e8. Such a dk/dv block
+// writes zeros and returns; the dq producer loads nothing for such a tile
+// and flags it in the ring, and the consumers pass over it. The result is
+// the same bits as computing it. No atomics: the same inputs give the same
+// bits.
 //
-// The wide head (d = 512): a 64 x 512 fp32 accumulator per warp group does
+// The wide head (d = 512), still a simple design on `mma.sync` with
+// operands from `ldmatrix`: a 64 x 512 fp32 accumulator per warp group does
 // not fit the registers, so, as the forward splits its v/out columns, each
 // block owns one 128-column chunk of the gradient it writes (grid axis y is
 // head x chunk). A dk/dv block (64 keys, one chunk) recomputes s^T = K Q^T
@@ -65,9 +106,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "warp_mma.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -159,177 +203,6 @@ __device__ __forceinline__ void store_rows(bf16* dst, int C, const float (&acc)[
       }
     }
   }
-}
-
-// dk/dv: grid (key tiles, heads, B). Element e of accumulator tile j is
-// key row 16*warp + lane/4 + 8*(e>>1) and q column 8j + 2*(lane%4) + (e&1).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const float* __restrict__ bias,
-                     const bf16* __restrict__ g, const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int Lq, int Lk, int heads, int d,
-                     float scale_log2, float scale) {
-  constexpr int LD = D + 8;  // an odd multiple of 16 bytes: ldmatrix conflict-free
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BK * LD;
-  bf16* sQ = sV + BK * LD;
-  bf16* sG = sQ + BQ * LD;
-  float* sL = reinterpret_cast<float*>(sG + BQ * LD);  // lse * log2e per q row
-  float* sD = sL + BQ;                                 // delta per q row
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int C = heads * d;
-  const size_t head = (size_t)h * d;
-  const bf16* qb = q + (size_t)b * Lq * C + head;
-  const bf16* gb = g + (size_t)b * Lq * C + head;
-  const float* lse_b = lse + ((size_t)b * heads + h) * Lq;
-  const float* delta_b = delta + ((size_t)b * heads + h) * Lq;
-
-  load_tile(sK, LD, k + ((size_t)b * Lk + k0) * C + head, C, BK, D, Lk - k0, d);
-  load_tile(sV, LD, v + ((size_t)b * Lk + k0) * C + head, C, BK, D, Lk - k0, d);
-  float key_bias[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + 16 * warp + lane / 4 + 8 * r;
-    key_bias[r] = (bias && key < Lk) ? bias[(size_t)b * Lk + key] * kLog2e : 0.f;
-  }
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  const bf16* k_warp = sK + 16 * warp * LD;
-  const bf16* v_warp = sV + 16 * warp * LD;
-  for (int q0 = 0; q0 < Lq; q0 += BQ) {
-    __syncthreads();  // the previous tile's readers of sQ/sG/sL/sD are done
-    load_tile(sQ, LD, qb + (size_t)q0 * C, C, BQ, D, Lq - q0, d);
-    load_tile(sG, LD, gb + (size_t)q0 * C, C, BQ, D, Lq - q0, d);
-    for (int c = threadIdx.x; c < BQ; c += kThreads) {
-      const bool valid = q0 + c < Lq;
-      sL[c] = valid ? lse_b[q0 + c] * kLog2e : 0.f;
-      sD[c] = valid ? delta_b[q0 + c] : 0.f;
-    }
-    __syncthreads();
-
-    // p^T = exp2(s^T * scale*log2e + bias*log2e - lse*log2e), s^T = K Q^T
-    float p[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
-    rows_by_rows<D>(p, k_warp, sQ, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        p[j][e] = exp2f(p[j][e] * scale_log2 + key_bias[e >> 1] -
-                        sL[8 * j + 2 * (lane % 4) + (e & 1)]);
-
-    frag_by_tile<D>(dv_acc, p, sG, lane);  // dV += P^T G
-
-    // ds^T = p^T * (dp^T - delta), dp^T = V G^T
-    float ds[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) ds[j][0] = ds[j][1] = ds[j][2] = ds[j][3] = 0.f;
-    rows_by_rows<D>(ds, v_warp, sG, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[j][e] = p[j][e] * (ds[j][e] - sD[8 * j + 2 * (lane % 4) + (e & 1)]);
-
-    frag_by_tile<D>(dk_acc, ds, sQ, lane);  // dK += dS^T Q
-  }
-
-  store_rows<D>(dk + (size_t)b * Lk * C + head, C, dk_acc, k0 + 16 * warp, Lk, d, scale, lane);
-  store_rows<D>(dv + (size_t)b * Lk * C + head, C, dv_acc, k0 + 16 * warp, Lk, d, 1.f, lane);
-}
-
-// dq: grid (q tiles, heads, B). Element e of accumulator tile j is q row
-// 16*warp + lane/4 + 8*(e>>1) and key column 8j + 2*(lane%4) + (e&1).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const float* __restrict__ bias,
-                    const bf16* __restrict__ g, const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq, int Lq,
-                    int Lk, int heads, int d, float scale_log2, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sG = sQ + BQ * LD;
-  bf16* sK = sG + BQ * LD;
-  bf16* sV = sK + BK * LD;
-  float* sB = reinterpret_cast<float*>(sV + BK * LD);  // bias * log2e per key
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int C = heads * d;
-  const size_t head = (size_t)h * d;
-  const bf16* kb = k + (size_t)b * Lk * C + head;
-  const bf16* vb = v + (size_t)b * Lk * C + head;
-
-  load_tile(sQ, LD, q + ((size_t)b * Lq + q0) * C + head, C, BQ, D, Lq - q0, d);
-  load_tile(sG, LD, g + ((size_t)b * Lq + q0) * C + head, C, BQ, D, Lq - q0, d);
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + 16 * warp + lane / 4 + 8 * r;
-    const size_t at = ((size_t)b * heads + h) * Lq + row;
-    row_lse[r] = row < Lq ? lse[at] * kLog2e : 0.f;
-    row_delta[r] = row < Lq ? delta[at] : 0.f;
-  }
-
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
-
-  const bf16* q_warp = sQ + 16 * warp * LD;
-  const bf16* g_warp = sG + 16 * warp * LD;
-  for (int k0 = 0; k0 < Lk; k0 += BK) {
-    __syncthreads();  // the previous tile's readers of sK/sV/sB are done
-    load_tile(sK, LD, kb + (size_t)k0 * C, C, BK, D, Lk - k0, d);
-    load_tile(sV, LD, vb + (size_t)k0 * C, C, BK, D, Lk - k0, d);
-    for (int c = threadIdx.x; c < BK; c += kThreads) {
-      const int key = k0 + c;
-      sB[c] = key >= Lk ? -INFINITY : (bias ? bias[(size_t)b * Lk + key] * kLog2e : 0.f);
-    }
-    __syncthreads();
-
-    float p[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
-    rows_by_rows<D>(p, q_warp, sK, lane);  // s = Q K^T
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        p[j][e] = exp2f(p[j][e] * scale_log2 + sB[8 * j + 2 * (lane % 4) + (e & 1)] -
-                        row_lse[e >> 1]);
-
-    float ds[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) ds[j][0] = ds[j][1] = ds[j][2] = ds[j][3] = 0.f;
-    rows_by_rows<D>(ds, g_warp, sV, lane);  // dp = G V^T
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - row_delta[e >> 1]);
-
-    frag_by_tile<D>(dq_acc, ds, sK, lane);  // dQ += dS K
-  }
-
-  store_rows<D>(dq + (size_t)b * Lq * C + head, C, dq_acc, q0 + 16 * warp, Lq, d, scale, lane);
 }
 
 // The wide head: K-dim slices of 64 columns streamed through shared memory
@@ -563,65 +436,669 @@ int launch_dq_wide(const void* q, const void* k, const void* v, const void* bias
   return (int)cudaGetLastError();
 }
 
-template <int D>
-size_t tile_bytes() {
-  return sizeof(bf16) * (BQ + BK) * 2 * (D + 8) + sizeof(float) * 2 * BQ;
+// ---- d <= 80: wgmma on a TMA ring ------------------------------------------
+
+constexpr float kHiddenBias = -1e9f;  // NEG_INF of ops/attention.py
+constexpr float kLseFloor = -5e8f;    // a row above it sees some key
+
+// DQK: the contracted depth of s and dp (d padded to 16); DV: the gradient's
+// columns (N of its products); CW: columns of one TMA box, 8 (no swizzle)
+// or 16 (32-byte swizzle); NC: consumer warpgroups, each owning 64 rows of
+// the block (keys for dk/dv, q rows for dq); BS: rows of one streamed step
+// (q rows for dk/dv, keys for dq); DPN: the keys of each dp product of the
+// dq kernel, BS or BS / 2 (dp in two halves, for 3 consumers' registers).
+template <int DQK_, int DV_, int CW_, int NC_, int BS_, int STAGES_, int DPN_ = BS_>
+struct BwdCfg {
+  static constexpr int DQK = DQK_;
+  static constexpr int DV = DV_;
+  static constexpr int CW = CW_;
+  static constexpr int NC = NC_;
+  static constexpr int BS = BS_;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int DPN = DPN_;
+  static_assert(BS % DPN == 0, "dp parts");
+  static_assert((CW == 8 || CW == 16) && DQK % CW == 0 && DV % 8 == 0, "layout");
+  static constexpr uint32_t LAYOUT = CW == 16 ? kSwizzle32B : kNoSwizzle;
+  static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
+      CW == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_NONE;
+  static constexpr int THREADS = 128 * (NC + 1);  // + the producer warpgroup
+  // setmaxnreg: the producer's registers go to the consumers
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = NC == 2 ? 240 : 160;
+  static_assert(128 * (PRODUCER_REGS + NC * CONSUMER_REGS) <= 65536, "registers");
+  static constexpr int BR = 64 * NC;            // rows the block owns
+  static constexpr int R_BYTES = BR * DQK * 2;  // one owned tile (K or V; Q or G)
+  static constexpr int S_BYTES = BS * DQK * 2;  // one streamed tile
+  // shared memory: the two owned tiles, the ring's two streamed tiles, its
+  // 2 * BS words per stage (dk/dv: -lse*log2e and delta of each q row; dq:
+  // each key's bias in log2 units, then the tile's skip flag), barriers,
+  // and for dq -lse*log2e and delta of each of the block's rows
+  static constexpr int OFF_R2 = R_BYTES;
+  static constexpr int OFF_S1 = 2 * R_BYTES;
+  static constexpr int OFF_S2 = OFF_S1 + STAGES * S_BYTES;
+  static constexpr int OFF_W = OFF_S2 + STAGES * S_BYTES;
+  static constexpr int OFF_BAR = OFF_W + STAGES * BS * 8;
+  static constexpr int OFF_ROWS = OFF_BAR + (3 * STAGES + 1) * 8;  // dq: per-row words
+  static constexpr int SMEM = OFF_ROWS + BR * 8 + 1024;             // + alignment
+  static_assert(R_BYTES % 1024 == 0 && S_BYTES % 1024 == 0, "");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// In every thread of the block: whether every x[i], i < n, is <= hi (NaN
+// is not). A block-wide barrier.
+__device__ __forceinline__ bool block_all_le(const float* x, int n, float hi) {
+  int ok = 1;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) ok &= x[i] <= hi;
+  return __syncthreads_and(ok);
 }
 
-template <int D>
+// The same for x[i] > lo.
+__device__ __forceinline__ bool block_all_gt(const float* x, int n, float lo) {
+  int ok = 1;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) ok &= x[i] > lo;
+  return __syncthreads_and(ok);
+}
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                          ~uintptr_t(1023));
+}
+
+// Barriers and the contracted pad: TMA writes only the n_box boxes of a
+// head, so the pad boxes (d = 40 -> 48, d < 80 -> 80) of every tile are
+// zeroed here once and never written again. Ends in a block-wide barrier.
+template <class C>
+__device__ __forceinline__ void init_block(unsigned char* smem, int n_box) {
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&bar[s], 32);                     // full_a: the producer's lanes + tx
+      mbar_init(&bar[C::STAGES + s], 1);          // full_b: tx
+      mbar_init(&bar[2 * C::STAGES + s], 4 * C::NC);  // empty: one per consumer warp
+    }
+    mbar_init(&bar[3 * C::STAGES], 1);  // the owned tiles
+    fence_barrier_init();
+  }
+  for (int t = 0; t < 2 + 2 * C::STAGES; ++t) {
+    const bool owned = t < 2;
+    const int rows = owned ? C::BR : C::BS;
+    unsigned char* tile = smem + (owned ? t * C::R_BYTES : C::OFF_S1 + (t - 2) * C::S_BYTES);
+    uint4* pad = reinterpret_cast<uint4*>(tile + n_box * rows * C::CW * 2);
+    const int n = (C::DQK / C::CW - n_box) * rows * C::CW / 8;
+    for (int i = threadIdx.x; i < n; i += C::THREADS) pad[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_proxy_async();
+  __syncthreads();
+}
+
+// A lane's share of a step's words: row or key lane + 32 i.
+template <int N>
+struct LaneWords {
+  float a[N], b[N];
+};
+
+// The producer warp: the block's two owned tiles (rows r0.., from r1/r2)
+// once, then for every step the two streamed tiles (rows step * BS.., from
+// s1/s2) into the ring. `fetch(step)` reads a lane's share of the step's
+// words from device memory before the stage is free, so that the read's
+// latency passes while the producer waits; `put(s, step, words)` writes
+// them into stage s and returns whether the step is skipped: then nothing
+// is loaded and the consumers find the flag.
+template <class C, class Fetch, class Put>
+__device__ __forceinline__ void produce(const CUtensorMap* r1, const CUtensorMap* r2,
+                                        const CUtensorMap* s1, const CUtensorMap* s2,
+                                        unsigned char* smem, int col0, int r0, int b,
+                                        int n_box, int n_steps, int lane, Fetch fetch,
+                                        Put put) {
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* full_b = full_a + C::STAGES;
+  uint64_t* empty = full_b + C::STAGES;
+  uint64_t* full_r = empty + C::STAGES;
+  if (lane == 0) {
+    tma_prefetch_desc(r1);
+    tma_prefetch_desc(r2);
+    tma_prefetch_desc(s1);
+    tma_prefetch_desc(s2);
+    mbar_arrive_expect_tx(full_r, 2 * C::BR * n_box * C::CW * 2);
+    for (int i = 0; i < n_box; ++i) {
+      tma_load_3d(smem + i * C::BR * C::CW * 2, r1, full_r, col0 + C::CW * i, r0, b);
+      tma_load_3d(smem + C::OFF_R2 + i * C::BR * C::CW * 2, r2, full_r, col0 + C::CW * i, r0,
+                  b);
+    }
+  }
+  for (int step = 0; step < n_steps; ++step) {
+    const int s = step % C::STAGES;
+    const LaneWords<C::BS / 32> w = fetch(step);
+    mbar_wait(&empty[s], ((step / C::STAGES) & 1) ^ 1);
+    const bool skip = put(s, step, w);
+    if (lane == 0) {
+      if (skip) {
+        mbar_arrive(&full_a[s]);
+        mbar_arrive(&full_b[s]);
+        continue;
+      }
+      unsigned char* t1 = smem + C::OFF_S1 + s * C::S_BYTES;
+      unsigned char* t2 = smem + C::OFF_S2 + s * C::S_BYTES;
+      const int bytes = C::BS * C::CW * 2;  // one box
+      mbar_arrive_expect_tx(&full_a[s], n_box * bytes);
+      for (int i = 0; i < n_box; ++i)
+        tma_load_3d(t1 + i * bytes, s1, &full_a[s], col0 + C::CW * i, step * C::BS, b);
+      mbar_arrive_expect_tx(&full_b[s], n_box * bytes);
+      for (int i = 0; i < n_box; ++i)
+        tma_load_3d(t2 + i * bytes, s2, &full_b[s], col0 + C::CW * i, step * C::BS, b);
+    } else {
+      mbar_arrive(&full_a[s]);
+    }
+  }
+}
+
+// Store this warp's rows (row0 + lane/4, +8) of a 64 x DV accumulator of
+// one head as bf16, times `mul`, skipping rows >= valid_rows and columns >= d.
+template <int DV>
+__device__ __forceinline__ void store_acc(bf16* dst, int C_all, const float (&acc)[DV / 2],
+                                          int row0, int valid_rows, int d, float mul,
+                                          int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + lane / 4 + 8 * r;
+    if (row >= valid_rows) continue;
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      if (col < d) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * C_all + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+      }
+    }
+  }
+}
+
+// Tiles are [DQK / CW boxes][rows][CW]: a box of CW columns lands as one
+// slab of 8-row atoms (core matrices without swizzle, 32-byte-swizzled
+// atoms with it). A 16-deep step of a K-major operand starts kk * rows * 32
+// bytes in; a 16-row step of an MN-major one t * 32 * CW bytes in.
+
+// K-major operand (rows along M/N, the contracted d along K): 64 rows from
+// row r0 of a tile of `rows` rows.
+template <class C>
+__device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile, int rows, int r0) {
+  const uint32_t addr = smem_u32(tile) + r0 * C::CW * 2;
+  if constexpr (C::CW == 16) return gmma_desc(addr, 16, 256, C::LAYOUT);
+  else return gmma_desc(addr, rows * 16, 128, C::LAYOUT);
+}
+
+// MN-major operand (the tile's rows contracted, its d columns along N).
+template <class C>
+__device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile, int rows) {
+  if constexpr (C::CW == 16) return gmma_desc(smem_u32(tile), rows * 32, 256, C::LAYOUT);
+  else return gmma_desc(smem_u32(tile), 128, rows * 16, C::LAYOUT);
+}
+
+// acc (64 x N) = A B^T over the contracted depth, A the owned tile's 64
+// rows (a_desc, a tile of BR rows), B N rows of the streamed tile (b_desc,
+// a tile of BS rows).
+template <class C, int N>
+__device__ __forceinline__ void product_ab(float (&acc)[N / 2], uint64_t a_desc,
+                                           uint64_t b_desc) {
+#pragma unroll
+  for (int kk = 0; kk < C::DQK / 16; ++kk)
+    WgmmaSS<N>::run(acc, a_desc + ((kk * C::BR * 32) >> 4), b_desc + ((kk * C::BS * 32) >> 4),
+                    kk > 0);
+}
+
+// P (or dS) as bf16: the accumulators' n8 blocks 2t and 2t+1 form the A
+// fragment of the 16-deep step t.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int t = 0; t < N / 16; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[t][i] = pack_bf16x2(x[8 * t + 2 * i], x[8 * t + 2 * i + 1]);
+}
+
+// dk/dv: grid (key blocks of BR, heads, B). Accumulator element 4j + e of a
+// consumer is key 16 * warp + lane/4 + 8 * (e >> 1) of its 64 and column
+// 8j + 2 * (lane % 4) + (e & 1): a q row of the step for S^T, P^T, dP^T,
+// dS^T; a head column for dK, dV.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap g_map, const float* __restrict__ bias,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int Lq, int Lk, int heads,
+                     int d, float scale_log2, float scale) {
+  constexpr int BS = C::BS, BR = C::BR, DV = C::DV, STAGES = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int k0 = blockIdx.x * BR;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int C_all = heads * d;
+  const int n_box = d / C::CW;
+  const float* lse_bh = lse + ((size_t)b * heads + h) * Lq;
+  const float* delta_bh = delta + ((size_t)b * heads + h) * Lq;
+
+  if (bias != nullptr && block_all_le(bias + (size_t)b * Lk + k0, min(BR, Lk - k0), kHiddenBias) &&
+      block_all_gt(lse_bh, Lq, kLseFloor)) {
+    // every key of the block hidden from every row: dk = dv = 0 exactly
+    const int vecs = d / 8;
+    const int n = min(BR, Lk - k0) * vecs;
+    for (int i = threadIdx.x; i < n; i += C::THREADS) {
+      const size_t at = ((size_t)b * Lk + k0 + i / vecs) * C_all + (size_t)h * d + 8 * (i % vecs);
+      *reinterpret_cast<uint4*>(dk + at) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(dv + at) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  init_block<C>(smem, n_box);
+  float* words = reinterpret_cast<float*>(smem + C::OFF_W);
+  const int n_q = (Lq + BS - 1) / BS;
+
+  if (wg == C::NC) {
+    // ---------------- producer ----------------
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (warp != 0) return;
+    produce<C>(&k_map, &v_map, &q_map, &g_map, smem, h * d, k0, b, n_box, n_q, lane,
+               [&](int step) {
+                 LaneWords<BS / 32> v;  // -lse*log2e and delta; p = 0 past Lq
+#pragma unroll
+                 for (int i = 0; i < BS / 32; ++i) {
+                   const int row = step * BS + lane + 32 * i;
+                   v.a[i] = row < Lq ? -lse_bh[row] * kLog2e : -INFINITY;
+                   v.b[i] = row < Lq ? delta_bh[row] : 0.f;
+                 }
+                 return v;
+               },
+               [&](int s, int, const LaneWords<BS / 32>& v) {
+                 float* w = words + s * 2 * BS;
+#pragma unroll
+                 for (int i = 0; i < BS / 32; ++i) {
+                   w[lane + 32 * i] = v.a[i];
+                   w[BS + lane + 32 * i] = v.b[i];
+                 }
+                 return false;
+               });
+    return;
+  }
+
+  // ---------------- consumers ----------------
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* full_b = full_a + STAGES;
+  uint64_t* empty = full_b + STAGES;
+  uint64_t* full_r = empty + STAGES;
+  const int roff = 64 * wg;  // this warpgroup's first key of the block
+  const int c2 = 2 * (lane % 4);
+
+  // the bias of this thread's two keys, log2 units; keys >= Lk get p = 0
+  float kb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + roff + 16 * warp + lane / 4 + 8 * r;
+    kb[r] = key >= Lk ? -INFINITY : (bias ? bias[(size_t)b * Lk + key] * kLog2e : 0.f);
+  }
+  const bool use_kb = bias != nullptr || k0 + BR > Lk;
+
+  // descriptors without their stage offsets: K and V as A (K-major), Q and
+  // G as B K-major (s^T, dp^T) and MN-major (dV, dK)
+  const uint64_t k_desc = kmajor_desc<C>(smem, BR, roff);
+  const uint64_t v_desc = kmajor_desc<C>(smem + C::OFF_R2, BR, roff);
+  const uint64_t q_desc = kmajor_desc<C>(smem + C::OFF_S1, BS, 0);
+  const uint64_t g_desc = kmajor_desc<C>(smem + C::OFF_S2, BS, 0);
+  const uint64_t qt_desc = mnmajor_desc<C>(smem + C::OFF_S1, BS);
+  const uint64_t gt_desc = mnmajor_desc<C>(smem + C::OFF_S2, BS);
+
+  float dk_acc[DV / 2], dv_acc[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  mbar_wait(full_r, 0);
+  for (int qt = 0; qt < n_q; ++qt) {
+    const int s = qt % STAGES;
+    const uint32_t parity = (qt / STAGES) & 1;
+    const uint32_t so = s * C::S_BYTES;
+
+    // S^T = K Q^T and dP^T = V G^T (64 keys x BS q rows each)
+    float st[BS / 2], dpt[BS / 2];
+    mbar_wait(&full_a[s], parity);
+    wgmma_fence();
+    product_ab<C, BS>(st, k_desc, q_desc + (so >> 4));
+    wgmma_commit();
+    mbar_wait(&full_b[s], parity);
+    wgmma_fence();
+    product_ab<C, BS>(dpt, v_desc, g_desc + (so >> 4));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(st);
+
+    // P^T = exp2(s^T * scale*log2e + bias*log2e - lse*log2e), in place
+    const float* w = words + s * 2 * BS;
+    if (use_kb) {
+#pragma unroll
+      for (int j = 0; j < BS / 8; ++j) {
+        const float2 nl = *reinterpret_cast<const float2*>(w + 8 * j + c2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          st[4 * j + e] =
+              fast_exp2(fmaf(st[4 * j + e], scale_log2, (e & 1) ? nl.y : nl.x) + kb[e >> 1]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BS / 8; ++j) {
+        const float2 nl = *reinterpret_cast<const float2*>(w + 8 * j + c2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          st[4 * j + e] = fast_exp2(fmaf(st[4 * j + e], scale_log2, (e & 1) ? nl.y : nl.x));
+      }
+    }
+    uint32_t p_a[BS / 16][4];
+    pack_a<BS>(p_a, st);
+
+    // dV += P^T G, running while dS^T is computed
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BS / 16; ++t)
+      WgmmaRS<DV>::run(dv_acc, p_a[t], gt_desc + ((so + t * 32 * C::CW) >> 4));
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T is done
+    fence_regs(dpt);
+
+    // dS^T = P^T * (dP^T - delta), in place
+#pragma unroll
+    for (int j = 0; j < BS / 8; ++j) {
+      const float2 dl = *reinterpret_cast<const float2*>(w + BS + 8 * j + c2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+    }
+    uint32_t ds_a[BS / 16][4];
+    pack_a<BS>(ds_a, dpt);
+
+    // dK += dS^T Q
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BS / 16; ++t)
+      WgmmaRS<DV>::run(dk_acc, ds_a[t], qt_desc + ((so + t * 32 * C::CW) >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(p_a);
+    fence_regs(ds_a);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  const size_t out0 = (size_t)b * Lk * C_all + (size_t)h * d;
+  const int row0 = k0 + roff + 16 * warp;
+  store_acc<DV>(dk + out0, C_all, dk_acc, row0, Lk, d, scale, lane);
+  store_acc<DV>(dv + out0, C_all, dv_acc, row0, Lk, d, 1.f, lane);
+}
+
+// dq: grid (q blocks of BR, heads, B). Accumulator element 4j + e of a
+// consumer is q row 16 * warp + lane/4 + 8 * (e >> 1) of its 64 and column
+// 8j + 2 * (lane % 4) + (e & 1): a key of the tile for S, P, dP, dS; a head
+// column for dQ.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap g_map, const float* __restrict__ bias,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int Lq, int Lk, int heads, int d, float scale_log2,
+                    float scale) {
+  constexpr int BS = C::BS, BR = C::BR, DV = C::DV, STAGES = C::STAGES, DPN = C::DPN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * BR;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int C_all = heads * d;
+  const int n_box = d / C::CW;
+  const float* lse_bh = lse + ((size_t)b * heads + h) * Lq;
+  const float* delta_bh = delta + ((size_t)b * heads + h) * Lq;
+
+  // hidden key tiles may be passed over only if every row of the block sees
+  // some key
+  const bool may_skip =
+      bias != nullptr && block_all_gt(lse_bh + q0, min(BR, Lq - q0), kLseFloor);
+  init_block<C>(smem, n_box);
+  float* words = reinterpret_cast<float*>(smem + C::OFF_W);
+  const int n_kv = (Lk + BS - 1) / BS;
+
+  if (wg == C::NC) {
+    // ---------------- producer ----------------
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (warp != 0) return;
+    const float* bias_b = bias ? bias + (size_t)b * Lk : nullptr;
+    produce<C>(&q_map, &g_map, &k_map, &v_map, smem, h * d, q0, b, n_box, n_kv, lane,
+               [&](int step) {
+                 LaneWords<BS / 32> v;  // the keys' bias
+#pragma unroll
+                 for (int i = 0; i < BS / 32; ++i) {
+                   const int key = step * BS + lane + 32 * i;
+                   v.a[i] = key < Lk && bias_b ? bias_b[key] : 0.f;
+                   v.b[i] = 0.f;
+                 }
+                 return v;
+               },
+               [&](int s, int step, const LaneWords<BS / 32>& v) {
+                 float* w = words + s * 2 * BS;
+                 bool hidden = true;
+#pragma unroll
+                 for (int i = 0; i < BS / 32; ++i) {
+                   const int key = step * BS + lane + 32 * i;
+                   hidden = hidden && (key >= Lk || v.a[i] <= kHiddenBias);
+                   w[lane + 32 * i] = key >= Lk ? -INFINITY : v.a[i] * kLog2e;
+                 }
+                 const bool skip = may_skip && __all_sync(0xffffffffu, hidden);
+                 if (lane == 0) reinterpret_cast<int*>(w)[BS] = skip;
+                 return skip;
+               });
+    return;
+  }
+
+  // ---------------- consumers ----------------
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* full_b = full_a + STAGES;
+  uint64_t* empty = full_b + STAGES;
+  uint64_t* full_r = empty + STAGES;
+  const int roff = 64 * wg;  // this warpgroup's first q row of the block
+  const int c2 = 2 * (lane % 4);
+
+  // -lse*log2e and delta of this thread's two rows (rows >= Lq get p = 0),
+  // kept in shared memory and read in every step: 3 consumers are short of
+  // registers
+  float2* my_rows = reinterpret_cast<float2*>(smem + C::OFF_ROWS) + roff + 16 * warp + lane / 4;
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + roff + 16 * warp + lane / 4 + 8 * r;
+      my_rows[8 * r] = row < Lq ? make_float2(-lse_bh[row] * kLog2e, delta_bh[row])
+                                : make_float2(-INFINITY, 0.f);
+    }
+  }
+  __syncwarp();
+
+  // descriptors without their stage offsets: Q and G as A (K-major), K and
+  // V as B K-major (s, dp), K as B MN-major (dQ)
+  const uint64_t q_desc = kmajor_desc<C>(smem, BR, roff);
+  const uint64_t g_desc = kmajor_desc<C>(smem + C::OFF_R2, BR, roff);
+  const uint64_t k_desc = kmajor_desc<C>(smem + C::OFF_S1, BS, 0);
+  const uint64_t v_desc = kmajor_desc<C>(smem + C::OFF_S2, BS, 0);
+  const uint64_t kt_desc = mnmajor_desc<C>(smem + C::OFF_S1, BS);
+
+  float dq_acc[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dq_acc[i] = 0.f;
+  // the same branch in every step (one that changes from step to step while
+  // dP is in flight makes ptxas serialize the wgmmas)
+  const bool use_bias = bias != nullptr || Lk % BS != 0;
+
+  mbar_wait(full_r, 0);
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int s = kt % STAGES;
+    const uint32_t parity = (kt / STAGES) & 1;
+    const uint32_t so = s * C::S_BYTES;
+    const float* w = words + s * 2 * BS;
+    mbar_wait(&full_a[s], parity);
+    if (may_skip && reinterpret_cast<const int*>(w)[BS]) {  // a hidden tile, not loaded
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      continue;
+    }
+
+    // S = Q K^T and dP = G V^T (64 q rows x BS keys each)
+    // S = Q K^T (64 q rows x BS keys) and dP = G V^T over the first DPN keys
+    float sc[BS / 2], dp[DPN / 2];
+    wgmma_fence();
+    product_ab<C, BS>(sc, q_desc, k_desc + (so >> 4));
+    wgmma_commit();
+    mbar_wait(&full_b[s], parity);
+    wgmma_fence();
+    product_ab<C, DPN>(dp, g_desc, v_desc + (so >> 4));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    // P = exp2(s * scale*log2e + bias*log2e - lse*log2e), in place
+    const float2 row0 = my_rows[0], row1 = my_rows[8];
+    const float nl[2] = {row0.x, row1.x}, dl[2] = {row0.y, row1.y};
+    if (use_bias) {
+#pragma unroll
+      for (int j = 0; j < BS / 8; ++j) {
+        const float2 bb = *reinterpret_cast<const float2*>(w + 8 * j + c2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] =
+              fast_exp2(fmaf(sc[4 * j + e], scale_log2, (e & 1) ? bb.y : bb.x) + nl[e >> 1]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BS / 2; ++i)
+        sc[i] = fast_exp2(fmaf(sc[i], scale_log2, nl[(i >> 1) & 1]));
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+
+    // per part of DPN keys: dS = P * (dP - delta) in place, then dQ += dS K,
+    // beside the next part's dP
+#pragma unroll
+    for (int part = 0; part < BS / DPN; ++part) {
+#pragma unroll
+      for (int i = 0; i < DPN / 2; ++i)
+        dp[i] = sc[part * DPN / 2 + i] * (dp[i] - dl[(i >> 1) & 1]);
+      uint32_t ds_a[DPN / 16][4];
+      pack_a<DPN>(ds_a, dp);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < DPN / 16; ++t)
+        WgmmaRS<DV>::run(dq_acc, ds_a[t],
+                         kt_desc + ((so + (part * DPN / 16 + t) * 32 * C::CW) >> 4));
+      if (part + 1 < BS / DPN)
+        product_ab<C, DPN>(dp, g_desc, v_desc + ((so + (part + 1) * DPN * C::CW * 2) >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq_acc);
+      fence_regs(dp);
+      fence_regs(ds_a);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  store_acc<DV>(dq + (size_t)b * Lq * C_all + (size_t)h * d, C_all, dq_acc,
+                q0 + roff + 16 * warp, Lq, d, scale, lane);
+}
+
+template <class C>
 int launch_dkv(const void* q, const void* k, const void* v, const void* bias, const void* g,
-               const void* lse, const void* delta, void* dk, void* dv, int B, int Lq,
-               int Lk, int heads, int d, cudaStream_t stream) {
-  const size_t bytes = tile_bytes<D>();
-  auto kernel = flash_bwd_dkv_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
+               const void* lse, const void* delta, void* dk, void* dv, int B, int Lq, int Lk,
+               int heads, int d, cudaStream_t stream) {
+  CUtensorMap maps[4];  // q, k, v, g: boxes of a step's q rows or of the block's keys
+  const int C_all = heads * d;
+  int err = make_map(&maps[0], q, C_all, Lq, B, C::CW, C::BS, C::TMA_SWIZZLE);
+  if (!err) err = make_map(&maps[1], k, C_all, Lk, B, C::CW, C::BR, C::TMA_SWIZZLE);
+  if (!err) err = make_map(&maps[2], v, C_all, Lk, B, C::CW, C::BR, C::TMA_SWIZZLE);
+  if (!err) err = make_map(&maps[3], g, C_all, Lq, B, C::CW, C::BS, C::TMA_SWIZZLE);
+  if (err) return err;
+  auto kernel = flash_bwd_dkv_kernel<C>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
   const float scale = 1.f / sqrtf((float)d);
-  const dim3 grid((Lk + BK - 1) / BK, heads, B);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<const bf16*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+  const dim3 grid((Lk + C::BR - 1) / C::BR, heads, B);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(bias),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Lq, Lk, heads, d, scale * kLog2e, scale);
+  return (int)cudaGetLastError();
+}
+
+template <class C>
+int launch_dq(const void* q, const void* k, const void* v, const void* bias, const void* g,
+              const void* lse, const void* delta, void* dq, int B, int Lq, int Lk, int heads,
+              int d, cudaStream_t stream) {
+  CUtensorMap maps[4];  // q, k, v, g: boxes of the block's q rows or of a tile's keys
+  const int C_all = heads * d;
+  int err = make_map(&maps[0], q, C_all, Lq, B, C::CW, C::BR, C::TMA_SWIZZLE);
+  if (!err) err = make_map(&maps[1], k, C_all, Lk, B, C::CW, C::BS, C::TMA_SWIZZLE);
+  if (!err) err = make_map(&maps[2], v, C_all, Lk, B, C::CW, C::BS, C::TMA_SWIZZLE);
+  if (!err) err = make_map(&maps[3], g, C_all, Lq, B, C::CW, C::BR, C::TMA_SWIZZLE);
+  if (err) return err;
+  auto kernel = flash_bwd_dq_kernel<C>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const float scale = 1.f / sqrtf((float)d);
+  const dim3 grid((Lq + C::BR - 1) / C::BR, heads, B);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(bias),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dq),
       Lq, Lk, heads, d, scale * kLog2e, scale);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* bias, const void* g,
-              const void* lse, const void* delta, void* dq, int B, int Lq, int Lk,
-              int heads, int d, cudaStream_t stream) {
-  const size_t bytes = tile_bytes<D>();
-  auto kernel = flash_bwd_dq_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const float scale = 1.f / sqrtf((float)d);
-  const dim3 grid((Lq + BQ - 1) / BQ, heads, B);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<const bf16*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), Lq, Lk, heads, d,
-      scale * kLog2e, scale);
-  return (int)cudaGetLastError();
-}
+// d <= 40 (contracted depth 48, 40 gradient columns) and d <= 80 (80, 80):
+// 64-row q steps for dk/dv (3 consumer warpgroups at d <= 40, where their
+// 160 registers hold S^T, dP^T, dK and dV; 2 at d <= 80), 2 consumers on
+// 128-key tiles for dq. Heads of 48, 64 and 80 take 16-column boxes in the
+// 32-byte swizzle, the others 8-column boxes (a 40-wide head's 80-byte rows
+// do not split into 32-byte boxes).
+using DkvCfg48 = BwdCfg<48, 40, 8, 3, 64, 3>;
+using DkvCfg80 = BwdCfg<80, 80, 8, 2, 64, 3>;
+using DkvCfg80s = BwdCfg<80, 80, 16, 2, 64, 3>;
+using DqCfg48 = BwdCfg<48, 40, 8, 3, 128, 3, 64>;
+using DqCfg80 = BwdCfg<80, 80, 8, 2, 128, 3>;
+using DqCfg80s = BwdCfg<80, 80, 16, 2, 128, 3>;
 
 }  // namespace
 
 // Head widths the kernels take: d a multiple of 8 with d <= 80 (SD's UNet
-// heads, d = 40 and 80, padded to 48 / 80) or d = 512 (the VAE's one head).
+// heads, d = 40 and 80; s and dp contracted over 48 / 80) or d = 512 (the
+// VAE's one head).
 extern "C" int hv_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* bias, const void* g, const void* lse,
                                 const void* delta, void* dk, void* dv, int B, int Lq,
                                 int Lk, int heads, int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 0 || d % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (d <= 48)
-    return launch_dkv<48>(q, k, v, bias, g, lse, delta, dk, dv, B, Lq, Lk, heads, d, s);
+  if (d <= 40)
+    return launch_dkv<DkvCfg48>(q, k, v, bias, g, lse, delta, dk, dv, B, Lq, Lk, heads, d, s);
+  if (d <= 80 && d % 16 == 0)
+    return launch_dkv<DkvCfg80s>(q, k, v, bias, g, lse, delta, dk, dv, B, Lq, Lk, heads, d, s);
   if (d <= 80)
-    return launch_dkv<80>(q, k, v, bias, g, lse, delta, dk, dv, B, Lq, Lk, heads, d, s);
+    return launch_dkv<DkvCfg80>(q, k, v, bias, g, lse, delta, dk, dv, B, Lq, Lk, heads, d, s);
   if (d == 512)
     return launch_dkv_wide(q, k, v, bias, g, lse, delta, dk, dv, B, Lq, Lk, heads, d, s);
   return (int)cudaErrorInvalidValue;
@@ -633,8 +1110,10 @@ extern "C" int hv_flash_bwd_dq(const void* q, const void* k, const void* v,
                                int heads, int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 0 || d % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (d <= 48) return launch_dq<48>(q, k, v, bias, g, lse, delta, dq, B, Lq, Lk, heads, d, s);
-  if (d <= 80) return launch_dq<80>(q, k, v, bias, g, lse, delta, dq, B, Lq, Lk, heads, d, s);
+  if (d <= 40) return launch_dq<DqCfg48>(q, k, v, bias, g, lse, delta, dq, B, Lq, Lk, heads, d, s);
+  if (d <= 80 && d % 16 == 0)
+    return launch_dq<DqCfg80s>(q, k, v, bias, g, lse, delta, dq, B, Lq, Lk, heads, d, s);
+  if (d <= 80) return launch_dq<DqCfg80>(q, k, v, bias, g, lse, delta, dq, B, Lq, Lk, heads, d, s);
   if (d == 512) return launch_dq_wide(q, k, v, bias, g, lse, delta, dq, B, Lq, Lk, heads, d, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,10 @@
 // Hopper-only building blocks (sm_90a) for the attention kernels: mbarriers,
-// TMA tile loads, warpgroup register reallocation and `wgmma`.
+// TMA tile loads, warpgroup register reallocation and `wgmma`, and on the
+// host the encoding of the TMA maps.
 //
 // wgmma shared-memory operands are described by 64-bit matrix descriptors
 // (start address, leading and stride byte offsets, swizzle mode), built over
-// "core matrices" of 8 rows x 16 bytes. Two layouts are used here:
+// "core matrices" of 8 rows x 16 bytes. Three layouts are used here:
 //   - no swizzle (interleaved): each core matrix is 128 contiguous bytes.
 //     K-major operand: LBO = stride between core matrices along K, SBO =
 //     stride between 8-row groups along M/N. MN-major operand: LBO =
@@ -16,6 +17,11 @@
 //     row: the step's start moves by 32 bytes). MN-major: LBO = stride
 //     between 64-column atoms along M/N, SBO = stride between 8-row atoms
 //     along K.
+//   - 32-byte swizzle: the same with rows of 16 bf16 (32 bytes) in 256-byte
+//     atoms of 8 rows, the two 16-byte chunks of row r swapped when r % 8 >=
+//     4 (CU_TENSOR_MAP_SWIZZLE_32B). K-major: a 16-deep step is one whole
+//     row, SBO = 256. MN-major: LBO = stride between 16-column atoms, SBO =
+//     256.
 //
 // Accumulator fragment of m64nNk16 (fp32): warp w of the warpgroup holds rows
 // 16w..16w+15; with g = lane / 4 and c = 2 * (lane % 4), registers
@@ -27,6 +33,8 @@
 // fragment of the next product over those 16 columns.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
+#include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -115,7 +123,7 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 
 // ---- wgmma ---------------------------------------------------------------
 
-enum : uint32_t { kNoSwizzle = 0, kSwizzle128B = 1 };
+enum : uint32_t { kNoSwizzle = 0, kSwizzle128B = 1, kSwizzle32B = 3 };
 
 // Matrix descriptor; byte offsets are multiples of 16.
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t smem_addr, uint32_t lbo, uint32_t sbo,
@@ -145,6 +153,16 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The same for register A fragments: keeps them live, and so unchanged,
+// until this point, while a wgmma issued before it may still read them.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -179,6 +197,25 @@ struct WgmmaSS<32> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
           "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<64> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(scale_d));
   }
 };
@@ -290,5 +327,52 @@ struct WgmmaRS<256> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 };
+
+// ---- host: TMA maps -------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point: the
+// libraries link no libcuda.
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D map (C, L, B) of a packed bf16 tensor, boxes of `cols` x `rows`
+// landing in shared memory with the given swizzle; boxes past L read zeros.
+inline int make_map(CUtensorMap* map, const void* ptr, int C, int L, int B, int cols, int rows,
+                    CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)L * C * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The same, unswizzled or with the 128-byte swizzle.
+inline int make_map(CUtensorMap* map, const void* ptr, int C, int L, int B, int cols, int rows,
+                    bool swizzle128) {
+  return make_map(map, ptr, C, L, B, cols, rows,
+                  swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
+}
 
 }  // namespace hopper

@@ -1,10 +1,19 @@
 """Kernel A's design alternatives, timed on the CUDA card beside the kernel.
 
     python -m humanvid_tpu_torch.tools.flash_variants [variant ...] [--iters N]
+    python -m humanvid_tpu_torch.tools.flash_variants --bwd [variant ...]
+        [--against FILE] [--iters N]
 
 Each variant is ``csrc/flash_attention.cu`` with a few named text edits
 (``VARIANTS``), built by nvcc with the port's flags into ``build/`` and
 called through the same C entry point; ``kernel`` is the source unchanged.
+With ``--bwd`` the variants are those of the backward's source
+``csrc/flash_attention_bwd.cu`` at d <= 80 (``BWD_VARIANTS``, at
+``BWD_SHAPES``): each is held to the plain backward, its dk/dv and dq
+entry points are timed apart in turns, and SDPA's backward beside them;
+``--against FILE`` adds another backward source with the same entry points
+(an earlier commit's, unpacked by ``git archive``) as the variant
+``against``. The ablations drop work, so they are only timed.
 At each of kernel A's main-path shapes (``SHAPES``, those of
 ``chip_smoke.py``) every variant that computes the same function is first
 held to the plain version on 128 query rows (``chip_smoke.py``'s limits);
@@ -22,6 +31,7 @@ import hashlib
 import json
 import subprocess
 import sys
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -93,12 +103,80 @@ VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
     "no_loads_no_softmax": (_NO_LOADS + (_NO_SOFTMAX,), True),
 }
 
+FLASH_BWD_TOL = (1e-3, 0.2)  # chip_smoke.py's limits for each of dq, dk, dv
+# (name, B, Lq, Lk, heads, d, rows whose second half of keys the bias hides):
+# the stage-2 shapes (896x512x24f) and the stage-1 ReferenceNet's
+BWD_SHAPES = (("level0 cond", 24, 7168, 14336, 8, 40, 0),
+              ("level0 uncond", 24, 7168, 14336, 8, 40, 24),
+              ("level1 cond", 24, 1792, 3584, 8, 80, 0),
+              ("refnet level0 self", 8, 7168, 7168, 8, 40, 0))
+_DKV48 = "using DkvCfg48 = BwdCfg<48, 40, 8, 3, 64, 3>;"
+_DKV80 = "using DkvCfg80 = BwdCfg<80, 80, 8, 2, 64, 3>;"
+_DKV80S = "using DkvCfg80s = BwdCfg<80, 80, 16, 2, 64, 3>;"
+_DQ48 = "using DqCfg48 = BwdCfg<48, 40, 8, 3, 128, 3, 64>;"
+_DQ80 = "using DqCfg80 = BwdCfg<80, 80, 8, 2, 128, 3>;"
+_DQ80S = "using DqCfg80s = BwdCfg<80, 80, 16, 2, 128, 3>;"
 
-def variant_source(name: str) -> str:
+
+def _cfg_edits(new: Dict[str, str]) -> Tuple[Edit, ...]:
+    """Edits that replace the named configurations' parameters."""
+    cfgs = {"DkvCfg48": _DKV48, "DkvCfg80": _DKV80, "DkvCfg80s": _DKV80S, "DqCfg48": _DQ48,
+            "DqCfg80": _DQ80, "DqCfg80s": _DQ80S}
+    return tuple((cfgs[n], None, f"using {n} = BwdCfg<{p}>;") for n, p in new.items())
+
+
+BWD_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
+    "kernel": ((), False),
+    # dk/dv at d <= 40: 2 consumer warpgroups (128-key blocks) instead of 3
+    "dkv_two_consumers": (_cfg_edits({"DkvCfg48": "48, 40, 8, 2, 64, 3"}), False),
+    # dq at d <= 40: 2 consumer warpgroups, dp over all 128 keys at once
+    "dq_two_consumers": (_cfg_edits({"DqCfg48": "48, 40, 8, 2, 128, 3"}), False),
+    # dq: 3 consumer warpgroups (192-row blocks) on 64-key tiles
+    "dq_three_consumers_64_keys": (_cfg_edits({"DqCfg48": "48, 40, 8, 3, 64, 3",
+                                               "DqCfg80": "80, 80, 8, 3, 64, 3",
+                                               "DqCfg80s": "80, 80, 16, 3, 64, 3"}), False),
+    # dq: 2 consumer warpgroups on 64-key tiles
+    "dq_64_keys": (_cfg_edits({"DqCfg48": "48, 40, 8, 2, 64, 3",
+                               "DqCfg80": "80, 80, 8, 2, 64, 3",
+                               "DqCfg80s": "80, 80, 16, 2, 64, 3"}), False),
+    # rings of 2 or 4 stages instead of 3
+    "two_stages": (_cfg_edits({"DkvCfg48": "48, 40, 8, 3, 64, 2",
+                               "DkvCfg80": "80, 80, 8, 2, 64, 2",
+                               "DkvCfg80s": "80, 80, 16, 2, 64, 2",
+                               "DqCfg48": "48, 40, 8, 3, 128, 2, 64",
+                               "DqCfg80": "80, 80, 8, 2, 128, 2",
+                               "DqCfg80s": "80, 80, 16, 2, 128, 2"}), False),
+    "four_stages": (_cfg_edits({"DkvCfg48": "48, 40, 8, 3, 64, 4",
+                                "DkvCfg80": "80, 80, 8, 2, 64, 4",
+                                "DkvCfg80s": "80, 80, 16, 2, 64, 4",
+                                "DqCfg48": "48, 40, 8, 3, 128, 4, 64",
+                                "DqCfg80": "80, 80, 8, 2, 128, 4",
+                                "DqCfg80s": "80, 80, 16, 2, 128, 4"}), False),
+    # d = 48, 64, 80 on 8-column boxes without swizzle instead of 16-column
+    # boxes in the 32-byte swizzle
+    "no_swizzle_d80": (_cfg_edits({"DkvCfg80s": "80, 80, 8, 2, 64, 3",
+                                   "DqCfg80s": "80, 80, 8, 2, 128, 3"}), False),
+    # hidden key tiles computed instead of passed over
+    "no_skip": ((("constexpr float kHiddenBias = -1e9f;", None,
+                  "constexpr float kHiddenBias = -INFINITY;"),), False),
+    # ablations: the streamed tiles never loaded (the ring still turns), or
+    # p = s without exp2
+    "no_stream_loads": ((("      if (skip) {\n", None, "      if (true) {\n"),), True),
+    "no_exp2": ((('#include "warp_mma.cuh"\n', None,
+                  '#include "warp_mma.cuh"\n#define fast_exp2(x) (x)\n'),), True),
+    "no_stream_loads_no_exp2": ((("      if (skip) {\n", None, "      if (true) {\n"),
+                                 ('#include "warp_mma.cuh"\n', None,
+                                  '#include "warp_mma.cuh"\n#define fast_exp2(x) (x)\n')),
+                                True),
+}
+
+
+def variant_source(name: str, variants=None, source: str = "flash_attention.cu") -> str:
     """The kernel source with the variant's edits; raises if an edit's text
     is not found exactly once."""
-    text = (cuda_build.CSRC / "flash_attention.cu").read_text()
-    for start, end, new in VARIANTS[name][0]:
+    variants = VARIANTS if variants is None else variants
+    text = (cuda_build.CSRC / source).read_text()
+    for start, end, new in variants[name][0]:
         if text.count(start) != 1 or (end is not None and text.count(end) != 1):
             raise ValueError(f"variant {name}: edit anchor {start!r} not found exactly once")
         a = text.index(start)
@@ -107,14 +185,13 @@ def variant_source(name: str) -> str:
     return text
 
 
-def _build(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
-    """Build every variant with one nvcc each, all started together."""
+def _build(texts: Dict[str, str], prefix: str = "flash_variant") -> Dict[str, ctypes.CDLL]:
+    """Build every variant's source with one nvcc each, all started together."""
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        text = variant_source(name)
+    for name, text in texts.items():
         digest = hashlib.sha1((text + " ".join(cuda_build.NVCC_FLAGS)).encode()).hexdigest()[:12]
-        src = cuda_build.BUILD_DIR / f"flash_variant_{name}-{digest}.cu"
+        src = cuda_build.BUILD_DIR / f"{prefix}_{name}-{digest}.cu"
         lib = src.with_suffix(".so")
         src.write_text(text)
         cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC),
@@ -126,10 +203,10 @@ def _build(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        fn = ctypes.CDLL(str(lib)).hv_flash_fwd
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        libs[name] = fn
+        for line in log.splitlines():  # ptxas's registers, spills and wgmma notes
+            if "registers" in line or "spill" in line or "C75" in line:
+                print(f"[{name}] {line.strip()}", file=sys.stderr)
+        libs[name] = ctypes.CDLL(str(lib))
     return libs
 
 
@@ -150,7 +227,11 @@ def run(names: Sequence[str], iters: int = 5) -> List[dict]:
     if not torch.cuda.is_available():
         raise RuntimeError("the variants run on the CUDA card, and none is available")
     dev = torch.device("cuda")
-    fns = _build(names)
+    fns = {}
+    for name, lib in _build({n: variant_source(n) for n in names}).items():
+        fn = fns[name] = lib.hv_flash_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     stream = cuda_build.stream_handle(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     records = []
@@ -206,19 +287,140 @@ def run(names: Sequence[str], iters: int = 5) -> List[dict]:
     return records
 
 
+def _sdpa_backward_ms(q, k, v, g, heads, bias, iters: int) -> Optional[float]:
+    """SDPA's backward through autograd on head-split copies; None where
+    the card's memory does not hold it."""
+    b, d = q.shape[0], q.shape[2] // heads
+
+    def split(t):
+        return t.view(b, t.shape[1], heads, d).transpose(1, 2).contiguous()
+
+    mask = None if bias is None else bias.to(torch.bfloat16)[:, None, None, :]
+    try:
+        leaves = [split(t).requires_grad_() for t in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        gh = split(g)
+        return _time_ms(lambda: torch.autograd.grad(out, leaves, gh, retain_graph=True), iters)
+    except torch.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        return None
+
+
+def run_bwd(names: Sequence[str], iters: int = 5, against: Optional[str] = None) -> List[dict]:
+    """The backward's variants at every shape of ``BWD_SHAPES``: each held to
+    the plain backward (``chip_smoke.py``'s limits per gradient, and whether
+    its bits equal ``kernel``'s), its dk/dv and dq entry points timed apart
+    in turns. Returns the records (also printed, one JSON line each)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the variants run on the CUDA card, and none is available")
+    dev = torch.device("cuda")
+    texts = {n: variant_source(n, BWD_VARIANTS, "flash_attention_bwd.cu") for n in names}
+    if against:
+        texts["against"] = Path(against).read_text()
+    fns = {}
+    for name, lib in _build(texts, "flash_bwd_variant").items():
+        dkv, dq = lib.hv_flash_bwd_dkv, lib.hv_flash_bwd_dq
+        dkv.restype = dq.restype = ctypes.c_int
+        dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fns[name] = (dkv, dq)
+    stream = cuda_build.stream_handle(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    records = []
+    for shape, B, lq, lk, heads, d, bias_rows in BWD_SHAPES:
+        c = heads * d
+        q, g = (torch.randn((B, lq, c), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        k, v = (torch.randn((B, lk, c), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        bias, unmasked = None, B * lk
+        if bias_rows:
+            bias = torch.zeros((B, lk), device=dev)
+            bias[:bias_rows, lk // 2:] = -1e9
+            unmasked -= bias_rows * (lk // 2)
+        out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
+        delta = fa.attention_delta(g, out, heads)
+        refs = fa.flash_attention_backward_plain(q, k, v, bias, g, lse, delta, heads)
+        del out
+        grads = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  None if bias is None else bias.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr())
+
+        def call_dkv(name):
+            cuda_build.check(fns[name][0](*common, grads[1].data_ptr(), grads[2].data_ptr(),
+                                          B, lq, lk, heads, d, stream), f"variant {name} dk/dv")
+
+        def call_dq(name):
+            cuda_build.check(fns[name][1](*common, grads[0].data_ptr(), B, lq, lk, heads, d,
+                                          stream), f"variant {name} dq")
+
+        checks, first = {}, None
+        for name in fns:
+            if name in BWD_VARIANTS and BWD_VARIANTS[name][1]:
+                checks[name] = (None, None, None)
+                continue
+            call_dkv(name)
+            call_dq(name)
+            torch.cuda.synchronize()
+            rels, ok = [], True
+            for got, ref in zip(grads, refs):
+                diff = got.float() - ref.float()
+                rels.append((diff.norm() / ref.float().norm()).item())
+                ok = ok and rels[-1] <= FLASH_BWD_TOL[0] and diff.abs().max().item() <= \
+                    FLASH_BWD_TOL[1] * ref.float().pow(2).mean().sqrt().item()
+            if first is None:
+                first = [t.clone() for t in grads]
+            same = all(torch.equal(a, b) for a, b in zip(grads, first))
+            checks[name] = (ok, max(rels), same)
+        del first
+        turns = {name: ([], []) for name in fns}
+        for name in list(fns) + list(fns)[::-1]:
+            turns[name][0].append(_time_ms(lambda: call_dkv(name), iters))
+            turns[name][1].append(_time_ms(lambda: call_dq(name), iters))
+        del refs
+        torch.cuda.empty_cache()
+        sdpa_ms = _sdpa_backward_ms(q, k, v, g, heads, bias, iters)
+        flops = 10.0 * heads * lq * unmasked * d
+        for name in fns:
+            dkv_ms, dq_ms = min(turns[name][0]), min(turns[name][1])
+            ok, rel, same = checks[name]
+            rec = dict(variant=name, shape=shape, ms=dkv_ms + dq_ms, dkv_ms=dkv_ms, dq_ms=dq_ms,
+                       dkv_turns=turns[name][0], dq_turns=turns[name][1],
+                       tflops=flops / (dkv_ms + dq_ms) / 1e9, sdpa_ms=sdpa_ms,
+                       ablation=name in BWD_VARIANTS and BWD_VARIANTS[name][1], ok=ok,
+                       rel_l2=rel, same_bits_as_first=same,
+                       device=torch.cuda.get_device_name())
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        del q, k, v, g, lse, delta, grads
+        torch.cuda.empty_cache()
+    return records
+
+
 def main(argv: Sequence[str] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("variants", nargs="*", metavar="variant",
-                        help=f"variants to run (default: all): {', '.join(VARIANTS)}")
+                        help=f"variants to run (default: all): {', '.join(VARIANTS)}; with "
+                             f"--bwd: {', '.join(BWD_VARIANTS)}")
+    parser.add_argument("--bwd", action="store_true", help="the backward's variants")
+    parser.add_argument("--against", metavar="FILE",
+                        help="with --bwd: another backward source, timed as 'against'")
     parser.add_argument("--iters", type=int, default=5, help="launches per timed turn")
     args = parser.parse_args(argv)
-    names = args.variants or list(VARIANTS)
-    unknown = [n for n in names if n not in VARIANTS]
+    table = BWD_VARIANTS if args.bwd else VARIANTS
+    names = args.variants or list(table)
+    unknown = [n for n in names if n not in table]
     if unknown:
-        parser.error(f"unknown variants {unknown}; the variants are {', '.join(VARIANTS)}")
+        parser.error(f"unknown variants {unknown}; the variants are {', '.join(table)}")
+    if args.against and not args.bwd:
+        parser.error("--against needs --bwd")
     if "kernel" not in names:
         names = ["kernel", *names]
-    records = run(names, args.iters)
+    if args.bwd:
+        records = run_bwd(names, args.iters, args.against)
+    else:
+        records = run(names, args.iters)
     return 0 if all(r["ok"] is not False for r in records) else 1
 
 

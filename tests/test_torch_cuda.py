@@ -117,22 +117,39 @@ def test_temporal_kernel_matches_plain(b, f, l, c, heads):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,lq,lk,heads,d,bias_rows", [
-    (2, 300, 700, 8, 40, 1),    # ragged, CFG bias on one row, SD's d = 40
-    (2, 256, 512, 8, 80, 0),
-    (1, 100, 1000, 2, 16, 0),
-    (2, 200, 300, 1, 512, 1),   # the VAE's wide head: ragged, bias on one row
+@pytest.mark.parametrize("b,lq,lk,heads,d,hide", [
+    (2, 300, 700, 8, 40, ((0, 350, 700),)),  # ragged, CFG bias on one row, SD's d = 40
+    (2, 256, 512, 8, 80, ()),
+    (1, 100, 1000, 2, 16, ()),
+    (2, 200, 300, 1, 512, ((0, 150, 300),)),  # the VAE's wide head: ragged, bias on one row
+    (2, 256, 129, 8, 40, ()),    # Lk 1 past a 128-key tile, at a batch boundary
+    (2, 256, 65, 8, 40, ()),     # Lk 1 past a 64-key step, at a batch boundary
+    (2, 200, 256, 8, 40, ()),    # Lq not a multiple of the 64-row step or the 128-row block
+    (1, 128, 256, 8, 40, ()),    # every head: 0-6 sit beside a neighbour, 7 at C
+    (2, 130, 300, 8, 80, ()),    # d = 80: every head, ragged Lq and Lk
+    (2, 200, 300, 4, 64, ((0, 150, 300),)),  # d = 64: 32-byte-swizzled boxes and a pad
+    (1, 100, 200, 3, 48, ()),    # d = 48, the same
+    (1, 100, 200, 3, 72, ()),    # d = 72: 8-column boxes up to 80
+    (2, 448, 448, 8, 40, ()),    # Lq = Lk: the ReferenceNet's self-attention
+    # whole 128-key tiles hidden on row 0 (the dq kernel passes them over), part of
+    # a tile on row 1
+    (2, 300, 700, 8, 40, ((0, 128, 512), (1, 100, 200))),
+    # every row hides whole tiles up to a ragged end (the stage-2 uncond pattern:
+    # the dk/dv blocks there write zeros)
+    (2, 300, 700, 8, 40, ((0, 256, 700), (1, 256, 700))),
+    (2, 300, 700, 4, 80, ((0, 128, 700),)),
 ])
-def test_flash_backward_kernels_match_plain(b, lq, lk, heads, d, bias_rows):
+def test_flash_backward_kernels_match_plain(b, lq, lk, heads, d, hide):
     from humanvid_tpu_torch.ops import flash_attention as fa
 
     dev = _card()
     q, g = (_randn((b, lq, heads * d), s, dev) for s in (0, 3))
     k, v = (_randn((b, lk, heads * d), s, dev) for s in (1, 2))
     bias = None
-    if bias_rows:
+    if hide:
         bias = torch.zeros((b, lk), device=dev)
-        bias[:bias_rows, lk // 2:] = -1e9
+        for row, start, stop in hide:
+            bias[row, start:stop] = -1e9
     out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
     args = (q, k, v, bias, g, lse, fa.attention_delta(g, out, heads), heads)
     before = dict(fa.launches)
@@ -144,10 +161,21 @@ def test_flash_backward_kernels_match_plain(b, lq, lk, heads, d, bias_rows):
     assert fa.launches["bwd_dq" + wide] == before["bwd_dq" + wide] + 1
     again = fa.flash_attention_backward_cuda(*args)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))  # no atomics
+    # each head on its own: a head that read its neighbour's columns (or past
+    # the last column) fails alone
     for got, ref in zip(grads, refs):
-        _assert_close(got, ref, FLASH_BWD_TOL)
-    for hidden in grads[1:]:  # dk, dv of the keys the bias hides: exactly zero
-        assert (hidden[:bias_rows, lk // 2:] == 0).all()
+        for h in range(heads):
+            cols = slice(h * d, (h + 1) * d)
+            _assert_close(got[..., cols], ref[..., cols], FLASH_BWD_TOL)
+    for row, start, stop in hide:  # dk, dv of the keys the bias hides: exactly zero
+        assert all((t[row, start:stop] == 0).all() for t in grads[1:])
+    if hide:
+        # a bias of -0.99e9 hides the same keys (p is 0 in fp32 either way) but
+        # is above the -1e9 at which whole hidden tiles are passed over: the
+        # tiles computed give the same bits as the tiles passed over
+        computed = fa.flash_attention_backward_cuda(
+            q, k, v, torch.where(bias <= -1e9, -0.99e9, bias), *args[4:])
+        assert all(torch.equal(x, y) for x, y in zip(grads, computed))
 
 
 @pytest.mark.cuda

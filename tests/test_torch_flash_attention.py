@@ -35,9 +35,10 @@ def _inputs(b, lq, lk, heads, d, with_bias, seed=0):
     q, k, v = (rng.normal(size=(b, n, c)).astype(np.float32) for n in (lq, lk, lk))
     bias = None
     if with_bias:
-        # the CFG pattern: row 0 hides the second half of its keys
+        # the CFG pattern: row 0 hides the second half of its keys; "all rows"
+        # is the stage-2 uncond step's, where every row hides them
         bias = np.zeros((b, lk), np.float32)
-        bias[0, lk // 2:] = NEG_INF
+        bias[slice(None) if with_bias == "all rows" else 0, lk // 2:] = NEG_INF
     return q, k, v, bias
 
 
@@ -70,6 +71,8 @@ def test_plain_matches_pallas_interpret(b, lq, lk, heads, d, with_bias):
     (2, 128, 256, 2, 40, False),
     (1, 64, 96, 3, 16, True),
     (1, 64, 96, 1, 512, True),       # the VAE's wide head: the straight-layout kernels
+    (2, 128, 512, 2, 40, "all rows"),  # every row hides whole 128-key tiles
+    (1, 192, 192, 2, 80, False),     # Lq = Lk (the ReferenceNet's self-attention), d = 80
 ])
 def test_plain_backward_matches_pallas_vjp(b, lq, lk, heads, d, with_bias):
     q, k, v, bias = _inputs(b, lq, lk, heads, d, with_bias, seed=1)

@@ -152,10 +152,21 @@ def test_flash_variant_edits_apply_to_the_kernel_source(name):
     assert (text == base) == (name == "kernel")
 
 
+@pytest.mark.parametrize("name", sorted(flash_variants.BWD_VARIANTS))
+def test_flash_bwd_variant_edits_apply_to_the_kernel_source(name):
+    """The same for the backward's variants, on its source."""
+    text = flash_variants.variant_source(name, flash_variants.BWD_VARIANTS,
+                                         "flash_attention_bwd.cu")
+    base = (cuda_build.CSRC / "flash_attention_bwd.cu").read_text()
+    assert (text == base) == (name == "kernel")
+
+
 def test_entry_point_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA card"):
         flash_variants.run(["kernel"])
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.run_bwd(["kernel"])
     with pytest.raises(RuntimeError, match="CUDA card"):
         microbench.main(["hbm"])
     with pytest.raises(RuntimeError, match="CUDA card"):
