@@ -65,7 +65,8 @@ The measurement probes and the wide-head backward add:
   SDPA's backward at d = 512 by backend as the library yardstick;
 - probes: kernel 8 (the orientation probe, every arm, and its device time
   at half the keys, which shows that the unstored products are computed),
-  kernel 9 (the transposed flash forward, beside kernel A at UNet level 0)
+  kernel 9 (the transposed flash forward, beside kernel A and its own
+  un-transposed variant at UNet level 0)
   and kernel 10 (the streaming map, exact, beside ``torch.add`` and a
   device-to-device copy: the card's measured streaming rate), each against
   its plain version;
@@ -456,12 +457,16 @@ def phase_flash_bwd(torch, results, dev, cases):
         repeat_same = all(torch.equal(x, y) for x, y in zip(grads, again))
         del again
         ms = time_ms(torch, lambda: fa.flash_attention_backward_cuda(*args), 3)
-        keys = (("flash_bwd_dkv_wide_kernel", "flash_bwd_dq_wide_kernel") if wide
+        # d = 512: the dk/dv entry point launches a dV and a dK kernel
+        keys = (("flash_bwd_dv_wide_kernel", "flash_bwd_dk_wide_kernel",
+                 "flash_bwd_dq_wide_kernel") if wide
                 else ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
         split = _profile_split(torch, lambda: fa.flash_attention_backward_cuda(*args), keys)
-        split = dict(zip(("dkv", "dq"), split.values()))
+        split = dict(zip(("dv", "dk", "dq") if wide else ("dkv", "dq"), split.values()))
+        if wide:
+            split["dkv"] = split["dv"] + split["dk"]
         ok = (all(e[2] for e in errs) and hidden_zero and skip_same and repeat_same
-              and split["dkv"] > 0 and split["dq"] > 0)
+              and all(ms > 0 for ms in split.values()))
         plain_ms = time_ms(torch, lambda: fa.flash_attention_backward_plain(*args), 1)
         del refs
         torch.cuda.empty_cache()
@@ -489,10 +494,12 @@ def phase_flash_bwd(torch, results, dev, cases):
               f"max_err/rms dq/dk/dv={ratios} "
               f"hidden keys zero={hidden_zero} repeat same bits={repeat_same} "
               f"passed-over tiles same bits={skip_same} ms={ms:.3f} (dkv {split['dkv']:.3f}"
-              f" + dq {split['dq']:.3f}) plain_ms={plain_ms:.3f} "
+              + (f" = dv {split['dv']:.3f} + dk {split['dk']:.3f}" if wide else "")
+              + f" + dq {split['dq']:.3f}) plain_ms={plain_ms:.3f} "
               f"library_ms={lib} bound_ms={b_ms:.3f} ({b_by}) "
               f"TFLOP/s={flops / ms / 1e9:.1f} {'ok' if ok else 'FAIL'}")
-        extra = dict(library_backends=backends) if wide else {}
+        extra = dict(library_backends=backends, dv_ms=split["dv"], dk_ms=split["dk"]) \
+            if wide else {}
         results.append(dict(kernel="flash_bwd_d512" if wide else "flash_bwd", shape=name,
                             max_abs_err=err, rel_l2=rel, ms=ms, dkv_ms=split["dkv"],
                             dq_ms=split["dq"], plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
@@ -713,8 +720,20 @@ def phase_probes(torch, results, dev):
         del a, b, out, ref
         torch.cuda.empty_cache()
 
-    # kernel 9: UNet level 0 with the reference KV (beside kernel A), and
-    # the JAX probe's numerics shape with every 7th key hidden
+    # kernel 9: UNet level 0 with the reference KV (beside kernel A and the
+    # kernel's un-transposed variant, O = P V, built from the same source by
+    # flash_variants), and the JAX probe's numerics shape with every 7th key
+    # hidden
+    import ctypes
+
+    from humanvid_tpu_torch.ops import cuda_build
+    from humanvid_tpu_torch.tools import flash_variants as fv
+
+    untransposed = fv._build({"pv_untransposed": fv.variant_source(
+        "pv_untransposed", fv.PVT_VARIANTS, "probe_pvt.cu")}, "probe_pvt_variant")
+    untransposed = untransposed["pv_untransposed"].hv_probe_pvt
+    untransposed.restype = ctypes.c_int
+    untransposed.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     heads, d = 8, 40
     for name, B, lq, lk, with_bias in (("level0 cond 24x(6144x12288)", 24, 6144, 12288, False),
                                        ("every 7th key hidden 2x(1024x2048)", 2, 1024, 2048,
@@ -734,6 +753,20 @@ def phase_probes(torch, results, dev):
         ok = close and lse_err <= 1e-3
         ms = time_ms(torch, lambda: pk.pvt_cuda(q, k, v, heads, bias), 5)
         ms_a = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, heads, bias), 5)
+        qs, out_u, lse_u = pk._prescale(q, heads), torch.empty_like(q), torch.empty_like(lse)
+
+        def call_untransposed():
+            cuda_build.check(untransposed(
+                qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if bias is None else bias.data_ptr(), out_u.data_ptr(), lse_u.data_ptr(),
+                B, lq, lk, heads, d, cuda_build.stream_handle(dev)), "pv_untransposed launch")
+
+        call_untransposed()
+        torch.cuda.synchronize()
+        _, _, close_u = agreement(out_u[:, rows], ref, FLASH_TOL)
+        ok = ok and close_u and (lse_u[:, :, rows] - ref_lse).abs().max().item() <= 1e-3
+        ms_u = time_ms(torch, call_untransposed, 5)
+        del qs, out_u, lse_u
         chunk = max(1, (2 << 30) // (B * heads * lk * 4))
 
         def plain_full():
@@ -751,10 +784,12 @@ def phase_probes(torch, results, dev):
                            + 4 * lse.numel() + (0 if bias is None else 4 * bias.numel()))
         print(f"  pvt {name}: B={B} Lq={lq} Lk={lk} heads={heads} d={d} max_abs_err={err:.3e} "
               f"rel_l2={rel:.3e} lse_err={lse_err:.3e} ms={ms:.3f} kernel_A_ms={ms_a:.3f} "
+              f"untransposed_ms={ms_u:.3f} "
               f"plain_ms={plain_ms:.3f} library_ms={lib} bound_ms={b_ms:.3f} ({b_by}) "
               f"TFLOP/s={flops / ms / 1e9:.1f} {'ok' if ok else 'FAIL'}")
         results.append(dict(kernel="probe_pvt", shape=name, max_abs_err=err, rel_l2=rel, ms=ms,
-                            kernel_a_ms=ms_a, plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                            kernel_a_ms=ms_a, untransposed_ms=ms_u, plain_ms=plain_ms,
+                            library_ms=lib, bound_ms=b_ms,
                             bound_by=b_by, ok=ok))
         del q, k, v, out, lse, ref
         torch.cuda.empty_cache()
@@ -1350,8 +1385,11 @@ def kernel_line(results, launches):
                          dkv_ms=head["dkv_ms"], dq_ms=head["dq_ms"])
         elif name == "flash_bwd_d512":
             extra = dict(also_replaces="humanvid_tpu/ops/flash_attention.py:537",
-                         dkv_ms=head["dkv_ms"], dq_ms=head["dq_ms"],
-                         library_backends=head["library_backends"])
+                         dkv_ms=head["dkv_ms"], dv_ms=head["dv_ms"], dk_ms=head["dk_ms"],
+                         dq_ms=head["dq_ms"], library_backends=head["library_backends"])
+        elif name == "probe_pvt":
+            extra = dict(kernel_a_ms=head["kernel_a_ms"],
+                         untransposed_ms=head["untransposed_ms"])
         elif name == "group_norm":  # the statistics kernel and the folded apply
             extra = dict(also_replaces="humanvid_tpu/ops/group_norm.py:145")
         kernels.append(dict(

@@ -85,21 +85,47 @@
 // the same bits as computing it. No atomics: the same inputs give the same
 // bits.
 //
-// The wide head (d = 512), still a simple design on `mma.sync` with
-// operands from `ldmatrix`: a 64 x 512 fp32 accumulator per warp group does
-// not fit the registers, so, as the forward splits its v/out columns, each
-// block owns one 128-column chunk of the gradient it writes (grid axis y is
-// head x chunk). A dk/dv block (64 keys, one chunk) recomputes s^T = K Q^T
-// and dp^T = V G^T over all 512 columns, streaming 64-column slices of k,
-// v, q and g through shared memory, then accumulates dV[:, chunk] += P^T
-// G[:, chunk] and dK[:, chunk] += dS^T Q[:, chunk]; a dq block (64 rows,
-// one chunk) does the same with s = Q K^T, dp = G V^T and dQ[:, chunk] +=
-// dS K[:, chunk]. Each of the four chunks recomputes s and dp, so the
-// kernels do 4 * (2 * 512 + 2 * 128) + 4 * (2 * 512 + 128) = 9728 against
-// the 5 * 512 = 2560 multiply-adds per (q, key) pair the gradient needs:
-// ~3.8x the least product work. The other route, 512-wide fp32
-// accumulators in shared memory (128 KB for 32 keys), recomputes nothing
-// but holds one block per SM; it is left for a faster version.
+// Design at d = 512 (the VAE mid block's one head; `flash_bwd_dv_wide_kernel`,
+// `flash_bwd_dk_wide_kernel`, `flash_bwd_dq_wide_kernel`): what bounds it.
+// The gradient needs 5 * 512 = 2560 multiply-adds per (q, key) pair (1.56
+// ms at 8 x 6144 x 6144). A 64 x 512 fp32 gradient block is 256 registers a
+// thread in one warpgroup, and dK and dV of 64 keys together are the whole
+// register file, so no block holds two gradients; 64 rows of two tiles (K
+// and V, or Q and G) are 128 KB of the 227 KB of shared memory, which
+// leaves one 32-row stage of the two streamed tiles; and each block streams
+// the other side's 512-wide tiles from L2 (~10 GB per kernel here). Split
+// by gradient, three kernels on `wgmma` and a TMA ring, with the same
+// producer warp and `setmaxnreg` as at d <= 80: a block owns 64 rows (keys
+// for dV and dK, q rows for dQ) of one gradient, and its two consumer
+// warpgroups split the gradient's columns, 256 each (128 registers a
+// thread). The recomputed products are computed once per block and passed
+// between the two warpgroups through shared memory (fp32, double-buffered by
+// step, one named barrier a step): dV splits S^T's 512-deep sum between
+// them (each adds the other's half: the same bits in both); dK and dQ give S
+// to warpgroup 0, which takes p from it, and dP to warpgroup 1, and both
+// form dS from the two. Per step (32 q rows for dV and dK, 32 keys for dQ)
+// the products are
+//   dV: S^T = K Q^T (halves)                     dV += P^T G
+//   dK: S^T = K Q^T, dP^T = V G^T               dK += dS^T Q
+//   dQ: S = Q K^T, dP = G V^T                    dQ += dS K
+// the first ones as wgmma m64n32k16 from shared memory (K-major, 128-byte
+// swizzle: TMA boxes of 64 columns as in the forward's d = 512 path), the
+// gradient's as m64n256k16 with A = P^T / dS^T / dS packed from registers
+// and B = the streamed tile, MN-major. That is 1024 + 1536 + 1536 = 4096
+// multiply-adds a pair, 1.6x the least (the mma.sync design's four
+// 128-column chunks did 9728, 3.8x). dV's ring has 2 stages (K 64 KB + 2 x
+// (Q, G) 64 KB + the exchange 32 KB), dK's and dQ's one (two owned tiles
+// 128 KB + 64 KB + 32 KB). Rows past Lq get -lse = -inf and keys past Lk a
+// -inf bias through the ring's words or the owned rows' registers, so their
+// p is 0; a key hidden by the bias gets p = 0 and exactly zero dk and dv.
+// No atomics: the same inputs give the same bits. Measured against other
+// designs by `python -m humanvid_tpu_torch.tools.flash_variants --bwd`
+// (PERF.md section 6), these were slower: S and dP recomputed by both
+// warpgroups instead of exchanged; dV on one stage; dK and dQ on 16-row
+// steps in two stages (S and dP at N = 16 wait on shared memory); tile 2
+// released early to the producer; every 64-column box on its own barrier
+// (the boxes of a step land together); clusters of two blocks sharing the
+// streamed tiles by TMA multicast (the pair waits for its slower block).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -107,334 +133,12 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-#include "warp_mma.cuh"
 
 namespace {
 
 using namespace hopper;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int BQ = 16 * kWarps;  // q rows per tile
-constexpr int BK = 16 * kWarps;  // keys per tile
 constexpr float kLog2e = 1.4426950408889634f;
-
-// Copy `rows` rows of `cols` columns (a multiple of 8) starting at `src`
-// (row stride `ld` elements) into a shared tile with row stride `lds`;
-// rows >= valid_rows and columns >= valid_cols are zero.
-__device__ __forceinline__ void load_tile(bf16* dst, int lds, const bf16* src, int ld,
-                                          int rows, int cols, int valid_rows,
-                                          int valid_cols) {
-  const int vecs = cols / 8;
-  for (int e = threadIdx.x; e < rows * vecs; e += kThreads) {
-    const int r = e / vecs;
-    const int c = (e % vecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid_rows && c < valid_cols) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * lds + c) = val;
-  }
-}
-
-// acc[16 x 64] += A[16 x D] * B^T where A is this warp's 16 rows of a
-// shared tile (row stride LD) and B the 64 rows of another: the
-// "rows x rows" product (s = q k^T, dp = g v^T, and their transposes).
-template <int D>
-__device__ __forceinline__ void rows_by_rows(float (&acc)[8][4], const bf16* a_rows,
-                                             const bf16* b_rows, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, a_rows + (lane % 16) * LD + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      uint32_t b[4];
-      ldmatrix_x4(b, b_rows + (jp * 16 + (lane % 8) + (lane / 16) * 8) * LD + kk * 16 +
-                         ((lane / 8) % 2) * 8);
-      mma_bf16(acc[2 * jp], a, b[0], b[1]);
-      mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[16 x D] += P[16 x 64] * B[64 x D]: P is a 16 x 64 accumulator
-// fragment (rounded to bf16 here), B a shared tile of 64 rows (row stride
-// LD) read through ldmatrix.trans.
-template <int D>
-__device__ __forceinline__ void frag_by_tile(float (&acc)[D / 8][4], const float (&p)[8][4],
-                                             const bf16* b_rows, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    uint32_t a[4];
-    a[0] = pack_bf16(p[2 * t][0], p[2 * t][1]);
-    a[1] = pack_bf16(p[2 * t][2], p[2 * t][3]);
-    a[2] = pack_bf16(p[2 * t + 1][0], p[2 * t + 1][1]);
-    a[3] = pack_bf16(p[2 * t + 1][2], p[2 * t + 1][3]);
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, b_rows + (t * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD +
-                               np * 16 + (lane / 16) * 8);
-      mma_bf16(acc[2 * np], a, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// Store this warp's 16 x D accumulator rows (row0 + lane/4, +8) of one head
-// as bf16, times `mul`, skipping rows >= valid_rows and columns >= d.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, int C, const float (&acc)[D / 8][4],
-                                           int row0, int valid_rows, int d, float mul,
-                                           int lane) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + lane / 4 + 8 * r;
-    if (row >= valid_rows) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int col = 8 * n + 2 * (lane % 4);
-      if (col < d) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * C + col) =
-            __floats2bfloat162_rn(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
-      }
-    }
-  }
-}
-
-// The wide head: K-dim slices of 64 columns streamed through shared memory
-// for the recomputed products, 128-column chunks of the gradient per block.
-constexpr int WS = 64;        // columns of one streamed slice
-constexpr int WC = 128;       // gradient columns one block owns
-constexpr int LWS = WS + 8;   // shared row strides, odd multiples of 16 bytes
-constexpr int LWC = WC + 8;
-
-// acc1 += A1 B1^T and acc2 += A2 B2^T over all d columns for this warp's 16
-// rows of A (its rows `a_row0..+16` of the 64-row tiles) against the 64 rows
-// of B: a1/a2 (rows of A, valid_a of them) and b1/b2 (valid_b rows) point at
-// column 0 of their tiles in device memory, row stride C. Each 64-column
-// slice of the four tiles passes through shared memory once.
-__device__ __forceinline__ void wide_pair(float (&acc1)[8][4], float (&acc2)[8][4],
-                                          bf16* sA1, bf16* sA2, bf16* sB1, bf16* sB2,
-                                          const bf16* a1, const bf16* a2, int valid_a,
-                                          const bf16* b1, const bf16* b2, int valid_b,
-                                          int C, int d, int warp, int lane) {
-  for (int c0 = 0; c0 < d; c0 += WS) {
-    __syncthreads();  // the previous slice's readers are done
-    load_tile(sA1, LWS, a1 + c0, C, BQ, WS, valid_a, d - c0);
-    load_tile(sA2, LWS, a2 + c0, C, BQ, WS, valid_a, d - c0);
-    load_tile(sB1, LWS, b1 + c0, C, BK, WS, valid_b, d - c0);
-    load_tile(sB2, LWS, b2 + c0, C, BK, WS, valid_b, d - c0);
-    __syncthreads();
-    rows_by_rows<WS>(acc1, sA1 + 16 * warp * LWS, sB1, lane);
-    rows_by_rows<WS>(acc2, sA2 + 16 * warp * LWS, sB2, lane);
-  }
-}
-
-// dk/dv of a wide head: grid (key tiles, heads * chunks, B). Accumulator
-// elements as in flash_bwd_dkv_kernel, over one WC-column chunk.
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const float* __restrict__ bias,
-                          const bf16* __restrict__ g, const float* __restrict__ lse,
-                          const float* __restrict__ delta, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, int Lq, int Lk, int heads, int d,
-                          float scale_log2, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);  // streamed slices
-  bf16* sV = sK + BK * LWS;
-  bf16* sQ = sV + BK * LWS;
-  bf16* sG = sQ + BQ * LWS;
-  bf16* sQc = sG + BQ * LWS;                 // this block's chunk of q and g
-  bf16* sGc = sQc + BQ * LWC;
-  float* sL = reinterpret_cast<float*>(sGc + BQ * LWC);
-  float* sD = sL + BQ;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int n_chunks = (d + WC - 1) / WC;
-  const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y / n_chunks;
-  const int v0 = (blockIdx.y % n_chunks) * WC;
-  const int b = blockIdx.z;
-  const int C = heads * d;
-  const size_t head = (size_t)h * d;
-  const bf16* kb = k + ((size_t)b * Lk + k0) * C + head;
-  const bf16* vb = v + ((size_t)b * Lk + k0) * C + head;
-  const bf16* qb = q + (size_t)b * Lq * C + head;
-  const bf16* gb = g + (size_t)b * Lq * C + head;
-  const float* lse_b = lse + ((size_t)b * heads + h) * Lq;
-  const float* delta_b = delta + ((size_t)b * heads + h) * Lq;
-
-  float key_bias[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + 16 * warp + lane / 4 + 8 * r;
-    key_bias[r] = (bias && key < Lk) ? bias[(size_t)b * Lk + key] * kLog2e : 0.f;
-  }
-  float dk_acc[WC / 8][4], dv_acc[WC / 8][4];
-#pragma unroll
-  for (int n = 0; n < WC / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  for (int q0 = 0; q0 < Lq; q0 += BQ) {
-    // p^T from s^T = K Q^T and dp^T = V G^T over all d columns; the
-    // syncs inside also order this tile's chunk loads after the previous
-    // tile's readers
-    float p[8][4], ds[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[j][e] = ds[j][e] = 0.f;
-    wide_pair(p, ds, sK, sV, sQ, sG, kb, vb, Lk - k0, qb + (size_t)q0 * C,
-              gb + (size_t)q0 * C, Lq - q0, C, d, warp, lane);
-    load_tile(sQc, LWC, qb + (size_t)q0 * C + v0, C, BQ, WC, Lq - q0, d - v0);
-    load_tile(sGc, LWC, gb + (size_t)q0 * C + v0, C, BQ, WC, Lq - q0, d - v0);
-    for (int c = threadIdx.x; c < BQ; c += kThreads) {
-      const bool valid = q0 + c < Lq;
-      sL[c] = valid ? lse_b[q0 + c] * kLog2e : 0.f;
-      sD[c] = valid ? delta_b[q0 + c] : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * (lane % 4) + (e & 1);
-        p[j][e] = exp2f(p[j][e] * scale_log2 + key_bias[e >> 1] - sL[col]);
-        ds[j][e] = p[j][e] * (ds[j][e] - sD[col]);
-      }
-    frag_by_tile<WC>(dv_acc, p, sGc, lane);   // dV[:, chunk] += P^T G[:, chunk]
-    frag_by_tile<WC>(dk_acc, ds, sQc, lane);  // dK[:, chunk] += dS^T Q[:, chunk]
-    __syncthreads();  // the readers of sQc/sGc/sL/sD are done
-  }
-
-  const size_t out0 = (size_t)b * Lk * C + head + v0;
-  store_rows<WC>(dk + out0, C, dk_acc, k0 + 16 * warp, Lk, d - v0, scale, lane);
-  store_rows<WC>(dv + out0, C, dv_acc, k0 + 16 * warp, Lk, d - v0, 1.f, lane);
-}
-
-// dq of a wide head: grid (q tiles, heads * chunks, B).
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const float* __restrict__ bias,
-                         const bf16* __restrict__ g, const float* __restrict__ lse,
-                         const float* __restrict__ delta, bf16* __restrict__ dq, int Lq,
-                         int Lk, int heads, int d, float scale_log2, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // streamed slices
-  bf16* sG = sQ + BQ * LWS;
-  bf16* sK = sG + BQ * LWS;
-  bf16* sV = sK + BK * LWS;
-  bf16* sKc = sV + BK * LWS;                 // the key tile's chunk of k
-  float* sB = reinterpret_cast<float*>(sKc + BK * LWC);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int n_chunks = (d + WC - 1) / WC;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y / n_chunks;
-  const int v0 = (blockIdx.y % n_chunks) * WC;
-  const int b = blockIdx.z;
-  const int C = heads * d;
-  const size_t head = (size_t)h * d;
-  const bf16* qb = q + ((size_t)b * Lq + q0) * C + head;
-  const bf16* gb = g + ((size_t)b * Lq + q0) * C + head;
-  const bf16* kb = k + (size_t)b * Lk * C + head;
-  const bf16* vb = v + (size_t)b * Lk * C + head;
-
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + 16 * warp + lane / 4 + 8 * r;
-    const size_t at = ((size_t)b * heads + h) * Lq + row;
-    row_lse[r] = row < Lq ? lse[at] * kLog2e : 0.f;
-    row_delta[r] = row < Lq ? delta[at] : 0.f;
-  }
-  float dq_acc[WC / 8][4];
-#pragma unroll
-  for (int n = 0; n < WC / 8; ++n) dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
-
-  for (int k0 = 0; k0 < Lk; k0 += BK) {
-    float p[8][4], ds[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[j][e] = ds[j][e] = 0.f;
-    // s = Q K^T and dp = G V^T over all d columns
-    wide_pair(p, ds, sQ, sG, sK, sV, qb, gb, Lq - q0, kb + (size_t)k0 * C,
-              vb + (size_t)k0 * C, Lk - k0, C, d, warp, lane);
-    load_tile(sKc, LWC, kb + (size_t)k0 * C + v0, C, BK, WC, Lk - k0, d - v0);
-    for (int c = threadIdx.x; c < BK; c += kThreads) {
-      const int key = k0 + c;
-      sB[c] = key >= Lk ? -INFINITY : (bias ? bias[(size_t)b * Lk + key] * kLog2e : 0.f);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[j][e] = exp2f(p[j][e] * scale_log2 + sB[8 * j + 2 * (lane % 4) + (e & 1)] -
-                        row_lse[e >> 1]);
-        ds[j][e] = p[j][e] * (ds[j][e] - row_delta[e >> 1]);
-      }
-    frag_by_tile<WC>(dq_acc, ds, sKc, lane);  // dQ[:, chunk] += dS K[:, chunk]
-    __syncthreads();  // the readers of sKc/sB are done
-  }
-
-  store_rows<WC>(dq + (size_t)b * Lq * C + head + v0, C, dq_acc, q0 + 16 * warp, Lq, d - v0,
-                 scale, lane);
-}
-
-size_t wide_dkv_bytes() {
-  return sizeof(bf16) * (4 * 64 * LWS + 2 * BQ * LWC) + sizeof(float) * 2 * BQ;
-}
-
-size_t wide_dq_bytes() {
-  return sizeof(bf16) * (4 * 64 * LWS + BK * LWC) + sizeof(float) * BK;
-}
-
-int launch_dkv_wide(const void* q, const void* k, const void* v, const void* bias,
-                    const void* g, const void* lse, const void* delta, void* dk, void* dv,
-                    int B, int Lq, int Lk, int heads, int d, cudaStream_t stream) {
-  const size_t bytes = wide_dkv_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const float scale = 1.f / sqrtf((float)d);
-  const dim3 grid((Lk + BK - 1) / BK, heads * ((d + WC - 1) / WC), B);
-  flash_bwd_dkv_wide_kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<const bf16*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      Lq, Lk, heads, d, scale * kLog2e, scale);
-  return (int)cudaGetLastError();
-}
-
-int launch_dq_wide(const void* q, const void* k, const void* v, const void* bias,
-                   const void* g, const void* lse, const void* delta, void* dq, int B,
-                   int Lq, int Lk, int heads, int d, cudaStream_t stream) {
-  const size_t bytes = wide_dq_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const float scale = 1.f / sqrtf((float)d);
-  const dim3 grid((Lq + BQ - 1) / BQ, heads * ((d + WC - 1) / WC), B);
-  flash_bwd_dq_wide_kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<const bf16*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), Lq, Lk, heads, d,
-      scale * kLog2e, scale);
-  return (int)cudaGetLastError();
-}
 
 // ---- d <= 80: wgmma on a TMA ring ------------------------------------------
 
@@ -1082,6 +786,351 @@ using DqCfg48 = BwdCfg<48, 40, 8, 3, 128, 3, 64>;
 using DqCfg80 = BwdCfg<80, 80, 8, 2, 128, 3>;
 using DqCfg80s = BwdCfg<80, 80, 16, 2, 128, 3>;
 
+// ---- d = 512: wgmma on a TMA ring, one kernel per gradient -----------------
+
+// MODE: the gradient a block writes (kDv, kDk: of its 64 keys; kDq: of its
+// 64 q rows); BS: rows of one streamed step (q rows for dV and dK, keys for
+// dQ); STAGES: the ring's depth. Two consumer warpgroups take the same 64
+// owned rows and split the gradient's 512 columns, 256 each (128 fp32
+// registers a thread), and share the recomputed products through shared
+// memory (the header). Tiles use the 128-byte swizzle: TMA boxes of 64
+// columns x rows land as [8 boxes][rows][64].
+enum WideMode { kDv = 0, kDk = 1, kDq = 2 };
+
+template <int MODE_, int BS_, int STAGES_>
+struct WideCfg {
+  static constexpr int MODE = MODE_;
+  static constexpr int BS = BS_;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int D = 512;
+  static constexpr int DH = 256;                 // gradient columns of one consumer
+  static constexpr int NC = 2;
+  static constexpr int THREADS = 128 * (NC + 1);  // + the producer warpgroup
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = 240;
+  static constexpr int OWN = MODE == kDv ? 1 : 2;  // owned tiles: K; K and V; Q and G
+  static constexpr int R_BYTES = 64 * D * 2;       // one owned tile
+  static constexpr int S_BYTES = BS * D * 2;       // one streamed tile
+  // shared memory: the owned tiles, the ring's two streamed tiles and its
+  // 2 * BS words per stage (dV, dK: -lse*log2e and delta of each q row; dQ:
+  // each key's bias in log2 units), barriers
+  static constexpr int OFF_S1 = OWN * R_BYTES;
+  static constexpr int OFF_S2 = OFF_S1 + STAGES * S_BYTES;
+  static constexpr int OFF_W = OFF_S2 + STAGES * S_BYTES;
+  // the consumers' exchange: 2 buffers (by step parity) x 2 warpgroups x
+  // 64 x BS fp32, slot i of thread t at [i][t]
+  static constexpr int X_FLOATS = (BS / 2) * 128;
+  static constexpr int OFF_X = OFF_W + STAGES * BS * 8;
+  static constexpr int OFF_BAR = OFF_X + 4 * X_FLOATS * 4;
+  static constexpr int SMEM = OFF_BAR + (3 * STAGES + 1) * 8 + 1024;  // + alignment
+  static_assert(BS % 16 == 0 && S_BYTES % 1024 == 0, "");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// Byte offset of the 16-deep step kk of a K-major swizzled tile of `rows` rows.
+__device__ __forceinline__ uint32_t wide_kstep(int kk, int rows) {
+  return (kk / 4) * rows * 128 + (kk % 4) * 32;
+}
+
+// acc (64 x BS) = A B^T over KS 16-deep steps of the 512 columns from step
+// kk0: A the owned tile's 64 rows, B the streamed tile's BS rows, both
+// K-major.
+template <class C, int KS>
+__device__ __forceinline__ void wide_product(float (&acc)[C::BS / 2], uint64_t a_desc,
+                                             uint64_t b_desc, int kk0) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    WgmmaSS<C::BS>::run(acc, a_desc + (wide_kstep(kk0 + kk, 64) >> 4),
+                        b_desc + (wide_kstep(kk0 + kk, C::BS) >> 4), kk > 0);
+}
+
+template <class C>
+__device__ __forceinline__ void flash_bwd_wide(
+    const CUtensorMap* q_map, const CUtensorMap* k_map, const CUtensorMap* v_map,
+    const CUtensorMap* g_map, const float* __restrict__ bias, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ grad, int Lq, int Lk, int heads,
+    float scale_log2, float scale) {
+  constexpr int BS = C::BS, STAGES = C::STAGES, MODE = C::MODE;
+  constexpr bool ROWS_ARE_KEYS = MODE != kDq;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);  // tile 1 + words
+  uint64_t* full_b = full_a + STAGES;                                 // tile 2
+  uint64_t* empty = full_b + STAGES;
+  uint64_t* full_r = empty + STAGES;                                  // the owned tiles
+  float* words = reinterpret_cast<float*>(smem + C::OFF_W);
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int r0 = blockIdx.x * 64;  // the block's first owned row
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int C_all = heads * C::D;
+  const int col0 = h * C::D;
+  const int L_own = ROWS_ARE_KEYS ? Lk : Lq;
+  const int L_str = ROWS_ARE_KEYS ? Lq : Lk;
+  const int n_steps = (L_str + BS - 1) / BS;
+  const float* lse_bh = lse + ((size_t)b * heads + h) * Lq;
+  const float* delta_bh = delta + ((size_t)b * heads + h) * Lq;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_a[s], 32);     // the producer's lanes (words) + tx
+      mbar_init(&full_b[s], 1);      // tx
+      mbar_init(&empty[s], 4 * C::NC);  // one per consumer warp
+    }
+    mbar_init(full_r, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // owned tiles (64 rows) and streamed ones: dV: K; Q, G. dK: K, V; Q, G.
+  // dQ: Q, G; K, V.
+  const CUtensorMap* own1 = ROWS_ARE_KEYS ? k_map : q_map;
+  const CUtensorMap* own2 = ROWS_ARE_KEYS ? v_map : g_map;
+  const CUtensorMap* str1 = ROWS_ARE_KEYS ? q_map : k_map;
+  const CUtensorMap* str2 = ROWS_ARE_KEYS ? g_map : v_map;
+
+  if (wg == C::NC) {
+    // ---------------- producer ----------------
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (warp != 0) return;
+    if (lane == 0) {
+      tma_prefetch_desc(own1);
+      if (C::OWN == 2) tma_prefetch_desc(own2);
+      tma_prefetch_desc(str1);
+      tma_prefetch_desc(str2);
+      mbar_arrive_expect_tx(full_r, C::OWN * C::R_BYTES);
+      for (int i = 0; i < 8; ++i) {
+        tma_load_3d(smem + i * 64 * 128, own1, full_r, col0 + 64 * i, r0, b);
+        if (C::OWN == 2)
+          tma_load_3d(smem + C::R_BYTES + i * 64 * 128, own2, full_r, col0 + 64 * i, r0, b);
+      }
+    }
+    const float* bias_b = bias ? bias + (size_t)b * Lk : nullptr;
+    for (int step = 0; step < n_steps; ++step) {
+      const int s = step % STAGES;
+      // the step's words, read before the stage is free: dV, dK: -lse*log2e
+      // and delta of the q rows (p = 0 past Lq); dQ: the keys' bias, log2
+      // units (-inf past Lk: TMA's zero fill would give s = 0, p != 0)
+      float wa[BS / 32 > 0 ? BS / 32 : 1], wb[BS / 32 > 0 ? BS / 32 : 1];
+#pragma unroll
+      for (int i = 0; i * 32 < BS; ++i) {
+        const int row = step * BS + lane + 32 * i;
+        if (lane + 32 * i >= BS) break;
+        if constexpr (ROWS_ARE_KEYS) {
+          wa[i] = row < Lq ? -lse_bh[row] * kLog2e : -INFINITY;
+          wb[i] = row < Lq ? delta_bh[row] : 0.f;
+        } else {
+          wa[i] = row >= Lk ? -INFINITY : (bias_b ? bias_b[row] * kLog2e : 0.f);
+          wb[i] = 0.f;
+        }
+      }
+      mbar_wait(&empty[s], ((step / STAGES) & 1) ^ 1);
+      float* w = words + s * 2 * BS;
+#pragma unroll
+      for (int i = 0; i * 32 < BS; ++i) {
+        if (lane + 32 * i >= BS) break;
+        w[lane + 32 * i] = wa[i];
+        w[BS + lane + 32 * i] = wb[i];
+      }
+      if (lane == 0) {
+        unsigned char* t1 = smem + C::OFF_S1 + s * C::S_BYTES;
+        unsigned char* t2 = smem + C::OFF_S2 + s * C::S_BYTES;
+        mbar_arrive_expect_tx(&full_a[s], C::S_BYTES);
+        for (int i = 0; i < 8; ++i)
+          tma_load_3d(t1 + i * BS * 128, str1, &full_a[s], col0 + 64 * i, step * BS, b);
+        mbar_arrive_expect_tx(&full_b[s], C::S_BYTES);
+        for (int i = 0; i < 8; ++i)
+          tma_load_3d(t2 + i * BS * 128, str2, &full_b[s], col0 + 64 * i, step * BS, b);
+      } else {
+        mbar_arrive(&full_a[s]);
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumers ----------------
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int c2 = 2 * (lane % 4);
+  // per owned row (this thread's rows 16 warp + lane/4, + 8): dV, dK: the
+  // key's bias in log2 units (-inf past Lk); dQ: -lse*log2e and delta
+  float ra[2], rb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 16 * warp + lane / 4 + 8 * r;
+    if constexpr (ROWS_ARE_KEYS) {
+      ra[r] = row >= Lk ? -INFINITY : (bias ? bias[(size_t)b * Lk + row] * kLog2e : 0.f);
+      rb[r] = 0.f;
+    } else {
+      ra[r] = row < Lq ? -lse_bh[row] * kLog2e : -INFINITY;
+      rb[r] = row < Lq ? delta_bh[row] : 0.f;
+    }
+  }
+
+  // descriptors without their stage offsets: the owned tiles as A and the
+  // streamed ones as B, K-major (s and dp); the streamed tile of the
+  // gradient's product as B, MN-major, this consumer's 256 columns (LBO =
+  // BS*128 between 64-column atoms, SBO = 1024 between 8-row atoms)
+  const uint64_t a1_desc = gmma_desc(smem_u32(smem), 16, 1024, kSwizzle128B);
+  const uint64_t a2_desc = gmma_desc(smem_u32(smem + C::R_BYTES), 16, 1024, kSwizzle128B);
+  const uint64_t b1_desc = gmma_desc(smem_u32(smem + C::OFF_S1), 16, 1024, kSwizzle128B);
+  const uint64_t b2_desc = gmma_desc(smem_u32(smem + C::OFF_S2), 16, 1024, kSwizzle128B);
+  // dV: G; dK: Q; dQ: K
+  const uint32_t g_tile = MODE == kDv ? C::OFF_S2 : C::OFF_S1;
+  const uint64_t gt_desc =
+      gmma_desc(smem_u32(smem + g_tile) + wg * (C::DH / 64) * BS * 128, BS * 128, 1024,
+                kSwizzle128B);
+
+  float* xch = reinterpret_cast<float*>(smem + C::OFF_X);
+  const int tid = threadIdx.x % 128;
+
+  float acc[C::DH / 2];
+#pragma unroll
+  for (int i = 0; i < C::DH / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(full_r, 0);
+  for (int step = 0; step < n_steps; ++step) {
+    const int s = step % STAGES;
+    const uint32_t parity = (step / STAGES) & 1;
+    const uint32_t so = s * C::S_BYTES;
+    const float* w = words + s * 2 * BS;
+
+    // S^T = K Q^T (dV, dK) or S = Q K^T (dQ), and dP^T = V G^T or dP = G V^T,
+    // each computed once and passed between the two warpgroups through
+    // shared memory: dV splits S^T's 512-deep sum (warpgroup w takes columns
+    // 256 w..), dK and dQ give S to warpgroup 0 and dP to warpgroup 1
+    float* mine = xch + ((step & 1) * 2 + wg) * C::X_FLOATS + tid;
+    const float* other = xch + ((step & 1) * 2 + (wg ^ 1)) * C::X_FLOATS + tid;
+    float x[BS / 2];
+    mbar_wait(&full_a[s], parity);
+    if (MODE == kDv || wg == 0) {
+      wgmma_fence();
+      if constexpr (MODE == kDv)
+        wide_product<C, C::D / 32>(x, a1_desc, b1_desc + (so >> 4), wg * C::D / 32);
+      else
+        wide_product<C, C::D / 16>(x, a1_desc, b1_desc + (so >> 4), 0);
+      wgmma_commit();
+    } else {
+      mbar_wait(&full_b[s], parity);
+      wgmma_fence();
+      wide_product<C, C::D / 16>(x, a2_desc, b2_desc + (so >> 4), 0);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(x);
+    if constexpr (MODE == kDv) {
+      // the two halves of S^T (a sum of two commutes: both warpgroups get
+      // the same bits)
+#pragma unroll
+      for (int i = 0; i < BS / 2; ++i) mine[i * 128] = x[i];
+      named_bar_sync(1, 256);
+#pragma unroll
+      for (int i = 0; i < BS / 2; ++i) x[i] += other[i * 128];
+    }
+    // p = exp2(s * scale*log2e + bias*log2e - lse*log2e), in place (dV, and
+    // warpgroup 0 of dK and dQ); element 4j + e is owned row 16 warp +
+    // lane/4 + 8 (e >> 1), streamed row 8j + c2 + (e & 1)
+    if (MODE == kDv || wg == 0) {
+#pragma unroll
+      for (int j = 0; j < BS / 8; ++j) {
+        const float2 wc = *reinterpret_cast<const float2*>(w + 8 * j + c2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[4 * j + e] = fast_exp2(fmaf(x[4 * j + e], scale_log2, (e & 1) ? wc.y : wc.x) +
+                                   ra[e >> 1]);
+      }
+    }
+    uint32_t a_frag[BS / 16][4];
+    if constexpr (MODE == kDv) {
+      pack_a<BS>(a_frag, x);
+      mbar_wait(&full_b[s], parity);
+    } else {
+      // P (warpgroup 0) and dP (warpgroup 1) change hands, then both take
+      // dS = P * (dP - delta): delta per streamed q row (dK) or owned row (dQ)
+#pragma unroll
+      for (int i = 0; i < BS / 2; ++i) mine[i * 128] = x[i];
+      named_bar_sync(1, 256);
+#pragma unroll
+      for (int j = 0; j < BS / 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(w + BS + 8 * j + c2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const float y = other[i * 128];
+          const float p = wg == 0 ? x[i] : y, dp = wg == 0 ? y : x[i];
+          const float dd = ROWS_ARE_KEYS ? ((e & 1) ? dl.y : dl.x) : rb[e >> 1];
+          x[i] = p * (dp - dd);
+        }
+      }
+      pack_a<BS>(a_frag, x);
+    }
+
+    // the gradient's 64 x 256: += P^T G (dV), dS^T Q (dK), dS K (dQ)
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BS / 16; ++t)
+      WgmmaRS<C::DH>::run(acc, a_frag[t], gt_desc + ((so + t * 2048) >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(a_frag);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  store_acc<C::DH>(grad + (size_t)b * L_own * C_all + col0 + wg * C::DH, C_all, acc,
+                   r0 + 16 * warp, L_own, C::DH, MODE == kDv ? 1.f : scale, lane);
+}
+
+#define WIDE_KERNEL(name, Cfg)                                                          \
+  __global__ void __launch_bounds__(Cfg::THREADS, 1)                                    \
+      name(const __grid_constant__ CUtensorMap q_map,                                   \
+           const __grid_constant__ CUtensorMap k_map,                                   \
+           const __grid_constant__ CUtensorMap v_map,                                   \
+           const __grid_constant__ CUtensorMap g_map, const float* __restrict__ bias,   \
+           const float* __restrict__ lse, const float* __restrict__ delta,              \
+           bf16* __restrict__ grad, int Lq, int Lk, int heads, float scale_log2,        \
+           float scale) {                                                               \
+    flash_bwd_wide<Cfg>(&q_map, &k_map, &v_map, &g_map, bias, lse, delta, grad, Lq, Lk, \
+                        heads, scale_log2, scale);                                      \
+  }
+
+// dV of 64 keys over 32-row q steps in a 2-stage ring (K 64 KB + 2 x (Q, G)
+// 64 KB); dK and dQ hold two owned tiles (128 KB), so one 32-row stage.
+using WideDv = WideCfg<kDv, 32, 2>;
+using WideDk = WideCfg<kDk, 32, 1>;
+using WideDq = WideCfg<kDq, 32, 1>;
+WIDE_KERNEL(flash_bwd_dv_wide_kernel, WideDv)
+WIDE_KERNEL(flash_bwd_dk_wide_kernel, WideDk)
+WIDE_KERNEL(flash_bwd_dq_wide_kernel, WideDq)
+#undef WIDE_KERNEL
+
+template <class C, class Kernel>
+int launch_wide(Kernel kernel, const void* q, const void* k, const void* v, const void* bias,
+                const void* g, const void* lse, const void* delta, void* grad, int B, int Lq,
+                int Lk, int heads, int d, cudaStream_t stream) {
+  // boxes of 64 columns x the owned tiles' 64 rows or a step's BS rows
+  const bool keys_own = C::MODE != kDq;
+  const int C_all = heads * d;
+  CUtensorMap maps[4];  // q, k, v, g
+  int err = make_map(&maps[0], q, C_all, Lq, B, 64, keys_own ? C::BS : 64, true);
+  if (!err) err = make_map(&maps[1], k, C_all, Lk, B, 64, keys_own ? 64 : C::BS, true);
+  if (!err) err = make_map(&maps[2], v, C_all, Lk, B, 64, keys_own ? 64 : C::BS, true);
+  if (!err) err = make_map(&maps[3], g, C_all, Lq, B, 64, keys_own ? C::BS : 64, true);
+  if (err) return err;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const float scale = 1.f / sqrtf((float)d);
+  const dim3 grid(((keys_own ? Lk : Lq) + 63) / 64, heads, B);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(bias),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(grad), Lq, Lk, heads, scale * kLog2e, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Head widths the kernels take: d a multiple of 8 with d <= 80 (SD's UNet
@@ -1099,8 +1148,13 @@ extern "C" int hv_flash_bwd_dkv(const void* q, const void* k, const void* v,
     return launch_dkv<DkvCfg80s>(q, k, v, bias, g, lse, delta, dk, dv, B, Lq, Lk, heads, d, s);
   if (d <= 80)
     return launch_dkv<DkvCfg80>(q, k, v, bias, g, lse, delta, dk, dv, B, Lq, Lk, heads, d, s);
-  if (d == 512)
-    return launch_dkv_wide(q, k, v, bias, g, lse, delta, dk, dv, B, Lq, Lk, heads, d, s);
+  if (d == 512) {
+    const int err = launch_wide<WideDv>(flash_bwd_dv_wide_kernel, q, k, v, bias, g, lse, delta,
+                                        dv, B, Lq, Lk, heads, d, s);
+    if (err) return err;
+    return launch_wide<WideDk>(flash_bwd_dk_wide_kernel, q, k, v, bias, g, lse, delta, dk, B,
+                               Lq, Lk, heads, d, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1114,6 +1168,8 @@ extern "C" int hv_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (d <= 80 && d % 16 == 0)
     return launch_dq<DqCfg80s>(q, k, v, bias, g, lse, delta, dq, B, Lq, Lk, heads, d, s);
   if (d <= 80) return launch_dq<DqCfg80>(q, k, v, bias, g, lse, delta, dq, B, Lq, Lk, heads, d, s);
-  if (d == 512) return launch_dq_wide(q, k, v, bias, g, lse, delta, dq, B, Lq, Lk, heads, d, s);
+  if (d == 512)
+    return launch_wide<WideDq>(flash_bwd_dq_wide_kernel, q, k, v, bias, g, lse, delta, dq, B,
+                               Lq, Lk, heads, d, s);
   return (int)cudaErrorInvalidValue;
 }

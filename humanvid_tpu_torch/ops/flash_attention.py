@@ -12,8 +12,9 @@ On a CUDA tensor it launches the hand-written kernel in
 
 The gradient (:class:`FlashAttention`, an autograd Function) recomputes the
 probabilities from the forward's ``lse``: on a CUDA tensor through the
-dk/dv and dq kernels of ``csrc/flash_attention_bwd.cu`` (the head widths of
-the forward: d <= 80, and d = 512 in 128-column chunks), on a CPU tensor
+dk/dv and dq entry points of ``csrc/flash_attention_bwd.cu`` (the head
+widths of the forward: d <= 80, and d = 512, where the dk/dv entry point
+launches a dV and a dK kernel), on a CPU tensor
 through :func:`flash_attention_backward_plain`.
 """
 

@@ -3,6 +3,8 @@
     python -m humanvid_tpu_torch.tools.flash_variants [variant ...] [--iters N]
     python -m humanvid_tpu_torch.tools.flash_variants --bwd [variant ...]
         [--against FILE] [--iters N]
+    python -m humanvid_tpu_torch.tools.flash_variants --pvt [variant ...]
+        [--against FILE] [--iters N]
 
 Each variant is ``csrc/flash_attention.cu`` with a few named text edits
 (``VARIANTS``), built by nvcc with the port's flags into ``build/`` and
@@ -14,6 +16,12 @@ entry points are timed apart in turns, and SDPA's backward beside them;
 ``--against FILE`` adds another backward source with the same entry points
 (an earlier commit's, unpacked by ``git archive``) as the variant
 ``against``. The ablations drop work, so they are only timed.
+With ``--pvt`` the variants are those of kernel 9, the transposed flash
+forward ``csrc/probe_pvt.cu`` (``PVT_VARIANTS``, at ``PVT_SHAPES``), among
+them the product O = P V un-transposed; each is held to
+``probe_kernels.pvt_plain`` and timed beside kernel A and SDPA on the same
+inputs, which is what the transposed orientation costs; ``--against FILE``
+adds another kernel-9 source the same way.
 At each of kernel A's main-path shapes (``SHAPES``, those of
 ``chip_smoke.py``) every variant that computes the same function is first
 held to the plain version on 128 query rows (``chip_smoke.py``'s limits);
@@ -109,7 +117,8 @@ FLASH_BWD_TOL = (1e-3, 0.2)  # chip_smoke.py's limits for each of dq, dk, dv
 BWD_SHAPES = (("level0 cond", 24, 7168, 14336, 8, 40, 0),
               ("level0 uncond", 24, 7168, 14336, 8, 40, 24),
               ("level1 cond", 24, 1792, 3584, 8, 80, 0),
-              ("refnet level0 self", 8, 7168, 7168, 8, 40, 0))
+              ("refnet level0 self", 8, 7168, 7168, 8, 40, 0),
+              ("VAE mid d512", 8, 6144, 6144, 1, 512, 0))
 _DKV48 = "using DkvCfg48 = BwdCfg<48, 40, 8, 3, 64, 3>;"
 _DKV80 = "using DkvCfg80 = BwdCfg<80, 80, 8, 2, 64, 3>;"
 _DKV80S = "using DkvCfg80s = BwdCfg<80, 80, 16, 2, 64, 3>;"
@@ -159,15 +168,46 @@ BWD_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
     # hidden key tiles computed instead of passed over
     "no_skip": ((("constexpr float kHiddenBias = -1e9f;", None,
                   "constexpr float kHiddenBias = -INFINITY;"),), False),
+    # d = 512: dV's ring of one 32-row stage instead of two
+    "wide_dv_one_stage": ((("using WideDv = WideCfg<kDv, 32, 2>;", None,
+                            "using WideDv = WideCfg<kDv, 32, 1>;"),), False),
+    # d = 512: dK's and dQ's steps of 16 rows in a 2-stage ring instead of
+    # 32 rows in one stage
+    "wide_dk_dq_16_rows": ((("using WideDk = WideCfg<kDk, 32, 1>;", None,
+                             "using WideDk = WideCfg<kDk, 16, 2>;"),
+                            ("using WideDq = WideCfg<kDq, 32, 1>;", None,
+                             "using WideDq = WideCfg<kDq, 16, 2>;")), False),
     # ablations: the streamed tiles never loaded (the ring still turns), or
     # p = s without exp2
     "no_stream_loads": ((("      if (skip) {\n", None, "      if (true) {\n"),), True),
-    "no_exp2": ((('#include "warp_mma.cuh"\n', None,
-                  '#include "warp_mma.cuh"\n#define fast_exp2(x) (x)\n'),), True),
+    "no_exp2": ((('#include "hopper.cuh"\n', None,
+                  '#include "hopper.cuh"\n#define fast_exp2(x) (x)\n'),), True),
     "no_stream_loads_no_exp2": ((("      if (skip) {\n", None, "      if (true) {\n"),
-                                 ('#include "warp_mma.cuh"\n', None,
-                                  '#include "warp_mma.cuh"\n#define fast_exp2(x) (x)\n')),
+                                 ('#include "hopper.cuh"\n', None,
+                                  '#include "hopper.cuh"\n#define fast_exp2(x) (x)\n')),
                                 True),
+}
+
+
+# kernel 9 (csrc/probe_pvt.cu) at the microbench probe's shapes: (name, B,
+# Lq, Lk, heads, d, every 7th key hidden)
+PVT_SHAPES = (("level0 cond", 24, 6144, 12288, 8, 40, False),
+              ("every 7th key hidden", 2, 1024, 2048, 8, 40, True))
+_PVT_CFG48 = "PvtCfg<48, 1, 48, 3>"
+PVT_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
+    "kernel": ((), False),
+    # O (queries x [V | 1]) += P V with A = P from shared memory (N = 48 at
+    # d = 40) instead of O^T += V^T P^T (M = 64)
+    "pv_untransposed": ((("constexpr bool kTransposedPV = true;", None,
+                          "constexpr bool kTransposedPV = false;"),), False),
+    # 2 consumer warpgroups (128-query blocks) at d <= 40 instead of 3
+    "two_consumers": (((_PVT_CFG48, None, "PvtCfg<48, 1, 48, 2>"),), False),
+    # ablation: each warp takes its own column max, without the exchange
+    # between the 4 warps of a warpgroup (and its named barrier)
+    "no_max_exchange": ((("    named_bar_sync(bar_id, 128);\n    float m_use_l[2]", None,
+                          "    float m_use_l[2]"),
+                         ("float x = fmaxf(fmaxf(red[", "const float m_new",
+                          "float x = v1[e];\n      "),), True),
 }
 
 
@@ -398,27 +438,108 @@ def run_bwd(names: Sequence[str], iters: int = 5, against: Optional[str] = None)
     return records
 
 
+def run_pvt(names: Sequence[str], iters: int = 5, against: Optional[str] = None) -> List[dict]:
+    """Kernel 9's variants at every shape of ``PVT_SHAPES``: each held to
+    ``pvt_plain`` on 128 query rows (``chip_smoke.py``'s limits, lse in log2
+    units), then timed in turns beside kernel A (``flash_attention_cuda``)
+    and SDPA on the same inputs. Returns the records (also printed)."""
+    from . import probe_kernels as pk
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the variants run on the CUDA card, and none is available")
+    dev = torch.device("cuda")
+    texts = {n: variant_source(n, PVT_VARIANTS, "probe_pvt.cu") for n in names}
+    if against:
+        texts["against"] = Path(against).read_text()
+    fns = {}
+    for name, lib in _build(texts, "probe_pvt_variant").items():
+        fn = fns[name] = lib.hv_probe_pvt
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    stream = cuda_build.stream_handle(dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    records = []
+    for shape, B, lq, lk, heads, d, every7 in PVT_SHAPES:
+        q, k, v = (torch.randn((B, n, heads * d), generator=gen, device=dev).to(torch.bfloat16)
+                   for n in (lq, lk, lk))
+        bias = None
+        if every7:
+            bias = torch.where(torch.arange(lk, device=dev) % 7 == 0, -1e9, 0.0)
+            bias = bias.expand(B, lk).contiguous()
+        qs = pk._prescale(q, heads)
+        out, lse = torch.empty_like(q), torch.empty((B, heads, lq), device=dev)
+
+        def call(name):
+            cuda_build.check(fns[name](qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                       None if bias is None else bias.data_ptr(),
+                                       out.data_ptr(), lse.data_ptr(), B, lq, lk, heads, d,
+                                       stream), f"variant {name}")
+
+        rows = torch.cat([torch.arange(64, device=dev), torch.arange(lq - 64, lq, device=dev)])
+        ref, ref_lse = pk.pvt_plain(q[:, rows], k, v, heads, bias)
+        checks = {}
+        for name in fns:
+            if name in PVT_VARIANTS and PVT_VARIANTS[name][1]:
+                checks[name] = (None, None, None)
+                continue
+            call(name)
+            torch.cuda.synchronize()
+            diff = out[:, rows].float() - ref.float()
+            rel = (diff.norm() / ref.float().norm()).item()
+            lse_err = (lse[:, :, rows] - ref_lse).abs().max().item()
+            ok = (rel <= FLASH_TOL[0] and lse_err <= LSE_TOL and diff.abs().max().item()
+                  <= FLASH_TOL[1] * ref.float().pow(2).mean().sqrt().item())
+            checks[name] = (ok, rel, lse_err)
+        turns = {name: [] for name in fns}
+        for name in list(fns) + list(fns)[::-1]:
+            turns[name].append(_time_ms(lambda: call(name), iters))
+        kernel_a_ms = _time_ms(lambda: fa.flash_attention_cuda(q, k, v, heads, bias), iters)
+        qh, kh, vh = (t.view(B, t.shape[1], heads, d).transpose(1, 2) for t in (q, k, v))
+        mask = None if bias is None else bias.to(torch.bfloat16)[:, None, None, :]
+        sdpa_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask), iters)
+        unmasked = B * lk if bias is None else int((bias == 0).sum().item())
+        flops = 4.0 * heads * lq * unmasked * d
+        for name in fns:
+            ms = min(turns[name])
+            ok, rel, lse_err = checks[name]
+            rec = dict(variant=name, shape=shape, ms=ms, turns=turns[name],
+                       tflops=flops / ms / 1e9, kernel_a_ms=kernel_a_ms, sdpa_ms=sdpa_ms,
+                       ablation=name in PVT_VARIANTS and PVT_VARIANTS[name][1], ok=ok,
+                       rel_l2=rel, lse_err=lse_err, device=torch.cuda.get_device_name())
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        del q, k, v, qs, out, lse, ref, ref_lse
+        torch.cuda.empty_cache()
+    return records
+
+
 def main(argv: Sequence[str] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("variants", nargs="*", metavar="variant",
                         help=f"variants to run (default: all): {', '.join(VARIANTS)}; with "
                              f"--bwd: {', '.join(BWD_VARIANTS)}")
-    parser.add_argument("--bwd", action="store_true", help="the backward's variants")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--bwd", action="store_true", help="the backward's variants")
+    mode.add_argument("--pvt", action="store_true", help="kernel 9's variants")
     parser.add_argument("--against", metavar="FILE",
-                        help="with --bwd: another backward source, timed as 'against'")
+                        help="with --bwd or --pvt: another source of the same kernels, "
+                             "timed as 'against'")
     parser.add_argument("--iters", type=int, default=5, help="launches per timed turn")
     args = parser.parse_args(argv)
-    table = BWD_VARIANTS if args.bwd else VARIANTS
+    table = BWD_VARIANTS if args.bwd else PVT_VARIANTS if args.pvt else VARIANTS
     names = args.variants or list(table)
     unknown = [n for n in names if n not in table]
     if unknown:
         parser.error(f"unknown variants {unknown}; the variants are {', '.join(table)}")
-    if args.against and not args.bwd:
-        parser.error("--against needs --bwd")
+    if args.against and not (args.bwd or args.pvt):
+        parser.error("--against needs --bwd or --pvt")
     if "kernel" not in names:
         names = ["kernel", *names]
     if args.bwd:
         records = run_bwd(names, args.iters, args.against)
+    elif args.pvt:
+        records = run_pvt(names, args.iters, args.against)
     else:
         records = run(names, args.iters)
     return 0 if all(r["ok"] is not False for r in records) else 1

@@ -44,10 +44,11 @@ DEFAULT_PROBES = ("flash", "temporal", "unet", "vae")
 # one tiling per head width, so there is nothing to sweep.
 LEFT_BEHIND = ("flash_sweep",)
 NEG_INF = -1e9
-# query x key tiles: kernel A at d <= 80 and at d = 512; kernel 9
+# query x key tiles: kernel A at d <= 80 and at d = 512; kernel 9 (192
+# queries, 3 consumer warpgroups, over 128-key tiles)
 TILE = "192x128"
 TILE_D512 = "64x32"
-PVT_TILE = "64x64"
+PVT_TILE = "192x128"
 
 
 def _device() -> torch.device:

@@ -150,14 +150,17 @@ def _prescale(q: torch.Tensor, heads: int) -> torch.Tensor:
     """q * (d^-1/2 * log2 e) with the constant and the product rounded to
     q's dtype, as the JAX probe folds the scale into q."""
     d = q.shape[-1] // heads
-    return q * torch.tensor(d ** -0.5 * LOG2E, dtype=q.dtype, device=q.device)
+    # the constant rounded on the host (no copy to the card); a product with
+    # a value exact in q's dtype rounds once, as JAX's product in that dtype
+    return q * float(torch.tensor(d ** -0.5 * LOG2E, dtype=q.dtype))
 
 
 def pvt_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
               key_bias: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: (out, lse) with lse (B, heads, Lq) fp32 in log2 units.
-    Logits in fp32 from the pre-scaled q, p = exp2(s - max) summed in fp32,
-    p rounded to the input dtype before the PV product."""
+    Logits in fp32 from the pre-scaled q, p = exp2(s - max) rounded to the
+    input dtype before the PV product and summed so rounded in fp32, as the
+    JAX probe sums it (a ones row under V^T)."""
     _pvt_check(q, k, v, heads, key_bias)
     b, lq, c = q.shape
     d = c // heads
@@ -169,9 +172,9 @@ def pvt_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
     if key_bias is not None:
         s = s + (key_bias.float() * LOG2E)[:, None, None, :]
     m = s.amax(-1, keepdim=True)
-    p = torch.exp2(s - m)
+    p = torch.exp2(s - m).to(q.dtype).float()
     l = p.sum(-1, keepdim=True)
-    out = torch.matmul(p.to(q.dtype).float(), split(v)) / l
+    out = torch.matmul(p, split(v)) / l
     lse = (m + torch.log2(l)).squeeze(-1)
     return out.to(q.dtype).transpose(1, 2).reshape(b, lq, c), lse
 

@@ -138,6 +138,16 @@ def test_temporal_kernel_matches_plain(b, f, l, c, heads):
     # the dk/dv blocks there write zeros)
     (2, 300, 700, 8, 40, ((0, 256, 700), (1, 256, 700))),
     (2, 300, 700, 4, 80, ((0, 128, 700),)),
+    # d = 512 (64-row blocks, 32-row steps): Lq = Lk at multiples of both
+    (2, 128, 128, 1, 512, ()),
+    # Lq and Lk 1 past a 64-row block and a 32-row step, at a batch boundary
+    (2, 65, 65, 1, 512, ()),
+    (2, 97, 33, 1, 512, ()),
+    (1, 100, 200, 2, 512, ()),   # d = 512 at a head offset
+    # whole 64-key blocks and 32-key steps hidden on one row, part of a block on the other
+    (2, 200, 300, 1, 512, ((0, 64, 192), (1, 10, 40))),
+    # every row hides whole blocks up to a ragged end
+    (2, 200, 300, 1, 512, ((0, 128, 300), (1, 128, 300))),
 ])
 def test_flash_backward_kernels_match_plain(b, lq, lk, heads, d, hide):
     from humanvid_tpu_torch.ops import flash_attention as fa
@@ -365,26 +375,46 @@ def test_probe_dmajor_kernel_matches_plain(arm, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,lq,lk,heads,d,with_bias", [
-    (2, 300, 700, 8, 40, True),   # ragged, every 7th key hidden
-    (1, 256, 512, 8, 80, False),
+@pytest.mark.parametrize("b,lq,lk,heads,d,hide", [
+    (2, 300, 700, 8, 40, "every7"),  # ragged, every 7th key hidden
+    (1, 256, 512, 8, 80, ()),
+    (2, 192, 129, 8, 40, ()),   # Lk 1 past a 128-key tile, at a batch boundary
+    (2, 200, 256, 8, 40, ()),   # Lq not a multiple of the 192-query block
+    (2, 130, 300, 4, 16, ()),   # d = 16 (48-deep pad), every head
+    (2, 130, 300, 3, 48, ()),   # d = 48: O^T's rows in two m64 tiles
+    (1, 100, 200, 3, 64, ()),   # d = 64: V^T's 64 rows and the ones row
+    (2, 130, 300, 8, 80, ()),   # d = 80, every head, ragged Lq and Lk
+    # whole 128-key tiles hidden on row 0, part of a tile on row 1
+    (2, 300, 700, 8, 40, ((0, 128, 512), (1, 100, 200))),
+    # every row hides whole tiles up to a ragged end
+    (2, 300, 700, 8, 40, ((0, 256, 700), (1, 256, 700))),
 ])
-def test_probe_pvt_kernel_matches_plain(b, lq, lk, heads, d, with_bias):
+def test_probe_pvt_kernel_matches_plain(b, lq, lk, heads, d, hide):
     from humanvid_tpu_torch.tools import probe_kernels as pk
 
     dev = _card()
     q, k, v = (_randn((b, n, heads * d), s, dev) for s, n in enumerate((lq, lk, lk)))
     bias = None
-    if with_bias:
+    if hide == "every7":
         bias = torch.where(torch.arange(lk, device=dev) % 7 == 0, -1e9, 0.0)
         bias = bias.expand(b, lk).contiguous()
+    elif hide:
+        bias = torch.zeros((b, lk), device=dev)
+        for row, start, stop in hide:
+            bias[row, start:stop] = -1e9
     before = pk.launches["probe_pvt"]
     out, lse = pk.pvt(q, k, v, heads, bias)
     ref, ref_lse = pk.pvt_plain(q, k, v, heads, bias)
     torch.cuda.synchronize()
     assert pk.launches["probe_pvt"] == before + 1
-    _assert_close(out, ref, FLASH_TOL)
+    # each head on its own: a head that read its neighbour's columns (or past
+    # the last column) fails alone
+    for h in range(heads):
+        cols = slice(h * d, (h + 1) * d)
+        _assert_close(out[..., cols], ref[..., cols], FLASH_TOL)
     assert (lse - ref_lse).abs().max().item() <= 1e-3
+    again, lse_again = pk.pvt(q, k, v, heads, bias)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)  # no atomics
 
 
 @pytest.mark.cuda

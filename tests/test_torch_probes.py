@@ -1,7 +1,8 @@
 """The measurement probes (``humanvid_tpu_torch.tools``): the plain versions
 of kernels 8-10 against the JAX functions on the CPU, the microbench
-tool's registry and entry point, and kernel A's design variants. The CUDA kernels are held to the plain
-versions on the card in test_torch_cuda.py.
+tool's registry and entry point, and the design variants of kernel A and
+kernel 9. The CUDA kernels are held to the plain versions on the card in
+test_torch_cuda.py.
 
 Kernel 8's arms are nested functions of the JAX tool and cannot be
 imported: each is held to ``jax.lax.dot_general`` with the arm's
@@ -159,6 +160,51 @@ def test_flash_bwd_variant_edits_apply_to_the_kernel_source(name):
                                          "flash_attention_bwd.cu")
     base = (cuda_build.CSRC / "flash_attention_bwd.cu").read_text()
     assert (text == base) == (name == "kernel")
+
+
+@pytest.mark.parametrize("name", sorted(flash_variants.PVT_VARIANTS))
+def test_flash_pvt_variant_edits_apply_to_the_kernel_source(name):
+    """The same for kernel 9's variants, on its source."""
+    text = flash_variants.variant_source(name, flash_variants.PVT_VARIANTS, "probe_pvt.cu")
+    base = (cuda_build.CSRC / "probe_pvt.cu").read_text()
+    assert (text == base) == (name == "kernel")
+
+
+def test_pvt_and_wide_modes_raise_without_a_card(monkeypatch):
+    """The ``--pvt`` mode and the backward's mode with its d = 512 shape need
+    the card; ``--against`` needs a mode that takes it, and the two modes
+    exclude each other."""
+    assert any(shape[5] == 512 for shape in flash_variants.BWD_SHAPES)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.run_pvt(["kernel", "pv_untransposed"])
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.main(["--pvt", "--against", "probe_pvt.cu"])
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.run_bwd(["kernel", "wide_dv_one_stage"])
+    for argv in (["--against", "x.cu"], ["--bwd", "--pvt"], ["--pvt", "two_stages"]):
+        with pytest.raises(SystemExit):
+            flash_variants.main(argv)
+
+
+def test_pvt_plain_sums_l_from_rounded_p():
+    """In bf16 the plain version sums l from p rounded to bf16, as the JAX
+    probe's ones row under V^T does, so its lse is m + log2 of that sum."""
+    heads, d, lq, lk = 2, 16, 8, 40
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, n, heads * d)).astype(np.float32) * 3)
+               .to(torch.bfloat16) for n in (lq, lk, lk))
+    _, lse = pk.pvt_plain(q, k, v, heads)
+    qs = pk._prescale(q, heads).float().reshape(1, lq, heads, d).transpose(1, 2)
+    kh = k.float().reshape(1, lk, heads, d).transpose(1, 2)
+    s = torch.matmul(qs, kh.transpose(-1, -2))
+    m = s.amax(-1)
+    p = np.asarray(jnp.asarray(torch.exp2(s - m[..., None]).numpy()).astype(jnp.bfloat16),
+                   np.float32)
+    want = m + torch.log2(torch.from_numpy(p).sum(-1))
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-6)
+    unrounded = m + torch.log2(torch.exp2(s - m[..., None]).sum(-1))
+    assert (lse - unrounded).abs().max() > 1e-5  # the rounding shows at this size
 
 
 def test_entry_point_raises_without_a_card(monkeypatch):
