@@ -64,12 +64,14 @@ The measurement probes and the wide-head backward add:
   512-wide head (8x6144x6144, and a small ragged case with the bias), with
   SDPA's backward at d = 512 by backend as the library yardstick;
 - probes: kernel 8 (the orientation probe, every arm, and its device time
-  at half the keys, which shows that the unstored products are computed),
+  at half the keys, which shows that the unstored products are computed;
+  the d-major arm's time over the lanes arm's, the probe's answer),
   kernel 9 (the transposed flash forward, beside kernel A and its own
   un-transposed variant at UNet level 0)
   and kernel 10 (the streaming map, exact, beside ``torch.add`` and a
   device-to-device copy: the card's measured streaming rate), each against
-  its plain version;
+  its plain version; kernels 8 and 10 by device time (torch.profiler) and
+  by CUDA events through the wrapper;
 - microbench: the port's ``humanvid_tpu_torch.tools.microbench`` entry with
   every probe but ``unet`` and ``vae`` (whose work the main phase times);
   every probe must pass and launch its kernels.
@@ -657,9 +659,12 @@ def phase_group_norm_grad(torch, dev):
 
 def phase_probes(torch, results, dev):
     """Kernels 8-10 against their plain versions at the microbench probes'
-    shapes, with ms (CUDA events over back-to-back calls, as everywhere
-    here), plain ms, library ms (one PyTorch call: the cuBLAS batched
-    product, SDPA, ``torch.add``) and the bound."""
+    shapes, with ms, plain ms, library ms (one PyTorch call: the cuBLAS
+    batched product, SDPA, ``torch.add``) and the bound. Kernel 9's ms is
+    CUDA events over back-to-back calls, as everywhere here; kernels 8 and
+    10 record ``ms`` as the device time (torch.profiler), with the events'
+    time through the wrapper beside it as ``event_ms``, since their device
+    times come near a Python call's."""
     from humanvid_tpu_torch.ops import flash_attention as fa
     from humanvid_tpu_torch.tools import probe_kernels as pk
 
@@ -687,9 +692,10 @@ def phase_probes(torch, results, dev):
         err, rel, ok = agreement(out, ref, DMAJOR_TOL)
         if arm == "pv_d_on_lanes":
             ok = ok and bool((out[:, :, d:] == 0).all())
-        ms = time_ms(torch, lambda: pk.dmajor_cuda(arm, a, b), 20)
+        ms = time_ms(torch, lambda: pk.dmajor_cuda(arm, a, b), 50)
         # device time alone (the wrapper's host time is near the kernel's)
-        dev_ms = _profile_split(torch, lambda: pk.dmajor_cuda(arm, a, b), ("probe_",))["probe_"]
+        dev_ms = _profile_split(torch, lambda: pk.dmajor_cuda(arm, a, b),
+                                ("probe_dmajor",))["probe_dmajor"]
         extra = {}
         if arm.startswith("qk"):
             # the products of the unstored columns are computed: half the
@@ -697,7 +703,7 @@ def phase_probes(torch, results, dev):
             half = b[:, :lk // 2].contiguous() if arm == "qk_d_on_lanes" else \
                 b[:, :, :lk // 2].contiguous()
             extra["device_ms_half_lk"] = _profile_split(
-                torch, lambda: pk.dmajor_cuda(arm, a, half), ("probe_",))["probe_"]
+                torch, lambda: pk.dmajor_cuda(arm, a, half), ("probe_dmajor",))["probe_dmajor"]
             ok = ok and 0 < extra["device_ms_half_lk"] < 0.8 * dev_ms
         plain_ms = time_ms(torch, lambda: pk.dmajor_plain(arm, a, b), 3)
         # cuBLAS's batched product of the same operands (the whole product:
@@ -709,16 +715,22 @@ def phase_probes(torch, results, dev):
         lib = library_ms(torch, lib_fn, 20)
         b_ms, b_by = bound(2.0 * G * lq * lk * d, 2.0 * (a.numel() + b.numel() + out.numel()))
         print(f"  dmajor {tag}: G={G} lq={lq} lk={lk} d={d} max_abs_err={err:.3e} "
-              f"rel_l2={rel:.3e} ms={ms:.4f} device_ms={dev_ms:.4f} "
+              f"rel_l2={rel:.3e} event_ms={ms:.4f} device_ms={dev_ms:.4f} "
               f"{'' if not extra else 'device_ms_half_lk=%.4f ' % extra['device_ms_half_lk']}"
               f"plain_ms={plain_ms:.3f} library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) "
               f"TFLOP/s={2.0 * G * lq * lk * d / dev_ms / 1e9:.1f} {'ok' if ok else 'FAIL'}")
         results.append(dict(kernel="probe_dmajor", shape=f"{tag} G={G} {lq}x{lk} d={d}",
-                            max_abs_err=err, rel_l2=rel, ms=ms, device_ms=dev_ms,
-                            plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                            ok=ok, **extra))
+                            max_abs_err=err, rel_l2=rel, ms=dev_ms, event_ms=ms,
+                            device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib,
+                            bound_ms=b_ms, bound_by=b_by,
+                            tflops=2.0 * G * lq * lk * d / dev_ms / 1e9, ok=ok, **extra))
         del a, b, out, ref
         torch.cuda.empty_cache()
+    by_tag = {r["shape"].split()[0]: r["device_ms"] for r in results
+              if r["kernel"] == "probe_dmajor"}
+    print(f"  dmajor orientation: qk_d_on_sublanes / qk_d_on_lanes device time = "
+          f"{by_tag['qk_d_on_sublanes'] / by_tag['qk_d_on_lanes']:.3f}, pv_dmajor_out / "
+          f"pv_d_on_lanes = {by_tag['pv_dmajor_out'] / by_tag['pv_d_on_lanes']:.3f}")
 
     # kernel 9: UNet level 0 with the reference KV (beside kernel A and the
     # kernel's un-transposed variant, O = P V, built from the same source by
@@ -806,18 +818,22 @@ def phase_probes(torch, results, dev):
         ok = torch.equal(y, ref) and torch.equal(y, torch.add(x, 0.5))
         err = (y.float() - ref.float()).abs().max().item()
         ms = time_ms(torch, lambda: pk.hbm_map_cuda(x), 20)
+        dev_ms = _profile_split(torch, lambda: pk.hbm_map_cuda(x), ("probe_hbm",))["probe_hbm"]
+        ok = ok and dev_ms > 0
         plain_ms = time_ms(torch, lambda: pk.hbm_map_plain(x), 5)
         lib = library_ms(torch, lambda: torch.add(x, 0.5, out=out), 20)
         copy_ms = time_ms(torch, lambda: out.copy_(x), 20)
         nbytes = 2.0 * 2 * x.numel()
         b_ms, b_by = bound(2.0 * x.numel(), nbytes)
-        print(f"  hbm {name}: exact={ok} ms={ms:.4f} ({nbytes / ms / 1e6:.1f} GB/s) "
+        print(f"  hbm {name}: exact={ok} event_ms={ms:.4f} device_ms={dev_ms:.4f} "
+              f"({nbytes / dev_ms / 1e6:.1f} GB/s) "
               f"plain_ms={plain_ms:.3f} library_ms={lib:.4f} ({nbytes / lib / 1e6:.1f} GB/s) "
               f"copy_ms={copy_ms:.4f} ({nbytes / copy_ms / 1e6:.1f} GB/s) bound_ms={b_ms:.4f} "
               f"({b_by}) {'ok' if ok else 'FAIL'}")
-        results.append(dict(kernel="probe_hbm", shape=name, max_abs_err=err, rel_l2=0.0, ms=ms,
-                            plain_ms=plain_ms, library_ms=lib, copy_ms=copy_ms,
-                            gbs=nbytes / ms / 1e6, bound_ms=b_ms, bound_by=b_by, ok=ok))
+        results.append(dict(kernel="probe_hbm", shape=name, max_abs_err=err, rel_l2=0.0,
+                            ms=dev_ms, event_ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                            library_ms=lib, copy_ms=copy_ms, gbs=nbytes / dev_ms / 1e6,
+                            bound_ms=b_ms, bound_by=b_by, ok=ok))
         del x, y, ref, out
         torch.cuda.empty_cache()
 
@@ -1390,6 +1406,8 @@ def kernel_line(results, launches):
         elif name == "probe_pvt":
             extra = dict(kernel_a_ms=head["kernel_a_ms"],
                          untransposed_ms=head["untransposed_ms"])
+        elif name in ("probe_dmajor", "probe_hbm"):  # ms is the device time
+            extra = dict(event_ms=head["event_ms"])
         elif name == "group_norm":  # the statistics kernel and the folded apply
             extra = dict(also_replaces="humanvid_tpu/ops/group_norm.py:145")
         kernels.append(dict(

@@ -17,7 +17,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[Tuple[str, str], Callable] = {}
 
 
 def _nvcc() -> str:
@@ -84,6 +85,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence) -> Callable:
+    """The C function ``symbol`` of ``csrc/<name>.cu``, returning an int,
+    bound once: the library is loaded and ``argtypes`` set at the first
+    call, and every later call is a dictionary lookup."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        _fns[(name, symbol)] = fn
+    return fn
 
 
 def build_all():

@@ -5,6 +5,10 @@
         [--against FILE] [--iters N]
     python -m humanvid_tpu_torch.tools.flash_variants --pvt [variant ...]
         [--against FILE] [--iters N]
+    python -m humanvid_tpu_torch.tools.flash_variants --dmajor [variant ...]
+        [--against FILE] [--iters N]
+    python -m humanvid_tpu_torch.tools.flash_variants --hbm [variant ...]
+        [--against FILE] [--iters N]
 
 Each variant is ``csrc/flash_attention.cu`` with a few named text edits
 (``VARIANTS``), built by nvcc with the port's flags into ``build/`` and
@@ -22,6 +26,22 @@ them the product O = P V un-transposed; each is held to
 ``probe_kernels.pvt_plain`` and timed beside kernel A and SDPA on the same
 inputs, which is what the transposed orientation costs; ``--against FILE``
 adds another kernel-9 source the same way.
+With ``--dmajor`` the variants are those of kernel 8, the orientation
+probe ``csrc/probe_dmajor.cu`` (``DMAJOR_VARIANTS``: consumer counts, key
+tile, ring depths, block rows, V's layout, and ablations of the QK arms
+without K's loads, without the products or without the stores), at the
+microbench probe's five arms and the d-major control at d = 128
+(``DMAJOR_CASES``), each but the ablations held to
+``probe_kernels.dmajor_plain``, all timed beside ``torch.bmm`` on the same
+operands; with ``--hbm`` those of kernel 10, the streaming map
+``csrc/probe_hbm.cu`` (``HBM_VARIANTS``: 4 loads a thread, the grids of one
+wave, the bulk ring), at the microbench probe's three shapes
+(``HBM_SHAPES``), each equal to ``hbm_map_plain`` to the bit and timed
+beside ``torch.add(x, 0.5, out=out)`` and ``out.copy_(x)``. In both modes a
+timed turn is 20 x ``--iters`` launches, and ``--against FILE`` adds
+another source with the same C entry point (kernel 10's ``against`` is
+given the grid an earlier source took as its ``blocks``: ``hbm_blocks``
+capped at 8 blocks an SM).
 At each of kernel A's main-path shapes (``SHAPES``, those of
 ``chip_smoke.py``) every variant that computes the same function is first
 held to the plain version on 128 query rows (``chip_smoke.py``'s limits);
@@ -208,6 +228,86 @@ PVT_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
                           "    float m_use_l[2]"),
                          ("float x = fmaxf(fmaxf(red[", "const float m_new",
                           "float x = v1[e];\n      "),), True),
+}
+
+
+# kernel 8 (csrc/probe_dmajor.cu) at the microbench probe's arms: (tag, arm,
+# d), each at G = 64, lq = 1024, lk = 2048
+DMAJOR_CASES = (("qk_d_on_lanes", "qk_d_on_lanes", 40),
+                ("qk_d_on_sublanes", "qk_d_on_sublanes", 40),
+                ("pv_d_on_lanes", "pv_d_on_lanes", 40),
+                ("pv_dmajor_out", "pv_dmajor_out", 40),
+                ("qk_d128_lanes", "qk_d_on_lanes", 128),
+                ("qk_d128_sublanes", "qk_d_on_sublanes", 128))
+DMAJOR_SIZES = (64, 1024, 2048)  # G, lq, lk
+DMAJOR_TOL = (4e-3, 0.05)  # chip_smoke.py's limits: rel L2, max err / rms(plain)
+
+
+def _set_const(name: str, old: int, new: int) -> Edit:
+    """An edit of the source's ``constexpr int name = old;``."""
+    return (f"constexpr int {name} = {old};", None, f"constexpr int {name} = {new};")
+
+
+_PV_V_8_COLUMNS = ("constexpr bool kPvVSwizzled = true;", None,
+                   "constexpr bool kPvVSwizzled = false;")
+_QK_K_LOADS = "      mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);\n      if constexpr (DMAJOR) {"
+_QK_PRODUCTS = "#pragma unroll\n    for (int kk = 0; kk < C::KSTEPS; ++kk)\n      WgmmaSSt<BK>"
+DMAJOR_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
+    "kernel": ((), False),
+    # QK: 2 consumer warpgroups (128-row blocks, K read from L2 twice as
+    # often) on 256-key (2 stages at d = 128) or 128-key stages, or 3
+    # (192-row blocks)
+    "qk_consumers_2_keys_256": ((_set_const("kQkConsumers", 4, 2),
+                                 _set_const("kQkKeys", 128, 256),
+                                 _set_const("kQkStagesWide", 3, 2)), False),
+    "qk_consumers_2": ((_set_const("kQkConsumers", 4, 2),), False),
+    "qk_consumers_3": ((_set_const("kQkConsumers", 4, 3),), False),
+    # QK: rings of 2 stages instead of 4 (d <= 48) and 3 (d = 128)
+    "qk_stages_2": ((_set_const("kQkStagesNarrow", 4, 2),
+                     _set_const("kQkStagesWide", 3, 2)), False),
+    # QK: rings of 8 stages at d <= 48 (d = 128 has no room for a fourth)
+    "qk_stages_8": ((_set_const("kQkStagesNarrow", 4, 8),), False),
+    # PV: rings of 4 stages (two blocks an SM) or 3 (three) instead of 6
+    "pv_stages_4": ((_set_const("kPvStages", 6, 4),), False),
+    "pv_stages_3": ((_set_const("kPvStages", 6, 3),), False),
+    # pv_d_on_lanes: V from d / 8 8-column boxes without swizzle, as kernel
+    # A takes V, instead of one 64-column box; with 4 stages, the first design
+    "pv_v_8_columns": ((_PV_V_8_COLUMNS,), False),
+    "pv_stages_4_v_8_columns": ((_PV_V_8_COLUMNS, _set_const("kPvStages", 6, 4)), False),
+    # PV: blocks of 64 rows (queries), or 256 on 4 stages, instead of 128
+    "pv_rows_64": ((_set_const("kPvRows", 128, 64),), False),
+    "pv_rows_256_stages_4": ((_set_const("kPvRows", 128, 256),
+                              _set_const("kPvStages", 6, 4)), False),
+    # ablations of the QK arms: K never loaded (the ring still turns, the
+    # products read stale tiles), no products (the loads alone), or nothing
+    # stored
+    "qk_no_k_loads": (((_QK_K_LOADS, None, "      mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);"
+                        "\n      mbar_arrive(&full[s]);\n      continue;\n"
+                        "      if constexpr (DMAJOR) {"),), True),
+    "qk_no_products": (((_QK_PRODUCTS, None, "    for (int kk = 0; kk < 0; ++kk)\n"
+                         "      WgmmaSSt<BK>"),), True),
+    "qk_no_store": ((("    if (kt == 0) {\n      // the stored columns", None,
+                      "    if (false) {\n      // the stored columns"),), True),
+}
+
+# kernel 10 (csrc/probe_hbm.cu) at the microbench probe's shapes
+HBM_SHAPES = (("vae_hi", (8, 768, 512, 128)), ("vae_mid", (8, 384, 256, 256)),
+              ("unet_l0", (24, 96, 64, 320)))
+_RING = ("constexpr bool kBulkRing = false;", None, "constexpr bool kBulkRing = true;")
+HBM_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
+    "kernel": ((), False),
+    # the unrolled design with 4 independent 16-byte loads a thread
+    "hbm_unroll4": ((_set_const("kUnroll", 1, 4),), False),
+    # the same on a grid of one wave of resident blocks, in a grid-stride
+    # loop, with 4 loads a thread (design (a)) or 1
+    "hbm_one_wave_unroll4": ((_set_const("kUnroll", 1, 4), _set_const("kWaves", 0, 1)), False),
+    "hbm_one_wave": ((_set_const("kWaves", 0, 1),), False),
+    # the bulk ring (design (b)): 4 stages of 32 KB (one block an SM), 3
+    # stages (two blocks an SM), 8 stages of 16 KB
+    "hbm_bulk_ring": ((_RING,), False),
+    "hbm_ring_3_stages": ((_RING, _set_const("kStages", 4, 3)), False),
+    "hbm_ring_16k_8_stages": ((_RING, _set_const("kChunk", 32768, 16384),
+                               _set_const("kStages", 4, 8)), False),
 }
 
 
@@ -514,32 +614,181 @@ def run_pvt(names: Sequence[str], iters: int = 5, against: Optional[str] = None)
     return records
 
 
+def _named_sources(names, variants, source, against):
+    texts = {n: variant_source(n, variants, source) for n in names}
+    if against:
+        texts["against"] = Path(against).read_text()
+    return texts
+
+
+def _turns(calls: Dict[str, object], reps: int) -> Dict[str, List[float]]:
+    """ms per launch of each call, timed in turns: the list, then reversed."""
+    turns = {name: [] for name in calls}
+    for name in list(calls) + list(calls)[::-1]:
+        turns[name].append(_time_ms(calls[name], reps))
+    return turns
+
+
+def run_dmajor(names: Sequence[str], iters: int = 5, against: Optional[str] = None) -> List[dict]:
+    """Kernel 8's variants at every arm of ``DMAJOR_CASES``: each held to
+    ``dmajor_plain`` (``chip_smoke.py``'s limits; ``pv_d_on_lanes``'
+    padding exactly zero), then timed in turns beside ``torch.bmm`` of the
+    same operands. Returns the records (also printed, one JSON line each)."""
+    from . import probe_kernels as pk
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the variants run on the CUDA card, and none is available")
+    dev = torch.device("cuda")
+    fns = {}
+    for name, lib in _build(_named_sources(names, DMAJOR_VARIANTS, "probe_dmajor.cu", against),
+                            "probe_dmajor_variant").items():
+        fn = fns[name] = lib.hv_probe_dmajor
+        fn.restype = ctypes.c_int
+        fn.argtypes = pk.DMAJOR_ARGTYPES
+    stream = cuda_build.stream_handle(dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    G, lq, lk = DMAJOR_SIZES
+    records = []
+    for tag, arm, d in DMAJOR_CASES:
+        shapes = {"qk_d_on_lanes": ((lq, d), (lk, d)), "qk_d_on_sublanes": ((d, lq), (d, lk)),
+                  "pv_d_on_lanes": ((lq, lk), (lk, d)),
+                  "pv_dmajor_out": ((d, lk), (lq, lk))}[arm]
+        a, b = (torch.randn((G,) + s, generator=gen, device=dev).to(torch.bfloat16)
+                for s in shapes)
+        ref = pk.dmajor_plain(arm, a, b).float()
+        out = torch.empty(ref.shape, dtype=torch.bfloat16, device=dev)
+        args = (pk.DMAJOR_ARMS[arm], a.data_ptr(), b.data_ptr(), out.data_ptr(), None, G, lq,
+                lk, d, stream)
+        calls = {name: (lambda fn=fns[name], name=name:
+                        cuda_build.check(fn(*args), f"variant {name}")) for name in fns}
+        checks = {}
+        for name in fns:
+            if name in DMAJOR_VARIANTS and DMAJOR_VARIANTS[name][1]:
+                checks[name] = (None, None)  # an ablation computes something else
+                continue
+            out.zero_()
+            calls[name]()
+            torch.cuda.synchronize()
+            diff = out.float() - ref
+            rel = (diff.norm() / ref.norm()).item()
+            ok = (rel <= DMAJOR_TOL[0] and diff.abs().max().item()
+                  <= DMAJOR_TOL[1] * ref.pow(2).mean().sqrt().item())
+            if arm == "pv_d_on_lanes":
+                out.fill_(1.0)
+                calls[name]()
+                torch.cuda.synchronize()
+                ok = ok and bool((out[:, :, d:] == 0).all())
+            checks[name] = (ok, rel)
+        turns = _turns(calls, 20 * iters)
+        lib_fn = {"qk_d_on_lanes": lambda: torch.bmm(a, b.transpose(1, 2)),
+                  "qk_d_on_sublanes": lambda: torch.bmm(a.transpose(1, 2), b),
+                  "pv_d_on_lanes": lambda: torch.bmm(a, b),
+                  "pv_dmajor_out": lambda: torch.bmm(a, b.transpose(1, 2))}[arm]
+        library_ms = _time_ms(lib_fn, 20 * iters)
+        flops = 2.0 * G * lq * lk * d
+        nbytes = 2.0 * (a.numel() + b.numel() + out.numel())
+        bound_ms = max(flops / 989e12, nbytes / 3.35e12) * 1e3
+        for name in fns:
+            ms = min(turns[name])
+            ok, rel = checks[name]
+            rec = dict(variant=name, shape=f"{tag} G={G} {lq}x{lk} d={d}", ms=ms,
+                       turns=turns[name], tflops=flops / ms / 1e9, gbs=nbytes / ms / 1e6,
+                       library_ms=library_ms, bound_ms=bound_ms,
+                       ablation=name in DMAJOR_VARIANTS and DMAJOR_VARIANTS[name][1], ok=ok,
+                       rel_l2=rel, device=torch.cuda.get_device_name())
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        del a, b, ref, out
+        torch.cuda.empty_cache()
+    return records
+
+
+def run_hbm(names: Sequence[str], iters: int = 5, against: Optional[str] = None) -> List[dict]:
+    """Kernel 10's variants at every shape of ``HBM_SHAPES``: each equal to
+    ``hbm_map_plain`` to the bit, then timed in turns beside ``torch.add(x,
+    0.5, out=out)`` (the same function to the bit) and ``out.copy_(x)``.
+    Returns the records (also printed, one JSON line each)."""
+    from . import probe_kernels as pk
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the variants run on the CUDA card, and none is available")
+    dev = torch.device("cuda")
+    fns = {}
+    for name, lib in _build(_named_sources(names, HBM_VARIANTS, "probe_hbm.cu", against),
+                            "probe_hbm_variant").items():
+        fn = fns[name] = lib.hv_probe_hbm
+        fn.restype = ctypes.c_int
+        fn.argtypes = pk.HBM_ARGTYPES
+    stream = cuda_build.stream_handle(dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    records = []
+    for tag, shape in HBM_SHAPES:
+        x = (torch.randn(shape, generator=gen, device=dev) * 4).to(torch.bfloat16)
+        ref = pk.hbm_map_plain(x)
+        out = torch.empty_like(x)
+        n = x.numel()
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        calls = {}
+        for name, fn in fns.items():
+            blocks = pk.hbm_blocks(n) if name != "against" else min(8 * sms, pk.hbm_blocks(n))
+            args = (x.data_ptr(), out.data_ptr(), n, pk.HBM_SCALE_BF16, blocks, stream)
+            calls[name] = (lambda fn=fn, name=name, args=args:
+                           cuda_build.check(fn(*args), f"variant {name}"))
+        checks = {}
+        for name in fns:
+            out.zero_()
+            calls[name]()
+            torch.cuda.synchronize()
+            checks[name] = torch.equal(out, ref)
+        turns = _turns(calls, 20 * iters)
+        add_ms = _time_ms(lambda: torch.add(x, 0.5, out=out), 20 * iters)
+        copy_ms = _time_ms(lambda: out.copy_(x), 20 * iters)
+        nbytes = 4.0 * n
+        for name in fns:
+            ms = min(turns[name])
+            rec = dict(variant=name, shape=f"{tag} {shape}", ms=ms, turns=turns[name],
+                       gbs=nbytes / ms / 1e6, library_ms=add_ms, copy_ms=copy_ms,
+                       bound_ms=nbytes / 3.35e12 * 1e3, ok=checks[name],
+                       device=torch.cuda.get_device_name())
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        del x, ref, out
+        torch.cuda.empty_cache()
+    return records
+
+
 def main(argv: Sequence[str] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("variants", nargs="*", metavar="variant",
                         help=f"variants to run (default: all): {', '.join(VARIANTS)}; with "
-                             f"--bwd: {', '.join(BWD_VARIANTS)}")
+                             f"--bwd: {', '.join(BWD_VARIANTS)}; with --pvt: "
+                             f"{', '.join(PVT_VARIANTS)}; with --dmajor: "
+                             f"{', '.join(DMAJOR_VARIANTS)}; with --hbm: {', '.join(HBM_VARIANTS)}")
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--bwd", action="store_true", help="the backward's variants")
     mode.add_argument("--pvt", action="store_true", help="kernel 9's variants")
+    mode.add_argument("--dmajor", action="store_true", help="kernel 8's variants")
+    mode.add_argument("--hbm", action="store_true", help="kernel 10's variants")
     parser.add_argument("--against", metavar="FILE",
-                        help="with --bwd or --pvt: another source of the same kernels, "
-                             "timed as 'against'")
-    parser.add_argument("--iters", type=int, default=5, help="launches per timed turn")
+                        help="with --bwd, --pvt, --dmajor or --hbm: another source of the same "
+                             "kernels, timed as 'against'")
+    parser.add_argument("--iters", type=int, default=5,
+                        help="launches per timed turn (20 times as many with --dmajor, --hbm)")
     args = parser.parse_args(argv)
-    table = BWD_VARIANTS if args.bwd else PVT_VARIANTS if args.pvt else VARIANTS
+    modes = {"bwd": (BWD_VARIANTS, run_bwd), "pvt": (PVT_VARIANTS, run_pvt),
+             "dmajor": (DMAJOR_VARIANTS, run_dmajor), "hbm": (HBM_VARIANTS, run_hbm)}
+    mode_name = next((m for m in modes if getattr(args, m)), None)
+    table = modes[mode_name][0] if mode_name else VARIANTS
     names = args.variants or list(table)
     unknown = [n for n in names if n not in table]
     if unknown:
         parser.error(f"unknown variants {unknown}; the variants are {', '.join(table)}")
-    if args.against and not (args.bwd or args.pvt):
-        parser.error("--against needs --bwd or --pvt")
+    if args.against and not mode_name:
+        parser.error("--against needs --bwd, --pvt, --dmajor or --hbm")
     if "kernel" not in names:
         names = ["kernel", *names]
-    if args.bwd:
-        records = run_bwd(names, args.iters, args.against)
-    elif args.pvt:
-        records = run_pvt(names, args.iters, args.against)
+    if mode_name:
+        records = modes[mode_name][1](names, args.iters, args.against)
     else:
         records = run(names, args.iters)
     return 0 if all(r["ok"] is not False for r in records) else 1

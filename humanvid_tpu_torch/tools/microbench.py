@@ -73,6 +73,28 @@ def _time(fn: Callable[[], object], iters: int, n: int = 1):
     return statistics.median(dts), dts
 
 
+def _device_seconds(fn: Callable[[], object], key: str, calls: int = 20) -> float:
+    """Device seconds per launch of the CUDA kernels whose names contain
+    ``key``, from torch.profiler over ``calls`` calls: their captured time
+    over their captured launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if key in evt.key:
+            total += evt.self_device_time_total
+            count += evt.count
+    if not count:
+        raise RuntimeError(f"the profiler captured no kernel named like {key!r}")
+    return total / count / 1e6
+
+
 def _emit(name: str, seconds: float, dts: Sequence[float], **extra) -> None:
     rec = {"probe": name, "seconds": seconds, "spread": [min(dts), max(dts)], **extra,
            "device": torch.cuda.get_device_name()}
@@ -150,7 +172,8 @@ def probe_vae(dev, iters):
 
 def probe_dmajor(dev, iters):
     """Kernel 8: one (1024 x 2048 x d) product per problem, 64 problems, in
-    each orientation, and the QK control at d = 128."""
+    each orientation, and the QK control at d = 128; ``device_seconds`` is
+    the kernel's own time (torch.profiler) and ``device_tflops`` its rate."""
     G, lq, lk, d = 64, 1024, 2048, 40
     gen = torch.Generator(device=dev).manual_seed(0)
     arms = (("qk_d_on_lanes", "qk_d_on_lanes", ((lq, d), (lk, d)), d),
@@ -161,7 +184,10 @@ def probe_dmajor(dev, iters):
     for tag, arm, shapes, width in arms:
         a, b = (_randn(gen, (G,) + s, dev) for s in shapes)
         sec, dts = _time(lambda: pk.dmajor(arm, a, b), iters, 300)
-        _emit(f"dmajor_{tag}", sec, dts, tflops=2 * G * lq * lk * width / sec / 1e12)
+        dev_sec = _device_seconds(lambda: pk.dmajor(arm, a, b), "probe_dmajor")
+        flops = 2 * G * lq * lk * width
+        _emit(f"dmajor_{tag}", sec, dts, tflops=flops / sec / 1e12, device_seconds=dev_sec,
+              device_tflops=flops / dev_sec / 1e12)
         del a, b
 
 
@@ -264,7 +290,8 @@ def probe_hbm(dev, iters):
     probe's x + mean(x) * 1e-6 + y * 0 (an fp32 spatial mean fed back into
     a full map). ``gbs`` counts each input read once and each output written
     once, except ``hbm_reduce``, counted as two passes as the JAX probe counts
-    it."""
+    it. ``hbm_pallas_map`` adds kernel 10's own time (``device_seconds``,
+    torch.profiler) and its rate (``device_gbs``)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     for tag, shape in (("vae_hi", (8, 768, 512, 128)), ("vae_mid", (8, 384, 256, 256)),
                        ("unet_l0", (24, 96, 64, 320))):
@@ -280,7 +307,11 @@ def probe_hbm(dev, iters):
                 ("pallas_map", lambda: pk.hbm_map(x), 2))
         for arm, op, passes in arms:
             sec, dts = _time(op, iters, 40)
-            _emit(f"hbm_{arm}_{tag}", sec, dts, gbs=passes * size / sec / 1e9)
+            extra = {}
+            if arm == "pallas_map":
+                dev_sec = _device_seconds(op, "probe_hbm")
+                extra = dict(device_seconds=dev_sec, device_gbs=passes * size / dev_sec / 1e9)
+            _emit(f"hbm_{arm}_{tag}", sec, dts, gbs=passes * size / sec / 1e9, **extra)
         del x, y, out
 
 

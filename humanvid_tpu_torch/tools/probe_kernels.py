@@ -13,13 +13,15 @@ launch counter, as every kernel of the port has:
   the card's streaming rate.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
-it runs the plain version. No path of the models runs them.
+it runs the plain version. No path of the models runs them. Each wrapper
+binds its C function once (``cuda_build.function``) and does no other host
+work a call than its checks, the output's allocation and the launch: the
+kernels' times are near the wrappers' own.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional, Tuple
 
 import torch
@@ -29,6 +31,7 @@ from ..ops import cuda_build
 
 LOG2E = 1.4426950408889634
 HBM_SCALE = 1.0001  # the TPU probe's constant; rounds to exactly 1.0 in bf16
+HBM_SCALE_BF16 = float(torch.tensor(HBM_SCALE, dtype=torch.bfloat16))  # what kernel 10 takes
 STORED = 128        # columns the QK and pv_d_on_lanes arms store
 PV_DMAJOR_STORED = 1024  # rows of the (d, lq) output the pv_dmajor_out arm stores
 
@@ -42,6 +45,12 @@ DMAJOR_ARMS = {
 }
 
 launches = {"probe_dmajor": 0, "probe_pvt": 0, "probe_hbm": 0}
+
+# the C entry points' argument types
+DMAJOR_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+PVT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+HBM_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
+                ctypes.c_int, ctypes.c_void_p]
 
 
 def reset_launches() -> None:
@@ -116,10 +125,7 @@ def dmajor_cuda(arm: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"{PV_DMAJOR_STORED}")
     shape = (g, d, lq) if arm == "pv_dmajor_out" else (g, lq, STORED)
     out = torch.empty(shape, dtype=a.dtype, device=a.device)
-    lib = cuda_build.load("probe_dmajor")
-    fn = lib.hv_probe_dmajor
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = cuda_build.function("probe_dmajor", "hv_probe_dmajor", DMAJOR_ARGTYPES)
     cuda_build.check(fn(DMAJOR_ARMS[arm], a.data_ptr(), b.data_ptr(), out.data_ptr(), None,
                         g, lq, lk, d, cuda_build.stream_handle(a.device)),
                      f"probe_dmajor {arm} launch")
@@ -198,10 +204,7 @@ def pvt_cuda(q, k, v, heads, key_bias=None):
     qs = _prescale(q, heads)
     out = torch.empty_like(q)
     lse = torch.empty((b, heads, lq), dtype=torch.float32, device=q.device)
-    lib = cuda_build.load("probe_pvt")
-    fn = lib.hv_probe_pvt
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = cuda_build.function("probe_pvt", "hv_probe_pvt", PVT_ARGTYPES)
     bias_ptr = key_bias.data_ptr() if key_bias is not None else None
     cuda_build.check(fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
                         lse.data_ptr(), b, lq, lk, heads, d, cuda_build.stream_handle(q.device)),
@@ -229,23 +232,23 @@ def hbm_map_plain(x: torch.Tensor) -> torch.Tensor:
     return (t.float() + 0.5).to(x.dtype)
 
 
+def hbm_blocks(n: int) -> int:
+    """The grid's cap kernel 10 is given: one block of 256 threads for every
+    256 16-byte vectors. The kernel launches no more blocks than its own
+    unit of work fills."""
+    return max(1, -(-n // (8 * 256)))
+
+
 def hbm_map_cuda(x: torch.Tensor) -> torch.Tensor:
     """Launch kernel 10; every check the kernel relies on raises here."""
     _check_cuda([("x", x)])
     if x.numel() == 0:
         raise ValueError("x is empty")
     y = torch.empty_like(x)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    # one wave of 8 resident 256-thread blocks per SM, grid-stride beyond
-    blocks = max(1, min(8 * sms, math.ceil(x.numel() / 8 / 256)))
-    lib = cuda_build.load("probe_hbm")
-    fn = lib.hv_probe_hbm
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_void_p]
-    cuda_build.check(fn(x.data_ptr(), y.data_ptr(), x.numel(),
-                        float(torch.tensor(HBM_SCALE, dtype=torch.bfloat16)), blocks,
-                        cuda_build.stream_handle(x.device)), "probe_hbm launch")
+    fn = cuda_build.function("probe_hbm", "hv_probe_hbm", HBM_ARGTYPES)
+    cuda_build.check(fn(x.data_ptr(), y.data_ptr(), x.numel(), HBM_SCALE_BF16,
+                        hbm_blocks(x.numel()), cuda_build.stream_handle(x.device)),
+                     "probe_hbm launch")
     launches["probe_hbm"] += 1
     return y
 

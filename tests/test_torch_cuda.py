@@ -417,6 +417,46 @@ def test_probe_pvt_kernel_matches_plain(b, lq, lk, heads, d, hide):
     assert torch.equal(out, again) and torch.equal(lse, lse_again)  # no atomics
 
 
+def _dmajor_inputs(arm, G, lq, lk, d, dev):
+    shapes = {"qk_d_on_lanes": ((lq, d), (lk, d)), "qk_d_on_sublanes": ((d, lq), (d, lk)),
+              "pv_d_on_lanes": ((lq, lk), (lk, d)), "pv_dmajor_out": ((d, lk), (lq, lk))}[arm]
+    return (_randn((G,) + s, 10 + i, dev) for i, s in enumerate(shapes))
+
+
+_ARMS = ("qk_d_on_lanes", "qk_d_on_sublanes", "pv_d_on_lanes", "pv_dmajor_out")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm,d,G,lq,lk", [
+    # every width a PV tile takes (wgmma's N = d) and every contracted pad of
+    # the QK arms, with lk = 320: a ragged last 128-key tile (in the d-major
+    # layout a 64-key box past lk) next to the next problem's keys
+    *((arm, d, 3, 192, 320) for arm in _ARMS for d in (8, 16, 24, 32, 48)),
+    # lq = 64: a single block row, most of a block's rows past lq
+    *((arm, 40, 2, 64, 256) for arm in _ARMS),
+    ("qk_d_on_lanes", 128, 2, 64, 128),
+    ("qk_d_on_sublanes", 128, 2, 64, 192),
+    # more blocks than one wave of the card holds
+    *((arm, 40, 300, 128, 192) for arm in _ARMS),
+])
+def test_probe_dmajor_kernel_shapes(arm, d, G, lq, lk):
+    from humanvid_tpu_torch.tools import probe_kernels as pk
+
+    dev = _card()
+    a, b = _dmajor_inputs(arm, G, lq, lk, d, dev)
+    before = pk.launches["probe_dmajor"]
+    out = pk.dmajor(arm, a, b)
+    ref = pk.dmajor_plain(arm, a, b)
+    again = pk.dmajor(arm, a, b)
+    torch.cuda.synchronize()
+    assert pk.launches["probe_dmajor"] == before + 2
+    assert out.shape == ref.shape
+    _assert_close(out, ref, DMAJOR_TOL)
+    if arm == "pv_d_on_lanes":
+        assert (out[:, :, d:] == 0).all()
+    assert torch.equal(out, again)  # no atomics: the same bits
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(3, 37, 29), (8, 64, 128), (5,)])
 def test_probe_hbm_kernel_is_exact(shape):
@@ -430,6 +470,31 @@ def test_probe_hbm_kernel_is_exact(shape):
     assert pk.launches["probe_hbm"] == before + 1
     assert torch.equal(y, pk.hbm_map_plain(x))
     assert torch.equal(y, torch.add(x, 0.5))  # bf16(1.0001) is exactly 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [
+    (1, 0), (7, 0),                  # fewer than one 16-byte vector: the tail alone
+    (16384 * 5 + 8 * 37 + 5, 0),     # no multiple of a 32 KB chunk, of the unroll, or of 8
+    (8 * 2 ** 20 + 13, 0),           # more vectors than one wave of blocks takes
+    (16384 * 5 + 8 * 37 + 5, 8),     # the input 16 bytes into a larger allocation
+    (4099, 8),
+])
+def test_probe_hbm_kernel_ragged_and_offset(n, offset):
+    from humanvid_tpu_torch.tools import probe_kernels as pk
+
+    dev = _card()
+    base = (_randn((n + offset + 64,), 3, dev).float() * 4).to(torch.bfloat16)
+    x = base[offset:offset + n]
+    assert x.data_ptr() % 16 == 0 and (offset == 0 or x.data_ptr() % 128 != 0)
+    before = pk.launches["probe_hbm"]
+    y = pk.hbm_map(x)
+    again = pk.hbm_map(x)
+    torch.cuda.synchronize()
+    assert pk.launches["probe_hbm"] == before + 2
+    assert torch.equal(y, pk.hbm_map_plain(x))
+    assert torch.equal(y, torch.add(x, 0.5))
+    assert torch.equal(y, again)
 
 
 @pytest.mark.cuda

@@ -14,6 +14,8 @@ must equal bf16 ``x * 1.0001 + 0.5`` in ``jnp`` bit for bit.
 """
 
 import ast
+import ctypes
+import inspect
 import os
 import subprocess
 import sys
@@ -170,6 +172,37 @@ def test_flash_pvt_variant_edits_apply_to_the_kernel_source(name):
     assert (text == base) == (name == "kernel")
 
 
+@pytest.mark.parametrize("mode,name", [
+    *(("dmajor", n) for n in sorted(flash_variants.DMAJOR_VARIANTS)),
+    *(("hbm", n) for n in sorted(flash_variants.HBM_VARIANTS)),
+])
+def test_probe_variant_edits_apply_to_the_kernel_source(mode, name):
+    """The same for kernel 8's and kernel 10's variants, on their sources."""
+    table, source = {"dmajor": (flash_variants.DMAJOR_VARIANTS, "probe_dmajor.cu"),
+                     "hbm": (flash_variants.HBM_VARIANTS, "probe_hbm.cu")}[mode]
+    text = flash_variants.variant_source(name, table, source)
+    base = (cuda_build.CSRC / source).read_text()
+    assert (text == base) == (name == "kernel")
+
+
+def test_dmajor_and_hbm_modes_raise_without_a_card(monkeypatch):
+    """``--dmajor`` and ``--hbm`` need the card, take ``--against``, exclude
+    each other and the other modes, and take only their own variants."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.run_dmajor(["kernel", "pv_stages_6"])
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.run_hbm(["kernel", "hbm_bulk_ring"])
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.main(["--dmajor", "--against", "probe_dmajor.cu"])
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.main(["--hbm", "hbm_unroll4", "--against", "probe_hbm.cu"])
+    for argv in (["--dmajor", "--hbm"], ["--pvt", "--dmajor"], ["--hbm", "qk_consumers_2"],
+                 ["--dmajor", "hbm_bulk_ring"]):
+        with pytest.raises(SystemExit):
+            flash_variants.main(argv)
+
+
 def test_pvt_and_wide_modes_raise_without_a_card(monkeypatch):
     """The ``--pvt`` mode and the backward's mode with its d = 512 shape need
     the card; ``--against`` needs a mode that takes it, and the two modes
@@ -221,7 +254,15 @@ def test_entry_point_raises_without_a_card(monkeypatch):
         microbench.main(["flash_sweep"])
 
 
-def test_cpu_tensors_never_launch():
+def test_cpu_tensors_never_launch(monkeypatch):
+    """CPU tensors take the plain versions: no launch, and no library is
+    built, loaded or bound; a CUDA wrapper given a CPU tensor raises before
+    it loads one."""
+    def no_load(name):
+        raise AssertionError(f"a CPU tensor loaded the {name} library")
+
+    monkeypatch.setattr(cuda_build, "load", no_load)
+    monkeypatch.setattr(cuda_build, "_fns", {})
     rng = np.random.default_rng(4)
     before = dict(pk.launches)
     a, b = (torch.from_numpy(rng.normal(size=(1, 64, 128)).astype(np.float32)) for _ in range(2))
@@ -237,6 +278,42 @@ def test_cpu_tensors_never_launch():
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert pk.launches == before
+    assert cuda_build._fns == {}
+
+
+def test_wrappers_bind_each_function_once(monkeypatch):
+    """``cuda_build.function`` loads a library and sets a function's types
+    at its first call only; every later call returns the same bound object."""
+    loads = []
+
+    class Lib:
+        def __init__(self):
+            self.hv_probe_hbm = type("Fn", (), {})()
+
+    def fake_load(name):
+        loads.append(name)
+        return Lib()
+
+    monkeypatch.setattr(cuda_build, "load", fake_load)
+    monkeypatch.setattr(cuda_build, "_fns", {})
+    first = cuda_build.function("probe_hbm", "hv_probe_hbm", pk.HBM_ARGTYPES)
+    for _ in range(3):
+        assert cuda_build.function("probe_hbm", "hv_probe_hbm", pk.HBM_ARGTYPES) is first
+    assert loads == ["probe_hbm"]
+    assert first.argtypes == pk.HBM_ARGTYPES and first.restype is ctypes.c_int
+    # the three wrappers go through it and set no types themselves
+    for wrapper in (pk.dmajor_cuda, pk.pvt_cuda, pk.hbm_map_cuda):
+        src = inspect.getsource(wrapper)
+        assert "cuda_build.function(" in src
+        assert "argtypes" not in src and "cuda_build.load(" not in src
+
+
+def test_hbm_constant_is_rounded_once_at_import():
+    """Kernel 10 takes the TPU probe's constant rounded to bf16, computed
+    once: bf16(1.0001) is exactly 1.0."""
+    assert pk.HBM_SCALE_BF16 == float(torch.tensor(1.0001, dtype=torch.bfloat16))
+    assert pk.HBM_SCALE_BF16 == 1.0
+    assert isinstance(pk.HBM_SCALE_BF16, float)
 
 
 def test_tools_import_nothing_of_jax_or_the_jax_tools():
