@@ -15,7 +15,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    all rows in chunks for its time; kernel A's time also as a share of
    SDPA's on the same inputs;
 4. kernel B (frame-axis attention) against its plain version at the five
-   temporal shapes of the main path;
+   temporal shapes of the main path, by device time (torch.profiler) with
+   the CUDA-event time through the wrapper beside it;
 5. the same tiny-config pipeline on the card (bf16, kernels) and on the CPU
    (fp32, plain versions), compared;
 6. the main path: full-width CamAnimate (default config, seeded random
@@ -45,10 +46,14 @@ The training path (stage 2) adds:
 GroupNorm and stage 1 (pose2img and the stage-1 step) add:
 
 - kernel C: GroupNorm(+SiLU) against its plain version at the decode's, the
-  UNet's and a ragged shape, act None and SiLU, channels_last and
-  contiguous, with ms, plain ms, library ms (``F.group_norm`` + ``F.silu``)
-  and bound ms; and the autograd Function's dx, dgamma and dbeta against
-  plain autograd at the stage-2 level-0 shape;
+  UNet's (the concatenations among them; a shape of every plan of the size
+  rule that the paths reach) and a ragged shape,
+  act None and SiLU, channels_last and contiguous, on both sides of its
+  size rule (the one-pass cluster kernel, the two-pass kernels), a repeat
+  launch the same bits, with device ms (torch.profiler) and event ms,
+  plain ms, library ms (``F.group_norm`` + ``F.silu``) and bound ms; and
+  the autograd Function's dx, dgamma and dbeta against plain autograd at
+  the stage-2 level-0 shape;
 - tiny reference: the tiny pose2img too, card bf16 against CPU fp32;
 - stage 1: one full-width stage-1 system (``stage_config(1)``): pose2img
   at 896x512 with MAIN_STEPS DDIM steps and batched CFG 3.5, then
@@ -129,6 +134,7 @@ DMAJOR_TOL = (4e-3, 0.05)
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak (data sheet, SXM, 700 W)
 H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores (data sheet)
 H100_BYTES = 3.35e12       # HBM3 rate (data sheet)
+PROFILE_TRIES = 8          # torch.profiler sessions a device-time reading may take
 
 FLASH_SRC = "humanvid_tpu_torch/csrc/flash_attention.cu"
 TEMPORAL_SRC = "humanvid_tpu_torch/csrc/temporal_attention.cu"
@@ -318,7 +324,10 @@ def phase_temporal(torch, results, dev, cases):
         ref = ta.temporal_attention_plain(q, k, v, heads)
         torch.cuda.synchronize()
         err, rel, ok = agreement(out, ref, TEMPORAL_TOL)
-        ms = time_ms(torch, lambda: ta.temporal_attention_cuda(q, k, v, heads), 10)
+        event_ms = time_ms(torch, lambda: ta.temporal_attention_cuda(q, k, v, heads), 10)
+        ms = _profile_split(torch, lambda: ta.temporal_attention_cuda(q, k, v, heads),
+                            ("temporal_fwd_kernel",))["temporal_fwd_kernel"]
+        ok = ok and ms > 0
         plain_ms = time_ms(torch, lambda: ta.temporal_attention_plain(q, k, v, heads), 3)
 
         def split(t):
@@ -329,11 +338,12 @@ def phase_temporal(torch, results, dev, cases):
         flops = 4.0 * b * l * heads * f * f * d
         b_ms, b_by = bound(flops, 2.0 * 4 * q.numel())
         print(f"  {name}: b={b} f={f} l={l} c={c} heads={heads} max_abs_err={err:.3e} "
-              f"rel_l2={rel:.3e} ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib} "
-              f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+              f"rel_l2={rel:.3e} device_ms={ms:.4f} event_ms={event_ms:.4f} "
+              f"plain_ms={plain_ms:.3f} library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) "
+              f"{'ok' if ok else 'FAIL'}")
         results.append(dict(kernel="temporal_fwd", shape=name, max_abs_err=err, rel_l2=rel, ms=ms,
-                            plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                            ok=ok))
+                            event_ms=event_ms, device_ms=ms, plain_ms=plain_ms, library_ms=lib,
+                            bound_ms=b_ms, bound_by=b_by, ok=ok))
 
 
 def flash_bwd_cases():
@@ -356,20 +366,31 @@ def _profile_split(torch, fn, keys):
     contain each key (each launched once a call), from torch.profiler over 3
     calls. A kernel's time is its captured total over its captured launches:
     the profiler can miss a launch, and a total over the 3 calls then reads a
-    third low (kernel 8's QK arms read 2/3 of their CUDA-event time so)."""
+    third low (kernel 8's QK arms read 2/3 of their CUDA-event time so). Now
+    and then a session holds no device record of a kernel at all (on the
+    H100, 4 of ~80 sessions of one run, and a miss is often followed by
+    another): it is taken again after a pause that grows, up to
+    PROFILE_TRIES sessions, and a key captured in none reads 0."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-    out = {key: 0.0 for key in keys}
-    for evt in prof.key_averages():
-        for key in keys:
-            if key in evt.key and evt.count:
-                out[key] += evt.self_device_time_total / 1e3 / evt.count
+    for attempt in range(PROFILE_TRIES):
+        if attempt:
+            time.sleep(0.5 * attempt)  # misses come in runs: let the profiler settle
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        out, missed = {key: 0.0 for key in keys}, set(keys)
+        for evt in prof.key_averages():
+            for key in keys:
+                if key in evt.key and evt.count:
+                    out[key] += evt.self_device_time_total / 1e3 / evt.count
+                    missed.discard(key)
+        if not missed:
+            break
+        print(f"  (the profiler captured no launch of {sorted(missed)}: profiling again)")
     return out
 
 
@@ -562,30 +583,50 @@ def phase_temporal_bwd(torch, results, dev, cases):
 
 
 def group_norm_cases():
-    """Kernel C at the paths' shapes: (name, (N, C, H, W), eps). 32 groups."""
+    """Kernel C at the paths' shapes: (name, (N, C, H, W), eps). 32 groups.
+    Besides the headline shapes, one shape of every plan of the size rule
+    that the decode, the UNet at 768x512 (pose2vid) and at 896x512 (the
+    training steps) reach (a CPU test holds the list to the rule)."""
     return [
         ("decode 768x512", (8, 128, 768, 512), 1e-6),
         ("decode 384x256", (8, 256, 384, 256), 1e-6),
         ("decode 192x128", (8, 512, 192, 128), 1e-6),
+        ("decode 96x64", (8, 512, 96, 64), 1e-6),
         ("UNet level 0 768x512", (24, 320, 96, 64), 1e-5),
+        ("UNet level 0 concat 960", (24, 960, 96, 64), 1e-5),
+        ("UNet level 1 768x512", (24, 640, 48, 32), 1e-5),
+        ("UNet level 1 concat 1920", (24, 1920, 48, 32), 1e-5),
         ("UNet level 2 768x512", (24, 1280, 24, 16), 1e-5),
-        ("stage-2 level 0 896x512", (24, 320, 112, 64), 1e-5),
+        ("UNet level 2 concat 1920", (24, 1920, 24, 16), 1e-5),
         ("UNet level 3 concat", (24, 2560, 12, 8), 1e-5),
+        ("stage-2 level 0 896x512", (24, 320, 112, 64), 1e-5),
+        ("stage-2 level 0 concat 960", (24, 960, 112, 64), 1e-5),
+        ("stage-2 level 1", (24, 640, 56, 32), 1e-5),
+        ("stage-2 level 1 concat 1920", (24, 1920, 56, 32), 1e-5),
+        ("stage-2 level 2", (24, 1280, 28, 16), 1e-5),
+        ("stage-2 level 2 concat 1920", (24, 1920, 28, 16), 1e-5),
+        ("stage-2 level 3 concat", (24, 2560, 14, 8), 1e-5),
         ("ragged rows 37x29", (3, 320, 37, 29), 1e-6),
     ]
 
 
+GN_ONE_PASS_HEADLINE = "UNet level 0 768x512 channels_last act=silu"
+
+
 def phase_group_norm(torch, results, dev, cases):
     """Kernel C against its plain version for act None and SiLU, in both
-    layouts it takes, with its time, the plain version's, the library's
-    (``F.group_norm`` + ``F.silu``, which the port does not call) and the
-    byte bound (x read once, y written once)."""
+    layouts it takes, with the path the size rule takes (the one-pass
+    cluster kernel's plan, or the two-pass kernels), the bits of a repeat
+    launch, its device time (torch.profiler) and the event time through the
+    wrapper, the plain version's time, the library's (``F.group_norm`` +
+    ``F.silu``, which the port does not call) and the byte bound (x read
+    once, y written once)."""
     import torch.nn.functional as F
 
     from humanvid_tpu_torch.ops import group_norm as gn
 
     print(f"[kernel C] GroupNorm(+SiLU) vs plain (bf16; tol: rel L2 {GN_TOL[0]}, "
-          f"max err {GN_TOL[1]} x rms(plain))")
+          f"max err {GN_TOL[1]} x rms(plain); a repeat launch the same bits)")
     gen = torch.Generator(device=dev).manual_seed(4)
     for name, shape, eps in cases:
         c = shape[1]
@@ -595,6 +636,9 @@ def phase_group_norm(torch, results, dev, cases):
         for layout, fmt in (("channels_last", torch.channels_last),
                             ("contiguous", torch.contiguous_format)):
             x = base.contiguous(memory_format=fmt)
+            plan = gn.cluster_plan(c, shape[2] * shape[3], 32) \
+                if x.is_contiguous(memory_format=torch.channels_last) else None
+            path = "two-pass" if plan is None else "one-pass " + str(list(plan))
             for act in ("silu", None):
                 def kernel():
                     return gn.group_norm_act_cuda(x, weight, bias, 32, eps, act)
@@ -604,24 +648,30 @@ def phase_group_norm(torch, results, dev, cases):
                     return F.silu(y) if act else y
 
                 y = kernel()
+                again = kernel()
                 ref = gn.group_norm_act_plain(x, weight, bias, 32, eps, act)
                 torch.cuda.synchronize()
                 err, rel, close = agreement(y, ref, GN_TOL)
                 ratio = err / ref.float().pow(2).mean().sqrt().item()
-                ok = close and y.is_contiguous(memory_format=fmt)
-                del y, ref
-                ms = time_ms(torch, kernel, 20)
+                same = torch.equal(y, again)
+                ok = close and same and y.is_contiguous(memory_format=fmt)
+                del y, again, ref
+                event_ms = time_ms(torch, kernel, 20)
+                ms = _profile_split(torch, kernel, ("gn_",))["gn_"]
+                ok = ok and ms > 0
                 plain_ms = time_ms(torch, lambda: gn.group_norm_act_plain(
                     x, weight, bias, 32, eps, act), 3)
                 lib = library_ms(torch, library, 20)
                 b_ms, b_by = bound(x.numel() * (5.0 + 4.0 * (act == "silu")),
                                    2.0 * 2 * x.numel() + 2 * 2 * 2 * c, H100_FP32_FLOPS)
                 label = f"{name} {layout} act={act}"
-                print(f"  {label}: {tuple(shape)} max_abs_err={err:.3e} max_err/rms={ratio:.3e} "
-                      f"rel_l2={rel:.3e} ms={ms:.4f} plain_ms={plain_ms:.3f} library_ms={lib} "
-                      f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
-                results.append(dict(kernel="group_norm", shape=label, max_abs_err=err,
-                                    rel_l2=rel, ms=ms, plain_ms=plain_ms, library_ms=lib,
+                print(f"  {label}: {tuple(shape)} {path} max_abs_err={err:.3e} "
+                      f"max_err/rms={ratio:.3e} rel_l2={rel:.3e} same_bits={same} "
+                      f"device_ms={ms:.4f} event_ms={event_ms:.4f} plain_ms={plain_ms:.3f} "
+                      f"library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+                results.append(dict(kernel="group_norm", shape=label, path=path, max_abs_err=err,
+                                    rel_l2=rel, same_bits=same, ms=ms, event_ms=event_ms,
+                                    device_ms=ms, plain_ms=plain_ms, library_ms=lib,
                                     bound_ms=b_ms, bound_by=b_by, ok=ok))
         del base, x
         torch.cuda.empty_cache()
@@ -1163,7 +1213,7 @@ KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match wins
     ("kernel A bwd (flash_bwd)", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
     ("kernel B bwd (temporal_bwd)", ("temporal_bwd_kernel",)),
     # ahead of the cuDNN group ("nhwc") and the norm group ("norm")
-    ("kernel C (group_norm)", ("gn_stats_", "gn_finalize", "gn_apply_")),
+    ("kernel C (group_norm)", ("gn_cluster_", "gn_stats_", "gn_finalize", "gn_apply_")),
     ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "nchw",
                              "nhwc")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")),
@@ -1232,13 +1282,19 @@ def _profile_print(torch, label, fn):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, kernels = _group_device_time(torch, prof)
-    busy = sum(groups.values())
+    for attempt in range(PROFILE_TRIES):  # again if the session holds no device record
+        if attempt:
+            time.sleep(0.5 * attempt)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        groups, kernels = _group_device_time(torch, prof)
+        busy = sum(groups.values())
+        if busy > 0:
+            break
+        print(f"[profile] {label}: the profiler captured no device record: profiling again")
     print(f"[profile] {label}: wall {wall_ms:.1f} ms (profiled), device busy "
           f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -1406,10 +1462,17 @@ def kernel_line(results, launches):
         elif name == "probe_pvt":
             extra = dict(kernel_a_ms=head["kernel_a_ms"],
                          untransposed_ms=head["untransposed_ms"])
-        elif name in ("probe_dmajor", "probe_hbm"):  # ms is the device time
+        elif name in ("probe_dmajor", "probe_hbm", "temporal_fwd"):  # ms is the device time
             extra = dict(event_ms=head["event_ms"])
         elif name == "group_norm":  # the statistics kernel and the folded apply
-            extra = dict(also_replaces="humanvid_tpu/ops/group_norm.py:145")
+            # the headline is the two-pass decode; the one-pass kernel's is
+            # the UNet's level 0
+            one = next(r for r in rows if r["shape"] == GN_ONE_PASS_HEADLINE)
+            extra = dict(also_replaces="humanvid_tpu/ops/group_norm.py:145",
+                         event_ms=head["event_ms"], one_pass_shape=one["shape"],
+                         one_pass_ms=one["ms"], one_pass_event_ms=one["event_ms"],
+                         one_pass_plain_ms=one["plain_ms"], one_pass_bound_ms=one["bound_ms"],
+                         one_pass_library_ms=one["library_ms"])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep, path=path, **extra,
             launches=launches[path][name],
@@ -1445,34 +1508,40 @@ def main() -> int:
     phase_temporal_bwd(torch, results, dev, temporal_bwd_cases())
     phase_group_norm(torch, results, dev, group_norm_cases())
     phase_probes(torch, results, dev)
-    ok = all(r["ok"] for r in results)
-    ok = phase_group_norm_grad(torch, dev) and ok
-    ok = phase_tiny_reference(torch, np, dev) and ok
-    ok = phase_tiny_train(torch, np, dev) and ok
+    failed = [f"{r['kernel']} {r['shape']}" for r in results if not r["ok"]]
+
+    def check(name, good):
+        if not good:
+            failed.append(name)
+
+    check("kernel C grad", phase_group_norm_grad(torch, dev))
+    check("tiny reference", phase_tiny_reference(torch, np, dev))
+    check("tiny train", phase_tiny_train(torch, np, dev))
     main_ok, main_launches, pipe, inputs = phase_main(torch, np, dev)
-    ok = ok and main_ok
+    check("main", main_ok)
     per_call = phase_profile(torch, dev, pipe, inputs)
     del pipe
     torch.cuda.empty_cache()
     train_ok, train_launches, system, state, batch = phase_train(torch, np, dev)
-    ok = ok and train_ok
+    check("train", train_ok)
     phase_profile_train(torch, dev, system, state, batch)
     # stage 1 needs the card's memory to itself
     del system, state, batch
     gc.collect()
     torch.cuda.empty_cache()
     stage1_ok, stage1_launches = phase_stage1(torch, np, dev)
-    ok = ok and stage1_ok
+    check("stage 1", stage1_ok)
     gc.collect()
     torch.cuda.empty_cache()
     bench_ok, bench_launches = phase_microbench(torch)
-    ok = ok and bench_ok
+    check("microbench", bench_ok)
     print(kernel_line(results, {"pose2vid": main_launches, "train": train_launches,
                                 **stage1_launches, "denoise_step": per_call["denoise step"],
                                 "decode": per_call["decode"], "microbench": bench_launches}))
     print(card)
-    if not ok:
-        print("chip_smoke: a phase failed", file=sys.stderr)
+    if failed:
+        # on standard error too, whose end is what a caller often keeps
+        print(f"chip_smoke: a phase failed: {'; '.join(failed)}", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,31 +12,60 @@
 // once to bf16, in x's layout. act is the identity or SiLU, v * sigmoid(v).
 //
 // What bounds it on the H100: device-memory bytes. A call must read x once
-// and write y once; the arithmetic is a few operations per byte. This design
-// reads x twice (statistics, then apply), so its floor is 1.5x the bound.
-// What it does about the bytes: every access to x and y is a 16-byte vector
-// and a warp covers whole rows, so reads and writes are coalesced; a thread
-// keeps 4 rows' loads in flight; the statistics pass writes only one
-// (mean, M2) pair per (tile, channel), a few MB at the decode's largest
-// shape against 805 MB of x.
+// and write y once; the arithmetic is a few operations per byte. Statistics
+// and apply need x twice, so a design that reads x from device memory for
+// each (the first design: three launches) has a floor of 1.5x the bound,
+// and at the UNet's small shapes its launches and finalize dominate.
 //
-// Kernels (one call launches three, on PyTorch's stream):
-// 1. gn_stats_nhwc: blocks over (row tile, sample). Each thread owns 8
-//    adjacent channels (one 16-byte vector of a row) and walks the tile's
-//    rows P at a time, P row lanes side by side. It sums x - pivot and
-//    (x - pivot)^2 per channel, the pivot being its first value of that
-//    channel, so the variance keeps its digits when |mean| >> std (the TPU
-//    kernel's one-pass E[x^2] - mean^2 loses them). The lanes' (count,
-//    mean, M2) are merged by Chan's formula in shared memory and written
-//    per (tile, channel) to a workspace the wrapper allocates.
-// 2. gn_finalize: one block per (group, sample) merges the group's (tile,
-//    channel) partials in a fixed order and writes a and b for its channels.
-//    No float atomics anywhere: a run repeats bit for bit.
-// 3. gn_apply_nhwc: the same tiles; each thread holds a and b of its 8
-//    channels in registers and streams rows in and out.
+// What this design does about it, for channels_last x at the UNet's shapes
+// (one launch, x read from device memory once):
+// gn_cluster_nhwc. A thread-block cluster of K <= 16 blocks owns a slab of
+// S channels (a whole number of groups, a multiple of 8, at most 256) of one
+// sample; block `rank` owns rows [rank*T, rank*T + T). Its thread 0 issues
+// TMA loads of the first `resident` of its rows at once, in chunks of R rows
+// (3-D map (C, HW, N), boxes S x R, so a box never reaches the next sample;
+// each chunk on its own mbarrier), into shared memory, where they stay; the
+// rest of its rows it reads with 16-byte loads. Each thread owns 8 adjacent
+// channels (one 16-byte vector of a row) and walks the rows P at a time as
+// the chunks land, summing x - pivot and (x - pivot)^2 per channel (the
+// pivot its first value of the channel, so the variance keeps its digits
+// when |mean| >> std). The P row lanes' (count, mean, M2) are merged in a
+// fixed order, the mean first (from the lanes' offsets to the first lane's
+// mean), then M2 with each lane's n * (mean_lane - mean)^2: no division in
+// the chain. The cluster's blocks exchange these per-channel partials over
+// distributed shared memory (`mapa` + `ld.shared::cluster` between
+// `barrier.cluster` arrive/wait); every block merges the K partials in rank
+// order and the channels of each group in channel order (a warp a group,
+// a fixed shuffle tree), so all blocks hold the same a and b and a launch
+// repeats bit for bit (no float atomics anywhere). Each block then applies
+// a and b (+ SiLU, by ex2.approx and rcp.approx) to the rows it did not
+// hold straight after the cluster barrier, reading them again from L2, and
+// to its held rows in shared memory, in place, which it writes back by TMA
+// store. Measured on the H100 (PERF.md section 6): blocks that hold all
+// their rows in 61-123 KB, one or two an SM, spend each item in a chain of
+// dependent phases (load, merge, exchange, apply, store) that the SM cannot
+// hide; so the size rule (`ops/group_norm.py:cluster_plan`) gives a block
+// at most 32 KB of rows and lets it re-read up to 3 times as many from L2,
+// and the registers are held to 3 blocks an SM, which hides more of it.
+// A cluster's working set is a few MB (UNet level 0: 1.97 MB), so the
+// re-read rows are still in L2. On the host a launch encodes the two maps
+// and launches by cudaLaunchKernelEx; the function's attributes and the
+// clusters the card holds at once (none: the launch is refused, and the
+// wrapper raises) are asked of the runtime once per plan and kept
+// (`HostCache`).
+//
+// The decode's shapes (a sample is 25-100 MB at 192x128 and above) fit no
+// cluster: there the rule takes the two-pass design, three launches:
+// 1. gn_stats_nhwc: blocks over (row tile, sample), each thread 8 channels
+//    of P row lanes, pivot-shifted sums, lanes merged by Chan's formula and
+//    written per (tile, channel) to a workspace the wrapper allocates;
+// 2. gn_finalize: one block per (group, sample) merges the partials in a
+//    fixed order and writes a and b;
+// 3. gn_apply_nhwc: the same tiles stream x in and y out with a and b of
+//    8 channels in registers; 16-byte vectors, 4 rows in flight a thread.
 // Contiguous NCHW (rare on the card, whose modules are channels_last; when
 // H = W = 1 PyTorch reports both layouts and the channels_last kernels take
-// it) has its own simple kernels: one warp per (channel, tile) with 2-byte
+// it) keeps its simple kernels: one warp per (channel, tile) with 2-byte
 // loads for the statistics, an elementwise apply over 16-byte vectors.
 
 #include <cuda_runtime.h>
@@ -44,9 +73,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace hopper;
 
 constexpr int kUnroll = 4;          // rows in flight per thread
 constexpr int kFinalizeThreads = 256;
@@ -92,9 +123,12 @@ __device__ __forceinline__ uint4 load16(const bf16* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
+// SiLU on the SFU: exp by ex2.approx, the quotient by rcp.approx (relative
+// error ~1e-7, far under the bf16 rounding of the result); v -> -inf gives
+// -0, as v * sigmoid(v) does.
 template <bool SILU>
 __device__ __forceinline__ float act(float v) {
-  if (SILU) return v * (1.f / (1.f + expf(-v)));
+  if (SILU) return __fdividef(v, 1.f + __expf(-v));
   return v;
 }
 
@@ -316,10 +350,319 @@ __global__ void gn_apply_nchw(const bf16* __restrict__ x, const float2* __restri
   }
 }
 
+// ---- the one-pass cluster kernel -------------------------------------------
+
+constexpr int kClusterThreads = 256;
+constexpr int kMaxChunks = 32;  // mbarriers: chunks a block holds
+constexpr int kMaxGroups = 32;  // groups in a slab
+constexpr int kMaxCluster = 16;
+constexpr int kMaxLanes = kClusterThreads;  // row lanes (at S = 8)
+constexpr int kMinBlocks = 3;  // blocks an SM the registers must allow
+constexpr int kClusterUnroll = 4;  // rows in flight a thread when it reads from L2 or device memory
+
+// Shared memory of gn_cluster_nhwc, in this order from a 128-byte boundary:
+// the held rows (resident x S bf16), the lanes' partials (P x S float2), the
+// block's partial (S float2, read by the cluster), the channels' statistics
+// (S float2), gamma and beta (S float2), the groups' (mean, rstd), the
+// lanes' row counts and the chunks' mbarriers.
+__host__ __device__ inline size_t cluster_smem(int S, int resident) {
+  const int P = kClusterThreads / (S / 8);
+  return 128 + (size_t)resident * S * 2 + (size_t)P * S * 8 + 3 * (size_t)S * 8 +
+         kMaxGroups * 8 + kMaxLanes * 4 + kMaxChunks * 8;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;  // every lane holds the same sum, taken in a fixed order
+}
+
+// grid (K * C / S, N), clusters of K along x; block kClusterThreads.
+template <bool SILU>
+__global__ void __launch_bounds__(kClusterThreads, kMinBlocks)
+gn_cluster_nhwc(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap y_map,
+                const bf16* __restrict__ x, bf16* __restrict__ y, const void* __restrict__ gamma,
+                const void* __restrict__ beta, int affine_bf16, int HW, int C, int cg, int S,
+                int K, int T, int R, int resident, float eps) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~static_cast<uintptr_t>(127));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int V = S / 8, P = kClusterThreads / V;
+  const int v = tid % V, p = tid / V;
+  const bool active = p < P;
+  const uint32_t rank = cluster_ctarank();
+  const int c0 = (blockIdx.x / K) * S;
+  const int n = blockIdx.y;
+  const int r0 = (int)rank * T;
+  const int rows = max(0, min(T, HW - r0));
+  const int held = min(rows, resident);
+  const int nchunks = (held + R - 1) / R;
+
+  bf16* data = reinterpret_cast<bf16*>(smem);
+  float2* lanes = reinterpret_cast<float2*>(smem + (size_t)resident * S * 2);
+  float2* part = lanes + P * S;
+  float2* chs = part + S;
+  float2* gb = chs + S;
+  float2* gst = gb + S;
+  float* cnt = reinterpret_cast<float*>(gst + kMaxGroups);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(cnt + kMaxLanes);
+
+  if (tid == 0) {
+    for (int j = 0; j < nchunks; ++j) mbar_init(&bars[j], 1);
+    fence_barrier_init();
+  }
+  if (tid < P) cnt[tid] = lane_rows(rows, tid, P);
+  __syncthreads();
+  if (tid == 0) {
+    for (int j = 0; j < nchunks; ++j) {
+      mbar_arrive_expect_tx(&bars[j], (uint32_t)R * S * 2);
+      tma_load_3d(data + (size_t)j * R * S, &x_map, &bars[j], c0, r0 + j * R, n);
+    }
+  }
+  // gamma and beta of the slab, read while the rows land
+  for (int c = tid; c < S; c += kClusterThreads) {
+    if (affine_bf16)
+      gb[c] = make_float2(__bfloat162float(static_cast<const bf16*>(gamma)[c0 + c]),
+                          __bfloat162float(static_cast<const bf16*>(beta)[c0 + c]));
+    else
+      gb[c] = make_float2(static_cast<const float*>(gamma)[c0 + c],
+                          static_cast<const float*>(beta)[c0 + c]);
+  }
+
+  // statistics: lane p takes rows p, p + P, ... of the block's rows, the
+  // held ones from shared memory as their chunks land, the rest from device
+  // memory
+  const size_t gbase = ((size_t)n * HW + r0) * C + c0 + v * 8;
+  float piv[8], s1[8], s2[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) piv[e] = s1[e] = s2[e] = 0.f;
+  if (active && p < rows) {
+    if (p < held) {
+      mbar_wait(&bars[p / R], 0);
+      unpack8(*reinterpret_cast<const uint4*>(data + (size_t)p * S + v * 8), piv);
+    } else {
+      unpack8(load16(x + gbase + (size_t)p * C), piv);
+    }
+  }
+  if (active) {
+    int r = p;
+    for (int j = 0; j < nchunks; ++j) {
+      const int r1 = min(held, (j + 1) * R);
+      if (r < r1) mbar_wait(&bars[j], 0);
+#pragma unroll 4
+      for (; r < r1; r += P) {
+        float f[8];
+        unpack8(*reinterpret_cast<const uint4*>(data + (size_t)r * S + v * 8), f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float dd = f[e] - piv[e];
+          s1[e] += dd;
+          s2[e] += dd * dd;
+        }
+      }
+    }
+    for (; r + (kClusterUnroll - 1) * P < rows; r += kClusterUnroll * P) {
+      uint4 vec[kClusterUnroll];
+#pragma unroll
+      for (int u = 0; u < kClusterUnroll; ++u) vec[u] = load16(x + gbase + (size_t)(r + u * P) * C);
+#pragma unroll
+      for (int u = 0; u < kClusterUnroll; ++u) {
+        float f[8];
+        unpack8(vec[u], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float dd = f[e] - piv[e];
+          s1[e] += dd;
+          s2[e] += dd * dd;
+        }
+      }
+    }
+    for (; r < rows; r += P) {
+      float f[8];
+      unpack8(load16(x + gbase + (size_t)r * C), f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float dd = f[e] - piv[e];
+        s1[e] += dd;
+        s2[e] += dd * dd;
+      }
+    }
+    const float nl = cnt[p];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float2 m = make_float2(0.f, 0.f);
+      if (nl > 0.f) m = make_float2(piv[e] + s1[e] / nl, fmaxf(s2[e] - s1[e] * s1[e] / nl, 0.f));
+      lanes[p * S + v * 8 + e] = m;
+    }
+  }
+  __syncthreads();
+  // the block's partial: one thread per channel merges the P lanes in
+  // order, the mean first (offsets from lane 0's), then M2
+  for (int c = tid; c < S; c += kClusterThreads) {
+    float2 m = make_float2(0.f, 0.f);
+    if (rows > 0) {
+      const float ref = lanes[c].x;  // lane 0 holds a row whenever the block does
+      float sd = 0.f;
+#pragma unroll 4
+      for (int l = 0; l < P; ++l) sd += cnt[l] * (lanes[l * S + c].x - ref);
+      m.x = ref + sd / (float)rows;
+#pragma unroll 4
+      for (int l = 0; l < P; ++l) {
+        const float2 t = lanes[l * S + c];
+        const float dd = t.x - m.x;
+        m.y += t.y + cnt[l] * dd * dd;
+      }
+    }
+    part[c] = m;
+  }
+  // exchange: every block merges the cluster's partials in rank order (the
+  // first block always holds rows)
+  cluster_arrive();
+  cluster_wait();
+  for (int c = tid; c < S; c += kClusterThreads) {
+    float2 rp[kMaxCluster];
+#pragma unroll
+    for (int k = 0; k < kMaxCluster; ++k)
+      if (k < K) rp[k] = ld_dsmem_f2(dsmem_addr(&part[c], (uint32_t)k));
+    float sd = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxCluster; ++k)
+      if (k < K) sd += (float)max(0, min(T, HW - k * T)) * (rp[k].x - rp[0].x);
+    const float mean = rp[0].x + sd / (float)HW;
+#pragma unroll
+    for (int k = 0; k < kMaxCluster; ++k) {
+      if (k < K) {
+        const float dd = rp[k].x - mean;
+        m2 += rp[k].y + (float)max(0, min(T, HW - k * T)) * dd * dd;
+      }
+    }
+    chs[c] = make_float2(mean, m2);
+  }
+  cluster_arrive();  // this block reads no other block's memory any more
+  __syncthreads();
+  // each group over its channels (every channel counts HW rows), a warp a
+  // group
+  for (int g = warp; g < S / cg; g += kClusterThreads / 32) {
+    const float2* ch = chs + g * cg;
+    const float ref = ch[0].x;
+    float sd = 0.f, m2 = 0.f;
+    for (int j = lane; j < cg; j += 32) sd += ch[j].x - ref;
+    const float mean = ref + warp_sum(sd) / (float)cg;
+    for (int j = lane; j < cg; j += 32) {
+      const float dd = ch[j].x - mean;
+      m2 += ch[j].y + (float)HW * dd * dd;
+    }
+    m2 = warp_sum(m2);
+    if (lane == 0) gst[g] = make_float2(mean, 1.f / sqrtf(m2 / ((float)HW * cg) + eps));
+  }
+  __syncthreads();
+
+  // apply: a = rstd * gamma, b = beta - mean * a; the rows past the held
+  // ones first (still in L2), straight to device memory; then the held
+  // rows in place, stored by TMA chunk by chunk
+  float a[8], b[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int c = min(v, V - 1) * 8 + e;
+    const float2 st = gst[c / cg], w = gb[c];
+    a[e] = st.y * w.x;
+    b[e] = w.y - st.x * a[e];
+  }
+  if (active) {
+    int r = held + ((p - held % P) + P) % P;
+    for (; r + (kClusterUnroll - 1) * P < rows; r += kClusterUnroll * P) {
+      uint4 vec[kClusterUnroll];
+#pragma unroll
+      for (int u = 0; u < kClusterUnroll; ++u) vec[u] = load16(x + gbase + (size_t)(r + u * P) * C);
+#pragma unroll
+      for (int u = 0; u < kClusterUnroll; ++u) {
+        float f[8];
+        unpack8(vec[u], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) f[e] = act<SILU>(f[e] * a[e] + b[e]);
+        *reinterpret_cast<uint4*>(y + gbase + (size_t)(r + u * P) * C) = pack8(f);
+      }
+    }
+    for (; r < rows; r += P) {
+      float f[8];
+      unpack8(load16(x + gbase + (size_t)r * C), f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = act<SILU>(f[e] * a[e] + b[e]);
+      *reinterpret_cast<uint4*>(y + gbase + (size_t)r * C) = pack8(f);
+    }
+#pragma unroll 4
+    for (r = p; r < held; r += P) {
+      uint4* row = reinterpret_cast<uint4*>(data + (size_t)r * S + v * 8);
+      float f[8];
+      unpack8(*row, f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = act<SILU>(f[e] * a[e] + b[e]);
+      *row = pack8(f);
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) {
+    for (int j = 0; j < nchunks; ++j)
+      tma_store_3d(&y_map, data + (size_t)j * R * S, c0, r0 + j * R, n);
+    bulk_commit();
+    bulk_wait<0, true>();  // the stores have read shared memory
+  }
+  __syncwarp();  // the warp converged at the aligned cluster barrier
+  cluster_wait();  // no block leaves while another may still read its partial
+}
+
+HostCache host_cache;
+
+template <bool SILU>
+int launch_cluster(const void* x, const void* gamma, const void* beta, void* y, int N, int C,
+                   int HW, int G, int S, int K, int T, int R, int resident, int affine_bf16,
+                   float eps, cudaStream_t s) {
+  CUtensorMap maps[2];
+  int err = make_map(&maps[0], x, C, HW, N, S, R, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!err) err = make_map(&maps[1], y, C, HW, N, S, R, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err) return err;
+  const int smem = (int)cluster_smem(S, resident);
+  auto kernel = gn_cluster_nhwc<SILU>;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  cudaError_t e = host_cache.reserve_smem(fn, smem);
+  int set = 0;
+  if (e == cudaSuccess && K > 8)
+    e = host_cache.get(fn, -1, 0, &set, [&](int* v) {
+      *v = 1;
+      return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    });
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(K * (C / S), N, 1);
+  cfg.blockDim = dim3(kClusterThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // a cluster that no GPC can hold would fail at launch: refuse it here
+  int clusters = 0;
+  e = host_cache.get(fn, K, smem, &clusters,
+                     [&](int* v) { return cudaOccupancyMaxActiveClusters(v, kernel, &cfg); });
+  if (e != cudaSuccess) return (int)e;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], static_cast<const bf16*>(x),
+                         static_cast<bf16*>(y), gamma, beta, affine_bf16, HW, C, C / G, S, K, T,
+                         R, resident, eps);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// y = act(GroupNorm(x)) for bf16 x of logical shape (N, C, H*W).
-// part: N * tiles * C float2 of scratch; ab: N * C float2 of scratch.
+// The two-pass design: y = act(GroupNorm(x)) for bf16 x of logical shape
+// (N, C, H*W). part: N * tiles * C float2 of scratch; ab: N * C float2 of scratch.
 // channels_last = 1: rows of C values, tiles of T rows, P row lanes per
 // block (the wrapper picks T and P); 0: contiguous NCHW, P unused.
 extern "C" int hv_group_norm_fwd(const void* x, const void* gamma, const void* beta, void* y,
@@ -364,4 +707,27 @@ extern "C" int hv_group_norm_fwd(const void* x, const void* gamma, const void* b
       gn_apply_nchw<false><<<blocks, 256, 0, s>>>(xb, abp, yb, nvec, HW);
   }
   return (int)cudaGetLastError();
+}
+
+// The one-pass design: y = act(GroupNorm(x)) for channels_last bf16 x of
+// logical shape (N, C, H*W), clusters of K blocks over slabs of S channels,
+// T rows a block in chunks of R, `resident` of them held in shared memory
+// (the wrapper's `cluster_plan`).
+extern "C" int hv_group_norm_cluster(const void* x, const void* gamma, const void* beta, void* y,
+                                     int N, int C, int HW, int G, int S, int K, int T, int R,
+                                     int resident, int affine_bf16, int silu, float eps,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N < 1 || N > 65535 || C < 8 || C % 8 != 0 || HW < 1 || G < 1 || C % G != 0 || S < 8 ||
+      S > 256 || S % 8 != 0 || C % S != 0 || S % (C / G) != 0 || S / (C / G) > kMaxGroups ||
+      !(K == 1 || K == 2 || K == 4 || K == 8 || K == kMaxCluster) || R < 8 || R > 256 || R % 8 != 0 ||
+      T < R || T % R != 0 || (size_t)K * T < (size_t)HW || resident < R || resident % R != 0 ||
+      resident > T || resident / R > kMaxChunks || kClusterThreads / (S / 8) > kMaxLanes ||
+      cluster_smem(S, resident) > 232448)
+    return (int)cudaErrorInvalidValue;
+  if (silu)
+    return launch_cluster<true>(x, gamma, beta, y, N, C, HW, G, S, K, T, R, resident,
+                                affine_bf16, eps, s);
+  return launch_cluster<false>(x, gamma, beta, y, N, C, HW, G, S, K, T, R, resident, affine_bf16,
+                               eps, s);
 }

@@ -1,7 +1,9 @@
-// Hopper-only building blocks (sm_90a) for the attention and probe kernels:
-// mbarriers, TMA tile loads, 1-D bulk copies, warpgroup register
-// reallocation, named barriers, `wgmma` and `stmatrix`, and on the host the
-// encoding of the TMA maps.
+// Hopper-only building blocks (sm_90a) for the attention, GroupNorm and
+// probe kernels: mbarriers, TMA tile loads and stores, 1-D bulk copies,
+// thread-block clusters (distributed shared memory, cluster barriers),
+// warpgroup register reallocation, named barriers, `wgmma` and `stmatrix`,
+// and on the host the encoding of the TMA maps and a cache of the launch
+// queries (function attributes, occupancy).
 //
 // wgmma shared-memory operands are described by 64-bit matrix descriptors
 // (start address, leading and stride byte offsets, swizzle mode), built over
@@ -38,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <mutex>
 
 typedef __nv_bfloat16 bf16;
 
@@ -106,6 +110,39 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t
       : "memory");
 }
 
+// The same for a 4-D tensor map, coordinates (c0, c1, c2, c3).
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// Copy shared memory at `src` to the box at (c0, c1, c2) of a 3-D tensor
+// map, in the thread's current bulk group; the parts of the box outside
+// the tensor are not written.
+__device__ __forceinline__ void tma_store_3d(const void* map, const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The same for a 4-D tensor map, box at (c0, c1, c2, c3).
+__device__ __forceinline__ void tma_store_4d(const void* map, const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_desc(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -142,6 +179,41 @@ __device__ __forceinline__ void bulk_wait() {
     asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
   else
     asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- thread-block clusters -----------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives (release) and waits
+// (acquire); between the two a thread may go on with work that touches no
+// other block's shared memory.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The address in the cluster's shared window of `p` in block `rank`.
+__device__ __forceinline__ uint32_t dsmem_addr(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float2 ld_dsmem_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ---- warpgroup register reallocation ---------------------------------------
@@ -664,11 +736,99 @@ inline int make_map(CUtensorMap* map, const void* ptr, int C, int L, int B, int 
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// A 4-D map (C, L, F, B) of a packed bf16 (B, F, L, C) tensor, unswizzled
+// boxes of `cols` x `rows` x `frames` x 1 landing as [frames][rows][cols];
+// the parts of a box past C, L or F read zeros, so no box crosses into the
+// next sample's frames.
+inline int make_map_4d(CUtensorMap* map, const void* ptr, int C, int L, int F, int B, int cols,
+                       int rows, int frames) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)L, (cuuint64_t)F, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)L * C * 2,
+                                 (cuuint64_t)F * L * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, (cuuint32_t)frames, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // The same, unswizzled or with the 128-byte swizzle.
 inline int make_map(CUtensorMap* map, const void* ptr, int C, int L, int B, int cols, int rows,
                     bool swizzle128) {
   return make_map(map, ptr, C, L, B, cols, rows,
                   swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
+
+// ---- host: what a launch would otherwise ask the runtime on every call -----
+
+// Function attributes and occupancies, kept per (kernel, device, key) for
+// the life of the process, so that a launch makes no such runtime call
+// after the first with the same plan. Safe to share between threads. A
+// failed query is not kept; past kEntries keys a query is made every time.
+class HostCache {
+ public:
+  // *value for (fn, the current device, a, b): query(value), a callable
+  // returning a cudaError_t, the first time; the kept value after.
+  template <class Query>
+  cudaError_t get(const void* fn, int a, int b, int* value, Query query) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    {
+      std::lock_guard<std::mutex> lock(mu_);
+      if (const Entry* hit = find(fn, dev, a, b)) {
+        *value = hit->value;
+        return cudaSuccess;
+      }
+    }
+    if ((e = query(value)) != cudaSuccess) return e;
+    std::lock_guard<std::mutex> lock(mu_);
+    if (!find(fn, dev, a, b) && used_ < kEntries) entries_[used_++] = {fn, dev, a, b, *value};
+    return cudaSuccess;
+  }
+
+  // fn's dynamic shared memory limit on the current device raised to at
+  // least `bytes`. The limit only grows, so every launch that fitted
+  // still fits, and cudaFuncSetAttribute runs only when it must grow.
+  cudaError_t reserve_smem(const void* fn, int bytes) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    std::lock_guard<std::mutex> lock(mu_);
+    Entry* limit = find(fn, dev, kSmemKey, kSmemKey);
+    if (limit && limit->value >= bytes) return cudaSuccess;
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    if (limit)
+      limit->value = bytes;
+    else if (used_ < kEntries)
+      entries_[used_++] = {fn, dev, kSmemKey, kSmemKey, bytes};
+    return cudaSuccess;
+  }
+
+ private:
+  struct Entry {
+    const void* fn;
+    int dev, a, b, value;
+  };
+  static constexpr int kEntries = 256;
+  static constexpr int kSmemKey = -(1 << 30);
+
+  Entry* find(const void* fn, int dev, int a, int b) {
+    for (int i = 0; i < used_; ++i)
+      if (entries_[i].fn == fn && entries_[i].dev == dev && entries_[i].a == a &&
+          entries_[i].b == b)
+        return &entries_[i];
+    return nullptr;
+  }
+
+  std::mutex mu_;
+  Entry entries_[kEntries];
+  int used_ = 0;
+};
 
 }  // namespace hopper

@@ -11,75 +11,107 @@
 // with f <= 32 frames, in the UNet's native spatial layout: there is no
 // (b f) l c <-> (b l) f c rearrange and the output has the input's layout.
 //
-// What bounds it on the H100: each position's f x f attention is tiny
-// (24 x 24 x d), so a call is a few GFLOP against tens of MB of q/k/v/out
-// traffic: device-memory bytes bound it. Reaching that bound needs many
-// loads in flight; this version is limited by how few warps fit an SM at
-// d = 160 (the shared-memory tiles) and by per-warp load latency.
+// What bounds it on the H100: device-memory bytes. Each position's f x f
+// attention is tiny (24 x 24 x d): at the motion modules' level 0 a call is
+// 4.5 GFLOP (4.6 us at the bf16 peak) against 377 MB of q/k/v/out (113 us),
+// and the products stay under 5% of the byte bound at every level. The
+// first design (a warp per (position, head), synchronous 16-byte loads of
+// one head's 80-byte row pieces, loads and stores not overlapped, 4 warps
+// an SM at d = 160) reached a third of the bound.
 //
-// The simple design: the TPU kernel's masked-dense (f*BL)^2 tiling is a
-// device for the TPU's 128-wide matrix unit and is not carried over. Here a
-// warp owns one (b, position, head): it stages that position's f rows of
-// q, k and v (the head's d columns, zero-padded to 32 rows and DP columns)
-// in shared memory with 16-byte loads, computes the 32x32 logits with
-// `mma.sync.m16n8k16` (bf16 in, fp32 accumulate), masks frames >= f, takes
-// the softmax in the log2 domain in registers (fp32, logits scaled in fp32),
-// normalizes P before rounding it to bf16 A-operands, computes O = P V in
-// 64-column chunks, stages O over the q tile and stores it with 16-byte
-// writes. A block holds 4 warps (4 positions of one head).
+// What this design does about it:
+// - A work item is the TPU kernel's block: P positions (kPositions) x all f
+//   frames x a chunk of whole heads (the wrapper's `temporal_plan`: as many
+//   heads as fit 160 columns, the whole 320-byte row piece of the UNet's 8
+//   heads at every level). It is one TMA load per tensor from a 4-D map
+//   (c, l, f, b): frames past f and positions past l read zeros, so a box
+//   never crosses into the next sample's frames. The box runs 8 (or 16)
+//   columns past the chunk so that a frame row in shared memory is an odd
+//   number of 16-byte units: the ldmatrix rows of one (position, head),
+//   f frames apart, then fall in distinct banks. The extra columns are the
+//   next chunk's first ones (read at the same time by the block that owns
+//   them, so from L2) or zeros past c.
+// - One producer thread keeps a ring of kStages such items in flight
+//   (mbarriers with transaction counts); the grid is persistent over the
+//   items, so one item's loads run under another's products and stores.
+// - kConsumers consumer warps each take one (position, head) of an item at
+//   a time with `mma.sync.m16n8k16` (bf16 in, fp32 accumulate): S = Q K^T,
+//   the softmax in the log2 domain in registers (fp32 logits scaled in
+//   fp32, keys >= f masked, P normalized before its bf16 rounding, as the
+//   plain version does), O = P V. The mma tiles run to 32 frames; a tile in
+//   shared memory holds only the f frames TMA writes, so the rows past f
+//   that ldmatrix reads are the next tile's: their S rows never reach a
+//   stored O, their keys are masked, and V's are zeroed in the fragments.
+//   The columns past d of a head's last 16-deep step are zeroed in Q's
+//   fragments. `wgmma` is not used: its 64-row M would pad f = 24 by 2.7x,
+//   and the products are not what bounds the kernel.
+// - O is staged densely in an O tile ([f][positions][chunk columns]) and
+//   written by one 4-D TMA store per item, issued by the producer when the
+//   item's (position, head) pairs are done; the O tiles form a ring one
+//   longer than the stages, so the producer waits only for the read of a
+//   store issued an item earlier. (A bulk copy per frame row, 24 an item,
+//   from the Q tile measured the same: PERF.md section 6.)
+// - Shared memory is per item, not per warp: 3 stages of Q, K and V tiles of
+//   24 x 168 bf16 and 4 O tiles of 24 x 160 are 103 KB at f = 24, two
+//   blocks an SM at every level.
+// - On the host a launch encodes the four maps and launches. The function's
+//   shared memory limit and the persistent grid (SMs x blocks an SM) are
+//   asked of the runtime once per item size and kept (`HostCache`), so the
+//   small shapes, where a call's host time exceeds its device time, pay
+//   for no runtime query.
+// Measured on the H100 (PERF.md section 6): level 0 at ~80% of the byte
+// bound; fewer stages move it by a few percent, more positions an item,
+// a deeper ring (one block an SM) or fewer consumer warps cost 25-55%, and
+// without either the loads or the stores it runs within 10% of the bound.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "warp_mma.cuh"
 
 namespace {
 
-constexpr int kMaxFrames = 32;
-constexpr int kWarps = 4;
+using namespace hopper;
+
+constexpr int kMaxFrames = 32;  // frames the two 16-row mma tiles cover
+constexpr int kConsumers = 4;   // consumer warps
+constexpr int kStages = 3;      // items in flight
+constexpr int kPositions = 1;   // positions per item
+constexpr int kOTiles = kStages + 1;  // O tiles: one item's store drains under the next
+constexpr int kThreads = 32 * (kConsumers + 1);
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Elements of one stage's Q, K or V tile ([F][kPositions][cwp]) and of its
+// O tile ([F][kPositions][cw]), each rounded to 128 bytes (TMA's alignment).
+__host__ __device__ inline int tile_elems(int F, int cols) {
+  return (F * kPositions * cols + 63) / 64 * 64;
+}
+
+// The stages' Q, K and V tiles, the O tiles, then room for the mma tiles'
+// rows past F (read, never used), then the mbarriers.
+__host__ __device__ inline size_t smem_bytes(int F, int cw, int cwp) {
+  return 128 + ((size_t)kStages * 3 * tile_elems(F, cwp) + (size_t)kOTiles * tile_elems(F, cw)) * 2 +
+         (size_t)(kMaxFrames - F) * kPositions * cwp * 2 + 2 * kStages * 8;
+}
+
+// Zero the halves of a bf16 pair that hold frames >= F.
+__device__ __forceinline__ uint32_t mask_frames(uint32_t v, int frame, int F) {
+  return v & ((frame < F ? 0x0000ffffu : 0u) | (frame + 1 < F ? 0xffff0000u : 0u));
+}
+
+// One (position p, head h) of the item in a stage: S = Q K^T, softmax, O =
+// P V, O written to the O tile (frames < F only). sq/sk/sv/so point at the
+// head's first column of frame 0; LDF and LDO are the strides between
+// frames, in elements. The mma tiles run to 32 frames: rows past F are read
+// (the next tile's), their S rows and columns never reach a stored O, and
+// V's are zeroed in the fragments.
 template <int DP>
-__global__ void __launch_bounds__(kWarps * 32)
-temporal_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out, int F, int L,
-                    int heads, int d, float scale_log2) {
-  constexpr int LD = DP + 8;  // an odd multiple of 16 bytes: ldmatrix conflict-free
-  constexpr int TILE = kMaxFrames * LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  bf16* sQ = reinterpret_cast<bf16*>(smem) + warp * 3 * TILE;
-  bf16* sK = sQ + TILE;
-  bf16* sV = sK + TILE;
-
-  const int pos = blockIdx.x * kWarps + warp;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  if (pos >= L) return;  // only warp-level synchronisation below
-
-  const int C = heads * d;
-  const size_t frame_stride = (size_t)L * C;
-  const size_t base = ((size_t)b * F * L + pos) * C + (size_t)h * d;
-
-  for (int e = lane; e < kMaxFrames * (DP / 8); e += 32) {
-    const int r = e / (DP / 8);
-    const int c = (e % (DP / 8)) * 8;
-    uint4 vq = make_uint4(0u, 0u, 0u, 0u), vk = vq, vv = vq;
-    if (r < F && c < d) {
-      const size_t off = base + r * frame_stride + c;
-      vq = *reinterpret_cast<const uint4*>(q + off);
-      vk = *reinterpret_cast<const uint4*>(k + off);
-      vv = *reinterpret_cast<const uint4*>(v + off);
-    }
-    *reinterpret_cast<uint4*>(sQ + r * LD + c) = vq;
-    *reinterpret_cast<uint4*>(sK + r * LD + c) = vk;
-    *reinterpret_cast<uint4*>(sV + r * LD + c) = vv;
-  }
-  __syncwarp();
-
+__device__ __forceinline__ void attend(const bf16* sq, const bf16* sk, const bf16* sv, bf16* so,
+                                       int LDF, int LDO, int F, int d, float scale_log2,
+                                       int lane) {
   // S = Q K^T: 2 row tiles (query frames) x 4 column tiles (key frames)
   float s[2][4][4];
 #pragma unroll
@@ -88,14 +120,17 @@ temporal_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < 4; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
+    if (16 * kk >= d) break;
     uint32_t a[2][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-      ldmatrix_x4(a[mt], sQ + (mt * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+    for (int mt = 0; mt < 2; ++mt) {
+      ldmatrix_x4(a[mt], sq + (mt * 16 + lane % 16) * LDF + kk * 16 + (lane / 16) * 8);
+      if (16 * kk + 8 >= d) a[mt][2] = a[mt][3] = 0u;  // columns past the head
+    }
 #pragma unroll
     for (int jp = 0; jp < 2; ++jp) {
       uint32_t bk[4];
-      ldmatrix_x4(bk, sK + (jp * 16 + (lane % 8) + (lane / 16) * 8) * LD + kk * 16 +
+      ldmatrix_x4(bk, sk + (jp * 16 + (lane % 8) + (lane / 16) * 8) * LDF + kk * 16 +
                           ((lane / 8) % 2) * 8);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
@@ -147,11 +182,10 @@ temporal_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  // O = P V in chunks of 64 columns; each chunk is staged over the q tile,
-  // which no lane reads any more
-  __syncwarp();
+  // O = P V in chunks of 64 columns
 #pragma unroll
   for (int n0 = 0; n0 < DP; n0 += 64) {
+    if (n0 >= d) break;
     constexpr int kMaxTiles = 8;
     float o[2][kMaxTiles][4];
 #pragma unroll
@@ -162,10 +196,16 @@ temporal_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int t = 0; t < 2; ++t) {
 #pragma unroll
       for (int np = 0; np < kMaxTiles / 2; ++np) {
-        if (n0 + 16 * np >= DP) break;
+        if (n0 + 16 * np >= DP || n0 + 16 * np >= d) break;
         uint32_t bv[4];
-        ldmatrix_x4_trans(bv, sV + (t * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD +
-                                  n0 + np * 16 + (lane / 16) * 8);
+        ldmatrix_x4_trans(bv, sv + (t * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LDF + n0 +
+                                  np * 16 + (lane / 16) * 8);
+        // registers 0 and 2 hold frames t*16 + 2*(lane%4) (+1), 1 and 3 eight later
+        const int fr = t * 16 + 2 * (lane % 4);
+        bv[0] = mask_frames(bv[0], fr, F);
+        bv[2] = mask_frames(bv[2], fr, F);
+        bv[1] = mask_frames(bv[1], fr + 8, F);
+        bv[3] = mask_frames(bv[3], fr + 8, F);
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
           mma_bf16(o[mt][2 * np], pa[mt][t], bv[0], bv[1]);
@@ -177,54 +217,179 @@ temporal_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int n = 0; n < kMaxTiles; ++n) {
-        if (n0 + 8 * n >= DP) break;
+        if (n0 + 8 * n >= DP || n0 + 8 * n >= d) break;
         const int col = n0 + 8 * n + 2 * (lane % 4);
         const int row = 16 * mt + lane / 4;
-        *reinterpret_cast<__nv_bfloat162*>(sQ + row * LD + col) =
-            __floats2bfloat162_rn(o[mt][n][0], o[mt][n][1]);
-        *reinterpret_cast<__nv_bfloat162*>(sQ + (row + 8) * LD + col) =
-            __floats2bfloat162_rn(o[mt][n][2], o[mt][n][3]);
+        if (row < F)
+          *reinterpret_cast<__nv_bfloat162*>(so + row * LDO + col) =
+              __floats2bfloat162_rn(o[mt][n][0], o[mt][n][1]);
+        if (row + 8 < F)
+          *reinterpret_cast<__nv_bfloat162*>(so + (row + 8) * LDO + col) =
+              __floats2bfloat162_rn(o[mt][n][2], o[mt][n][3]);
       }
-  }
-  __syncwarp();
-
-  for (int e = lane; e < F * (DP / 8); e += 32) {
-    const int r = e / (DP / 8);
-    const int c = (e % (DP / 8)) * 8;
-    if (c < d) {
-      *reinterpret_cast<uint4*>(out + base + r * frame_stride + c) =
-          *reinterpret_cast<const uint4*>(sQ + r * LD + c);
-    }
   }
 }
 
+// The item's coordinates: (chunk, first position, sample).
+struct Item {
+  int chunk, pos0, b;
+};
+
+__device__ __forceinline__ Item item_of(int it, int chunks, int pblocks) {
+  Item r;
+  r.chunk = it % chunks;
+  r.pos0 = ((it / chunks) % pblocks) * kPositions;
+  r.b = it / (chunks * pblocks);
+  return r;
+}
+
+// grid: persistent, at most one block per item; block kThreads.
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+temporal_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap o_map, int B, int F, int L, int C, int d,
+                    int CW, int CWP, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* tiles = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~static_cast<uintptr_t>(127));
+  const int TILE = tile_elems(F, CWP), OTILE = tile_elems(F, CW);
+  const int STAGE = 3 * TILE;  // Q, K, V
+  bf16* otiles = tiles + (size_t)kStages * STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(otiles + (size_t)kOTiles * OTILE +
+                                               (size_t)(kMaxFrames - F) * kPositions * CWP);
+  uint64_t* empty = full + kStages;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int chunks = C / CW;
+  const int heads_per_item = CW / d;
+  const int tasks = kPositions * heads_per_item;  // (position, head) pairs of an item
+  const int pblocks = (L + kPositions - 1) / kPositions;
+  const int items = B * pblocks * chunks;
+  const int LDF = kPositions * CWP, LDO = kPositions * CW;  // elements between frames
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 2);  // the loads' bytes, and the O tile free again
+      mbar_init(&empty[s], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers) {
+    // producer (one thread): the stage's previous item is stored, the next
+    // loaded; the stage is full once its loads have landed and the O tile
+    // its item will write has been read by the store of its last item
+    if (lane != 0) return;
+    const uint32_t bytes = 3u * kPositions * F * CWP * 2;
+    int n = 0;
+    for (int it = blockIdx.x; it < items; it += gridDim.x, ++n) {
+      const int s = n % kStages;
+      bf16* t = tiles + (size_t)s * STAGE;
+      if (n >= kStages) {
+        mbar_wait(&empty[s], ((n / kStages) - 1) & 1);
+        const Item w = item_of(it - kStages * gridDim.x, chunks, pblocks);
+        tma_store_4d(&o_map, otiles + (size_t)((n - kStages) % kOTiles) * OTILE, w.chunk * CW,
+                     w.pos0, 0, w.b);
+        bulk_commit();
+      }
+      const Item w = item_of(it, chunks, pblocks);
+      mbar_arrive_expect_tx(&full[s], bytes);
+      tma_load_4d(t, &q_map, &full[s], w.chunk * CW, w.pos0, 0, w.b);
+      tma_load_4d(t + TILE, &k_map, &full[s], w.chunk * CW, w.pos0, 0, w.b);
+      tma_load_4d(t + 2 * TILE, &v_map, &full[s], w.chunk * CW, w.pos0, 0, w.b);
+      // every store but the one just issued has read its tile: so has that
+      // of item n - kOTiles, whose tile item n writes
+      bulk_wait<1, true>();
+      mbar_arrive(&full[s]);
+    }
+    for (int m = n > kStages ? n - kStages : 0; m < n; ++m) {
+      const int s = m % kStages;
+      mbar_wait(&empty[s], (m / kStages) & 1);
+      const Item w = item_of(blockIdx.x + m * gridDim.x, chunks, pblocks);
+      tma_store_4d(&o_map, otiles + (size_t)(m % kOTiles) * OTILE, w.chunk * CW, w.pos0, 0, w.b);
+      bulk_commit();
+    }
+    bulk_wait<0, false>();
+    return;
+  }
+
+  // consumers: task g = n * tasks + t of this block goes to warp g %
+  // kConsumers; every warp waits for every item and frees it, so no warp
+  // can be lapped by the ring
+  int n = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x, ++n) {
+    const int s = n % kStages;
+    mbar_wait(&full[s], (n / kStages) & 1);
+    const bf16* tq = tiles + (size_t)s * STAGE;
+    bf16* to = otiles + (size_t)(n % kOTiles) * OTILE;
+    for (int t = (warp - (n * tasks) % kConsumers + kConsumers) % kConsumers; t < tasks;
+         t += kConsumers) {
+      const int p = t / heads_per_item, h = t % heads_per_item;
+      const size_t off = (size_t)p * CWP + (size_t)h * d;
+      attend<DP>(tq + off, tq + TILE + off, tq + 2 * TILE + off,
+                 to + (size_t)p * CW + (size_t)h * d, LDF, LDO, F, d, scale_log2, lane);
+    }
+    fence_proxy_async();  // O's writes before the TMA store reads them
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+}
+
+HostCache host_cache;
+
 template <int DP>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int F, int L,
-           int heads, int d, cudaStream_t stream) {
-  const size_t bytes = sizeof(bf16) * kWarps * 3 * kMaxFrames * (DP + 8);
+           int heads, int d, int CW, int CWP, cudaStream_t stream) {
+  const int C = heads * d;
+  CUtensorMap maps[4];
+  int err = make_map_4d(&maps[0], q, C, L, F, B, CWP, kPositions, F);
+  if (!err) err = make_map_4d(&maps[1], k, C, L, F, B, CWP, kPositions, F);
+  if (!err) err = make_map_4d(&maps[2], v, C, L, F, B, CWP, kPositions, F);
+  if (!err) err = make_map_4d(&maps[3], out, C, L, F, B, CW, kPositions, F);
+  if (err) return err;
+  const int bytes = (int)smem_bytes(F, CW, CWP);
   auto kernel = temporal_fwd_kernel<DP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + kWarps - 1) / kWarps, heads, B);
-  kernel<<<grid, kWarps * 32, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), F, L, heads, d,
-      kLog2e / sqrtf((float)d));
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  cudaError_t e = host_cache.reserve_smem(fn, bytes);
+  if (e != cudaSuccess) return (int)e;
+  int slots = 0;  // blocks the card holds at once: the persistent grid
+  e = host_cache.get(fn, bytes, 0, &slots, [&](int* v) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t q = cudaGetDevice(&dev);
+    if (q == cudaSuccess) q = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (q == cudaSuccess)
+      q = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
+    *v = sms * per_sm;
+    return q;
+  });
+  if (e != cudaSuccess) return (int)e;
+  if (slots < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long items = (long long)B * ((L + kPositions - 1) / kPositions) * (C / CW);
+  const int grid = (int)(items < slots ? items : slots);
+  kernel<<<grid, kThreads, bytes, stream>>>(maps[0], maps[1], maps[2], maps[3], B, F, L, C, d,
+                                           CW, CWP, kLog2e / sqrtf((float)d));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Head widths the kernel takes: d a multiple of 8, d <= 160 (the motion
-// modules' d = 40/80/160, padded to 48 / 80 / 160).
-extern "C" int hv_temporal_fwd(const void* q, const void* k, const void* v, void* out,
-                               int B, int F, int L, int heads, int d, void* stream) {
+// modules' d = 40/80/160, QK^T's depth padded to 48 / 80 / 160). An item
+// holds `heads_per_item` whole heads (CW = heads_per_item * d columns),
+// loaded `cwp` columns wide (the wrapper's `temporal_plan`).
+extern "C" int hv_temporal_fwd(const void* q, const void* k, const void* v, void* out, int B,
+                               int F, int L, int heads, int d, int heads_per_item, int cwp,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (F < 1 || F > kMaxFrames || d <= 0 || d % 8 != 0 || heads < 1)
+  const int CW = heads_per_item * d;
+  if (B < 1 || L < 1 || F < 1 || F > kMaxFrames || d <= 0 || d % 8 != 0 || heads < 1 ||
+      heads_per_item < 1 || heads % heads_per_item != 0 || cwp > 256 || cwp % 8 != 0 ||
+      cwp < CW + 8 || (cwp / 8) % 2 != 1 || (long long)B * heads * d * F * L >= (1LL << 40))
     return (int)cudaErrorInvalidValue;
-  if (d <= 48) return launch<48>(q, k, v, out, B, F, L, heads, d, s);
-  if (d <= 80) return launch<80>(q, k, v, out, B, F, L, heads, d, s);
-  if (d <= 160) return launch<160>(q, k, v, out, B, F, L, heads, d, s);
+  if (d <= 48) return launch<48>(q, k, v, out, B, F, L, heads, d, CW, cwp, s);
+  if (d <= 80) return launch<80>(q, k, v, out, B, F, L, heads, d, CW, cwp, s);
+  if (d <= 160) return launch<160>(q, k, v, out, B, F, L, heads, d, CW, cwp, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,7 +7,9 @@ frames: ``softmax(q k^T * d^-1/2) v``. The output has the input's layout; no
 
 On a CUDA tensor it launches the hand-written kernel in
 ``csrc/temporal_attention.cu`` (bf16 only, f <= 32) or raises; on a CPU
-tensor it runs :func:`temporal_attention_plain`.
+tensor it runs :func:`temporal_attention_plain`. The kernel's work item is
+a run of positions x all frames x a chunk of whole heads
+(:func:`temporal_plan`).
 
 The gradient (:class:`TemporalAttention`, an autograd Function) keeps only
 q, k and v: on a CUDA tensor the one-pass kernel of
@@ -18,6 +20,8 @@ and dv; on a CPU tensor :func:`temporal_attention_backward_plain` does.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -25,7 +29,35 @@ from . import cuda_build
 
 MAX_FRAMES = 32  # the motion modules' position-encoding table bounds f
 
+MAX_HEAD_DIM = 160
+CHUNK_COLUMNS = 160  # columns of an item: the UNet's 8 heads in 320-byte pieces
+
 launches = {"temporal": 0, "temporal_bwd": 0}
+
+_FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+class TemporalPlan(NamedTuple):
+    """The forward kernel's item: ``heads`` whole heads, ``cols`` =
+    heads * d columns, loaded ``padded`` columns wide (an odd number of
+    16-byte units, at least 8 columns past the chunk: the frames of a
+    head then sit in distinct shared-memory banks, and the last 16-deep
+    step of a head with d % 16 == 8 stays inside the row)."""
+    heads: int
+    cols: int
+    padded: int
+
+
+@functools.lru_cache(maxsize=None)
+def temporal_plan(c: int, heads: int) -> TemporalPlan:
+    """The most whole heads whose columns fit CHUNK_COLUMNS (at least
+    one), and the width the kernel loads them at."""
+    d = c // heads
+    per = max(h for h in range(1, heads + 1)
+              if heads % h == 0 and (h == 1 or h * d <= CHUNK_COLUMNS))
+    cols = per * d
+    return TemporalPlan(per, cols, cols + (8 if (cols // 8) % 2 == 0 else 16))
 
 
 def reset_launches() -> None:
@@ -72,15 +104,13 @@ def temporal_attention_cuda(q, k, v, heads):
     d = c // heads
     if b > 65535 or heads > 65535 or min(b, f, l) < 1:
         raise ValueError(f"unsupported sizes {tuple(q.shape)} heads={heads}")
-    if d % 8 or d > 160:
-        raise ValueError(f"head dim {d} unsupported: needs d % 8 == 0 and d <= 160")
+    if d % 8 or d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} unsupported: needs d % 8 == 0 and d <= {MAX_HEAD_DIM}")
+    plan = temporal_plan(c, heads)
     out = torch.empty_like(q)
-    lib = cuda_build.load("temporal_attention")
-    fn = lib.hv_temporal_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = cuda_build.function("temporal_attention", "hv_temporal_fwd", _FWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, f, l, heads, d, cuda_build.stream_handle(q.device))
+             b, f, l, heads, d, plan.heads, plan.padded, cuda_build.stream_handle(q.device))
     cuda_build.check(err, "temporal attention launch")
     launches["temporal"] += 1
     return out
@@ -128,13 +158,10 @@ def temporal_attention_backward_cuda(q, k, v, g, heads: int):
     d = c // heads
     if b > 65535 or heads > 65535 or min(b, f, l) < 1:
         raise ValueError(f"unsupported sizes {tuple(q.shape)} heads={heads}")
-    if d % 8 or d > 160:
-        raise ValueError(f"head dim {d} unsupported: needs d % 8 == 0 and d <= 160")
+    if d % 8 or d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} unsupported: needs d % 8 == 0 and d <= {MAX_HEAD_DIM}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib = cuda_build.load("temporal_attention_bwd")
-    fn = lib.hv_temporal_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = cuda_build.function("temporal_attention_bwd", "hv_temporal_bwd", _BWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), b, f, l, heads, d,
              cuda_build.stream_handle(q.device))

@@ -9,6 +9,10 @@
         [--against FILE] [--iters N]
     python -m humanvid_tpu_torch.tools.flash_variants --hbm [variant ...]
         [--against FILE] [--iters N]
+    python -m humanvid_tpu_torch.tools.flash_variants --gn [variant ...]
+        [--against FILE] [--iters N]
+    python -m humanvid_tpu_torch.tools.flash_variants --temporal [variant ...]
+        [--against FILE] [--iters N]
 
 Each variant is ``csrc/flash_attention.cu`` with a few named text edits
 (``VARIANTS``), built by nvcc with the port's flags into ``build/`` and
@@ -42,6 +46,23 @@ timed turn is 20 x ``--iters`` launches, and ``--against FILE`` adds
 another source with the same C entry point (kernel 10's ``against`` is
 given the grid an earlier source took as its ``blocks``: ``hbm_blocks``
 capped at 8 blocks an SM).
+With ``--gn`` the variants are those of kernel C, ``csrc/group_norm.cu``
+(``GN_VARIANTS``: the two-pass kernels forced, the size rule's cluster
+size, block size and slab floor moved, registers for 2 or 4 blocks an SM,
+8 re-read rows in flight a thread, and ablations without the exchange over
+the cluster, the TMA stores or the TMA loads), at ``chip_smoke.py``'s
+channels_last shapes with SiLU (``GN_SHAPES``), each but the ablations
+held to ``group_norm_act_plain`` and to its own bits on a repeat, with the
+clusters of its one-pass kernel the card holds at once (a query the tool
+appends to each source it builds), beside
+``F.group_norm`` + ``F.silu``; ``against`` is another source's two-pass
+entry point ``hv_group_norm_fwd``. With ``--temporal`` those of kernel B's
+forward, ``csrc/temporal_attention.cu`` (``TEMPORAL_VARIANTS``: positions
+per item, ring depth, consumer warps, and ablations without the loads, the
+products or the stores), at the motion modules' four shapes
+(``TEMPORAL_SHAPES``), beside SDPA on the head-split permuted views;
+``against`` may be an earlier design with the earlier entry point. A timed
+turn of both is 20 x ``--iters`` launches.
 At each of kernel A's main-path shapes (``SHAPES``, those of
 ``chip_smoke.py``) every variant that computes the same function is first
 held to the plain version on 128 query rows (``chip_smoke.py``'s limits);
@@ -308,6 +329,144 @@ HBM_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
     "hbm_ring_3_stages": ((_RING, _set_const("kStages", 4, 3)), False),
     "hbm_ring_16k_8_stages": ((_RING, _set_const("kChunk", 32768, 16384),
                                _set_const("kStages", 4, 8)), False),
+}
+
+
+# kernel C (csrc/group_norm.cu) at chip_smoke.py's channels_last shapes,
+# SiLU: (name, (N, C, H, W), eps), 32 groups
+GN_SHAPES = (("decode 768x512", (8, 128, 768, 512), 1e-6),
+             ("decode 192x128", (8, 512, 192, 128), 1e-6),
+             ("decode 96x64", (8, 512, 96, 64), 1e-6),
+             ("UNet level 0 768x512", (24, 320, 96, 64), 1e-5),
+             ("UNet level 0 concat 960", (24, 960, 96, 64), 1e-5),
+             ("stage-2 level 0 concat 960", (24, 960, 112, 64), 1e-5),
+             ("UNet level 2 768x512", (24, 1280, 24, 16), 1e-5),
+             ("UNet level 3 concat", (24, 2560, 12, 8), 1e-5))
+GN_TOL = (1.5e-4, 0.1)  # chip_smoke.py's limits: rel L2, max err / rms(plain)
+_GN_TMA_LOAD = ("      mbar_arrive_expect_tx(&bars[j], (uint32_t)R * S * 2);\n"
+                "      tma_load_3d(data + (size_t)j * R * S, &x_map, &bars[j], c0, r0 + j * R, n);",
+                None, "      mbar_arrive(&bars[j]);")
+# name -> (edits, ablation, plan): plan is None (the wrapper's cluster_plan),
+# "two_pass" (the two-pass kernels), or the size rule's module constants
+# that the variant replaces (`gn_variant_plan`)
+GN_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool, object]] = {
+    "kernel": ((), False, None),
+    # the two-pass kernels (statistics, finalize, apply) at every shape
+    "two_pass": ((), False, "two_pass"),
+    # clusters of at most 8 blocks (portable sizes) or 4: wider blocks that
+    # re-read more from L2, or the two-pass kernels where nothing fits
+    "cluster_8": ((), False, {"MAX_CLUSTER": 8}),
+    "cluster_4": ((), False, {"MAX_CLUSTER": 4}),
+    # blocks holding at most 90 KB (two an SM), with at most a quarter more
+    # re-read from L2, or 16 KB, re-reading up to 7 times as much
+    "cta_90k": ((_set_const("kMinBlocks", 3, 2),), False, {"CTA_BYTES": 90 * 1024,
+                                                           "REREAD": 0.25}),
+    "cta_16k": ((), False, {"CTA_BYTES": 16 * 1024, "REREAD": 7.0}),
+    # registers for 2 or 4 blocks an SM instead of 3
+    "min_blocks_2": ((_set_const("kMinBlocks", 3, 2),), False, None),
+    "min_blocks_4": ((_set_const("kMinBlocks", 3, 4),), False, None),
+    # 8 rows in flight a thread on the rows re-read from L2 instead of 4,
+    # with registers for 3 or 2 blocks an SM
+    "unroll_8": ((_set_const("kClusterUnroll", 4, 8),), False, None),
+    "unroll_8_min_blocks_2": ((_set_const("kClusterUnroll", 4, 8),
+                               _set_const("kMinBlocks", 3, 2)), False, None),
+    # slabs down to 32 channels (64-byte rows) where the 64-channel floor
+    # leaves a shape to the two-pass kernels, alone or with clusters of at
+    # most 8 (narrower slabs on fewer blocks)
+    "slab_32": ((), False, {"MIN_SLAB": 32}),
+    "cluster_8_slab_32": ((), False, {"MAX_CLUSTER": 8, "MIN_SLAB": 32}),
+    # ablations: no exchange over the cluster (each block normalizes by its
+    # own rows), no TMA stores, no TMA loads (the statistics read stale
+    # shared memory)
+    "no_exchange": ((("      if (k < K) rp[k] = ld_dsmem_f2(dsmem_addr(&part[c], (uint32_t)k));",
+                      None, "      if (k < K) rp[k] = part[c];"),), True, None),
+    "no_stores": ((("      tma_store_3d(&y_map, data + (size_t)j * R * S, c0, r0 + j * R, n);\n",
+                    None, "      (void)j;\n"),), True, None),
+    "no_loads": ((_GN_TMA_LOAD,), True, None),
+}
+
+# Appended to each kernel-C source the tool builds: how many clusters of the
+# one-pass kernel the card holds at once for a plan (0: none, and the launch
+# would be refused). It goes through the source's own launch cache, so the
+# shared memory limit it sets never falls under one a launch relies on.
+_GN_OCCUPANCY = r"""
+extern "C" int hv_variant_gn_occupancy(int S, int K, int resident, int* clusters) {
+  auto kernel = gn_cluster_nhwc<true>;
+  const int smem = (int)cluster_smem(S, resident);
+  cudaError_t e = host_cache.reserve_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (e == cudaSuccess && K > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(K, 1, 1);
+  cfg.blockDim = dim3(kClusterThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+"""
+
+
+def gn_variant_plan(c: int, hw: int, groups: int, rule):
+    """A kernel-C variant's plan: None for "two_pass", else the wrapper's
+    size rule (``group_norm.cluster_plan``) with the module constants in
+    ``rule`` (a dict, or None for none) replaced while it runs."""
+    from ..ops import group_norm as gn
+
+    if rule == "two_pass":
+        return None
+    rule = rule or {}
+    kept = {name: getattr(gn, name) for name in rule}
+    try:
+        for name, value in rule.items():
+            setattr(gn, name, value)
+        return gn.cluster_plan(c, hw, groups)
+    finally:
+        for name, value in kept.items():
+            setattr(gn, name, value)
+
+
+# kernel B's forward (csrc/temporal_attention.cu) at chip_smoke.py's motion
+# module shapes: (name, b, f, l, c, heads)
+TEMPORAL_SHAPES = (("motion level0", 1, 24, 6144, 320, 8),
+                   ("motion level1", 1, 24, 1536, 640, 8),
+                   ("motion level2", 1, 24, 384, 1280, 8),
+                   ("motion level3/mid", 1, 24, 96, 1280, 8))
+TEMPORAL_TOL = (2e-4, 0.08)  # chip_smoke.py's limits
+_TEMPORAL_LOADS = ("      mbar_arrive_expect_tx(&full[s], bytes);\n",
+                   "      // every store but the one just issued",
+                   "      mbar_arrive(&full[s]);\n")
+TEMPORAL_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
+    "kernel": ((), False),
+    # items of 2 or 3 positions (2: frame rows 2 x 168 columns apart, a
+    # 2-way bank conflict; 3: an odd number of 16-byte units again)
+    "positions_2": ((_set_const("kPositions", 1, 2),), False),
+    "positions_3": ((_set_const("kPositions", 1, 3), _set_const("kStages", 3, 2)), False),
+    # rings of 2 or 4 stages (4: one block an SM) instead of 3
+    "stages_2": ((_set_const("kStages", 3, 2),), False),
+    "stages_4": ((_set_const("kStages", 3, 4),), False),
+    # 2 or 8 consumer warps instead of 4
+    "consumers_2": ((_set_const("kConsumers", 4, 2),), False),
+    "consumers_8": ((_set_const("kConsumers", 4, 8),), False),
+    # the box exactly the chunk's columns (no 16-byte units past it: the
+    # frames of a head 320 bytes apart, a 4-way bank conflict at d = 40)
+    "no_pad": ((("      cwp < CW + 8 || (cwp / 8) % 2 != 1 ||", None, "      cwp < CW ||"),), False),
+    # ablations: no loads (the ring still turns, the products read stale
+    # tiles), no products, no stores
+    "no_loads": ((_TEMPORAL_LOADS,), True),
+    "no_products": ((("      attend<DP>(tq + off, tq + TILE + off, tq + 2 * TILE + off,\n"
+                      "                 to + (size_t)p * CW + (size_t)h * d, LDF, LDO, F, d, "
+                      "scale_log2, lane);\n", None, "      (void)off;\n"),), True),
+    "no_stores": ((("        tma_store_4d(&o_map, otiles + (size_t)((n - kStages) % kOTiles) * OTILE, "
+                    "w.chunk * CW,\n                     w.pos0, 0, w.b);\n", None, ""),
+                   ("      tma_store_4d(&o_map, otiles + (size_t)(m % kOTiles) * OTILE, w.chunk * CW, "
+                    "w.pos0, 0, w.b);\n", None, "")), True),
 }
 
 
@@ -757,26 +916,216 @@ def run_hbm(names: Sequence[str], iters: int = 5, against: Optional[str] = None)
     return records
 
 
+def _agree(out: torch.Tensor, ref: torch.Tensor, tol) -> Tuple[bool, float]:
+    ref = ref.float()
+    diff = out.float() - ref
+    rel = (diff.norm() / ref.norm()).item()
+    return (rel <= tol[0] and diff.abs().max().item()
+            <= tol[1] * ref.pow(2).mean().sqrt().item()), rel
+
+
+def run_gn(names: Sequence[str], iters: int = 5, against: Optional[str] = None) -> List[dict]:
+    """Kernel C's variants at every shape of ``GN_SHAPES`` (channels_last,
+    SiLU): each but the ablations held to ``group_norm_act_plain``
+    (``chip_smoke.py``'s limits) and to its own bits on a repeat launch,
+    then timed in turns beside ``F.group_norm`` + ``F.silu`` on the same
+    input. A variant's plan is the wrapper's rule with the rule's
+    constants it replaces (:func:`gn_variant_plan`), or the two-pass
+    kernels where the rule finds none; ``against`` (another
+    source's ``hv_group_norm_fwd``, the two-pass entry point) takes the
+    two-pass arguments. Returns the records (also printed, one JSON line
+    each)."""
+    import torch.nn.functional as F
+
+    from ..ops import group_norm as gn
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the variants run on the CUDA card, and none is available")
+    dev = torch.device("cuda")
+    texts = _named_sources(names, {n: v[:2] for n, v in GN_VARIANTS.items()}, "group_norm.cu",
+                           against)
+    for name in names:
+        texts[name] += _GN_OCCUPANCY
+    fns, occupancy = {}, {}
+    for name, lib in _build(texts, "group_norm_variant").items():
+        two, one = lib.hv_group_norm_fwd, getattr(lib, "hv_group_norm_cluster", None)
+        for fn, types in ((two, gn._TWO_PASS_ARGTYPES), (one, gn._CLUSTER_ARGTYPES)):
+            if fn is not None:
+                fn.restype, fn.argtypes = ctypes.c_int, types
+        fns[name] = (two, one)
+        if name in names:
+            occupancy[name] = lib.hv_variant_gn_occupancy
+            occupancy[name].restype = ctypes.c_int
+            occupancy[name].argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    stream = cuda_build.stream_handle(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    records = []
+    for shape_name, shape, eps in GN_SHAPES:
+        n, c, h, w = shape
+        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last)
+        weight = (1 + 0.1 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+        bias = (0.1 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+        y = torch.empty_like(x)
+        head = (x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr())
+        lanes = max(1, 256 // (c // 8))
+        tiles, per_tile = gn._tiling(n, h * w, lanes)
+        part = torch.empty((n, tiles, c, 2), device=dev)
+        ab = torch.empty((n, c, 2), device=dev)
+        two_args = (*head, part.data_ptr(), ab.data_ptr(), n, c, h * w, 32, 1, 1, 1, tiles,
+                    per_tile, lanes, float(eps), stream)
+        calls, plans = {}, {}
+        for name, (two, one) in fns.items():
+            rule = GN_VARIANTS[name][2] if name in GN_VARIANTS else "two_pass"
+            plan = plans[name] = gn_variant_plan(c, h * w, 32, rule)
+            if plan is None:
+                calls[name] = (lambda two=two, name=name:
+                               cuda_build.check(two(*two_args), f"variant {name}"))
+            else:
+                args = (*head, n, c, h * w, 32, *plan, 1, 1, float(eps), stream)
+                calls[name] = (lambda one=one, args=args, name=name:
+                               cuda_build.check(one(*args), f"variant {name}"))
+        ref = gn.group_norm_act_plain(x, weight, bias, 32, eps, "silu")
+        checks = {}
+        for name in fns:
+            if name in GN_VARIANTS and GN_VARIANTS[name][1]:
+                checks[name] = (None, None, None)  # an ablation computes something else
+                continue
+            calls[name]()
+            first = y.clone()
+            calls[name]()
+            torch.cuda.synchronize()
+            ok, rel = _agree(y, ref, GN_TOL)
+            checks[name] = (ok, rel, torch.equal(y, first))
+            del first
+        turns = _turns(calls, 20 * iters)
+
+        def library():
+            return F.silu(F.group_norm(x, 32, weight, bias, eps))
+
+        library_ms = _time_ms(library, 20 * iters)
+        bound_ms = 4.0 * x.numel() / 3.35e12 * 1e3
+        for name in fns:
+            ms = min(turns[name])
+            ok, rel, same = checks[name]
+            clusters = None
+            if plans[name] is not None and name in occupancy:
+                got = ctypes.c_int(0)
+                plan = plans[name]
+                cuda_build.check(occupancy[name](plan.slab, plan.cluster, plan.resident,
+                                                 ctypes.byref(got)), "occupancy")
+                clusters = got.value
+            rec = dict(variant=name, shape=f"{shape_name} {shape}", ms=ms, turns=turns[name],
+                       plan=None if plans[name] is None else list(plans[name]),
+                       active_clusters=clusters,
+                       library_ms=library_ms, bound_ms=bound_ms, share_of_bound=bound_ms / ms,
+                       ablation=name in GN_VARIANTS and GN_VARIANTS[name][1], ok=ok,
+                       rel_l2=rel, same_bits=same, device=torch.cuda.get_device_name())
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        del x, y, ref, part, ab
+        torch.cuda.empty_cache()
+    return records
+
+
+def run_temporal(names: Sequence[str], iters: int = 5,
+                 against: Optional[str] = None) -> List[dict]:
+    """Kernel B's forward variants at every shape of ``TEMPORAL_SHAPES``:
+    each but the ablations held to ``temporal_attention_plain``
+    (``chip_smoke.py``'s limits), then timed in turns beside SDPA on the
+    head-split permuted views. ``against`` is another source of
+    ``hv_temporal_fwd``; one without the item-plan arguments (an earlier
+    design's) is called with the earlier ones. Returns the records (also
+    printed, one JSON line each)."""
+    from ..ops import temporal_attention as ta
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the variants run on the CUDA card, and none is available")
+    dev = torch.device("cuda")
+    texts = _named_sources(names, TEMPORAL_VARIANTS, "temporal_attention.cu", against)
+    old_entry = {n for n, t in texts.items() if "int heads_per_item" not in t}
+    fns = {}
+    for name, lib in _build(texts, "temporal_variant").items():
+        fn = fns[name] = lib.hv_temporal_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                       if name in old_entry else ta._FWD_ARGTYPES)
+    stream = cuda_build.stream_handle(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    records = []
+    for shape_name, b, f, l, c, heads in TEMPORAL_SHAPES:
+        d = c // heads
+        plan = ta.temporal_plan(c, heads)
+        q, k, v = (torch.randn((b, f, l, c), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        out = torch.empty_like(q)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, f, l, heads, d)
+        calls = {}
+        for name, fn in fns.items():
+            padded = plan.cols if name == "no_pad" else plan.padded
+            args = (*ptrs, stream) if name in old_entry else \
+                (*ptrs, plan.heads, padded, stream)
+            calls[name] = (lambda fn=fn, args=args, name=name:
+                           cuda_build.check(fn(*args), f"variant {name}"))
+        ref = ta.temporal_attention_plain(q, k, v, heads)
+        checks = {}
+        for name in fns:
+            if name in TEMPORAL_VARIANTS and TEMPORAL_VARIANTS[name][1]:
+                checks[name] = (None, None)
+                continue
+            out.zero_()
+            calls[name]()
+            torch.cuda.synchronize()
+            checks[name] = _agree(out, ref, TEMPORAL_TOL)
+        turns = _turns(calls, 20 * iters)
+
+        def split(t):
+            return t.view(b, f, l, heads, d).permute(0, 2, 3, 1, 4)
+
+        sdpa_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            split(q), split(k), split(v)), 20 * iters)
+        bound_ms = 8.0 * q.numel() / 3.35e12 * 1e3
+        for name in fns:
+            ms = min(turns[name])
+            ok, rel = checks[name]
+            rec = dict(variant=name, shape=f"{shape_name} {(b, f, l, c)} heads={heads}", ms=ms,
+                       turns=turns[name], library_ms=sdpa_ms, bound_ms=bound_ms,
+                       share_of_bound=bound_ms / ms,
+                       ablation=name in TEMPORAL_VARIANTS and TEMPORAL_VARIANTS[name][1],
+                       ok=ok, rel_l2=rel, device=torch.cuda.get_device_name())
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+    return records
+
+
 def main(argv: Sequence[str] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("variants", nargs="*", metavar="variant",
                         help=f"variants to run (default: all): {', '.join(VARIANTS)}; with "
                              f"--bwd: {', '.join(BWD_VARIANTS)}; with --pvt: "
                              f"{', '.join(PVT_VARIANTS)}; with --dmajor: "
-                             f"{', '.join(DMAJOR_VARIANTS)}; with --hbm: {', '.join(HBM_VARIANTS)}")
+                             f"{', '.join(DMAJOR_VARIANTS)}; with --hbm: {', '.join(HBM_VARIANTS)}; "
+                             f"with --gn: {', '.join(GN_VARIANTS)}; with --temporal: "
+                             f"{', '.join(TEMPORAL_VARIANTS)}")
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--bwd", action="store_true", help="the backward's variants")
     mode.add_argument("--pvt", action="store_true", help="kernel 9's variants")
     mode.add_argument("--dmajor", action="store_true", help="kernel 8's variants")
     mode.add_argument("--hbm", action="store_true", help="kernel 10's variants")
+    mode.add_argument("--gn", action="store_true", help="kernel C's variants")
+    mode.add_argument("--temporal", action="store_true", help="kernel B's forward variants")
     parser.add_argument("--against", metavar="FILE",
-                        help="with --bwd, --pvt, --dmajor or --hbm: another source of the same "
+                        help="with any mode but the forward's: another source of the same "
                              "kernels, timed as 'against'")
     parser.add_argument("--iters", type=int, default=5,
-                        help="launches per timed turn (20 times as many with --dmajor, --hbm)")
+                        help="launches per timed turn (20 times as many with --dmajor, --hbm, "
+                             "--gn, --temporal)")
     args = parser.parse_args(argv)
     modes = {"bwd": (BWD_VARIANTS, run_bwd), "pvt": (PVT_VARIANTS, run_pvt),
-             "dmajor": (DMAJOR_VARIANTS, run_dmajor), "hbm": (HBM_VARIANTS, run_hbm)}
+             "dmajor": (DMAJOR_VARIANTS, run_dmajor), "hbm": (HBM_VARIANTS, run_hbm),
+             "gn": (GN_VARIANTS, run_gn), "temporal": (TEMPORAL_VARIANTS, run_temporal)}
     mode_name = next((m for m in modes if getattr(args, m)), None)
     table = modes[mode_name][0] if mode_name else VARIANTS
     names = args.variants or list(table)
@@ -784,7 +1133,7 @@ def main(argv: Sequence[str] = None) -> int:
     if unknown:
         parser.error(f"unknown variants {unknown}; the variants are {', '.join(table)}")
     if args.against and not mode_name:
-        parser.error("--against needs --bwd, --pvt, --dmajor or --hbm")
+        parser.error("--against needs --bwd, --pvt, --dmajor, --hbm, --gn or --temporal")
     if "kernel" not in names:
         names = ["kernel", *names]
     if mode_name:

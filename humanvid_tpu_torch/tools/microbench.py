@@ -29,6 +29,7 @@ import argparse
 import json
 import statistics
 import sys
+import time
 from typing import Callable, Dict, List, Sequence
 
 import torch
@@ -57,6 +58,9 @@ def _device() -> torch.device:
     return torch.device("cuda")
 
 
+_PROFILE_TRIES = 8  # torch.profiler sessions a device-time reading may take
+
+
 def _time(fn: Callable[[], object], iters: int, n: int = 1):
     """(median seconds per call, per-call seconds of every sample)."""
     fn()
@@ -76,23 +80,29 @@ def _time(fn: Callable[[], object], iters: int, n: int = 1):
 def _device_seconds(fn: Callable[[], object], key: str, calls: int = 20) -> float:
     """Device seconds per launch of the CUDA kernels whose names contain
     ``key``, from torch.profiler over ``calls`` calls: their captured time
-    over their captured launches."""
+    over their captured launches. A session that holds no device record of
+    them (now and then one does, often a few in a row) is taken again after
+    a pause that grows, up to _PROFILE_TRIES sessions."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for evt in prof.key_averages():
-        if key in evt.key:
-            total += evt.self_device_time_total
-            count += evt.count
-    if not count:
-        raise RuntimeError(f"the profiler captured no kernel named like {key!r}")
-    return total / count / 1e6
+    for attempt in range(_PROFILE_TRIES):
+        if attempt:
+            time.sleep(0.5 * attempt)  # misses come in runs: let the profiler settle
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for evt in prof.key_averages():
+            if key in evt.key:
+                total += evt.self_device_time_total
+                count += evt.count
+        if count:
+            return total / count / 1e6
+    raise RuntimeError(f"the profiler captured no kernel named like {key!r} in "
+                       f"{_PROFILE_TRIES} sessions")
 
 
 def _emit(name: str, seconds: float, dts: Sequence[float], **extra) -> None:

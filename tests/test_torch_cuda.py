@@ -117,6 +117,35 @@ def test_temporal_kernel_matches_plain(b, f, l, c, heads):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,f,l,c,heads", [
+    (2, 24, 96, 320, 8),     # d = 40, 4 heads an item
+    (2, 7, 100, 640, 8),     # d = 80, 7 frames
+    (1, 24, 33, 1280, 8),    # d = 160, one head an item
+    (2, 24, 37, 64, 8),      # d = 8, one chunk of 8 heads
+    (1, 5, 9, 48, 3),        # d = 16, 3 heads
+])
+def test_temporal_kernel_every_head_and_no_leak_across_samples(b, f, l, c, heads):
+    """Every head of the output agrees with the plain version on its own,
+    and each sample's output is the kernel's output on that sample alone
+    to the bit: no frame of one sample reaches another's, whatever f and l
+    (neither a multiple of the item's frames or positions)."""
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    dev = _card()
+    q, k, v = (_randn((b, f, l, c), 10 + s, dev) for s in range(3))
+    out = ta.temporal_attention_cuda(q, k, v, heads)
+    ref = ta.temporal_attention_plain(q, k, v, heads)
+    torch.cuda.synchronize()
+    d = c // heads
+    for h in range(heads):
+        _assert_close(out[..., h * d:(h + 1) * d], ref[..., h * d:(h + 1) * d], TEMPORAL_TOL)
+    for i in range(b):
+        alone = ta.temporal_attention_cuda(*(t[i:i + 1].contiguous() for t in (q, k, v)), heads)
+        assert torch.equal(out[i:i + 1], alone)
+    assert torch.equal(out, ta.temporal_attention_cuda(q, k, v, heads))  # repeat: same bits
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,lq,lk,heads,d,hide", [
     (2, 300, 700, 8, 40, ((0, 350, 700),)),  # ragged, CFG bias on one row, SD's d = 40
     (2, 256, 512, 8, 80, ()),
@@ -309,6 +338,92 @@ def test_group_norm_kernel_matches_plain(shape, affine_dtype, fmt, act):
     assert gn.launches["group_norm"] == before + 2
     assert y.shape == x.shape and y.dtype == x.dtype and y.is_contiguous(memory_format=fmt)
     assert torch.equal(y, again)  # no float atomics: a run repeats bit for bit
+    _assert_close(y, ref, GN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,one_pass,rereads", [
+    ((2, 320, 96, 64), True, True),      # UNet level 0: 160-channel slabs, re-read from L2
+    ((2, 960, 96, 64), True, True),      # the up-block concatenation: 30-wide groups
+    ((2, 960, 112, 64), True, True),     # the same at the stage-2 level 0
+    ((3, 1280, 24, 16), True, False),    # level 2: every row held
+    ((2, 2560, 12, 8), True, False),     # level 3: one block a cluster
+    ((2, 512, 96, 64), True, True),      # the decode's 96x64
+    ((2, 512, 192, 128), False, False),  # the decode's 192x128: two passes
+    ((1, 128, 384, 256), False, False),  # and 384x256 at 128 channels
+])
+def test_group_norm_size_rule_both_sides(shape, one_pass, rereads):
+    """Both sides of the size rule, on the card: the one-pass cluster
+    kernel where the rule finds a plan (with and without rows re-read from
+    L2), the two-pass kernels where it does not; each agrees with the plain
+    version and repeats its bits."""
+    from humanvid_tpu_torch.ops import group_norm as gn
+
+    dev = _card()
+    plan = gn.cluster_plan(shape[1], shape[2] * shape[3], 32)
+    assert (plan is not None) == one_pass
+    assert (plan is not None and plan.resident < plan.rows) == rereads
+    x, w, b = _group_norm_inputs(shape, torch.channels_last, torch.bfloat16, dev)
+    for act in (None, "silu"):
+        y = gn.group_norm_act_cuda(x, w, b, 32, 1e-5, act)
+        again = gn.group_norm_act_cuda(x, w, b, 32, 1e-5, act)
+        ref = gn.group_norm_act_plain(x, w, b, 32, 1e-5, act)
+        torch.cuda.synchronize()
+        assert torch.equal(y, again)
+        assert y.is_contiguous(memory_format=torch.channels_last)
+        _assert_close(y, ref, GN_TOL)
+
+
+@pytest.mark.cuda
+def test_group_norm_plans_of_other_shared_memory_in_turn():
+    """The launch keeps each plan's attributes and occupancy after its
+    first call: plans of larger and smaller shared memory called in turn,
+    the larger first and again after the smaller, still launch and agree."""
+    from humanvid_tpu_torch.ops import group_norm as gn
+
+    dev = _card()
+    shapes = [(2, 320, 112, 64), (2, 320, 37, 29), (2, 2560, 12, 8), (2, 320, 112, 64),
+              (2, 1920, 24, 16), (2, 320, 37, 29)]
+    assert len({gn.cluster_plan(s[1], s[2] * s[3], 32) for s in shapes}) == 4
+    for shape in shapes:
+        x, w, b = _group_norm_inputs(shape, torch.channels_last, torch.bfloat16, dev)
+        y = gn.group_norm_act_cuda(x, w, b, 32, 1e-5, "silu")
+        _assert_close(y, gn.group_norm_act_plain(x, w, b, 32, 1e-5, "silu"), GN_TOL)
+
+
+@pytest.mark.cuda
+def test_temporal_items_of_other_shared_memory_in_turn():
+    """The same for kernel B's forward: frame counts (and so item sizes
+    and grids) called in turn, the largest again after the smaller."""
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    dev = _card()
+    for b, f, l, c in ((1, 24, 96, 320), (2, 7, 33, 320), (1, 24, 96, 1280), (1, 1, 40, 640),
+                       (1, 24, 96, 320)):
+        q, k, v = (_randn((b, f, l, c), s, dev) for s in range(3))
+        out = ta.temporal_attention_cuda(q, k, v, 8)
+        _assert_close(out, ta.temporal_attention_plain(q, k, v, 8), TEMPORAL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 320, 96, 64), (2, 512, 192, 128)],
+                         ids=["one_pass", "two_pass"])
+def test_group_norm_keeps_digits_when_mean_dwarfs_std_on_card(shape):
+    """x = 8 + 0.1 * noise in bf16: both kernels hold a float64 GroupNorm
+    of the same bf16 input, rounded once to bf16 as they round, to the
+    usual limits (a one-pass E[x^2] - mean^2 in fp32 would lose the
+    variance's digits here)."""
+    from humanvid_tpu_torch.ops import group_norm as gn
+
+    dev = _card()
+    x = (8 + 0.1 * _randn(shape, 8, dev).float()).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.ones(shape[1], device=dev, dtype=torch.bfloat16)
+    b = torch.zeros(shape[1], device=dev, dtype=torch.bfloat16)
+    y = gn.group_norm_act_cuda(x, w, b, 32, 1e-6, "silu")
+    ref = torch.nn.functional.silu(torch.nn.functional.group_norm(
+        x.double(), 32, w.double(), b.double(), 1e-6)).to(torch.bfloat16)
+    torch.cuda.synchronize()
     _assert_close(y, ref, GN_TOL)
 
 

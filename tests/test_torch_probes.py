@@ -185,6 +185,49 @@ def test_probe_variant_edits_apply_to_the_kernel_source(mode, name):
     assert (text == base) == (name == "kernel")
 
 
+@pytest.mark.parametrize("mode,name", [
+    *(("gn", n) for n in sorted(flash_variants.GN_VARIANTS)),
+    *(("temporal", n) for n in sorted(flash_variants.TEMPORAL_VARIANTS)),
+])
+def test_gn_and_temporal_variant_edits_apply_to_the_kernel_source(mode, name):
+    """The same for kernel C's and kernel B's forward variants, on their
+    sources; kernel C's plan overrides name constants of its size rule,
+    which are back as they were afterwards."""
+    from humanvid_tpu_torch.ops import group_norm as gn
+
+    table, source = {"gn": (flash_variants.GN_VARIANTS, "group_norm.cu"),
+                     "temporal": (flash_variants.TEMPORAL_VARIANTS,
+                                  "temporal_attention.cu")}[mode]
+    text = flash_variants.variant_source(name, table, source)
+    base = (cuda_build.CSRC / source).read_text()
+    assert (text == base) == (not table[name][0])
+    if mode == "gn" and isinstance(table[name][2], dict):
+        before = {k: getattr(gn, k) for k in table[name][2]}
+        flash_variants.gn_variant_plan(320, 6144, 32, table[name][2])
+        assert {k: getattr(gn, k) for k in table[name][2]} == before
+    if mode == "gn":
+        assert (flash_variants.gn_variant_plan(320, 6144, 32, table[name][2]) is None) == \
+            (table[name][2] == "two_pass" or name == "cluster_4")
+
+
+def test_gn_and_temporal_modes_raise_without_a_card(monkeypatch):
+    """``--gn`` and ``--temporal`` need the card, take ``--against``,
+    exclude the other modes and take only their own variants."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.run_gn(["kernel", "two_pass"])
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.run_temporal(["kernel", "stages_2"])
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.main(["--gn", "--against", "group_norm.cu"])
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.main(["--temporal", "no_loads", "--against", "temporal_attention.cu"])
+    for argv in (["--gn", "--temporal"], ["--gn", "stages_2"], ["--temporal", "two_pass"],
+                 ["--hbm", "--gn"]):
+        with pytest.raises(SystemExit):
+            flash_variants.main(argv)
+
+
 def test_dmajor_and_hbm_modes_raise_without_a_card(monkeypatch):
     """``--dmajor`` and ``--hbm`` need the card, take ``--against``, exclude
     each other and the other modes, and take only their own variants."""
@@ -301,11 +344,52 @@ def test_wrappers_bind_each_function_once(monkeypatch):
         assert cuda_build.function("probe_hbm", "hv_probe_hbm", pk.HBM_ARGTYPES) is first
     assert loads == ["probe_hbm"]
     assert first.argtypes == pk.HBM_ARGTYPES and first.restype is ctypes.c_int
-    # the three wrappers go through it and set no types themselves
-    for wrapper in (pk.dmajor_cuda, pk.pvt_cuda, pk.hbm_map_cuda):
+    # the probe wrappers and those of kernels B (forward and backward) and
+    # C go through it and set no types themselves
+    from humanvid_tpu_torch.ops import group_norm as gn
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    for wrapper in (pk.dmajor_cuda, pk.pvt_cuda, pk.hbm_map_cuda, gn.group_norm_act_cuda,
+                    ta.temporal_attention_cuda, ta.temporal_attention_backward_cuda):
         src = inspect.getsource(wrapper)
         assert "cuda_build.function(" in src
         assert "argtypes" not in src and "cuda_build.load(" not in src
+    # kernel C's one-pass path allocates no scratch: only the two-pass
+    # branch makes the statistics workspace
+    src = inspect.getsource(gn.group_norm_act_cuda)
+    one_pass = src[src.index("if plan is not None:"):src.index("else:", src.index("if plan is not None:"))]
+    assert "torch.empty" not in one_pass and "part" not in one_pass
+
+
+def _c_entry_points():
+    """{symbol: [ctypes type of each parameter]} of every extern "C" entry
+    point in the port's CUDA sources, read from the source text."""
+    import re
+
+    kinds = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "float": ctypes.c_float, "long long": ctypes.c_longlong, "int*": ctypes.c_void_p}
+    out = {}
+    for path in sorted(cuda_build.CSRC.glob("*.cu")):
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', path.read_text()):
+            params = [" ".join(p.split()[:-1]) for p in m.group(2).replace("\n", " ").split(",")]
+            out[m.group(1)] = [kinds[p] for p in params]
+    return out
+
+
+def test_argtypes_match_the_c_entry_points():
+    """The argument types each wrapper binds are those of its C entry point,
+    parameter for parameter (a pointer passed as a 32-bit int would be cut)."""
+    from humanvid_tpu_torch.ops import group_norm as gn
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    entries = _c_entry_points()
+    bound = {"hv_group_norm_fwd": gn._TWO_PASS_ARGTYPES,
+             "hv_group_norm_cluster": gn._CLUSTER_ARGTYPES,
+             "hv_temporal_fwd": ta._FWD_ARGTYPES, "hv_temporal_bwd": ta._BWD_ARGTYPES,
+             "hv_probe_dmajor": pk.DMAJOR_ARGTYPES, "hv_probe_pvt": pk.PVT_ARGTYPES,
+             "hv_probe_hbm": pk.HBM_ARGTYPES}
+    for symbol, types in bound.items():
+        assert entries[symbol] == list(types), symbol
 
 
 def test_hbm_constant_is_rounded_once_at_import():

@@ -79,3 +79,26 @@ def test_rejects_too_many_frames_and_cpu_launch():
     q, k, v = (torch.zeros(1, 4, 4, 8) for _ in range(3))
     with pytest.raises(ValueError, match="CUDA"):
         ta.temporal_attention_cuda(q, k, v, 2)
+
+
+@pytest.mark.parametrize("c,heads", [
+    (320, 8), (640, 8), (1280, 8),     # the motion modules' levels: d = 40, 80, 160
+    (64, 2), (16, 2), (40, 1), (24, 1), (320, 5), (96, 12), (128, 16), (160, 1),
+])
+def test_temporal_plan_items_hold_whole_heads(c, heads):
+    """An item holds whole heads, at most 160 columns unless one head is
+    wider, loaded at least 8 columns wider (the last 16-deep step of a
+    head with d % 16 == 8 stays in the row) and an odd number of 16-byte
+    units wide (the frames of a head in distinct banks), within a TMA
+    box's 256 elements."""
+    plan = ta.temporal_plan(c, heads)
+    d = c // heads
+    assert heads % plan.heads == 0 and plan.cols == plan.heads * d
+    assert plan.cols <= ta.CHUNK_COLUMNS or plan.heads == 1
+    assert plan.padded % 8 == 0 and (plan.padded // 8) % 2 == 1
+    assert plan.cols + 8 <= plan.padded <= plan.cols + 16 and plan.padded <= 256
+    # the most heads that fit: one more whole-head divisor would not
+    assert not any(heads % h == 0 and h * d <= ta.CHUNK_COLUMNS
+                   for h in range(plan.heads + 1, heads + 1))
+    if c == 320 and heads == 8:
+        assert plan == ta.TemporalPlan(4, 160, 168)
