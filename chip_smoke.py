@@ -34,7 +34,10 @@ The training path (stage 2) adds:
   keys hidden by the bias must get exactly zero dk and dv, a repeat launch
   the same bits, and the key tiles passed over as hidden the same bits as
   the same tiles computed;
-- kernel B bwd: the frame-axis backward at the five stage-2 temporal shapes;
+- kernel B bwd: the frame-axis backward at the five stage-2 temporal shapes
+  and the stage-1 camera encoder's (one frame), per gradient, a repeat
+  launch the same bits, by device time (torch.profiler) with the event time
+  beside it, and SDPA's backward as the library yardstick;
 - tiny train: one uncond and one cond stage-2 step of the tiny config on the
   card (bf16, kernels) and on the CPU (fp32, plain versions), compared;
 - train: full-width stage 2 (grad checkpointing, FF chunks of 1024, fp32
@@ -99,6 +102,7 @@ columns (a ragged tile, a masked key) exceeds.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -167,11 +171,14 @@ def time_ms(torch, fn, reps: int) -> float:
 
 def agreement(out, ref, tol):
     """(max abs error, relative L2 error, ok) of a kernel's output against
-    its plain version, under tol = (relative L2 limit, max error / rms limit)."""
+    its plain version, under tol = (relative L2 limit, max error / rms limit);
+    where the plain version is exactly zero (dq and dk over one frame), so
+    must the output be."""
     ref = ref.float()
     diff = out.float() - ref
     err = diff.abs().max().item()
-    rel = (diff.norm() / ref.norm()).item()
+    norm = ref.norm().item()
+    rel = diff.norm().item() / norm if norm else (0.0 if err == 0 else float("inf"))
     rms = ref.pow(2).mean().sqrt().item()
     return err, rel, rel <= tol[0] and err <= tol[1] * rms
 
@@ -532,7 +539,8 @@ def phase_flash_bwd(torch, results, dev, cases):
 
 
 def temporal_bwd_cases():
-    """Kernel B's backward at the stage-2 training shapes (896x512x24f):
+    """Kernel B's backward at the stage-2 training shapes (896x512x24f) and
+    the stage-1 camera encoder's (896x512, bs 8, one frame):
     (name, b, f, l, c, heads)."""
     return [
         ("motion level0", 1, 24, 7168, 320, 8),
@@ -540,10 +548,17 @@ def temporal_bwd_cases():
         ("motion level2", 1, 24, 448, 1280, 8),
         ("motion level3/mid", 1, 24, 112, 1280, 8),
         ("camera encoder", 1, 24, 7168, 320, 8),
+        ("stage1 camera encoder", 8, 1, 7168, 320, 8),
     ]
 
 
 def phase_temporal_bwd(torch, results, dev, cases):
+    """Kernel B's backward against its plain version, per gradient, with the
+    same bits on a repeat launch; device ms (torch.profiler) with the event
+    ms through the wrapper beside it, plain ms, SDPA's backward ms and the
+    byte bound."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     from humanvid_tpu_torch.ops import temporal_attention as ta
 
     print(f"[kernel B bwd] frame-axis attention backward vs plain (bf16; tol: rel L2 "
@@ -553,32 +568,45 @@ def phase_temporal_bwd(torch, results, dev, cases):
         d = c // heads
         q, k, v, g = (torch.randn((b, f, l, c), generator=gen, device=dev).to(torch.bfloat16)
                       for _ in range(4))
-        grads = ta.temporal_attention_backward_cuda(q, k, v, g, heads)
+
+        def run():
+            return ta.temporal_attention_backward_cuda(q, k, v, g, heads)
+
+        grads = run()
         refs = ta.temporal_attention_backward_plain(q, k, v, g, heads)
         torch.cuda.synchronize()
         errs = [agreement(o, r, TEMPORAL_BWD_TOL) for o, r in zip(grads, refs)]
-        ratios = "/".join(f"{e[0] / r.float().pow(2).mean().sqrt().item():.3e}"
+        ratios = "/".join(f"{e[0] / max(r.float().pow(2).mean().sqrt().item(), 1e-30):.3e}"
                           for e, r in zip(errs, refs))
-        ok = all(e[2] for e in errs)
-        ms = time_ms(torch, lambda: ta.temporal_attention_backward_cuda(q, k, v, g, heads), 10)
+        same = all(torch.equal(a, b_) for a, b_ in zip(grads, run()))
+        ok = all(e[2] for e in errs) and same
+        del grads, refs
+        event_ms = time_ms(torch, run, 10)
+        ms = _profile_split(torch, run, ("temporal_bwd_kernel",))["temporal_bwd_kernel"]
+        ok = ok and ms > 0
         plain_ms = time_ms(
             torch, lambda: ta.temporal_attention_backward_plain(q, k, v, g, heads), 3)
 
         def split(t):  # (b, f, l, c) -> (b*l, heads, f, d), contiguous
             return t.view(b, f, l, heads, d).permute(0, 2, 3, 1, 4).reshape(b * l, heads, f, d)
 
-        lib = _sdpa_backward_ms(torch, [split(t) for t in (q, k, v)], split(g), None, 10)
+        # SDPA's default backend faults at one frame over 57344 x 8 heads
+        backend = SDPBackend.MATH if f == 1 else None
+        with sdpa_kernel(backend) if backend else contextlib.nullcontext():
+            lib = _sdpa_backward_ms(torch, [split(t) for t in (q, k, v)], split(g), None, 10)
         flops = 10.0 * b * l * heads * f * f * d
         b_ms, b_by = bound(flops, 2.0 * 7 * q.numel())
         print(f"  {name}: b={b} f={f} l={l} c={c} heads={heads} "
               f"rel_l2 dq/dk/dv={errs[0][1]:.3e}/{errs[1][1]:.3e}/{errs[2][1]:.3e} "
-              f"max_err/rms dq/dk/dv={ratios} "
-              f"ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib} "
-              f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+              f"max_err/rms dq/dk/dv={ratios} same_bits={same} "
+              f"device_ms={ms:.4f} event_ms={event_ms:.4f} plain_ms={plain_ms:.3f} "
+              f"library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
         results.append(dict(kernel="temporal_bwd", shape=name, max_abs_err=max(e[0] for e in errs),
-                            rel_l2=max(e[1] for e in errs), ms=ms, plain_ms=plain_ms,
-                            library_ms=lib, bound_ms=b_ms, bound_by=b_by, ok=ok))
-        del q, k, v, g, grads, refs
+                            rel_l2=max(e[1] for e in errs), ms=ms, event_ms=event_ms,
+                            device_ms=ms, plain_ms=plain_ms, library_ms=lib,
+                            library_backend=backend.name if backend else "default",
+                            bound_ms=b_ms, bound_by=b_by, same_bits=same, ok=ok))
+        del q, k, v, g
         torch.cuda.empty_cache()
 
 
@@ -1462,7 +1490,8 @@ def kernel_line(results, launches):
         elif name == "probe_pvt":
             extra = dict(kernel_a_ms=head["kernel_a_ms"],
                          untransposed_ms=head["untransposed_ms"])
-        elif name in ("probe_dmajor", "probe_hbm", "temporal_fwd"):  # ms is the device time
+        elif name in ("probe_dmajor", "probe_hbm", "temporal_fwd", "temporal_bwd"):
+            # ms is the device time
             extra = dict(event_ms=head["event_ms"])
         elif name == "group_norm":  # the statistics kernel and the folded apply
             # the headline is the two-pass decode; the one-pass kernel's is

@@ -42,8 +42,10 @@
 //   shared memory holds only the f frames TMA writes, so the rows past f
 //   that ldmatrix reads are the next tile's: their S rows never reach a
 //   stored O, their keys are masked, and V's are zeroed in the fragments.
-//   The columns past d of a head's last 16-deep step are zeroed in Q's
-//   fragments. `wgmma` is not used: its 64-row M would pad f = 24 by 2.7x,
+//   The columns past d of a head's last 16-deep step (the next head's, or
+//   the next chunk's) are zeroed in both Q's and K's fragments, by a
+//   select: zeroing only one operand would turn an Inf or NaN of the next
+//   head into a NaN of this head's S (0 x Inf). `wgmma` is not used: its 64-row M would pad f = 24 by 2.7x,
 //   and the products are not what bounds the kernel.
 // - O is staged densely in an O tile ([f][positions][chunk columns]) and
 //   written by one 4-D TMA store per item, issued by the producer when the
@@ -132,6 +134,7 @@ __device__ __forceinline__ void attend(const bf16* sq, const bf16* sk, const bf1
       uint32_t bk[4];
       ldmatrix_x4(bk, sk + (jp * 16 + (lane % 8) + (lane / 16) * 8) * LDF + kk * 16 +
                           ((lane / 8) % 2) * 8);
+      if (16 * kk + 8 >= d) bk[1] = bk[3] = 0u;  // K's columns past the head too
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
         mma_bf16(s[mt][2 * jp], a[mt], bk[0], bk[1]);

@@ -14,7 +14,8 @@ a run of positions x all frames x a chunk of whole heads
 The gradient (:class:`TemporalAttention`, an autograd Function) keeps only
 q, k and v: on a CUDA tensor the one-pass kernel of
 ``csrc/temporal_attention_bwd.cu`` recomputes the softmax and writes dq, dk
-and dv; on a CPU tensor :func:`temporal_attention_backward_plain` does.
+and dv, over the forward's items; on a CPU tensor
+:func:`temporal_attention_backward_plain` does.
 """
 
 from __future__ import annotations
@@ -35,11 +36,11 @@ CHUNK_COLUMNS = 160  # columns of an item: the UNet's 8 heads in 320-byte pieces
 launches = {"temporal": 0, "temporal_bwd": 0}
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 class TemporalPlan(NamedTuple):
-    """The forward kernel's item: ``heads`` whole heads, ``cols`` =
+    """The kernels' item (forward and backward): ``heads`` whole heads, ``cols`` =
     heads * d columns, loaded ``padded`` columns wide (an odd number of
     16-byte units, at least 8 columns past the chunk: the frames of a
     head then sit in distinct shared-memory banks, and the last 16-deep
@@ -58,6 +59,20 @@ def temporal_plan(c: int, heads: int) -> TemporalPlan:
               if heads % h == 0 and (h == 1 or h * d <= CHUNK_COLUMNS))
     cols = per * d
     return TemporalPlan(per, cols, cols + (8 if (cols // 8) % 2 == 0 else 16))
+
+
+def launch_sizes(shape, heads: int):
+    """The size arguments both kernels take for q of ``shape`` (b, f, l, c):
+    (b, f, l, heads, d, heads an item, padded width) from
+    :func:`temporal_plan`; raises on sizes the kernels do not take."""
+    b, f, l, c = shape
+    d = c // heads
+    if b > 65535 or heads > 65535 or min(b, f, l) < 1:
+        raise ValueError(f"unsupported sizes {tuple(shape)} heads={heads}")
+    if d % 8 or d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} unsupported: needs d % 8 == 0 and d <= {MAX_HEAD_DIM}")
+    plan = temporal_plan(c, heads)
+    return b, f, l, heads, d, plan.heads, plan.padded
 
 
 def reset_launches() -> None:
@@ -91,26 +106,26 @@ def _check(q, k, v, heads):
         raise ValueError(f"{q.shape[1]} frames > {MAX_FRAMES}")
 
 
-def temporal_attention_cuda(q, k, v, heads):
-    _check(q, k, v, heads)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
+def _check_cuda(**tensors):
+    """Every tensor on the first one's CUDA device, bf16, contiguous and
+    16-byte aligned."""
+    first = next(iter(tensors.values()))
+    for name, t in tensors.items():
+        if t.device.type != "cuda" or t.device != first.device:
             raise ValueError(f"{name} must be on q's CUDA device, got {t.device}")
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    b, f, l, c = q.shape
-    d = c // heads
-    if b > 65535 or heads > 65535 or min(b, f, l) < 1:
-        raise ValueError(f"unsupported sizes {tuple(q.shape)} heads={heads}")
-    if d % 8 or d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} unsupported: needs d % 8 == 0 and d <= {MAX_HEAD_DIM}")
-    plan = temporal_plan(c, heads)
+
+
+def temporal_attention_cuda(q, k, v, heads):
+    _check(q, k, v, heads)
+    _check_cuda(q=q, k=k, v=v)
     out = torch.empty_like(q)
     fn = cuda_build.function("temporal_attention", "hv_temporal_fwd", _FWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, f, l, heads, d, plan.heads, plan.padded, cuda_build.stream_handle(q.device))
+             *launch_sizes(tuple(q.shape), heads), cuda_build.stream_handle(q.device))
     cuda_build.check(err, "temporal attention launch")
     launches["temporal"] += 1
     return out
@@ -145,25 +160,13 @@ def temporal_attention_backward_plain(q, k, v, g, heads: int):
 def temporal_attention_backward_cuda(q, k, v, g, heads: int):
     """Launch the backward kernel; every check it relies on raises here."""
     _check(q, k, v, heads)
-    for name, t in (("q", q), ("k", k), ("v", v), ("g", g)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"{name} must be on q's CUDA device, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    _check_cuda(q=q, k=k, v=v, g=g)
     if g.shape != q.shape:
         raise ValueError(f"g {tuple(g.shape)} != q {tuple(q.shape)}")
-    b, f, l, c = q.shape
-    d = c // heads
-    if b > 65535 or heads > 65535 or min(b, f, l) < 1:
-        raise ValueError(f"unsupported sizes {tuple(q.shape)} heads={heads}")
-    if d % 8 or d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} unsupported: needs d % 8 == 0 and d <= {MAX_HEAD_DIM}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     fn = cuda_build.function("temporal_attention_bwd", "hv_temporal_bwd", _BWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), b, f, l, heads, d,
+             dk.data_ptr(), dv.data_ptr(), *launch_sizes(tuple(q.shape), heads),
              cuda_build.stream_handle(q.device))
     cuda_build.check(err, "temporal attention backward launch")
     launches["temporal_bwd"] += 1

@@ -13,6 +13,8 @@
         [--against FILE] [--iters N]
     python -m humanvid_tpu_torch.tools.flash_variants --temporal [variant ...]
         [--against FILE] [--iters N]
+    python -m humanvid_tpu_torch.tools.flash_variants --temporal-bwd [variant ...]
+        [--against FILE] [--iters N]
 
 Each variant is ``csrc/flash_attention.cu`` with a few named text edits
 (``VARIANTS``), built by nvcc with the port's flags into ``build/`` and
@@ -61,8 +63,16 @@ forward, ``csrc/temporal_attention.cu`` (``TEMPORAL_VARIANTS``: positions
 per item, ring depth, consumer warps, and ablations without the loads, the
 products or the stores), at the motion modules' four shapes
 (``TEMPORAL_SHAPES``), beside SDPA on the head-split permuted views;
-``against`` may be an earlier design with the earlier entry point. A timed
-turn of both is 20 x ``--iters`` launches.
+``against`` may be an earlier design with the earlier entry point. With
+``--temporal-bwd`` those of kernel B's backward,
+``csrc/temporal_attention_bwd.cu`` (``TEMPORAL_BWD_VARIANTS``: ring depth,
+consumer warps, gradients in tiles of their own against over dead inputs,
+P^T and dS^T through shared memory against ``movmatrix``, 32-row tiles at
+f <= 16, and ablations without the loads, the products or the stores), at
+the five stage-2 shapes and the stage-1 camera encoder's
+(``TEMPORAL_BWD_SHAPES``), beside SDPA's backward; ``against`` may be the
+first design with its entry point. A timed turn of both is 20 x
+``--iters`` launches.
 At each of kernel A's main-path shapes (``SHAPES``, those of
 ``chip_smoke.py``) every variant that computes the same function is first
 held to the plain version on 128 query rows (``chip_smoke.py``'s limits);
@@ -75,6 +85,7 @@ line per (shape, variant). Without a card it raises.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -467,6 +478,50 @@ TEMPORAL_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
                     "w.chunk * CW,\n                     w.pos0, 0, w.b);\n", None, ""),
                    ("      tma_store_4d(&o_map, otiles + (size_t)(m % kOTiles) * OTILE, w.chunk * CW, "
                     "w.pos0, 0, w.b);\n", None, "")), True),
+}
+
+
+# kernel B's backward (csrc/temporal_attention_bwd.cu) at chip_smoke.py's
+# stage-2 shapes and the stage-1 camera encoder's: (name, b, f, l, c, heads)
+TEMPORAL_BWD_SHAPES = (("motion level0", 1, 24, 7168, 320, 8),
+                       ("motion level1", 1, 24, 1792, 640, 8),
+                       ("motion level2", 1, 24, 448, 1280, 8),
+                       ("motion level3/mid", 1, 24, 112, 1280, 8),
+                       ("camera encoder", 1, 24, 7168, 320, 8),
+                       ("stage1 camera encoder", 8, 1, 7168, 320, 8))
+TEMPORAL_BWD_TOL = (2e-4, 0.2)  # chip_smoke.py's limits, per gradient
+TEMPORAL_BWD_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
+    "kernel": ((), False),
+    # rings of 2 or 4 stages instead of 3 (4: one block an SM)
+    "stages_2": ((_set_const("kStages", 3, 2),), False),
+    "stages_4": ((_set_const("kStages", 3, 4),), False),
+    # 2 or 8 consumer warps instead of 4
+    "consumers_2": ((_set_const("kConsumers", 4, 2),), False),
+    "consumers_8": ((_set_const("kConsumers", 4, 8),), False),
+    # dQ, dK and dV in tiles of their own, one ring slot a stage, stored by
+    # a 4-D TMA store each (one block an SM), instead of over dead inputs
+    "out_tiles": ((("constexpr bool kInPlace = true;", None,
+                    "constexpr bool kInPlace = false;"),), False),
+    # P^T and dS^T through a transpose tile a warp (5 KB) and ldmatrix.trans
+    "trans_smem": ((("constexpr bool kMovmatrix = true;", None,
+                     "constexpr bool kMovmatrix = false;"),), False),
+    # 2 stages, 3 blocks an SM (registers capped at 136 a thread)
+    "stages_2_blocks_3": ((_set_const("kStages", 3, 2),
+                           ("__global__ void __launch_bounds__(kThreads)", None,
+                            "__global__ void __launch_bounds__(kThreads, 3)")), False),
+    # 32-row mma tiles at f <= 16 too
+    "tiles_32": ((("  if (F <= 16) return launch<DP, 1>", None,
+                   "  if (F <= 0) return launch<DP, 1>"),), False),
+    # ablations: no loads (the ring still turns, the products read stale
+    # tiles), no products, no stores
+    "no_loads": ((("      const Item w = item_of(it, chunks, L);\n      mbar_arrive_expect_tx",
+                   "      if constexpr (!kInPlace) {\n        bulk_wait<0, true>();",
+                   "      mbar_arrive(&full[s]);\n"),), True),
+    "no_products": ((("      head_grad<DP, MT>(tq + off,",
+                      "    }\n    fence_proxy_async();  // the gradients'", "      (void)off;\n"),),
+                    True),
+    "no_stores": ((("  if constexpr (kInPlace) {\n    const bf16* src[3]", None,
+                    "  return;\n  if constexpr (kInPlace) {\n    const bf16* src[3]"),), True),
 }
 
 
@@ -917,11 +972,13 @@ def run_hbm(names: Sequence[str], iters: int = 5, against: Optional[str] = None)
 
 
 def _agree(out: torch.Tensor, ref: torch.Tensor, tol) -> Tuple[bool, float]:
+    """(within tol, relative L2 error); a plain version that is exactly zero
+    (dq and dk over one frame) takes an exactly zero output."""
     ref = ref.float()
     diff = out.float() - ref
-    rel = (diff.norm() / ref.norm()).item()
-    return (rel <= tol[0] and diff.abs().max().item()
-            <= tol[1] * ref.pow(2).mean().sqrt().item()), rel
+    err, norm = diff.abs().max().item(), ref.norm().item()
+    rel = diff.norm().item() / norm if norm else (0.0 if err == 0 else float("inf"))
+    return rel <= tol[0] and err <= tol[1] * ref.pow(2).mean().sqrt().item(), rel
 
 
 def run_gn(names: Sequence[str], iters: int = 5, against: Optional[str] = None) -> List[dict]:
@@ -1100,6 +1157,86 @@ def run_temporal(names: Sequence[str], iters: int = 5,
     return records
 
 
+def run_temporal_bwd(names: Sequence[str], iters: int = 5,
+                     against: Optional[str] = None) -> List[dict]:
+    """Kernel B's backward variants at every shape of ``TEMPORAL_BWD_SHAPES``:
+    each but the ablations held to ``temporal_attention_backward_plain``
+    (``chip_smoke.py``'s limits per gradient) and to its own bits on a
+    repeat launch, then timed in turns beside SDPA's backward on head-split
+    copies. ``against`` is another source of ``hv_temporal_bwd``; one
+    without the item-plan arguments (the first design's) is called with the
+    earlier ones. Returns the records (also printed, one JSON line each)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from ..ops import temporal_attention as ta
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the variants run on the CUDA card, and none is available")
+    dev = torch.device("cuda")
+    texts = _named_sources(names, TEMPORAL_BWD_VARIANTS, "temporal_attention_bwd.cu", against)
+    old_entry = {n for n, t in texts.items() if "int heads_per_item" not in t}
+    fns = {}
+    for name, lib in _build(texts, "temporal_bwd_variant").items():
+        fn = fns[name] = lib.hv_temporal_bwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                       if name in old_entry else ta._BWD_ARGTYPES)
+    stream = cuda_build.stream_handle(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    records = []
+    for shape_name, b, f, l, c, heads in TEMPORAL_BWD_SHAPES:
+        q, k, v, g = (torch.randn((b, f, l, c), generator=gen, device=dev).to(torch.bfloat16)
+                      for _ in range(4))
+        grads = [torch.empty_like(q) for _ in range(3)]
+        sizes = ta.launch_sizes(tuple(q.shape), heads)
+        ptrs = tuple(t.data_ptr() for t in (q, k, v, g, *grads))
+        calls = {}
+        for name, fn in fns.items():
+            args = (*ptrs, *sizes[:5], stream) if name in old_entry else (*ptrs, *sizes, stream)
+            calls[name] = (lambda fn=fn, args=args, name=name:
+                           cuda_build.check(fn(*args), f"variant {name}"))
+        refs = ta.temporal_attention_backward_plain(q, k, v, g, heads)
+        checks = {}
+        for name in fns:
+            if name in TEMPORAL_BWD_VARIANTS and TEMPORAL_BWD_VARIANTS[name][1]:
+                checks[name] = (None, None, None)
+                continue
+            for t in grads:
+                t.zero_()
+            calls[name]()
+            torch.cuda.synchronize()
+            agree = [_agree(got, ref, TEMPORAL_BWD_TOL) for got, ref in zip(grads, refs)]
+            first = [t.clone() for t in grads]
+            calls[name]()
+            same = all(torch.equal(a, b_) for a, b_ in zip(grads, first))
+            checks[name] = (all(a[0] for a in agree), max(a[1] for a in agree), same)
+        del refs
+        torch.cuda.empty_cache()
+        turns = _turns(calls, 20 * iters)
+
+        def split(t):  # (b, f, l, c) -> (b*l, f, c), contiguous
+            return t.permute(0, 2, 1, 3).reshape(b * l, f, c)
+
+        # SDPA's default backend faults at one frame over 57344 x 8 heads
+        with sdpa_kernel(SDPBackend.MATH) if f == 1 else contextlib.nullcontext():
+            sdpa_ms = _sdpa_backward_ms(*(split(t) for t in (q, k, v, g)), heads, None,
+                                        20 * iters)
+        bound_ms = 14.0 * q.numel() / 3.35e12 * 1e3
+        for name in fns:
+            ms = min(turns[name])
+            ok, rel, same = checks[name]
+            rec = dict(variant=name, shape=f"{shape_name} {(b, f, l, c)} heads={heads}", ms=ms,
+                       turns=turns[name], library_ms=sdpa_ms, bound_ms=bound_ms,
+                       share_of_bound=bound_ms / ms,
+                       ablation=name in TEMPORAL_BWD_VARIANTS and TEMPORAL_BWD_VARIANTS[name][1],
+                       ok=ok, rel_l2=rel, same_bits_on_repeat=same,
+                       device=torch.cuda.get_device_name())
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        del q, k, v, g, grads
+        torch.cuda.empty_cache()
+    return records
+
 def main(argv: Sequence[str] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("variants", nargs="*", metavar="variant",
@@ -1108,7 +1245,8 @@ def main(argv: Sequence[str] = None) -> int:
                              f"{', '.join(PVT_VARIANTS)}; with --dmajor: "
                              f"{', '.join(DMAJOR_VARIANTS)}; with --hbm: {', '.join(HBM_VARIANTS)}; "
                              f"with --gn: {', '.join(GN_VARIANTS)}; with --temporal: "
-                             f"{', '.join(TEMPORAL_VARIANTS)}")
+                             f"{', '.join(TEMPORAL_VARIANTS)}; with --temporal-bwd: "
+                             f"{', '.join(TEMPORAL_BWD_VARIANTS)}")
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--bwd", action="store_true", help="the backward's variants")
     mode.add_argument("--pvt", action="store_true", help="kernel 9's variants")
@@ -1116,16 +1254,19 @@ def main(argv: Sequence[str] = None) -> int:
     mode.add_argument("--hbm", action="store_true", help="kernel 10's variants")
     mode.add_argument("--gn", action="store_true", help="kernel C's variants")
     mode.add_argument("--temporal", action="store_true", help="kernel B's forward variants")
+    mode.add_argument("--temporal-bwd", action="store_true",
+                      help="kernel B's backward variants")
     parser.add_argument("--against", metavar="FILE",
                         help="with any mode but the forward's: another source of the same "
                              "kernels, timed as 'against'")
     parser.add_argument("--iters", type=int, default=5,
                         help="launches per timed turn (20 times as many with --dmajor, --hbm, "
-                             "--gn, --temporal)")
+                             "--gn, --temporal, --temporal-bwd)")
     args = parser.parse_args(argv)
     modes = {"bwd": (BWD_VARIANTS, run_bwd), "pvt": (PVT_VARIANTS, run_pvt),
              "dmajor": (DMAJOR_VARIANTS, run_dmajor), "hbm": (HBM_VARIANTS, run_hbm),
-             "gn": (GN_VARIANTS, run_gn), "temporal": (TEMPORAL_VARIANTS, run_temporal)}
+             "gn": (GN_VARIANTS, run_gn), "temporal": (TEMPORAL_VARIANTS, run_temporal),
+             "temporal_bwd": (TEMPORAL_BWD_VARIANTS, run_temporal_bwd)}
     mode_name = next((m for m in modes if getattr(args, m)), None)
     table = modes[mode_name][0] if mode_name else VARIANTS
     names = args.variants or list(table)
@@ -1133,7 +1274,8 @@ def main(argv: Sequence[str] = None) -> int:
     if unknown:
         parser.error(f"unknown variants {unknown}; the variants are {', '.join(table)}")
     if args.against and not mode_name:
-        parser.error("--against needs --bwd, --pvt, --dmajor, --hbm, --gn or --temporal")
+        parser.error("--against needs --bwd, --pvt, --dmajor, --hbm, --gn, --temporal or "
+                     "--temporal-bwd")
     if "kernel" not in names:
         names = ["kernel", *names]
     if mode_name:

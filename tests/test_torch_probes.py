@@ -228,6 +228,30 @@ def test_gn_and_temporal_modes_raise_without_a_card(monkeypatch):
             flash_variants.main(argv)
 
 
+
+@pytest.mark.parametrize("name", sorted(flash_variants.TEMPORAL_BWD_VARIANTS))
+def test_temporal_bwd_variant_edits_apply_to_the_kernel_source(name):
+    """The same for kernel B's backward variants, on its source."""
+    text = flash_variants.variant_source(name, flash_variants.TEMPORAL_BWD_VARIANTS,
+                                         "temporal_attention_bwd.cu")
+    base = (cuda_build.CSRC / "temporal_attention_bwd.cu").read_text()
+    assert (text == base) == (name == "kernel")
+
+
+def test_temporal_bwd_mode_raises_without_a_card(monkeypatch):
+    """``--temporal-bwd`` needs the card, takes ``--against``, excludes the
+    other modes and takes only its own variants."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.run_temporal_bwd(["kernel", "out_tiles"])
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.main(["--temporal-bwd", "trans_smem", "--against",
+                             "temporal_attention_bwd.cu"])
+    for argv in (["--temporal-bwd", "--temporal"], ["--temporal-bwd", "positions_2"],
+                 ["--temporal", "out_tiles"]):
+        with pytest.raises(SystemExit):
+            flash_variants.main(argv)
+
 def test_dmajor_and_hbm_modes_raise_without_a_card(monkeypatch):
     """``--dmajor`` and ``--hbm`` need the card, take ``--against``, exclude
     each other and the other modes, and take only their own variants."""

@@ -48,6 +48,9 @@ def test_plain_matches_pallas_interpret(b, f, l, c, heads):
     (2, 6, 96, 64, 4),
     (1, 24, 40, 160, 4),   # 24 frames, d = 40
     (1, 5, 7, 48, 3),      # ragged everything
+    (2, 1, 9, 320, 8),     # one frame (the stage-1 camera encoder): dq = dk = 0, dv = g
+    (1, 24, 12, 640, 8),   # d = 80
+    (1, 24, 12, 1280, 8),  # d = 160
 ])
 def test_plain_backward_matches_pallas_vjp(b, f, l, c, heads):
     q, k, v = _inputs(b, f, l, c, seed=1)
@@ -102,3 +105,38 @@ def test_temporal_plan_items_hold_whole_heads(c, heads):
                    for h in range(plan.heads + 1, heads + 1))
     if c == 320 and heads == 8:
         assert plan == ta.TemporalPlan(4, 160, 168)
+
+
+@pytest.mark.parametrize("shape,heads,sizes", [
+    # the stage-2 step's five temporal shapes (896x512x24f) and the stage-1
+    # camera encoder's (bs 8, one frame): 320-byte items, loaded 336 wide
+    ((1, 24, 7168, 320), 8, (1, 24, 7168, 8, 40, 4, 168)),
+    ((1, 24, 1792, 640), 8, (1, 24, 1792, 8, 80, 2, 168)),
+    ((1, 24, 448, 1280), 8, (1, 24, 448, 8, 160, 1, 168)),
+    ((1, 24, 112, 1280), 8, (1, 24, 112, 8, 160, 1, 168)),
+    ((8, 1, 7168, 320), 8, (8, 1, 7168, 8, 40, 4, 168)),
+    ((2, 5, 9, 48), 3, (2, 5, 9, 3, 16, 3, 56)),
+    ((1, 7, 33, 64), 2, (1, 7, 33, 2, 32, 2, 72)),
+])
+def test_launch_sizes_of_both_kernels(shape, heads, sizes):
+    """The size arguments the forward and backward wrappers pass their
+    kernels: (b, f, l, heads, d, heads an item, padded width), the item
+    from ``temporal_plan``; within what both C entry points accept (cwp
+    at most 256, an odd number of 16-byte units, at least 8 past the
+    item's columns)."""
+    got = ta.launch_sizes(shape, heads)
+    assert got == sizes
+    d, per, cwp = got[4], got[5], got[6]
+    assert cwp <= 256 and cwp % 8 == 0 and (cwp // 8) % 2 == 1 and cwp >= per * d + 8
+    assert got[3] % per == 0
+
+
+@pytest.mark.parametrize("shape,heads,error", [
+    ((1, 4, 8, 512), 2, "head dim 256"),
+    ((1, 4, 8, 60), 2, "head dim 30"),
+    ((1, 4, 0, 64), 2, "unsupported sizes"),
+    ((65536, 4, 8, 64), 2, "unsupported sizes"),
+])
+def test_launch_sizes_reject_what_the_kernels_do_not_take(shape, heads, error):
+    with pytest.raises(ValueError, match=error):
+        ta.launch_sizes(shape, heads)
