@@ -84,10 +84,28 @@ The measurement probes and the wide-head backward add:
   every probe but ``unet`` and ``vae`` (whose work the main phase times);
   every probe must pass and launch its kernels.
 
+The inference command lines add:
+
+- kernel A isolation: an Inf in one head's columns at some positions, at
+  d = 40 and 80, with and without the bias, forward and backward: every
+  other head finite and the same bits as the clean run;
+- the CLI's default shapes (896x512, batched CFG) among kernel A's, B's
+  and C's cases;
+- tiny reference: one more tiny pose2vid with latent interpolation, the
+  "leading" spacing and a schedule without ``set_alpha_to_one``;
+- cli: a full-width CamAnimate with seeded weights written in the released
+  checkpoint layouts (fp16) with a ``.py`` prompt config and a moving TUM
+  camera file, loaded by the command line's own ``build_system`` (every
+  tensor equal to the saved one), then ``cli.pose2vid.run_case`` at the
+  CLI's defaults (-W 512 -H 896 -L 24, batched CFG 3.5, bf16) with CLI_STEPS
+  DDIM steps on a seeded 48-frame 1080x1920 clip; checks the video, that
+  the camera input is not the static camera's, and that kernels A (d = 40,
+  80 and 512), B and C launched.
+
 Every main-path run (pose2vid, the stage-2 steps, pose2img, the stage-1
-steps, the denoise step and decode of the profile phase, and the microbench
-run) sets every launch count to 0 just before it and reads the counts just
-after.
+steps, the denoise step and decode of the profile phase, the cli run and
+the microbench run) sets every launch count to 0 just before it and reads
+the counts just after.
 
 Then one JSON line of per-kernel numbers, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 2 without one.
@@ -115,6 +133,8 @@ TRAIN_STEPS = 4            # stage-2 steps of the training path
 TRAIN_SIZE = (24, 896, 512)  # frames, height, width of the stage-2 recipe
 STAGE1_STEPS = 3           # stage-1 steps
 STAGE1_SIZE = (8, 896, 512)  # batch, height, width of the stage-1 recipe (one frame)
+CLI_STEPS = 3              # DDIM steps of the cli phase (the CLI runs 30 by default)
+CLI_CLIP = (48, 1920, 1080)  # frames, height, width of its pose clip: stride 2 to -L 24
 # (relative L2 error, max error / rms(plain)) limits against the plain version.
 # Kernel A rounds unnormalized probabilities to bf16 (sound: 3.1e-3, 0.066);
 # kernel B rounds normalized ones, as its plain version does (sound: 6.9e-5, 0.026).
@@ -250,6 +270,11 @@ def flash_cases():
         ("level0 batched CFG bias", 48, 6144, 12288, 8, 40, 24),
         ("level1 cond (ref KV)", 24, 1536, 3072, 8, 80, 0),
         ("VAE mid decode chunk", 8, 6144, 6144, 1, 512, 0),
+        # the CLI's default, 896x512 with batched CFG: the bias hides the
+        # reference keys from the 24 uncond rows of the 48
+        ("cli 896x512 level0 batched CFG bias", 48, 7168, 14336, 8, 40, 24),
+        ("cli 896x512 level1 batched CFG bias", 48, 1792, 3584, 8, 80, 24),
+        ("cli 896x512 VAE mid decode chunk", 8, 7168, 7168, 1, 512, 0),
     ]
 
 
@@ -306,6 +331,53 @@ def phase_flash(torch, results, dev, cases):
         torch.cuda.empty_cache()
 
 
+def phase_flash_isolation(torch, dev, direction):
+    """Kernel A (forward, or the dk/dv and dq backward) with an Inf in one
+    head's q, k, v and g columns at every third position, at d = 40 and 80,
+    the poisoned head in the middle and last, with and without the bias:
+    every element outside that head's columns (and the forward's lse of the
+    other heads) must be finite and the same bits as the clean run. Returns
+    ok."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
+
+    b, lq, lk, heads = 2, 300, 700, 8
+    ok = True
+    for d in (40, 80):
+        c = heads * d
+        gen = torch.Generator(device=dev).manual_seed(d)
+        clean = [torch.randn((b, n, c), generator=gen, device=dev).to(torch.bfloat16)
+                 for n in (lq, lk, lk, lq)]
+        for hot in (1, heads - 1):
+            hot_in = [t.clone() for t in clean]
+            for t in hot_in:
+                t[:, 1::3, hot * d:(hot + 1) * d] = float("inf")
+            keep = torch.ones(c, dtype=torch.bool, device=dev)
+            keep[hot * d:(hot + 1) * d] = False
+            others = [h for h in range(heads) if h != hot]
+            for with_bias in (False, True):
+                bias = None
+                if with_bias:
+                    bias = torch.zeros((b, lk), device=dev)
+                    bias[0, lk // 2:] = -1e9
+                runs = []
+                for q, k, v, g in (clean, hot_in):
+                    out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
+                    if direction == "forward":
+                        runs.append([out[..., keep], lse[:, others]])
+                    else:
+                        grads = fa.flash_attention_backward_cuda(
+                            q, k, v, bias, g, lse, fa.attention_delta(g, out, heads), heads)
+                        runs.append([t[..., keep] for t in grads])
+                torch.cuda.synchronize()
+                finite = all(bool(torch.isfinite(t).all()) for t in runs[1])
+                same = all(torch.equal(x, y) for x, y in zip(*runs))
+                ok = ok and finite and same
+                print(f"  isolation {direction} d={d} Inf in head {hot} bias={with_bias}: "
+                      f"other heads finite {finite}, same bits {same} "
+                      f"{'ok' if finite and same else 'FAIL'}")
+    return ok
+
+
 def temporal_cases():
     """Kernel B at the main path's shapes: (name, b, f, l, c, heads)."""
     return [
@@ -314,6 +386,10 @@ def temporal_cases():
         ("motion level2", 1, 24, 384, 1280, 8),
         ("motion level3/mid", 1, 24, 96, 1280, 8),
         ("camera encoder", 1, 24, 6144, 320, 8),
+        # the CLI's default, 896x512: the camera encoder's, and the motion
+        # modules' under batched CFG (the cond and uncond windows)
+        ("cli 896x512 motion level0", 1, 24, 7168, 320, 8),
+        ("cli 896x512 motion level0 batched CFG", 2, 24, 7168, 320, 8),
     ]
 
 
@@ -634,6 +710,8 @@ def group_norm_cases():
         ("stage-2 level 2", (24, 1280, 28, 16), 1e-5),
         ("stage-2 level 2 concat 1920", (24, 1920, 28, 16), 1e-5),
         ("stage-2 level 3 concat", (24, 2560, 14, 8), 1e-5),
+        ("cli decode 896x512", (8, 128, 896, 512), 1e-6),
+        ("cli level 0 batched CFG 896x512", (48, 320, 112, 64), 1e-5),
         ("ragged rows 37x29", (3, 320, 37, 29), 1e-6),
     ]
 
@@ -960,24 +1038,36 @@ def phase_tiny_reference(torch, np, dev):
     by itself (changing only where attention rounds its probabilities moves
     the video by ~0.1), so the card must come within twice the distance
     (plus 1e-2) that the CPU's own bf16 run, plain versions only, lands from
-    fp32. The tiny pose2img (one frame, batched CFG) is held the same way."""
+    fp32. The tiny pose2img (one frame, batched CFG) is held the same way,
+    and so is one more pose2vid with the sampler options: latent
+    interpolation at rate 2 (slerp), the "leading" spacing, and a schedule
+    made with ``set_alpha_to_one=False`` set as the pipeline's."""
+    import dataclasses
+
+    from humanvid_tpu_torch.diffusion.schedule import make_noise_schedule
     from humanvid_tpu_torch.pipelines import (
         CamAnimate, Pose2ImagePipeline, Pose2VideoPipeline, tiny_config)
 
     F, H, W = 4, 256, 256
     cfg = tiny_config()
+    opt_cfg = dataclasses.replace(cfg, timestep_spacing="leading")
+    sched = make_noise_schedule(
+        num_train_timesteps=cfg.num_train_timesteps, beta_start=cfg.beta_start,
+        beta_end=cfg.beta_end, beta_schedule=cfg.beta_schedule,
+        rescale_betas_zero_snr=cfg.rescale_betas_zero_snr,
+        prediction_type=cfg.prediction_type, set_alpha_to_one=False)
     cpu = CamAnimate(cfg, device="cpu").init_random(3)
     inputs = _inputs(np, F, H, W, cfg.clip.image_size, 4)
     rng = np.random.default_rng(5)
     init = rng.normal(size=(F, H // 8, W // 8, 4)).astype(np.float32)
     init_img = rng.normal(size=(1, H // 8, W // 8, 4)).astype(np.float32)
-    runs, images = {}, {}
+    runs, images, options = {}, {}, {}
     for key, device in (("cpu_fp32", "cpu"), ("cpu_bf16", "cpu"), ("card_bf16", dev)):
-        system = cpu
-        if key != "cpu_fp32":
-            system = CamAnimate(cfg, device=device, dtype=torch.bfloat16)
-            for name, module in system.components().items():
-                module.load_state_dict(getattr(cpu, name).state_dict(), strict=True)
+        dtype = torch.float32 if key == "cpu_fp32" else torch.bfloat16
+        system, opt_system = (CamAnimate(c, device=device, dtype=dtype) for c in (cfg, opt_cfg))
+        for name, module in system.components().items():
+            module.load_state_dict(getattr(cpu, name).state_dict(), strict=True)
+            getattr(opt_system, name).load_state_dict(module.state_dict(), strict=True)
         runs[key] = Pose2VideoPipeline(system)(
             **inputs, num_inference_steps=2, guidance_scale=3.5, cfg_mode="sequential",
             init_latents=init)
@@ -985,8 +1075,15 @@ def phase_tiny_reference(torch, np, dev):
             inputs["ref_image"], inputs["pose_video"][0], inputs["plucker"][0],
             inputs["clip_image"], num_inference_steps=2, guidance_scale=3.5,
             init_latents=init_img)
-    ok = True
-    for label, outs, field in (("pose2vid", runs, "videos"), ("pose2img", images, "images")):
+        pipe = Pose2VideoPipeline(opt_system)
+        pipe.sched = sched
+        options[key] = pipe(**inputs, num_inference_steps=2, guidance_scale=3.5,
+                            cfg_mode="sequential", init_latents=init, interpolation_rate=2,
+                            interpolation_mode="slerp")
+    ok = options["card_bf16"].videos.shape == (1, 2 * F - 1, H, W, 3)
+    for label, outs, field in (("pose2vid", runs, "videos"), ("pose2img", images, "images"),
+                               ("pose2vid interpolated x2 slerp, leading, final alpha "
+                                "alphas_cumprod[0]", options, "videos")):
         ref = outs["cpu_fp32"]
 
         def errs(key):
@@ -997,7 +1094,7 @@ def phase_tiny_reference(torch, np, dev):
         good = (bool(np.isfinite(getattr(outs["card_bf16"], field)).all())
                 and vc <= 2 * v16 + 1e-2 and lc <= 2 * l16 + 1e-2)
         ok = ok and good
-        frames = f"x{F}f" if label == "pose2vid" else ""
+        frames = "" if label == "pose2img" else f"x{getattr(ref, field).shape[1]}f"
         print(f"[tiny reference] {label} {H}x{W}{frames}, max_abs_err vs CPU fp32: card bf16 "
               f"{field} {vc:.3e} latents {lc:.3e}; CPU bf16 {field} {v16:.3e} latents "
               f"{l16:.3e} {'ok' if good else 'FAIL'}")
@@ -1451,6 +1548,167 @@ def phase_stage1(torch, np, dev):
     return ok, {"pose2img": img_launches, "stage1": launches[min(1, len(launches) - 1)]}
 
 
+MOTION_KEY = ".motion_modules."  # in the keys of the motion modules' tensors
+
+
+def _write_release(torch, system, root):
+    """Every component of ``system`` in the released layouts under ``root``,
+    in fp16, and a ``.py`` prompt config naming them with one test case
+    (``ref_images/ref.png`` against ``pose_videos/pexels_pan.mp4``, which
+    are not written) and a TUM camera file for that pose path: a pan and a
+    dolly over 48 lines with the scale column. Returns (the config's path,
+    the pose path, bytes written)."""
+    import math
+    import os
+
+    def half(name, keep=lambda key: True):
+        return {k: v.to(torch.float16).cpu()
+                for k, v in getattr(system, name).state_dict().items() if keep(k)}
+
+    old_names = ((".to_q.", ".query."), (".to_k.", ".key."), (".to_v.", ".value."),
+                 (".to_out.0.", ".proj_attn."))
+    vae = {}
+    for k, v in {**half("vae_encoder"), **half("vae_decoder")}.items():
+        for new, old in old_names:
+            k = k.replace(new, old)
+        vae[k] = v
+    files = {
+        "stable-diffusion-v1-5/unet/diffusion_pytorch_model.bin": half("reference_unet"),
+        "sd-vae-ft-mse/diffusion_pytorch_model.bin": vae,
+        "image_encoder/pytorch_model.bin": half("clip"),
+        "pose_guider.pth": half("pose_guider"),
+        "camera_pose_encoder.pth": {"pose_encoder_state_dict": half("camera_encoder")},
+        "denoising_unet.pth": half("denoising_unet", lambda k: MOTION_KEY not in k),
+        "motion_module.pth": half("denoising_unet", lambda k: MOTION_KEY in k),
+    }
+    for rel, sd in files.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save(sd, path)
+    pose_path = os.path.join(root, "pose_videos", "pexels_pan.mp4")
+    os.makedirs(os.path.join(root, "camera"))
+    with open(os.path.join(root, "camera", "pexels_pan.txt"), "w") as f:
+        for i in range(CLI_CLIP[0]):
+            yaw = 0.02 * i  # pan
+            f.write(f"{i / 24:.6f} 0.0 0.0 {-0.05 * i:.6f} 0.0 {math.sin(yaw / 2):.8f} 0.0 "
+                    f"{math.cos(yaw / 2):.8f} 1.788079 1.0 1.5\n")
+    cfg = {"base_model_path": os.path.join(root, "stable-diffusion-v1-5"),
+           "vae_model_path": os.path.join(root, "sd-vae-ft-mse"),
+           "image_encoder_path": os.path.join(root, "image_encoder"),
+           "pose_guider_path": os.path.join(root, "pose_guider.pth"),
+           "camera_pose_encoder_path": os.path.join(root, "camera_pose_encoder.pth"),
+           "denoising_unet_path": os.path.join(root, "denoising_unet.pth"),
+           "motion_module_path": os.path.join(root, "motion_module.pth"),
+           "test_cases": {os.path.join(root, "ref_images", "ref.png"): [pose_path]}}
+    cfg_path = os.path.join(root, "prompt.py")
+    with open(cfg_path, "w") as f:
+        f.write(f"cfg = {cfg!r}\n")
+    nbytes = sum(os.path.getsize(os.path.join(root, rel)) for rel in files)
+    return cfg_path, pose_path, nbytes
+
+
+def phase_cli(torch, np, dev, card):
+    """The pose2vid command line's path at its defaults on one full-width
+    system: CamAnimateConfig() with seeded weights (fp32) written in the
+    released layouts in fp16; the CLI's own ``build_system`` (a bf16 system,
+    seeded, then ``load_pretrained`` from the ``.py`` prompt config), whose
+    every tensor must equal the saved fp16 tensor cast to bf16; then
+    ``cli.pose2vid.run_case`` at -W 512 -H 896 -L 24, batched CFG 3.5, bf16,
+    CLI_STEPS DDIM steps, on a seeded portrait clip of CLI_CLIP (stride 2)
+    and a reference image of the same orientation. The video must be (24,
+    896, 512, 3), finite and in [0, 1], the camera input the trajectory's
+    and not the static camera's, and kernels A (d = 40, 80 and 512), B and
+    C must have launched. Returns (ok, launches)."""
+    import tempfile
+
+    from humanvid_tpu_torch.cli import pose2vid as cli
+    from humanvid_tpu_torch.data.camera import (
+        W2C_SOURCES, get_relative_pose, intrinsics_vector, ray_condition, static_camera)
+    from humanvid_tpu_torch.ops import flash_attention as fa
+    from humanvid_tpu_torch.pipelines import CamAnimate, CamAnimateConfig, Pose2VideoPipeline
+    from humanvid_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    src = CamAnimate(CamAnimateConfig(), device=dev).init_random(1)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in src.components().values() for p in m.parameters())
+    print(f"[cli] {card}: seeded fp32 CamAnimate, {n_params / 1e9:.3f} B params, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="hv_release_") as root:
+        # the camera convention comes from words in the whole path: none of
+        # the world-to-camera words may stand in it
+        bad = [w for w in W2C_SOURCES if w in root.lower()]
+        if bad:
+            raise RuntimeError(f"the temporary path {root} holds {bad}")
+        t0 = time.perf_counter()
+        cfg_path, pose_path, nbytes = _write_release(torch, src, root)
+        print(f"[cli] {card}: wrote the released layouts in fp16, {nbytes / 2**30:.3f} GiB, "
+              f"in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        system = cli.build_system(load_config(cfg_path), torch.bfloat16, dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        differ, compared = _differ_from_saved(torch, src, system)
+        del src
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[cli] {card}: load (config, build, seeded init, load_pretrained) {load_s:.1f} s; "
+              f"tensors equal to the saved fp16 cast to bf16: {compared - len(differ)}/"
+              f"{compared} {'ok' if not differ else 'FAIL ' + str(differ[:5])}")
+        args = cli.parse_args(["--config", cfg_path, "--steps", str(CLI_STEPS)])
+        rng = np.random.default_rng(21)
+        nf, ch, cw = CLI_CLIP
+        frames = rng.integers(0, 256, (nf, ch, cw, 3), dtype=np.uint8)
+        ref = rng.integers(0, 256, (ch, cw, 3), dtype=np.uint8)
+        pipe = Pose2VideoPipeline(system)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        case = cli.run_case(pipe, ref, frames, pose_path, args,
+                            torch.Generator(device=dev).manual_seed(args.seed))
+        total_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    by_d = dict(fa.forward_launches_by_d)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    v, s = case.video, case.seconds
+    L, H, W = args.L, args.H, args.W
+    steps = s["denoise_steps"]
+    print(f"[cli] {card}: pose2vid -W {W} -H {H} -L {L}, {args.steps} DDIM steps (the CLI "
+          f"runs 30), batched CFG {args.cfg}, {args.dtype}: prepare {s['prepare']:.3f} s, "
+          f"denoise steps {[round(x, 3) for x in steps]} s (steady mean of steps 2.. "
+          f"{sum(steps[1:]) / max(1, len(steps) - 1):.3f} s/step), decode {s['decode']:.3f} s, "
+          f"run_case {total_s:.3f} s (with the host resizes and camera rays), peak memory "
+          f"{peak:.2f} GiB")
+    cams = static_camera((W, H), L)
+    static = ray_condition(intrinsics_vector(cams, (W, H)), get_relative_pose(cams), H, W)
+    moved = float(np.abs(case.plucker - static).max())
+    launched = (all(by_d.get(d, 0) > 0 for d in (40, 80, 512))
+                and all(launches[k] > 0 for k in MODEL_FWD_KERNELS))
+    ok = (not differ and v.shape == (L, H, W, 3) and bool(np.isfinite(v).all())
+          and float(v.min()) >= 0.0 and float(v.max()) <= 1.0 and case.stride == 2
+          and moved > 1e-3 and launched)
+    print(f"[cli] frames {case.indices[:3]}..{case.indices[-1]} stride {case.stride}; camera "
+          f"input's largest distance from the static camera's {moved:.4f}; kernel A launches "
+          f"by head width {by_d}; launches {launches}")
+    print(f"[cli] video shape {v.shape} min {float(v.min()):.4f} max {float(v.max()):.4f} "
+          f"mean {float(v.mean()):.4f} {'ok' if ok else 'FAIL'}")
+    return ok, launches
+
+
+def _differ_from_saved(torch, src, system):
+    """(names of the tensors of ``system`` that differ from ``src``'s cast to
+    fp16, then bf16; the number compared)."""
+    differ, compared = [], 0
+    for name, module in src.components().items():
+        loaded = getattr(system, name).state_dict()
+        for key, value in module.state_dict().items():
+            compared += 1
+            if not torch.equal(loaded[key], value.to(torch.float16).to(torch.bfloat16)):
+                differ.append(f"{name}.{key}")
+    return differ, compared
+
+
 def kernel_line(results, launches):
     """The per-kernel JSON line. ``launches`` is each kernel's count in the
     run of its path (the forward kernels and kernel C: pose2vid; the
@@ -1532,8 +1790,10 @@ def main() -> int:
     phase_build()
     results = []
     phase_flash(torch, results, dev, flash_cases())
+    isolation_fwd = phase_flash_isolation(torch, dev, "forward")
     phase_temporal(torch, results, dev, temporal_cases())
     phase_flash_bwd(torch, results, dev, flash_bwd_cases())
+    isolation_bwd = phase_flash_isolation(torch, dev, "backward")
     phase_temporal_bwd(torch, results, dev, temporal_bwd_cases())
     phase_group_norm(torch, results, dev, group_norm_cases())
     phase_probes(torch, results, dev)
@@ -1543,6 +1803,8 @@ def main() -> int:
         if not good:
             failed.append(name)
 
+    check("kernel A forward head isolation", isolation_fwd)
+    check("kernel A backward head isolation", isolation_bwd)
     check("kernel C grad", phase_group_norm_grad(torch, dev))
     check("tiny reference", phase_tiny_reference(torch, np, dev))
     check("tiny train", phase_tiny_train(torch, np, dev))
@@ -1562,10 +1824,15 @@ def main() -> int:
     check("stage 1", stage1_ok)
     gc.collect()
     torch.cuda.empty_cache()
+    cli_ok, cli_launches = phase_cli(torch, np, dev, card)
+    check("cli", cli_ok)
+    gc.collect()
+    torch.cuda.empty_cache()
     bench_ok, bench_launches = phase_microbench(torch)
     check("microbench", bench_ok)
     print(kernel_line(results, {"pose2vid": main_launches, "train": train_launches,
-                                **stage1_launches, "denoise_step": per_call["denoise step"],
+                                **stage1_launches, "cli": cli_launches,
+                                "denoise_step": per_call["denoise step"],
                                 "decode": per_call["decode"], "microbench": bench_launches}))
     print(card)
     if failed:

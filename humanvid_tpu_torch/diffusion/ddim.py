@@ -1,8 +1,10 @@
 """DDIM sampling (eta = 0, no clipping or thresholding).
 
-diffusers ``DDIMScheduler`` at the reference operating point: trailing
-timestep spacing, zero-SNR rescaled betas, v-prediction, ``steps_offset=1``.
-Scheduler math runs in fp32 whatever the model dtype.
+diffusers ``DDIMScheduler``: the reference's operating point is trailing
+timestep spacing, zero-SNR rescaled betas, v-prediction and
+``steps_offset=1``; the "leading" (with ``steps_offset``) and "linspace"
+spacings and ``set_alpha_to_one=False`` (``make_noise_schedule``) are there
+too. Scheduler math runs in fp32 whatever the model dtype.
 """
 
 from __future__ import annotations
@@ -22,21 +24,29 @@ class DDIMState(NamedTuple):
 
 
 def ddim_set_timesteps(sched: NoiseSchedule, num_inference_steps: int,
-                       timestep_spacing: str = "trailing") -> DDIMState:
-    """Trailing spacing (the only one the reference's inference config uses;
-    ``steps_offset`` does not enter it)."""
-    if timestep_spacing != "trailing":
-        raise ValueError(f"unsupported timestep spacing: {timestep_spacing}")
+                       timestep_spacing: str = "trailing", steps_offset: int = 1) -> DDIMState:
+    """The step's timesteps under a spacing; ``steps_offset`` enters only
+    the "leading" one."""
     T = sched.num_train_timesteps
-    ts = np.round(np.arange(T, 0, -T / num_inference_steps)).astype(np.int64) - 1
+    if timestep_spacing == "trailing":
+        ts = np.round(np.arange(T, 0, -T / num_inference_steps)).astype(np.int64) - 1
+    elif timestep_spacing == "leading":
+        step_ratio = T // num_inference_steps
+        ts = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1].astype(np.int64)
+        ts = ts + steps_offset
+    elif timestep_spacing == "linspace":
+        ts = np.linspace(0, T - 1, num_inference_steps).round()[::-1].astype(np.int64)
+    else:
+        raise ValueError(f"unknown timestep spacing: {timestep_spacing}")
     return DDIMState(timesteps=ts, prev_timesteps=ts - T // num_inference_steps,
                      num_inference_steps=num_inference_steps)
 
 
 def _alpha_at(sched: NoiseSchedule, t: int) -> float:
-    """alphas_cumprod[t], with t < 0 (past the last step) mapping to 1."""
+    """alphas_cumprod[t], with t < 0 (past the last step) mapping to the
+    schedule's final_alpha_cumprod."""
     t = int(t)
-    return 1.0 if t < 0 else float(sched.alphas_cumprod[t])
+    return sched.final_alpha_cumprod if t < 0 else float(sched.alphas_cumprod[t])
 
 
 def ddim_pred_x0_eps(sched: NoiseSchedule, model_output: torch.Tensor,

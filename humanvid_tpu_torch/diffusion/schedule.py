@@ -19,6 +19,7 @@ class NoiseSchedule(NamedTuple):
     alphas_cumprod: np.ndarray   # (T,) float32
     num_train_timesteps: int
     prediction_type: str         # "epsilon" | "v_prediction"
+    final_alpha_cumprod: float   # alpha_cumprod of the state past the last DDIM step
 
 
 def _make_betas(schedule: str, beta_start: float, beta_end: float, n: int) -> np.ndarray:
@@ -46,14 +47,20 @@ def make_noise_schedule(
     beta_schedule: str = "scaled_linear",
     rescale_betas_zero_snr: bool = True,
     prediction_type: str = "v_prediction",
+    set_alpha_to_one: bool = True,
 ) -> NoiseSchedule:
+    """``set_alpha_to_one``: the last DDIM step lands on alpha_cumprod 1
+    (a clean sample), else on the table's first entry, as diffusers'
+    ``DDIMScheduler`` does."""
     betas = _make_betas(beta_schedule, beta_start, beta_end, num_train_timesteps)
     if rescale_betas_zero_snr:
         betas = _rescale_zero_terminal_snr(betas)
+    alphas_cumprod = np.cumprod(1.0 - betas)
     return NoiseSchedule(
-        alphas_cumprod=np.asarray(np.cumprod(1.0 - betas), dtype=np.float32),
+        alphas_cumprod=np.asarray(alphas_cumprod, dtype=np.float32),
         num_train_timesteps=num_train_timesteps,
         prediction_type=prediction_type,
+        final_alpha_cumprod=1.0 if set_alpha_to_one else float(alphas_cumprod[0]),
     )
 
 

@@ -32,11 +32,14 @@ from . import cuda_build
 # backward's two kernels.
 launches = {"d<=128": 0, "d>128": 0, "bwd_dkv": 0, "bwd_dq": 0,
             "bwd_dkv_d>128": 0, "bwd_dq_d>128": 0}
+# The forward's launches by head width: {d: count}.
+forward_launches_by_d: dict = {}
 
 
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
+    forward_launches_by_d.clear()
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -106,6 +109,7 @@ def flash_attention_cuda(q, k, v, heads, key_bias=None):
              cuda_build.stream_handle(q.device))
     cuda_build.check(err, "flash attention launch")
     launches["d<=128" if d <= 128 else "d>128"] += 1
+    forward_launches_by_d[d] = forward_launches_by_d.get(d, 0) + 1
     return out, lse
 
 

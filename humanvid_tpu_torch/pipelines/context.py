@@ -46,3 +46,22 @@ def uniform_windows(
                 [e % num_frames for e in range(j, j + context_size * context_step, context_step)]
             )
     return windows
+
+
+def all_step_windows(
+    num_steps: int,
+    num_frames: int,
+    context_size: int = 24,
+    context_stride: int = 1,
+    context_overlap: int = 4,
+    closed_loop: bool = True,
+) -> np.ndarray:
+    """The windows of every denoising step, ``(steps, W, context)`` int32:
+    the step-0 set repeated, as the reference's pipeline passes ``step=0``
+    to the scheduler at every step."""
+    step0 = uniform_windows(
+        0, num_frames, context_size, context_stride, context_overlap, closed_loop)
+    return np.broadcast_to(
+        np.asarray(step0, dtype=np.int32)[None],
+        (num_steps, len(step0), len(step0[0])),
+    ).copy()

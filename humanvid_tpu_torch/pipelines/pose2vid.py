@@ -4,7 +4,8 @@ CLIP-embed and VAE-encode the reference image and run the ReferenceNet once;
 compute the PoseGuider and CameraPoseEncoder conditioning once for the whole
 run (one window set serves every step); then per DDIM step run the video UNet
 over the context windows with classifier-free guidance, average overlapping
-windows' predictions per frame, and take a DDIM step; finally VAE-decode in
+windows' predictions per frame, and take a DDIM step; finally (after the
+optional latent interpolation, ``interpolation_rate`` > 1) VAE-decode in
 frame chunks.
 
 CFG: ``cfg_mode="sequential"`` runs two UNet passes per step (the uncond one
@@ -28,13 +29,14 @@ from ..diffusion.ddim import ddim_set_timesteps, ddim_step
 from ..models.clip_vision import clip_preprocess
 from ..models.vae import gaussian_mean
 from .context import uniform_windows
+from .interpolation import interpolate_latents
 from .system import CamAnimate
 
 
 @dataclasses.dataclass
 class Pose2VideoOutput:
-    videos: np.ndarray   # (1, f, H, W, 3) float32 in [0, 1]
-    latents: np.ndarray  # (f, h8, w8, 4) float32
+    videos: np.ndarray   # (1, f', H, W, 3) float32 in [0, 1], f' = f + (f-1)(rate-1)
+    latents: np.ndarray  # (f, h8, w8, 4) float32, before any interpolation
     # host-clock seconds of each phase, each ending in a device synchronize
     seconds: Dict[str, object] = dataclasses.field(default_factory=dict)
 
@@ -80,6 +82,8 @@ class Pose2VideoPipeline:
         context_overlap: int = 4,
         generator: Optional[torch.Generator] = None,
         decode_chunk: int = 8,
+        interpolation_rate: int = 1,
+        interpolation_mode: str = "slerp",
         cfg_mode: str = "batched",
         window_mode: str = "batched",
         init_latents: Optional[np.ndarray] = None,
@@ -97,7 +101,8 @@ class Pose2VideoPipeline:
         t_start = time.perf_counter()
 
         ddim = ddim_set_timesteps(self.sched, num_inference_steps,
-                                  timestep_spacing=s.config.timestep_spacing)
+                                  timestep_spacing=s.config.timestep_spacing,
+                                  steps_offset=s.config.steps_offset)
         win = torch.as_tensor(np.asarray(uniform_windows(
             0, f, context_frames, context_stride, context_overlap), np.int64), device=dev)
         W, F = win.shape
@@ -180,7 +185,8 @@ class Pose2VideoPipeline:
         seconds["denoise_steps"] = step_seconds
 
         t0 = time.perf_counter()
-        video = self.decode(latents, decode_chunk)
+        video = self.decode(interpolate_latents(latents, interpolation_rate, interpolation_mode),
+                            decode_chunk)
         self._sync()
         seconds["decode"] = time.perf_counter() - t0
         return Pose2VideoOutput(
@@ -191,7 +197,9 @@ class Pose2VideoPipeline:
 
     def decode(self, latents: torch.Tensor, decode_chunk: int = 8) -> torch.Tensor:
         """(f, 4, h8, w8) latents -> (f, H, W, 3) in [0, 1], decoded in
-        chunks of the largest divisor of f within ``decode_chunk``."""
+        chunks of the largest divisor of f within ``decode_chunk`` (as the
+        JAX package does: 24 frames interpolated at rate 2 are 47, a prime,
+        so they decode one frame at a time)."""
         s = self.system
         f = latents.shape[0]
         chunk = max(d for d in range(1, min(decode_chunk, f) + 1) if f % d == 0)

@@ -1,1 +1,1 @@
-"""Weight conversion from the JAX package."""
+"""Config loading, and weights from JAX parameter trees and released checkpoints."""

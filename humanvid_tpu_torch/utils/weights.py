@@ -1,4 +1,4 @@
-"""Parameter trees of the JAX package -> this port's state dicts.
+"""Weights for the port's modules: JAX parameter trees and released checkpoints.
 
 ``from_jax_params(flax_params, kind)`` takes a flax parameter tree (nested
 dicts of numpy arrays, ``{"params": {...}}``) of one component and returns
@@ -13,15 +13,24 @@ transformers / AnimateDiff / CameraCtrl state-dict keys; layouts change as
   leading (num_layers,) axis   -> one key set per layer
 
 This module keeps its own copy of the key translation; it needs no JAX.
+
+``load_pretrained(system, cfg)`` fills a ``CamAnimate`` from the released
+torch checkpoints that a prompt config names (``utils/convert.py``).
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import re
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
+
+from .convert import TorchDict, convert_state_dict, load_torch_state_dict
+
+logger = logging.getLogger(__name__)
 
 KINDS = ("unet", "pose_guider", "camera_encoder", "vae_encoder", "vae_decoder", "clip")
 
@@ -205,3 +214,87 @@ def from_jax_params(flax_params: Dict[str, Any], kind: str) -> Dict[str, torch.T
             continue
         sd[translate(parts)] = torch.from_numpy(np.ascontiguousarray(_to_torch_layout(leaf, arr)))
     return sd
+
+
+def _load_sd(path: str) -> TorchDict:
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        return load_file(path)
+    return load_torch_state_dict(path)
+
+
+@torch.no_grad()
+def _load_into(modules, path: str) -> None:
+    """Overwrite the weights of each module in place (its device and dtype)
+    with those of the checkpoint at ``path`` that it has, non-strict; the
+    file is read once. A missing file keeps the current weights and logs a
+    warning."""
+    if path.endswith(".msgpack"):
+        raise ValueError(f"{path}: flax .msgpack trees do not load into the PyTorch port; "
+                         "give the released torch checkpoint (.pth, .bin, .ckpt or "
+                         ".safetensors)")
+    if not os.path.exists(path):
+        logger.warning("weights not found: %s (keeping the current weights)", path)
+        return
+    source = _load_sd(path)
+    for module in modules:
+        target = module.state_dict()
+        found, missing, unused = convert_state_dict(target, source)
+        for key, value in found.items():
+            target[key].copy_(value)
+        if missing:
+            logger.warning("%s: %d missing keys (e.g. %s)", path, len(missing), missing[:3])
+        if unused:
+            logger.info("%s: %d unused checkpoint keys", path, len(unused))
+
+
+def _first_existing(root: str, names) -> str:
+    """The first ``root/name`` that exists, or "" (also where root is "")."""
+    for name in names:
+        path = os.path.join(root, name)
+        if root and os.path.exists(path):
+            return path
+    return ""
+
+
+def load_pretrained(system, cfg) -> Any:
+    """Fill ``system`` (a ``CamAnimate``) from the checkpoints that ``cfg``
+    names, as the reference assembles its weights. Every key is optional:
+
+    - ``base_model_path``: ``unet/diffusion_pytorch_model.{bin,safetensors}``
+      feeds both UNets (the 3-D UNet's motion keys are left as they were);
+    - ``vae_model_path``: ``diffusion_pytorch_model.{bin,safetensors}``
+      feeds the VAE encoder and decoder;
+    - ``image_encoder_path``: ``{pytorch_model.bin,model.safetensors}``
+      feeds the CLIP image encoder;
+    - ``pose_guider_path``, ``camera_pose_encoder_path``,
+      ``reference_unet_path``, ``denoising_unet_path``: one file each;
+    - ``motion_module_path``: into the denoising UNet, last, so its keys
+      (the motion modules') win.
+
+    Returns the system."""
+    get = cfg.get if hasattr(cfg, "get") else lambda k, d=None: getattr(cfg, k, d)
+
+    base = _first_existing(get("base_model_path", "") or "", (
+        os.path.join("unet", "diffusion_pytorch_model.bin"),
+        os.path.join("unet", "diffusion_pytorch_model.safetensors")))
+    if base:
+        _load_into((system.reference_unet, system.denoising_unet), base)
+    vae = _first_existing(get("vae_model_path", "") or "", (
+        "diffusion_pytorch_model.bin", "diffusion_pytorch_model.safetensors"))
+    if vae:
+        _load_into((system.vae_encoder, system.vae_decoder), vae)
+    clip = _first_existing(get("image_encoder_path", "") or "",
+                           ("pytorch_model.bin", "model.safetensors"))
+    if clip:
+        _load_into((system.clip,), clip)
+    for key, name in (("pose_guider_path", "pose_guider"),
+                      ("camera_pose_encoder_path", "camera_encoder"),
+                      ("reference_unet_path", "reference_unet"),
+                      ("denoising_unet_path", "denoising_unet"),
+                      ("motion_module_path", "denoising_unet")):
+        path = get(key, "") or ""
+        if path:
+            _load_into((getattr(system, name),), path)
+    return system

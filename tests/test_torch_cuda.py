@@ -350,6 +350,49 @@ def test_temporal_heads_and_positions_isolated_from_an_inf(c, hot, direction):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,hot", [(40, 1), (40, 7), (80, 1), (80, 7)],
+                         ids=["d40-head1", "d40-last-head", "d80-head1", "d80-last-head"])
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no-bias", "bias"])
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_flash_heads_isolated_from_an_inf(d, hot, with_bias, direction):
+    """An Inf in one head's q, k, v (and g) columns at some positions
+    reaches no other head: every element outside that head's columns (and
+    its lse) is finite and the same bits as the run without it. Kernel A
+    packs heads side by side (at d = 40 a head's contracted pad is the next
+    head's first columns), so a head that read past its own columns would
+    meet the Inf, and 0 x Inf is NaN."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
+
+    dev = _card()
+    b, lq, lk, heads = 2, 300, 700, 8
+    c = heads * d
+    clean = [_randn((b, n, c), 50 + s, dev) for s, n in enumerate((lq, lk, lk, lq))]
+    hot_in = [t.clone() for t in clean]
+    for t in hot_in:
+        t[:, 1::3, hot * d:(hot + 1) * d] = float("inf")
+    bias = None
+    if with_bias:
+        bias = torch.zeros((b, lk), device=dev)
+        bias[0, lk // 2:] = -1e9
+    keep = torch.ones(c, dtype=torch.bool, device=dev)
+    keep[hot * d:(hot + 1) * d] = False
+    others = [h for h in range(heads) if h != hot]
+    runs = []
+    for q, k, v, g in (clean, hot_in):
+        out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
+        if direction == "forward":
+            runs.append([out[..., keep], lse[:, others]])
+        else:
+            grads = fa.flash_attention_backward_cuda(
+                q, k, v, bias, g, lse, fa.attention_delta(g, out, heads), heads)
+            runs.append([t[..., keep] for t in grads])
+    torch.cuda.synchronize()
+    for want, got in zip(*runs):
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_temporal_backward_items_of_other_shared_memory_in_turn():
     """Kernel B's backward at frame counts (item sizes, 16- and 32-row
     tiles, grids) called in turn, the largest again after the smaller."""

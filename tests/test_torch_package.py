@@ -20,14 +20,15 @@ from humanvid_tpu_torch.utils.weights import from_jax_params
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "humanvid_tpu_torch").rglob("*.py")) + \
     sorted((ROOT / "humanvid_tpu_torch").rglob("*.cu")) + [ROOT / "chip_smoke.py"]
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts)
+    for p in (ROOT / "humanvid_tpu_torch").rglob("*.py"))
 
 
 def test_import_blocks_jax_and_reference_package():
     """Importing every port module (and chip_smoke) with jax, flax and
     humanvid_tpu made unimportable succeeds and loads none of them."""
-    modules = sorted(
-        ".".join(p.relative_to(ROOT).with_suffix("").parts)
-        for p in (ROOT / "humanvid_tpu_torch").rglob("*.py"))
+    modules = PORT_MODULES
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'humanvid_tpu'):\n"
@@ -42,6 +43,15 @@ def test_import_blocks_jax_and_reference_package():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "humanvid_tpu_torch.cli.pose2vid", "humanvid_tpu_torch.cli.pose2img",
+    "humanvid_tpu_torch.utils.config", "humanvid_tpu_torch.utils.convert",
+    "humanvid_tpu_torch.pipelines.interpolation", "humanvid_tpu_torch.data.video_io",
+    "humanvid_tpu_torch.data.datasets"])
+def test_import_check_covers_the_command_line_slice(module):
+    assert module in PORT_MODULES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
