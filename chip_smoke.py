@@ -102,10 +102,26 @@ The inference command lines add:
   the camera input is not the static camera's, and that kernels A (d = 40,
   80 and 512), B and C launched.
 
+The training command lines add:
+
+- train_cli: ``cli.train_stage_1``'s loop from ``.py`` configs with the
+  shipped recipes' values and seeded weights, on two seeded 96-frame
+  1024x576 portrait clips with pose clips and moving TUM cameras, served
+  from memory in place of ``datasets.read_frames`` (the only stand-in: the
+  card's machine has no OpenCV). Stage 2 at full width (896x512x24f, bs 1,
+  grad checkpointing, 4 steps, checkpoints every 2): finite logged losses
+  and grad norms and masters, the stage-2 checkpoint files, kernels A, B
+  and C (forward and backward) launched; the step and data segments, the
+  checkpoint writes and the peak memory. A resume at step 2 for one more
+  step: the step counter, masters and moments equal to the files bit for
+  bit before it, step 3's files after it. Stage 1 at full width (bs 8,
+  896x512, grad checkpointing on, 2 steps) and its ~19 GiB final save,
+  timed and then deleted.
+
 Every main-path run (pose2vid, the stage-2 steps, pose2img, the stage-1
-steps, the denoise step and decode of the profile phase, the cli run and
-the microbench run) sets every launch count to 0 just before it and reads
-the counts just after.
+steps, the denoise step and decode of the profile phase, the cli run, the
+train_cli stage-2 and stage-1 runs and the microbench run) sets every
+launch count to 0 just before it and reads the counts just after.
 
 Then one JSON line of per-kernel numbers, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 2 without one.
@@ -1179,7 +1195,7 @@ def phase_tiny_train(torch, np, dev):
         stage2_trainable, stage_config)
 
     F, H, W = 4, 256, 256
-    cfg = stage_config(2, tiny_config())
+    cfg = stage_config(2, tiny_config(), gradient_checkpointing=True)
     cpu = CamAnimate(cfg, device="cpu").init_random(6)
     _unzero_(torch, cpu, 7)
     batch = _train_batch(np, 1, F, H, W, cfg.clip.image_size, 8)
@@ -1243,8 +1259,8 @@ def phase_train(torch, np, dev):
 
     F, H, W = TRAIN_SIZE
     t0 = time.perf_counter()
-    system = CamAnimate(stage_config(2, CamAnimateConfig()), device=dev,
-                        dtype=torch.bfloat16).init_random(0)
+    system = CamAnimate(stage_config(2, CamAnimateConfig(), gradient_checkpointing=True),
+                        device=dev, dtype=torch.bfloat16).init_random(0)
     _unzero_(torch, system, 1)
     state = TrainState(system, stage2_trainable, OptimizerConfig(warmup_steps=1))
     sched = system.make_schedule(beta_schedule="scaled_linear")
@@ -1465,8 +1481,8 @@ def phase_stage1(torch, np, dev):
 
     b, H, W = STAGE1_SIZE
     t0 = time.perf_counter()
-    system = CamAnimate(stage_config(1, CamAnimateConfig()), device=dev,
-                        dtype=torch.bfloat16).init_random(0)
+    system = CamAnimate(stage_config(1, CamAnimateConfig(), gradient_checkpointing=True),
+                        device=dev, dtype=torch.bfloat16).init_random(0)
     _unzero_(torch, system, 1)
     # The reference zero-initializes every bias, and some get no gradient at
     # all: the norm2 of each transformer block feeds only the queries of a
@@ -1709,6 +1725,280 @@ def _differ_from_saved(torch, src, system):
     return differ, compared
 
 
+TRAIN_CLI_CLIP = (96, 1024, 576)  # frames, height, width of the train_cli phase's clips
+TRAIN_CLI_KERNELS = ("flash_fwd", "flash_fwd_d512", "flash_bwd", "temporal_fwd", "temporal_bwd",
+                     "group_norm")
+
+
+def _train_cli_data(np, root):
+    """Two seeded portrait clips of TRAIN_CLI_CLIP and their pose clips, in
+    memory, under the names ``root/pexels/{videos,dwpose}/clip{i}.mp4`` (not
+    written), their moving TUM camera files under ``root/pexels/camera``
+    (the dataset's substitution finds them), the stage-2 meta JSON of the
+    two clips and a stage-1 one of sixteen segments of them (two batches of
+    8 an epoch). Returns (frames by path, stage-2 meta, stage-1 meta)."""
+    import math
+    import os
+
+    nf, h, w = TRAIN_CLI_CLIP
+    rng = np.random.default_rng(31)
+    base = os.path.join(root, "pexels")
+    for sub in ("videos", "dwpose", "camera"):
+        os.makedirs(os.path.join(base, sub))
+    frames, clips, segments = {}, [], []
+    for i in range(2):
+        video = os.path.join(base, "videos", f"clip{i}.mp4")
+        pose = os.path.join(base, "dwpose", f"clip{i}.mp4")
+        frames[video] = rng.integers(0, 256, (nf, h, w, 3), dtype=np.uint8)
+        frames[pose] = rng.integers(0, 256, (nf, h, w, 3), dtype=np.uint8)
+        with open(os.path.join(base, "camera", f"clip{i}.txt"), "w") as f:
+            for j in range(nf):  # t tx ty tz qx qy qz qw fx fy scale: a pan and a dolly
+                yaw = 0.01 * j * (1 + i)
+                f.write(f"{j} {0.01 * j} 0 {-0.02 * j} 0 {math.sin(yaw / 2)} 0 "
+                        f"{math.cos(yaw / 2)} 1.0 1.788 1.0\n")
+        entry = {"video_path": video, "kps_path": pose}
+        clips.append(dict(entry, start_frame=0, end_frame=nf))
+        segments += [dict(entry, start_frame=a, end_frame=a + n)
+                     for n in (nf, 64, 48, 40) for a in (0, nf - n)]
+    metas = []
+    for name, entries in (("stage2.json", clips), ("stage1.json", segments)):
+        metas.append(os.path.join(root, name))
+        with open(metas[-1], "w") as f:
+            json.dump(entries, f)
+    return frames, metas[0], metas[1]
+
+
+def _train_cli_config(root, name, stage, meta, **over):
+    """A ``.py`` train config with ``configs/train/stage{stage}.yaml``'s
+    values, empty weight paths (the weights are seeded) and ``over``."""
+    import os
+
+    solver = dict(gradient_accumulation_steps=1, enable_gradient_checkpointing=True,
+                  max_train_steps=4, max_grad_norm=1.0, learning_rate=1.0e-5,
+                  lr_warmup_steps=1, lr_scheduler="constant", adam_beta1=0.9,
+                  adam_beta2=0.999, adam_weight_decay=1.0e-2, adam_epsilon=1.0e-8,
+                  shard_optimizer_states=True)
+    data = dict(train_bs=1, train_size_small=512, train_size_large=896, horizontal_meta=[],
+                vertical_meta=[meta], sample_rate=4, n_sample_frames=24, num_workers=4)
+    if stage == 1:
+        data = dict(train_bs=8, train_size_small=512, train_size_large=896, horizontal_meta=[],
+                    vertical_meta=[meta], sample_margin=30, num_workers=8)
+    cfg = dict(data=data, solver=solver, val=dict(validation_steps=0), uncond_ratio=0.1,
+               noise_offset=0.05, snr_gamma=5.0, enable_zero_snr=True, base_model_path="",
+               vae_model_path="", image_encoder_path="", motion_module_path="", seed=12580,
+               resume_from_checkpoint="", resume_step=0, checkpointing_steps=2,
+               exp_name=f"stage{stage}_camera", output_dir=os.path.join(root, "out"))
+    for key, value in over.items():
+        (solver if key in solver else cfg)[key] = value
+    path = os.path.join(root, f"{name}.py")
+    with open(path, "w") as f:
+        f.write(f"cfg = {cfg!r}\n")
+    return path
+
+
+@contextlib.contextmanager
+def _device_step_times(torch, drv):
+    """The driver's ``train_step`` between two CUDA events, recorded without
+    a synchronize; yields the list of (start, end) pairs, read after the run."""
+    real, pairs = drv.train_step, []
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kwargs)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    drv.train_step = timed
+    try:
+        yield pairs
+    finally:
+        drv.train_step = real
+
+
+def _seconds(pairs):
+    return [start.elapsed_time(end) / 1e3 for start, end in pairs]
+
+
+def _finite_logs(np, out):
+    return bool(out["logged"]) and all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                                       for r in out["logged"])
+
+
+def phase_train_cli(torch, np, dev, card):
+    """The training command lines' path: ``cli.train_stage_1``'s loop
+    (``setup`` and ``train``, which ``run_training`` chains) from ``.py``
+    configs with the shipped recipes' values, on two seeded portrait clips
+    of TRAIN_CLI_CLIP served from memory in place of
+    ``humanvid_tpu_torch.data.datasets.read_frames`` (the card's machine has
+    no OpenCV; the only stand-in: the crop and resize, CLIP crop, Plücker
+    rays, sampler, loader with its pinned uploads, step, checkpoints and
+    tracker are the driver's own):
+
+    1. stage 2 at full width, bf16, 896x512x24f, bs 1, grad checkpointing,
+       4 steps, checkpoints every 2: the logged losses and grad norms finite,
+       ``motion_module``/``camera_encoder``/``opt_state`` files at steps 2 and
+       4 and no ``reference_unet`` file, the masters finite, kernels A
+       (forward at d <= 80 and 512, backward), B (both) and C launched;
+    2. a resume of that directory at step 2 for ``max_train_steps`` 3:
+       before its step the state holds step 2 and the saved masters and
+       moments bit for bit; it takes one step and writes step 3's files;
+    3. stage 1 at full width (stage1.yaml's bs 8 at 896x512, with grad
+       checkpointing on), 2 steps and its final save (the ~20 GB of fp32
+       masters and moments: its seconds and size), then the directory goes.
+
+    Returns (ok, {"train_cli": stage-2 launches, "train_cli_stage1": ...})."""
+    import os
+    import shutil
+    import tempfile
+
+    from humanvid_tpu_torch.cli import train_stage_1 as drv
+    from humanvid_tpu_torch.data import datasets
+    from humanvid_tpu_torch.data.camera import W2C_SOURCES
+
+    ok, launches = True, {}
+    with tempfile.TemporaryDirectory(prefix="hv_train_") as root:
+        bad = [w for w in W2C_SOURCES if w in root.lower()]
+        if bad:
+            raise RuntimeError(f"the temporary path {root} holds {bad}")
+        t0 = time.perf_counter()
+        frames, meta2, meta1 = _train_cli_data(np, root)
+        print(f"[train_cli] {card}: two seeded {TRAIN_CLI_CLIP[0]}-frame "
+              f"{TRAIN_CLI_CLIP[1]}x{TRAIN_CLI_CLIP[2]} clips with pose clips and moving "
+              f"cameras in {time.perf_counter() - t0:.1f} s; datasets.read_frames serves them "
+              f"from memory (the only stand-in)")
+
+        def read_frames(path, indices=None, max_frames=None):
+            clip = frames[path]
+            return clip[list(indices)] if indices is not None else clip[:max_frames].copy()
+
+        real_read = datasets.read_frames
+        datasets.read_frames = read_frames
+        try:
+            cfg2 = _train_cli_config(root, "stage2", 2, meta2)
+            t0 = time.perf_counter()
+            run = drv.setup(2, ["--config", cfg2])
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            t0 = time.perf_counter()
+            with _device_step_times(torch, drv) as pairs:
+                out = drv.train(run)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            device_s = _seconds(pairs)
+            launches["train_cli"] = _launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            save_dir = run.save_dir
+            finite = all(bool(torch.isfinite(m).all()) for m in run.state.masters)
+            n_train = sum(m.numel() for m in run.state.masters)
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+            files = set(os.listdir(save_dir))
+            want = {f"{p}-{s}.pt" for p in ("motion_module", "camera_encoder", "opt_state")
+                    for s in (2, 4)}
+            files_ok = want <= files and not any(f.startswith("reference_unet") for f in files)
+            launched = all(launches["train_cli"][k] > 0 for k in TRAIN_CLI_KERNELS)
+            step_ok = (_finite_logs(np, out) and finite and files_ok and launched
+                       and len(out["step_seconds"]) == 4)
+            ok = ok and step_ok
+            steps, waits = out["step_seconds"], out["data_seconds"]
+            print(f"[train_cli] {card}: stage 2, CamAnimateConfig(), bf16, 896x512x24f, bs 1, "
+                  f"grad checkpointing, {n_train / 1e6:.1f} M trainable; setup (build, seeded "
+                  f"init, load_pretrained, train state, dataset) {setup_s:.1f} s; 4 steps in "
+                  f"{total_s:.2f} s with 2 checkpoints")
+            print(f"[train_cli] {card}: s/step (steady: the step segment, mean of steps 2..4) "
+                  f"{sum(steps[1:]) / max(1, len(steps) - 1):.3f}; step segments "
+                  f"{[round(x, 3) for x in steps]} s; data wait (the data segment) per step "
+                  f"{[round(x, 3) for x in waits]} s, steady mean of steps 2..4 "
+                  f"{sum(waits[1:]) / max(1, len(waits) - 1):.3f} s; peak memory {peak:.2f} GiB")
+            print(f"[train_cli] {card}: device time a step (CUDA events around train_step, no "
+                  f"synchronize) {[round(x, 3) for x in device_s]} s, steady mean of steps 2..4 "
+                  f"{sum(device_s[1:]) / max(1, len(device_s) - 1):.3f}")
+            for j, c in enumerate(out["checkpoints"]):
+                what = "final save" if j == len(out["checkpoints"]) - 1 else "checkpoint"
+                print(f"[train_cli] {card}: {what} at step {c['step']} (with the wait for the "
+                      f"device): {c['seconds']:.2f} s, {c['bytes'] / 2**30:.3f} GiB")
+            print(f"[train_cli] logged {out['logged']}; files {sorted(files)}; launches "
+                  f"{launches['train_cli']} {'ok' if step_ok else 'FAIL'}")
+
+            cfg2r = _train_cli_config(root, "stage2_resume", 2, meta2, max_train_steps=3,
+                                      resume_from_checkpoint=save_dir, resume_step=2)
+            run = drv.setup(2, ["--config", cfg2r])
+            held = _holds_saved(torch, run.state, save_dir, 2)
+            out = drv.train(run)
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+            files = set(os.listdir(save_dir))
+            resumed = ({f"{p}-3.pt" for p in ("motion_module", "camera_encoder", "opt_state")}
+                       <= files and len(out["step_seconds"]) == 1 and _finite_logs(np, out))
+            ok = ok and held and resumed
+            print(f"[train_cli] resume at step 2: step counter, masters and moments equal to "
+                  f"the saved files bit for bit {held}; one step and step 3's files "
+                  f"{resumed} {'ok' if held and resumed else 'FAIL'}")
+
+            cfg1 = _train_cli_config(root, "stage1", 1, meta1, max_train_steps=2,
+                                     checkpointing_steps=5000,
+                                     val=dict(validation_steps=200000))
+            run = drv.setup(1, ["--config", cfg1])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            with _device_step_times(torch, drv) as pairs:
+                out = drv.train(run)
+            torch.cuda.synchronize()
+            device_s = _seconds(pairs)
+            launches["train_cli_stage1"] = _launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            n_train = sum(m.numel() for m in run.state.masters)
+            save_dir = run.save_dir
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+            save = out["checkpoints"][-1]
+            shutil.rmtree(save_dir)
+            s1_ok = (_finite_logs(np, out) and len(out["step_seconds"]) == 2
+                     and all(launches["train_cli_stage1"][k] > 0 for k in TRAIN_CLI_KERNELS))
+            ok = ok and s1_ok
+            print(f"[train_cli] {card}: stage 1, CamAnimateConfig(), bf16, 896x512, bs 8, "
+                  f"enable_gradient_checkpointing: true (stage1.yaml ships it off), "
+                  f"{n_train / 1e9:.3f} B trainable: step segments "
+                  f"{[round(x, 3) for x in out['step_seconds']]} s, device time a step "
+                  f"{[round(x, 3) for x in device_s]} s, data waits "
+                  f"{[round(x, 3) for x in out['data_seconds']]} s, peak memory {peak:.2f} GiB; "
+                  f"final save "
+                  f"{save['seconds']:.1f} s, {save['bytes'] / 2**30:.2f} GiB (deleted)")
+            print(f"[train_cli] stage 1 logged {out['logged']}; launches "
+                  f"{launches['train_cli_stage1']} {'ok' if s1_ok else 'FAIL'}")
+        finally:
+            datasets.read_frames = real_read
+    return ok, launches
+
+
+def _holds_saved(torch, state, save_dir, step):
+    """Whether ``state`` holds what the step's stage-2 files hold: its step
+    counter, moments and masters, bit for bit."""
+    import os
+
+    def load(prefix):
+        return torch.load(os.path.join(save_dir, f"{prefix}-{step}.pt"), map_location="cpu",
+                          weights_only=True)
+
+    opt = load("opt_state")
+    modules = {"denoising_unet": load("motion_module"), "camera_encoder": load("camera_encoder")}
+    same = state.step == opt["step"] == step
+    for i, name in enumerate(state.names):
+        component, _, key = name.partition("/")
+        same = (same and torch.equal(state.masters[i].cpu(), modules[component][key])
+                and torch.equal(state.mu[i].cpu(), opt["mu"][name])
+                and torch.equal(state.nu[i].cpu(), opt["nu"][name]))
+    return same
+
+
 def kernel_line(results, launches):
     """The per-kernel JSON line. ``launches`` is each kernel's count in the
     run of its path (the forward kernels and kernel C: pose2vid; the
@@ -1828,10 +2118,14 @@ def main() -> int:
     check("cli", cli_ok)
     gc.collect()
     torch.cuda.empty_cache()
+    train_cli_ok, train_cli_launches = phase_train_cli(torch, np, dev, card)
+    check("train_cli", train_cli_ok)
+    gc.collect()
+    torch.cuda.empty_cache()
     bench_ok, bench_launches = phase_microbench(torch)
     check("microbench", bench_ok)
     print(kernel_line(results, {"pose2vid": main_launches, "train": train_launches,
-                                **stage1_launches, "cli": cli_launches,
+                                **stage1_launches, "cli": cli_launches, **train_cli_launches,
                                 "denoise_step": per_call["denoise step"],
                                 "decode": per_call["decode"], "microbench": bench_launches}))
     print(card)

@@ -1,2 +1,3 @@
-"""The inference command lines: ``python -m humanvid_tpu_torch.cli.pose2vid``
-and ``python -m humanvid_tpu_torch.cli.pose2img``."""
+"""The command lines: ``python -m humanvid_tpu_torch.cli.pose2vid`` and
+``cli.pose2img`` (inference), ``cli.train_stage_1`` and ``cli.train_stage_2``
+(training)."""

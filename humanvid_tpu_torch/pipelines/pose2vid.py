@@ -41,9 +41,11 @@ class Pose2VideoOutput:
     seconds: Dict[str, object] = dataclasses.field(default_factory=dict)
 
 
-def _nchw(x: np.ndarray, device, dtype) -> torch.Tensor:
-    """(..., H, W, C) host array -> (N, C, H, W) tensor."""
-    t = torch.as_tensor(np.asarray(x, np.float32), device=device).to(dtype)
+def _nchw(x, device, dtype) -> torch.Tensor:
+    """(..., H, W, C) host array or tensor -> (N, C, H, W) tensor."""
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x, np.float32)
+    t = torch.as_tensor(x, device=device).to(dtype)
     t = t.reshape((-1,) + t.shape[-3:]).permute(0, 3, 1, 2)
     fmt = torch.channels_last if t.device.type == "cuda" else torch.contiguous_format
     return t.contiguous(memory_format=fmt)

@@ -1,2 +1,4 @@
-"""Kernel-level measurements on the CUDA card (``microbench``) and the
-kernels of their probes (``probe_kernels``)."""
+"""Measurements on the CUDA card: kernel-level (``microbench``, with the
+kernels of its probes in ``probe_kernels``), kernel variants
+(``flash_variants``) and the training steps' peak memory
+(``train_memcheck``)."""

@@ -1,4 +1,4 @@
-"""Checkpoint IO: per-module save with keep-last-K rotation, exact resume.
+"""Checkpoint IO: per-module save with keep-last-K rotation, resume, export.
 
 The counterpart of ``humanvid_tpu/train/checkpoint.py`` (its msgpack
 files become ``torch.save`` state dicts):
@@ -8,9 +8,12 @@ files become ``torch.save`` state dicts):
 - stage 2 saves the video UNet's motion modules only (``motion_module``)
   and the CameraPoseEncoder whole, and merges a motion-only file back into
   a full video-UNet state dict on load;
-- ``opt_state`` holds the step and AdamW's moments, and the module files
-  hold the trainable leaves as their fp32 masters, so a resume continues
-  exactly where the run stopped.
+- ``opt_state`` holds the counts, AdamW's moments and the accumulation, and
+  the module files hold the trainable leaves as their fp32 masters, so a
+  resume continues exactly where the run stopped;
+- :func:`load_train_checkpoint` loads whichever of those files exist at a
+  step, as the JAX training driver's resume does;
+- :func:`export_reference_pth` writes the reference's ``.pth`` files.
 """
 
 from __future__ import annotations
@@ -88,17 +91,52 @@ def save_train_checkpoint(save_dir: str, system, state: TrainState,
 
 
 @torch.no_grad()
-def load_train_checkpoint(save_dir: str, step: int, system, state: TrainState,
-                          motion_only: bool = False) -> None:
-    """Load what :func:`save_train_checkpoint` wrote at ``step`` into the
-    modules and the train state."""
-    masters = {}
-    for component, prefix in _module_files(motion_only):
+def load_train_checkpoint(save_dir: str, step: int, system, state: TrainState) -> List[str]:
+    """Load each of ``{component}-{step}.pt``, ``motion_module-{step}.pt`` and
+    ``opt_state-{step}.pt`` under ``save_dir`` that exists into the modules
+    and the train state, and skip those that do not, as the JAX driver's
+    resume does; the trainable leaves' masters come from the module files.
+    A module file must hold every key of its module: a video-UNet file
+    without the motion modules (stage 1's) raises, naming them. Returns the
+    paths loaded."""
+    loaded, masters = [], {}
+    for component, prefix in [(c, c) for c in TRAIN_COMPONENTS] + [
+            ("denoising_unet", MOTION_PREFIX)]:
+        path = os.path.join(save_dir, f"{prefix}-{step}.pt")
+        if not os.path.exists(path):
+            continue
         module = getattr(system, component)
-        sd = load_checkpoint(os.path.join(save_dir, f"{prefix}-{step}.pt"))
+        sd = load_checkpoint(path)
         if prefix == MOTION_PREFIX:
             sd = merge_motion_modules(module.state_dict(), sd)
+        missing = sorted(set(module.state_dict()) - set(sd))
+        if missing:
+            raise ValueError(f"{path} lacks {len(missing)} keys of the {component} "
+                             f"(e.g. {missing[:3]})")
         module.load_state_dict(sd, strict=True)
         masters.update({f"{component}/{k}": v for k, v in sd.items()})
-    state.load_state_dict(load_checkpoint(os.path.join(save_dir, f"opt_state-{step}.pt")),
-                          masters)
+        loaded.append(path)
+    state.load_masters(masters)
+    path = os.path.join(save_dir, f"opt_state-{step}.pt")
+    if os.path.exists(path):
+        state.load_state_dict(load_checkpoint(path))
+        loaded.append(path)
+    return loaded
+
+
+def export_reference_pth(system, state: TrainState, out_dir: str, step: int) -> List[str]:
+    """The reference's ``.pth`` files of the four trained modules: the
+    module's state dict (diffusers keys) with each trainable leaf as its
+    fp32 master, as ``{component}-{step}.pth`` and the CameraPoseEncoder's
+    as ``camera_pose_encoder-{step}.pth``."""
+    os.makedirs(out_dir, exist_ok=True)
+    masters = dict(zip(state.names, state.masters))
+    paths = []
+    for component in TRAIN_COMPONENTS:
+        sd = {k: masters.get(f"{component}/{k}", v).detach().cpu()
+              for k, v in getattr(system, component).state_dict().items()}
+        name = "camera_pose_encoder" if component == "camera_encoder" else component
+        path = os.path.join(out_dir, f"{name}-{step}.pth")
+        torch.save(sd, path)
+        paths.append(path)
+    return paths

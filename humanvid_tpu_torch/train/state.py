@@ -15,14 +15,22 @@ casts of them in the modules' dtype (bf16 on the card), and frozen leaves
 are never copied. ``requires_grad`` is set on the trainable leaves only, so
 autograd records no backward through frozen weights. The update is the
 JAX package's optax chain: clip by global norm, then AdamW with the
-``warmup_constant`` learning rate, which is 0 at step 0 when there is a
-warmup, so the first update moves nothing.
+``warmup_constant`` learning rate, which is 0 at update 0 when there is a
+warmup, so the first update moves nothing. With
+``gradient_accumulation_steps`` k > 1 it is optax ``MultiSteps``: each
+micro-step folds its gradients into their running mean, and the k-th
+applies the chain to that mean; the learning rate and AdamW's bias
+corrections count updates, not micro-steps. With ``mu_dtype="bfloat16"``
+the first moment is stored in bf16, as optax's ``scale_by_adam`` stores
+it: the new moment and the update from it are computed in fp32 and only
+the stored moment is rounded; the moment's decay is beta1 rounded to bf16
+(0.8984375 for 0.9), as in the jitted JAX step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -40,6 +48,12 @@ class OptimizerConfig:
     eps: float = 1e-8
     max_grad_norm: float = 1.0
     warmup_steps: int = 0
+    # only "constant" (with the warmup above), as in the JAX package
+    lr_schedule: str = "constant"
+    # micro-steps a update: optax ``MultiSteps`` over the clip-then-AdamW chain
+    gradient_accumulation_steps: int = 1
+    # storage dtype of AdamW's first moment (None: fp32; "bfloat16" halves it)
+    mu_dtype: Optional[str] = None
 
 
 def stage1_trainable(component: str, name: str) -> bool:
@@ -66,14 +80,30 @@ def learning_rate(config: OptimizerConfig, step: int) -> float:
     return config.learning_rate
 
 
+MU_DTYPES = {None: torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 class TrainState:
-    """The step count, the trainable leaves with their fp32 masters, and
-    AdamW's two moments, in one flat order named ``component/key``."""
+    """The micro-step count, the trainable leaves with their fp32 masters,
+    AdamW's two moments and, under accumulation, the running mean of the
+    micro-steps' gradients, in one flat order named ``component/key``.
+
+    ``step`` counts micro-steps (the JAX state's ``step``, which the
+    drivers resume), ``updates`` the updates taken, and ``micro`` the
+    micro-steps folded into ``acc`` since the last update."""
 
     def __init__(self, system, predicate: Predicate,
                  config: OptimizerConfig = OptimizerConfig()):
+        if config.lr_schedule != "constant":
+            raise ValueError(config.lr_schedule)
+        if config.gradient_accumulation_steps < 1:
+            raise ValueError(f"gradient_accumulation_steps {config.gradient_accumulation_steps}")
+        if config.mu_dtype not in MU_DTYPES:
+            raise ValueError(f"mu_dtype {config.mu_dtype!r}")
         self.config = config
         self.step = 0
+        self.updates = 0
+        self.micro = 0
         self.names: List[str] = []
         self.params: List[torch.nn.Parameter] = []
         for component in TRAIN_COMPONENTS:
@@ -86,8 +116,10 @@ class TrainState:
         if not self.params:
             raise ValueError("the predicate selects no trainable parameter")
         self.masters = [p.detach().float().clone() for p in self.params]
-        self.mu = [torch.zeros_like(m) for m in self.masters]
+        self.mu = [torch.zeros_like(m, dtype=MU_DTYPES[config.mu_dtype]) for m in self.masters]
         self.nu = [torch.zeros_like(m) for m in self.masters]
+        self.acc = ([torch.zeros_like(m) for m in self.masters]
+                    if config.gradient_accumulation_steps > 1 else [])
 
     def grads(self) -> List[torch.Tensor]:
         """fp32 copies of the trainable leaves' gradients (zero where none
@@ -97,52 +129,92 @@ class TrainState:
 
     @torch.no_grad()
     def apply_gradients(self) -> torch.Tensor:
-        """One update from the leaves' ``.grad``: clip by global norm, AdamW
-        on the masters, copy the masters back into the modules, clear the
-        gradients. Returns the global norm before clipping."""
+        """One micro-step from the leaves' ``.grad``, which it clears; on
+        the k-th micro-step (every one when k = 1) an update: clip by global
+        norm, AdamW on the masters, the masters copied back into the
+        modules. Returns the micro-step's global norm before clipping, as a
+        device tensor."""
         c = self.config
+        k = c.gradient_accumulation_steps
         grads = self.grads()
-        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g)
-                                                     for g in grads]))
+        for p in self.params:
+            p.grad = None
+        norm = _global_norm(grads)
+        self.step += 1
+        if k > 1:
+            # optax MultiSteps' running mean: acc + (g - acc) / (n + 1)
+            delta = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(delta, self.micro + 1)
+            torch._foreach_add_(self.acc, delta)
+            del delta, grads
+            self.micro += 1
+            if self.micro < k:
+                return norm
+            self.micro = 0
+            self._update(self.acc, _global_norm(self.acc))
+            torch._foreach_zero_(self.acc)
+        else:
+            self._update(grads, norm)
+        return norm
+
+    def _update(self, grads: List[torch.Tensor], norm: torch.Tensor) -> None:
+        """Clip ``grads`` (scaled in place) by ``norm``, then AdamW."""
+        c = self.config
         # optax clip_by_global_norm: g unchanged below the limit, else g / norm * limit
         factor = torch.where(norm < c.max_grad_norm, torch.ones_like(norm),
                              c.max_grad_norm / norm)
         torch._foreach_mul_(grads, factor)
-        torch._foreach_mul_(self.mu, c.beta1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - c.beta1)
+        # optax's (1 - b1) g + b1 mu as the JAX package runs it (jitted): b1,
+        # a weak-typed scalar, takes mu's dtype (0.8984375 in bf16), and XLA
+        # computes the rest in fp32; fp32 moments are the stored tensors
+        mu = [m.float() for m in self.mu]
+        torch._foreach_mul_(mu, float(torch.tensor(c.beta1, dtype=self.mu[0].dtype)))
+        torch._foreach_add_(mu, grads, alpha=1.0 - c.beta1)
         torch._foreach_mul_(self.nu, c.beta2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - c.beta2)
         del grads
-        count = self.step + 1
+        count = self.updates + 1
         denom = torch._foreach_div(self.nu, 1.0 - c.beta2 ** count)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, c.eps)
-        update = torch._foreach_div(self.mu, 1.0 - c.beta1 ** count)
+        update = torch._foreach_div(mu, 1.0 - c.beta1 ** count)
         torch._foreach_div_(update, denom)
         del denom
+        if mu[0] is not self.mu[0]:  # stored in bf16: rounded only here
+            torch._foreach_copy_(self.mu, mu)
+        del mu
         torch._foreach_add_(update, self.masters, alpha=c.weight_decay)
-        torch._foreach_add_(self.masters, update, alpha=-learning_rate(c, self.step))
+        torch._foreach_add_(self.masters, update, alpha=-learning_rate(c, self.updates))
         for p, m in zip(self.params, self.masters):
             p.copy_(m)
-            p.grad = None
-        self.step = count
-        return norm
+        self.updates = count
 
     def state_dict(self) -> Dict[str, object]:
-        """Step and moments by leaf name (the masters travel with the
-        modules' checkpoints)."""
-        return {"step": self.step,
+        """Counts, moments and the accumulation by leaf name (the masters
+        travel with the modules' checkpoints)."""
+        return {"step": self.step, "updates": self.updates, "micro": self.micro,
                 "mu": dict(zip(self.names, self.mu)),
-                "nu": dict(zip(self.names, self.nu))}
+                "nu": dict(zip(self.names, self.nu)),
+                "acc": dict(zip(self.names, self.acc))}
 
     @torch.no_grad()
-    def load_state_dict(self, state: Dict[str, object],
-                        masters: Dict[str, torch.Tensor]) -> None:
-        """Restore the step and moments, and the masters from ``masters``
-        (fp32, by leaf name), which are copied into the modules."""
-        self.step = int(state["step"])
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Restore what :meth:`state_dict` returned."""
+        for key in ("step", "updates", "micro"):
+            setattr(self, key, int(state[key]))
+        for own, key in ((self.mu, "mu"), (self.nu, "nu"), (self.acc, "acc")):
+            for i, t in enumerate(own):
+                t.copy_(state[key][self.names[i]])
+
+    @torch.no_grad()
+    def load_masters(self, masters: Dict[str, torch.Tensor]) -> None:
+        """Set the masters found in ``masters`` (by leaf name, fp32) and copy
+        them into the modules."""
         for i, name in enumerate(self.names):
-            self.mu[i].copy_(state["mu"][name])
-            self.nu[i].copy_(state["nu"][name])
-            self.masters[i].copy_(masters[name])
-            self.params[i].copy_(self.masters[i])
+            if name in masters:
+                self.masters[i].copy_(masters[name])
+                self.params[i].copy_(self.masters[i])
+
+
+def _global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t) for t in tensors]))

@@ -57,9 +57,11 @@ class Draws(NamedTuple):
 
 
 def sample_draws(generator: torch.Generator, b: int, f: int, height: int, width: int,
-                 num_train_timesteps: int, uncond_ratio: float) -> Draws:
+                 num_train_timesteps: int, uncond_ratio: float,
+                 uncond: Optional[bool] = None) -> Draws:
     """One step's draws for a batch of b clips of f frames at height x width,
-    on the generator's device."""
+    on the generator's device. The uncond flag is drawn from the generator
+    too unless given (a draw on the card is read back to the host)."""
     h8, w8 = height // 8, width // 8
     kw = dict(generator=generator, device=generator.device)
     noise = torch.randn((b, f, 4, h8, w8), **kw)
@@ -67,7 +69,8 @@ def sample_draws(generator: torch.Generator, b: int, f: int, height: int, width:
     t = torch.randint(0, num_train_timesteps, (b,), **kw)
     vae_eps = torch.randn((b * f, 4, h8, w8), **kw)
     ref_eps = torch.randn((b, 4, h8, w8), **kw)
-    uncond = bool(torch.rand((), **kw).item() < uncond_ratio)
+    if uncond is None:
+        uncond = bool(torch.rand((), **kw).item() < uncond_ratio)
     return Draws(noise, offset, t, vae_eps, ref_eps, uncond)
 
 
@@ -83,7 +86,8 @@ def _encode_chunk(n: int, chunk: int) -> int:
 def loss_from_draws(system, sched: NoiseSchedule, cfg: TrainConfig,
                     batch: Dict[str, np.ndarray], draws: Draws):
     """(loss, t_mean) of one step. ``batch`` holds channel-last arrays, as
-    the JAX package's step takes them:
+    the JAX package's step takes them, or tensors (on the device, from the
+    loader):
 
     - tgt:     (b, f, H, W, 3) in [-1, 1]
     - ref:     (b, H, W, 3) in [-1, 1]
@@ -145,9 +149,12 @@ def loss_from_draws(system, sched: NoiseSchedule, cfg: TrainConfig,
 def train_step(system, state: TrainState, sched: NoiseSchedule, cfg: TrainConfig,
                batch: Dict[str, np.ndarray], draws: Optional[Draws] = None,
                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-    """One optimizer step; draws come from ``generator`` unless given.
-    Returns ``loss``, ``grad_norm`` (before clipping) and ``t_mean`` as
-    0-dim tensors on the system's device."""
+    """One micro-step: the loss, its backward and ``state.apply_gradients``,
+    which updates on every ``gradient_accumulation_steps``-th call. Draws
+    come from ``generator`` unless given. Returns ``loss``, ``grad_norm``
+    (the micro-batch's, before clipping) and ``t_mean`` as 0-dim tensors on
+    the system's device. With ``draws`` given, nothing is read back to the
+    host."""
     if draws is None:
         b, f, H, W = np.shape(batch["tgt"])[:4]
         draws = sample_draws(generator, b, f, H, W, sched.num_train_timesteps,

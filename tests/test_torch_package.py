@@ -49,7 +49,12 @@ def test_import_blocks_jax_and_reference_package():
     "humanvid_tpu_torch.cli.pose2vid", "humanvid_tpu_torch.cli.pose2img",
     "humanvid_tpu_torch.utils.config", "humanvid_tpu_torch.utils.convert",
     "humanvid_tpu_torch.pipelines.interpolation", "humanvid_tpu_torch.data.video_io",
-    "humanvid_tpu_torch.data.datasets"])
+    "humanvid_tpu_torch.data.datasets", "humanvid_tpu_torch.data.samplers",
+    "humanvid_tpu_torch.data.loader", "humanvid_tpu_torch.data.__init__",
+    "humanvid_tpu_torch.utils.profiling", "humanvid_tpu_torch.utils.tracker",
+    "humanvid_tpu_torch.train.state", "humanvid_tpu_torch.train.step",
+    "humanvid_tpu_torch.train.checkpoint", "humanvid_tpu_torch.cli.train_stage_1",
+    "humanvid_tpu_torch.cli.train_stage_2"])
 def test_import_check_covers_the_command_line_slice(module):
     assert module in PORT_MODULES
 

@@ -294,7 +294,7 @@ def test_checkpointing_and_ff_chunks_keep_the_gradients():
 
 
 def _tiny_system(stage=2, seed=0):
-    cfg = stage_config(stage, tiny_config(motion_max_len=4))
+    cfg = stage_config(stage, tiny_config(motion_max_len=4), gradient_checkpointing=True)
     return CamAnimate(cfg, device="cpu").init_random(seed)
 
 
@@ -334,7 +334,7 @@ def test_checkpoint_resume_is_exact(tmp_path):
         "camera_encoder-2.pt", "motion_module-2.pt", "opt_state-2.pt"]
     sys_c = _tiny_system()
     state_c = TrainState(sys_c, stage2_trainable, opt)
-    load_train_checkpoint(str(tmp_path), 2, sys_c, state_c, motion_only=True)
+    load_train_checkpoint(str(tmp_path), 2, sys_c, state_c)
     run(sys_c, state_c, [2])
     assert state_c.step == state_a.step == 3
     for name, a, c in zip(state_a.names, state_a.masters, state_c.masters):
