@@ -118,10 +118,28 @@ The training command lines add:
   896x512, grad checkpointing on, 2 steps) and its ~19 GiB final save,
   timed and then deleted.
 
+The evaluation command lines add:
+
+- eval: ``tools.make_random_metric_weights`` writes the five metric files
+  (CLIP-L/14 included); ``cli.eval_pose2vid.main`` generates EVAL_CLIPS
+  seeded 72-frame 768x512 portrait clips (pose clips, moving TUM cameras)
+  at full width (``CamAnimateConfig()`` from a ``.py`` config, seeded,
+  bf16), -W 512 -H 768 -L 24 --stride 3, EVAL_STEPS DDIM steps, batched
+  CFG 3.5, then scores them group by group (``--metrics_only
+  --metrics_subset``, merged): all seven metrics present and finite;
+  ``cli.eval_pose2img.main`` at its defaults (896x512, 30 steps) on two of
+  the clips with LPIPS from a seeded flax ``.msgpack``; every metric
+  network on the card (TF32 off, and on) against the CPU within
+  METRIC_NET_TOL. Video and image file IO is served from memory (the only
+  stand-in: the card's machine has no OpenCV). Kernels A (d = 40, 80 and
+  512), B and C must have launched in the generation, and none in the
+  metric runs.
+
 Every main-path run (pose2vid, the stage-2 steps, pose2img, the stage-1
 steps, the denoise step and decode of the profile phase, the cli run, the
-train_cli stage-2 and stage-1 runs and the microbench run) sets every
-launch count to 0 just before it and reads the counts just after.
+train_cli stage-2 and stage-1 runs, the eval generation and its pose2img
+run, and the microbench run) sets every launch count to 0 just before it
+and reads the counts just after.
 
 Then one JSON line of per-kernel numbers, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 2 without one.
@@ -1999,6 +2017,340 @@ def _holds_saved(torch, state, save_dir, step):
     return same
 
 
+EVAL_CLIPS = 4             # test clips of the eval phase (the reference's test set has 71)
+EVAL_CLIP = (72, 768, 512)  # frames, height, width: 24 frames at stride 3
+EVAL_STEPS = 3             # DDIM steps of its generation (the command line runs 30)
+# largest relative difference of a metric network's features, card (TF32
+# off) against the CPU (both float32); about 10x the largest reading of
+# TF32-off cuDNN/cuBLAS against oneDNN expected at these depths
+METRIC_NET_TOL = 1e-3
+
+
+def _eval_data(np, root):
+    """EVAL_CLIPS seeded portrait clips of EVAL_CLIP (smooth content, as
+    ``tools/eval_gate.stage_data`` makes) and their pose clips (the same,
+    flipped), in memory under ``root/pexels/{videos,dwpose}/clip{i}.mp4``
+    (not written), with moving TUM cameras at ``root/pexels/camera`` (the
+    evaluation's path substitution finds them); the meta JSON of all clips
+    and one of the first two. Returns (frames by path, meta, 2-clip meta)."""
+    import math
+    import os
+
+    nf, h, w = EVAL_CLIP
+    rng = np.random.default_rng(41)
+    base = os.path.join(root, "pexels")
+    for sub in ("videos", "dwpose", "camera"):
+        os.makedirs(os.path.join(base, sub))
+    frames, meta = {}, []
+    for i in range(EVAL_CLIPS):
+        low = rng.random((4, h // 32, w // 32, 3)).astype(np.float32)
+        up = low.repeat(32, axis=1).repeat(32, axis=2)
+        gain = 0.5 + 0.5 * np.sin(np.arange(nf) / 5 + i)
+        clip = (up[np.arange(nf) % 4] * gain[:, None, None, None] * 255).astype(np.uint8)
+        video = os.path.join(base, "videos", f"clip{i}.mp4")
+        pose = os.path.join(base, "dwpose", f"clip{i}.mp4")
+        frames[video], frames[pose] = clip, np.ascontiguousarray(clip[:, ::-1])
+        with open(os.path.join(base, "camera", f"clip{i}.txt"), "w") as f:
+            for j in range(nf):  # t tx ty tz qx qy qz qw fx fy scale: a pan and a dolly
+                yaw = 0.01 * j * (1 + i)
+                f.write(f"{j} {0.01 * j} 0 {-0.02 * j} 0 {math.sin(yaw / 2)} 0 "
+                        f"{math.cos(yaw / 2)} 1.0 1.788 1.0\n")
+        meta.append({"video_path": video, "kps_path": pose, "start_frame": 0, "end_frame": nf})
+    paths = []
+    for name, entries in (("test_meta.json", meta), ("test_meta_img.json", meta[:2])):
+        paths.append(os.path.join(root, name))
+        with open(paths[-1], "w") as f:
+            json.dump(entries, f)
+    return frames, paths[0], paths[1]
+
+
+def _msgpack_bytes(np, obj) -> bytes:
+    """flax's msgpack encoding (``flax.serialization.msgpack_serialize``) of
+    a tree of str-keyed dicts, lists, ints and numpy arrays (ExtType 1: the
+    shape, the dtype's name and the C-order bytes)."""
+    import struct
+
+    if isinstance(obj, dict):
+        return b"".join([b"\xdf" + struct.pack(">I", len(obj))]
+                        + [_msgpack_bytes(np, k) + _msgpack_bytes(np, v) for k, v in obj.items()])
+    if isinstance(obj, (list, tuple)):
+        return b"".join([b"\xdd" + struct.pack(">I", len(obj))]
+                        + [_msgpack_bytes(np, v) for v in obj])
+    if isinstance(obj, str):
+        data = obj.encode()
+        return b"\xdb" + struct.pack(">I", len(data)) + data
+    if isinstance(obj, bytes):
+        return b"\xc6" + struct.pack(">I", len(obj)) + obj
+    if isinstance(obj, int):
+        return b"\xd3" + struct.pack(">q", obj)
+    if isinstance(obj, np.ndarray):
+        payload = _msgpack_bytes(np, [[int(n) for n in obj.shape], obj.dtype.name,
+                                      np.ascontiguousarray(obj).tobytes()])
+        return b"\xc9" + struct.pack(">Ib", len(payload), 1) + payload
+    raise TypeError(type(obj))
+
+
+def _lpips_flax_tree(np, weights_dir):
+    """The JAX ``LPIPS`` variables of the LPIPS files in ``weights_dir``
+    (the JAX ``load_torch_weights``' layout)."""
+    import os
+
+    from humanvid_tpu_torch.metrics import weights as mw
+
+    vgg = mw.torch_load(os.path.join(weights_dir, mw.LPIPS_VGG))
+    lins = mw.torch_load(os.path.join(weights_dir, mw.LPIPS_LINS))
+    params = {"vgg": {}}
+    for key, value in vgg.items():
+        idx, leaf = key.split(".")
+        v = value.numpy()
+        params["vgg"].setdefault(f"conv_{idx}", {})[
+            "kernel" if leaf == "weight" else "bias"] = (
+            np.ascontiguousarray(v.transpose(2, 3, 1, 0)) if leaf == "weight" else v)
+    for i in range(5):
+        params[f"lin_{i}"] = lins[f"lin{i}.model.1.weight"].numpy().reshape(-1)
+    return {"params": params}
+
+
+def _metric_nets_card_vs_cpu(torch, np, dev, weights_dir, gen, gt):
+    """Each metric network on the card (float32, TF32 off: the metrics'
+    setting; and TF32 on) against the same network on the CPU, on the same
+    weights and generated frames: LPIPS on 2 frame pairs at 768x512,
+    InceptionV3 on 4 frames, I3D on one 24-frame clip, CLIP-L/14 on 2
+    frames. Returns ok (every TF32-off difference within METRIC_NET_TOL)."""
+    from humanvid_tpu_torch.metrics.i3d import preprocess_video
+    from humanvid_tpu_torch.metrics.nets import tf32_mode
+    from humanvid_tpu_torch.metrics.weights import load_metric_nets
+
+    nets = {d: load_metric_nets(weights_dir, d) for d in ("cpu", dev)}
+
+    def cases(n):
+        return {
+            "lpips": (lambda x, y: n["lpips_model"](x.permute(0, 3, 1, 2), y.permute(0, 3, 1, 2)),
+                      (gen[:2], gt[:2])),
+            "inception": (lambda x: n["inception_model"](x.permute(0, 3, 1, 2)), (gen[:4],)),
+            "i3d": (lambda v: n["i3d_model"](v.permute(0, 4, 1, 2, 3)),
+                    (preprocess_video(gen)[None],)),
+            "clip": (n["clip_apply"].embed, (n["clip_apply"].crops(gen[:2]),)),
+        }
+
+    def run(fn, arrays, dev, tf32):
+        with torch.inference_mode(), tf32_mode(tf32):
+            out = fn(*[torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
+                       for a in arrays])
+        return out.float().cpu().numpy()
+
+    ok = True
+    card_cases = cases(nets[dev])
+    for name, (fn, arrays) in cases(nets["cpu"]).items():
+        t0 = time.perf_counter()
+        ref = run(fn, arrays, "cpu", False)
+        cpu_s = time.perf_counter() - t0
+        card_fn = card_cases[name][0]
+        strict = run(card_fn, arrays, dev, False)
+        tf32 = run(card_fn, arrays, dev, True)
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(strict - ref).max()) / scale
+        err_tf32 = float(np.abs(tf32 - ref).max()) / scale
+        good = bool(np.isfinite(strict).all()) and err <= METRIC_NET_TOL
+        ok = ok and good
+        print(f"[eval] metric net {name} {tuple(ref.shape)}: card against CPU, largest "
+              f"relative difference TF32 off {err:.3e} (tolerance {METRIC_NET_TOL:g}), TF32 on "
+              f"{err_tf32:.3e}; CPU {cpu_s:.1f} s {'ok' if good else 'FAIL'}")
+    return ok
+
+
+def phase_eval(torch, np, dev, card):
+    """The evaluation command lines' path at full width (``CamAnimateConfig()``,
+    2.568 B parameters, seeded weights from a ``.py`` config with no weight
+    paths, bf16), on EVAL_CLIPS seeded portrait clips of EVAL_CLIP with pose
+    clips and moving TUM cameras. Video and image file IO is served from
+    memory (the only stand-in: the card's machine has no OpenCV):
+    ``read_frames``, ``save_video`` (which leaves an empty file, so that the
+    runner pairs the directories) and ``write_image`` of the eval modules
+    and the metric runner.
+
+    1. ``tools.make_random_metric_weights`` writes the five metric files
+       (CLIP-L/14 included);
+    2. ``cli.eval_pose2vid.main`` generates the clips at -W 512 -H 768 -L 24
+       --stride 3, EVAL_STEPS DDIM steps, batched CFG 3.5: each video
+       (24, 768, 512, 3), finite, in [0, 1], the camera input the
+       trajectory's; kernels A (d = 40, 80, 512), B and C launched; then
+       ``--run_metrics --metrics_only --metrics_subset`` for each group of
+       ``tools/eval_gate.py``, merged into one ``metrics.json``: all seven
+       metrics present and finite, no kernel launched by the metric
+       networks;
+    3. ``cli.eval_pose2img.main`` at its defaults (896x512, 30 steps) on 2
+       of the clips with LPIPS from a seeded flax ``.msgpack``;
+    4. every metric network on the card against the CPU
+       (``_metric_nets_card_vs_cpu``).
+
+    Prints the seconds per clip, per metric group, the peaks and the gate
+    record. Returns (ok, {"eval": launches, "eval_pose2img": launches})."""
+    import os
+    import tempfile
+    from unittest import mock
+
+    from humanvid_tpu_torch.cli import eval_pose2img, eval_pose2vid
+    from humanvid_tpu_torch.data.camera import (
+        W2C_SOURCES, get_relative_pose, intrinsics_vector, ray_condition, static_camera)
+    from humanvid_tpu_torch.data.video_io import _uint8
+    from humanvid_tpu_torch.metrics import runner
+    from humanvid_tpu_torch.ops import flash_attention as fa
+    from humanvid_tpu_torch.tools import eval_gate
+    from humanvid_tpu_torch.tools import make_random_metric_weights as mk
+
+    ok, launches = True, {}
+    with tempfile.TemporaryDirectory(prefix="hv_eval_") as root, contextlib.ExitStack() as stack:
+        bad = [w for w in W2C_SOURCES if w in root.lower()]
+        if bad:
+            raise RuntimeError(f"the temporary path {root} holds {bad}")
+        t0 = time.perf_counter()
+        store, meta, meta_img = _eval_data(np, root)
+        print(f"[eval] {card}: {EVAL_CLIPS} seeded {EVAL_CLIP[0]}-frame {EVAL_CLIP[1]}x"
+              f"{EVAL_CLIP[2]} clips with pose clips and moving cameras in "
+              f"{time.perf_counter() - t0:.1f} s; read_frames, save_video and write_image "
+              f"serve them from memory (the only stand-in)")
+        saved = {"finite": True, "in_range": True}
+        images = {}
+
+        def read_frames(path, indices=None, max_frames=None):
+            clip = store[path]
+            return clip[list(indices)] if indices is not None else clip[:max_frames].copy()
+
+        def save_video(frames, path, fps=24.0):
+            frames = np.asarray(frames)
+            if frames.dtype != np.uint8:
+                saved["finite"] &= bool(np.isfinite(frames).all())
+                saved["in_range"] &= float(frames.min()) >= 0.0 and float(frames.max()) <= 1.0
+            store[path] = _uint8(frames)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            open(path, "w").close()
+
+        def write_image(path, image):
+            images[path] = _uint8(np.asarray(image))
+
+        for module, name, fn in ((eval_pose2vid, "read_frames", read_frames),
+                                 (eval_pose2vid, "save_video", save_video),
+                                 (runner, "read_frames", read_frames),
+                                 (eval_pose2img, "read_frames", read_frames),
+                                 (eval_pose2img, "write_image", write_image)):
+            stack.enter_context(mock.patch.object(module, name, fn))
+
+        weights = os.path.join(root, "metric_weights")
+        t0 = time.perf_counter()
+        mk.main([weights])
+        nbytes = sum(os.path.getsize(os.path.join(weights, f)) for f in os.listdir(weights))
+        weights_s = time.perf_counter() - t0
+        print(f"[eval] {card}: make_random_metric_weights: {len(os.listdir(weights))} files, "
+              f"{nbytes / 2**30:.3f} GiB in {weights_s:.1f} s")
+        cfg = os.path.join(root, "seeded.py")
+        with open(cfg, "w") as f:
+            f.write("cfg = {}\n")  # CamAnimateConfig(), seeded weights, no checkpoint
+        out = os.path.join(root, "eval_out")
+        W, H = EVAL_CLIP[2], EVAL_CLIP[1]
+        argv = ["--config", cfg, "--test_meta", meta, "-W", str(W), "-H", str(H), "-L", "24",
+                "--stride", "3", "--steps", str(EVAL_STEPS), "--output_dir", out,
+                "--metric_weights", weights, "--device", str(dev)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        done = eval_pose2vid.main(argv)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches["eval"] = _launch_counts()
+        by_d = dict(fa.forward_launches_by_d)
+        gen_peak = torch.cuda.max_memory_allocated() / 2**30
+        for c in done["clips"]:
+            s = c["seconds"]
+            print(f"[eval] {card}: {c['name']}: prepare {s['prepare']:.3f} s, denoise steps "
+                  f"{[round(x, 3) for x in s['denoise_steps']]} s, decode {s['decode']:.3f} s")
+        gens = [store[os.path.join(out, "gen", f"clip{i}.mp4")] for i in range(EVAL_CLIPS)]
+        shapes_ok = all(v.shape == (24,) + EVAL_CLIP[1:] + (3,) for v in gens)
+        args = eval_pose2vid.parse_args(argv)
+        with open(meta) as f:
+            clip0 = eval_pose2vid.prepare_clip(json.load(f)[0], args, 224)
+        cams = static_camera((W, H), 24)
+        static = ray_condition(intrinsics_vector(cams, (W, H)), get_relative_pose(cams), H, W)
+        moved = float(np.abs(clip0.plucker - static).max())
+        launched = (all(by_d.get(d, 0) > 0 for d in (40, 80, 512))
+                    and all(launches["eval"][k] > 0 for k in MODEL_FWD_KERNELS))
+        gen_ok = (len(done["clips"]) == EVAL_CLIPS and shapes_ok and saved["finite"]
+                  and saved["in_range"] and clip0.stride == 3 and moved > 1e-3 and launched)
+        ok = ok and gen_ok
+        print(f"[eval] {card}: eval_pose2vid generation, CamAnimateConfig() seeded, bf16, -W "
+              f"{W} -H {H} -L 24 --stride 3, {EVAL_STEPS} of 30 DDIM steps, batched CFG 3.5: "
+              f"{EVAL_CLIPS} clips in {gen_s:.2f} s ({gen_s / EVAL_CLIPS:.2f} s a clip with "
+              f"set-up), peak memory {gen_peak:.2f} GiB")
+        print(f"[eval] clip0 frames {clip0.tgt_idx[:3]}..{clip0.tgt_idx[-1]} stride "
+              f"{clip0.stride}, reference frame {clip0.ref_idx}; camera input's largest "
+              f"distance from the static camera's {moved:.4f}; kernel A launches by head width "
+              f"{by_d}; launches {launches['eval']}; videos {[v.shape for v in gens]} finite "
+              f"{saved['finite']} in [0, 1] {saved['in_range']} {'ok' if gen_ok else 'FAIL'}")
+
+        timings = {"make_metric_weights_s": round(weights_s, 1), "generate_s": round(gen_s, 1)}
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        for group in eval_gate.GROUP_KEYS:
+            t0 = time.perf_counter()
+            eval_pose2vid.main(argv + ["--run_metrics", "--metrics_only", "--metrics_subset",
+                                       group])
+            torch.cuda.synchronize()
+            timings[f"metrics[{group}]_s"] = round(time.perf_counter() - t0, 3)
+        metric_launches = _launch_counts()
+        metric_peak = torch.cuda.max_memory_allocated() / 2**30
+        with open(os.path.join(out, "metrics.json")) as f:
+            summary = json.load(f)
+        skipped = eval_gate.skipped_metrics(summary)
+        metrics_ok = not skipped and summary.get("num_videos") == EVAL_CLIPS and not any(
+            metric_launches.values())
+        ok = ok and metrics_ok
+        print(f"[eval] {card}: metric groups (load, decode from memory, networks, Frechet) "
+              f"{ {k: v for k, v in timings.items() if k.startswith('metrics')} } s, peak "
+              f"memory {metric_peak:.2f} GiB; kernel launches by the metric networks "
+              f"{sum(metric_launches.values())}")
+        print(f"[eval] metrics {summary}; skipped {skipped} {'ok' if metrics_ok else 'FAIL'}")
+
+        lpips_path = os.path.join(root, "lpips.msgpack")
+        with open(lpips_path, "wb") as f:
+            f.write(_msgpack_bytes(np, _lpips_flax_tree(np, weights)))
+        img_out = os.path.join(root, "eval_img")
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = eval_pose2img.main(["--config", cfg, "--test_meta", meta_img, "--output_dir",
+                                  img_out, "--lpips_weights", lpips_path, "--device", str(dev)])
+        torch.cuda.synchronize()
+        img_s = time.perf_counter() - t0
+        launches["eval_pose2img"] = _launch_counts()
+        img_peak = torch.cuda.max_memory_allocated() / 2**30
+        summ = res["summary"]
+        img_ok = (summ["num_videos"] == 2 and not eval_gate.skipped_metrics(
+            summ, ("ssim", "psnr", "l1", "lpips"))
+            and sorted(v.shape for v in images.values()) == [(896, 4 * 512, 3)] * 2
+            and all(launches["eval_pose2img"][k] > 0 for k in MODEL_FWD_KERNELS))
+        ok = ok and img_ok
+        print(f"[eval] {card}: eval_pose2img at its defaults (896x512, 30 DDIM steps, batched "
+              f"CFG 3.5, LPIPS from a flax .msgpack) on 2 clips: {img_s:.2f} s, peak memory "
+              f"{img_peak:.2f} GiB; summary {summ}; launches {launches['eval_pose2img']} "
+              f"{'ok' if img_ok else 'FAIL'}")
+
+        gt = store[os.path.join(out, "gt", "clip0.mp4")].astype(np.float32) / 255.0
+        nets_ok = _metric_nets_card_vs_cpu(torch, np, dev, weights,
+                                           gens[0].astype(np.float32) / 255.0, gt)
+        ok = ok and nets_ok
+        record = {"note": "chip_smoke.py eval phase: CamAnimateConfig() with seeded weights, "
+                          "RANDOM metric weights with the real key sets; the values mean nothing",
+                  "command": "python -m humanvid_tpu_torch.cli.eval_pose2vid " + " ".join(
+                      argv + ["--run_metrics"]),
+                  "clips": EVAL_CLIPS, "resolution": "512x768x24f", "device": card,
+                  "metrics": summary, "skipped_metrics": skipped, "timings_s": timings,
+                  "phase_attempts": {"generate": 1, **{f"metrics[{g}]": 1
+                                                       for g in eval_gate.GROUP_KEYS}}}
+        print(f"[eval] gate record {json.dumps(record)}")
+    return ok, launches
+
+
 def kernel_line(results, launches):
     """The per-kernel JSON line. ``launches`` is each kernel's count in the
     run of its path (the forward kernels and kernel C: pose2vid; the
@@ -2124,8 +2476,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     bench_ok, bench_launches = phase_microbench(torch)
     check("microbench", bench_ok)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # last: when the microbench ran after this phase, its torch.profiler
+    # sessions found no device record
+    eval_ok, eval_launches = phase_eval(torch, np, dev, card)
+    check("eval", eval_ok)
     print(kernel_line(results, {"pose2vid": main_launches, "train": train_launches,
                                 **stage1_launches, "cli": cli_launches, **train_cli_launches,
+                                **eval_launches,
                                 "denoise_step": per_call["denoise step"],
                                 "decode": per_call["decode"], "microbench": bench_launches}))
     print(card)

@@ -20,7 +20,7 @@ import torch
 
 from ..data.camera import camera_file_to_plucker
 from ..data.datasets import clip_crop_raw
-from ..data.video_io import resize_frames
+from ..data.video_io import resize_frames, write_image
 from ..pipelines import Pose2ImagePipeline
 from ..utils.config import load_config
 from .pose2vid import DTYPES, _read_rgb, build_system, oriented_size
@@ -64,8 +64,6 @@ def run_case(pipe: Pose2ImagePipeline, ref_rgb_uint8: np.ndarray, pose_rgb_uint8
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    import cv2
-
     args = parse_args(argv)
     cfg = load_config(args.config)
     system = build_system(cfg, DTYPES[args.dtype], args.device)
@@ -79,8 +77,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             composite = np.concatenate([case.ref, case.pose, case.image], axis=1)
             name = (os.path.splitext(os.path.basename(ref_path))[0] + "_"
                     + os.path.splitext(os.path.basename(pose_path))[0])
-            cv2.imwrite(os.path.join(args.output_dir, f"{name}.png"),
-                        cv2.cvtColor((composite * 255).astype(np.uint8), cv2.COLOR_RGB2BGR))
+            write_image(os.path.join(args.output_dir, f"{name}.png"), composite)
             print(f"saved {name}.png")
 
 

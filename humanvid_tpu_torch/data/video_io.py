@@ -1,8 +1,9 @@
 """Host-side video IO through OpenCV, and frame resizing through torch.
 
-``read_frames``, ``get_fps``, ``get_frame_count``, ``save_video`` and
-``save_videos_grid`` (orientation aware). Arrays are (f, H, W, 3) RGB uint8,
-or float in [0, 1] where saved. OpenCV is imported where it is used, so the
+``read_frames``, ``get_fps``, ``get_frame_count``, ``save_video``,
+``save_videos_grid`` (orientation aware) and ``write_image``. Arrays are
+(f, H, W, 3) RGB uint8, or float in [0, 1] where saved (truncated to uint8,
+as the reference's scripts do). OpenCV is imported where it is used, so the
 module imports without it. ``resize_frames`` is the antialiased bilinear
 resize of the reference's inference scripts (PIL ``BILINEAR``), done by
 ``F.interpolate`` on host tensors.
@@ -94,6 +95,15 @@ def save_video(frames: np.ndarray, path: str, fps: float = 24.0) -> None:
             writer.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
     finally:
         writer.release()
+
+
+def write_image(path: str, image: np.ndarray) -> None:
+    """(H, W, 3) RGB uint8 or float in [0, 1] -> an image file (OpenCV;
+    the format from the extension)."""
+    cv2 = _cv2()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if not cv2.imwrite(path, cv2.cvtColor(_uint8(image), cv2.COLOR_RGB2BGR)):
+        raise IOError(f"cannot write image: {path}")
 
 
 def videos_grid(videos: Sequence[np.ndarray]) -> np.ndarray:

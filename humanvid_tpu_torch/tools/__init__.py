@@ -1,4 +1,6 @@
 """Measurements on the CUDA card: kernel-level (``microbench``, with the
 kernels of its probes in ``probe_kernels``), kernel variants
 (``flash_variants``) and the training steps' peak memory
-(``train_memcheck``)."""
+(``train_memcheck``); and the evaluation path's tools: metric-network
+checkpoints with seeded random values (``make_random_metric_weights``) and
+the quality gate at the protocol's shape (``eval_gate``)."""

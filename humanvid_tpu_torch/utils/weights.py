@@ -15,7 +15,8 @@ transformers / AnimateDiff / CameraCtrl state-dict keys; layouts change as
 This module keeps its own copy of the key translation; it needs no JAX.
 
 ``load_pretrained(system, cfg)`` fills a ``CamAnimate`` from the released
-torch checkpoints that a prompt config names (``utils/convert.py``).
+torch checkpoints that a prompt config names (``utils/convert.py``), or from
+the JAX package's flax ``.msgpack`` trees (read by ``utils/msgpack.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from .convert import TorchDict, convert_state_dict, load_torch_state_dict
+from .msgpack import load_msgpack
 
 logger = logging.getLogger(__name__)
 
@@ -225,17 +227,26 @@ def _load_sd(path: str) -> TorchDict:
 
 
 @torch.no_grad()
-def _load_into(modules, path: str) -> None:
+def _load_into(modules, path: str, kind: str = "") -> None:
     """Overwrite the weights of each module in place (its device and dtype)
     with those of the checkpoint at ``path`` that it has, non-strict; the
     file is read once. A missing file keeps the current weights and logs a
-    warning."""
-    if path.endswith(".msgpack"):
-        raise ValueError(f"{path}: flax .msgpack trees do not load into the PyTorch port; "
-                         "give the released torch checkpoint (.pth, .bin, .ckpt or "
-                         ".safetensors)")
+    warning. A flax ``.msgpack`` tree (the JAX package's checkpoints) holds
+    one whole component of weight-translation ``kind``: it is translated by
+    ``from_jax_params`` and loaded with ``strict=True``, as flax's
+    ``from_bytes`` needs the whole tree."""
     if not os.path.exists(path):
         logger.warning("weights not found: %s (keeping the current weights)", path)
+        return
+    if path.endswith(".msgpack"):
+        sd = from_jax_params(load_msgpack(path), kind)
+        for module in modules:
+            want = set(module.state_dict())
+            if set(sd) != want:
+                raise ValueError(f"{path}: the flax tree is not the module's "
+                                 f"({len(want - set(sd))} keys missing, "
+                                 f"{len(set(sd) - want)} unexpected)")
+            module.load_state_dict(sd, strict=True)
         return
     source = _load_sd(path)
     for module in modules:
@@ -273,6 +284,10 @@ def load_pretrained(system, cfg) -> Any:
     - ``motion_module_path``: into the denoising UNet, last, so its keys
       (the motion modules') win.
 
+    The one-file keys also take the JAX package's flax ``.msgpack`` trees
+    (a whole component each, as its checkpoints and ``convert_weights``
+    write them).
+
     Returns the system."""
     get = cfg.get if hasattr(cfg, "get") else lambda k, d=None: getattr(cfg, k, d)
 
@@ -289,12 +304,12 @@ def load_pretrained(system, cfg) -> Any:
                            ("pytorch_model.bin", "model.safetensors"))
     if clip:
         _load_into((system.clip,), clip)
-    for key, name in (("pose_guider_path", "pose_guider"),
-                      ("camera_pose_encoder_path", "camera_encoder"),
-                      ("reference_unet_path", "reference_unet"),
-                      ("denoising_unet_path", "denoising_unet"),
-                      ("motion_module_path", "denoising_unet")):
+    for key, name, kind in (("pose_guider_path", "pose_guider", "pose_guider"),
+                            ("camera_pose_encoder_path", "camera_encoder", "camera_encoder"),
+                            ("reference_unet_path", "reference_unet", "unet"),
+                            ("denoising_unet_path", "denoising_unet", "unet"),
+                            ("motion_module_path", "denoising_unet", "unet")):
         path = get(key, "") or ""
         if path:
-            _load_into((getattr(system, name),), path)
+            _load_into((getattr(system, name),), path, kind)
     return system

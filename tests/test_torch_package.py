@@ -59,6 +59,44 @@ def test_import_check_covers_the_command_line_slice(module):
     assert module in PORT_MODULES
 
 
+BLOCKED_AT_IMPORT = ("jax", "jaxlib", "flax", "humanvid_tpu", "msgpack", "transformers", "cv2",
+                     "PIL")
+
+
+def test_import_blocks_msgpack_transformers_opencv_and_pil():
+    """Every port module (and chip_smoke) imports with none of jax, flax,
+    the JAX package, msgpack, transformers, OpenCV or PIL importable: the
+    card's machine has none of them, and OpenCV is imported where video
+    files are read or written."""
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED_AT_IMPORT!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {PORT_MODULES!r} + ['chip_smoke']:\n"
+        "    __import__(m)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {BLOCKED_AT_IMPORT!r} "
+        "and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "humanvid_tpu_torch.metrics.__init__", "humanvid_tpu_torch.metrics.frame",
+    "humanvid_tpu_torch.metrics.frechet", "humanvid_tpu_torch.metrics.clip_sim",
+    "humanvid_tpu_torch.metrics.lpips", "humanvid_tpu_torch.metrics.inception",
+    "humanvid_tpu_torch.metrics.i3d", "humanvid_tpu_torch.metrics.weights",
+    "humanvid_tpu_torch.metrics.runner", "humanvid_tpu_torch.metrics.nets",
+    "humanvid_tpu_torch.cli.eval_pose2vid", "humanvid_tpu_torch.cli.eval_pose2img",
+    "humanvid_tpu_torch.tools.make_random_metric_weights", "humanvid_tpu_torch.tools.eval_gate",
+    "humanvid_tpu_torch.utils.msgpack"])
+def test_import_checks_cover_the_evaluation_slice(module):
+    assert module in PORT_MODULES
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_names_jax_or_reference_package(path):
     text = path.read_text()
