@@ -135,11 +135,29 @@ The evaluation command lines add:
   512), B and C must have launched in the generation, and none in the
   metric runs.
 
+The data-preparation path adds:
+
+- pose: ``tools.make_random_pose_weights`` writes seeded YOLOX-L weights
+  as a ``.pth`` (the upstream names; objectness, person-class and box-size
+  biases set so that a few anchors pass) and DWPose weights as an ``.onnx``
+  (mmpose names), then ``tools.prepare_videos`` runs on the card at full
+  width (YOLOX-L at 640x640, DWPose-L at 384x288, IEEE fp32) over two
+  seeded POSE_CLIPS clips, 1080x1920 and 1920x1080, decoding and encoding
+  through the port's native libav core where it builds there, else serving
+  ``read_frames``, ``get_fps`` and ``save_video`` from memory (it says
+  which); then its ``--smplx`` branch on a 48-frame ``.npz``. Checks a
+  canvas a frame with drawn limbs, a person in every frame, and no
+  hand-written kernel launched (the path has none: its networks are plain
+  PyTorch on cuDNN and cuBLAS); prints the seconds a frame of detection,
+  pose and drawing, the persons a frame and the peak memory; and holds the
+  card to the CPU on the first frame of each clip: boxes, SimCC logits,
+  keypoints and canvases within POSE_TOL.
+
 Every main-path run (pose2vid, the stage-2 steps, pose2img, the stage-1
 steps, the denoise step and decode of the profile phase, the cli run, the
 train_cli stage-2 and stage-1 runs, the eval generation and its pose2img
-run, and the microbench run) sets every launch count to 0 just before it
-and reads the counts just after.
+run, the pose runs and the microbench run) sets every launch count to 0
+just before it and reads the counts just after.
 
 Then one JSON line of per-kernel numbers, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 2 without one.
@@ -2351,6 +2369,231 @@ def phase_eval(torch, np, dev, card):
     return ok, launches
 
 
+POSE_CLIPS = {"landscape.mp4": (48, 1080, 1920), "portrait.mp4": (48, 1920, 1080)}
+POSE_SMPLX_FRAMES = 48
+# The card against the CPU, both in IEEE fp32 (only the order of sums
+# differs): boxes in pixels; SimCC logits relative to the largest CPU logit;
+# the share of a canvas's pixels that may differ, each on a stroke's edge
+# in the CPU canvas (a keypoint on an integer pixel coordinate may
+# truncate the other way).
+POSE_TOL = {"box_px": 0.5, "logit_rel": 1e-3, "canvas_share": 0.005}
+
+
+def _pose_clip(torch, f, h, w, seed):
+    """A seeded (f, h, w, 3) uint8 clip: coarse blocks, blurred, and noise."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    base = torch.rand((f, 3, 6, 8) if w > h else (f, 3, 8, 6), generator=g, device="cuda") * 255
+    x = F.interpolate(base, size=(h, w), mode="bilinear", align_corners=False)
+    x = x + torch.randn((f, 3, h, w), generator=g, device="cuda") * 12
+    return x.clamp_(0, 255).to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
+
+
+def _stroke_edges(np, canvas):
+    """Pixels of a canvas that differ from one of their 4 neighbours."""
+    c = np.pad(canvas.astype(np.int16), ((1, 1), (1, 1), (0, 0)), mode="edge")
+    mid = c[1:-1, 1:-1]
+    return ((mid != c[:-2, 1:-1]) | (mid != c[2:, 1:-1]) | (mid != c[1:-1, :-2])
+            | (mid != c[1:-1, 2:])).any(-1)
+
+
+def _pose_card_vs_cpu(torch, np, det_card, det_cpu, frames):
+    """The card's detector against the CPU's on ``frames``: boxes, the
+    logits of each CPU box's crop, the keypoints and the canvases. Returns
+    (ok, the readings)."""
+    from humanvid_tpu_torch.metrics.nets import strict_fp32
+    from humanvid_tpu_torch.pose import rtmpose
+
+    def logits(det, frame, boxes):
+        bgr = torch.as_tensor(np.ascontiguousarray(frame), device=det.device).flip(-1)
+        crops = [rtmpose.normalize_crop(rtmpose.crop_affine(
+            bgr, *rtmpose.bbox_to_center_scale(b))[0]) for b in boxes]
+        with torch.inference_mode(), strict_fp32():
+            return [t.float().cpu().numpy() for t in det.pose_model(torch.stack(crops))]
+
+    r = {"box_px": 0.0, "logit_rel": 0.0, "moved": 0, "moved_ok": True, "canvas_share": 0.0,
+         "on_edges": True, "same_count": True}
+    for frame in frames:
+        bc, bg = det_cpu.detect_boxes(frame), det_card.detect_boxes(frame)
+        r["same_count"] &= bc.shape == bg.shape and len(bc) > 0
+        if bc.shape == bg.shape:
+            r["box_px"] = max(r["box_px"], float(np.abs(bc[:, :4] - bg[:, :4]).max()))
+        if len(bc):
+            lc, lg = logits(det_cpu, frame, bc), logits(det_card, frame, bc)
+            for c, g in zip(lc, lg):
+                delta = float(np.abs(c - g).max())
+                r["logit_rel"] = max(r["logit_rel"], delta / float(np.abs(c).max()))
+                moved = c.argmax(-1) != g.argmax(-1)
+                gap = c.max(-1) - np.take_along_axis(c, g.argmax(-1)[..., None], -1)[..., 0]
+                r["moved"] += int(moved.sum())
+                r["moved_ok"] &= bool((gap[moved] <= 2 * delta).all())
+        cc, cg = det_cpu(frame)[0], det_card(frame)[0]
+        differ = (cc != cg).any(-1)
+        r["canvas_share"] = max(r["canvas_share"], float(differ.mean()))
+        r["on_edges"] &= bool(_stroke_edges(np, cc)[differ].all())
+    ok = (r["same_count"] and r["box_px"] <= POSE_TOL["box_px"] and r["moved_ok"]
+          and r["logit_rel"] <= POSE_TOL["logit_rel"] and r["on_edges"]
+          and r["canvas_share"] <= POSE_TOL["canvas_share"])
+    return ok, r
+
+
+def phase_pose(torch, np, dev, card):
+    """The data-preparation path at full width: ``tools.prepare_videos`` on
+    the card over the POSE_CLIPS clips with seeded weights, then its
+    ``--smplx`` branch, then the card against the CPU on the first frame
+    of each clip (see the module's docstring). Returns (ok, {"pose":
+    launches, "pose_smplx": launches})."""
+    import os
+    import tempfile
+    from unittest import mock
+
+    import humanvid_tpu_torch.pose as pose_pkg
+    from humanvid_tpu_torch import native
+    from humanvid_tpu_torch.data import video_io
+    from humanvid_tpu_torch.pose import detector as pdet
+    from humanvid_tpu_torch.tools import make_random_pose_weights as mk
+    from humanvid_tpu_torch.tools import prepare_videos
+
+    ok, launches = True, {}
+    with tempfile.TemporaryDirectory(prefix="hv_pose_") as root, contextlib.ExitStack() as stack:
+        t0 = time.perf_counter()
+        weights = mk.write(os.path.join(root, "weights"), seed=0)
+        t1 = time.perf_counter()
+        clips = {rel: _pose_clip(torch, *shape, seed=i) for i, (rel, shape)
+                 in enumerate(POSE_CLIPS.items())}
+        print(f"[pose] seeded weights (YOLOX-L .pth, DWPose .onnx) written in {t1 - t0:.1f} s; "
+              f"clips {[c.shape for c in clips.values()]} made in {time.perf_counter() - t1:.1f} s")
+        videos = os.path.join(root, "videos")
+        saved, store = {}, {}
+        if native.available():
+            t0 = time.perf_counter()
+            for rel, frames in clips.items():
+                video_io.save_video(frames, os.path.join(videos, rel), fps=24.0)
+            print(f"[pose] the native libav core builds here: the tool decodes and encodes "
+                  f"through it (the clips encoded in {time.perf_counter() - t0:.1f} s)")
+            write = video_io.save_video
+        else:
+            try:
+                native.load_library()
+            except RuntimeError as err:
+                lines = str(err).splitlines()
+                reason = next((ln.strip() for ln in lines if "error" in ln), lines[-1])[:300]
+            print(f"[pose] the native libav core does not build here ({reason}); read_frames, "
+                  f"get_fps and save_video serve the clips from memory")
+            for rel, frames in clips.items():
+                path = os.path.join(videos, rel)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                open(path, "w").close()
+                store[path] = frames
+
+            def write(frames, path, fps=24.0):
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                open(path, "w").close()
+
+            stack.enter_context(mock.patch.object(
+                video_io, "read_frames", lambda path, indices=None, max_frames=None: store[path]))
+            stack.enter_context(mock.patch.object(video_io, "get_fps", lambda path: 24.0))
+
+        def save(frames, path, fps=24.0):
+            saved[path] = np.asarray(frames)
+            write(frames, path, fps)
+
+        times = {"detect": 0.0, "pose": 0.0, "draw": 0.0}
+        persons, detectors = [], []
+
+        def timed(key, fn, count=False):
+            def run(*args, **kwargs):
+                t = time.perf_counter()
+                out = fn(*args, **kwargs)
+                times[key] += time.perf_counter() - t
+                if count:
+                    persons.append(len(out))
+                return out
+            return run
+
+        def load(*args, **kwargs):
+            detectors.append(pdet.load_detector(*args, **kwargs))
+            return detectors[-1]
+
+        stack.enter_context(mock.patch.object(video_io, "save_video", save))
+        stack.enter_context(mock.patch.object(pose_pkg, "load_detector", load))
+        stack.enter_context(mock.patch.object(pdet.DWposeDetector, "detect_boxes", timed(
+            "detect", pdet.DWposeDetector.detect_boxes, count=True)))
+        stack.enter_context(mock.patch.object(pdet.DWposeDetector, "estimate_poses", timed(
+            "pose", pdet.DWposeDetector.estimate_poses)))
+        stack.enter_context(mock.patch.object(pdet, "draw_pose", timed("draw", pdet.draw_pose)))
+
+        _reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prepare_videos.main(["--videos_dir", videos, "--yolox", weights["yolox"],
+                             "--dwpose", weights["dwpose"], "--device", str(dev)])
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches["pose"] = _launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n = sum(f for f, _, _ in POSE_CLIPS.values())
+        outs = {os.path.relpath(p, os.path.join(root, "dwpose")): v for p, v in saved.items()}
+        drawn = [int((c.max(-1) > 0).sum()) for v in outs.values() for c in v]
+        run_ok = (sorted(outs) == sorted(POSE_CLIPS)
+                  and all(outs[rel].shape == (f, h, w, 3) and outs[rel].dtype == np.uint8
+                          for rel, (f, h, w) in POSE_CLIPS.items())
+                  and len(persons) == n and min(persons) >= 1 and min(drawn) > 100
+                  and not any(launches["pose"].values()))
+        ok = ok and run_ok
+        ms = {k: 1e3 * v / n for k, v in times.items()}
+        rest = 1e3 * total / n - sum(ms.values())
+        print(f"[pose] {card}: tools.prepare_videos at full width (YOLOX-L at 640x640, DWPose-L "
+              f"at 384x288, IEEE fp32) on {len(POSE_CLIPS)} clips of "
+              f"{[f'{f}x{h}x{w}' for f, h, w in POSE_CLIPS.values()]}: {total:.2f} s with the "
+              f"detector's load, {1e3 * total / n:.1f} ms a frame: detection "
+              f"{ms['detect']:.1f}, pose {ms['pose']:.1f}, drawing {ms['draw']:.1f}, decode, "
+              f"encode and the rest {rest:.1f} ms a frame; persons a frame {min(persons)}-"
+              f"{max(persons)} (mean {sum(persons) / len(persons):.2f}); drawn pixels a canvas "
+              f"{min(drawn)}-{max(drawn)}; peak memory {peak:.2f} GiB; hand-kernel launches "
+              f"{sum(launches['pose'].values())} {launches['pose']} "
+              f"{'ok' if run_ok else 'FAIL'}")
+
+        det_cpu = pdet.load_detector(weights["yolox"], weights["dwpose"], device="cpu")
+        t0 = time.perf_counter()
+        cmp_ok, r = _pose_card_vs_cpu(torch, np, detectors[0], det_cpu,
+                                      [c[0] for c in clips.values()])
+        ok = ok and cmp_ok
+        print(f"[pose] card against the CPU on the first frame of each clip ({time.perf_counter() - t0:.1f} s): "
+              f"box count equal {r['same_count']}, boxes max |d| {r['box_px']:.2e} px (limit "
+              f"{POSE_TOL['box_px']}), SimCC logits max |d| {r['logit_rel']:.2e} of the largest "
+              f"(limit {POSE_TOL['logit_rel']}), keypoints moved {r['moved']} (each where the "
+              f"CPU's top two are within twice the logits' difference: {r['moved_ok']}), canvas "
+              f"pixels differing {r['canvas_share']:.2e} (limit {POSE_TOL['canvas_share']}, on "
+              f"stroke edges: {r['on_edges']}) {'ok' if cmp_ok else 'FAIL'}")
+
+        ue = os.path.join(root, "ue", "videos")
+        os.makedirs(ue)
+        rng = np.random.default_rng(7)
+        center = np.array([960.0, 540.0]) + rng.normal(0, 40, (POSE_SMPLX_FRAMES, 1, 2))
+        np.savez(os.path.join(ue, "take.npz"),
+                 keypoints=(center + rng.normal(0, 180, (POSE_SMPLX_FRAMES, 144, 2))).astype(
+                     np.float32),
+                 confidence=rng.uniform(0, 1, (POSE_SMPLX_FRAMES, 144)).astype(np.float32))
+        saved.clear()
+        _reset_launches()
+        t0 = time.perf_counter()
+        prepare_videos.main(["--videos_dir", ue, "--smplx", "--device", str(dev)])
+        smplx_s = time.perf_counter() - t0
+        launches["pose_smplx"] = _launch_counts()
+        out = saved.get(os.path.join(root, "ue", "dwpose", "take.mp4"))
+        smplx_ok = (out is not None and out.shape == (POSE_SMPLX_FRAMES, 1080, 1920, 3)
+                    and all((c.max(-1) > 0).sum() > 100 for c in out)
+                    and not any(launches["pose_smplx"].values()))
+        ok = ok and smplx_ok
+        print(f"[pose] {card}: --smplx on a {POSE_SMPLX_FRAMES}-frame .npz at 1920x1080: "
+              f"{smplx_s:.2f} s, {1e3 * smplx_s / POSE_SMPLX_FRAMES:.1f} ms a frame; hand-kernel "
+              f"launches {sum(launches['pose_smplx'].values())} {'ok' if smplx_ok else 'FAIL'}")
+    return ok, launches
+
+
 def kernel_line(results, launches):
     """The per-kernel JSON line. ``launches`` is each kernel's count in the
     run of its path (the forward kernels and kernel C: pose2vid; the
@@ -2482,9 +2725,13 @@ def main() -> int:
     # sessions found no device record
     eval_ok, eval_launches = phase_eval(torch, np, dev, card)
     check("eval", eval_ok)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pose_ok, pose_launches = phase_pose(torch, np, dev, card)
+    check("pose", pose_ok)
     print(kernel_line(results, {"pose2vid": main_launches, "train": train_launches,
                                 **stage1_launches, "cli": cli_launches, **train_cli_launches,
-                                **eval_launches,
+                                **eval_launches, **pose_launches,
                                 "denoise_step": per_call["denoise step"],
                                 "decode": per_call["decode"], "microbench": bench_launches}))
     print(card)

@@ -10,9 +10,10 @@ PyTorch version. ``tools/`` holds the kernel-level measurements
 (``python -m humanvid_tpu_torch.tools.microbench``) and their probe kernels.
 
 Entry points: :class:`pipelines.CamAnimate`,
-:class:`pipelines.Pose2VideoPipeline`, :class:`pipelines.Pose2ImagePipeline`
-and :func:`train.train_step`. They run on the CUDA card unless the caller
-passes ``device="cpu"``.
+:class:`pipelines.Pose2VideoPipeline`, :class:`pipelines.Pose2ImagePipeline`,
+:func:`train.train_step` and :func:`pose.load_detector` (the DWPose
+skeletons of the data-preparation path, ``tools.prepare_videos``). They run
+on the CUDA card unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,13 @@
-"""Host-side video IO through OpenCV, and frame resizing through torch.
+"""Host-side video IO, and frame resizing through torch.
 
 ``read_frames``, ``get_fps``, ``get_frame_count``, ``save_video``,
 ``save_videos_grid`` (orientation aware) and ``write_image``. Arrays are
 (f, H, W, 3) RGB uint8, or float in [0, 1] where saved (truncated to uint8,
-as the reference's scripts do). OpenCV is imported where it is used, so the
-module imports without it. ``resize_frames`` is the antialiased bilinear
+as the reference's scripts do). Videos go through the native libav core
+(``data.native_video``: exact frame indexing, x264 at crf 19) where it
+builds and loads, as in the JAX package's facade, and through OpenCV
+otherwise (mp4v); images through OpenCV. Both are loaded where they are
+used, so the module imports without either. ``resize_frames`` is the antialiased bilinear
 resize of the reference's inference scripts (PIL ``BILINEAR``), done by
 ``F.interpolate`` on host tensors.
 """
@@ -25,7 +28,22 @@ def _cv2():
     return cv2
 
 
+def _native():
+    """The native libav backend module, or None where it cannot build or
+    load."""
+    from ..native import available
+
+    if available():
+        from . import native_video
+        return native_video
+    return None
+
+
 def get_fps(path: str) -> float:
+    nv = _native()
+    if nv is not None:
+        with nv.VideoReader(path) as r:
+            return r.fps or 24.0
     cv2 = _cv2()
     cap = cv2.VideoCapture(path)
     try:
@@ -35,6 +53,10 @@ def get_fps(path: str) -> float:
 
 
 def get_frame_count(path: str) -> int:
+    nv = _native()
+    if nv is not None:
+        with nv.VideoReader(path) as r:
+            return len(r)
     cv2 = _cv2()
     cap = cv2.VideoCapture(path)
     try:
@@ -48,6 +70,10 @@ def read_frames(path: str, indices: Optional[Sequence[int]] = None,
     """Decode frames as (f, H, W, 3) RGB uint8: all of them (up to
     ``max_frames``) in order, or those at ``indices`` (decoded in sorted
     order, seeking only where a frame is not the next one)."""
+    nv = _native()
+    if nv is not None:
+        with nv.VideoReader(path) as r:
+            return r.get_batch(indices) if indices is not None else r.read_all(max_frames)
     cv2 = _cv2()
     cap = cv2.VideoCapture(path)
     if not cap.isOpened():
@@ -84,11 +110,18 @@ def _uint8(frames: np.ndarray) -> np.ndarray:
 
 
 def save_video(frames: np.ndarray, path: str, fps: float = 24.0) -> None:
-    """(f, H, W, 3) RGB uint8 or float in [0, 1] -> an mp4 (OpenCV mp4v)."""
-    cv2 = _cv2()
+    """(f, H, W, 3) RGB uint8 or float in [0, 1] -> an mp4 (native x264 at
+    crf 19, as the reference saves; OpenCV mp4v where the native core is
+    unavailable)."""
     frames = _uint8(frames)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     h, w = frames.shape[1:3]
+    nv = _native()
+    if nv is not None:
+        with nv.VideoWriter(path, w, h, fps=fps) as writer:
+            writer.write(frames)
+        return
+    cv2 = _cv2()
     writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
     try:
         for f in frames:

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -124,15 +124,17 @@ def load_train_checkpoint(save_dir: str, step: int, system, state: TrainState) -
     return loaded
 
 
-def export_reference_pth(system, state: TrainState, out_dir: str, step: int) -> List[str]:
-    """The reference's ``.pth`` files of the four trained modules: the
-    module's state dict (diffusers keys) with each trainable leaf as its
-    fp32 master, as ``{component}-{step}.pth`` and the CameraPoseEncoder's
-    as ``camera_pose_encoder-{step}.pth``."""
+def export_reference_pth(system, state: Optional[TrainState], out_dir: str, step: int,
+                         components: Sequence[str] = TRAIN_COMPONENTS) -> List[str]:
+    """The reference's ``.pth`` files of the trained modules named in
+    ``components``: the module's state dict (diffusers keys) with each
+    trainable leaf as its fp32 master where there is a ``state``, as
+    ``{component}-{step}.pth`` and the CameraPoseEncoder's as
+    ``camera_pose_encoder-{step}.pth``."""
     os.makedirs(out_dir, exist_ok=True)
-    masters = dict(zip(state.names, state.masters))
+    masters = dict(zip(state.names, state.masters)) if state is not None else {}
     paths = []
-    for component in TRAIN_COMPONENTS:
+    for component in components:
         sd = {k: masters.get(f"{component}/{k}", v).detach().cpu()
               for k, v in getattr(system, component).state_dict().items()}
         name = "camera_pose_encoder" if component == "camera_encoder" else component

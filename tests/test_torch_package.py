@@ -97,6 +97,44 @@ def test_import_checks_cover_the_evaluation_slice(module):
     assert module in PORT_MODULES
 
 
+@pytest.mark.parametrize("module", [
+    "humanvid_tpu_torch.data.pose_draw", "humanvid_tpu_torch.data.native_video",
+    "humanvid_tpu_torch.data.meta_tools", "humanvid_tpu_torch.data.visualization",
+    "humanvid_tpu_torch.native.__init__", "humanvid_tpu_torch.pose.__init__",
+    "humanvid_tpu_torch.pose.onnx_reader", "humanvid_tpu_torch.pose.yolox",
+    "humanvid_tpu_torch.pose.rtmpose", "humanvid_tpu_torch.pose.detector",
+    "humanvid_tpu_torch.pose.smplx", "humanvid_tpu_torch.tools.prepare_videos",
+    "humanvid_tpu_torch.tools.build_meta", "humanvid_tpu_torch.tools.make_random_pose_weights",
+    "humanvid_tpu_torch.cli.convert_weights"])
+def test_import_checks_cover_the_data_preparation_slice(module):
+    assert module in PORT_MODULES
+
+
+def test_rasterizer_and_crops_never_import_opencv():
+    """``pose_draw``, ``letterbox`` and ``crop_affine`` run with OpenCV made
+    unimportable (the card's machine has none)."""
+    code = (
+        "import sys\n"
+        "sys.modules['cv2'] = None\n"
+        "import numpy as np, torch\n"
+        "from humanvid_tpu_torch.data.pose_draw import draw_pose\n"
+        "from humanvid_tpu_torch.pose import rtmpose, yolox\n"
+        "pose = {'bodies': {'candidate': np.array([[0.2, 0.3], [0.5, 0.6]]),\n"
+        "                   'subset': np.array([[0, 1] + [-1] * 16], float)},\n"
+        "        'hands': [np.full((21, 2), 0.4)], 'faces': [np.full((68, 2), 0.5)],\n"
+        "        'feet': [np.full((6, 2), 0.6)]}\n"
+        "assert draw_pose(pose, 32, 48).max() > 0\n"
+        "img = torch.zeros(40, 60, 3, dtype=torch.uint8)\n"
+        "assert yolox.letterbox(img)[0].shape == (640, 640, 3)\n"
+        "c, s = rtmpose.bbox_to_center_scale(np.array([5, 5, 30, 35], np.float32))\n"
+        "assert rtmpose.crop_affine(img, c, s)[0].shape == (384, 288, 3)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_names_jax_or_reference_package(path):
     text = path.read_text()

@@ -1,9 +1,10 @@
 """Host-side video IO and resizing: ``resize_frames`` against the JAX
 package's PIL bilinear (at most 1 uint8 level), ``clip_crop_raw`` against
 its PIL bicubic crop (at most 4 levels, mean at most 0.25), the grid's
-orientation, and a save -> read round trip through OpenCV, compared with
-OpenCV's own decode (the JAX read and save functions build a native
-library, so they are not called here)."""
+orientation, and a save -> read round trip through the backend the facade
+picks (the native libav core where it builds, else OpenCV), compared with
+that backend's own decode (the JAX read and save functions build the JAX
+package's native library in place, so they are not called here)."""
 
 import numpy as np
 import pytest
@@ -61,15 +62,17 @@ def test_grid_puts_portrait_side_by_side_and_stacks_landscape(h, w, axis):
     np.testing.assert_array_equal(parts[1], (b * 255).astype(np.uint8))
 
 
-def test_save_read_round_trip(tmp_path):
+def _direct_decode(path):
+    """The file decoded by the backend the facade uses, called directly."""
+    from humanvid_tpu_torch.native import available
+
+    if available():
+        from humanvid_tpu_torch.data.native_video import VideoReader
+
+        with VideoReader(path) as r:
+            return r.read_all()
     import cv2
 
-    path = str(tmp_path / "sub" / "clip.mp4")
-    frames = _frames(9, 48, 32, 2, smooth=True)
-    video_io.save_video(frames, path, fps=8.0)
-    assert video_io.get_fps(path) == pytest.approx(8.0)
-    assert video_io.get_frame_count(path) == 9
-    seq = video_io.read_frames(path)
     cap = cv2.VideoCapture(path)
     direct = []
     while True:
@@ -78,7 +81,17 @@ def test_save_read_round_trip(tmp_path):
             break
         direct.append(cv2.cvtColor(f, cv2.COLOR_BGR2RGB))
     cap.release()
-    np.testing.assert_array_equal(seq, np.stack(direct))
+    return np.stack(direct)
+
+
+def test_save_read_round_trip(tmp_path):
+    path = str(tmp_path / "sub" / "clip.mp4")
+    frames = _frames(9, 48, 32, 2, smooth=True)
+    video_io.save_video(frames, path, fps=8.0)
+    assert video_io.get_fps(path) == pytest.approx(8.0)
+    assert video_io.get_frame_count(path) == 9
+    seq = video_io.read_frames(path)
+    np.testing.assert_array_equal(seq, _direct_decode(path))
     assert seq.shape == (9, 48, 32, 3)
     assert np.abs(seq.astype(int) - frames).mean() < 20  # lossy, but the same picture
     idx = [7, 0, 3, 3, 8]
