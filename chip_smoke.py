@@ -153,11 +153,32 @@ The data-preparation path adds:
   card to the CPU on the first frame of each clip: boxes, SimCC logits,
   keypoints and canvases within POSE_TOL.
 
+The data-parallel path adds, before ``pose`` (each run's ranks are
+processes of ``torch.distributed.run``, this script with ``--rank-worker``;
+a rank that fails fails the phase):
+
+- dp_train: ``cli.train_stage_1``'s setup and loop for stage 2 at full
+  width (896x512x24f, grad checkpointing, ``shard_optimizer_states``, 1 clip
+  a rank, the train_cli phase's clips from memory, each sample's crop
+  generator seeded alike): world 1 on NCCL at global batch 2, then world 2
+  on gloo with both ranks on the one card (NCCL refuses two ranks on one
+  device): ZeRO-1, a save at step 2 and a resume from it. Checks the
+  ranks' masters the same bits after each update, the gathered moments
+  within DP_MOMENT_TOL of the one-rank run's, the resumed state equal to
+  the files bit for bit, kernels A, B and C (forward and backward)
+  launched; prints per rank s/step, the all-reduce's seconds and bytes a
+  step and the peak memory;
+- fanout: ``Pose2VideoPipeline`` with a mesh at full width, 768x512x48f
+  (3 windows x CFG = 6 rows) over 2 gloo ranks sharing the card, the
+  ranks' latents the same bits and near the one-process batched run;
+  then ``tools.bench_configs`` at its four op-points (3 steps, one run).
+
 Every main-path run (pose2vid, the stage-2 steps, pose2img, the stage-1
 steps, the denoise step and decode of the profile phase, the cli run, the
 train_cli stage-2 and stage-1 runs, the eval generation and its pose2img
-run, the pose runs and the microbench run) sets every launch count to 0
-just before it and reads the counts just after.
+run, each rank's dp_train and fanout runs, the pose runs and the
+microbench run) sets every launch count to 0 just before it and reads the
+counts just after.
 
 Then one JSON line of per-kernel numbers, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 2 without one.
@@ -1052,7 +1073,8 @@ MICROBENCH_PROBES = ("flash", "temporal", "dmajor", "conv", "gn", "vaeattn", "fl
 
 def phase_microbench(torch):
     """The port's microbench entry point with every probe but ``unet`` and
-    ``vae``, which the main phase already times. Returns (ok, launches)."""
+    ``vae``, which the main phase already times. Returns (ok, launches, the
+    phase's name with what failed in it)."""
     from humanvid_tpu_torch.tools import microbench
 
     print(f"[microbench] humanvid_tpu_torch.tools.microbench {' '.join(MICROBENCH_PROBES)}")
@@ -1063,10 +1085,15 @@ def phase_microbench(torch):
     launches = _launch_counts()
     need = ("probe_dmajor", "probe_pvt", "probe_hbm", "flash_bwd_d512", "flash_fwd",
             "flash_fwd_d512", "temporal_fwd", "flash_bwd", "group_norm")
-    ok = not failed and all(launches[k] > 0 for k in need)
+    unlaunched = [k for k in need if launches[k] == 0]
+    ok = not failed and not unlaunched
     print(f"[microbench] {time.perf_counter() - t0:.1f} s; failed probes {failed}; launches "
           f"{launches} {'ok' if ok else 'FAIL'}")
-    return ok, launches
+    # what failed goes into the phase's name, which the last line of standard
+    # error repeats
+    name = "microbench" + (f" (failed probes {failed}, not launched {unlaunched})"
+                           if not ok else "")
+    return ok, launches, name
 
 
 def _inputs(np, F, H, W, clip_size, seed):
@@ -1766,13 +1793,14 @@ TRAIN_CLI_KERNELS = ("flash_fwd", "flash_fwd_d512", "flash_bwd", "temporal_fwd",
                      "group_norm")
 
 
-def _train_cli_data(np, root):
+def _train_cli_data(np, root, write=True):
     """Two seeded portrait clips of TRAIN_CLI_CLIP and their pose clips, in
     memory, under the names ``root/pexels/{videos,dwpose}/clip{i}.mp4`` (not
     written), their moving TUM camera files under ``root/pexels/camera``
     (the dataset's substitution finds them), the stage-2 meta JSON of the
     two clips and a stage-1 one of sixteen segments of them (two batches of
-    8 an epoch). Returns (frames by path, stage-2 meta, stage-1 meta)."""
+    8 an epoch); with ``write`` False, the frames alone (the files exist).
+    Returns (frames by path, stage-2 meta, stage-1 meta)."""
     import math
     import os
 
@@ -1780,18 +1808,19 @@ def _train_cli_data(np, root):
     rng = np.random.default_rng(31)
     base = os.path.join(root, "pexels")
     for sub in ("videos", "dwpose", "camera"):
-        os.makedirs(os.path.join(base, sub))
+        os.makedirs(os.path.join(base, sub), exist_ok=not write)
     frames, clips, segments = {}, [], []
     for i in range(2):
         video = os.path.join(base, "videos", f"clip{i}.mp4")
         pose = os.path.join(base, "dwpose", f"clip{i}.mp4")
         frames[video] = rng.integers(0, 256, (nf, h, w, 3), dtype=np.uint8)
         frames[pose] = rng.integers(0, 256, (nf, h, w, 3), dtype=np.uint8)
-        with open(os.path.join(base, "camera", f"clip{i}.txt"), "w") as f:
-            for j in range(nf):  # t tx ty tz qx qy qz qw fx fy scale: a pan and a dolly
-                yaw = 0.01 * j * (1 + i)
-                f.write(f"{j} {0.01 * j} 0 {-0.02 * j} 0 {math.sin(yaw / 2)} 0 "
-                        f"{math.cos(yaw / 2)} 1.0 1.788 1.0\n")
+        if write:
+            with open(os.path.join(base, "camera", f"clip{i}.txt"), "w") as f:
+                for j in range(nf):  # t tx ty tz qx qy qz qw fx fy scale: a pan and a dolly
+                    yaw = 0.01 * j * (1 + i)
+                    f.write(f"{j} {0.01 * j} 0 {-0.02 * j} 0 {math.sin(yaw / 2)} 0 "
+                            f"{math.cos(yaw / 2)} 1.0 1.788 1.0\n")
         entry = {"video_path": video, "kps_path": pose}
         clips.append(dict(entry, start_frame=0, end_frame=nf))
         segments += [dict(entry, start_frame=a, end_frame=a + n)
@@ -1799,8 +1828,9 @@ def _train_cli_data(np, root):
     metas = []
     for name, entries in (("stage2.json", clips), ("stage1.json", segments)):
         metas.append(os.path.join(root, name))
-        with open(metas[-1], "w") as f:
-            json.dump(entries, f)
+        if write:
+            with open(metas[-1], "w") as f:
+                json.dump(entries, f)
     return frames, metas[0], metas[1]
 
 
@@ -2033,6 +2063,406 @@ def _holds_saved(torch, state, save_dir, step):
                 and torch.equal(state.mu[i].cpu(), opt["mu"][name])
                 and torch.equal(state.nu[i].cpu(), opt["nu"][name]))
     return same
+
+
+DP_STEPS = 3               # global steps of the dp_train phase's runs (batch 2)
+FANOUT_SIZE = (48, 768, 512)  # frames, height, width: 3 windows of 24, overlap 4
+FANOUT_STEPS = 3           # DDIM steps of the fanout phase (the sampler runs 30)
+RANK_TIMEOUT = 600         # seconds a torchrun launch of the dp phases may take
+# Largest relative L2 distance of the 2-rank run's gathered moments from the
+# one-rank run's over the same global batch. The ranks' bf16 forward and
+# backward at batch 1 round where the one-rank run's at batch 2 round
+# elsewhere, which moves the moments by bf16 noise: 2.2e-3 (mu) and 5.7e-3
+# (nu) on an H100. The limit is 3.5 times the larger; a wrong reduction (the
+# sum for the mean: 100%) or wrong rows (other clips: ~100%) lands far above.
+DP_MOMENT_TOL = 0.02
+DP_KERNELS = ("flash_fwd", "flash_bwd", "temporal_fwd", "temporal_bwd", "group_norm")
+
+
+def _torchrun(kind, nproc, spec_path, timeout=RANK_TIMEOUT):
+    """This script as ``nproc`` ranks of ``torch.distributed.run``
+    (``--rank-worker kind spec``); True when every rank ended well. The
+    ranks' own output goes to this script's; a launch past ``timeout`` is
+    killed with every process it started."""
+    import os
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", os.path.abspath(__file__), "--rank-worker", kind,
+           spec_path]
+    sys.stdout.flush()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            start_new_session=True)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        print(f"[{kind}] {nproc} ranks past {timeout} s: killed", flush=True)
+        return False
+    if rc:
+        print(f"[{kind}] torchrun of {nproc} rank(s) exited {rc}", flush=True)
+    return rc == 0
+
+
+def _digest(torch, tensors):
+    """Each fp32 tensor's bit patterns summed as integers: equal lists mean
+    equal bits but for a cancelling pair."""
+    return torch.stack([t.view(torch.int32).sum(dtype=torch.int64) for t in tensors]).tolist()
+
+
+def _dp_train_worker(spec):
+    """One rank of a dp_train run: ``cli.train_stage_1``'s setup and loop
+    for stage 2 from the spec's configs, the frames served from memory and
+    each sample's crop generator seeded alike (so that runs at two world
+    sizes read the same samples); with a resume config, a second run from
+    the first one's step-2 files. Writes the rank's record to the spec's
+    directory."""
+    import os
+    import random
+    import types
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from humanvid_tpu_torch.cli import train_stage_1 as drv
+    from humanvid_tpu_torch.data import datasets
+    from humanvid_tpu_torch.parallel import CommStats
+
+    frames, _, _ = _train_cli_data(np, spec["root"], write=False)
+
+    def read_frames(path, indices=None, max_frames=None):
+        clip = frames[path]
+        return clip[list(indices)] if indices is not None else clip[:max_frames].copy()
+
+    datasets.read_frames = read_frames
+    datasets.random = types.SimpleNamespace(Random=lambda *a: random.Random(a[0] if a else 5))
+    argv = ["--dist_backend", spec["backend"]]
+    run = drv.setup(2, ["--config", spec["config"]] + argv)
+    rank, state = dist.get_rank(), run.state
+    digests, pairs, real = [], [], drv.train_step
+
+    def step(system, st, *args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(system, st, *args, **kwargs)
+        end.record()
+        pairs.append((start, end))
+        if st.micro == 0:
+            digests.append(_digest(torch, st.masters))
+        return out
+
+    drv.train_step = step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    state.comm = CommStats()  # times the collectives of this run
+    t0 = time.perf_counter()
+    out = drv.train(run)
+    torch.cuda.synchronize()
+    rec = {"rank": rank, "world": dist.get_world_size(), "seconds": time.perf_counter() - t0,
+           "launches": _launch_counts(), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "step_seconds": out["step_seconds"], "device_seconds": _seconds(pairs),
+           "logged": out["logged"], "checkpoints": out["checkpoints"],
+           "comm_bytes": dict(state.comm.bytes), "comm_seconds": state.comm.seconds(),
+           "digests": digests, "zero1_leaves": sum(state.sharded),
+           "finite": all(bool(torch.isfinite(m).all()) for m in state.masters)}
+    save_dir = run.save_dir
+    del run, state, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if spec.get("resume_config"):
+        drv.train_step = real
+        run = drv.setup(2, ["--config", spec["resume_config"]] + argv)
+        rec["resume_held"] = _holds_saved_dp(torch, dist, run.state, save_dir, 2)
+        out = drv.train(run)
+        rec["resume_logged"] = out["logged"]
+        rec["resume_digest"] = _digest(torch, run.state.masters)
+        del run
+    with open(os.path.join(spec["out"], f"{spec['leg']}-rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def _holds_saved_dp(torch, dist, state, save_dir, step):
+    """Whether a (ZeRO-1) train state holds the step's stage-2 files: step
+    counter and masters on every rank, and on rank 0 the gathered moments,
+    bit for bit."""
+    import os
+
+    def load(prefix):
+        return torch.load(os.path.join(save_dir, f"{prefix}-{step}.pt"), map_location="cpu",
+                          weights_only=True)
+
+    opt = state.state_dict()
+    modules = {"denoising_unet": load("motion_module"), "camera_encoder": load("camera_encoder")}
+    same = state.step == step
+    for i, name in enumerate(state.names):
+        component, _, key = name.partition("/")
+        same = same and torch.equal(state.masters[i].cpu(), modules[component][key])
+    if dist.get_rank() == 0:
+        saved = load("opt_state")
+        same = same and opt["step"] == saved["step"] == step and all(
+            torch.equal(opt[k][n], saved[k][n]) for k in ("mu", "nu") for n in state.names)
+    return same
+
+
+def phase_dp_train(torch, np, card):
+    """Data-parallel stage 2 at full width through ``cli.train_stage_2``'s
+    setup and loop under ``torch.distributed.run``, on the train_cli
+    phase's seeded clips (served from memory; each sample's crop generator
+    seeded alike), 896x512x24f, grad checkpointing, 1 clip a rank,
+    ``shard_optimizer_states: true``:
+
+    1. world 1 on NCCL, global batch 2 (the one-rank run of leg 2's
+       batches), DP_STEPS steps, the final save;
+    2. world 2 on gloo, the two ranks sharing the card (NCCL refuses two
+       ranks on one device), global batch 2, DP_STEPS steps, ZeRO-1 over
+       the 2 ranks, a save at step 2 and the final save; then a resume from
+       step 2 for one step.
+
+    Checks: finite losses and masters; the two ranks' masters the same bits
+    after each update; leg 2's gathered moments within DP_MOMENT_TOL of leg
+    1's (and how many leaves are the same bits); the resumed state equal to
+    the step-2 files bit for bit; kernels A, A bwd, B, B bwd and C
+    launched. Prints, per rank, s/step, the all-reduce's seconds and bytes
+    a step and the peak memory. Returns (ok, launches summed over every
+    rank of both legs)."""
+    import os
+    import tempfile
+
+    ok, total = True, {}
+    with tempfile.TemporaryDirectory(prefix="hv_dp_") as root:
+        _train_cli_data(np, root)
+        out = os.path.join(root, "records")
+        os.makedirs(out)
+        _, meta2, _ = _train_cli_data(np, root, write=False)
+        legs = {}
+        for leg, world, backend in (("world1_nccl", 1, "nccl"), ("world2_gloo", 2, "gloo")):
+            # leg 1 saves once, at the end (the moments leg 2 is held to)
+            over = dict(max_train_steps=DP_STEPS, checkpointing_steps=2 if world == 2 else 5000,
+                        data=dict(train_bs=2, train_size_small=512, train_size_large=896,
+                                  horizontal_meta=[], vertical_meta=[meta2], sample_rate=4,
+                                  n_sample_frames=24, num_workers=2))
+            spec = dict(root=root, out=out, leg=leg, backend=backend,
+                        config=_train_cli_config(root, leg, 2, meta2, exp_name=leg, **over))
+            if world == 2:
+                spec["resume_config"] = _train_cli_config(
+                    root, leg + "_resume", 2, meta2, exp_name=leg + "_resume",
+                    resume_from_checkpoint=os.path.join(root, "out", leg), resume_step=2,
+                    **over)
+            spec_path = os.path.join(root, f"{leg}.json")
+            with open(spec_path, "w") as f:
+                json.dump(spec, f)
+            t0 = time.perf_counter()
+            ran = _torchrun("dp_train", world, spec_path)
+            print(f"[dp_train] {leg}: {world} rank(s) in {time.perf_counter() - t0:.1f} s "
+                  f"(torchrun, setup, {DP_STEPS} steps, saves{', resume' if world == 2 else ''})")
+            recs = []
+            for r in range(world):
+                path = os.path.join(out, f"{leg}-rank{r}.json")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        recs.append(json.load(f))
+            ok = ok and ran and len(recs) == world
+            legs[leg] = recs
+            for rec in recs:
+                n = len(rec["step_seconds"])
+                red = rec["comm_bytes"].get("all_reduce", 0)
+                red_s = rec["comm_seconds"].get("all_reduce", 0.0)
+                gat = rec["comm_bytes"].get("all_gather", 0)
+                print(f"[dp_train] {card}: {leg} rank {rec['rank']}: s/step (steady, steps "
+                      f"2..) {sum(rec['step_seconds'][1:]) / max(1, n - 1):.3f}, step segments "
+                      f"{[round(x, 3) for x in rec['step_seconds']]}, device time a step "
+                      f"{[round(x, 3) for x in rec['device_seconds']]}; gradient all-reduce "
+                      f"{red_s / max(1, n):.3f} s and {red / max(1, n) / 1e9:.3f} GB a step; "
+                      f"ZeRO-1 master all-gather {gat / max(1, n) / 1e9:.3f} GB a step "
+                      f"({rec['zero1_leaves']} leaves sharded); peak memory "
+                      f"{rec['peak_gib']:.2f} GiB; logged {rec['logged']}")
+                for k, v in rec["launches"].items():
+                    total[k] = total.get(k, 0) + v
+                ok = ok and rec["finite"] and all(
+                    np.isfinite(x["loss"]) for x in rec["logged"])
+        two = legs.get("world2_gloo", [])
+        if len(two) == 2:
+            same = two[0]["digests"] == two[1]["digests"]
+            same_resume = two[0]["resume_digest"] == two[1]["resume_digest"]
+            held = all(r["resume_held"] for r in two)
+            ok = ok and same and same_resume and held and len(two[0]["digests"]) == DP_STEPS
+            print(f"[dp_train] world 2: the ranks' masters the same bits after each of "
+                  f"{len(two[0]['digests'])} updates {same}, after the resumed step "
+                  f"{same_resume}; the resumed state equal to the step-2 files bit for bit "
+                  f"{held}; resumed run logged {two[0]['resume_logged']}")
+        one_dir = os.path.join(root, "out", "world1_nccl")
+        two_dir = os.path.join(root, "out", "world2_gloo")
+        if ok:
+            def load(path):
+                return torch.load(os.path.join(path, f"opt_state-{DP_STEPS}.pt"),
+                                  map_location="cpu", weights_only=True)
+
+            a, b = load(one_dir), load(two_dir)
+            resumed = load(os.path.join(root, "out", "world2_gloo_resume"))
+            for key in ("mu", "nu"):
+                names = sorted(a[key])
+                x = torch.cat([a[key][n].flatten().float() for n in names])
+                y = torch.cat([b[key][n].flatten().float() for n in names])
+                dist = ((y - x).norm() / x.norm()).item()
+                bits = sum(torch.equal(a[key][n], b[key][n]) for n in names)
+                res = sum(torch.equal(resumed[key][n], b[key][n]) for n in names)
+                good = dist <= DP_MOMENT_TOL and b["step"] == a["step"] == DP_STEPS
+                ok = ok and good
+                print(f"[dp_train] {key}: world 2 (ZeRO-1, gathered) against world 1 at step "
+                      f"{DP_STEPS}: relative L2 {dist:.3e} (limit {DP_MOMENT_TOL}), "
+                      f"{bits}/{len(names)} leaves the same bits; the resumed run's "
+                      f"{res}/{len(names)} the same bits as the unbroken one's "
+                      f"{'ok' if good else 'FAIL'}")
+    launched = all(total.get(k, 0) > 0 for k in DP_KERNELS)
+    ok = ok and launched
+    print(f"[dp_train] launches over every rank {total} {'ok' if ok else 'FAIL'}")
+    return ok, total
+
+
+def _fanout_worker(spec):
+    """One rank of the fanout run: the full-width system (seeded, bf16) and
+    Pose2VideoPipeline over a flat mesh of the ranks; writes the rank's
+    latents and record to the spec's directory."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from humanvid_tpu_torch.parallel import init_distributed, make_mesh
+    from humanvid_tpu_torch.pipelines import CamAnimate, CamAnimateConfig, Pose2VideoPipeline
+
+    dev = init_distributed("cuda", spec["backend"])
+    rank = dist.get_rank()
+    system = CamAnimate(CamAnimateConfig(), device=dev, dtype=torch.bfloat16).init_random(0)
+    f, h, w = FANOUT_SIZE
+    inputs = _inputs(np, f, h, w, system.config.clip.image_size, 5)
+    pipe = Pose2VideoPipeline(system, mesh=make_mesh())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    out = pipe(**inputs, num_inference_steps=FANOUT_STEPS, guidance_scale=3.5,
+               context_frames=24, context_overlap=4, decode_chunk=8,
+               generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    np.save(os.path.join(spec["out"], f"latents{rank}.npy"), out.latents)
+    rec = {"rank": rank, "launches": _launch_counts(), "seconds": out.seconds,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "videos": None if out.videos is None else list(out.videos.shape),
+           "finite": bool(np.isfinite(out.latents).all()) and (
+               out.videos is None or bool(np.isfinite(out.videos).all()))}
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def phase_fanout(torch, np, dev, card):
+    """The window x CFG fan-out at full width: ``CamAnimateConfig()``
+    (seeded, bf16), 768x512x48f, context 24, overlap 4 (3 windows x CFG = 6
+    rows), FANOUT_STEPS DDIM steps, over 2 ranks of ``torch.distributed.run``
+    on gloo sharing the card (3 rows a rank; eps all-gathered). Checks: the
+    ranks' latents the same bits; rank 0 alone decodes; the latents within
+    twice the distance two one-process batchings land apart (batched CFG
+    against sequential CFG, same weights and initial latents) plus 1e-3,
+    relative L2, of the one-process batched run; kernels A, B and C
+    launched. Then ``tools.bench_configs`` at every op-point, FANOUT_STEPS
+    steps, one run: every line finite. Returns (ok, launches summed over
+    the ranks)."""
+    import os
+    import tempfile
+
+    from humanvid_tpu_torch.pipelines import CamAnimate, CamAnimateConfig, Pose2VideoPipeline
+
+    ok = True
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="hv_fanout_") as root:
+        spec_path = os.path.join(root, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump({"out": root, "backend": "gloo"}, f)
+        t0 = time.perf_counter()
+        ok = _torchrun("fanout", 2, spec_path)
+        print(f"[fanout] 2 ranks in {time.perf_counter() - t0:.1f} s (torchrun, build, "
+              f"sampling)")
+        recs, lat = [], []
+        for r in range(2):
+            path = os.path.join(root, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    recs.append(json.load(f))
+                lat.append(np.load(os.path.join(root, f"latents{r}.npy")))
+        ok = ok and len(recs) == 2
+        for rec in recs:
+            s = rec["seconds"]
+            for k, v in rec["launches"].items():
+                total[k] = total.get(k, 0) + v
+            print(f"[fanout] {card}: rank {rec['rank']}: prepare {s['prepare']:.3f} s, denoise "
+                  f"steps {[round(x, 3) for x in s['denoise_steps']]} s, decode "
+                  f"{s['decode'] if 'decode' in s else 'none (not rank 0)'}, peak memory "
+                  f"{rec['peak_gib']:.2f} GiB, videos {rec['videos']}")
+            ok = ok and rec["finite"] and (rec["videos"] is not None) == (rec["rank"] == 0)
+    if len(lat) == 2:
+        f, h, w = FANOUT_SIZE
+        system = CamAnimate(CamAnimateConfig(), device=dev, dtype=torch.bfloat16).init_random(0)
+        inputs = _inputs(np, f, h, w, system.config.clip.image_size, 5)
+        pipe = Pose2VideoPipeline(system)
+        runs = {}
+        for mode in ("batched", "sequential"):
+            torch.cuda.reset_peak_memory_stats()
+            out = pipe(**inputs, num_inference_steps=FANOUT_STEPS, guidance_scale=3.5,
+                       context_frames=24, context_overlap=4, decode_chunk=8, cfg_mode=mode,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+            runs[mode] = out
+            print(f"[fanout] {card}: one process, {mode} CFG: denoise steps "
+                  f"{[round(x, 3) for x in out.seconds['denoise_steps']]} s, decode "
+                  f"{out.seconds['decode']:.3f} s, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del pipe, system
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = runs["batched"].latents
+
+        def rel(x):
+            return float(np.linalg.norm(x - ref) / np.linalg.norm(ref))
+
+        same = bool(np.array_equal(lat[0], lat[1]))
+        d_fan, d_ref = rel(lat[0]), rel(runs["sequential"].latents)
+        good = same and d_fan <= 2 * d_ref + 1e-3
+        ok = ok and good
+        print(f"[fanout] the ranks' latents the same bits {same}; relative L2 from the "
+              f"one-process batched run: fan-out {d_fan:.3e}, one-process sequential CFG "
+              f"{d_ref:.3e} (limit {2 * d_ref + 1e-3:.3e}) {'ok' if good else 'FAIL'}")
+    ok = ok and all(total.get(k, 0) > 0 for k in MODEL_FWD_KERNELS)
+    print(f"[fanout] launches over both ranks {total} {'ok' if ok else 'FAIL'}")
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "humanvid_tpu_torch.tools.bench_configs",
+                          "c1", "c2", "c4h", "c4v", "--steps", str(FANOUT_STEPS), "--runs", "1"],
+                         capture_output=True, text=True, timeout=RANK_TIMEOUT,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = [json.loads(x) for x in res.stdout.splitlines() if x.startswith("{")]
+    bench_ok = (res.returncode == 0 and len(lines) == 4
+                and all(np.isfinite(x["value"]) and x["value"] > 0 for x in lines))
+    for x in lines:
+        print(f"[fanout] bench_configs {x['config']}: {x['metric']} = {x['value']:.4f} "
+              f"{x['unit']} at {x['ddim_steps']} DDIM steps ({x['seconds']:.3f} s, one run), "
+              f"{x['card']}")
+    if not bench_ok:
+        print(res.stderr[-3000:])
+    print(f"[fanout] bench_configs in {time.perf_counter() - t0:.1f} s "
+          f"{'ok' if bench_ok else 'FAIL'}")
+    return ok and bench_ok, total
+
+
+def rank_worker(kind, spec_path):
+    """A rank of a dp phase, as ``torch.distributed.run`` starts it."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    {"dp_train": _dp_train_worker, "fanout": _fanout_worker}[kind](spec)
+    return 0
 
 
 EVAL_CLIPS = 4             # test clips of the eval phase (the reference's test set has 71)
@@ -2615,7 +3045,7 @@ def kernel_line(results, launches):
         "flash_bwd_d512": ("humanvid_tpu/ops/flash_attention.py:354", FLASH_BWD_SRC),
         "probe_dmajor": ("tools/microbench.py:220", DMAJOR_SRC),
         "probe_pvt": ("tools/microbench.py:405", PVT_SRC),
-        "probe_hbm": ("tools/microbench.py:633", HBM_SRC),
+        "probe_hbm": ("tools/microbench.py:636", HBM_SRC),
     }
     kernels = []
     for name, (rep, src) in replaces.items():
@@ -2670,6 +3100,8 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {err}", file=sys.stderr)
         return 2
 
+    if sys.argv[1:2] == ["--rank-worker"]:
+        return rank_worker(*sys.argv[2:4])
     dev = torch.device("cuda")
     card = phase_card()
     phase_build()
@@ -2717,8 +3149,8 @@ def main() -> int:
     check("train_cli", train_cli_ok)
     gc.collect()
     torch.cuda.empty_cache()
-    bench_ok, bench_launches = phase_microbench(torch)
-    check("microbench", bench_ok)
+    bench_ok, bench_launches, bench_name = phase_microbench(torch)
+    check(bench_name, bench_ok)
     gc.collect()
     torch.cuda.empty_cache()
     # last: when the microbench ran after this phase, its torch.profiler
@@ -2727,11 +3159,20 @@ def main() -> int:
     check("eval", eval_ok)
     gc.collect()
     torch.cuda.empty_cache()
+    # the ranks of the data-parallel phases are processes of their own: the
+    # card's memory goes to them
+    dp_ok, dp_launches = phase_dp_train(torch, np, card)
+    check("dp_train", dp_ok)
+    fanout_ok, fanout_launches = phase_fanout(torch, np, dev, card)
+    check("fanout", fanout_ok)
+    gc.collect()
+    torch.cuda.empty_cache()
     pose_ok, pose_launches = phase_pose(torch, np, dev, card)
     check("pose", pose_ok)
     print(kernel_line(results, {"pose2vid": main_launches, "train": train_launches,
                                 **stage1_launches, "cli": cli_launches, **train_cli_launches,
-                                **eval_launches, **pose_launches,
+                                **eval_launches, "dp_train": dp_launches,
+                                "fanout": fanout_launches, **pose_launches,
                                 "denoise_step": per_call["denoise step"],
                                 "decode": per_call["decode"], "microbench": bench_launches}))
     print(card)

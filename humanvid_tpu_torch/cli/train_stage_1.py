@@ -48,6 +48,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.datasets import (
     CLIP_MEAN,
@@ -59,8 +60,10 @@ from ..data.datasets import (
 from ..data.loader import Loader
 from ..data.samplers import OrientationBatchSampler
 from ..diffusion.schedule import NoiseSchedule
+from ..parallel import mesh as pmesh
 from ..pipelines import CamAnimate
 from ..train import (
+    DcpCheckpointer,
     TrainConfig,
     TrainState,
     load_train_checkpoint,
@@ -92,6 +95,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--profile_dir", default=None,
                    help="capture a torch.profiler trace of steps 10-12 here")
     p.add_argument("--device", default="cuda", help="torch device (tests pass cpu)")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend under torchrun (default: nccl on the card, "
+                        "gloo on the CPU)")
     return p.parse_args(argv)
 
 
@@ -117,14 +123,16 @@ def to_train_batch(batch: Dict[str, object], stage: int) -> Dict[str, object]:
 
 
 def step_draws(seed: int, step: int, device, batch: Dict[str, object], sched: NoiseSchedule,
-               cfg: TrainConfig) -> Draws:
-    """Step ``step``'s draws, a function of (seed, step) alone, so that a
-    resumed run draws what an unbroken one does; the uncond flag is drawn on
-    the host, so nothing is read back from the device."""
+               cfg: TrainConfig, ranks: int = 1) -> Draws:
+    """Step ``step``'s draws for the global batch of which ``batch`` is one
+    of ``ranks`` equal parts, a function of (seed, step) alone, so that a
+    resumed run draws what an unbroken one does and every rank draws the
+    same; the uncond flag is drawn on the host, so nothing is read back from
+    the device."""
     s = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
     gen = torch.Generator(device=device).manual_seed(s)
     b, f, H, W = np.shape(batch["tgt"])[:4]
-    return sample_draws(gen, b, f, H, W, sched.num_train_timesteps, cfg.uncond_ratio,
+    return sample_draws(gen, b * ranks, f, H, W, sched.num_train_timesteps, cfg.uncond_ratio,
                         uncond=random.Random(s).random() < cfg.uncond_ratio)
 
 
@@ -192,6 +200,8 @@ class Run(NamedTuple):
     save_dir: str
     step0: int
     seed: int
+    mesh: object = None
+    dcp: Optional[DcpCheckpointer] = None
 
 
 def _sync(device: torch.device) -> None:
@@ -200,29 +210,53 @@ def _sync(device: torch.device) -> None:
 
 
 def setup(stage: int, argv: Optional[Sequence[str]] = None) -> Run:
-    """Parse the command line, build the system, the train state (resumed
-    where the config says), the dataset and the sampler."""
+    """Parse the command line, join the process group where ``torchrun``
+    started this process, build the mesh, the system, the train state
+    (resumed where the config says), the dataset and the sampler."""
     args = parse_args(argv)
     cfg = load_config(args.config)
     solver = cfg.solver
-    if int(solver.get("dcn_slices", 1)) > 1:
-        raise ValueError("solver.dcn_slices > 1 is a JAX multi-slice mesh: the port trains "
-                         "on one device until ROADMAP queue 1 item 8 (parallel/)")
-    if solver.get("checkpoint_backend", "msgpack") == "orbax":
-        raise ValueError("solver.checkpoint_backend: orbax is JAX-only: sharded checkpoints "
-                         "wait for ROADMAP queue 1 item 8 (parallel/)")
+    device = pmesh.init_distributed(args.device, args.dist_backend)
+    world = pmesh.world_size()
+    pmesh.data_parallel_world(cfg.data.train_bs, world)
+    n_slices = int(solver.get("dcn_slices", 1))
+    if world % n_slices:
+        raise ValueError(f"dcn_slices={n_slices} does not divide the {world}-rank mesh")
+    mesh = None
+    if n_slices > 1:
+        mesh = pmesh.make_hierarchical_mesh(n_slices, world // n_slices)
+    elif dist.is_initialized():
+        mesh = pmesh.make_mesh(world)
+    zero1 = (bool(solver.get("shard_optimizer_states", False)) and mesh is not None
+             and pmesh.axis_size(mesh, pmesh.DATA) > 1)
     seed = int(cfg.get("seed", 0))
-    system = CamAnimate(system_config(cfg, stage), device=args.device,
+    system = CamAnimate(system_config(cfg, stage), device=device,
                         dtype=DTYPES[args.dtype]).init_random(seed)
     load_pretrained(system, cfg)
     predicate = stage1_trainable if stage == 1 else stage2_trainable
-    state = TrainState(system, predicate, optimizer_config(cfg))
+    state = TrainState(system, predicate, optimizer_config(cfg), mesh=mesh, zero1=zero1)
     step0 = 0
     if cfg.get("resume_from_checkpoint"):
         step0 = int(cfg.get("resume_step", 0))
         for path in load_train_checkpoint(cfg.resume_from_checkpoint, step0, system, state):
             logger.info("resumed from %s", path)
         state.step = step0
+    save_dir = os.path.join(cfg.output_dir, cfg.exp_name)
+    dcp = None
+    if solver.get("checkpoint_backend", "msgpack") == "orbax":
+        keep = 3 if stage == 1 else 10
+        dcp = DcpCheckpointer(os.path.join(save_dir, "dcp"), state, keep=keep)
+        if cfg.get("resume_from_checkpoint"):
+            src = dcp
+            resume_dir = os.path.join(cfg.resume_from_checkpoint, "dcp")
+            if os.path.abspath(resume_dir) != dcp.save_dir:
+                src = DcpCheckpointer(resume_dir, state)
+            if src.latest_step() is None:
+                logger.warning("no torch.distributed.checkpoint under %s; the resume used the "
+                               "per-module files only", cfg.resume_from_checkpoint)
+            else:
+                step0 = src.restore(step0 or None)
+                logger.info("resumed the train state at step %d from %s", step0, src.save_dir)
 
     tcfg = TrainConfig(uncond_ratio=cfg.get("uncond_ratio", 0.1),
                        noise_offset=cfg.get("noise_offset", 0.05),
@@ -231,11 +265,10 @@ def setup(stage: int, argv: Optional[Sequence[str]] = None) -> Run:
     sampler = OrientationBatchSampler(dataset.num_horizontal,
                                       len(dataset) - dataset.num_horizontal,
                                       cfg.data.train_bs, seed=seed)
-    save_dir = os.path.join(cfg.output_dir, cfg.exp_name)
     os.makedirs(save_dir, exist_ok=True)
     return Run(stage, args, cfg, system, state,
                system.make_schedule(beta_schedule="scaled_linear"), tcfg, dataset, sampler,
-               save_dir, step0, seed)
+               save_dir, step0, seed, mesh, dcp)
 
 
 def train(run: Run) -> Dict[str, object]:
@@ -254,22 +287,29 @@ def train(run: Run) -> Dict[str, object]:
     data_seconds: List[float] = []
     step_seconds: List[float] = []
     checkpoints: List[Dict[str, float]] = []
-    tracker = Tracker(os.path.join(run.save_dir, "run"), config=dict(cfg))
+    lead = pmesh.rank() == 0  # the rank that writes files and renders
+    tracker = Tracker(os.path.join(run.save_dir, "run"), config=dict(cfg)) if lead else None
     trace = contextlib.ExitStack()  # the profiler trace of steps 10-12
+    ranks = pmesh.mesh_position(run.mesh)[1] if run.mesh is not None else 1
 
     def log(step, aux):
         rec = {"step": step, "loss": float(aux["loss"]), "grad_norm": float(aux["grad_norm"])}
-        tracker.log(step, loss=rec["loss"], grad_norm=rec["grad_norm"])
+        if tracker is not None:
+            tracker.log(step, loss=rec["loss"], grad_norm=rec["grad_norm"])
         logged.append(rec)
         return rec
 
     def checkpoint(limit):
         _sync(system.device)
         t0 = time.time()
-        paths = save_train_checkpoint(run.save_dir, system, state, motion_only=(stage == 2),
-                                      total_limit=limit)
-        checkpoints.append({"step": global_step, "seconds": time.time() - t0,
-                            "bytes": sum(os.path.getsize(p) for p in paths)})
+        if run.dcp is not None:  # limit: the checkpointer's own keep
+            run.dcp.save(global_step)
+            checkpoints.append({"step": global_step, "seconds": time.time() - t0})
+        else:
+            paths = save_train_checkpoint(run.save_dir, system, state,
+                                          motion_only=(stage == 2), total_limit=limit)
+            checkpoints.append({"step": global_step, "seconds": time.time() - t0,
+                                "bytes": sum(os.path.getsize(p) for p in paths)})
         logger.info("checkpointed at step %d", global_step)
 
     global_step, aux = run.step0, None
@@ -285,6 +325,8 @@ def train(run: Run) -> Dict[str, object]:
         while global_step < max_steps:
             run.sampler.set_epoch(epoch)
             batches = list(run.sampler)[skip:]
+            if run.mesh is not None:  # this rank's rows of each global batch
+                batches = [pmesh.rank_rows(b, run.mesh) for b in batches]
             skip = 0
             loader = Loader(run.dataset, batches, num_workers=cfg.data.get("num_workers", 4),
                             device=system.device)
@@ -293,13 +335,13 @@ def train(run: Run) -> Dict[str, object]:
                 batch = to_train_batch(batch, stage)
                 data_seconds.append(time.time() - t_data)
                 timers.acc["data"] += data_seconds[-1]
-                if run.args.profile_dir and global_step - run.step0 == 10:
+                if run.args.profile_dir and lead and global_step - run.step0 == 10:
                     trace.enter_context(device_trace(run.args.profile_dir))
                 before = timers.acc["step"]
                 with timers.segment("step"), annotate("train_step"):
                     aux = train_step(system, state, run.sched, run.tcfg, batch,
                                      draws=step_draws(run.seed, global_step, system.device,
-                                                      batch, run.sched, run.tcfg))
+                                                      batch, run.sched, run.tcfg, ranks))
                 step_seconds.append(timers.acc["step"] - before)
                 if global_step - run.step0 == 12:
                     trace.close()
@@ -308,7 +350,7 @@ def train(run: Run) -> Dict[str, object]:
                     timers.step(global_step, loss=log(global_step, aux)["loss"])
                 else:
                     timers.step(global_step)
-                if val_steps and global_step % val_steps == 0:
+                if val_steps and lead and global_step % val_steps == 0:
                     from ..pipelines import Pose2ImagePipeline, Pose2VideoPipeline
 
                     if val_pipe is None:
@@ -325,11 +367,14 @@ def train(run: Run) -> Dict[str, object]:
             epoch += 1
         trace.close()
         checkpoint(None)
+        if run.dcp is not None:
+            run.dcp.close()
         if aux is not None and global_step % LOG_EVERY:
             log(global_step, aux)
     finally:
         trace.close()
-        tracker.close()
+        if tracker is not None:
+            tracker.close()
     logger.info("training done at step %d", global_step)
     return {"logged": logged, "averages": timers.averages(), "data_seconds": data_seconds,
             "step_seconds": step_seconds, "checkpoints": checkpoints}
@@ -339,9 +384,13 @@ def run_training(stage: int, argv: Optional[Sequence[str]] = None) -> Dict[str, 
     return train(setup(stage, argv))
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def main(argv: Optional[Sequence[str]] = None, stage: int = STAGE) -> None:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
-    run_training(STAGE, argv)
+    try:
+        run_training(stage, argv)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

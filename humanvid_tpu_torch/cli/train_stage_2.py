@@ -11,15 +11,13 @@ are :mod:`humanvid_tpu_torch.cli.train_stage_1`'s.
 
 from __future__ import annotations
 
-import logging
 from typing import Optional, Sequence
 
-from .train_stage_1 import run_training
+from . import train_stage_1
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
-    run_training(2, argv)
+    train_stage_1.main(argv, stage=2)
 
 
 if __name__ == "__main__":

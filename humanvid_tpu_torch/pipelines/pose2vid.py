@@ -14,6 +14,17 @@ the same softmax as leaving them out); ``"batched"`` runs one pass of twice
 the rows with the reference keys hidden from the uncond rows by a bias.
 ``window_mode="sequential"`` runs one window per pass. The ReferenceNet runs
 on the cond row only: the uncond row's features are never seen.
+
+With a ``mesh`` the (CFG x windows) rows of a step fan out over its
+``window_axis``, as the JAX pipeline shards them: the rows are padded to a
+multiple of the axis with copies of window 0, each rank runs the UNet on
+its contiguous rows (batched CFG: ``cfg_mode`` is ignored, and
+``window_mode="sequential"``, the single-device mode, raises), and the eps
+rows are all-gathered, so that every rank takes the same overlap average
+(the padded rows left out of the sum and of the frame counts) and the same
+DDIM step, and holds the same latents bit for bit. The initial latents are
+the axis's first rank's. That rank decodes; the others return
+``videos=None``.
 """
 
 from __future__ import annotations
@@ -24,10 +35,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..diffusion.ddim import ddim_set_timesteps, ddim_step
 from ..models.clip_vision import clip_preprocess
 from ..models.vae import gaussian_mean
+from ..parallel import mesh as pmesh
 from .context import uniform_windows
 from .interpolation import interpolate_latents
 from .system import CamAnimate
@@ -35,7 +48,9 @@ from .system import CamAnimate
 
 @dataclasses.dataclass
 class Pose2VideoOutput:
-    videos: np.ndarray   # (1, f', H, W, 3) float32 in [0, 1], f' = f + (f-1)(rate-1)
+    # (1, f', H, W, 3) float32 in [0, 1], f' = f + (f-1)(rate-1); None on a
+    # rank of a mesh that does not decode
+    videos: Optional[np.ndarray]
     latents: np.ndarray  # (f, h8, w8, 4) float32, before any interpolation
     # host-clock seconds of each phase, each ending in a device synchronize
     seconds: Dict[str, object] = dataclasses.field(default_factory=dict)
@@ -52,9 +67,11 @@ def _nchw(x, device, dtype) -> torch.Tensor:
 
 
 class Pose2VideoPipeline:
-    def __init__(self, system: CamAnimate):
+    def __init__(self, system: CamAnimate, mesh=None, window_axis: str = pmesh.DATA):
         self.system = system
         self.sched = system.make_schedule()
+        self.mesh = mesh
+        self.window_axis = window_axis
 
     def _sync(self):
         if self.system.device.type == "cuda":
@@ -94,6 +111,12 @@ class Pose2VideoPipeline:
             raise ValueError(f"cfg_mode {cfg_mode!r}")
         if window_mode not in ("batched", "sequential"):
             raise ValueError(f"window_mode {window_mode!r}")
+        group = None
+        if self.mesh is not None:
+            if window_mode == "sequential":
+                raise ValueError("window_mode='sequential' is the single-device mode: "
+                                 "it takes no mesh")
+            group = self.mesh.get_group(self.window_axis)
         s = self.system
         dev, dtype = s.device, s.dtype
         f, H, W_img, _ = pose_video.shape
@@ -125,9 +148,15 @@ class Pose2VideoPipeline:
         else:
             latents = torch.randn((f, 4, h8, w8), generator=generator, device=dev,
                                   dtype=torch.float32).to(dtype)
+        if group is not None:
+            pmesh.broadcast_([latents], group)
+            fan = _FanOut(win, 2 if do_cfg else 1, group)
+            frames = win[fan.windows].reshape(-1)
+        else:
+            frames = win.reshape(-1)
         # hoisted conditioning: one window set for every step
-        cam = s.camera_encoder(plk[win.reshape(-1)], F)
-        cond = pose_fea[win.reshape(-1)] + cam      # ((W F), c0, h8, w8)
+        cam = s.camera_encoder(plk[frames], F)
+        cond = pose_fea[frames] + cam      # ((W F), c0, h8, w8), or the rank's windows'
         self._sync()
         seconds["prepare"] = time.perf_counter() - t_start
 
@@ -146,7 +175,9 @@ class Pose2VideoPipeline:
         for t, prev_t in zip(ddim.timesteps.tolist(), ddim.prev_timesteps.tolist()):
             t0 = time.perf_counter()
             x = latents[win.reshape(-1)]              # ((W F), 4, h8, w8)
-            if window_mode == "sequential":
+            if group is not None:
+                eps = fan.eps(unet, t, x, ctx_u, ctx, feats, cond)
+            elif window_mode == "sequential":
                 banks = []
                 for w in range(W):
                     rows = slice(w * F, (w + 1) * F)
@@ -186,13 +217,16 @@ class Pose2VideoPipeline:
             step_seconds.append(time.perf_counter() - t0)
         seconds["denoise_steps"] = step_seconds
 
-        t0 = time.perf_counter()
-        video = self.decode(interpolate_latents(latents, interpolation_rate, interpolation_mode),
-                            decode_chunk)
-        self._sync()
-        seconds["decode"] = time.perf_counter() - t0
+        videos = None
+        if group is None or dist.get_rank(group) == 0:
+            t0 = time.perf_counter()
+            video = self.decode(interpolate_latents(latents, interpolation_rate,
+                                                    interpolation_mode), decode_chunk)
+            self._sync()
+            seconds["decode"] = time.perf_counter() - t0
+            videos = video.float().cpu().numpy()[None]
         return Pose2VideoOutput(
-            videos=video.float().cpu().numpy()[None],
+            videos=videos,
             latents=latents.permute(0, 2, 3, 1).float().cpu().numpy(),
             seconds=seconds,
         )
@@ -209,3 +243,45 @@ class Pose2VideoPipeline:
         imgs = [s.vae_decoder(latents[i:i + chunk] * scale) for i in range(0, f, chunk)]
         imgs = torch.cat(imgs).permute(0, 2, 3, 1)
         return (imgs / 2.0 + 0.5).clamp(0.0, 1.0)
+
+
+class _FanOut:
+    """One rank's part of the (CFG x windows) rows of a step: the rows
+    ``[bank 0: W windows + padding, bank 1: ...]`` padded with copies of
+    window 0 to a multiple of the group's size, this rank's contiguous run
+    of them, and the all-gather of every rank's eps."""
+
+    def __init__(self, win: torch.Tensor, banks: int, group):
+        n, pos = dist.get_world_size(group), dist.get_rank(group)
+        self.W, self.F = win.shape
+        self.banks, self.group = banks, group
+        self.w_pad = self.W
+        while (banks * self.w_pad) % n:
+            self.w_pad += 1
+        per = banks * self.w_pad // n
+        rows = range(pos * per, (pos + 1) * per)
+        self.row_bank = [r // self.w_pad for r in rows]
+        row_win = [r % self.w_pad if r % self.w_pad < self.W else 0 for r in rows]
+        # the rank's distinct windows (their conditioning is computed once)
+        # and each row's place among them
+        self.windows = sorted(set(row_win))
+        self.row_slot = [self.windows.index(w) for w in row_win]
+        self.row_win = row_win
+
+    def eps(self, unet, t, x, ctx_u, ctx, feats, cond):
+        """Every row's eps, (banks, (W F), 4, h8, w8), the padding left out,
+        from ``unet(x, t, ctx, ref, disable, cond)`` on this rank's rows; ``x``
+        holds every window's latents, ``cond`` the conditioning of
+        ``self.windows``."""
+        F, rows, dev = self.F, len(self.row_win), x.device
+        x = x.reshape((self.W, F) + x.shape[1:])[self.row_win].reshape((rows * F,) + x.shape[1:])
+        cond = cond.reshape((len(self.windows), F) + cond.shape[1:])[self.row_slot]
+        uncond = [self.banks == 2 and b == 0 for b in self.row_bank]
+        ctx_r = torch.cat([ctx_u if u else ctx for u in uncond])
+        disable = (torch.tensor(uncond, dtype=torch.bool, device=dev) if any(uncond)
+                   else None)
+        out = unet(x, t, ctx_r, [fb.repeat_interleave(rows, dim=0) for fb in feats], disable,
+                   cond.reshape((rows * F,) + cond.shape[2:]))
+        out = pmesh.gather_dim0(out, self.group)
+        out = out.reshape((self.banks, self.w_pad * F) + out.shape[1:])
+        return out[:, :self.W * F]

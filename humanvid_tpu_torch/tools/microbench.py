@@ -58,7 +58,7 @@ def _device() -> torch.device:
     return torch.device("cuda")
 
 
-_PROFILE_TRIES = 8  # torch.profiler sessions a device-time reading may take
+_PROFILE_TRIES = 4  # torch.profiler sessions a device-time reading takes before CUDA events
 
 
 def _time(fn: Callable[[], object], iters: int, n: int = 1):
@@ -77,12 +77,16 @@ def _time(fn: Callable[[], object], iters: int, n: int = 1):
     return statistics.median(dts), dts
 
 
-def _device_seconds(fn: Callable[[], object], key: str, calls: int = 20) -> float:
-    """Device seconds per launch of the CUDA kernels whose names contain
-    ``key``, from torch.profiler over ``calls`` calls: their captured time
-    over their captured launches. A session that holds no device record of
-    them (now and then one does, often a few in a row) is taken again after
-    a pause that grows, up to _PROFILE_TRIES sessions."""
+def _device_seconds(fn: Callable[[], object], key: str, calls: int = 20):
+    """(device seconds per launch of the probe kernel ``key``, where the
+    reading came from). torch.profiler over ``calls`` calls gives the
+    kernels whose names contain ``key``: their captured time over their
+    captured launches. A session that holds no device record of them (now
+    and then one does, often a few in a row) is taken again after a pause
+    that grows, up to _PROFILE_TRIES sessions; after that the reading falls
+    back to CUDA events around ``calls`` calls over the launches that
+    ``probe_kernels`` counted in them, which also holds the gaps between
+    launches, and says so on stderr."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -100,9 +104,20 @@ def _device_seconds(fn: Callable[[], object], key: str, calls: int = 20) -> floa
                 total += evt.self_device_time_total
                 count += evt.count
         if count:
-            return total / count / 1e6
-    raise RuntimeError(f"the profiler captured no kernel named like {key!r} in "
-                       f"{_PROFILE_TRIES} sessions")
+            return total / count / 1e6, "profiler"
+    print(f"# the profiler captured no kernel named like {key!r} in {_PROFILE_TRIES} "
+          f"sessions; timing it with CUDA events", file=sys.stderr, flush=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    before = pk.launches[key]
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    count = pk.launches[key] - before
+    if not count:
+        raise RuntimeError(f"{calls} calls launched no {key!r} kernel")
+    return start.elapsed_time(end) / 1e3 / count, "events"
 
 
 def _emit(name: str, seconds: float, dts: Sequence[float], **extra) -> None:
@@ -183,7 +198,8 @@ def probe_vae(dev, iters):
 def probe_dmajor(dev, iters):
     """Kernel 8: one (1024 x 2048 x d) product per problem, 64 problems, in
     each orientation, and the QK control at d = 128; ``device_seconds`` is
-    the kernel's own time (torch.profiler) and ``device_tflops`` its rate."""
+    the kernel's own time (torch.profiler, CUDA events where it captures
+    nothing: ``device_seconds_from`` says which) and ``device_tflops`` its rate."""
     G, lq, lk, d = 64, 1024, 2048, 40
     gen = torch.Generator(device=dev).manual_seed(0)
     arms = (("qk_d_on_lanes", "qk_d_on_lanes", ((lq, d), (lk, d)), d),
@@ -194,10 +210,10 @@ def probe_dmajor(dev, iters):
     for tag, arm, shapes, width in arms:
         a, b = (_randn(gen, (G,) + s, dev) for s in shapes)
         sec, dts = _time(lambda: pk.dmajor(arm, a, b), iters, 300)
-        dev_sec = _device_seconds(lambda: pk.dmajor(arm, a, b), "probe_dmajor")
+        dev_sec, source = _device_seconds(lambda: pk.dmajor(arm, a, b), "probe_dmajor")
         flops = 2 * G * lq * lk * width
         _emit(f"dmajor_{tag}", sec, dts, tflops=flops / sec / 1e12, device_seconds=dev_sec,
-              device_tflops=flops / dev_sec / 1e12)
+              device_tflops=flops / dev_sec / 1e12, device_seconds_from=source)
         del a, b
 
 
@@ -301,7 +317,8 @@ def probe_hbm(dev, iters):
     a full map). ``gbs`` counts each input read once and each output written
     once, except ``hbm_reduce``, counted as two passes as the JAX probe counts
     it. ``hbm_pallas_map`` adds kernel 10's own time (``device_seconds``,
-    torch.profiler) and its rate (``device_gbs``)."""
+    torch.profiler, or CUDA events: ``device_seconds_from``) and its rate
+    (``device_gbs``)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     for tag, shape in (("vae_hi", (8, 768, 512, 128)), ("vae_mid", (8, 384, 256, 256)),
                        ("unet_l0", (24, 96, 64, 320))):
@@ -319,8 +336,9 @@ def probe_hbm(dev, iters):
             sec, dts = _time(op, iters, 40)
             extra = {}
             if arm == "pallas_map":
-                dev_sec = _device_seconds(op, "probe_hbm")
-                extra = dict(device_seconds=dev_sec, device_gbs=passes * size / dev_sec / 1e9)
+                dev_sec, source = _device_seconds(op, "probe_hbm")
+                extra = dict(device_seconds=dev_sec, device_gbs=passes * size / dev_sec / 1e9,
+                             device_seconds_from=source)
             _emit(f"hbm_{arm}_{tag}", sec, dts, gbs=passes * size / sec / 1e9, **extra)
         del x, y, out
 

@@ -22,6 +22,7 @@ from typing import Optional
 from ..models.configs import CamAnimateConfig, tiny_config
 from ..utils.config import ConfigDict
 from .checkpoint import (
+    DcpCheckpointer,
     export_reference_pth,
     filter_motion_modules,
     load_train_checkpoint,
@@ -83,7 +84,7 @@ def optimizer_config(cfg: ConfigDict) -> OptimizerConfig:
 
 
 __all__ = [
-    "Draws", "OptimizerConfig", "TRAIN_COMPONENTS", "TrainConfig", "TrainState",
+    "DcpCheckpointer", "Draws", "OptimizerConfig", "TRAIN_COMPONENTS", "TrainConfig", "TrainState",
     "export_reference_pth", "filter_motion_modules", "load_train_checkpoint", "loss_from_draws",
     "merge_motion_modules", "optimizer_config", "sample_draws", "save_train_checkpoint",
     "stage1_trainable", "stage2_trainable", "stage_config", "system_config", "train_step",

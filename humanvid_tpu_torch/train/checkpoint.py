@@ -13,17 +13,29 @@ files become ``torch.save`` state dicts):
   resume continues exactly where the run stopped;
 - :func:`load_train_checkpoint` loads whichever of those files exist at a
   step, as the JAX training driver's resume does;
-- :func:`export_reference_pth` writes the reference's ``.pth`` files.
+- :func:`export_reference_pth` writes the reference's ``.pth`` files;
+- :class:`DcpCheckpointer` is the ``checkpoint_backend: orbax`` of the JAX
+  drivers on ``torch.distributed.checkpoint``: each rank writes its own
+  shards (a ZeRO-1 moment as a ``DTensor`` over the mesh), asynchronously
+  where ``dcp.async_save`` exists, with the newest ``keep`` steps kept; it
+  resumes onto the same mesh.
+
+Data parallel: every rank calls :func:`save_train_checkpoint` (a ZeRO-1
+state gathers its moments), rank 0 alone writes, and the files hold whole
+tensors, so a run saved at one world size resumes at another.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import shutil
 from typing import Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
+from ..parallel import mesh as pmesh
 from .state import TRAIN_COMPONENTS, TrainState
 
 MOTION_PREFIX = "motion_module"
@@ -76,17 +88,22 @@ def save_train_checkpoint(save_dir: str, system, state: TrainState,
                           total_limit: Optional[int] = None) -> List[str]:
     """Per-module checkpoints at ``state.step`` (trainable leaves as their
     fp32 masters) plus the optimizer state. ``motion_only`` is stage 2's
-    layout: the video UNet's motion modules and the CameraPoseEncoder."""
-    masters = dict(zip(state.names, state.masters))
+    layout: the video UNet's motion modules and the CameraPoseEncoder.
+    Every rank calls it; rank 0 writes and returns the paths, the others
+    return [] once the files are whole."""
+    opt = state.state_dict()
     paths = []
-    for component, prefix in _module_files(motion_only):
-        sd = {k: masters.get(f"{component}/{k}", v)
-              for k, v in getattr(system, component).state_dict().items()}
-        if prefix == MOTION_PREFIX:
-            sd = filter_motion_modules(sd)
-        paths.append(save_checkpoint(save_dir, prefix, sd, state.step, total_limit))
-    paths.append(save_checkpoint(save_dir, "opt_state", state.state_dict(), state.step,
-                                 total_limit))
+    if pmesh.rank() == 0:
+        masters = dict(zip(state.names, state.masters))
+        for component, prefix in _module_files(motion_only):
+            sd = {k: masters.get(f"{component}/{k}", v)
+                  for k, v in getattr(system, component).state_dict().items()}
+            if prefix == MOTION_PREFIX:
+                sd = filter_motion_modules(sd)
+            paths.append(save_checkpoint(save_dir, prefix, sd, state.step, total_limit))
+        paths.append(save_checkpoint(save_dir, "opt_state", opt, state.step, total_limit))
+    if dist.is_initialized():
+        dist.barrier()
     return paths
 
 
@@ -142,3 +159,110 @@ def export_reference_pth(system, state: Optional[TrainState], out_dir: str, step
         torch.save(sd, path)
         paths.append(path)
     return paths
+
+
+class DcpCheckpointer:
+    """Train-state checkpoints on ``torch.distributed.checkpoint`` under
+    ``save_dir/{step}``: the masters, the moments and the accumulation by
+    leaf name and the counts. A leaf ZeRO-1 shards is a ``DTensor`` (its
+    dim-0 shard on ``data``, replicated on the other axes), so each rank
+    writes its own shard; the replicated leaves are written once. Saves are
+    asynchronous where ``dcp.async_save`` exists (on a gloo group of their
+    own, so that they never interleave with the training collectives); a
+    save waits for the one before it, and the oldest steps beyond ``keep``
+    are removed once a newer save is whole. Every rank makes it and calls
+    each method."""
+
+    def __init__(self, save_dir: str, state: TrainState, keep: Optional[int] = None):
+        import torch.distributed.checkpoint as dcp
+
+        self._dcp = dcp
+        self.save_dir = os.path.abspath(save_dir)
+        self.state = state
+        self.keep = keep
+        self.group = dist.new_group(backend="gloo") if dist.is_initialized() else None
+        self._pending = None
+        if pmesh.rank() == 0:
+            os.makedirs(self.save_dir, exist_ok=True)
+
+    def _tree(self) -> Dict[str, object]:
+        """The state by leaf name; the live tensors, so a load fills them."""
+        s = self.state
+        tree: Dict[str, object] = {
+            "counts": torch.tensor([s.step, s.updates, s.micro]),
+            "masters": dict(zip(s.names, s.masters))}
+        for key, own in (("mu", s.mu), ("nu", s.nu), ("acc", s.acc)):
+            tree[key] = {name: self._distributed(t, i) for i, (name, t)
+                         in enumerate(zip(s.names, own))}
+        return tree
+
+    def _distributed(self, t: torch.Tensor, i: int):
+        s = self.state
+        if not s.sharded[i]:
+            return t
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh = s.mesh
+        placements = [Shard(0) if name == pmesh.DATA else Replicate()
+                      for name in mesh.mesh_dim_names]
+        whole = s.masters[i]
+        return DTensor.from_local(t, mesh, placements, run_check=False, shape=whole.shape,
+                                  stride=whole.stride())
+
+    def steps(self) -> List[int]:
+        """The steps whose checkpoint is whole (DCP writes ``.metadata`` last)."""
+        if not os.path.isdir(self.save_dir):
+            return []
+        return sorted(int(d) for d in os.listdir(self.save_dir) if d.isdigit()
+                      and os.path.exists(os.path.join(self.save_dir, d, ".metadata")))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int) -> None:
+        """Write the state at ``step`` (asynchronously where possible)."""
+        self.wait()
+        path = os.path.join(self.save_dir, str(step))
+        tree = self._tree()
+        if hasattr(self._dcp, "async_save"):
+            self._pending = self._dcp.async_save(tree, checkpoint_id=path,
+                                                 process_group=self.group)
+        else:
+            self._dcp.save(tree, checkpoint_id=path, process_group=self.group)
+            self._rotate()
+
+    def wait(self) -> None:
+        """Wait for the save in flight, then apply the rotation."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            result = getattr(pending, "upload_completion", pending)
+            result.result()
+            self._rotate()
+
+    def _rotate(self) -> None:
+        if self.group is not None:
+            dist.barrier(group=self.group)
+        if self.keep is None or pmesh.rank() != 0:
+            return
+        for step in self.steps()[:-self.keep]:
+            shutil.rmtree(os.path.join(self.save_dir, str(step)), ignore_errors=True)
+
+    @torch.no_grad()
+    def restore(self, step: Optional[int] = None) -> int:
+        """Load ``step`` (the newest whole one by default) into the train
+        state and its modules; returns the step."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {self.save_dir}")
+        tree = self._tree()
+        self._dcp.load(tree, checkpoint_id=os.path.join(self.save_dir, str(step)),
+                       process_group=self.group)
+        s = self.state
+        s.step, s.updates, s.micro = (int(v) for v in tree["counts"])
+        for p, m in zip(s.params, s.masters):
+            p.copy_(m)
+        return step
+
+    def close(self) -> None:
+        self.wait()

@@ -33,6 +33,9 @@ import dataclasses
 from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
+
+from ..parallel import mesh as pmesh
 
 TRAIN_COMPONENTS = ("reference_unet", "denoising_unet", "pose_guider", "camera_encoder")
 
@@ -90,10 +93,15 @@ class TrainState:
 
     ``step`` counts micro-steps (the JAX state's ``step``, which the
     drivers resume), ``updates`` the updates taken, and ``micro`` the
-    micro-steps folded into ``acc`` since the last update."""
+    micro-steps folded into ``acc`` since the last update. ``mu``, ``nu`` and
+    ``acc`` hold this rank's shard of each leaf ZeRO-1 shards (``sharded``)
+    and the whole of every other. ``comm``, a ``CommStats`` or None, times
+    the collectives and counts their bytes when given."""
 
     def __init__(self, system, predicate: Predicate,
-                 config: OptimizerConfig = OptimizerConfig()):
+                 config: OptimizerConfig = OptimizerConfig(), mesh=None, zero1: bool = False,
+                 zero1_min_size: int = pmesh.ZERO1_MIN_SIZE,
+                 comm: Optional[pmesh.CommStats] = None):
         if config.lr_schedule != "constant":
             raise ValueError(config.lr_schedule)
         if config.gradient_accumulation_steps < 1:
@@ -115,11 +123,26 @@ class TrainState:
                     self.params.append(p)
         if not self.params:
             raise ValueError("the predicate selects no trainable parameter")
+        self.mesh = mesh
+        self.comm = comm
+        if mesh is not None:
+            pmesh.replicate(self.params)
         self.masters = [p.detach().float().clone() for p in self.params]
-        self.mu = [torch.zeros_like(m, dtype=MU_DTYPES[config.mu_dtype]) for m in self.masters]
-        self.nu = [torch.zeros_like(m) for m in self.masters]
-        self.acc = ([torch.zeros_like(m) for m in self.masters]
+        self.sharded = (pmesh.zero1_opt_sharding(self.masters, mesh, min_size=zero1_min_size)
+                        if zero1 and mesh is not None else [False] * len(self.masters))
+        self._data = mesh.get_group(pmesh.DATA) if any(self.sharded) else None
+        owned = self._owned(self.masters)
+        self.mu = [torch.zeros_like(m, dtype=MU_DTYPES[config.mu_dtype]) for m in owned]
+        self.nu = [torch.zeros_like(m) for m in owned]
+        self.acc = ([torch.zeros_like(m) for m in owned]
                     if config.gradient_accumulation_steps > 1 else [])
+
+    def _owned(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """This rank's part of each leaf: its dim-0 shard where sharded."""
+        if self._data is None:
+            return list(tensors)
+        pos, n = dist.get_rank(self._data), dist.get_world_size(self._data)
+        return [pmesh.dim0_shard(t, pos, n) if s else t for t, s in zip(tensors, self.sharded)]
 
     def grads(self) -> List[torch.Tensor]:
         """fp32 copies of the trainable leaves' gradients (zero where none
@@ -139,8 +162,11 @@ class TrainState:
         grads = self.grads()
         for p in self.params:
             p.grad = None
+        if self.mesh is not None:
+            pmesh.all_reduce_mean_(grads, stats=self.comm)
         norm = _global_norm(grads)
         self.step += 1
+        grads = self._owned(grads)
         if k > 1:
             # optax MultiSteps' running mean: acc + (g - acc) / (n + 1)
             delta = torch._foreach_sub(grads, self.acc)
@@ -151,11 +177,17 @@ class TrainState:
             if self.micro < k:
                 return norm
             self.micro = 0
-            self._update(self.acc, _global_norm(self.acc))
+            self._update(self.acc, _global_norm(self._full(self.acc)))
             torch._foreach_zero_(self.acc)
         else:
             self._update(grads, norm)
         return norm
+
+    def _full(self, owned: List[torch.Tensor]):
+        """The whole leaves of ``owned`` (this rank's parts), one at a time:
+        a sharded leaf is gathered over ``data``."""
+        for t, s in zip(owned, self.sharded):
+            yield pmesh.gather_dim0(t, self._data) if s else t
 
     def _update(self, grads: List[torch.Tensor], norm: torch.Tensor) -> None:
         """Clip ``grads`` (scaled in place) by ``norm``, then AdamW."""
@@ -183,28 +215,49 @@ class TrainState:
         if mu[0] is not self.mu[0]:  # stored in bf16: rounded only here
             torch._foreach_copy_(self.mu, mu)
         del mu
-        torch._foreach_add_(update, self.masters, alpha=c.weight_decay)
-        torch._foreach_add_(self.masters, update, alpha=-learning_rate(c, self.updates))
+        masters = self._owned(self.masters)
+        torch._foreach_add_(update, masters, alpha=c.weight_decay)
+        torch._foreach_add_(masters, update, alpha=-learning_rate(c, self.updates))
+        del update
+        if self._data is not None:
+            pmesh.all_gather_dim0_([m for m, s in zip(self.masters, self.sharded) if s],
+                                   self._data, stats=self.comm)
         for p, m in zip(self.params, self.masters):
             p.copy_(m)
         self.updates = count
 
-    def state_dict(self) -> Dict[str, object]:
-        """Counts, moments and the accumulation by leaf name (the masters
-        travel with the modules' checkpoints)."""
-        return {"step": self.step, "updates": self.updates, "micro": self.micro,
-                "mu": dict(zip(self.names, self.mu)),
-                "nu": dict(zip(self.names, self.nu)),
-                "acc": dict(zip(self.names, self.acc))}
+    def state_dict(self) -> Optional[Dict[str, object]]:
+        """Counts, moments and the accumulation by leaf name, whole (the
+        masters travel with the modules' checkpoints). Under ZeRO-1 every
+        rank takes part, each sharded leaf is gathered in turn, and rank 0
+        gets the dict (on the host), the others None; so a checkpoint does
+        not depend on the world size."""
+        if self._data is None:
+            return {"step": self.step, "updates": self.updates, "micro": self.micro,
+                    "mu": dict(zip(self.names, self.mu)),
+                    "nu": dict(zip(self.names, self.nu)),
+                    "acc": dict(zip(self.names, self.acc))}
+        mine = dist.get_rank() == 0
+        out = {"step": self.step, "updates": self.updates, "micro": self.micro}
+        for key, own in (("mu", self.mu), ("nu", self.nu), ("acc", self.acc)):
+            whole = {}
+            for name, t in zip(self.names, self._full(own)):
+                if mine:
+                    whole[name] = t.cpu()
+            out[key] = whole
+        return out if mine else None
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, object]) -> None:
-        """Restore what :meth:`state_dict` returned."""
+        """Restore what :meth:`state_dict` returned (whole leaves, from a
+        run at any world size): each rank takes its shards."""
         for key in ("step", "updates", "micro"):
             setattr(self, key, int(state[key]))
         for own, key in ((self.mu, "mu"), (self.nu, "nu"), (self.acc, "acc")):
-            for i, t in enumerate(own):
-                t.copy_(state[key][self.names[i]])
+            if own:
+                whole = [state[key][name] for name in self.names]
+                for t, w in zip(own, self._owned(whole)):
+                    t.copy_(w)
 
     @torch.no_grad()
     def load_masters(self, masters: Dict[str, torch.Tensor]) -> None:

@@ -17,6 +17,14 @@ The frozen encoders (VAE encoder, CLIP, and the ReferenceNet when none of
 its leaves trains) run under ``no_grad``. An uncond step zeroes the CLIP
 context and hides the reference keys from every row (``ref_disable``): the
 ReferenceNet still runs, and the hidden keys get exactly zero gradient.
+
+Data parallel (a train state with a ``mesh``): ``batch`` is this rank's rows
+of the global batch (``parallel.rank_rows``) and the draws are the global
+batch's, made alike on every rank, of which the step takes this rank's rows:
+what one jitted JAX step over a sharded batch does with one key, so the
+uncond flag is the same everywhere. The loss is the rank's mean; the state
+all-reduces the gradients to their mean, which at equal rows is the global
+mean's gradient, and the step returns the global mean loss.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 from ..diffusion.schedule import NoiseSchedule, add_noise, get_velocity, min_snr_weights
 from ..models.layers import checkpointed
 from ..models.vae import gaussian_sample
+from ..parallel import mesh as pmesh
 from ..pipelines.pose2vid import _nchw
 from .state import TrainState
 
@@ -151,15 +160,24 @@ def train_step(system, state: TrainState, sched: NoiseSchedule, cfg: TrainConfig
                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
     """One micro-step: the loss, its backward and ``state.apply_gradients``,
     which updates on every ``gradient_accumulation_steps``-th call. Draws
-    come from ``generator`` unless given. Returns ``loss``, ``grad_norm``
-    (the micro-batch's, before clipping) and ``t_mean`` as 0-dim tensors on
-    the system's device. With ``draws`` given, nothing is read back to the
-    host."""
+    come from ``generator`` unless given (under a mesh: the global batch's).
+    Returns ``loss``, ``grad_norm`` (the micro-batch's, before clipping) and
+    ``t_mean`` as 0-dim tensors on the system's device, each of the global
+    batch. With ``draws`` given, nothing is read back to the host (but for
+    a CUDA tensor's trip through a gloo group)."""
+    mesh = state.mesh
     if draws is None:
         b, f, H, W = np.shape(batch["tgt"])[:4]
+        if mesh is not None:
+            b *= pmesh.mesh_position(mesh)[1]
         draws = sample_draws(generator, b, f, H, W, sched.num_train_timesteps,
                              cfg.uncond_ratio)
+    if mesh is not None:
+        draws = pmesh.rank_rows(draws, mesh)
     loss, t_mean = loss_from_draws(system, sched, cfg, batch, draws)
     loss.backward()
     grad_norm = state.apply_gradients()
-    return {"loss": loss.detach(), "grad_norm": grad_norm, "t_mean": t_mean}
+    loss, t_mean = loss.detach(), t_mean.detach()
+    if mesh is not None:
+        pmesh.all_reduce_mean_([loss, t_mean])
+    return {"loss": loss, "grad_norm": grad_norm, "t_mean": t_mean}

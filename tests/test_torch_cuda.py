@@ -865,3 +865,96 @@ def test_tiny_training_driver_steps_on_the_card(tmp_path):
     assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in out["logged"])
     files = set(p.name for p in (tmp_path / "out" / "tiny").iterdir())
     assert {"motion_module-1.pt", "motion_module-2.pt", "opt_state-2.pt"} <= files
+
+
+def _tiny_stage2_spec(**kw):
+    from humanvid_tpu_torch.pipelines import tiny_config
+    from humanvid_tpu_torch.train import OptimizerConfig, TrainConfig, sample_draws, stage_config
+
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(0)
+    b, f, h, w = 2, 4, 64, 64
+
+    def batch():
+        return {"tgt": rng.normal(size=(b, f, h, w, 3)).astype(np.float32) * 0.5,
+                "ref": rng.normal(size=(b, h, w, 3)).astype(np.float32) * 0.5,
+                "clip": rng.normal(size=(b, 28, 28, 3)).astype(np.float32),
+                "pose": rng.random((b, f, h, w, 3)).astype(np.float32),
+                "plucker": rng.normal(size=(b, f, h, w, 6)).astype(np.float32)}
+
+    spec = dict(config=stage_config(2, tiny_config(), gradient_checkpointing=True), seed=0,
+                dtype=torch.bfloat16, device="cuda", backend="gloo", mesh="flat",
+                train=TrainConfig(), optimizer=OptimizerConfig(warmup_steps=1),
+                batches=[batch(), batch()],
+                draws=[sample_draws(gen, b, f, h, w, 1000, 0.5) for _ in range(2)])
+    spec.update(kw)
+    return spec
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_share_the_card_with_zero1():
+    """Two ranks of the tiny stage-2 step on one card (gloo: the collectives
+    go through host memory), ZeRO-1 on every leaf: both ranks hold the same
+    masters bit for bit after each update, and the loss is finite."""
+    from humanvid_tpu_torch.parallel.launch import launch
+    from humanvid_tpu_torch.tools.dryrun_multichip import train_worker
+
+    _card()
+    out = launch(train_worker, 2, args=(_tiny_stage2_spec(zero1=True, min_size=1),),
+                 timeout_s=300, join_timeout_s=600, threads=None)
+    assert out[0]["sharded"] and len(out[0]["masters"]) == 2
+    assert all(np.isfinite(x) for x in out[0]["loss"]) and out[0]["loss"] == out[1]["loss"]
+    for u in range(2):
+        for name, m in out[0]["masters"][u].items():
+            assert torch.equal(out[1]["masters"][u][name], m), (u, name)
+
+
+@pytest.mark.cuda
+def test_nccl_refuses_two_ranks_on_one_card():
+    from humanvid_tpu_torch.parallel.launch import launch
+    from humanvid_tpu_torch.tools.dryrun_multichip import train_worker
+
+    _card()
+    if torch.cuda.device_count() > 1:
+        pytest.skip("two ranks fit on two cards")
+    with pytest.raises(Exception, match="Duplicate GPU detected"):
+        launch(train_worker, 2, args=(_tiny_stage2_spec(backend="nccl"),), backend="nccl",
+               timeout_s=120, join_timeout_s=300, threads=None)
+
+
+@pytest.mark.cuda
+def test_fanout_on_two_gloo_ranks_sharing_the_card():
+    """The tiny pipeline's window x CFG rows over two ranks on one card:
+    the same latents on both ranks, bit for bit; rank 0 alone decodes."""
+    from humanvid_tpu_torch.parallel.launch import launch
+    from humanvid_tpu_torch.pipelines import tiny_config
+    from humanvid_tpu_torch.tools.dryrun_multichip import fanout_worker
+
+    _card()
+    rng = np.random.default_rng(0)
+    f, h, w = 12, 64, 64
+    inputs = (rng.random((h, w, 3), dtype=np.float32), rng.random((f, h, w, 3), dtype=np.float32),
+              rng.normal(size=(f, h, w, 6)).astype(np.float32),
+              rng.random((28, 28, 3), dtype=np.float32))
+    spec = dict(config=tiny_config(motion_max_len=8), seed=0, dtype=torch.bfloat16,
+                device="cuda", backend="gloo", inputs=inputs,
+                kwargs=dict(num_inference_steps=2, context_frames=8, context_overlap=4,
+                            init_latents=rng.normal(size=(f, h // 8, w // 8, 4))))
+    out = launch(fanout_worker, 2, args=(spec,), timeout_s=300, join_timeout_s=600,
+                 threads=None)
+    np.testing.assert_array_equal(out[0]["latents"], out[1]["latents"])
+    assert np.isfinite(out[0]["latents"]).all() and out[1]["videos"] is None
+    assert out[0]["videos"].shape == (1, f, h, w, 3) and np.isfinite(out[0]["videos"]).all()
+
+
+@pytest.mark.cuda
+def test_bench_configs_c1_on_the_card(capsys):
+    import json
+
+    from humanvid_tpu_torch.tools import bench_configs
+
+    _card()
+    assert bench_configs.main(["c1", "--steps", "2", "--runs", "1"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["metric"] == "pose2img_images_per_sec_256x256_ddim20_cfg"
+    assert rec["ddim_steps"] == 2 and np.isfinite(rec["value"]) and rec["value"] > 0

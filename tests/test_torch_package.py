@@ -110,6 +110,14 @@ def test_import_checks_cover_the_data_preparation_slice(module):
     assert module in PORT_MODULES
 
 
+@pytest.mark.parametrize("module", [
+    "humanvid_tpu_torch.parallel.__init__", "humanvid_tpu_torch.parallel.mesh",
+    "humanvid_tpu_torch.parallel.launch", "humanvid_tpu_torch.tools.dryrun_multichip",
+    "humanvid_tpu_torch.tools.bench_configs", "humanvid_tpu_torch.tools.loader_bench"])
+def test_import_checks_cover_the_parallel_slice(module):
+    assert module in PORT_MODULES
+
+
 def test_rasterizer_and_crops_never_import_opencv():
     """``pose_draw``, ``letterbox`` and ``crop_affine`` run with OpenCV made
     unimportable (the card's machine has none)."""
@@ -180,3 +188,16 @@ def test_from_jax_params_matches_export_state_dict(component):
     assert set(ours) == set(ref)
     for key, value in ref.items():
         np.testing.assert_array_equal(ours[key].numpy(), np.asarray(value), err_msg=key)
+
+
+def test_chip_smoke_cites_each_tpu_kernel_at_its_def():
+    """Every ``file:line`` that ``chip_smoke.py``'s kernel line gives as the
+    TPU kernel a CUDA kernel replaces is the line of that function's ``def``
+    (the Pallas kernel itself, or the function that reaches
+    ``pl.pallas_call``)."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    cites = re.findall(r'"((?:humanvid_tpu/ops|tools)/\w+\.py):(\d+)"', text)
+    assert len(cites) >= 12
+    for path, line in cites:
+        src = (ROOT / path).read_text().splitlines()[int(line) - 1]
+        assert src.lstrip().startswith("def "), (path, line, src)

@@ -297,6 +297,8 @@ def test_a_resume_at_max_steps_takes_no_step(data_tree, tmp_path, caplog):
 
 @pytest.mark.parametrize("argv", [[], ["--dtype", "float32", "--profile_dir", "p"]])
 def test_argument_surface_is_the_jax_scripts_plus_device(monkeypatch, argv):
+    """The JAX script's flags, plus ``--device`` and ``--dist_backend`` (the
+    process group under torchrun, which the JAX process has no use for)."""
     script = _jax_driver()
 
     class Stop(Exception):
@@ -316,6 +318,7 @@ def test_argument_surface_is_the_jax_scripts_plus_device(monkeypatch, argv):
     monkeypatch.setattr(argparse.ArgumentParser, "parse_args", parse)
     ours = vars(drv.parse_args(argv))
     assert ours.pop("device") == "cuda"
+    assert ours.pop("dist_backend") is None
     assert ours == captured
 
 
@@ -387,10 +390,46 @@ def test_optimizer_and_step_configs_are_the_jax_drivers(data_tree, tmp_path, mon
     assert dataclasses.asdict(run.tcfg) == dataclasses.asdict(captured["step"])
 
 
-@pytest.mark.parametrize("setting,match", [({"dcn_slices": 2}, "dcn_slices"),
-                                           ({"checkpoint_backend": "orbax"}, "orbax")])
+@pytest.mark.parametrize("setting,match", [
+    ({"dcn_slices": 2}, "dcn_slices=2 does not divide the 1-rank mesh"),
+    ({"dcn_slices": 3, "checkpoint_backend": "orbax"}, "dcn_slices=3 does not divide")])
 def test_jax_only_settings_raise(data_tree, tmp_path, setting, match):
+    """A slice count that does not divide the ranks raises before anything
+    is written, as the JAX driver raises where it does not divide its mesh
+    (one process is a 1-rank mesh; the multi-rank runs are in
+    ``test_torch_parallel_driver.py``)."""
     cfg = _config(tmp_path, data_tree, 2, "s2", **setting)
     with pytest.raises(ValueError, match=match):
         drv.run_training(2, _argv(cfg))
     assert not os.path.exists(tmp_path / "out" / "s2")
+
+
+def test_orbax_backend_writes_and_resumes_distributed_checkpoints(data_tree, tmp_path,
+                                                                  monkeypatch):
+    """``checkpoint_backend: orbax`` on one process: the train state through
+    ``torch.distributed.checkpoint`` under ``dcp/``, the last 10 stage-2
+    steps kept, no per-module files; a resume from the newest step holds
+    what the straight run held at that step and ends where it ends."""
+    _seed_samples(monkeypatch)
+    kw = dict(train_bs=1, checkpointing_steps=1, lr_warmup_steps=1,
+              checkpoint_backend="orbax")
+    drv.run_training(2, _argv(_config(tmp_path, data_tree, 2, "straight", max_train_steps=12,
+                                      **kw)))
+    exp = tmp_path / "out" / "straight"
+    assert sorted(int(d) for d in os.listdir(exp / "dcp")) == list(range(3, 13))
+    assert not any(f.endswith(".pt") for f in os.listdir(exp))
+    drv.run_training(2, _argv(_config(tmp_path, data_tree, 2, "broken", max_train_steps=2,
+                                      **kw)))
+    run = drv.setup(2, _argv(_config(tmp_path, data_tree, 2, "broken", max_train_steps=3,
+                                     resume_from_checkpoint=str(tmp_path / "out" / "broken"),
+                                     **kw)))
+    assert run.step0 == 2 and run.state.step == 2 and run.state.updates == 2
+    drv.train(run)
+    straight = drv.setup(2, _argv(_config(tmp_path, data_tree, 2, "straight",
+                                          max_train_steps=12,
+                                          resume_from_checkpoint=str(exp), resume_step=3,
+                                          **kw)))
+    for name, a, b in zip(run.state.names, run.state.masters, straight.state.masters):
+        assert torch.equal(a, b), name
+    for a, b in zip(run.state.nu, straight.state.nu):
+        assert torch.equal(a, b)
