@@ -173,12 +173,32 @@ a rank that fails fails the phase):
   ranks' latents the same bits and near the one-process batched run;
   then ``tools.bench_configs`` at its four op-points (3 steps, one run).
 
+Every head width the JAX kernels take adds (after the probes, and
+``heads64`` before stage 1):
+
+- head widths: kernel A's forward and backward at d = 64 and 128 (the
+  heads of 5-head configs, at the main path's and the stage-2 step's
+  shapes, with the batched-CFG and CFG-dropout biases), d = 96, and
+  through the zero pad at d = 36 (to 40) and 192 (to 512), ragged with the
+  bias; kernel B's forward and backward at d = 64, 128 and 256 (the 5-head
+  motion modules) and at d = 320, 640 and 1280 (column chunks) and 36
+  (padded), at f = 24 and one frame; each held to its plain version with
+  the same bits on a repeat launch, timed beside its bound and SDPA; kernel
+  A's head isolation at d = 64, 128, 36 and 192 too;
+- heads64: ``heads64_config()`` (5 heads wherever the default has 8) at
+  full width: pose2vid at 768x512x24f with HEADS64_STEPS DDIM steps,
+  sequential and batched CFG, then one uncond stage-2 step at 896x512x24f;
+  checks finite outputs, launches of kernel A at d = 64 and 128 (forward;
+  backward in the step) and of kernel B at d = 64, 128 and 256, printed by
+  head width, and no plain attention on CUDA tensors but the
+  short-sequence route (Lq < 1024) that the JAX package also takes.
+
 Every main-path run (pose2vid, the stage-2 steps, pose2img, the stage-1
-steps, the denoise step and decode of the profile phase, the cli run, the
-train_cli stage-2 and stage-1 runs, the eval generation and its pose2img
-run, each rank's dp_train and fanout runs, the pose runs and the
-microbench run) sets every launch count to 0 just before it and reads the
-counts just after.
+steps, the denoise step and decode of the profile phase, the heads64 runs,
+the cli run, the train_cli stage-2 and stage-1 runs, the eval generation
+and its pose2img run, each rank's dp_train and fanout runs, the pose runs
+and the microbench run) sets every launch count to 0 just before it and
+reads the counts just after.
 
 Then one JSON line of per-kernel numbers, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 2 without one.
@@ -369,6 +389,9 @@ def phase_flash(torch, results, dev, cases):
             bias[:bias_rows, lk // 2:] = -1e9
             unmasked = B * lk - bias_rows * (lk // 2)
         out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
+        again = fa.flash_attention_cuda(q, k, v, heads, bias)
+        repeat_same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        del again
         rows = torch.cat([torch.arange(64, device=dev), torch.arange(lq - 64, lq, device=dev)])
         ref, ref_lse = fa.flash_attention_plain(q[:, rows], k, v, heads, bias)
         torch.cuda.synchronize()
@@ -390,16 +413,20 @@ def phase_flash(torch, results, dev, cases):
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * lse.numel() \
             + (0 if bias is None else 4 * bias.numel())
         b_ms, b_by = bound(flops, nbytes)
-        ok = close and lse_err <= 1e-3
+        ok = close and lse_err <= 1e-3 and repeat_same
         share = None if lib is None else ms / lib  # < 1: faster than SDPA
-        print(f"  {name}: B={B} Lq={lq} Lk={lk} heads={heads} d={d} max_abs_err={err:.3e} "
-              f"rel_l2={rel:.3e} lse_err={lse_err:.3e} ms={ms:.3f} plain_ms={plain_ms:.3f} "
+        width = fa.flash_plan(d).width
+        print(f"  {name}: B={B} Lq={lq} Lk={lk} heads={heads} d={d}"
+              + (f" (padded to {width})" if width != d else "")
+              + f" max_abs_err={err:.3e} rel_l2={rel:.3e} lse_err={lse_err:.3e} "
+              f"repeat same bits={repeat_same} ms={ms:.3f} plain_ms={plain_ms:.3f} "
               f"library_ms={lib} sdpa_share={share if share is None else round(share, 3)} "
               f"bound_ms={b_ms:.3f} ({b_by}) TFLOP/s={flops / ms / 1e9:.1f} "
               f"{'ok' if ok else 'FAIL'}")
-        results.append(dict(kernel="flash_fwd_d512" if d > 128 else "flash_fwd", shape=name,
-                            max_abs_err=err, rel_l2=rel, ms=ms, plain_ms=plain_ms, library_ms=lib,
-                            sdpa_share=share, bound_ms=b_ms, bound_by=b_by, ok=ok))
+        results.append(dict(kernel="flash_fwd_d512" if width > 128 else "flash_fwd", shape=name,
+                            d=d, kernel_d=width, max_abs_err=err, rel_l2=rel, ms=ms,
+                            plain_ms=plain_ms, library_ms=lib, sdpa_share=share, bound_ms=b_ms,
+                            bound_by=b_by, ok=ok))
         del q, k, v, out, lse, ref, ref_lse
         torch.cuda.empty_cache()
 
@@ -407,7 +434,9 @@ def phase_flash(torch, results, dev, cases):
 def phase_flash_isolation(torch, dev, direction):
     """Kernel A (forward, or the dk/dv and dq backward) with an Inf in one
     head's q, k, v and g columns at every third position, at d = 40 and 80,
-    the poisoned head in the middle and last, with and without the bias:
+    64 and 128 (the heads of 5-head configs) and 36 and 192 (through the
+    zero pad), the poisoned head in the middle and last, with and without
+    the bias:
     every element outside that head's columns (and the forward's lse of the
     other heads) must be finite and the same bits as the clean run. Returns
     ok."""
@@ -415,7 +444,7 @@ def phase_flash_isolation(torch, dev, direction):
 
     b, lq, lk, heads = 2, 300, 700, 8
     ok = True
-    for d in (40, 80):
+    for d in (40, 80, 64, 128, 36, 192):
         c = heads * d
         gen = torch.Generator(device=dev).manual_seed(d)
         clean = [torch.randn((b, n, c), generator=gen, device=dev).to(torch.bfloat16)
@@ -480,10 +509,12 @@ def phase_temporal(torch, results, dev, cases):
         ref = ta.temporal_attention_plain(q, k, v, heads)
         torch.cuda.synchronize()
         err, rel, ok = agreement(out, ref, TEMPORAL_TOL)
+        same = torch.equal(out, ta.temporal_attention_cuda(q, k, v, heads))
         event_ms = time_ms(torch, lambda: ta.temporal_attention_cuda(q, k, v, heads), 10)
+        key = "temporal_fwd_wide_kernel" if d > ta.CHUNK_COLUMNS else "temporal_fwd_kernel"
         ms = _profile_split(torch, lambda: ta.temporal_attention_cuda(q, k, v, heads),
-                            ("temporal_fwd_kernel",))["temporal_fwd_kernel"]
-        ok = ok and ms > 0
+                            (key,))[key]
+        ok = ok and same and ms > 0
         plain_ms = time_ms(torch, lambda: ta.temporal_attention_plain(q, k, v, heads), 3)
 
         def split(t):
@@ -493,13 +524,26 @@ def phase_temporal(torch, results, dev, cases):
             split(q), split(k), split(v)), 10)
         flops = 4.0 * b * l * heads * f * f * d
         b_ms, b_by = bound(flops, 2.0 * 4 * q.numel())
-        print(f"  {name}: b={b} f={f} l={l} c={c} heads={heads} max_abs_err={err:.3e} "
-              f"rel_l2={rel:.3e} device_ms={ms:.4f} event_ms={event_ms:.4f} "
+        print(f"  {name}: b={b} f={f} l={l} c={c} heads={heads} d={d} "
+              f"{_temporal_route(ta, c, heads)} max_abs_err={err:.3e} "
+              f"rel_l2={rel:.3e} same_bits={same} device_ms={ms:.4f} event_ms={event_ms:.4f} "
               f"plain_ms={plain_ms:.3f} library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) "
               f"{'ok' if ok else 'FAIL'}")
-        results.append(dict(kernel="temporal_fwd", shape=name, max_abs_err=err, rel_l2=rel, ms=ms,
-                            event_ms=event_ms, device_ms=ms, plain_ms=plain_ms, library_ms=lib,
-                            bound_ms=b_ms, bound_by=b_by, ok=ok))
+        results.append(dict(kernel="temporal_fwd", shape=name, d=d, max_abs_err=err, rel_l2=rel,
+                            ms=ms, event_ms=event_ms, device_ms=ms, plain_ms=plain_ms,
+                            library_ms=lib, bound_ms=b_ms, bound_by=b_by, same_bits=same, ok=ok))
+
+
+def _temporal_route(ta, c, heads):
+    """Which item kernel B runs a head of c // heads columns in: whole heads,
+    or column chunks (the wide kernels), after any zero pad."""
+    d = c // heads
+    width = ta.temporal_width(d)
+    plan = ta.temporal_plan(heads * width, heads)
+    pad = f"padded to {width}, " if width != d else ""
+    if plan.chunks > 1:
+        return f"({pad}{plan.chunks} chunks of {plan.cols} columns)"
+    return f"({pad}{plan.heads} heads an item)"
 
 
 def flash_bwd_cases():
@@ -615,7 +659,8 @@ def phase_flash_bwd(torch, results, dev, cases):
             bias = torch.zeros((B, lk), device=dev)
             bias[:bias_rows, lk // 2:] = -1e9
             unmasked = B * lk - bias_rows * (lk // 2)
-        wide = d > 128
+        width = fa.flash_plan(d).width
+        wide = width > 128
         out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
         delta = fa.attention_delta(g, out, heads)
         args = (q, k, v, bias, g, lse, delta, heads)
@@ -668,7 +713,8 @@ def phase_flash_bwd(torch, results, dev, cases):
         b_ms, b_by = bound(flops, nbytes)
         err = max(e[0] for e in errs)
         rel = max(e[1] for e in errs)
-        print(f"  {name}: B={B} Lq={lq} Lk={lk} heads={heads} d={d} "
+        print(f"  {name}: B={B} Lq={lq} Lk={lk} heads={heads} d={d}"
+              + (f" (padded to {width})" if width != d else "") + " "
               f"rel_l2 dq/dk/dv={errs[0][1]:.3e}/{errs[1][1]:.3e}/{errs[2][1]:.3e} "
               f"max_err/rms dq/dk/dv={ratios} "
               f"hidden keys zero={hidden_zero} repeat same bits={repeat_same} "
@@ -680,7 +726,7 @@ def phase_flash_bwd(torch, results, dev, cases):
         extra = dict(library_backends=backends, dv_ms=split["dv"], dk_ms=split["dk"]) \
             if wide else {}
         results.append(dict(kernel="flash_bwd_d512" if wide else "flash_bwd", shape=name,
-                            max_abs_err=err, rel_l2=rel, ms=ms, dkv_ms=split["dkv"],
+                            d=d, kernel_d=width, max_abs_err=err, rel_l2=rel, ms=ms, dkv_ms=split["dkv"],
                             dq_ms=split["dq"], plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
                             bound_by=b_by, ok=ok, **extra))
         del q, k, v, g, out, lse, delta, grads, args
@@ -731,7 +777,8 @@ def phase_temporal_bwd(torch, results, dev, cases):
         ok = all(e[2] for e in errs) and same
         del grads, refs
         event_ms = time_ms(torch, run, 10)
-        ms = _profile_split(torch, run, ("temporal_bwd_kernel",))["temporal_bwd_kernel"]
+        key = "temporal_bwd_wide_kernel" if d > ta.CHUNK_COLUMNS else "temporal_bwd_kernel"
+        ms = _profile_split(torch, run, (key,))[key]
         ok = ok and ms > 0
         plain_ms = time_ms(
             torch, lambda: ta.temporal_attention_backward_plain(q, k, v, g, heads), 3)
@@ -745,18 +792,261 @@ def phase_temporal_bwd(torch, results, dev, cases):
             lib = _sdpa_backward_ms(torch, [split(t) for t in (q, k, v)], split(g), None, 10)
         flops = 10.0 * b * l * heads * f * f * d
         b_ms, b_by = bound(flops, 2.0 * 7 * q.numel())
-        print(f"  {name}: b={b} f={f} l={l} c={c} heads={heads} "
+        print(f"  {name}: b={b} f={f} l={l} c={c} heads={heads} d={d} "
+              f"{_temporal_route(ta, c, heads)} "
               f"rel_l2 dq/dk/dv={errs[0][1]:.3e}/{errs[1][1]:.3e}/{errs[2][1]:.3e} "
               f"max_err/rms dq/dk/dv={ratios} same_bits={same} "
               f"device_ms={ms:.4f} event_ms={event_ms:.4f} plain_ms={plain_ms:.3f} "
               f"library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
-        results.append(dict(kernel="temporal_bwd", shape=name, max_abs_err=max(e[0] for e in errs),
+        results.append(dict(kernel="temporal_bwd", shape=name, d=d,
+                            max_abs_err=max(e[0] for e in errs),
                             rel_l2=max(e[1] for e in errs), ms=ms, event_ms=event_ms,
                             device_ms=ms, plain_ms=plain_ms, library_ms=lib,
                             library_backend=backend.name if backend else "default",
                             bound_ms=b_ms, bound_by=b_by, same_bits=same, ok=ok))
         del q, k, v, g
         torch.cuda.empty_cache()
+
+
+# ---- every head width the kernels take (other head counts, the zero pad) ----
+
+HEADS64_STEPS = 2          # DDIM steps of each heads64 pose2vid run
+
+
+def head_width_cases():
+    """Kernel A's forward at the widths 5-head configs give (d = 64 at
+    level 0 and 128 at level 1 of the 768x512 main path, with the batched
+    CFG bias), d = 96 (8-column boxes, depth padded to 128), and through
+    the zero pad: d = 36 (to 40) and d = 192 (to 512); ragged cases with
+    the bias: (name, B, Lq, Lk, heads, d, bias rows)."""
+    return [
+        ("heads64 level0 cond (ref KV) d64", 24, 6144, 12288, 5, 64, 0),
+        ("heads64 level0 batched CFG bias d64", 48, 6144, 12288, 5, 64, 24),
+        ("heads64 level1 cond (ref KV) d128", 24, 1536, 3072, 5, 128, 0),
+        ("heads64 level1 batched CFG bias d128", 48, 1536, 3072, 5, 128, 24),
+        ("ragged d128 with the bias", 2, 300, 700, 5, 128, 1),
+        ("ragged d96 with the bias", 2, 300, 700, 4, 96, 1),
+        ("level1-size d96", 24, 1536, 3072, 4, 96, 0),
+        ("pad d36 to 40, ragged with the bias", 2, 300, 700, 5, 36, 1),
+        ("pad d36 to 40, level0-size", 24, 6144, 12288, 5, 36, 0),
+        ("pad d192 to 512, ragged with the bias", 2, 300, 700, 2, 192, 1),
+        ("pad d192 to 512, level1-size", 24, 1536, 3072, 5, 192, 0),
+    ]
+
+
+def head_width_bwd_cases():
+    """Kernel A's backward at the heads64 stage-2 shapes (896x512x24f:
+    level 0 d = 64 with and without the CFG-dropout bias, level 1 d = 128),
+    and ragged with the bias at d = 128, 96, 36 (padded to 40) and 192
+    (padded to 512): (name, B, Lq, Lk, heads, d, bias rows)."""
+    return [
+        ("heads64 level0 cond (ref KV) d64", 24, 7168, 14336, 5, 64, 0),
+        ("heads64 level0 uncond (CFG dropout bias) d64", 24, 7168, 14336, 5, 64, 24),
+        ("heads64 level1 uncond (CFG dropout bias) d128", 24, 1792, 3584, 5, 128, 24),
+        ("heads64 level1 cond (ref KV) d128", 24, 1792, 3584, 5, 128, 0),
+        ("ragged d128 with the bias", 2, 300, 700, 5, 128, 1),
+        ("ragged d96 with the bias", 2, 300, 700, 4, 96, 1),
+        ("pad d36 to 40, ragged with the bias", 2, 300, 700, 5, 36, 1),
+        ("pad d192 to 512, ragged with the bias", 2, 300, 700, 2, 192, 1),
+        ("pad d192 to 512, level1-size", 8, 1792, 3584, 5, 192, 0),
+    ]
+
+
+def temporal_width_cases():
+    """Kernel B's forward at the heads64 motion modules' shapes (768x512:
+    d = 64, 128 and 256 at levels 0-3, the camera encoder's d = 64) and at
+    d = 320, 640 and 1280 (column chunks), 36 (padded to 40), at f = 24
+    and one frame: (name, b, f, l, c, heads)."""
+    return [
+        ("heads64 motion level0 d64", 1, 24, 6144, 320, 5),
+        ("heads64 motion level1 d128", 1, 24, 1536, 640, 5),
+        ("heads64 motion level2 d256", 1, 24, 384, 1280, 5),
+        ("heads64 motion level3/mid d256", 1, 24, 96, 1280, 5),
+        ("heads64 camera encoder d64", 1, 24, 6144, 320, 5),
+        ("d320 (2 chunks)", 1, 24, 384, 1280, 4),
+        ("d640 (4 chunks)", 1, 24, 384, 1280, 2),
+        ("d1280 (8 chunks)", 1, 24, 384, 1280, 1),
+        ("d1280 one frame", 8, 1, 384, 1280, 1),
+        ("d256 one frame", 8, 1, 448, 1280, 5),
+        ("pad d36 to 40", 1, 24, 1536, 180, 5),
+    ]
+
+
+def temporal_width_bwd_cases():
+    """Kernel B's backward at the heads64 stage-2 shapes (896x512x24f)
+    and at the other widths, f = 24 and one frame: (name, b, f, l, c,
+    heads)."""
+    return [
+        ("heads64 motion level0 d64", 1, 24, 7168, 320, 5),
+        ("heads64 motion level1 d128", 1, 24, 1792, 640, 5),
+        ("heads64 motion level2 d256", 1, 24, 448, 1280, 5),
+        ("heads64 motion level3/mid d256", 1, 24, 112, 1280, 5),
+        ("heads64 camera encoder d64", 1, 24, 7168, 320, 5),
+        ("d320 (2 chunks)", 1, 24, 448, 1280, 4),
+        ("d640 (4 chunks)", 1, 24, 448, 1280, 2),
+        ("d1280 (8 chunks)", 1, 24, 448, 1280, 1),
+        ("d1280 one frame", 8, 1, 448, 1280, 1),
+        ("d256 one frame", 8, 1, 448, 1280, 5),
+        ("pad d36 to 40", 1, 24, 1792, 180, 5),
+    ]
+
+
+def heads64_config():
+    """``CamAnimateConfig`` with 5 attention heads wherever the default
+    has 8: the spatial heads 64 wide at level 0 and 128 at level 1 (256
+    at levels 2-3), the motion modules' 64, 128, 256 and 256, the camera
+    encoder's 64; the same 2.568 B parameters."""
+    from humanvid_tpu_torch.models.configs import CameraEncoderConfig, UNetConfig
+    from humanvid_tpu_torch.pipelines import CamAnimateConfig
+
+    return CamAnimateConfig(
+        reference_unet=UNetConfig(attention_heads=5),
+        denoising_unet=UNetConfig(use_motion_module=True, attention_heads=5, motion_num_heads=5),
+        camera_encoder=CameraEncoderConfig(position_encoding_max_len=24, num_heads=5))
+
+
+@contextlib.contextmanager
+def _plain_attention_calls():
+    """Counts the plain attention versions' calls on CUDA tensors while
+    the block runs: ``{"kernel fallbacks": n, "short sequences": n}``. The
+    wrappers of kernels A, B and C never call them on a card (a fallback
+    would count under "kernel fallbacks"); ``packed_attention`` takes the
+    plain matmul + softmax for Lq < FLASH_MIN_QLEN by design, as the JAX
+    package takes XLA there ("short sequences"; every such call is
+    checked to be below that length)."""
+    from humanvid_tpu_torch.ops import attention as attn
+    from humanvid_tpu_torch.ops import flash_attention as fa
+    from humanvid_tpu_torch.ops import group_norm as gn
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    counts = {"kernel fallbacks": 0, "short sequences": 0, "long sequences": 0}
+
+    def counted(fn, key):
+        def wrapper(*args, **kw):
+            if args[0].device.type == "cuda":
+                if key == "route":
+                    short = args[0].shape[1] < attn.FLASH_MIN_QLEN
+                    counts["short sequences" if short else "long sequences"] += 1
+                else:
+                    counts[key] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    patched = [(attn, "flash_attention_plain", "route")] + [
+        (mod, name, "kernel fallbacks") for mod, name in (
+            (fa, "flash_attention_plain"), (fa, "flash_attention_backward_plain"),
+            (ta, "temporal_attention_plain"), (ta, "temporal_attention_backward_plain"),
+            (gn, "group_norm_act_plain"))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    for mod, name, key in patched:
+        setattr(mod, name, counted(getattr(mod, name), key))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _launches_by_width():
+    """Kernel A's and B's launches since the last reset, forward and
+    backward, by the caller's head width."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    return {"flash forward_launches_by_d": dict(sorted(fa.forward_launches_by_d.items())),
+            "flash backward_launches_by_d": dict(sorted(fa.backward_launches_by_d.items())),
+            "temporal forward_launches_by_d": dict(sorted(ta.forward_launches_by_d.items())),
+            "temporal backward_launches_by_d": dict(sorted(ta.backward_launches_by_d.items()))}
+
+
+def phase_heads64(torch, np, dev, card):
+    """The heads64 path: ``heads64_config()`` at full width with seeded
+    random weights, bf16: Pose2VideoPipeline at 768x512x24f, one window,
+    CFG 3.5, HEADS64_STEPS DDIM steps, once sequential and once batched
+    CFG (the reference-KV bias through kernel A at d = 64), then one
+    stage-2 step at 896x512x24f, bs 1, grad checkpointing, forced uncond
+    (the CFG-dropout bias in kernel A's backward). Checks finite outputs,
+    kernel A's launches at d = 64 and 128 (forward; backward in the step),
+    kernel B's at 64, 128 and 256 (forward and backward), and no plain
+    attention on CUDA tensors but the short-sequence route. Returns (ok,
+    {run: launches})."""
+    from humanvid_tpu_torch.pipelines import CamAnimate, Pose2VideoPipeline
+    from humanvid_tpu_torch.train import (
+        OptimizerConfig, TrainConfig, TrainState, sample_draws, stage2_trainable,
+        stage_config, train_step)
+
+    F, H, W = MAIN_SIZE
+    ok, runs = True, {}
+    t0 = time.perf_counter()
+    system = CamAnimate(heads64_config(), device=dev, dtype=torch.bfloat16).init_random(0)
+    n_params = sum(p.numel() for m in system.components().values() for p in m.parameters())
+    print(f"[heads64] {card}: CamAnimate with 5 heads, {n_params / 1e9:.3f} B params, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    pipe = Pose2VideoPipeline(system)
+    inputs = _inputs(np, F, H, W, system.config.clip.image_size, 0)
+    for mode in ("sequential", "batched"):
+        torch.cuda.synchronize()
+        _reset_launches()
+        with _plain_attention_calls() as plain:
+            out = pipe(**inputs, num_inference_steps=HEADS64_STEPS, guidance_scale=3.5,
+                       context_frames=24, cfg_mode=mode, decode_chunk=8,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+        launches, by_d = _launch_counts(), _launches_by_width()
+        v, sec = out.videos, out.seconds
+        run_ok = (v.shape == (1, F, H, W, 3) and bool(np.isfinite(v).all())
+                  and float(v.min()) >= 0.0 and float(v.max()) <= 1.0
+                  and all(by_d["flash forward_launches_by_d"].get(d, 0) > 0 for d in (64, 128))
+                  and all(by_d["temporal forward_launches_by_d"].get(d, 0) > 0
+                          for d in (64, 128, 256))
+                  and plain["kernel fallbacks"] == 0 and plain["long sequences"] == 0)
+        ok = ok and run_ok
+        runs[f"heads64_{mode}"] = launches
+        print(f"[heads64] pose2vid {H}x{W}x{F}f, {HEADS64_STEPS} DDIM steps, CFG 3.5 {mode}: "
+              f"denoise steps {[round(x, 3) for x in sec['denoise_steps']]} s, decode "
+              f"{sec['decode']:.3f} s; video min {float(v.min()):.4f} max {float(v.max()):.4f}; "
+              f"launches {launches}; {by_d}; plain attention on CUDA tensors {plain} "
+              f"{'ok' if run_ok else 'FAIL'}")
+    del pipe, system, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    F, H, W = TRAIN_SIZE
+    system = CamAnimate(stage_config(2, heads64_config(), gradient_checkpointing=True),
+                        device=dev, dtype=torch.bfloat16).init_random(0)
+    _unzero_(torch, system, 1)
+    state = TrainState(system, stage2_trainable, OptimizerConfig(warmup_steps=1))
+    sched = system.make_schedule(beta_schedule="scaled_linear")
+    batch = _train_batch(np, 1, F, H, W, system.config.clip.image_size, 10)
+    draws = sample_draws(torch.Generator(device=dev).manual_seed(11), 1, F, H, W,
+                         sched.num_train_timesteps, 0.0)._replace(uncond=True)
+    torch.cuda.synchronize()
+    _reset_launches()
+    with _plain_attention_calls() as plain:
+        t0 = time.perf_counter()
+        out = train_step(system, state, sched, TrainConfig(), batch, draws=draws)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches, by_d = _launch_counts(), _launches_by_width()
+    loss, norm = out["loss"].item(), out["grad_norm"].item()
+    finite = np.isfinite(loss) and np.isfinite(norm) and all(
+        bool(torch.isfinite(m).all()) for m in state.masters)
+    step_ok = (finite
+               and all(by_d["flash backward_launches_by_d"].get(d, 0) > 0 for d in (64, 128))
+               and all(by_d[f"temporal {k}_launches_by_d"].get(d, 0) > 0
+                       for k in ("forward", "backward") for d in (64, 128, 256))
+               and plain["kernel fallbacks"] == 0 and plain["long sequences"] == 0)
+    ok = ok and step_ok
+    runs["heads64_train"] = launches
+    print(f"[heads64] stage-2 step {H}x{W}x{F}f bs 1 (uncond: the CFG-dropout bias), grad "
+          f"checkpointing: {seconds:.3f} s (first step, with the kernels' first launches), "
+          f"loss {loss:.5f}, grad norm {norm:.4f}, finite {finite}; launches {launches}; "
+          f"{by_d}; plain attention on CUDA tensors {plain} {'ok' if step_ok else 'FAIL'}")
+    del system, state, batch, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, runs
+
 
 
 def group_norm_cases():
@@ -1413,9 +1703,9 @@ def phase_main(torch, np, dev):
 
 KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match wins
     ("kernel A (flash_fwd)", ("flash_fwd_kernel",)),
-    ("kernel B (temporal_fwd)", ("temporal_fwd_kernel",)),
+    ("kernel B (temporal_fwd)", ("temporal_fwd_kernel", "temporal_fwd_wide_kernel")),
     ("kernel A bwd (flash_bwd)", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
-    ("kernel B bwd (temporal_bwd)", ("temporal_bwd_kernel",)),
+    ("kernel B bwd (temporal_bwd)", ("temporal_bwd_kernel", "temporal_bwd_wide_kernel")),
     # ahead of the cuDNN group ("nhwc") and the norm group ("norm")
     ("kernel C (group_norm)", ("gn_cluster_", "gn_stats_", "gn_finalize", "gn_apply_")),
     ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "nchw",
@@ -3114,6 +3404,12 @@ def main() -> int:
     phase_temporal_bwd(torch, results, dev, temporal_bwd_cases())
     phase_group_norm(torch, results, dev, group_norm_cases())
     phase_probes(torch, results, dev)
+    print("[head widths] kernels A and B at the widths other head counts give, and through "
+          "the zero pad")
+    phase_flash(torch, results, dev, head_width_cases())
+    phase_flash_bwd(torch, results, dev, head_width_bwd_cases())
+    phase_temporal(torch, results, dev, temporal_width_cases())
+    phase_temporal_bwd(torch, results, dev, temporal_width_bwd_cases())
     failed = [f"{r['kernel']} {r['shape']}" for r in results if not r["ok"]]
 
     def check(name, good):
@@ -3137,6 +3433,8 @@ def main() -> int:
     del system, state, batch
     gc.collect()
     torch.cuda.empty_cache()
+    heads64_ok, heads64_launches = phase_heads64(torch, np, dev, card)
+    check("heads64", heads64_ok)
     stage1_ok, stage1_launches = phase_stage1(torch, np, dev)
     check("stage 1", stage1_ok)
     gc.collect()
@@ -3170,7 +3468,8 @@ def main() -> int:
     pose_ok, pose_launches = phase_pose(torch, np, dev, card)
     check("pose", pose_ok)
     print(kernel_line(results, {"pose2vid": main_launches, "train": train_launches,
-                                **stage1_launches, "cli": cli_launches, **train_cli_launches,
+                                **stage1_launches, **heads64_launches, "cli": cli_launches,
+                                **train_cli_launches,
                                 **eval_launches, "dp_train": dp_launches,
                                 "fanout": fanout_launches, **pose_launches,
                                 "denoise_step": per_call["denoise step"],

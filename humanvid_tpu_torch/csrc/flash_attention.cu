@@ -5,7 +5,10 @@
 // both launched by `_flash_fwd` (:323).
 //
 // Computes, for each batch row b and head h,
-//   out_h = softmax(q_h k_h^T * d^-1/2 + bias[b]) v_h
+//   out_h = softmax(q_h k_h^T * d_s^-1/2 + bias[b]) v_h
+// where d_s (`scale_d`) is the head's true width: d itself, or, for a head
+// the wrapper zero-pads to a width the kernel holds, the width before the
+// pad (the pad columns add nothing to q_h k_h^T).
 // with q (B, Lq, heads*d), k/v (B, Lk, heads*d) and out (B, Lq, heads*d):
 // heads sit side by side in the channel axis and head h is read at column
 // offset h*d, so no head split/merge transpose exists outside the kernel.
@@ -71,11 +74,25 @@
 //     row; MN-major V: LBO = rows*128 between 64-column atoms, SBO = 1024
 //     between 8-key atoms). Shared memory: Q 64 KB + 2 x (K 32 + V 32) KB =
 //     192 KB (193.3 KB with the bias, barriers and alignment) of 227 KB.
+//   80 < d <= 128 (Cfg128): FlashAttention-3's d = 128 point. At d = 128
+//     the d <= 80 shape does not fit: Q of 192 rows is 48 KB and 3 stages of
+//     K and V 192 KB. So 2 consumer warpgroups own 64 query rows each (BQ =
+//     128) and share 128-key tiles, 2 stages: Q 32 KB + 2 x (K 32 + V 32)
+//     KB = 160 KB (162 KB with the bias, barriers and alignment); 240
+//     registers a consumer thread (S and O 64 each, P 32). At d = 128 a
+//     head is two whole 64-column rows, so the 128-byte swizzle with
+//     64-column boxes never reads the next head's columns (unlike at 40 and
+//     80): Cfg128<true> takes the d = 512 path's layouts (K-major Q and K,
+//     MN-major V, the 16-key step of PV 2048 bytes). Widths 88..120 keep
+//     8-column boxes, QK^T's depth padded to 128 by zeroed slabs as d = 40
+//     pads to 48 (Cfg128<false>); PV's N is 128, the columns past d are not
+//     stored.
 // TMA maps are 3-D (C, L, B), so a ragged last tile reads zeros, never the
 // next batch row's keys or queries. They are encoded on the host for each
 // call (`make_map` in hopper.cuh: cuTensorMapEncodeTiled through the
 // runtime's driver entry point, no libcuda) and passed as __grid_constant__
-// parameters.
+// parameters. Each configuration's shared-memory limit is raised once a
+// process (`HostCache::reserve_smem`), not on every launch.
 // `-Xptxas -v` on the H100: no spills at any width (168 registers a thread
 // at launch with 2 consumers, 128 with 3; setmaxnreg sets the rest).
 //
@@ -104,12 +121,14 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 // DQK: QK^T's contracted depth (d padded to 16); DV: the output columns of
 // one consumer warpgroup; WIDE: d = 512, the warpgroups split the columns;
-// NC: consumer warpgroups.
+// NC: consumer warpgroups; SWZ: the 128-byte swizzle with 64-column boxes
+// (else 8-column boxes, no swizzle).
 template <int DQK_, int DV_, bool WIDE_, int NC_>
 struct Cfg {
   static constexpr int DQK = DQK_;
   static constexpr int DV = DV_;
   static constexpr bool WIDE = WIDE_;
+  static constexpr bool SWZ = WIDE_;
   static constexpr int NC = NC_;
   static constexpr int THREADS = 128 * (NC + 1);  // + the producer warpgroup
   // setmaxnreg: the producer's registers go to the consumers
@@ -135,10 +154,41 @@ struct Cfg {
   static_assert(SMEM <= 232448, "shared memory");
 };
 
+// 80 < d <= 128: 2 consumer warpgroups of 64 query rows over 128-key tiles
+// in 2 stages; SWZ at d = 128 (the header).
+template <bool SWZ_>
+struct Cfg128 {
+  static constexpr int DQK = 128;
+  static constexpr int DV = 128;
+  static constexpr bool WIDE = false;
+  static constexpr bool SWZ = SWZ_;
+  static constexpr int NC = 2;
+  static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = 240;
+  static_assert(128 * (PRODUCER_REGS + NC * CONSUMER_REGS) <= 65536, "registers");
+  static constexpr int BQ = 64 * NC;
+  static constexpr int BK = 128;
+  static constexpr int STAGES = 2;
+  static constexpr int DVT = DV;
+  static constexpr int CW = SWZ ? 64 : 8;
+  static constexpr uint32_t LAYOUT = SWZ ? kSwizzle128B : kNoSwizzle;
+  static constexpr int Q_BYTES = BQ * DQK * 2;
+  static constexpr int K_BYTES = BK * DQK * 2;
+  static constexpr int V_BYTES = BK * DVT * 2;
+  static constexpr int OFF_K = Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * K_BYTES;
+  static constexpr int OFF_BIAS = OFF_V + STAGES * V_BYTES;
+  static constexpr int OFF_BAR = OFF_BIAS + STAGES * BK * 4;
+  static constexpr int SMEM = OFF_BAR + (3 * STAGES + 1) * 8 + 1024;
+  static_assert(Q_BYTES % 1024 == 0 && K_BYTES % 1024 == 0 && V_BYTES % 1024 == 0, "");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
 // Byte offset of the 16-deep step kk of a K-major tile of `rows` rows.
 template <class C>
 __device__ __forceinline__ uint32_t kmajor_step(int kk, int rows) {
-  if constexpr (C::WIDE) return (kk / 4) * rows * 128 + (kk % 4) * 32;
+  if constexpr (C::SWZ) return (kk / 4) * rows * 128 + (kk % 4) * 32;
   else return 2 * kk * rows * 16;
 }
 
@@ -183,7 +233,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_init(full_q, 1);
     fence_barrier_init();
   }
-  if constexpr (!C::WIDE) {
+  if constexpr (!C::SWZ) {
     // Trap: the contracted pad (d = 40 -> 48, or d < 80 -> 80) must read
     // zeros. TMA writes only the d/8 slabs of a head; the pad slabs of Q and
     // of every K stage are zeroed here once and never written again.
@@ -245,14 +295,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   const int c2 = 2 * (lane % 4);
 
   // descriptors without their start offsets
-  const uint32_t q_addr = smem_u32(sQ) + (C::WIDE ? 0 : qoff * 16);
+  const uint32_t q_addr = smem_u32(sQ) + (C::SWZ ? qoff * 128 : qoff * 16);
   const uint64_t q_desc =
-      C::WIDE ? gmma_desc(q_addr, 16, 1024, C::LAYOUT) : gmma_desc(q_addr, BQ * 16, 128, C::LAYOUT);
-  const uint64_t k_desc0 = C::WIDE ? gmma_desc(smem_u32(sK), 16, 1024, C::LAYOUT)
-                                   : gmma_desc(smem_u32(sK), BK * 16, 128, C::LAYOUT);
-  const uint32_t v_addr = smem_u32(sV) + (C::WIDE ? (voff / 64) * BK * 128 : 0);
-  const uint64_t v_desc0 = C::WIDE ? gmma_desc(v_addr, BK * 128, 1024, C::LAYOUT)
-                                   : gmma_desc(v_addr, 128, BK * 16, C::LAYOUT);
+      C::SWZ ? gmma_desc(q_addr, 16, 1024, C::LAYOUT) : gmma_desc(q_addr, BQ * 16, 128, C::LAYOUT);
+  const uint64_t k_desc0 = C::SWZ ? gmma_desc(smem_u32(sK), 16, 1024, C::LAYOUT)
+                                  : gmma_desc(smem_u32(sK), BK * 16, 128, C::LAYOUT);
+  const uint32_t v_addr = smem_u32(sV) + (C::SWZ ? (voff / 64) * BK * 128 : 0);
+  const uint64_t v_desc0 = C::SWZ ? gmma_desc(v_addr, BK * 128, 1024, C::LAYOUT)
+                                  : gmma_desc(v_addr, 128, BK * 16, C::LAYOUT);
 
   float o[DV / 2];
 #pragma unroll
@@ -342,7 +392,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int t = 0; t < BK / 16; ++t) {
-      const uint32_t step = C::WIDE ? t * 2048 : t * 256;  // 16 keys
+      const uint32_t step = C::SWZ ? t * 2048 : t * 256;  // 16 keys
       WgmmaRS<DV>::run(o, p[t], v_desc0 + ((s * C::V_BYTES + step) >> 4));
     }
     wgmma_commit();
@@ -378,42 +428,53 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+HostCache host_cache;
+
 template <class C>
 int launch(const void* q, const void* k, const void* v, const void* bias, void* out, void* lse,
-           int B, int Lq, int Lk, int heads, int d, cudaStream_t stream) {
+           int B, int Lq, int Lk, int heads, int d, int scale_d, cudaStream_t stream) {
   CUtensorMap maps[3];
   const int C_all = heads * d;
-  int err = make_map(&maps[0], q, C_all, Lq, B, C::CW, C::BQ, C::WIDE);
-  if (!err) err = make_map(&maps[1], k, C_all, Lk, B, C::CW, C::BK, C::WIDE);
-  if (!err) err = make_map(&maps[2], v, C_all, Lk, B, C::CW, C::BK, C::WIDE);
+  int err = make_map(&maps[0], q, C_all, Lq, B, C::CW, C::BQ, C::SWZ);
+  if (!err) err = make_map(&maps[1], k, C_all, Lk, B, C::CW, C::BK, C::SWZ);
+  if (!err) err = make_map(&maps[2], v, C_all, Lk, B, C::CW, C::BK, C::SWZ);
   if (err) return err;
   auto kernel = flash_fwd_kernel<C>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  cudaError_t e = host_cache.reserve_smem(reinterpret_cast<const void*>(kernel), C::SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Lq + C::BQ - 1) / C::BQ, heads, B);
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
       maps[0], maps[1], maps[2],
       static_cast<const float*>(bias), static_cast<bf16*>(out),
-      static_cast<float*>(lse), Lq, Lk, heads, d, kLog2e / sqrtf((float)d));
+      static_cast<float*>(lse), Lq, Lk, heads, d, kLog2e / sqrtf((float)scale_d));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Head widths the kernel takes: d a multiple of 8 with d <= 80 (SD's UNet
-// heads, d = 40 and 80; QK^T's depth padded to 48 / 80) or d = 512 (the
-// VAE's one head).
+// Head widths the kernel takes: d a multiple of 8 with d <= 128 (SD's UNet
+// heads, d = 40 and 80, and the 64- and 128-wide heads of other head counts;
+// QK^T's depth padded to 48 / 80 / 128) or d = 512 (the VAE's one head). The
+// logits are scaled by scale_d^-1/2, 1 <= scale_d <= d: the wrapper passes
+// the true width of a head it zero-pads (ops/flash_attention.py,
+// `flash_plan`), else d.
 extern "C" int hv_flash_fwd(const void* q, const void* k, const void* v,
                             const void* bias, void* out, void* lse, int B,
-                            int Lq, int Lk, int heads, int d, void* stream) {
+                            int Lq, int Lk, int heads, int d, int scale_d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 0 || d % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || d % 8 != 0 || scale_d < 1 || scale_d > d) return (int)cudaErrorInvalidValue;
   if (d <= 40)
-    return launch<Cfg<48, 40, false, 3>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, s);
+    return launch<Cfg<48, 40, false, 3>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, scale_d,
+                                         s);
   if (d <= 80)
-    return launch<Cfg<80, 80, false, 3>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, s);
+    return launch<Cfg<80, 80, false, 3>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, scale_d,
+                                         s);
+  if (d < 128)
+    return launch<Cfg128<false>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, scale_d, s);
+  if (d == 128)
+    return launch<Cfg128<true>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, scale_d, s);
   if (d == 512)
-    return launch<Cfg<512, 256, true, 2>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, s);
+    return launch<Cfg<512, 256, true, 2>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d,
+                                          scale_d, s);
   return (int)cudaErrorInvalidValue;
 }

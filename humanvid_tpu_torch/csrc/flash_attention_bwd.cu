@@ -6,14 +6,15 @@
 // and the straight-layout `_dkv_kernel` (:354) and `_dq_kernel` (:537) it
 // takes for d > 128 (here d = 512, the VAE mid block's single head).
 //
-// Computes the gradient of out_h = softmax(q_h k_h^T * d^-1/2 + bias[b]) v_h
-// (the forward of csrc/flash_attention.cu) given g = dL/dout, the forward's
+// Computes the gradient of out_h = softmax(q_h k_h^T * d_s^-1/2 + bias[b]) v_h
+// (the forward of csrc/flash_attention.cu; d_s = `scale_d`, the true width
+// of a head the wrapper zero-pads, else d) given g = dL/dout, the forward's
 // per-(row, head) log-sum-exp `lse` (B, heads, Lq) in NATURAL-log units and
 // delta = rowsum(g * out) per (row, head) (B, heads, Lq), fp32:
 //   p  = exp2((s * scale + bias) * log2e - lse * log2e),   s = q_h k_h^T
 //   dv = p^T g_h
 //   ds = p * (g_h v_h^T - delta)
-//   dk = ds^T q_h * scale,   dq = ds k_h * scale
+//   dk = ds^T q_h * scale,   dq = ds k_h * scale,   scale = d_s^-1/2
 // with p and ds rounded to bf16 before their products, as the JAX kernels
 // do. q/g/dq are (B, Lq, heads*d), k/v/dk/dv (B, Lk, heads*d), the bias is
 // fp32 (B, Lk) or absent. A key hidden by a -1e9 bias gets p == 0 exactly
@@ -66,11 +67,21 @@
 //     block) fit 160 registers by taking dP in two 64-key halves, the
 //     second half's product beside the first half's dQ; at d <= 80 2
 //     consumers take all 128 keys at once.
+// Design at 80 < d <= 128 (the 128-wide heads of other head counts):
+// FlashAttention-3's d = 128 backward in the same two kernels. dk/dv: 2
+// consumer warpgroups of 64 keys (128 a block) with dK and dV in registers
+// (64 + 64 a thread), 64-row q steps in 3 stages (owned K, V 64 KB + 3 x
+// (Q, G) 32 KB = 160 KB); dq: 2 consumer warpgroups of 64 q rows over
+// 128-key tiles, dP in two 64-key halves beside dQ, 2 stages (Q, G 64 KB +
+// 2 x (K, V) 64 KB = 192 KB). Hidden key tiles are passed over as at d <=
+// 80, and no atomics: dQ keeps its own kernel.
 // Layouts: a tile is [boxes][rows][box columns]. At d = 40 (and every d not
-// a multiple of 16) TMA boxes of 8 columns land as the no-swizzle
+// a multiple of 16 up to 120) TMA boxes of 8 columns land as the no-swizzle
 // core-matrix layout, as in the forward; at d = 48, 64 and 80, boxes of 16
 // columns in the 32-byte swizzle, which halves the box rows TMA fetches (at
-// level 1 the 16-byte rows bounded both kernels). Either layout serves a
+// level 1 the 16-byte rows bounded both kernels); at d = 128, whole 64-column
+// boxes in the 128-byte swizzle (a head is two of them, so a box never reads
+// the next head), as the d = 512 kernels take them. Either layout serves a
 // tile as a K-major and as an MN-major operand. A box reads only its head's
 // columns, so never past C at the last head; the contracted pad boxes are
 // zeroed once. TMA maps are 3-D (C, L, B): rows past L read zeros, never the
@@ -146,8 +157,8 @@ constexpr float kHiddenBias = -1e9f;  // NEG_INF of ops/attention.py
 constexpr float kLseFloor = -5e8f;    // a row above it sees some key
 
 // DQK: the contracted depth of s and dp (d padded to 16); DV: the gradient's
-// columns (N of its products); CW: columns of one TMA box, 8 (no swizzle)
-// or 16 (32-byte swizzle); NC: consumer warpgroups, each owning 64 rows of
+// columns (N of its products); CW: columns of one TMA box, 8 (no swizzle),
+// 16 (32-byte swizzle) or 64 (128-byte swizzle); NC: consumer warpgroups, each owning 64 rows of
 // the block (keys for dk/dv, q rows for dq); BS: rows of one streamed step
 // (q rows for dk/dv, keys for dq); DPN: the keys of each dp product of the
 // dq kernel, BS or BS / 2 (dp in two halves, for 3 consumers' registers).
@@ -161,10 +172,12 @@ struct BwdCfg {
   static constexpr int STAGES = STAGES_;
   static constexpr int DPN = DPN_;
   static_assert(BS % DPN == 0, "dp parts");
-  static_assert((CW == 8 || CW == 16) && DQK % CW == 0 && DV % 8 == 0, "layout");
-  static constexpr uint32_t LAYOUT = CW == 16 ? kSwizzle32B : kNoSwizzle;
+  static_assert((CW == 8 || CW == 16 || CW == 64) && DQK % CW == 0 && DV % 8 == 0, "layout");
+  static constexpr uint32_t LAYOUT =
+      CW == 64 ? kSwizzle128B : CW == 16 ? kSwizzle32B : kNoSwizzle;
   static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
-      CW == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_NONE;
+      CW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+               : CW == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_NONE;
   static constexpr int THREADS = 128 * (NC + 1);  // + the producer warpgroup
   // setmaxnreg: the producer's registers go to the consumers
   static constexpr int PRODUCER_REGS = 24;
@@ -318,23 +331,34 @@ __device__ __forceinline__ void store_acc(bf16* dst, int C_all, const float (&ac
 }
 
 // Tiles are [DQK / CW boxes][rows][CW]: a box of CW columns lands as one
-// slab of 8-row atoms (core matrices without swizzle, 32-byte-swizzled
-// atoms with it). A 16-deep step of a K-major operand starts kk * rows * 32
-// bytes in; a 16-row step of an MN-major one t * 32 * CW bytes in.
+// slab of 8-row atoms (core matrices without swizzle, 32- or 128-byte
+// swizzled atoms with it). A 16-deep step of a K-major operand starts
+// kk * rows * 32 bytes in (in the 128-byte swizzle: the step's box, then 32
+// bytes a step inside the row); a 16-row step of an MN-major one t * 32 * CW
+// bytes in.
+
+// Byte offset of the 16-deep step kk of a K-major tile of `rows` rows.
+template <class C>
+__device__ __forceinline__ uint32_t kstep(int kk, int rows) {
+  if constexpr (C::CW == 64) return (kk / 4) * rows * 128 + (kk % 4) * 32;
+  else return kk * rows * 32;
+}
 
 // K-major operand (rows along M/N, the contracted d along K): 64 rows from
 // row r0 of a tile of `rows` rows.
 template <class C>
 __device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile, int rows, int r0) {
   const uint32_t addr = smem_u32(tile) + r0 * C::CW * 2;
-  if constexpr (C::CW == 16) return gmma_desc(addr, 16, 256, C::LAYOUT);
+  if constexpr (C::CW == 64) return gmma_desc(addr, 16, 1024, C::LAYOUT);
+  else if constexpr (C::CW == 16) return gmma_desc(addr, 16, 256, C::LAYOUT);
   else return gmma_desc(addr, rows * 16, 128, C::LAYOUT);
 }
 
 // MN-major operand (the tile's rows contracted, its d columns along N).
 template <class C>
 __device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile, int rows) {
-  if constexpr (C::CW == 16) return gmma_desc(smem_u32(tile), rows * 32, 256, C::LAYOUT);
+  if constexpr (C::CW == 64) return gmma_desc(smem_u32(tile), rows * 128, 1024, C::LAYOUT);
+  else if constexpr (C::CW == 16) return gmma_desc(smem_u32(tile), rows * 32, 256, C::LAYOUT);
   else return gmma_desc(smem_u32(tile), 128, rows * 16, C::LAYOUT);
 }
 
@@ -346,8 +370,8 @@ __device__ __forceinline__ void product_ab(float (&acc)[N / 2], uint64_t a_desc,
                                            uint64_t b_desc) {
 #pragma unroll
   for (int kk = 0; kk < C::DQK / 16; ++kk)
-    WgmmaSS<N>::run(acc, a_desc + ((kk * C::BR * 32) >> 4), b_desc + ((kk * C::BS * 32) >> 4),
-                    kk > 0);
+    WgmmaSS<N>::run(acc, a_desc + (kstep<C>(kk, C::BR) >> 4),
+                    b_desc + (kstep<C>(kk, C::BS) >> 4), kk > 0);
 }
 
 // P (or dS) as bf16: the accumulators' n8 blocks 2t and 2t+1 form the A
@@ -725,10 +749,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                 q0 + roff + 16 * warp, Lq, d, scale, lane);
 }
 
+HostCache host_cache;
+
 template <class C>
 int launch_dkv(const void* q, const void* k, const void* v, const void* bias, const void* g,
                const void* lse, const void* delta, void* dk, void* dv, int B, int Lq, int Lk,
-               int heads, int d, cudaStream_t stream) {
+               int heads, int d, int scale_d, cudaStream_t stream) {
   CUtensorMap maps[4];  // q, k, v, g: boxes of a step's q rows or of the block's keys
   const int C_all = heads * d;
   int err = make_map(&maps[0], q, C_all, Lq, B, C::CW, C::BS, C::TMA_SWIZZLE);
@@ -737,10 +763,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* bias, co
   if (!err) err = make_map(&maps[3], g, C_all, Lq, B, C::CW, C::BS, C::TMA_SWIZZLE);
   if (err) return err;
   auto kernel = flash_bwd_dkv_kernel<C>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  cudaError_t e = host_cache.reserve_smem(reinterpret_cast<const void*>(kernel), C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const float scale = 1.f / sqrtf((float)d);
+  const float scale = 1.f / sqrtf((float)scale_d);
   const dim3 grid((Lk + C::BR - 1) / C::BR, heads, B);
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(bias),
@@ -752,7 +777,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* bias, co
 template <class C>
 int launch_dq(const void* q, const void* k, const void* v, const void* bias, const void* g,
               const void* lse, const void* delta, void* dq, int B, int Lq, int Lk, int heads,
-              int d, cudaStream_t stream) {
+              int d, int scale_d, cudaStream_t stream) {
   CUtensorMap maps[4];  // q, k, v, g: boxes of the block's q rows or of a tile's keys
   const int C_all = heads * d;
   int err = make_map(&maps[0], q, C_all, Lq, B, C::CW, C::BR, C::TMA_SWIZZLE);
@@ -761,10 +786,9 @@ int launch_dq(const void* q, const void* k, const void* v, const void* bias, con
   if (!err) err = make_map(&maps[3], g, C_all, Lq, B, C::CW, C::BR, C::TMA_SWIZZLE);
   if (err) return err;
   auto kernel = flash_bwd_dq_kernel<C>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  cudaError_t e = host_cache.reserve_smem(reinterpret_cast<const void*>(kernel), C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const float scale = 1.f / sqrtf((float)d);
+  const float scale = 1.f / sqrtf((float)scale_d);
   const dim3 grid((Lq + C::BR - 1) / C::BR, heads, B);
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(bias),
@@ -785,6 +809,13 @@ using DkvCfg80s = BwdCfg<80, 80, 16, 2, 64, 3>;
 using DqCfg48 = BwdCfg<48, 40, 8, 3, 128, 3, 64>;
 using DqCfg80 = BwdCfg<80, 80, 8, 2, 128, 3>;
 using DqCfg80s = BwdCfg<80, 80, 16, 2, 128, 3>;
+// 80 < d <= 128 (contracted depth 128, 128 gradient columns): 2 consumers,
+// 64-row q steps in 3 stages for dk/dv, 128-key tiles in 2 stages with dP in
+// 64-key halves for dq; 128-byte swizzle at d = 128, 8-column boxes at 88..120.
+using DkvCfg128 = BwdCfg<128, 128, 8, 2, 64, 3>;
+using DkvCfg128w = BwdCfg<128, 128, 64, 2, 64, 3>;
+using DqCfg128 = BwdCfg<128, 128, 8, 2, 128, 2, 64>;
+using DqCfg128w = BwdCfg<128, 128, 64, 2, 128, 2, 64>;
 
 // ---- d = 512: wgmma on a TMA ring, one kernel per gradient -----------------
 
@@ -1109,7 +1140,7 @@ WIDE_KERNEL(flash_bwd_dq_wide_kernel, WideDq)
 template <class C, class Kernel>
 int launch_wide(Kernel kernel, const void* q, const void* k, const void* v, const void* bias,
                 const void* g, const void* lse, const void* delta, void* grad, int B, int Lq,
-                int Lk, int heads, int d, cudaStream_t stream) {
+                int Lk, int heads, int d, int scale_d, cudaStream_t stream) {
   // boxes of 64 columns x the owned tiles' 64 rows or a step's BS rows
   const bool keys_own = C::MODE != kDq;
   const int C_all = heads * d;
@@ -1119,10 +1150,9 @@ int launch_wide(Kernel kernel, const void* q, const void* k, const void* v, cons
   if (!err) err = make_map(&maps[2], v, C_all, Lk, B, 64, keys_own ? 64 : C::BS, true);
   if (!err) err = make_map(&maps[3], g, C_all, Lq, B, 64, keys_own ? C::BS : 64, true);
   if (err) return err;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  cudaError_t e = host_cache.reserve_smem(reinterpret_cast<const void*>(kernel), C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const float scale = 1.f / sqrtf((float)d);
+  const float scale = 1.f / sqrtf((float)scale_d);
   const dim3 grid(((keys_own ? Lk : Lq) + 63) / 64, heads, B);
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(bias),
@@ -1133,27 +1163,31 @@ int launch_wide(Kernel kernel, const void* q, const void* k, const void* v, cons
 
 }  // namespace
 
-// Head widths the kernels take: d a multiple of 8 with d <= 80 (SD's UNet
-// heads, d = 40 and 80; s and dp contracted over 48 / 80) or d = 512 (the
-// VAE's one head).
+// Head widths the kernels take: d a multiple of 8 with d <= 128 (SD's UNet
+// heads, d = 40 and 80, and the 64- and 128-wide heads of other head counts;
+// s and dp contracted over 48 / 80 / 128) or d = 512 (the VAE's one head).
+// The logits are scaled by scale_d^-1/2, 1 <= scale_d <= d (the true width
+// of a head the wrapper zero-pads, else d).
 extern "C" int hv_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* bias, const void* g, const void* lse,
                                 const void* delta, void* dk, void* dv, int B, int Lq,
-                                int Lk, int heads, int d, void* stream) {
+                                int Lk, int heads, int d, int scale_d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 0 || d % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (d <= 40)
-    return launch_dkv<DkvCfg48>(q, k, v, bias, g, lse, delta, dk, dv, B, Lq, Lk, heads, d, s);
-  if (d <= 80 && d % 16 == 0)
-    return launch_dkv<DkvCfg80s>(q, k, v, bias, g, lse, delta, dk, dv, B, Lq, Lk, heads, d, s);
-  if (d <= 80)
-    return launch_dkv<DkvCfg80>(q, k, v, bias, g, lse, delta, dk, dv, B, Lq, Lk, heads, d, s);
+  if (d <= 0 || d % 8 != 0 || scale_d < 1 || scale_d > d) return (int)cudaErrorInvalidValue;
+#define DKV(Cfg) \
+  launch_dkv<Cfg>(q, k, v, bias, g, lse, delta, dk, dv, B, Lq, Lk, heads, d, scale_d, s)
+  if (d <= 40) return DKV(DkvCfg48);
+  if (d <= 80 && d % 16 == 0) return DKV(DkvCfg80s);
+  if (d <= 80) return DKV(DkvCfg80);
+  if (d < 128) return DKV(DkvCfg128);
+  if (d == 128) return DKV(DkvCfg128w);
+#undef DKV
   if (d == 512) {
     const int err = launch_wide<WideDv>(flash_bwd_dv_wide_kernel, q, k, v, bias, g, lse, delta,
-                                        dv, B, Lq, Lk, heads, d, s);
+                                        dv, B, Lq, Lk, heads, d, scale_d, s);
     if (err) return err;
     return launch_wide<WideDk>(flash_bwd_dk_wide_kernel, q, k, v, bias, g, lse, delta, dk, B,
-                               Lq, Lk, heads, d, s);
+                               Lq, Lk, heads, d, scale_d, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1161,15 +1195,18 @@ extern "C" int hv_flash_bwd_dkv(const void* q, const void* k, const void* v,
 extern "C" int hv_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* bias, const void* g, const void* lse,
                                const void* delta, void* dq, int B, int Lq, int Lk,
-                               int heads, int d, void* stream) {
+                               int heads, int d, int scale_d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 0 || d % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (d <= 40) return launch_dq<DqCfg48>(q, k, v, bias, g, lse, delta, dq, B, Lq, Lk, heads, d, s);
-  if (d <= 80 && d % 16 == 0)
-    return launch_dq<DqCfg80s>(q, k, v, bias, g, lse, delta, dq, B, Lq, Lk, heads, d, s);
-  if (d <= 80) return launch_dq<DqCfg80>(q, k, v, bias, g, lse, delta, dq, B, Lq, Lk, heads, d, s);
+  if (d <= 0 || d % 8 != 0 || scale_d < 1 || scale_d > d) return (int)cudaErrorInvalidValue;
+#define DQ(Cfg) launch_dq<Cfg>(q, k, v, bias, g, lse, delta, dq, B, Lq, Lk, heads, d, scale_d, s)
+  if (d <= 40) return DQ(DqCfg48);
+  if (d <= 80 && d % 16 == 0) return DQ(DqCfg80s);
+  if (d <= 80) return DQ(DqCfg80);
+  if (d < 128) return DQ(DqCfg128);
+  if (d == 128) return DQ(DqCfg128w);
+#undef DQ
   if (d == 512)
     return launch_wide<WideDq>(flash_bwd_dq_wide_kernel, q, k, v, bias, g, lse, delta, dq, B,
-                               Lq, Lk, heads, d, s);
+                               Lq, Lk, heads, d, scale_d, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -104,22 +104,14 @@ __device__ __forceinline__ uint32_t mask_frames(uint32_t v, int frame, int F) {
   return v & ((frame < F ? 0x0000ffffu : 0u) | (frame + 1 < F ? 0xffff0000u : 0u));
 }
 
-// One (position p, head h) of the item in a stage: S = Q K^T, softmax, O =
-// P V, O written to the O tile (frames < F only). sq/sk/sv/so point at the
-// head's first column of frame 0; LDF and LDO are the strides between
-// frames, in elements. The mma tiles run to 32 frames: rows past F are read
-// (the next tile's), their S rows and columns never reach a stored O, and
-// V's are zeroed in the fragments.
+// S += Q K^T over one head's (or one chunk's) d columns: 2 row tiles
+// (query frames) x 4 column tiles (key frames); sq/sk point at the first
+// column of frame 0, LDF is the stride between frames, in elements. The
+// columns past d of the last 16-deep step (the next head's, or the next
+// chunk's) are zeroed in both Q's and K's fragments.
 template <int DP>
-__device__ __forceinline__ void attend(const bf16* sq, const bf16* sk, const bf16* sv, bf16* so,
-                                       int LDF, int LDO, int F, int d, float scale_log2,
-                                       int lane) {
-  // S = Q K^T: 2 row tiles (query frames) x 4 column tiles (key frames)
-  float s[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+__device__ __forceinline__ void qk_accumulate(float (&s)[2][4][4], const bf16* sq,
+                                              const bf16* sk, int LDF, int d, int lane) {
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
     if (16 * kk >= d) break;
@@ -142,10 +134,14 @@ __device__ __forceinline__ void attend(const bf16* sq, const bf16* sk, const bf1
       }
     }
   }
+}
 
-  // softmax over key frames; element e of tile (mt, j) is key frame
-  // 8j + 2*(lane%4) + (e&1) of query frame 16mt + lane/4 + 8*(e>>1)
-  uint32_t pa[2][2][4];  // normalized P as A fragments: [row tile][16-key step]
+// The softmax over key frames of S (scaled here, keys >= F masked), P
+// normalized and packed as the A fragments of O = P V: pa[row tile][16-key
+// step]. Element e of tile (mt, j) is key frame 8j + 2*(lane%4) + (e&1) of
+// query frame 16mt + lane/4 + 8*(e>>1).
+__device__ __forceinline__ void softmax_p(float (&s)[2][4][4], uint32_t (&pa)[2][2][4], int F,
+                                          float scale_log2, int lane) {
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
     float mx[2] = {-INFINITY, -INFINITY};
@@ -184,8 +180,14 @@ __device__ __forceinline__ void attend(const bf16* sq, const bf16* sk, const bf1
       pa[mt][t][3] = pack_bf16(s[mt][2 * t + 1][2] * sum[1], s[mt][2 * t + 1][3] * sum[1]);
     }
   }
+}
 
-  // O = P V in chunks of 64 columns
+// O = P V over d columns in chunks of 64, written to the O tile `so` (frames
+// < F only, LDO elements apart); sv points at V's first column of frame 0.
+// V's rows past F are zeroed in the fragments.
+template <int DP>
+__device__ __forceinline__ void pv_store(const uint32_t (&pa)[2][2][4], const bf16* sv,
+                                         bf16* so, int LDF, int LDO, int F, int d, int lane) {
 #pragma unroll
   for (int n0 = 0; n0 < DP; n0 += 64) {
     if (n0 >= d) break;
@@ -231,6 +233,27 @@ __device__ __forceinline__ void attend(const bf16* sq, const bf16* sk, const bf1
               __floats2bfloat162_rn(o[mt][n][2], o[mt][n][3]);
       }
   }
+}
+
+// One (position p, head h) of the item in a stage: S = Q K^T, softmax, O =
+// P V, O written to the O tile (frames < F only). sq/sk/sv/so point at the
+// head's first column of frame 0; LDF and LDO are the strides between
+// frames, in elements. The mma tiles run to 32 frames: rows past F are read
+// (the next tile's), their S rows and columns never reach a stored O, and
+// V's are zeroed in the fragments.
+template <int DP>
+__device__ __forceinline__ void attend(const bf16* sq, const bf16* sk, const bf16* sv, bf16* so,
+                                       int LDF, int LDO, int F, int d, float scale_log2,
+                                       int lane) {
+  float s[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+  qk_accumulate<DP>(s, sq, sk, LDF, d, lane);
+  uint32_t pa[2][2][4];
+  softmax_p(s, pa, F, scale_log2, lane);
+  pv_store<DP>(pa, sv, so, LDF, LDO, F, d, lane);
 }
 
 // The item's coordinates: (chunk, first position, sample).
@@ -344,7 +367,7 @@ HostCache host_cache;
 
 template <int DP>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int F, int L,
-           int heads, int d, int CW, int CWP, cudaStream_t stream) {
+           int heads, int d, int CW, int CWP, int scale_d, cudaStream_t stream) {
   const int C = heads * d;
   CUtensorMap maps[4];
   int err = make_map_4d(&maps[0], q, C, L, F, B, CWP, kPositions, F);
@@ -372,27 +395,241 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int F,
   const long long items = (long long)B * ((L + kPositions - 1) / kPositions) * (C / CW);
   const int grid = (int)(items < slots ? items : slots);
   kernel<<<grid, kThreads, bytes, stream>>>(maps[0], maps[1], maps[2], maps[3], B, F, L, C, d,
-                                           CW, CWP, kLog2e / sqrtf((float)d));
+                                           CW, CWP, kLog2e / sqrtf((float)scale_d));
+  return (int)cudaGetLastError();
+}
+
+// ---- heads wider than 160 columns: one head walked in column chunks --------
+//
+// An item is kWidePositions positions x all F frames x one head of d > 160
+// columns, walked in `chunks` chunks of CW columns (the last d - (chunks -
+// 1) * CW). A stage of the ring holds one chunk of the item in two slots of
+// kWidePositions tiles [F][CWP] each, one tile a position and a consumer
+// warp a position. The producer walks each item in 2 * chunks steps:
+//   steps 0 .. chunks-1: Q and K of chunk c (slots 0 and 1); each warp adds
+//     Q_c K_c^T to its position's S (f x f, in registers: the whole head's
+//     logits accumulate over the chunks before the softmax);
+//   then the softmax, once an item, to P in registers;
+//   steps chunks .. 2*chunks-1: V of chunk c (slot 0); each warp writes
+//     O_c = P V_c to slot 1, which the producer stores by one bulk copy per
+//     (position, frame row) when the stage comes back, before reloading it.
+// A chunk's box is CWP columns from the chunk's first: its columns past the
+// chunk are the next chunk's, the next head's or zeros past C, removed from
+// the last 16-deep step by a select as at d <= 160, so an Inf in another
+// head reaches no output of this one. Positions past L are neither loaded
+// nor stored. No atomics: the same inputs give the same bits.
+constexpr int kWidePositions = kConsumers;  // positions of a wide item: one a consumer warp
+constexpr int kWideStages = 2;
+constexpr int kChunkColumns = 160;  // the widest chunk (the wrapper's CHUNK_COLUMNS)
+constexpr int kPiece = 64;          // columns of one partial sum of S
+
+// The stages' two slots of kWidePositions tiles, the room for the mma tiles'
+// rows past F, the mbarriers.
+__host__ __device__ inline size_t wide_smem_bytes(int F, int cwp) {
+  return 128 +
+         ((size_t)kWideStages * 2 * kWidePositions * tile_elems(F, cwp) +
+          (size_t)(kMaxFrames - F) * cwp) * 2 +
+         2 * kWideStages * 8;
+}
+
+__global__ void __launch_bounds__(kThreads)
+temporal_fwd_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
+                         int B, int F, int L, int C, int d, int CW, int CWP, int chunks,
+                         float scale_log2) {
+  constexpr int P = kWidePositions, S = kWideStages;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* tiles = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~static_cast<uintptr_t>(127));
+  const int TILE = tile_elems(F, CWP);
+  const int SLOT = P * TILE, STAGE = 2 * SLOT;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(tiles + (size_t)S * STAGE + (size_t)(kMaxFrames - F) * CWP);
+  uint64_t* empty = full + S;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int heads = C / d;
+  const int pblocks = (L + P - 1) / P;
+  const int items = B * pblocks * heads;
+  const int steps = 2 * chunks;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers) {
+    // producer (one thread)
+    if (lane != 0) return;
+    // the O of step m (a V step) leaves slot 1 of its stage, one bulk copy
+    // per (position, frame row)
+    auto store = [&](int m) {
+      const int it = blockIdx.x + (m / steps) * gridDim.x, c = m % steps - chunks;
+      const int h = it % heads, pos0 = ((it / heads) % pblocks) * P, b = it / (heads * pblocks);
+      const bf16* o = tiles + (size_t)(m % S) * STAGE + SLOT;
+      const int dc = min(CW, d - c * CW);
+      for (int p = 0; p < P && pos0 + p < L; ++p)
+        for (int r = 0; r < F; ++r)
+          bulk_store(out + (((size_t)b * F + r) * L + pos0 + p) * C + (size_t)h * d + c * CW,
+                     o + (size_t)p * TILE + (size_t)r * CWP, (uint32_t)dc * 2);
+    };
+    int n = 0;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int h = it % heads, pos0 = ((it / heads) % pblocks) * P, b = it / (heads * pblocks);
+      const int valid = min(P, L - pos0);
+      for (int j = 0; j < steps; ++j, ++n) {
+        const int s = n % S;
+        bf16* t = tiles + (size_t)s * STAGE;
+        if (n >= S) {
+          mbar_wait(&empty[s], ((n / S) - 1) & 1);
+          if ((n - S) % steps >= chunks) {
+            store(n - S);
+            bulk_commit();
+            bulk_wait<0, true>();  // slot 1 is read before it is loaded again
+          }
+        }
+        const bool qk = j < chunks;
+        const int col = h * d + (j % chunks) * CW;
+        mbar_arrive_expect_tx(&full[s], (qk ? 2u : 1u) * valid * F * CWP * 2);
+        for (int p = 0; p < valid; ++p) {
+          if (qk) {
+            tma_load_4d(t + (size_t)p * TILE, &q_map, &full[s], col, pos0 + p, 0, b);
+            tma_load_4d(t + SLOT + (size_t)p * TILE, &k_map, &full[s], col, pos0 + p, 0, b);
+          } else {
+            tma_load_4d(t + (size_t)p * TILE, &v_map, &full[s], col, pos0 + p, 0, b);
+          }
+        }
+      }
+    }
+    for (int m = n > S ? n - S : 0; m < n; ++m) {
+      mbar_wait(&empty[m % S], (m / S) & 1);
+      if (m % steps >= chunks) {
+        store(m);
+        bulk_commit();
+      }
+    }
+    bulk_wait<0, false>();
+    return;
+  }
+
+  // consumers: warp p takes position p of every item (past L: stale tiles,
+  // never stored), and frees every stage
+  int n = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    float sacc[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        sacc[mt][j][0] = sacc[mt][j][1] = sacc[mt][j][2] = sacc[mt][j][3] = 0.f;
+    for (int c = 0; c < chunks; ++c, ++n) {
+      const int s = n % S;
+      mbar_wait(&full[s], (n / S) & 1);
+      const bf16* t = tiles + (size_t)s * STAGE + (size_t)warp * TILE;
+      // the sums over each kPiece columns start from zero and are added in
+      // fp32 after: the tensor cores' accumulation, not rounded to nearest,
+      // then spans at most 4 16-deep steps (at d = 1280 one accumulator over
+      // the head read 2x the d <= 160 kernel's error against the plain
+      // version)
+      const int dc = min(CW, d - c * CW);
+      for (int off = 0; off < dc; off += kPiece) {
+        float sc[2][4][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) sc[mt][j][0] = sc[mt][j][1] = sc[mt][j][2] = sc[mt][j][3] = 0.f;
+        qk_accumulate<kPiece>(sc, t + off, t + SLOT + off, CWP, min(kPiece, dc - off), lane);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sacc[mt][j][e] += sc[mt][j][e];
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    uint32_t pa[2][2][4];
+    softmax_p(sacc, pa, F, scale_log2, lane);
+    for (int c = 0; c < chunks; ++c, ++n) {
+      const int s = n % S;
+      mbar_wait(&full[s], (n / S) & 1);
+      bf16* t = tiles + (size_t)s * STAGE + (size_t)warp * TILE;
+      pv_store<kChunkColumns>(pa, t, t + SLOT, CWP, CWP, F, min(CW, d - c * CW), lane);
+      fence_proxy_async();  // O's writes before the bulk copies read them
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+  }
+}
+
+int launch_wide(const void* q, const void* k, const void* v, void* out, int B, int F, int L,
+                int heads, int d, int CW, int CWP, int chunks, int scale_d,
+                cudaStream_t stream) {
+  const int C = heads * d;
+  CUtensorMap maps[3];
+  int err = make_map_4d(&maps[0], q, C, L, F, B, CWP, 1, F);
+  if (!err) err = make_map_4d(&maps[1], k, C, L, F, B, CWP, 1, F);
+  if (!err) err = make_map_4d(&maps[2], v, C, L, F, B, CWP, 1, F);
+  if (err) return err;
+  const int bytes = (int)wide_smem_bytes(F, CWP);
+  const void* fn = reinterpret_cast<const void*>(temporal_fwd_wide_kernel);
+  cudaError_t e = host_cache.reserve_smem(fn, bytes);
+  if (e != cudaSuccess) return (int)e;
+  int slots = 0;  // blocks the card holds at once: the persistent grid
+  e = host_cache.get(fn, bytes, 0, &slots, [&](int* value) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t r = cudaGetDevice(&dev);
+    if (r == cudaSuccess) r = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (r == cudaSuccess)
+      r = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, temporal_fwd_wide_kernel,
+                                                        kThreads, bytes);
+    *value = sms * per_sm;
+    return r;
+  });
+  if (e != cudaSuccess) return (int)e;
+  if (slots < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long items = (long long)B * ((L + kWidePositions - 1) / kWidePositions) * heads;
+  const int grid = (int)(items < slots ? items : slots);
+  temporal_fwd_wide_kernel<<<grid, kThreads, bytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(out), B, F, L, C, d, CW, CWP, chunks,
+      kLog2e / sqrtf((float)scale_d));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Head widths the kernel takes: d a multiple of 8, d <= 160 (the motion
-// modules' d = 40/80/160, QK^T's depth padded to 48 / 80 / 160). An item
-// holds `heads_per_item` whole heads (CW = heads_per_item * d columns),
-// loaded `cwp` columns wide (the wrapper's `temporal_plan`).
+// modules' d = 40/80/160, QK^T's depth padded to 48 / 80 / 160), as items of
+// `heads_per_item` whole heads (CW = heads_per_item * d columns, chunks =
+// 1); and 160 < d <= 1280, one head an item walked in `chunks` chunks of CW
+// = ceil(d / chunks) rounded up to 8 columns (heads_per_item = 1). Either is
+// loaded `cwp` columns wide (the wrapper's `temporal_plan`). The logits are
+// scaled by scale_d^-1/2, 1 <= scale_d <= d (the true width of a head the
+// wrapper zero-pads, else d).
 extern "C" int hv_temporal_fwd(const void* q, const void* k, const void* v, void* out, int B,
                                int F, int L, int heads, int d, int heads_per_item, int cwp,
-                               void* stream) {
+                               int chunks, int scale_d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int CW = heads_per_item * d;
+  if (chunks < 1 || (chunks > 1 && heads_per_item != 1)) return (int)cudaErrorInvalidValue;
+  const int CW = chunks == 1 ? heads_per_item * d : ((d + chunks - 1) / chunks + 7) / 8 * 8;
   if (B < 1 || L < 1 || F < 1 || F > kMaxFrames || d <= 0 || d % 8 != 0 || heads < 1 ||
       heads_per_item < 1 || heads % heads_per_item != 0 || cwp > 256 || cwp % 8 != 0 ||
-      cwp < CW + 8 || (cwp / 8) % 2 != 1 || (long long)B * heads * d * F * L >= (1LL << 40))
+      cwp < CW + 8 || (cwp / 8) % 2 != 1 || scale_d < 1 || scale_d > d ||
+      (long long)B * heads * d * F * L >= (1LL << 40))
     return (int)cudaErrorInvalidValue;
-  if (d <= 48) return launch<48>(q, k, v, out, B, F, L, heads, d, CW, cwp, s);
-  if (d <= 80) return launch<80>(q, k, v, out, B, F, L, heads, d, CW, cwp, s);
-  if (d <= 160) return launch<160>(q, k, v, out, B, F, L, heads, d, CW, cwp, s);
+  if (chunks > 1) {
+    if (d <= kChunkColumns || d > 8 * kChunkColumns || CW > kChunkColumns ||
+        (chunks - 1) * CW >= d)
+      return (int)cudaErrorInvalidValue;
+    return launch_wide(q, k, v, out, B, F, L, heads, d, CW, cwp, chunks, scale_d, s);
+  }
+  if (d <= 48) return launch<48>(q, k, v, out, B, F, L, heads, d, CW, cwp, scale_d, s);
+  if (d <= 80) return launch<80>(q, k, v, out, B, F, L, heads, d, CW, cwp, scale_d, s);
+  if (d <= 160) return launch<160>(q, k, v, out, B, F, L, heads, d, CW, cwp, scale_d, s);
   return (int)cudaErrorInvalidValue;
 }

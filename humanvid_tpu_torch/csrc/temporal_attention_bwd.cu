@@ -244,20 +244,16 @@ __device__ __forceinline__ void product_store(const uint32_t (&a)[MT][MT][4], co
   }
 }
 
-// One (position, head) of an item: sq/sk/sv/sg point at the head's first
-// column of frame 0 of each input tile (frames LDF apart), oq/ok/ov at the
-// same place of the gradients' (frames LDO apart; in place, sg/sk/sv).
-template <int DP, int MT>
-__device__ __forceinline__ void head_grad(const bf16* sq, const bf16* sk, const bf16* sv,
-                                          const bf16* sg, int LDF, bf16* oq, bf16* ok, bf16* ov,
-                                          int LDO, bf16* scratch, int F, int d, float scale_log2,
-                                          float scale, int lane) {
-  // element e of tile (mt, j) is key frame 8j + 2*(lane%4) + (e&1) of
-  // query frame 16mt + lane/4 + 8*(e>>1)
-  float p[MT][2 * MT][4], dp[MT][2 * MT][4];
-  rows_by_rows<DP, MT>(p, sq, sk, LDF, d, lane);   // S = Q K^T
-  rows_by_rows<DP, MT>(dp, sg, sv, LDF, d, lane);  // dP = G V^T
-  uint32_t pa[MT][MT][4], da[MT][MT][4];  // P and dS as A fragments [query tile][key step]
+// P and dS (as the A fragments of the output products, [query tile][key
+// step]) from S = Q K^T and dP = G V^T of one (position, head): the softmax
+// in the log2 domain (keys >= F masked), delta = rowsum(dP * P), dS = P (dP
+// - delta). Element e of tile (mt, j) is key frame 8j + 2*(lane%4) + (e&1)
+// of query frame 16mt + lane/4 + 8*(e>>1).
+template <int MT>
+__device__ __forceinline__ void probs_and_ds(float (&p)[MT][2 * MT][4],
+                                             float (&dp)[MT][2 * MT][4],
+                                             uint32_t (&pa)[MT][MT][4], uint32_t (&da)[MT][MT][4],
+                                             int F, float scale_log2, int lane) {
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     float mx[2] = {-INFINITY, -INFINITY};
@@ -325,6 +321,17 @@ __device__ __forceinline__ void head_grad(const bf16* sq, const bf16* sk, const 
       da[mt][t][3] = pack_bf16(dp[mt][2 * t + 1][2], dp[mt][2 * t + 1][3]);
     }
   }
+}
+
+// dV = P^T G, dQ = dS K * scale and dK = dS^T Q * scale over d columns,
+// stored to ov, oq and ok (frames LDO apart; in place: ov over V, oq over
+// G once dV has read it, ok over K once dQ has).
+template <int DP, int MT>
+__device__ __forceinline__ void grads_store(const uint32_t (&pa)[MT][MT][4],
+                                            const uint32_t (&da)[MT][MT][4], const bf16* sq,
+                                            const bf16* sk, const bf16* sg, int LDF, bf16* oq,
+                                            bf16* ok, bf16* ov, int LDO, bf16* scratch, int F,
+                                            int d, float scale, int lane) {
   uint32_t ta[MT][MT][4];
   transpose_a<MT>(pa, ta, scratch, lane);
   // each product's reads of shared memory before the next one's writes
@@ -335,6 +342,22 @@ __device__ __forceinline__ void head_grad(const bf16* sq, const bf16* sk, const 
   transpose_a<MT>(da, ta, scratch, lane);
   __syncwarp();
   product_store<DP, MT>(ta, sq, LDF, ok, LDO, F, d, scale, lane);  // dK = dS^T Q
+}
+
+// One (position, head) of an item: sq/sk/sv/sg point at the head's first
+// column of frame 0 of each input tile (frames LDF apart), oq/ok/ov at the
+// same place of the gradients' (frames LDO apart; in place, sg/sk/sv).
+template <int DP, int MT>
+__device__ __forceinline__ void head_grad(const bf16* sq, const bf16* sk, const bf16* sv,
+                                          const bf16* sg, int LDF, bf16* oq, bf16* ok, bf16* ov,
+                                          int LDO, bf16* scratch, int F, int d, float scale_log2,
+                                          float scale, int lane) {
+  float p[MT][2 * MT][4], dp[MT][2 * MT][4];
+  rows_by_rows<DP, MT>(p, sq, sk, LDF, d, lane);   // S = Q K^T
+  rows_by_rows<DP, MT>(dp, sg, sv, LDF, d, lane);  // dP = G V^T
+  uint32_t pa[MT][MT][4], da[MT][MT][4];
+  probs_and_ds<MT>(p, dp, pa, da, F, scale_log2, lane);
+  grads_store<DP, MT>(pa, da, sq, sk, sg, LDF, oq, ok, ov, LDO, scratch, F, d, scale, lane);
 }
 
 // The item's coordinates: (chunk, position, sample).
@@ -483,7 +506,7 @@ HostCache host_cache;
 
 template <int DP, int MT>
 int launch(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
-           void* dv, int B, int F, int L, int heads, int d, int CW, int CWP,
+           void* dv, int B, int F, int L, int heads, int d, int CW, int CWP, int scale_d,
            cudaStream_t stream) {
   const int C = heads * d;
   CUtensorMap maps[7] = {};
@@ -516,7 +539,7 @@ int launch(const void* q, const void* k, const void* v, const void* g, void* dq,
   if (slots < 1) return (int)cudaErrorInvalidConfiguration;
   const long long items = (long long)B * L * (C / CW);
   const int grid = (int)(items < slots ? items : slots);
-  const float scale = 1.f / sqrtf((float)d);
+  const float scale = 1.f / sqrtf((float)scale_d);
   kernel<<<grid, kThreads, bytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], static_cast<bf16*>(dq),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, F, L, C, d, CW, CWP, scale * kLog2e,
@@ -527,28 +550,274 @@ int launch(const void* q, const void* k, const void* v, const void* g, void* dq,
 template <int DP>
 int launch_frames(const void* q, const void* k, const void* v, const void* g, void* dq,
                   void* dk, void* dv, int B, int F, int L, int heads, int d, int CW, int CWP,
-                  cudaStream_t s) {
-  if (F <= 16) return launch<DP, 1>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, CWP, s);
-  return launch<DP, 2>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, CWP, s);
+                  int scale_d, cudaStream_t s) {
+  if (F <= 16) return launch<DP, 1>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, CWP,
+                                    scale_d, s);
+  return launch<DP, 2>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, CWP, scale_d, s);
+}
+
+// ---- heads wider than 160 columns: one head walked in column chunks --------
+//
+// An item is kWideConsumers positions x all F frames x one head of d > 160
+// columns, walked in `chunks` chunks of CW columns (the last d - (chunks -
+// 1) * CW); a consumer warp a position. A stage holds one chunk in four
+// slots (Q, K, V, G) of kWideConsumers tiles [F][CWP]. The producer walks
+// each item in 2 * chunks steps:
+//   steps 0 .. chunks-1: Q, K, V and G of chunk c; each warp adds Q_c K_c^T
+//     to its position's S and G_c V_c^T to its dP (f x f each, in
+//     registers: the whole head's sums before the softmax);
+//   then P, delta and dS, once an item, in registers;
+//   steps chunks .. 2*chunks-1: Q, K and G of chunk c again (V is not
+//     needed); each warp writes dV_c = P^T G_c into the V slot (not
+//     loaded), dQ_c = dS K_c over G_c and dK_c = dS^T Q_c over K_c, and the
+//     producer stores them, one bulk copy per (gradient, position, frame
+//     row), when the stage comes back, before reloading it.
+// The second pass reads q, k and g again (7 tensor reads where the least is
+// 4, from L2 while the item's chunks stay there); an f x f sum is all that
+// crosses chunks. Four slots of two positions at f = 32 and 168 columns are
+// 86 KB a stage: two stages, one block an SM. Columns past a chunk and
+// frames past F are removed by selects as at d <= 160; positions past L
+// are neither loaded nor stored. No atomics: the same inputs give the same
+// bits.
+constexpr int kWideConsumers = 2;  // consumer warps of a wide item, one position each
+constexpr int kWideStages = 2;
+constexpr int kWideThreads = 32 * (kWideConsumers + 1);
+constexpr int kChunkColumns = 160;  // the widest chunk (the wrapper's CHUNK_COLUMNS)
+constexpr int kPiece = 64;          // columns of one partial sum of S and dP
+
+// The stages' four slots of kWideConsumers tiles, the room past them, the
+// warps' transpose tiles, the mbarriers.
+__host__ __device__ inline size_t wide_smem_bytes(int F, int cwp) {
+  return 128 +
+         ((size_t)kWideStages * 4 * kWideConsumers * tile_elems(F, cwp) +
+          (size_t)room_elems(F, cwp) +
+          (kMovmatrix ? 0 : (size_t)kWideConsumers * kMaxFrames * LP)) * 2 +
+         2 * kWideStages * 8;
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kWideThreads)
+temporal_bwd_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap g_map, bf16* __restrict__ dq,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int F, int L,
+                         int C, int d, int CW, int CWP, int chunks, float scale_log2,
+                         float scale) {
+  constexpr int P = kWideConsumers, S = kWideStages;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* tiles = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~static_cast<uintptr_t>(127));
+  const int TILE = tile_elems(F, CWP);
+  const int SLOT = P * TILE, STAGE = 4 * SLOT;  // Q, K, V, G
+  bf16* scratch = tiles + (size_t)S * STAGE + room_elems(F, CWP);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      scratch + (kMovmatrix ? 0 : (size_t)P * kMaxFrames * LP));
+  uint64_t* empty = full + S;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int heads = C / d;
+  const int pblocks = (L + P - 1) / P;
+  const int items = B * pblocks * heads;
+  const int steps = 2 * chunks;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], P);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == P) {
+    // producer (one thread)
+    if (lane != 0) return;
+    // the gradients of step m (a second-pass step) leave their stage: dQ
+    // from the G slot, dK from the K slot, dV from the V slot
+    auto store = [&](int m) {
+      const int it = blockIdx.x + (m / steps) * gridDim.x, c = m % steps - chunks;
+      const int h = it % heads, pos0 = ((it / heads) % pblocks) * P, b = it / (heads * pblocks);
+      const bf16* t = tiles + (size_t)(m % S) * STAGE;
+      const bf16* src[3] = {t + 3 * SLOT, t + SLOT, t + 2 * SLOT};
+      bf16* dst[3] = {dq, dk, dv};
+      const int dc = min(CW, d - c * CW);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        for (int p = 0; p < P && pos0 + p < L; ++p)
+          for (int r = 0; r < F; ++r)
+            bulk_store(dst[i] + (((size_t)b * F + r) * L + pos0 + p) * C + (size_t)h * d + c * CW,
+                       src[i] + (size_t)p * TILE + (size_t)r * CWP, (uint32_t)dc * 2);
+    };
+    int n = 0;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int h = it % heads, pos0 = ((it / heads) % pblocks) * P, b = it / (heads * pblocks);
+      const int valid = min(P, L - pos0);
+      for (int j = 0; j < steps; ++j, ++n) {
+        const int s = n % S;
+        bf16* t = tiles + (size_t)s * STAGE;
+        if (n >= S) {
+          mbar_wait(&empty[s], ((n / S) - 1) & 1);
+          if ((n - S) % steps >= chunks) {
+            store(n - S);
+            bulk_commit();
+            bulk_wait<0, true>();  // the gradients are read before the stage is loaded again
+          }
+        }
+        const bool first = j < chunks;  // the first pass loads V too
+        const int col = h * d + (j % chunks) * CW;
+        mbar_arrive_expect_tx(&full[s], (first ? 4u : 3u) * valid * F * CWP * 2);
+        for (int p = 0; p < valid; ++p) {
+          const int pos = pos0 + p;
+          bf16* tp = t + (size_t)p * TILE;
+          tma_load_4d(tp, &q_map, &full[s], col, pos, 0, b);
+          tma_load_4d(tp + SLOT, &k_map, &full[s], col, pos, 0, b);
+          if (first) tma_load_4d(tp + 2 * SLOT, &v_map, &full[s], col, pos, 0, b);
+          tma_load_4d(tp + 3 * SLOT, &g_map, &full[s], col, pos, 0, b);
+        }
+      }
+    }
+    for (int m = n > S ? n - S : 0; m < n; ++m) {
+      mbar_wait(&empty[m % S], (m / S) & 1);
+      if (m % steps >= chunks) {
+        store(m);
+        bulk_commit();
+      }
+    }
+    bulk_wait<0, false>();
+    return;
+  }
+
+  // consumers: warp p takes position p of every item (past L: stale tiles,
+  // never stored), and frees every stage
+  bf16* own = scratch + (size_t)warp * kMaxFrames * LP;
+  int n = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    float p[MT][2 * MT][4], dp[MT][2 * MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 2 * MT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[mt][j][e] = dp[mt][j][e] = 0.f;
+    for (int c = 0; c < chunks; ++c, ++n) {
+      const int s = n % S;
+      mbar_wait(&full[s], (n / S) & 1);
+      const bf16* t = tiles + (size_t)s * STAGE + (size_t)warp * TILE;
+      const int dc = min(CW, d - c * CW);
+      // the sums over each kPiece columns start from zero and are added in
+      // fp32 after: the tensor cores' accumulation, not rounded to nearest,
+      // then spans at most 4 16-deep steps (at d = 1280 one accumulator over
+      // the head read 2x the d <= 160 kernel's error against the plain
+      // version)
+      for (int off = 0; off < dc; off += kPiece) {
+        float pc[MT][2 * MT][4], dpc[MT][2 * MT][4];
+        const int w = min(kPiece, dc - off);
+        rows_by_rows<kPiece, MT>(pc, t + off, t + SLOT + off, CWP, w, lane);  // Q K^T
+        rows_by_rows<kPiece, MT>(dpc, t + 3 * SLOT + off, t + 2 * SLOT + off, CWP, w,
+                                 lane);  // G V^T
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < 2 * MT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              p[mt][j][e] += pc[mt][j][e];
+              dp[mt][j][e] += dpc[mt][j][e];
+            }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    uint32_t pa[MT][MT][4], da[MT][MT][4];
+    probs_and_ds<MT>(p, dp, pa, da, F, scale_log2, lane);
+    for (int c = 0; c < chunks; ++c, ++n) {
+      const int s = n % S;
+      mbar_wait(&full[s], (n / S) & 1);
+      bf16* t = tiles + (size_t)s * STAGE + (size_t)warp * TILE;
+      grads_store<kChunkColumns, MT>(pa, da, t, t + SLOT, t + 3 * SLOT, CWP, t + 3 * SLOT,
+                                     t + SLOT, t + 2 * SLOT, CWP, own, F, min(CW, d - c * CW),
+                                     scale, lane);
+      fence_proxy_async();  // the gradients' writes before the bulk copies read them
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+  }
+}
+
+template <int MT>
+int launch_wide(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
+                void* dv, int B, int F, int L, int heads, int d, int CW, int CWP, int chunks,
+                int scale_d, cudaStream_t stream) {
+  const int C = heads * d;
+  CUtensorMap maps[4];
+  int err = make_map_4d(&maps[0], q, C, L, F, B, CWP, 1, F);
+  if (!err) err = make_map_4d(&maps[1], k, C, L, F, B, CWP, 1, F);
+  if (!err) err = make_map_4d(&maps[2], v, C, L, F, B, CWP, 1, F);
+  if (!err) err = make_map_4d(&maps[3], g, C, L, F, B, CWP, 1, F);
+  if (err) return err;
+  const int bytes = (int)wide_smem_bytes(F, CWP);
+  auto kernel = temporal_bwd_wide_kernel<MT>;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  cudaError_t e = host_cache.reserve_smem(fn, bytes);
+  if (e != cudaSuccess) return (int)e;
+  int slots = 0;  // blocks the card holds at once: the persistent grid
+  e = host_cache.get(fn, bytes, 0, &slots, [&](int* value) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t r = cudaGetDevice(&dev);
+    if (r == cudaSuccess) r = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (r == cudaSuccess)
+      r = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWideThreads, bytes);
+    *value = sms * per_sm;
+    return r;
+  });
+  if (e != cudaSuccess) return (int)e;
+  if (slots < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long items = (long long)B * ((L + kWideConsumers - 1) / kWideConsumers) * heads;
+  const int grid = (int)(items < slots ? items : slots);
+  const float scale = 1.f / sqrtf((float)scale_d);
+  kernel<<<grid, kWideThreads, bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), B, F, L, C, d, CW, CWP, chunks, scale * kLog2e, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Head widths the kernel takes: d a multiple of 8, d <= 160 (the motion
-// modules' d = 40/80/160, QK^T's depth padded to 48 / 80 / 160). An item
-// holds `heads_per_item` whole heads (CW = heads_per_item * d columns),
-// loaded `cwp` columns wide (the wrapper's `temporal_plan`).
+// modules' d = 40/80/160, QK^T's depth padded to 48 / 80 / 160), as items of
+// `heads_per_item` whole heads (CW = heads_per_item * d columns, chunks =
+// 1); and 160 < d <= 1280, one head an item walked in `chunks` chunks of CW
+// = ceil(d / chunks) rounded up to 8 columns (heads_per_item = 1). Either is
+// loaded `cwp` columns wide (the wrapper's `temporal_plan`). The logits are
+// scaled by scale_d^-1/2, 1 <= scale_d <= d (the true width of a head the
+// wrapper zero-pads, else d).
 extern "C" int hv_temporal_bwd(const void* q, const void* k, const void* v, const void* g,
                                void* dq, void* dk, void* dv, int B, int F, int L, int heads,
-                               int d, int heads_per_item, int cwp, void* stream) {
+                               int d, int heads_per_item, int cwp, int chunks, int scale_d,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int CW = heads_per_item * d;
+  if (chunks < 1 || (chunks > 1 && heads_per_item != 1)) return (int)cudaErrorInvalidValue;
+  const int CW = chunks == 1 ? heads_per_item * d : ((d + chunks - 1) / chunks + 7) / 8 * 8;
   if (B < 1 || L < 1 || F < 1 || F > kMaxFrames || d <= 0 || d % 8 != 0 || heads < 1 ||
       heads_per_item < 1 || heads % heads_per_item != 0 || cwp > 256 || cwp % 8 != 0 ||
-      cwp < CW + 8 || (cwp / 8) % 2 != 1 || (long long)B * heads * d * F * L >= (1LL << 40))
+      cwp < CW + 8 || (cwp / 8) % 2 != 1 || scale_d < 1 || scale_d > d ||
+      (long long)B * heads * d * F * L >= (1LL << 40))
     return (int)cudaErrorInvalidValue;
-  if (d <= 48) return launch_frames<48>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, cwp, s);
-  if (d <= 80) return launch_frames<80>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, cwp, s);
-  if (d <= 160) return launch_frames<160>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, cwp, s);
+  if (chunks > 1) {
+    if (d <= kChunkColumns || d > 8 * kChunkColumns || CW > kChunkColumns ||
+        (chunks - 1) * CW >= d)
+      return (int)cudaErrorInvalidValue;
+    if (F <= 16)
+      return launch_wide<1>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, cwp, chunks, scale_d,
+                            s);
+    return launch_wide<2>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, cwp, chunks, scale_d,
+                          s);
+  }
+#define FRAMES(DP) \
+  launch_frames<DP>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, cwp, scale_d, s)
+  if (d <= 48) return FRAMES(48);
+  if (d <= 80) return FRAMES(80);
+  if (d <= 160) return FRAMES(160);
+#undef FRAMES
   return (int)cudaErrorInvalidValue;
 }

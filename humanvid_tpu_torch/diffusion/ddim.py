@@ -60,6 +60,9 @@ def ddim_pred_x0_eps(sched: NoiseSchedule, model_output: torch.Tensor,
     elif sched.prediction_type == "v_prediction":
         x0 = sqrt_a * sample - sqrt_1ma * model_output
         eps = sqrt_a * model_output + sqrt_1ma * sample
+    elif sched.prediction_type == "sample":
+        x0 = model_output
+        eps = (sample - sqrt_a * x0) / sqrt_1ma
     else:
         raise ValueError(sched.prediction_type)
     return x0, eps

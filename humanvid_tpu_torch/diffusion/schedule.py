@@ -18,7 +18,7 @@ import torch
 class NoiseSchedule(NamedTuple):
     alphas_cumprod: np.ndarray   # (T,) float32
     num_train_timesteps: int
-    prediction_type: str         # "epsilon" | "v_prediction"
+    prediction_type: str         # "epsilon" | "v_prediction" | "sample" (sampling only)
     final_alpha_cumprod: float   # alpha_cumprod of the state past the last DDIM step
 
 

@@ -6,10 +6,13 @@ frames: ``softmax(q k^T * d^-1/2) v``. The output has the input's layout; no
 ``(b f) l c <-> (b l) f c`` rearrange happens.
 
 On a CUDA tensor it launches the hand-written kernel in
-``csrc/temporal_attention.cu`` (bf16 only, f <= 32) or raises; on a CPU
-tensor it runs :func:`temporal_attention_plain`. The kernel's work item is
-a run of positions x all frames x a chunk of whole heads
-(:func:`temporal_plan`).
+``csrc/temporal_attention.cu`` (bf16 only, f <= 32, d <= 1280) or raises; on
+a CPU tensor it runs :func:`temporal_attention_plain`. The kernel's work
+item is a run of positions x all frames x a chunk of whole heads, or, for a
+head wider than CHUNK_COLUMNS, one head walked in column chunks
+(:func:`temporal_plan`). A head whose width is no multiple of 8 runs
+zero-padded to the next one (``head_pad.resize_heads``), with the softmax
+scale of its true width.
 
 The gradient (:class:`TemporalAttention`, an autograd Function) keeps only
 q, k and v: on a CUDA tensor the one-pass kernel of
@@ -22,75 +25,108 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import cuda_build
+from .head_pad import resize_heads, round_up8
 
 MAX_FRAMES = 32  # the motion modules' position-encoding table bounds f
 
-MAX_HEAD_DIM = 160
-CHUNK_COLUMNS = 160  # columns of an item: the UNet's 8 heads in 320-byte pieces
+MAX_HEAD_DIM = 1280  # one head over the widest motion channels
+CHUNK_COLUMNS = 160  # an item's columns (8 UNet heads, 320 bytes); a chunk's most
 
 launches = {"temporal": 0, "temporal_bwd": 0}
+# The forward's and the backward's launches by the caller's head width
+# (before any pad): {d: count}.
+forward_launches_by_d: dict = {}
+backward_launches_by_d: dict = {}
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 class TemporalPlan(NamedTuple):
-    """The kernels' item (forward and backward): ``heads`` whole heads, ``cols`` =
-    heads * d columns, loaded ``padded`` columns wide (an odd number of
-    16-byte units, at least 8 columns past the chunk: the frames of a
-    head then sit in distinct shared-memory banks, and the last 16-deep
-    step of a head with d % 16 == 8 stays inside the row)."""
+    """The kernels' item (forward and backward): ``heads`` whole heads of
+    ``cols`` = heads * d columns, or (``chunks`` > 1) one head walked in
+    ``chunks`` column chunks of ``cols`` columns (the last one narrower
+    where d is no multiple of it); loaded ``padded`` columns wide (an odd
+    number of 16-byte units, at least 8 columns past the chunk: the frames
+    of a head then sit in distinct shared-memory banks, and the last
+    16-deep step of a head with d % 16 == 8 stays inside the row)."""
     heads: int
     cols: int
     padded: int
+    chunks: int
 
 
 @functools.lru_cache(maxsize=None)
 def temporal_plan(c: int, heads: int) -> TemporalPlan:
     """The most whole heads whose columns fit CHUNK_COLUMNS (at least
-    one), and the width the kernel loads them at."""
+    one), or for a wider head the fewest chunks of at most CHUNK_COLUMNS
+    columns, a multiple of 8, that cover it; and the width the kernel loads
+    them at. ``csrc/temporal_attention*.cu`` derive the same chunk width
+    from d and the chunk count."""
     d = c // heads
-    per = max(h for h in range(1, heads + 1)
-              if heads % h == 0 and (h == 1 or h * d <= CHUNK_COLUMNS))
-    cols = per * d
-    return TemporalPlan(per, cols, cols + (8 if (cols // 8) % 2 == 0 else 16))
+    if d > CHUNK_COLUMNS:
+        chunks = -(-d // CHUNK_COLUMNS)
+        per, cols = 1, round_up8(-(-d // chunks))
+    else:
+        chunks = 1
+        per = max(h for h in range(1, heads + 1)
+                  if heads % h == 0 and h * d <= CHUNK_COLUMNS)
+        cols = per * d
+    return TemporalPlan(per, cols, cols + (8 if (cols // 8) % 2 == 0 else 16), chunks)
 
 
-def launch_sizes(shape, heads: int):
-    """The size arguments both kernels take for q of ``shape`` (b, f, l, c):
-    (b, f, l, heads, d, heads an item, padded width) from
-    :func:`temporal_plan`; raises on sizes the kernels do not take."""
+def temporal_width(d: int) -> int:
+    """The head width the kernels run a d-wide head at: d, or d zero-padded
+    to the next multiple of 8; raises past MAX_HEAD_DIM."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} unsupported by kernel B: it takes 1 <= d <= "
+                         f"{MAX_HEAD_DIM}")
+    return round_up8(d)
+
+
+def launch_sizes(shape, heads: int, scale_d: Optional[int] = None):
+    """The size arguments both kernels take for q of ``shape`` (b, f, l, c),
+    d a multiple of 8 (the wrapper pads first): (b, f, l, heads, d, heads
+    an item, padded width, chunks a head, scale_d) from
+    :func:`temporal_plan`, where ``scale_d`` (d by default) is the width
+    whose d^-1/2 scales the logits; raises on sizes the kernels do not
+    take."""
     b, f, l, c = shape
     d = c // heads
     if b > 65535 or heads > 65535 or min(b, f, l) < 1:
         raise ValueError(f"unsupported sizes {tuple(shape)} heads={heads}")
+    if f > MAX_FRAMES:
+        raise ValueError(f"{f} frames > {MAX_FRAMES}")
     if d % 8 or d > MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} unsupported: needs d % 8 == 0 and d <= {MAX_HEAD_DIM}")
     plan = temporal_plan(c, heads)
-    return b, f, l, heads, d, plan.heads, plan.padded
+    return b, f, l, heads, d, plan.heads, plan.padded, plan.chunks, scale_d or d
 
 
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
+    forward_launches_by_d.clear()
+    backward_launches_by_d.clear()
 
 
 def temporal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             heads: int) -> torch.Tensor:
+                             heads: int, scale_d: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version: fp32 logits and softmax over the frame axis,
-    probabilities rounded to the input dtype before the PV product."""
+    probabilities rounded to the input dtype before the PV product. The
+    logits are scaled by ``scale_d ** -0.5`` (the head width d by default)."""
     b, f, l, c = q.shape
     d = c // heads
 
     def split(t):  # (b, f, l, c) -> (b, l, heads, f, d)
         return t.reshape(b, f, l, heads, d).permute(0, 2, 3, 1, 4).float()
 
-    logits = torch.matmul(split(q), split(k).transpose(-1, -2)) * (d ** -0.5)
+    logits = torch.matmul(split(q), split(k).transpose(-1, -2)) * ((scale_d or d) ** -0.5)
     p = torch.softmax(logits, dim=-1).to(q.dtype).float()
     out = torch.matmul(p, split(v))  # (b, l, heads, f, d)
     return out.permute(0, 3, 1, 2, 4).reshape(b, f, l, c).to(q.dtype)
@@ -119,25 +155,38 @@ def _check_cuda(**tensors):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _padded(heads, width, **tensors):
+    """The tensors zero-padded to ``width`` columns a head (where that
+    differs), each checked as the kernels need it."""
+    tensors = {name: resize_heads(t, heads, width) for name, t in tensors.items()}
+    _check_cuda(**tensors)
+    return list(tensors.values())
+
+
 def temporal_attention_cuda(q, k, v, heads):
     _check(q, k, v, heads)
-    _check_cuda(q=q, k=k, v=v)
-    out = torch.empty_like(q)
+    d = q.shape[-1] // heads
+    width = temporal_width(d)
+    qk, kk, vk = _padded(heads, width, q=q, k=k, v=v)
+    sizes = launch_sizes(tuple(qk.shape), heads, d)
+    out = torch.empty_like(qk)
     fn = cuda_build.function("temporal_attention", "hv_temporal_fwd", _FWD_ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             *launch_sizes(tuple(q.shape), heads), cuda_build.stream_handle(q.device))
+    err = fn(qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), out.data_ptr(), *sizes,
+             cuda_build.stream_handle(q.device))
     cuda_build.check(err, "temporal attention launch")
     launches["temporal"] += 1
-    return out
+    forward_launches_by_d[d] = forward_launches_by_d.get(d, 0) + 1
+    return resize_heads(out, heads, d)
 
 
-def temporal_attention_backward_plain(q, k, v, g, heads: int):
+def temporal_attention_backward_plain(q, k, v, g, heads: int, scale_d: Optional[int] = None):
     """Plain PyTorch version of the backward kernel: (dq, dk, dv) in the
     input dtype. Recomputes the fp32 softmax, takes delta = rowsum(dp * p)
-    and rounds p and ds to the input dtype before their products."""
+    and rounds p and ds to the input dtype before their products.
+    ``scale = scale_d ** -0.5``, the head width d by default."""
     b, f, l, c = q.shape
     d = c // heads
-    scale = d ** -0.5
+    scale = (scale_d or d) ** -0.5
 
     def split(t):  # (b, f, l, c) -> (b, l, heads, f, d)
         return t.reshape(b, f, l, heads, d).permute(0, 2, 3, 1, 4).float()
@@ -160,17 +209,20 @@ def temporal_attention_backward_plain(q, k, v, g, heads: int):
 def temporal_attention_backward_cuda(q, k, v, g, heads: int):
     """Launch the backward kernel; every check it relies on raises here."""
     _check(q, k, v, heads)
-    _check_cuda(q=q, k=k, v=v, g=g)
     if g.shape != q.shape:
         raise ValueError(f"g {tuple(g.shape)} != q {tuple(q.shape)}")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    d = q.shape[-1] // heads
+    width = temporal_width(d)
+    qk, kk, vk, gk = _padded(heads, width, q=q, k=k, v=v, g=g)
+    sizes = launch_sizes(tuple(qk.shape), heads, d)
+    dq, dk, dv = torch.empty_like(qk), torch.empty_like(kk), torch.empty_like(vk)
     fn = cuda_build.function("temporal_attention_bwd", "hv_temporal_bwd", _BWD_ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), *launch_sizes(tuple(q.shape), heads),
-             cuda_build.stream_handle(q.device))
+    err = fn(qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), gk.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), *sizes, cuda_build.stream_handle(q.device))
     cuda_build.check(err, "temporal attention backward launch")
     launches["temporal_bwd"] += 1
-    return dq, dk, dv
+    backward_launches_by_d[d] = backward_launches_by_d.get(d, 0) + 1
+    return tuple(resize_heads(t, heads, d) for t in (dq, dk, dv))
 
 
 class TemporalAttention(torch.autograd.Function):

@@ -585,7 +585,7 @@ def run(names: Sequence[str], iters: int = 5) -> List[dict]:
     for name, lib in _build({n: variant_source(n) for n in names}).items():
         fn = fns[name] = lib.hv_flash_fwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = fa._FWD_ARGTYPES
     stream = cuda_build.stream_handle(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     records = []
@@ -602,7 +602,7 @@ def run(names: Sequence[str], iters: int = 5) -> List[dict]:
         def call(name):
             err = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             None if bias is None else bias.data_ptr(), out.data_ptr(),
-                            lse.data_ptr(), B, lq, lk, heads, d, stream)
+                            lse.data_ptr(), B, lq, lk, heads, d, d, stream)
             cuda_build.check(err, f"variant {name}")
 
         rows = torch.cat([torch.arange(64, device=dev), torch.arange(lq - 64, lq, device=dev)])
@@ -671,12 +671,18 @@ def run_bwd(names: Sequence[str], iters: int = 5, against: Optional[str] = None)
     texts = {n: variant_source(n, BWD_VARIANTS, "flash_attention_bwd.cu") for n in names}
     if against:
         texts["against"] = Path(against).read_text()
+    # a source without the scale_d argument (before the padded head widths)
+    # is called without it
+    old_entry = {n for n, t in texts.items() if "int scale_d" not in t}
     fns = {}
     for name, lib in _build(texts, "flash_bwd_variant").items():
         dkv, dq = lib.hv_flash_bwd_dkv, lib.hv_flash_bwd_dq
         dkv.restype = dq.restype = ctypes.c_int
-        dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        old = name in old_entry
+        dkv.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p] if old
+                        else fa._DKV_ARGTYPES)
+        dq.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] if old
+                       else fa._DQ_ARGTYPES)
         fns[name] = (dkv, dq)
     stream = cuda_build.stream_handle(dev)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -701,13 +707,16 @@ def run_bwd(names: Sequence[str], iters: int = 5, against: Optional[str] = None)
                   None if bias is None else bias.data_ptr(), g.data_ptr(), lse.data_ptr(),
                   delta.data_ptr())
 
+        def sizes(name):
+            return (B, lq, lk, heads, d) if name in old_entry else (B, lq, lk, heads, d, d)
+
         def call_dkv(name):
             cuda_build.check(fns[name][0](*common, grads[1].data_ptr(), grads[2].data_ptr(),
-                                          B, lq, lk, heads, d, stream), f"variant {name} dk/dv")
+                                          *sizes(name), stream), f"variant {name} dk/dv")
 
         def call_dq(name):
-            cuda_build.check(fns[name][1](*common, grads[0].data_ptr(), B, lq, lk, heads, d,
-                                          stream), f"variant {name} dq")
+            cuda_build.check(fns[name][1](*common, grads[0].data_ptr(), *sizes(name), stream),
+                             f"variant {name} dq")
 
         checks, first = {}, None
         for name in fns:
@@ -1085,28 +1094,38 @@ def run_gn(names: Sequence[str], iters: int = 5, against: Optional[str] = None) 
     return records
 
 
+def _temporal_sizes_taken(text: str) -> int:
+    """The size arguments a kernel B entry point of this source takes: 5
+    (b, f, l, heads, d) in the first design, 7 with the item plan (heads
+    an item, padded width), 9 with the column chunks and the softmax's
+    width; :func:`~humanvid_tpu_torch.ops.temporal_attention.launch_sizes`
+    gives them in that order."""
+    if "int heads_per_item" not in text:
+        return 5
+    return 9 if "int scale_d" in text else 7
+
+
 def run_temporal(names: Sequence[str], iters: int = 5,
                  against: Optional[str] = None) -> List[dict]:
     """Kernel B's forward variants at every shape of ``TEMPORAL_SHAPES``:
     each but the ablations held to ``temporal_attention_plain``
     (``chip_smoke.py``'s limits), then timed in turns beside SDPA on the
     head-split permuted views. ``against`` is another source of
-    ``hv_temporal_fwd``; one without the item-plan arguments (an earlier
-    design's) is called with the earlier ones. Returns the records (also
-    printed, one JSON line each)."""
+    ``hv_temporal_fwd``; an earlier design's is called with the size
+    arguments its entry point takes (:func:`_temporal_sizes_taken`).
+    Returns the records (also printed, one JSON line each)."""
     from ..ops import temporal_attention as ta
 
     if not torch.cuda.is_available():
         raise RuntimeError("the variants run on the CUDA card, and none is available")
     dev = torch.device("cuda")
     texts = _named_sources(names, TEMPORAL_VARIANTS, "temporal_attention.cu", against)
-    old_entry = {n for n, t in texts.items() if "int heads_per_item" not in t}
+    n_sizes = {n: _temporal_sizes_taken(t) for n, t in texts.items()}
     fns = {}
     for name, lib in _build(texts, "temporal_variant").items():
         fn = fns[name] = lib.hv_temporal_fwd
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-                       if name in old_entry else ta._FWD_ARGTYPES)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_sizes[name] + [ctypes.c_void_p]
     stream = cuda_build.stream_handle(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     records = []
@@ -1116,12 +1135,12 @@ def run_temporal(names: Sequence[str], iters: int = 5,
         q, k, v = (torch.randn((b, f, l, c), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
         out = torch.empty_like(q)
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, f, l, heads, d)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
         calls = {}
         for name, fn in fns.items():
             padded = plan.cols if name == "no_pad" else plan.padded
-            args = (*ptrs, stream) if name in old_entry else \
-                (*ptrs, plan.heads, padded, stream)
+            sizes = (b, f, l, heads, d, plan.heads, padded, plan.chunks, d)
+            args = (*ptrs, *sizes[:n_sizes[name]], stream)
             calls[name] = (lambda fn=fn, args=args, name=name:
                            cuda_build.check(fn(*args), f"variant {name}"))
         ref = ta.temporal_attention_plain(q, k, v, heads)
@@ -1163,9 +1182,10 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
     each but the ablations held to ``temporal_attention_backward_plain``
     (``chip_smoke.py``'s limits per gradient) and to its own bits on a
     repeat launch, then timed in turns beside SDPA's backward on head-split
-    copies. ``against`` is another source of ``hv_temporal_bwd``; one
-    without the item-plan arguments (the first design's) is called with the
-    earlier ones. Returns the records (also printed, one JSON line each)."""
+    copies. ``against`` is another source of ``hv_temporal_bwd``; an
+    earlier design's is called with the size arguments its entry point
+    takes (:func:`_temporal_sizes_taken`). Returns the records (also
+    printed, one JSON line each)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from ..ops import temporal_attention as ta
@@ -1174,13 +1194,12 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
         raise RuntimeError("the variants run on the CUDA card, and none is available")
     dev = torch.device("cuda")
     texts = _named_sources(names, TEMPORAL_BWD_VARIANTS, "temporal_attention_bwd.cu", against)
-    old_entry = {n for n, t in texts.items() if "int heads_per_item" not in t}
+    n_sizes = {n: _temporal_sizes_taken(t) for n, t in texts.items()}
     fns = {}
     for name, lib in _build(texts, "temporal_bwd_variant").items():
         fn = fns[name] = lib.hv_temporal_bwd
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-                       if name in old_entry else ta._BWD_ARGTYPES)
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * n_sizes[name] + [ctypes.c_void_p]
     stream = cuda_build.stream_handle(dev)
     gen = torch.Generator(device=dev).manual_seed(3)
     records = []
@@ -1192,7 +1211,7 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
         ptrs = tuple(t.data_ptr() for t in (q, k, v, g, *grads))
         calls = {}
         for name, fn in fns.items():
-            args = (*ptrs, *sizes[:5], stream) if name in old_entry else (*ptrs, *sizes, stream)
+            args = (*ptrs, *sizes[:n_sizes[name]], stream)
             calls[name] = (lambda fn=fn, args=args, name=name:
                            cuda_build.check(fn(*args), f"variant {name}"))
         refs = ta.temporal_attention_backward_plain(q, k, v, g, heads)

@@ -74,6 +74,14 @@ def _randn(shape, seed, dev):
     (2, 300, 700, 8, 80, True),    # d = 80, ragged, with the bias
     (2, 200, 300, 1, 512, True),   # d = 512, ragged Lk at a batch boundary, bias
     (1, 100, 200, 2, 512, False),  # d = 512 at a head offset
+    (2, 300, 700, 5, 64, True),    # 5 heads of 64 (level 0 of 5-head configs), the bias
+    (2, 300, 700, 5, 128, True),   # 5 heads of 128: the 128-byte swizzle, the bias
+    (2, 130, 129, 5, 128, False),  # d = 128, ragged Lq and Lk 1 past a key tile
+    (2, 256, 512, 4, 96, False),   # d = 96: 8-column boxes, depth padded to 128
+    (1, 100, 200, 3, 120, True),   # d = 120
+    (2, 300, 700, 5, 36, True),    # d = 36: zero-padded to 40
+    (2, 200, 300, 2, 192, True),   # d = 192: zero-padded to 512
+    (1, 100, 200, 3, 260, False),  # d = 260: zero-padded to 512, at a head offset
 ])
 def test_flash_kernel_matches_plain(b, lq, lk, heads, d, with_bias):
     from humanvid_tpu_torch.ops import flash_attention as fa
@@ -84,11 +92,12 @@ def test_flash_kernel_matches_plain(b, lq, lk, heads, d, with_bias):
     if with_bias:
         bias = torch.zeros((b, lk), device=dev)
         bias[0, lk // 2:] = -1e9
-    before = fa.launches["d<=128" if d <= 128 else "d>128"]
+    key = "d<=128" if fa.flash_plan(d).width <= 128 else "d>128"
+    before = fa.launches[key]
     out, lse = fa.flash_attention_packed(q, k, v, heads, bias)
     ref, ref_lse = fa.flash_attention_plain(q, k, v, heads, bias)
     torch.cuda.synchronize()
-    assert fa.launches["d<=128" if d <= 128 else "d>128"] == before + 1
+    assert fa.launches[key] == before + 1
     # each head on its own: a head that read its neighbour's columns (or
     # past the last column) fails alone
     for h in range(heads):
@@ -99,10 +108,21 @@ def test_flash_kernel_matches_plain(b, lq, lk, heads, d, with_bias):
     assert torch.equal(out, again) and torch.equal(lse, lse_again)  # no atomics
 
 
+TEMPORAL_WIDE = [
+    (1, 24, 100, 1280, 5),   # d = 256 (5 motion heads at levels 2-3): 2 chunks of 128
+    (2, 24, 37, 640, 2),     # d = 320: 2 chunks of 160
+    (1, 24, 33, 640, 1),     # d = 640: 4 chunks
+    (1, 24, 21, 1280, 1),    # d = 1280: 8 chunks
+    (2, 1, 50, 1280, 5),     # one frame
+    (1, 13, 9, 2640, 10),    # d = 264: 2 chunks of 136, 13 frames (16-row tiles)
+    (1, 7, 33, 180, 5),      # d = 36: zero-padded to 40
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,f,l,c,heads", [
     (1, 24, 1000, 320, 8), (2, 24, 96, 1280, 8), (1, 7, 33, 64, 2), (1, 1, 5, 16, 2),
-])
+] + TEMPORAL_WIDE)
 def test_temporal_kernel_matches_plain(b, f, l, c, heads):
     from humanvid_tpu_torch.ops import temporal_attention as ta
 
@@ -123,6 +143,9 @@ def test_temporal_kernel_matches_plain(b, f, l, c, heads):
     (1, 24, 33, 1280, 8),    # d = 160, one head an item
     (2, 24, 37, 64, 8),      # d = 8, one chunk of 8 heads
     (1, 5, 9, 48, 3),        # d = 16, 3 heads
+    (2, 24, 37, 1280, 5),    # d = 256: 2 chunks, 5 heads, 37 positions (items of 4)
+    (3, 7, 10, 1280, 2),     # d = 640: 4 chunks
+    (2, 9, 11, 180, 5),      # d = 36: zero-padded
 ])
 def test_temporal_kernel_every_head_and_no_leak_across_samples(b, f, l, c, heads):
     """Every head of the output agrees with the plain version on its own,
@@ -177,6 +200,15 @@ def test_temporal_kernel_every_head_and_no_leak_across_samples(b, f, l, c, heads
     (2, 200, 300, 1, 512, ((0, 64, 192), (1, 10, 40))),
     # every row hides whole blocks up to a ragged end
     (2, 200, 300, 1, 512, ((0, 128, 300), (1, 128, 300))),
+    (2, 300, 700, 5, 64, ((0, 350, 700),)),   # 5 heads of 64, CFG bias on one row
+    (2, 300, 700, 5, 128, ((0, 350, 700),)),  # 5 heads of 128: the 128-byte swizzle
+    # d = 128, every row hides whole 128-key tiles up to a ragged end
+    (2, 300, 700, 4, 128, ((0, 256, 700), (1, 256, 700))),
+    (2, 130, 129, 5, 128, ()),   # d = 128, ragged Lq, Lk 1 past a tile
+    (2, 200, 300, 4, 96, ()),    # d = 96: 8-column boxes, depth padded to 128
+    (1, 100, 200, 3, 120, ((0, 100, 200),)),  # d = 120
+    (2, 300, 700, 5, 36, ((0, 350, 700),)),   # d = 36, zero-padded to 40
+    (2, 200, 300, 2, 192, ((0, 150, 300),)),  # d = 192, zero-padded to 512
 ])
 def test_flash_backward_kernels_match_plain(b, lq, lk, heads, d, hide):
     from humanvid_tpu_torch.ops import flash_attention as fa
@@ -195,7 +227,7 @@ def test_flash_backward_kernels_match_plain(b, lq, lk, heads, d, hide):
     grads = fa.flash_attention_backward_cuda(*args)
     refs = fa.flash_attention_backward_plain(*args)
     torch.cuda.synchronize()
-    wide = "_d>128" if d > 128 else ""
+    wide = "_d>128" if fa.flash_plan(d).width > 128 else ""
     assert fa.launches["bwd_dkv" + wide] == before["bwd_dkv" + wide] + 1
     assert fa.launches["bwd_dq" + wide] == before["bwd_dq" + wide] + 1
     again = fa.flash_attention_backward_cuda(*args)
@@ -238,7 +270,7 @@ def test_flash_function_gradient_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,f,l,c,heads", [
     (1, 24, 1000, 320, 8), (2, 24, 96, 1280, 8), (1, 7, 33, 64, 2), (1, 1, 5, 16, 2),
-])
+] + TEMPORAL_WIDE)
 def test_temporal_backward_kernel_matches_plain(b, f, l, c, heads):
     from humanvid_tpu_torch.ops import temporal_attention as ta
 
@@ -268,6 +300,11 @@ def test_temporal_backward_kernel_matches_plain(b, f, l, c, heads):
     (2, 32, 13, 1280, 8),
     (2, 5, 17, 640, 8),
     (2, 7, 11, 1280, 8),
+    (2, 24, 37, 1280, 5),    # d = 256: 2 chunks, 37 positions (items of 2)
+    (2, 16, 23, 1280, 5),    # d = 256 at 16 frames (16-row tiles)
+    (3, 32, 9, 1280, 1),     # d = 1280 at 32 frames: 8 chunks
+    (2, 1, 19, 1280, 5),     # one frame
+    (2, 9, 11, 180, 5),      # d = 36: zero-padded
 ])
 def test_temporal_backward_every_head_and_sample_alone(b, f, l, c, heads):
     """dq, dk and dv agree with the plain version, every head within the
@@ -303,7 +340,8 @@ def test_temporal_backward_every_head_and_sample_alone(b, f, l, c, heads):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,c", [(2, 77, 320), (1, 9, 1280), (8, 300, 320)])
+@pytest.mark.parametrize("b,l,c", [(2, 77, 320), (1, 9, 1280), (8, 300, 320), (2, 33, 2048),
+                                   (1, 9, 10240)])
 def test_temporal_backward_of_one_frame_is_exact(b, l, c):
     """Over one frame p = 1: dq = dk = 0 and dv = g, exactly."""
     from humanvid_tpu_torch.ops import temporal_attention as ta
@@ -317,8 +355,10 @@ def test_temporal_backward_of_one_frame_is_exact(b, l, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,hot", [(320, 1), (320, 4), (640, 1), (1280, 2), (64, 3)],
-                         ids=["d40-head1", "d40-head4-next-chunk", "d80", "d160", "d8"])
+@pytest.mark.parametrize("c,hot", [(320, 1), (320, 4), (640, 1), (1280, 2), (64, 3), (2048, 3),
+                                   (2048, 7), (5120, 1), (288, 2)],
+                         ids=["d40-head1", "d40-head4-next-chunk", "d80", "d160", "d8",
+                              "d256-head3", "d256-last-head", "d640", "d36-padded"])
 @pytest.mark.parametrize("direction", ["forward", "backward"])
 def test_temporal_heads_and_positions_isolated_from_an_inf(c, hot, direction):
     """An Inf in one head's q, k, v (and g) columns at some positions
@@ -350,8 +390,11 @@ def test_temporal_heads_and_positions_isolated_from_an_inf(c, hot, direction):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,hot", [(40, 1), (40, 7), (80, 1), (80, 7)],
-                         ids=["d40-head1", "d40-last-head", "d80-head1", "d80-last-head"])
+@pytest.mark.parametrize("d,hot", [(40, 1), (40, 7), (80, 1), (80, 7), (64, 1), (128, 1),
+                                   (128, 7), (96, 7), (36, 1), (192, 7)],
+                         ids=["d40-head1", "d40-last-head", "d80-head1", "d80-last-head",
+                              "d64-head1", "d128-head1", "d128-last-head", "d96-last-head",
+                              "d36-padded", "d192-padded-last-head"])
 @pytest.mark.parametrize("with_bias", [False, True], ids=["no-bias", "bias"])
 @pytest.mark.parametrize("direction", ["forward", "backward"])
 def test_flash_heads_isolated_from_an_inf(d, hot, with_bias, direction):
@@ -416,21 +459,21 @@ def test_kernels_reject_what_they_do_not_take():
     x = torch.zeros((1, 64, 64), device=dev)
     with pytest.raises(TypeError):
         fa.flash_attention_packed(x, x, x, 2)           # fp32 on the card
-    y = torch.zeros((1, 64, 60), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        fa.flash_attention_packed(y, y, y, 2)           # d = 30, not a multiple of 8
-    w = torch.zeros((1, 64, 256), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        fa.flash_attention_packed(w, w, w, 2)           # d = 128: only d <= 80 or 512
-    u = torch.zeros((1, 4, 8, 512), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        ta.temporal_attention(u, u, u, 2)               # d = 256 > 160
+    w = torch.zeros((1, 64, 1280), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head width 640"):
+        fa.flash_attention_packed(w, w, w, 2)           # d = 640 > 512: still to port
+    u = torch.zeros((1, 4, 8, 2816), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 1408"):
+        ta.temporal_attention(u, u, u, 2)               # d = 1408 > 1280
+    t = torch.zeros((1, 33, 8, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="frames"):
+        ta.temporal_attention(t, t, t, 2)               # f = 33 > 32: still to port
     z = torch.zeros((1, 4, 8, 64), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         ta.temporal_attention(z.transpose(1, 2), z.transpose(1, 2), z.transpose(1, 2), 2)
-    x = torch.zeros((1, 64, 256), device=dev, dtype=torch.bfloat16)
+    x = torch.zeros((1, 64, 640), device=dev, dtype=torch.bfloat16)
     lse = torch.zeros((1, 1, 64), device=dev)
-    with pytest.raises(ValueError):                     # d = 256: only d <= 80 or 512
+    with pytest.raises(ValueError, match="head width 640"):  # d = 640 > 512
         fa.flash_attention_backward_cuda(x, x, x, None, x, lse, lse, 1)
 
 

@@ -48,6 +48,10 @@ def _inputs(b, lq, lk, heads, d, with_bias, seed=0):
     (2, 100, 300, 2, 40, True),      # ragged Lq / Lk with the bias
     (1, 100, 200, 3, 16, False),     # ragged, no bias (padded keys masked)
     (1, 64, 96, 1, 512, False),      # the VAE's single wide head
+    (2, 100, 300, 2, 64, True),      # d = 64 (5 heads at level 0), ragged, the bias
+    (2, 100, 300, 2, 128, True),     # d = 128 (5 heads at level 1), ragged, the bias
+    (1, 100, 200, 3, 36, True),      # no multiple of 8: the kernels pad it to 40
+    (1, 64, 96, 2, 192, True),       # 128 < d < 512: the kernels pad it to 512
 ])
 def test_plain_matches_pallas_interpret(b, lq, lk, heads, d, with_bias):
     q, k, v, bias = _inputs(b, lq, lk, heads, d, with_bias)
@@ -73,6 +77,10 @@ def test_plain_matches_pallas_interpret(b, lq, lk, heads, d, with_bias):
     (1, 64, 96, 1, 512, True),       # the VAE's wide head: the straight-layout kernels
     (2, 128, 512, 2, 40, "all rows"),  # every row hides whole 128-key tiles
     (1, 192, 192, 2, 80, False),     # Lq = Lk (the ReferenceNet's self-attention), d = 80
+    (2, 100, 300, 2, 64, True),      # d = 64, ragged, the bias
+    (2, 100, 300, 2, 128, "all rows"),  # d = 128, ragged, the CFG-dropout bias on every row
+    (1, 100, 200, 3, 36, True),      # padded to 40 by the kernels' wrapper
+    (1, 64, 96, 2, 192, True),       # padded to 512
 ])
 def test_plain_backward_matches_pallas_vjp(b, lq, lk, heads, d, with_bias):
     q, k, v, bias = _inputs(b, lq, lk, heads, d, with_bias, seed=1)
@@ -128,14 +136,18 @@ def test_cuda_path_raises_without_a_card(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_cuda(torch.from_numpy(q), torch.from_numpy(k),
                                 torch.from_numpy(v), 2)
-    # the backward kernels take the forward's head widths, d <= 80 and d = 512
-    x = torch.zeros((1, 16, 256))
+    # the kernels take heads up to 512 wide, some through a zero pad (256
+    # runs padded to 512); wider ones raise, forward and backward
+    x = torch.zeros((1, 16, 640))
     lse = torch.zeros((1, 1, 16))
-    with pytest.raises(ValueError, match="head dim 256 unsupported"):
+    with pytest.raises(ValueError, match="head width 640 unsupported"):
         fa.flash_attention_backward_cuda(x, x, x, None, x, lse, lse, 1)
-    x = torch.zeros((1, 16, 512))
-    with pytest.raises(ValueError, match="CUDA"):
-        fa.flash_attention_backward_cuda(x, x, x, None, x, lse, lse, 1)
+    with pytest.raises(ValueError, match="head width 640 unsupported"):
+        fa.flash_attention_cuda(x, x, x, 1)
+    for c in (256, 512, 36):
+        x = torch.zeros((1, 16, c))
+        with pytest.raises(ValueError, match="CUDA"):
+            fa.flash_attention_backward_cuda(x, x, x, None, x, lse, lse, 1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)

@@ -368,13 +368,15 @@ def test_wrappers_bind_each_function_once(monkeypatch):
         assert cuda_build.function("probe_hbm", "hv_probe_hbm", pk.HBM_ARGTYPES) is first
     assert loads == ["probe_hbm"]
     assert first.argtypes == pk.HBM_ARGTYPES and first.restype is ctypes.c_int
-    # the probe wrappers and those of kernels B (forward and backward) and
-    # C go through it and set no types themselves
+    # the probe wrappers and those of kernels A, B (forward and backward)
+    # and C go through it and set no types themselves
+    from humanvid_tpu_torch.ops import flash_attention as fa
     from humanvid_tpu_torch.ops import group_norm as gn
     from humanvid_tpu_torch.ops import temporal_attention as ta
 
     for wrapper in (pk.dmajor_cuda, pk.pvt_cuda, pk.hbm_map_cuda, gn.group_norm_act_cuda,
-                    ta.temporal_attention_cuda, ta.temporal_attention_backward_cuda):
+                    ta.temporal_attention_cuda, ta.temporal_attention_backward_cuda,
+                    fa.flash_attention_cuda, fa.flash_attention_backward_cuda):
         src = inspect.getsource(wrapper)
         assert "cuda_build.function(" in src
         assert "argtypes" not in src and "cuda_build.load(" not in src
@@ -403,11 +405,14 @@ def _c_entry_points():
 def test_argtypes_match_the_c_entry_points():
     """The argument types each wrapper binds are those of its C entry point,
     parameter for parameter (a pointer passed as a 32-bit int would be cut)."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
     from humanvid_tpu_torch.ops import group_norm as gn
     from humanvid_tpu_torch.ops import temporal_attention as ta
 
     entries = _c_entry_points()
-    bound = {"hv_group_norm_fwd": gn._TWO_PASS_ARGTYPES,
+    bound = {"hv_flash_fwd": fa._FWD_ARGTYPES, "hv_flash_bwd_dkv": fa._DKV_ARGTYPES,
+             "hv_flash_bwd_dq": fa._DQ_ARGTYPES,
+             "hv_group_norm_fwd": gn._TWO_PASS_ARGTYPES,
              "hv_group_norm_cluster": gn._CLUSTER_ARGTYPES,
              "hv_temporal_fwd": ta._FWD_ARGTYPES, "hv_temporal_bwd": ta._BWD_ARGTYPES,
              "hv_probe_dmajor": pk.DMAJOR_ARGTYPES, "hv_probe_pvt": pk.PVT_ARGTYPES,

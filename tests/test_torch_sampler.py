@@ -35,7 +35,7 @@ def test_unknown_spacing_raises():
 
 @pytest.mark.parametrize("set_alpha_to_one", [True, False])
 @pytest.mark.parametrize("beta_schedule,prediction_type", [
-    ("linear", "v_prediction"), ("scaled_linear", "epsilon")])
+    ("linear", "v_prediction"), ("scaled_linear", "epsilon"), ("scaled_linear", "sample")])
 def test_ddim_step_matches_jax(set_alpha_to_one, beta_schedule, prediction_type):
     kw = dict(beta_schedule=beta_schedule, prediction_type=prediction_type,
               rescale_betas_zero_snr=prediction_type == "v_prediction",
@@ -54,6 +54,21 @@ def test_ddim_step_matches_jax(set_alpha_to_one, beta_schedule, prediction_type)
         np.testing.assert_allclose(got.numpy(), ref, atol=1e-6, rtol=0)
         sample = np.array(ref)
     assert prev < 0  # the last step lands on final_alpha_cumprod
+
+
+@pytest.mark.parametrize("prediction_type", ["epsilon", "v_prediction", "sample"])
+def test_ddim_pred_x0_eps_matches_jax(prediction_type):
+    """(x0, eps) of every prediction type at a few timesteps, the last one
+    past the schedule's end (final_alpha_cumprod)."""
+    kw = dict(prediction_type=prediction_type, set_alpha_to_one=False)
+    js, ts = jsched.make_noise_schedule(**kw), schedule.make_noise_schedule(**kw)
+    rng = np.random.default_rng(1)
+    for t in (999, 500, 1, -1):
+        out, sample = (rng.normal(size=(2, 4, 8, 8)).astype(np.float32) for _ in range(2))
+        ref = jddim.ddim_pred_x0_eps(js, jnp.asarray(out), jnp.asarray(sample), jnp.int32(t))
+        got = ddim.ddim_pred_x0_eps(ts, torch.from_numpy(out), torch.from_numpy(sample), t)
+        for a, b in zip(got, ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6, rtol=0)
 
 
 def test_set_alpha_to_one_changes_only_the_last_step():

@@ -33,6 +33,10 @@ def _inputs(b, f, l, c, seed=0):
     (1, 24, 80, 128, 8),   # 24 frames, several heads
     (1, 8, 100, 64, 4),    # ragged l (not a multiple of the Pallas tile)
     (1, 5, 7, 48, 3),      # ragged everything
+    (1, 24, 12, 256, 1),   # d = 256 (5 motion heads at levels 2-3): two 128-column chunks
+    (1, 24, 7, 640, 2),    # d = 320: two 160-column chunks
+    (1, 8, 5, 1280, 1),    # d = 1280, one head over the widest channels: eight chunks
+    (1, 5, 7, 108, 3),     # d = 36: the kernels pad it to 40
 ])
 def test_plain_matches_pallas_interpret(b, f, l, c, heads):
     q, k, v = _inputs(b, f, l, c)
@@ -51,6 +55,10 @@ def test_plain_matches_pallas_interpret(b, f, l, c, heads):
     (2, 1, 9, 320, 8),     # one frame (the stage-1 camera encoder): dq = dk = 0, dv = g
     (1, 24, 12, 640, 8),   # d = 80
     (1, 24, 12, 1280, 8),  # d = 160
+    (1, 24, 12, 256, 1),   # d = 256: two chunks
+    (1, 24, 7, 640, 2),    # d = 320
+    (1, 8, 5, 1280, 1),    # d = 1280: eight chunks
+    (1, 5, 7, 108, 3),     # d = 36: padded to 40
 ])
 def test_plain_backward_matches_pallas_vjp(b, f, l, c, heads):
     q, k, v = _inputs(b, f, l, c, seed=1)
@@ -96,6 +104,7 @@ def test_temporal_plan_items_hold_whole_heads(c, heads):
     box's 256 elements."""
     plan = ta.temporal_plan(c, heads)
     d = c // heads
+    assert plan.chunks == 1  # whole heads: d <= 160
     assert heads % plan.heads == 0 and plan.cols == plan.heads * d
     assert plan.cols <= ta.CHUNK_COLUMNS or plan.heads == 1
     assert plan.padded % 8 == 0 and (plan.padded // 8) % 2 == 1
@@ -104,26 +113,26 @@ def test_temporal_plan_items_hold_whole_heads(c, heads):
     assert not any(heads % h == 0 and h * d <= ta.CHUNK_COLUMNS
                    for h in range(plan.heads + 1, heads + 1))
     if c == 320 and heads == 8:
-        assert plan == ta.TemporalPlan(4, 160, 168)
+        assert plan == ta.TemporalPlan(4, 160, 168, 1)
 
 
 @pytest.mark.parametrize("shape,heads,sizes", [
     # the stage-2 step's five temporal shapes (896x512x24f) and the stage-1
     # camera encoder's (bs 8, one frame): 320-byte items, loaded 336 wide
-    ((1, 24, 7168, 320), 8, (1, 24, 7168, 8, 40, 4, 168)),
-    ((1, 24, 1792, 640), 8, (1, 24, 1792, 8, 80, 2, 168)),
-    ((1, 24, 448, 1280), 8, (1, 24, 448, 8, 160, 1, 168)),
-    ((1, 24, 112, 1280), 8, (1, 24, 112, 8, 160, 1, 168)),
-    ((8, 1, 7168, 320), 8, (8, 1, 7168, 8, 40, 4, 168)),
-    ((2, 5, 9, 48), 3, (2, 5, 9, 3, 16, 3, 56)),
-    ((1, 7, 33, 64), 2, (1, 7, 33, 2, 32, 2, 72)),
+    ((1, 24, 7168, 320), 8, (1, 24, 7168, 8, 40, 4, 168, 1, 40)),
+    ((1, 24, 1792, 640), 8, (1, 24, 1792, 8, 80, 2, 168, 1, 80)),
+    ((1, 24, 448, 1280), 8, (1, 24, 448, 8, 160, 1, 168, 1, 160)),
+    ((1, 24, 112, 1280), 8, (1, 24, 112, 8, 160, 1, 168, 1, 160)),
+    ((8, 1, 7168, 320), 8, (8, 1, 7168, 8, 40, 4, 168, 1, 40)),
+    ((2, 5, 9, 48), 3, (2, 5, 9, 3, 16, 3, 56, 1, 16)),
+    ((1, 7, 33, 64), 2, (1, 7, 33, 2, 32, 2, 72, 1, 32)),
 ])
 def test_launch_sizes_of_both_kernels(shape, heads, sizes):
     """The size arguments the forward and backward wrappers pass their
-    kernels: (b, f, l, heads, d, heads an item, padded width), the item
-    from ``temporal_plan``; within what both C entry points accept (cwp
-    at most 256, an odd number of 16-byte units, at least 8 past the
-    item's columns)."""
+    kernels: (b, f, l, heads, d, heads an item, padded width, chunks a
+    head, softmax width), the item from ``temporal_plan``; within what
+    both C entry points accept (cwp at most 256, an odd number of 16-byte
+    units, at least 8 past the item's columns)."""
     got = ta.launch_sizes(shape, heads)
     assert got == sizes
     d, per, cwp = got[4], got[5], got[6]
@@ -132,8 +141,9 @@ def test_launch_sizes_of_both_kernels(shape, heads, sizes):
 
 
 @pytest.mark.parametrize("shape,heads,error", [
-    ((1, 4, 8, 512), 2, "head dim 256"),
+    ((1, 4, 8, 2816), 2, "head dim 1408"),
     ((1, 4, 8, 60), 2, "head dim 30"),
+    ((1, 33, 8, 64), 2, "frames"),
     ((1, 4, 0, 64), 2, "unsupported sizes"),
     ((65536, 4, 8, 64), 2, "unsupported sizes"),
 ])
