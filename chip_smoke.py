@@ -193,8 +193,30 @@ Every head width the JAX kernels take adds (after the probes, and
   head width, and no plain attention on CUDA tensors but the
   short-sequence route (Lq < 1024) that the JAX package also takes.
 
+The last shapes the JAX kernels take add (after the head widths, and
+``long_wide`` after ``heads64``):
+
+- long and wide: kernel A's xwide kernels (d > 512: forward, dV, dK, dQ)
+  at d = 640 (the long_wide path's level-1 shapes, with the batched-CFG
+  and CFG-dropout biases), 520 and 1280, and kernel B's long kernels (f >
+  32, forward and backward) at f = 48 (the path's four motion levels, at
+  768x512 forward and 896x512 backward) and f = 33, 64 and 96 at d = 40,
+  160 and 256; each held to its plain version, a repeat launch the same
+  bits, device ms (torch.profiler) and event ms beside the bound, the
+  plain version's and the library's ms;
+- long_wide: ``long_wide_config()`` (one spatial head in both UNets, so
+  heads 320, 640 and 1280 wide; motion and camera tables of 48 frames) at
+  full width: pose2vid at 768x512x48f in one 48-frame window with
+  LONG_WIDE_STEPS DDIM steps, sequential and batched CFG, then one uncond
+  stage-2 step at 896x512x48f (grad checkpointing); checks finite outputs,
+  kernel A's xwide launches at d = 640 (forward; backward in the step),
+  kernel B's long launches at f = 48 (forward and backward), no plain
+  attention on CUDA tensors but the short-sequence route; prints each
+  run's seconds, peak GiB and launches by d and by f.
+
 Every main-path run (pose2vid, the stage-2 steps, pose2img, the stage-1
-steps, the denoise step and decode of the profile phase, the heads64 runs,
+steps, the denoise step and decode of the profile phase, the heads64 and
+long_wide runs,
 the cli run, the train_cli stage-2 and stage-1 runs, the eval generation
 and its pose2img run, each rank's dp_train and fanout runs, the pose runs
 and the microbench run) sets every launch count to 0 just before it and
@@ -416,19 +438,34 @@ def phase_flash(torch, results, dev, cases):
         ok = close and lse_err <= 1e-3 and repeat_same
         share = None if lib is None else ms / lib  # < 1: faster than SDPA
         width = fa.flash_plan(d).width
+        kernel = _flash_kernel(width)
+        extra = {}
+        if kernel == "flash_fwd_xwide":  # its device time beside the event time
+            extra = dict(event_ms=ms, device_ms=_profile_split(
+                torch, lambda: fa.flash_attention_cuda(q, k, v, heads, bias),
+                ("flash_fwd_xwide_kernel",))["flash_fwd_xwide_kernel"])
+            ok = ok and extra["device_ms"] > 0
         print(f"  {name}: B={B} Lq={lq} Lk={lk} heads={heads} d={d}"
               + (f" (padded to {width})" if width != d else "")
               + f" max_abs_err={err:.3e} rel_l2={rel:.3e} lse_err={lse_err:.3e} "
-              f"repeat same bits={repeat_same} ms={ms:.3f} plain_ms={plain_ms:.3f} "
+              f"repeat same bits={repeat_same} ms={ms:.3f} "
+              + (f"device_ms={extra['device_ms']:.3f} " if extra else "")
+              + f"plain_ms={plain_ms:.3f} "
               f"library_ms={lib} sdpa_share={share if share is None else round(share, 3)} "
               f"bound_ms={b_ms:.3f} ({b_by}) TFLOP/s={flops / ms / 1e9:.1f} "
               f"{'ok' if ok else 'FAIL'}")
-        results.append(dict(kernel="flash_fwd_d512" if width > 128 else "flash_fwd", shape=name,
+        results.append(dict(kernel=kernel, shape=name,
                             d=d, kernel_d=width, max_abs_err=err, rel_l2=rel, ms=ms,
                             plain_ms=plain_ms, library_ms=lib, sdpa_share=share, bound_ms=b_ms,
-                            bound_by=b_by, ok=ok))
+                            bound_by=b_by, ok=ok, **extra))
         del q, k, v, out, lse, ref, ref_lse
         torch.cuda.empty_cache()
+
+
+def _flash_kernel(width):
+    """Kernel A's kernel (the name of its row) for heads run ``width`` wide."""
+    return "flash_fwd" if width <= 128 else ("flash_fwd_d512" if width <= 512
+                                             else "flash_fwd_xwide")
 
 
 def phase_flash_isolation(torch, dev, direction):
@@ -511,7 +548,9 @@ def phase_temporal(torch, results, dev, cases):
         err, rel, ok = agreement(out, ref, TEMPORAL_TOL)
         same = torch.equal(out, ta.temporal_attention_cuda(q, k, v, heads))
         event_ms = time_ms(torch, lambda: ta.temporal_attention_cuda(q, k, v, heads), 10)
-        key = "temporal_fwd_wide_kernel" if d > ta.CHUNK_COLUMNS else "temporal_fwd_kernel"
+        long = f > ta.ITEM_FRAMES
+        key = ("temporal_fwd_long_kernel" if long else "temporal_fwd_wide_kernel"
+               if d > ta.CHUNK_COLUMNS else "temporal_fwd_kernel")
         ms = _profile_split(torch, lambda: ta.temporal_attention_cuda(q, k, v, heads),
                             (key,))[key]
         ok = ok and same and ms > 0
@@ -525,22 +564,26 @@ def phase_temporal(torch, results, dev, cases):
         flops = 4.0 * b * l * heads * f * f * d
         b_ms, b_by = bound(flops, 2.0 * 4 * q.numel())
         print(f"  {name}: b={b} f={f} l={l} c={c} heads={heads} d={d} "
-              f"{_temporal_route(ta, c, heads)} max_abs_err={err:.3e} "
+              f"{_temporal_route(ta, c, heads, f)} max_abs_err={err:.3e} "
               f"rel_l2={rel:.3e} same_bits={same} device_ms={ms:.4f} event_ms={event_ms:.4f} "
               f"plain_ms={plain_ms:.3f} library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) "
               f"{'ok' if ok else 'FAIL'}")
-        results.append(dict(kernel="temporal_fwd", shape=name, d=d, max_abs_err=err, rel_l2=rel,
+        results.append(dict(kernel="temporal_fwd_long" if long else "temporal_fwd", shape=name,
+                            d=d, f=f, max_abs_err=err, rel_l2=rel,
                             ms=ms, event_ms=event_ms, device_ms=ms, plain_ms=plain_ms,
                             library_ms=lib, bound_ms=b_ms, bound_by=b_by, same_bits=same, ok=ok))
 
 
-def _temporal_route(ta, c, heads):
-    """Which item kernel B runs a head of c // heads columns in: whole heads,
-    or column chunks (the wide kernels), after any zero pad."""
+def _temporal_route(ta, c, heads, f):
+    """Which item kernel B runs a head of c // heads columns over f frames
+    in: whole heads, or column chunks (the wide kernels), after any zero
+    pad; past ITEM_FRAMES frames the long kernels' pieces."""
     d = c // heads
     width = ta.temporal_width(d)
-    plan = ta.temporal_plan(heads * width, heads)
+    plan = ta.temporal_plan(heads * width, heads, f)
     pad = f"padded to {width}, " if width != d else ""
+    if f > ta.ITEM_FRAMES:
+        return f"({pad}long kernel: {plan.chunks} pieces of {plan.cols} columns)"
     if plan.chunks > 1:
         return f"({pad}{plan.chunks} chunks of {plan.cols} columns)"
     return f"({pad}{plan.heads} heads an item)"
@@ -661,6 +704,7 @@ def phase_flash_bwd(torch, results, dev, cases):
             unmasked = B * lk - bias_rows * (lk // 2)
         width = fa.flash_plan(d).width
         wide = width > 128
+        xwide = width > 512
         out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
         delta = fa.attention_delta(g, out, heads)
         args = (q, k, v, bias, g, lse, delta, heads)
@@ -682,9 +726,9 @@ def phase_flash_bwd(torch, results, dev, cases):
         del again
         ms = time_ms(torch, lambda: fa.flash_attention_backward_cuda(*args), 3)
         # d = 512: the dk/dv entry point launches a dV and a dK kernel
-        keys = (("flash_bwd_dv_wide_kernel", "flash_bwd_dk_wide_kernel",
-                 "flash_bwd_dq_wide_kernel") if wide
-                else ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
+        # d > 512: the xwide kernels, one a gradient
+        keys = (tuple(f"flash_bwd_{which}_{'x' if xwide else ''}wide_kernel" for which in ("dv", "dk", "dq"))
+                if wide else ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
         split = _profile_split(torch, lambda: fa.flash_attention_backward_cuda(*args), keys)
         split = dict(zip(("dv", "dk", "dq") if wide else ("dkv", "dq"), split.values()))
         if wide:
@@ -725,7 +769,8 @@ def phase_flash_bwd(torch, results, dev, cases):
               f"TFLOP/s={flops / ms / 1e9:.1f} {'ok' if ok else 'FAIL'}")
         extra = dict(library_backends=backends, dv_ms=split["dv"], dk_ms=split["dk"]) \
             if wide else {}
-        results.append(dict(kernel="flash_bwd_d512" if wide else "flash_bwd", shape=name,
+        results.append(dict(kernel=("flash_bwd_xwide" if xwide else "flash_bwd_d512") if wide
+                            else "flash_bwd", shape=name,
                             d=d, kernel_d=width, max_abs_err=err, rel_l2=rel, ms=ms, dkv_ms=split["dkv"],
                             dq_ms=split["dq"], plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
                             bound_by=b_by, ok=ok, **extra))
@@ -777,7 +822,9 @@ def phase_temporal_bwd(torch, results, dev, cases):
         ok = all(e[2] for e in errs) and same
         del grads, refs
         event_ms = time_ms(torch, run, 10)
-        key = "temporal_bwd_wide_kernel" if d > ta.CHUNK_COLUMNS else "temporal_bwd_kernel"
+        long = f > ta.ITEM_FRAMES
+        key = ("temporal_bwd_long_kernel" if long else "temporal_bwd_wide_kernel"
+               if d > ta.CHUNK_COLUMNS else "temporal_bwd_kernel")
         ms = _profile_split(torch, run, (key,))[key]
         ok = ok and ms > 0
         plain_ms = time_ms(
@@ -793,12 +840,13 @@ def phase_temporal_bwd(torch, results, dev, cases):
         flops = 10.0 * b * l * heads * f * f * d
         b_ms, b_by = bound(flops, 2.0 * 7 * q.numel())
         print(f"  {name}: b={b} f={f} l={l} c={c} heads={heads} d={d} "
-              f"{_temporal_route(ta, c, heads)} "
+              f"{_temporal_route(ta, c, heads, f)} "
               f"rel_l2 dq/dk/dv={errs[0][1]:.3e}/{errs[1][1]:.3e}/{errs[2][1]:.3e} "
               f"max_err/rms dq/dk/dv={ratios} same_bits={same} "
               f"device_ms={ms:.4f} event_ms={event_ms:.4f} plain_ms={plain_ms:.3f} "
               f"library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
-        results.append(dict(kernel="temporal_bwd", shape=name, d=d,
+        results.append(dict(kernel="temporal_bwd_long" if long else "temporal_bwd", shape=name,
+                            d=d, f=f,
                             max_abs_err=max(e[0] for e in errs),
                             rel_l2=max(e[1] for e in errs), ms=ms, event_ms=event_ms,
                             device_ms=ms, plain_ms=plain_ms, library_ms=lib,
@@ -811,6 +859,9 @@ def phase_temporal_bwd(torch, results, dev, cases):
 # ---- every head width the kernels take (other head counts, the zero pad) ----
 
 HEADS64_STEPS = 2          # DDIM steps of each heads64 pose2vid run
+LONG_WIDE_STEPS = 2        # DDIM steps of each long_wide pose2vid run
+LONG_WIDE_SIZE = (48, 768, 512)        # frames, height, width: one 48-frame window
+LONG_WIDE_TRAIN_SIZE = (48, 896, 512)  # the stage-2 step's
 
 
 def head_width_cases():
@@ -949,14 +1000,16 @@ def _plain_attention_calls():
 
 def _launches_by_width():
     """Kernel A's and B's launches since the last reset, forward and
-    backward, by the caller's head width."""
+    backward, by the caller's head width (and kernel B's by frame count)."""
     from humanvid_tpu_torch.ops import flash_attention as fa
     from humanvid_tpu_torch.ops import temporal_attention as ta
 
     return {"flash forward_launches_by_d": dict(sorted(fa.forward_launches_by_d.items())),
             "flash backward_launches_by_d": dict(sorted(fa.backward_launches_by_d.items())),
             "temporal forward_launches_by_d": dict(sorted(ta.forward_launches_by_d.items())),
-            "temporal backward_launches_by_d": dict(sorted(ta.backward_launches_by_d.items()))}
+            "temporal backward_launches_by_d": dict(sorted(ta.backward_launches_by_d.items())),
+            "temporal forward_launches_by_f": dict(sorted(ta.forward_launches_by_f.items())),
+            "temporal backward_launches_by_f": dict(sorted(ta.backward_launches_by_f.items()))}
 
 
 def phase_heads64(torch, np, dev, card):
@@ -1047,6 +1100,184 @@ def phase_heads64(torch, np, dev, card):
     torch.cuda.empty_cache()
     return ok, runs
 
+
+# ---- the last shapes: kernel A past 512 columns, kernel B past 32 frames ----
+
+
+def long_wide_flash_cases():
+    """Kernel A's xwide forward at the long_wide path's level-1 shapes
+    (768x512: one 640-wide head, Lk doubled by the reference KV; sequential
+    cond and the batched-CFG bias) and at d = 520 and 1280: (name, B, Lq,
+    Lk, heads, d, bias rows)."""
+    return [
+        ("long_wide level1 cond (ref KV) d640", 48, 1536, 3072, 1, 640, 0),
+        ("long_wide level1 batched CFG bias d640", 96, 1536, 3072, 1, 640, 48),
+        ("ragged d520 with the bias", 2, 300, 700, 1, 520, 1),
+        ("d520 2 heads level1-size", 8, 1536, 3072, 2, 520, 0),
+        ("ragged d1280 with the bias", 2, 300, 700, 1, 1280, 1),
+        ("d1280 level1-size", 8, 1536, 3072, 1, 1280, 0),
+    ]
+
+
+def long_wide_flash_bwd_cases():
+    """Kernel A's xwide backward at the long_wide stage-2 step's level-1
+    shapes (896x512x48f: uncond with the CFG-dropout bias on every row, and
+    cond) and ragged with the bias at d = 520 and 1280: (name, B, Lq, Lk,
+    heads, d, bias rows)."""
+    return [
+        ("long_wide level1 uncond (CFG dropout bias) d640", 48, 1792, 3584, 1, 640, 48),
+        ("long_wide level1 cond (ref KV) d640", 48, 1792, 3584, 1, 640, 0),
+        ("ragged d520 with the bias", 2, 300, 700, 1, 520, 1),
+        ("ragged d1280 with the bias", 2, 300, 700, 1, 1280, 1),
+    ]
+
+
+def long_wide_temporal_cases():
+    """Kernel B's long forward at the long_wide path's motion levels
+    (768x512x48f: d = 40, 80, 160, 160; the camera encoder's is level 0's
+    shape) and at f = 33, 64 and 96 (d = 40, 160, 256): (name, b, f, l, c,
+    heads)."""
+    return [
+        ("long_wide motion level0 f48", 1, 48, 6144, 320, 8),
+        ("long_wide motion level1 f48", 1, 48, 1536, 640, 8),
+        ("long_wide motion level2 f48", 1, 48, 384, 1280, 8),
+        ("long_wide motion level3/mid f48", 1, 48, 96, 1280, 8),
+        ("long_wide batched CFG level0 f48", 2, 48, 6144, 320, 8),
+        ("f33 d40", 1, 33, 6144, 320, 8),
+        ("f64 d160", 1, 64, 384, 1280, 8),
+        ("f96 d256", 1, 96, 384, 1280, 5),
+    ]
+
+
+def long_wide_temporal_bwd_cases():
+    """Kernel B's long backward at the long_wide stage-2 step's motion
+    levels (896x512x48f) and at f = 33, 64 and 96: (name, b, f, l, c,
+    heads)."""
+    return [
+        ("long_wide motion level0 f48", 1, 48, 7168, 320, 8),
+        ("long_wide motion level1 f48", 1, 48, 1792, 640, 8),
+        ("long_wide motion level2 f48", 1, 48, 448, 1280, 8),
+        ("long_wide motion level3/mid f48", 1, 48, 112, 1280, 8),
+        ("f33 d40", 1, 33, 7168, 320, 8),
+        ("f64 d160", 1, 64, 448, 1280, 8),
+        ("f96 d256", 1, 96, 448, 1280, 5),
+    ]
+
+
+def long_wide_config():
+    """``CamAnimateConfig`` with one attention head in both UNets (spatial
+    heads 320, 640 and 1280 wide: level 0 through the zero pad to 512,
+    level 1 in kernel A's xwide kernels at Lq >= 1024, level 2 on the
+    short-sequence route) and motion and camera position tables of 48
+    frames (motion heads stay 8: d = 40, 80, 160; kernel B's long kernels
+    at f = 48)."""
+    from humanvid_tpu_torch.models.configs import CameraEncoderConfig, UNetConfig
+    from humanvid_tpu_torch.pipelines import CamAnimateConfig
+
+    return CamAnimateConfig(
+        reference_unet=UNetConfig(attention_heads=1),
+        denoising_unet=UNetConfig(use_motion_module=True, attention_heads=1, motion_max_len=48),
+        camera_encoder=CameraEncoderConfig(position_encoding_max_len=48))
+
+
+def phase_long_wide(torch, np, dev, card):
+    """The long_wide path: ``long_wide_config()`` at full width with seeded
+    random weights, bf16: Pose2VideoPipeline at 768x512x48f in one 48-frame
+    window, CFG 3.5, LONG_WIDE_STEPS DDIM steps, once sequential and once
+    batched CFG (the reference-KV bias through the xwide forward), then one
+    stage-2 step at 896x512x48f, bs 1, grad checkpointing, step 0 forced
+    uncond (the CFG-dropout bias in both of kernel A's backward entry
+    points). Checks finite outputs, the xwide kernels' launches at d = 640
+    and the long kernels' at f = 48 (forward; backward in the step), and
+    no plain attention on CUDA tensors but the short-sequence route.
+    Returns (ok, {run: launches})."""
+    from humanvid_tpu_torch.pipelines import CamAnimate, Pose2VideoPipeline
+    from humanvid_tpu_torch.train import (
+        OptimizerConfig, TrainConfig, TrainState, sample_draws, stage2_trainable,
+        stage_config, train_step)
+
+    F, H, W = LONG_WIDE_SIZE
+    ok, runs = True, {}
+    t0 = time.perf_counter()
+    system = CamAnimate(long_wide_config(), device=dev, dtype=torch.bfloat16).init_random(0)
+    n_params = sum(p.numel() for m in system.components().values() for p in m.parameters())
+    print(f"[long_wide] {card}: CamAnimate with one spatial head and {F}-frame tables, "
+          f"{n_params / 1e9:.3f} B params, built in {time.perf_counter() - t0:.1f} s")
+    pipe = Pose2VideoPipeline(system)
+    inputs = _inputs(np, F, H, W, system.config.clip.image_size, 0)
+    for mode in ("sequential", "batched"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        with _plain_attention_calls() as plain:
+            t0 = time.perf_counter()
+            out = pipe(**inputs, num_inference_steps=LONG_WIDE_STEPS, guidance_scale=3.5,
+                       context_frames=F, cfg_mode=mode, decode_chunk=8,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches, by_d = _launch_counts(), _launches_by_width()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        v, sec = out.videos, out.seconds
+        run_ok = (v.shape == (1, F, H, W, 3) and bool(np.isfinite(v).all())
+                  and float(v.min()) >= 0.0 and float(v.max()) <= 1.0
+                  and launches["flash_fwd_xwide"] > 0 and launches["temporal_fwd_long"] > 0
+                  and all(by_d["flash forward_launches_by_d"].get(d, 0) > 0 for d in (320, 640))
+                  and by_d["temporal forward_launches_by_f"].get(F, 0) > 0
+                  and set(by_d["temporal forward_launches_by_f"]) == {F}
+                  and plain["kernel fallbacks"] == 0 and plain["long sequences"] == 0)
+        ok = ok and run_ok
+        runs[f"long_wide_{mode}"] = launches
+        print(f"[long_wide] pose2vid {H}x{W}x{F}f, one {F}-frame window, {LONG_WIDE_STEPS} DDIM "
+              f"steps, CFG 3.5 {mode}: {seconds:.3f} s; denoise steps "
+              f"{[round(x, 3) for x in sec['denoise_steps']]} s, decode {sec['decode']:.3f} s; "
+              f"peak {peak:.2f} GiB; video min {float(v.min()):.4f} max {float(v.max()):.4f}")
+        print(f"[long_wide]   launches {launches}; {by_d}; plain attention on CUDA tensors "
+              f"{plain} (kernel fallbacks must be 0) {'ok' if run_ok else 'FAIL'}")
+    del pipe, system, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    F, H, W = LONG_WIDE_TRAIN_SIZE
+    system = CamAnimate(stage_config(2, long_wide_config(), gradient_checkpointing=True,
+                                     camera_frames=F),
+                        device=dev, dtype=torch.bfloat16).init_random(0)
+    _unzero_(torch, system, 1)
+    state = TrainState(system, stage2_trainable, OptimizerConfig(warmup_steps=1))
+    sched = system.make_schedule(beta_schedule="scaled_linear")
+    batch = _train_batch(np, 1, F, H, W, system.config.clip.image_size, 10)
+    draws = sample_draws(torch.Generator(device=dev).manual_seed(11), 1, F, H, W,
+                         sched.num_train_timesteps, 0.0)._replace(uncond=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    with _plain_attention_calls() as plain:
+        t0 = time.perf_counter()
+        out = train_step(system, state, sched, TrainConfig(), batch, draws=draws)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches, by_d = _launch_counts(), _launches_by_width()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss, norm = out["loss"].item(), out["grad_norm"].item()
+    finite = np.isfinite(loss) and np.isfinite(norm) and all(
+        bool(torch.isfinite(m).all()) for m in state.masters)
+    step_ok = (finite and launches["flash_bwd_xwide"] > 0 and launches["temporal_bwd_long"] > 0
+               and all(by_d["flash backward_launches_by_d"].get(d, 0) > 0 for d in (320, 640))
+               and all(by_d[f"temporal {k}_launches_by_f"].get(F, 0) > 0
+                       for k in ("forward", "backward"))
+               and plain["kernel fallbacks"] == 0 and plain["long sequences"] == 0)
+    ok = ok and step_ok
+    runs["long_wide_train"] = launches
+    print(f"[long_wide] stage-2 step {H}x{W}x{F}f bs 1 (step 0, uncond: the CFG-dropout bias), "
+          f"grad checkpointing: {seconds:.3f} s (with the kernels' first launches at these "
+          f"shapes), peak {peak:.2f} GiB, loss {loss:.5f}, grad norm {norm:.4f}, finite {finite}")
+    print(f"[long_wide]   launches {launches}; {by_d}; plain attention on CUDA tensors "
+          f"{plain} (kernel fallbacks must be 0) {'ok' if step_ok else 'FAIL'}")
+    print(f"[long_wide] {card}")
+    del system, state, batch, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, runs
 
 
 def group_norm_cases():
@@ -1506,7 +1737,9 @@ MODEL_KERNELS = MODEL_FWD_KERNELS + ("flash_bwd", "temporal_bwd")
 
 def _launch_counts():
     """Launches of every kernel since the last reset: the six of the model
-    paths, the wide-head backward and the three probe kernels."""
+    paths, the wide-head backward, the four of the last shapes (kernel A
+    past 512 columns, kernel B past 32 frames) and the three probe
+    kernels."""
     from humanvid_tpu_torch.ops import flash_attention as fa
     from humanvid_tpu_torch.ops import group_norm as gn
     from humanvid_tpu_torch.ops import temporal_attention as ta
@@ -1518,6 +1751,10 @@ def _launch_counts():
             "temporal_bwd": ta.launches["temporal_bwd"],
             "group_norm": gn.launches["group_norm"],
             "flash_bwd_d512": min(fa.launches["bwd_dkv_d>128"], fa.launches["bwd_dq_d>128"]),
+            "flash_fwd_xwide": fa.launches["d>512"],
+            "flash_bwd_xwide": min(fa.launches["bwd_dkv_d>512"], fa.launches["bwd_dq_d>512"]),
+            "temporal_fwd_long": ta.launches["temporal_long"],
+            "temporal_bwd_long": ta.launches["temporal_bwd_long"],
             **pk.launches}
 
 
@@ -3318,11 +3555,14 @@ def kernel_line(results, launches):
     """The per-kernel JSON line. ``launches`` is each kernel's count in the
     run of its path (the forward kernels and kernel C: pose2vid; the
     backward kernels: the stage-2 training path; the wide-head backward and
-    the probe kernels, which no model path runs: the microbench run);
-    ``launches_by_path`` has every run's counts."""
+    the probe kernels, which no model path runs: the microbench run; the
+    last shapes' kernels: long_wide's sequential pose2vid and its stage-2
+    step); ``launches_by_path`` has every run's counts."""
     paths = {"flash_bwd": "train", "temporal_bwd": "train", "flash_bwd_d512": "microbench",
              "probe_dmajor": "microbench", "probe_pvt": "microbench",
-             "probe_hbm": "microbench"}
+             "probe_hbm": "microbench", "flash_fwd_xwide": "long_wide_sequential",
+             "temporal_fwd_long": "long_wide_sequential", "flash_bwd_xwide": "long_wide_train",
+             "temporal_bwd_long": "long_wide_train"}
     replaces = {
         "flash_fwd": ("humanvid_tpu/ops/flash_attention.py:172", FLASH_SRC),
         "flash_fwd_d512": ("humanvid_tpu/ops/flash_attention.py:96", FLASH_SRC),
@@ -3336,6 +3576,11 @@ def kernel_line(results, launches):
         "probe_dmajor": ("tools/microbench.py:220", DMAJOR_SRC),
         "probe_pvt": ("tools/microbench.py:405", PVT_SRC),
         "probe_hbm": ("tools/microbench.py:636", HBM_SRC),
+        # the same Pallas kernels at the shapes the kernels above do not take
+        "flash_fwd_xwide": ("humanvid_tpu/ops/flash_attention.py:96", FLASH_SRC),
+        "flash_bwd_xwide": ("humanvid_tpu/ops/flash_attention.py:354", FLASH_BWD_SRC),
+        "temporal_fwd_long": ("humanvid_tpu/ops/temporal_attention.py:81", TEMPORAL_SRC),
+        "temporal_bwd_long": ("humanvid_tpu/ops/temporal_attention.py:116", TEMPORAL_BWD_SRC),
     }
     kernels = []
     for name, (rep, src) in replaces.items():
@@ -3346,16 +3591,19 @@ def kernel_line(results, launches):
         if name == "flash_bwd":
             extra = dict(also_replaces="humanvid_tpu/ops/flash_attention.py:479",
                          dkv_ms=head["dkv_ms"], dq_ms=head["dq_ms"])
-        elif name == "flash_bwd_d512":
+        elif name in ("flash_bwd_d512", "flash_bwd_xwide"):
             extra = dict(also_replaces="humanvid_tpu/ops/flash_attention.py:537",
                          dkv_ms=head["dkv_ms"], dv_ms=head["dv_ms"], dk_ms=head["dk_ms"],
                          dq_ms=head["dq_ms"], library_backends=head["library_backends"])
         elif name == "probe_pvt":
             extra = dict(kernel_a_ms=head["kernel_a_ms"],
                          untransposed_ms=head["untransposed_ms"])
-        elif name in ("probe_dmajor", "probe_hbm", "temporal_fwd", "temporal_bwd"):
+        elif name in ("probe_dmajor", "probe_hbm", "temporal_fwd", "temporal_bwd",
+                      "temporal_fwd_long", "temporal_bwd_long"):
             # ms is the device time
             extra = dict(event_ms=head["event_ms"])
+        elif name == "flash_fwd_xwide":  # ms is the event time, as kernel A's other rows
+            extra = dict(event_ms=head["event_ms"], device_ms=head["device_ms"])
         elif name == "group_norm":  # the statistics kernel and the folded apply
             # the headline is the two-pass decode; the one-pass kernel's is
             # the UNet's level 0
@@ -3368,7 +3616,7 @@ def kernel_line(results, launches):
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep, path=path, **extra,
             launches=launches[path][name],
-            launches_by_path={p: counts[name] for p, counts in launches.items()},
+            launches_by_path={p: counts.get(name, 0) for p, counts in launches.items()},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
@@ -3410,6 +3658,11 @@ def main() -> int:
     phase_flash_bwd(torch, results, dev, head_width_bwd_cases())
     phase_temporal(torch, results, dev, temporal_width_cases())
     phase_temporal_bwd(torch, results, dev, temporal_width_bwd_cases())
+    print("[long and wide] kernel A past 512 columns, kernel B past 32 frames")
+    phase_flash(torch, results, dev, long_wide_flash_cases())
+    phase_flash_bwd(torch, results, dev, long_wide_flash_bwd_cases())
+    phase_temporal(torch, results, dev, long_wide_temporal_cases())
+    phase_temporal_bwd(torch, results, dev, long_wide_temporal_bwd_cases())
     failed = [f"{r['kernel']} {r['shape']}" for r in results if not r["ok"]]
 
     def check(name, good):
@@ -3435,6 +3688,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     heads64_ok, heads64_launches = phase_heads64(torch, np, dev, card)
     check("heads64", heads64_ok)
+    long_wide_ok, long_wide_launches = phase_long_wide(torch, np, dev, card)
+    check("long_wide", long_wide_ok)
     stage1_ok, stage1_launches = phase_stage1(torch, np, dev)
     check("stage 1", stage1_ok)
     gc.collect()
@@ -3468,7 +3723,8 @@ def main() -> int:
     pose_ok, pose_launches = phase_pose(torch, np, dev, card)
     check("pose", pose_ok)
     print(kernel_line(results, {"pose2vid": main_launches, "train": train_launches,
-                                **stage1_launches, **heads64_launches, "cli": cli_launches,
+                                **stage1_launches, **heads64_launches, **long_wide_launches,
+                                "cli": cli_launches,
                                 **train_cli_launches,
                                 **eval_launches, "dp_train": dp_launches,
                                 "fanout": fanout_launches, **pose_launches,

@@ -2,7 +2,8 @@
 //
 // Replaces: humanvid_tpu/ops/flash_attention.py, the Pallas kernels
 // `_fwd_kernel_t` (:172, d + 1 <= 128) and `_fwd_kernel` (:96, wide heads),
-// both launched by `_flash_fwd` (:323).
+// both launched by `_flash_fwd` (:323); past d = 512, the xwide kernel at
+// the end of this file.
 //
 // Computes, for each batch row b and head h,
 //   out_h = softmax(q_h k_h^T * d_s^-1/2 + bias[b]) v_h
@@ -111,6 +112,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -450,6 +452,175 @@ int launch(const void* q, const void* k, const void* v, const void* bias, void* 
   return (int)cudaGetLastError();
 }
 
+// ---- heads wider than 512 columns: the xwide kernel -------------------------
+//
+// The d = 512 design keeps its 64-row Q tile resident (64 KB); a 640-wide
+// one is 80 KB and a 1280-wide one 160 KB, which beside a K/V ring do not
+// fit 227 KB, and a 64 x d fp32 O does not fit one warpgroup's registers.
+// So a block (4 warps, 16 query rows each, 64 rows) owns one slab of at
+// most kXSlab of O's columns (the grid's x axis walks the row tiles and
+// the slabs), and walks the keys in tiles of kXKeys:
+//   S = Q K^T    over the whole head, in kPiece-column depth pieces: each
+//                piece of Q and K copied by cp.async into a 2-stage ring
+//                (the next piece's copy runs under this piece's mma.sync);
+//   softmax      online, in the log2 domain (scale * log2e folded with the
+//                bias in one FMA, keys >= Lk at -inf), O rescaled when a
+//                row's max moves; P rounded to bf16 unnormalized, as the
+//                d <= 512 kernels round it;
+//   O += P V     over the slab's columns of V, whose tile is copied under
+//                the key tile's S.
+// Each block computes S for its slab, so a head of ceil(d / kXSlab) slabs
+// does that many QK^T products (at d = 640: 3, or 2x the least product
+// work). The row's log-sum-exp is written by slab 0. No atomics: the same
+// inputs give the same bits. What bounds it is the tensor cores (at the
+// 768x512 level-1 cond call, 48 x 1536 x 3072 x 640, 5.8e11 operations
+// against 0.57 GB); mma.sync, synchronous phases and the recomputed S keep
+// it well short of that: simple and right first.
+constexpr int kXRows = 64;   // query rows of a block: 16 a warp
+constexpr int kXKeys = 64;   // keys a tile
+constexpr int kXSlab = 256;  // the widest slab of O a block accumulates
+constexpr int kXThreads = 128;
+
+// Q and K piece tiles in two stages, then the V tile (kXKeys x sw + 8).
+__host__ __device__ inline size_t xwide_smem_bytes(int sw) {
+  return 128 + ((size_t)2 * (kXRows + kXKeys) * tiles::kLd + (size_t)kXKeys * (sw + 8)) * 2;
+}
+
+__global__ void __launch_bounds__(kXThreads)
+flash_fwd_xwide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const float* __restrict__ bias,
+                       bf16* __restrict__ out, float* __restrict__ lse, int Lq, int Lk,
+                       int heads, int d, int SW, int slabs, float scale_log2) {
+  extern __shared__ unsigned char xwide_smem[];
+  bf16* sm = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(xwide_smem) + 127) & ~static_cast<uintptr_t>(127));
+  constexpr int STAGE = (kXRows + kXKeys) * tiles::kLd;  // a stage: Q piece, then K piece
+  bf16* vt = sm + 2 * STAGE;
+  const int LDV = SW + 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tid = threadIdx.x;
+  const int slab = blockIdx.x % slabs, q0 = (blockIdx.x / slabs) * kXRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int C = heads * d, c0 = slab * SW, w = min(SW, d - c0);
+  const bf16* qb = q + (size_t)b * Lq * C + (size_t)h * d;
+  const bf16* kb = k + (size_t)b * Lk * C + (size_t)h * d;
+  const bf16* vb = v + (size_t)b * Lk * C + (size_t)h * d + c0;
+  const float* bb = bias ? bias + (size_t)b * Lk : nullptr;
+  const int P = (d + tiles::kPiece - 1) / tiles::kPiece, nkt = (Lk + kXKeys - 1) / kXKeys;
+  const int steps = nkt * P;
+
+  auto load_piece = [&](int step) {
+    const int kt = step / P, p = step % P, pw = min(tiles::kPiece, d - p * tiles::kPiece);
+    bf16* st = sm + (step & 1) * STAGE;
+    tiles::load_rows_async<kXRows>(st, tiles::kLd, qb + p * tiles::kPiece, C, q0, Lq, pw, tid,
+                                   kXThreads);
+    tiles::load_rows_async<kXKeys>(st + kXRows * tiles::kLd, tiles::kLd, kb + p * tiles::kPiece,
+                                   C, kt * kXKeys, Lk, pw, tid, kXThreads);
+  };
+
+  float o[kXSlab / 8][4];
+  tiles::zero(o);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int npairs = tiles::round16(w) / 16;
+  load_piece(0);
+  tiles::cp_async_commit();
+  for (int kt = 0; kt < nkt; ++kt) {
+    float s[kXKeys / 8][4];
+    tiles::zero(s);
+    for (int p = 0; p < P; ++p) {
+      const int step = kt * P + p;
+      // the V tile is free: the last key tile's PV ended at a barrier
+      if (p == 0)
+        tiles::load_rows_async<kXKeys>(vt, LDV, vb, C, kt * kXKeys, Lk, w, tid, kXThreads);
+      if (step + 1 < steps) load_piece(step + 1);
+      tiles::cp_async_commit();
+      tiles::cp_async_wait<1>();  // this step's piece has landed
+      __syncthreads();
+      const bf16* st = sm + (step & 1) * STAGE;
+      const int pw = min(tiles::kPiece, d - p * tiles::kPiece);
+      tiles::mma_abt<kXKeys / 8>(s, st + warp * 16 * tiles::kLd, tiles::kLd,
+                                 st + kXRows * tiles::kLd, tiles::kLd, tiles::round16(pw) / 16,
+                                 lane);
+      __syncthreads();  // the stage is free for the copy issued next step
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kXKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kt * kXKeys + 8 * j + 2 * (lane % 4) + (e & 1);
+        float x = -INFINITY;
+        if (key < Lk) x = s[j][e] * scale_log2 + (bb ? bb[key] * kLog2e : 0.f);
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float ref[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], tiles::quad_max(mx[r]));
+      ref[r] = mn == -INFINITY ? 0.f : mn;  // no key so far: every p is 0
+      const float corr = exp2f(m[r] - ref[r]);
+      l[r] *= corr;
+#pragma unroll
+      for (int n = 0; n < kXSlab / 8; ++n) {
+        o[n][2 * r] *= corr;
+        o[n][2 * r + 1] *= corr;
+      }
+      m[r] = mn;
+    }
+    uint32_t pa[kXKeys / 16][4];
+#pragma unroll
+    for (int j = 0; j < kXKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - ref[e >> 1]);
+        l[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int t = 0; t < kXKeys / 16; ++t) tiles::pack_a(pa[t], s[2 * t], s[2 * t + 1]);
+    tiles::cp_async_wait<0>();  // the V tile (and the next piece) have landed
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < kXKeys / 16; ++t)
+      tiles::mma_av<kXSlab / 8>(o, pa[t], vt + t * 16 * LDV, LDV, npairs, lane);
+    __syncthreads();  // the V tile is free
+  }
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = tiles::quad_sum(l[r]);
+    inv[r] = 1.f / l[r];
+  }
+  const int row0 = q0 + warp * 16;
+  tiles::store_acc<kXSlab / 8>(out + (size_t)b * Lq * C + (size_t)h * d + c0, C, o, row0, Lq, w,
+                               inv, lane);
+  if (slab == 0 && lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + lane / 4 + 8 * r;
+      if (row < Lq) lse[((size_t)b * heads + h) * Lq + row] = (m[r] + log2f(l[r])) * kLn2;
+    }
+  }
+}
+
+int launch_xwide(const void* q, const void* k, const void* v, const void* bias, void* out,
+                 void* lse, int B, int Lq, int Lk, int heads, int d, int scale_d,
+                 cudaStream_t stream) {
+  const int slabs = (d + kXSlab - 1) / kXSlab;
+  const int SW = tiles::round16((d + slabs - 1) / slabs);
+  const int bytes = (int)xwide_smem_bytes(SW);
+  const void* fn = reinterpret_cast<const void*>(flash_fwd_xwide_kernel);
+  cudaError_t e = host_cache.reserve_smem(fn, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const long long rows = (long long)(Lq + kXRows - 1) / kXRows * slabs;
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)rows, heads, B);
+  flash_fwd_xwide_kernel<<<grid, kXThreads, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(bias), static_cast<bf16*>(out), static_cast<float*>(lse), Lq, Lk,
+      heads, d, SW, slabs, kLog2e / sqrtf((float)scale_d));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Head widths the kernel takes: d a multiple of 8 with d <= 128 (SD's UNet
@@ -457,7 +628,8 @@ int launch(const void* q, const void* k, const void* v, const void* bias, void* 
 // QK^T's depth padded to 48 / 80 / 128) or d = 512 (the VAE's one head). The
 // logits are scaled by scale_d^-1/2, 1 <= scale_d <= d: the wrapper passes
 // the true width of a head it zero-pads (ops/flash_attention.py,
-// `flash_plan`), else d.
+// `flash_plan`), else d. Any d > 512 (a multiple of 8) runs in the xwide
+// kernel.
 extern "C" int hv_flash_fwd(const void* q, const void* k, const void* v,
                             const void* bias, void* out, void* lse, int B,
                             int Lq, int Lk, int heads, int d, int scale_d, void* stream) {
@@ -476,5 +648,6 @@ extern "C" int hv_flash_fwd(const void* q, const void* k, const void* v,
   if (d == 512)
     return launch<Cfg<512, 256, true, 2>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d,
                                           scale_d, s);
+  if (d > 512) return launch_xwide(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, scale_d, s);
   return (int)cudaErrorInvalidValue;
 }

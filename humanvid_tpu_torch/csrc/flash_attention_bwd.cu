@@ -4,7 +4,8 @@
 // `_dkv_kernel_t` (:415, dk/dv; `pallas_call` :636) and `_dq_kernel_t`
 // (:479, dq; :673), launched by `_flash_bwd_kernel` for heads with d <= 128,
 // and the straight-layout `_dkv_kernel` (:354) and `_dq_kernel` (:537) it
-// takes for d > 128 (here d = 512, the VAE mid block's single head).
+// takes for d > 128 (here d = 512, the VAE mid block's single head, and
+// every d > 512 in the xwide kernels at the end of this file).
 //
 // Computes the gradient of out_h = softmax(q_h k_h^T * d_s^-1/2 + bias[b]) v_h
 // (the forward of csrc/flash_attention.cu; d_s = `scale_d`, the true width
@@ -144,6 +145,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -1161,13 +1163,211 @@ int launch_wide(Kernel kernel, const void* q, const void* k, const void* v, cons
   return (int)cudaGetLastError();
 }
 
+// ---- heads wider than 512 columns: the xwide kernels ------------------------
+//
+// The d = 512 kernels hold two owned 64 x 512 tiles (128 KB) and a 64 x 512
+// fp32 gradient split over two warpgroups; at 640 or 1280 columns neither
+// fits. So, as the forward's xwide kernel does, a block (4 warps, 16 rows
+// each, 64 rows) writes one slab of at most kXSlab columns of one gradient,
+// one kernel per gradient (MODE: kDq over q rows, kDk and kDv over keys),
+// and walks the other side in tiles of 64:
+//   S = R X^T, dP = R2 X2^T   over the whole head in kPiece-column depth
+//                             pieces through a 2-stage cp.async ring (dQ: R
+//                             = Q, X = K, R2 = G, X2 = V; dK and dV: R = K,
+//                             X = Q, R2 = V, X2 = G; dV needs no dP);
+//   P = exp2(S * scale * log2e + bias * log2e - lse * log2e), dS = P (dP -
+//                             delta): the row's words (dQ: lse and delta
+//                             of the q row; dK, dV: the key's bias) in
+//                             registers, the columns' read per tile; columns
+//                             past the other side's length get P = 0;
+//   grad += A Y               A = dS (dQ, dK) or P (dV) rounded to bf16, Y
+//                             the slab's columns of K (dQ), Q (dK) or G
+//                             (dV), copied under the tile's products.
+// dQ and dK are scaled once at the end. A key hidden by a -1e9 bias gets P
+// == 0 exactly in every row, hence exactly zero dk and dv. Each gradient
+// element is written by one block, with no atomics: the same inputs give
+// the same bits. Every slab recomputes S and dP (2x the least at d = 640
+// for dK and dQ); simple and right first.
+constexpr int kXRows = 64;   // rows of a block: 16 a warp
+constexpr int kXCols = 64;   // the other side's rows a tile
+constexpr int kXSlab = 256;  // the widest slab of a gradient a block accumulates
+constexpr int kXThreads = 128;
+
+// Two stages of four piece tiles (R, X, R2, X2), then the Y tile (kXCols x
+// sw + 8).
+__host__ __device__ inline size_t xwide_smem_bytes(int sw) {
+  return 128 + ((size_t)2 * 2 * (kXRows + kXCols) * tiles::kLd + (size_t)kXCols * (sw + 8)) * 2;
+}
+
+template <int MODE>
+__device__ __forceinline__ void flash_bwd_xwide(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ bias, const bf16* __restrict__ g, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ grad, int Lq, int Lk, int heads, int d,
+    int SW, int slabs, float scale_log2, float scale) {
+  constexpr bool kRowsQ = MODE == kDq, kDp = MODE != kDv;
+  extern __shared__ unsigned char xwide_bwd_smem[];
+  bf16* sm = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(xwide_bwd_smem) + 127) & ~static_cast<uintptr_t>(127));
+  constexpr int HALF = (kXRows + kXCols) * tiles::kLd;  // an R piece then an X piece
+  constexpr int STAGE = 2 * HALF;                        // S's pair, then dP's
+  bf16* yt = sm + 2 * STAGE;
+  const int LDY = SW + 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tid = threadIdx.x;
+  const int slab = blockIdx.x % slabs, r0 = (blockIdx.x / slabs) * kXRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int C = heads * d, c0 = slab * SW, w = min(SW, d - c0);
+  const int Lr = kRowsQ ? Lq : Lk, Lc = kRowsQ ? Lk : Lq;
+  const size_t head = (size_t)h * d;
+  const bf16* rb = (kRowsQ ? q + (size_t)b * Lq * C : k + (size_t)b * Lk * C) + head;
+  const bf16* xb = (kRowsQ ? k + (size_t)b * Lk * C : q + (size_t)b * Lq * C) + head;
+  const bf16* r2b = (kRowsQ ? g + (size_t)b * Lq * C : v + (size_t)b * Lk * C) + head;
+  const bf16* x2b = (kRowsQ ? v + (size_t)b * Lk * C : g + (size_t)b * Lq * C) + head;
+  const bf16* yb = (MODE == kDq ? k + (size_t)b * Lk * C
+                                : (MODE == kDk ? q : g) + (size_t)b * Lq * C) + head + c0;
+  const float* bb = bias ? bias + (size_t)b * Lk : nullptr;
+  const float* lb = lse + ((size_t)b * heads + h) * Lq;
+  const float* db = delta + ((size_t)b * heads + h) * Lq;
+  const int P = (d + tiles::kPiece - 1) / tiles::kPiece, nct = (Lc + kXCols - 1) / kXCols;
+  const int steps = nct * P;
+
+  // the words of this thread's two rows: dQ's -lse * log2e and delta of
+  // the q row, dK's and dV's bias * log2e of the key
+  float word[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + warp * 16 + lane / 4 + 8 * r;
+    if (row < Lr) {
+      if (kRowsQ) {
+        word[r] = -lb[row] * kLog2e;
+        row_delta[r] = db[row];
+      } else if (bb) {
+        word[r] = bb[row] * kLog2e;
+      }
+    }
+  }
+
+  auto load_piece = [&](int step) {
+    const int ct = step / P, p = step % P, pw = min(tiles::kPiece, d - p * tiles::kPiece);
+    bf16* st = sm + (step & 1) * STAGE;
+    const int col = p * tiles::kPiece;
+    tiles::load_rows_async<kXRows>(st, tiles::kLd, rb + col, C, r0, Lr, pw, tid, kXThreads);
+    tiles::load_rows_async<kXCols>(st + kXRows * tiles::kLd, tiles::kLd, xb + col, C,
+                                   ct * kXCols, Lc, pw, tid, kXThreads);
+    if (kDp) {
+      tiles::load_rows_async<kXRows>(st + HALF, tiles::kLd, r2b + col, C, r0, Lr, pw, tid,
+                                     kXThreads);
+      tiles::load_rows_async<kXCols>(st + HALF + kXRows * tiles::kLd, tiles::kLd, x2b + col, C,
+                                     ct * kXCols, Lc, pw, tid, kXThreads);
+    }
+  };
+
+  float acc[kXSlab / 8][4];
+  tiles::zero(acc);
+  const int npairs = tiles::round16(w) / 16;
+  load_piece(0);
+  tiles::cp_async_commit();
+  for (int ct = 0; ct < nct; ++ct) {
+    float s[kXCols / 8][4], dp[kXCols / 8][4];
+    tiles::zero(s);
+    tiles::zero(dp);
+    for (int p = 0; p < P; ++p) {
+      const int step = ct * P + p;
+      // the Y tile is free: the last tile's product ended at a barrier
+      if (p == 0)
+        tiles::load_rows_async<kXCols>(yt, LDY, yb, C, ct * kXCols, Lc, w, tid, kXThreads);
+      if (step + 1 < steps) load_piece(step + 1);
+      tiles::cp_async_commit();
+      tiles::cp_async_wait<1>();  // this step's pieces have landed
+      __syncthreads();
+      const bf16* st = sm + (step & 1) * STAGE;
+      const int ks = tiles::round16(min(tiles::kPiece, d - p * tiles::kPiece)) / 16;
+      tiles::mma_abt<kXCols / 8>(s, st + warp * 16 * tiles::kLd, tiles::kLd,
+                                 st + kXRows * tiles::kLd, tiles::kLd, ks, lane);
+      if (kDp)
+        tiles::mma_abt<kXCols / 8>(dp, st + HALF + warp * 16 * tiles::kLd, tiles::kLd,
+                                   st + HALF + kXRows * tiles::kLd, tiles::kLd, ks, lane);
+      __syncthreads();  // the stage is free for the copy issued next step
+    }
+#pragma unroll
+    for (int j = 0; j < kXCols / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = ct * kXCols + 8 * j + 2 * (lane % 4) + (e & 1);
+        float a = 0.f;
+        if (col < Lc) {
+          float x = s[j][e] * scale_log2 + word[e >> 1], dl = row_delta[e >> 1];
+          if (kRowsQ) {
+            if (bb) x += bb[col] * kLog2e;
+          } else {
+            x -= lb[col] * kLog2e;
+            dl = db[col];
+          }
+          const float pr = exp2f(x);
+          a = MODE == kDv ? pr : pr * (dp[j][e] - dl);
+        }
+        s[j][e] = a;
+      }
+    uint32_t pa[kXCols / 16][4];
+#pragma unroll
+    for (int t = 0; t < kXCols / 16; ++t) tiles::pack_a(pa[t], s[2 * t], s[2 * t + 1]);
+    tiles::cp_async_wait<0>();  // the Y tile (and the next pieces) have landed
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < kXCols / 16; ++t)
+      tiles::mma_av<kXSlab / 8>(acc, pa[t], yt + t * 16 * LDY, LDY, npairs, lane);
+    __syncthreads();  // the Y tile is free
+  }
+  const float mul[2] = {MODE == kDv ? 1.f : scale, MODE == kDv ? 1.f : scale};
+  tiles::store_acc<kXSlab / 8>(grad + (size_t)b * Lr * C + head + c0, C, acc,
+                               r0 + warp * 16, Lr, w, mul, lane);
+}
+
+// one kernel of its own name per gradient, so a profile tells them apart
+#define XWIDE_KERNEL(name, MODE)                                                              \
+  __global__ void __launch_bounds__(kXThreads)                                                \
+      name(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, \
+           const float* __restrict__ bias, const bf16* __restrict__ g,                        \
+           const float* __restrict__ lse, const float* __restrict__ delta,                    \
+           bf16* __restrict__ grad, int Lq, int Lk, int heads, int d, int SW, int slabs,      \
+           float scale_log2, float scale) {                                                   \
+    flash_bwd_xwide<MODE>(q, k, v, bias, g, lse, delta, grad, Lq, Lk, heads, d, SW, slabs,     \
+                          scale_log2, scale);                                                 \
+  }
+XWIDE_KERNEL(flash_bwd_dv_xwide_kernel, kDv)
+XWIDE_KERNEL(flash_bwd_dk_xwide_kernel, kDk)
+XWIDE_KERNEL(flash_bwd_dq_xwide_kernel, kDq)
+#undef XWIDE_KERNEL
+
+template <int MODE, class Kernel>
+int launch_xwide(Kernel kernel, const void* q, const void* k, const void* v, const void* bias,
+                 const void* g, const void* lse, const void* delta, void* grad, int B, int Lq,
+                 int Lk, int heads, int d, int scale_d, cudaStream_t stream) {
+  const int slabs = (d + kXSlab - 1) / kXSlab;
+  const int SW = tiles::round16((d + slabs - 1) / slabs);
+  const int bytes = (int)xwide_smem_bytes(SW);
+  cudaError_t e = host_cache.reserve_smem(reinterpret_cast<const void*>(kernel), bytes);
+  if (e != cudaSuccess) return (int)e;
+  const long long rows = (long long)((MODE == kDq ? Lq : Lk) + kXRows - 1) / kXRows * slabs;
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const float scale = 1.f / sqrtf((float)scale_d);
+  kernel<<<dim3((unsigned)rows, heads, B), kXThreads, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(bias), static_cast<const bf16*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(grad),
+      Lq, Lk, heads, d, SW, slabs, scale * kLog2e, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Head widths the kernels take: d a multiple of 8 with d <= 128 (SD's UNet
 // heads, d = 40 and 80, and the 64- and 128-wide heads of other head counts;
 // s and dp contracted over 48 / 80 / 128) or d = 512 (the VAE's one head).
 // The logits are scaled by scale_d^-1/2, 1 <= scale_d <= d (the true width
-// of a head the wrapper zero-pads, else d).
+// of a head the wrapper zero-pads, else d). Any d > 512 (a multiple of 8)
+// runs in the xwide kernels: dV and dK from the dk/dv entry point, dQ from
+// the dq entry point.
 extern "C" int hv_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* bias, const void* g, const void* lse,
                                 const void* delta, void* dk, void* dv, int B, int Lq,
@@ -1189,6 +1389,13 @@ extern "C" int hv_flash_bwd_dkv(const void* q, const void* k, const void* v,
     return launch_wide<WideDk>(flash_bwd_dk_wide_kernel, q, k, v, bias, g, lse, delta, dk, B,
                                Lq, Lk, heads, d, scale_d, s);
   }
+  if (d > 512) {
+    const int err = launch_xwide<kDv>(flash_bwd_dv_xwide_kernel, q, k, v, bias, g, lse, delta,
+                                      dv, B, Lq, Lk, heads, d, scale_d, s);
+    if (err) return err;
+    return launch_xwide<kDk>(flash_bwd_dk_xwide_kernel, q, k, v, bias, g, lse, delta, dk, B, Lq,
+                             Lk, heads, d, scale_d, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1208,5 +1415,8 @@ extern "C" int hv_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (d == 512)
     return launch_wide<WideDq>(flash_bwd_dq_wide_kernel, q, k, v, bias, g, lse, delta, dq, B,
                                Lq, Lk, heads, d, scale_d, s);
+  if (d > 512)
+    return launch_xwide<kDq>(flash_bwd_dq_xwide_kernel, q, k, v, bias, g, lse, delta, dq, B, Lq,
+                             Lk, heads, d, scale_d, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,7 +8,8 @@
 // (head h at column offset h*d), for each (b, position l, head h):
 //   out[b, :, l, h] = softmax_over_frames(q[b, :, l, h] k[b, :, l, h]^T * d^-1/2)
 //                     v[b, :, l, h]
-// with f <= 32 frames, in the UNet's native spatial layout: there is no
+// with f <= 32 frames (more: the long kernel at the end of this file), in
+// the UNet's native spatial layout: there is no
 // (b f) l c <-> (b l) f c rearrange and the output has the input's layout.
 //
 // What bounds it on the H100: device-memory bytes. Each position's f x f
@@ -72,6 +73,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "mma_tiles.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -601,6 +603,102 @@ int launch_wide(const void* q, const void* k, const void* v, void* out, int B, i
   return (int)cudaGetLastError();
 }
 
+// ---- more than 32 frames: the long kernel -----------------------------------
+//
+// Past 32 frames a whole item (all f frames of a position) no longer fits
+// the two 16-row mma tiles, and its Q, K and V grow with f (at f = 96 and
+// 160 columns, 3 x 31 KB a stage). So the long kernel takes f in tiles: a
+// warp's work item is (sample, position, head, query tile of 16 frames,
+// output slab of kPiece columns), and it walks the key frames in tiles of
+// 16 twice:
+//   pass 1: S = Q K^T over the head's depth in kPiece-column pieces (each
+//     piece of Q and K copied to the warp's tiles by cp.async, zeros past f
+//     and past the piece), scaled in the log2 domain, keys >= f at -inf;
+//     the running row max and the row sum rescaled to it;
+//   pass 2: the same S again, P = exp2(S - max) / sum, normalized before
+//     its bf16 rounding as the plain version rounds it, and O += P V over
+//     the slab's columns of V.
+// Shared memory is per warp (3 tiles of 16 x kLd), so warps never wait for
+// one another; the warps of a block take neighbouring items (the query
+// tiles and slabs of one head), which read the same K and V from L1.
+// No atomics: the same inputs give the same bits. What bounds it is still
+// the bytes (at f = 48 a call at level 0 is 4 x 189 MB against 1.8e10
+// operations), but this design reads Q and K once per query tile, slab and
+// pass (from L1 and L2) and overlaps little: simple and right first.
+constexpr int kLongWarps = 4;
+
+__global__ void __launch_bounds__(32 * kLongWarps)
+temporal_fwd_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ out, int B, int F, int L,
+                         int heads, int d, float scale_log2) {
+  __shared__ __align__(128) bf16 smem[kLongWarps][3][16 * tiles::kLd];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int QT = (F + 15) / 16, slabs = (d + tiles::kPiece - 1) / tiles::kPiece;
+  const long long item = (long long)blockIdx.x * kLongWarps + warp;
+  if (item >= (long long)B * L * heads * slabs * QT) return;
+  const int qt = (int)(item % QT);
+  long long rest = item / QT;
+  const int slab = (int)(rest % slabs);
+  rest /= slabs;
+  const int h = (int)(rest % heads);
+  rest /= heads;
+  const int l = (int)(rest % L), b = (int)(rest / L);
+  const int C = heads * d;
+  const size_t fs = (size_t)L * C;                                  // elements between frames
+  const size_t base = ((size_t)b * F * L + l) * C + (size_t)h * d;  // (b, frame 0, l, head h)
+  bf16* sq = smem[warp][0];
+  bf16* sk = smem[warp][1];
+  bf16* sv = smem[warp][2];
+
+  // S of key tile kt, scaled to the log2 domain, keys >= F at -inf
+  auto logits = [&](float (&s)[2][4], int kt) {
+    tiles::frames_product(s, q + base, qt, k + base, kt, fs, F, d, sq, sk, lane);
+    tiles::scale_mask_keys(s, kt, F, scale_log2, lane);
+  };
+
+  // pass 1: row max and sum
+  float m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+  for (int kt = 0; kt < QT; ++kt) {
+    float s[2][4];
+    logits(s, kt);
+    tiles::row_stats(s, m, lsum);
+  }
+  const float inv[2] = {1.f / tiles::quad_sum(lsum[0]), 1.f / tiles::quad_sum(lsum[1])};
+
+  // pass 2: O over the slab's columns
+  const int c0 = slab * tiles::kPiece, w = min(tiles::kPiece, d - c0);
+  float o[tiles::kPiece / 8][4];
+  tiles::zero(o);
+  for (int kt = 0; kt < QT; ++kt) {
+    // V's tile lands under the logits' loads (their wait covers it)
+    tiles::load_rows_async<16>(sv, tiles::kLd, v + base + c0, fs, kt * 16, F, w, lane, 32);
+    float s[2][4];
+    logits(s, kt);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = exp2f(s[j][e] - m[e >> 1]) * inv[e >> 1];
+    uint32_t a[4];
+    tiles::pack_a(a, s[0], s[1]);
+    tiles::mma_av<tiles::kPiece / 8>(o, a, sv, tiles::kLd, tiles::round16(w) / 16, lane);
+    __syncwarp();
+  }
+  const float one[2] = {1.f, 1.f};
+  tiles::store_acc<tiles::kPiece / 8>(out + base + c0, fs, o, qt * 16, F, w, one, lane);
+}
+
+int launch_long(const void* q, const void* k, const void* v, void* out, int B, int F, int L,
+                int heads, int d, int scale_d, cudaStream_t stream) {
+  const int QT = (F + 15) / 16, slabs = (d + tiles::kPiece - 1) / tiles::kPiece;
+  const long long items = (long long)B * L * heads * slabs * QT;
+  const long long blocks = (items + kLongWarps - 1) / kLongWarps;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  temporal_fwd_long_kernel<<<(unsigned)blocks, 32 * kLongWarps, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), B, F, L, heads, d, kLog2e / sqrtf((float)scale_d));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Head widths the kernel takes: d a multiple of 8, d <= 160 (the motion
@@ -610,14 +708,25 @@ int launch_wide(const void* q, const void* k, const void* v, void* out, int B, i
 // = ceil(d / chunks) rounded up to 8 columns (heads_per_item = 1). Either is
 // loaded `cwp` columns wide (the wrapper's `temporal_plan`). The logits are
 // scaled by scale_d^-1/2, 1 <= scale_d <= d (the true width of a head the
-// wrapper zero-pads, else d).
+// wrapper zero-pads, else d). Past kMaxFrames frames (any f), every d a
+// multiple of 8 up to 1280 runs in the long kernel: the wrapper's plan is
+// then one head an item (heads_per_item = 1) in pieces of tiles::kPiece
+// columns (chunks = ceil(d / kPiece)), tiles tiles::kLd wide (cwp).
 extern "C" int hv_temporal_fwd(const void* q, const void* k, const void* v, void* out, int B,
                                int F, int L, int heads, int d, int heads_per_item, int cwp,
                                int chunks, int scale_d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (F > kMaxFrames) {
+    if (B < 1 || L < 1 || d <= 0 || d % 8 != 0 || d > 8 * kChunkColumns || heads < 1 ||
+        heads_per_item != 1 || cwp != tiles::kLd ||
+        chunks != (d + tiles::kPiece - 1) / tiles::kPiece || scale_d < 1 || scale_d > d ||
+        (long long)B * heads * d * F * L >= (1LL << 40))
+      return (int)cudaErrorInvalidValue;
+    return launch_long(q, k, v, out, B, F, L, heads, d, scale_d, s);
+  }
   if (chunks < 1 || (chunks > 1 && heads_per_item != 1)) return (int)cudaErrorInvalidValue;
   const int CW = chunks == 1 ? heads_per_item * d : ((d + chunks - 1) / chunks + 7) / 8 * 8;
-  if (B < 1 || L < 1 || F < 1 || F > kMaxFrames || d <= 0 || d % 8 != 0 || heads < 1 ||
+  if (B < 1 || L < 1 || F < 1 || d <= 0 || d % 8 != 0 || heads < 1 ||
       heads_per_item < 1 || heads % heads_per_item != 0 || cwp > 256 || cwp % 8 != 0 ||
       cwp < CW + 8 || (cwp / 8) % 2 != 1 || scale_d < 1 || scale_d > d ||
       (long long)B * heads * d * F * L >= (1LL << 40))

@@ -6,7 +6,8 @@
 // Computes, for each (b, position l, head h), the gradient of
 //   out = softmax_over_frames(q k^T * d^-1/2) v
 // (the forward of csrc/temporal_attention.cu) given g = dL/dout, on
-// q/k/v/g/dq/dk/dv of shape (b, f, l, c) with heads packed in c, f <= 32:
+// q/k/v/g/dq/dk/dv of shape (b, f, l, c) with heads packed in c, f <= 32
+// (more: the long kernel at the end of this file):
 //   p  = softmax(q k^T * scale)            (recomputed, fp32)
 //   dv = p^T g
 //   dp = g v^T,  delta = rowsum(dp * p),  ds = p * (dp - delta)
@@ -69,6 +70,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "mma_tiles.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -781,6 +783,190 @@ int launch_wide(const void* q, const void* k, const void* v, const void* g, void
   return (int)cudaGetLastError();
 }
 
+// ---- more than 32 frames: the long kernel -----------------------------------
+//
+// Past 32 frames a row's softmax no longer fits a warp's two 16-row tiles,
+// and the transposes (LP, movmatrix) are sized for 32 frames. So a block of
+// kLongWarps warps owns one (sample, position, head), all f frames, and
+// takes it in three phases over query and key tiles of 16 frames, each
+// product over the head's depth in kPiece-column pieces (copied to the
+// warp's own tiles by cp.async, zeros past f and past the piece):
+//   1. per query tile: the row max and sum of S = Q K^T * scale (one sweep
+//      over the key tiles, the sum rescaled to the running max), then
+//      delta = rowsum(P * dP), dP = G V^T, P normalized (a second sweep);
+//      the three words of every row go to shared memory;
+//   2. per (query tile, slab of kPiece columns): dQ = dS K * scale, with
+//      P and dP recomputed per key tile and dS = P (dP - delta) rounded to
+//      bf16, as the plain version rounds it;
+//   3. per (key tile, slab): dV = P^T G and dK = dS^T Q * scale, from S^T =
+//      K Q^T and dP^T = V G^T recomputed per query tile, the words of the
+//      tile's query columns read from shared memory (query columns >= f
+//      get P = 0).
+// Each gradient element is written by one warp, with no atomics: the same
+// inputs give the same bits. Recomputation costs operations (S three times,
+// dP twice, once more per extra slab), which the bytes still bound.
+constexpr int kLongWarps = 4;
+constexpr int kLongTiles = 4;  // shared tiles of a warp: two product operands, two slabs
+
+__host__ __device__ inline size_t long_smem_bytes(int F) {
+  return (size_t)kLongWarps * kLongTiles * 16 * tiles::kLd * 2 +
+         (size_t)3 * ((F + 15) / 16 * 16) * 4;
+}
+
+__global__ void __launch_bounds__(32 * kLongWarps)
+temporal_bwd_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ g,
+                         bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         int F, int L, int heads, int d, float scale_log2, float scale) {
+  extern __shared__ __align__(128) unsigned char long_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int QT = (F + 15) / 16, FP = QT * 16, slabs = (d + tiles::kPiece - 1) / tiles::kPiece;
+  bf16* t0 = reinterpret_cast<bf16*>(long_smem) + (size_t)warp * kLongTiles * 16 * tiles::kLd;
+  bf16* t1 = t0 + 16 * tiles::kLd;
+  bf16* t2 = t1 + 16 * tiles::kLd;
+  bf16* t3 = t2 + 16 * tiles::kLd;
+  float* row_max = reinterpret_cast<float*>(reinterpret_cast<bf16*>(long_smem) +
+                                            (size_t)kLongWarps * kLongTiles * 16 * tiles::kLd);
+  float* row_inv = row_max + FP;
+  float* row_delta = row_inv + FP;
+  const int h = blockIdx.x % heads, l = (blockIdx.x / heads) % L, b = blockIdx.x / (heads * L);
+  const int C = heads * d;
+  const size_t fs = (size_t)L * C;                                  // elements between frames
+  const size_t base = ((size_t)b * F * L + l) * C + (size_t)h * d;  // (b, frame 0, l, head h)
+
+  // s = X Y^T over the head's depth: rows xt*16.. of x against rows yt*16.. of y
+  auto product = [&](float (&s)[2][4], const bf16* x, int xt, const bf16* y, int yt) {
+    tiles::frames_product(s, x + base, xt, y + base, yt, fs, F, d, t0, t1, lane);
+  };
+  // S of query tile qt against key tile kt, log2 domain, keys >= F at -inf
+  auto logits = [&](float (&s)[2][4], int qt, int kt) {
+    product(s, q, qt, k, kt);
+    tiles::scale_mask_keys(s, kt, F, scale_log2, lane);
+  };
+
+  // 1. the words of every row: max, 1 / sum, delta
+  for (int qt = warp; qt < QT; qt += kLongWarps) {
+    float m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+    for (int kt = 0; kt < QT; ++kt) {
+      float s[2][4];
+      logits(s, qt, kt);
+      tiles::row_stats(s, m, lsum);
+    }
+    const float inv[2] = {1.f / tiles::quad_sum(lsum[0]), 1.f / tiles::quad_sum(lsum[1])};
+    float delta[2] = {0.f, 0.f};
+    for (int kt = 0; kt < QT; ++kt) {
+      float s[2][4], dp[2][4];
+      logits(s, qt, kt);
+      product(dp, g, qt, v, kt);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          delta[e >> 1] += exp2f(s[j][e] - m[e >> 1]) * inv[e >> 1] * dp[j][e];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      delta[r] = tiles::quad_sum(delta[r]);
+      if (lane % 4 == 0) {
+        const int row = qt * 16 + lane / 4 + 8 * r;
+        row_max[row] = m[r];
+        row_inv[row] = inv[r];
+        row_delta[row] = delta[r];
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2. dQ, per (query tile, slab)
+  for (int t = warp; t < QT * slabs; t += kLongWarps) {
+    const int qt = t % QT, c0 = (t / QT) * tiles::kPiece, w = min(tiles::kPiece, d - c0);
+    float m[2], inv[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qt * 16 + lane / 4 + 8 * r;
+      m[r] = row_max[row];
+      inv[r] = row_inv[row];
+      delta[r] = row_delta[row];
+    }
+    float acc[tiles::kPiece / 8][4];
+    tiles::zero(acc);
+    for (int kt = 0; kt < QT; ++kt) {
+      // K's slab lands under the products' loads (their waits cover it)
+      tiles::load_rows_async<16>(t2, tiles::kLd, k + base + c0, fs, kt * 16, F, w, lane, 32);
+      float s[2][4], dp[2][4];
+      logits(s, qt, kt);
+      product(dp, g, qt, v, kt);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[j][e] - m[e >> 1]) * inv[e >> 1];
+          s[j][e] = p * (dp[j][e] - delta[e >> 1]);
+        }
+      uint32_t a[4];
+      tiles::pack_a(a, s[0], s[1]);
+      tiles::mma_av<tiles::kPiece / 8>(acc, a, t2, tiles::kLd, tiles::round16(w) / 16, lane);
+      __syncwarp();
+    }
+    const float mul[2] = {scale, scale};
+    tiles::store_acc<tiles::kPiece / 8>(dq + base + c0, fs, acc, qt * 16, F, w, mul, lane);
+  }
+
+  // 3. dK and dV, per (key tile, slab)
+  for (int t = warp; t < QT * slabs; t += kLongWarps) {
+    const int kt = t % QT, c0 = (t / QT) * tiles::kPiece, w = min(tiles::kPiece, d - c0);
+    float acc_k[tiles::kPiece / 8][4], acc_v[tiles::kPiece / 8][4];
+    tiles::zero(acc_k);
+    tiles::zero(acc_v);
+    for (int qt = 0; qt < QT; ++qt) {
+      tiles::load_rows_async<16>(t2, tiles::kLd, g + base + c0, fs, qt * 16, F, w, lane, 32);
+      tiles::load_rows_async<16>(t3, tiles::kLd, q + base + c0, fs, qt * 16, F, w, lane, 32);
+      float st[2][4], dpt[2][4];
+      product(st, k, kt, q, qt);   // S^T: rows keys, columns queries
+      product(dpt, v, kt, g, qt);  // dP^T
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = qt * 16 + 8 * j + 2 * (lane % 4) + (e & 1);
+          float p = 0.f, ds = 0.f;
+          if (col < F) {
+            p = exp2f(st[j][e] * scale_log2 - row_max[col]) * row_inv[col];
+            ds = p * (dpt[j][e] - row_delta[col]);
+          }
+          st[j][e] = p;
+          dpt[j][e] = ds;
+        }
+      uint32_t a[4];
+      tiles::pack_a(a, st[0], st[1]);
+      tiles::mma_av<tiles::kPiece / 8>(acc_v, a, t2, tiles::kLd, tiles::round16(w) / 16, lane);
+      tiles::pack_a(a, dpt[0], dpt[1]);
+      tiles::mma_av<tiles::kPiece / 8>(acc_k, a, t3, tiles::kLd, tiles::round16(w) / 16, lane);
+      __syncwarp();
+    }
+    const float one[2] = {1.f, 1.f}, mul[2] = {scale, scale};
+    tiles::store_acc<tiles::kPiece / 8>(dv + base + c0, fs, acc_v, kt * 16, F, w, one, lane);
+    tiles::store_acc<tiles::kPiece / 8>(dk + base + c0, fs, acc_k, kt * 16, F, w, mul, lane);
+  }
+}
+
+int launch_long(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
+                void* dv, int B, int F, int L, int heads, int d, int scale_d,
+                cudaStream_t stream) {
+  const long long blocks = (long long)B * L * heads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int bytes = (int)long_smem_bytes(F);
+  const void* fn = reinterpret_cast<const void*>(temporal_bwd_long_kernel);
+  cudaError_t e = host_cache.reserve_smem(fn, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const float scale = 1.f / sqrtf((float)scale_d);
+  temporal_bwd_long_kernel<<<(unsigned)blocks, 32 * kLongWarps, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), F, L, heads, d, scale * kLog2e, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Head widths the kernel takes: d a multiple of 8, d <= 160 (the motion
@@ -790,15 +976,25 @@ int launch_wide(const void* q, const void* k, const void* v, const void* g, void
 // = ceil(d / chunks) rounded up to 8 columns (heads_per_item = 1). Either is
 // loaded `cwp` columns wide (the wrapper's `temporal_plan`). The logits are
 // scaled by scale_d^-1/2, 1 <= scale_d <= d (the true width of a head the
-// wrapper zero-pads, else d).
+// wrapper zero-pads, else d). Past kMaxFrames frames (any f), every d a
+// multiple of 8 up to 1280 runs in the long kernel, with the forward's plan
+// (heads_per_item = 1, chunks = ceil(d / tiles::kPiece), cwp = tiles::kLd).
 extern "C" int hv_temporal_bwd(const void* q, const void* k, const void* v, const void* g,
                                void* dq, void* dk, void* dv, int B, int F, int L, int heads,
                                int d, int heads_per_item, int cwp, int chunks, int scale_d,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (F > kMaxFrames) {
+    if (B < 1 || L < 1 || d <= 0 || d % 8 != 0 || d > 8 * kChunkColumns || heads < 1 ||
+        heads_per_item != 1 || cwp != tiles::kLd ||
+        chunks != (d + tiles::kPiece - 1) / tiles::kPiece || scale_d < 1 || scale_d > d ||
+        (long long)B * heads * d * F * L >= (1LL << 40))
+      return (int)cudaErrorInvalidValue;
+    return launch_long(q, k, v, g, dq, dk, dv, B, F, L, heads, d, scale_d, s);
+  }
   if (chunks < 1 || (chunks > 1 && heads_per_item != 1)) return (int)cudaErrorInvalidValue;
   const int CW = chunks == 1 ? heads_per_item * d : ((d + chunks - 1) / chunks + 7) / 8 * 8;
-  if (B < 1 || L < 1 || F < 1 || F > kMaxFrames || d <= 0 || d % 8 != 0 || heads < 1 ||
+  if (B < 1 || L < 1 || F < 1 || d <= 0 || d % 8 != 0 || heads < 1 ||
       heads_per_item < 1 || heads % heads_per_item != 0 || cwp > 256 || cwp % 8 != 0 ||
       cwp < CW + 8 || (cwp / 8) % 2 != 1 || scale_d < 1 || scale_d > d ||
       (long long)B * heads * d * F * L >= (1LL << 40))

@@ -224,10 +224,10 @@ class TemporalTransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, frames: int) -> torch.Tensor:
         bf, l, c = x.shape
-        if frames > self.max_len:
-            raise ValueError(f"{frames} frames > position table length {self.max_len}")
         pe = None
         if self.use_pe:
+            if frames > self.max_len:
+                raise ValueError(f"{frames} frames > position table length {self.max_len}")
             pe = sinusoidal_positional_encoding(self.max_len, c, device=x.device)
             pe = pe[:frames].to(x.dtype)[None, :, None, :]
         for attn, norm in zip(self.attention_blocks, self.norms):

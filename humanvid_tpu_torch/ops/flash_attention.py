@@ -19,8 +19,9 @@ through :func:`flash_attention_backward_plain`.
 Head widths (:func:`flash_plan`): the kernels hold d a multiple of 8 up to
 128, and d = 512. Any other d up to 512 runs through a zero pad
 (``head_pad.resize_heads``): to the next multiple of 8 up to 128, to 512
-above it, with the softmax scale of the true d. Past 512 the CUDA path
-raises.
+above it, with the softmax scale of the true d. Past 512 every width runs
+in the xwide kernels (forward, dV, dK and dQ; column slabs of at most 256),
+padded to the next multiple of 8.
 """
 
 from __future__ import annotations
@@ -34,17 +35,18 @@ import torch
 from . import cuda_build
 from .head_pad import resize_heads, round_up8
 
-MAX_HEAD_DIM = 512  # the widest head the kernels take (through the pad)
+WIDE_HEAD_DIM = 512  # the 512-wide kernels' width; wider heads run in the xwide kernels
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _DKV_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _DQ_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 # Launches of the CUDA kernels by the width they ran at, "d<=128" (the
-# UNet's heads) and "d>128" (the 512-wide kernels: the VAE's single head, and
-# heads padded to 512): the forward and the backward's two kernels.
-launches = {"d<=128": 0, "d>128": 0, "bwd_dkv": 0, "bwd_dq": 0,
-            "bwd_dkv_d>128": 0, "bwd_dq_d>128": 0}
+# UNet's heads), "d>128" (the 512-wide kernels: the VAE's single head, and
+# heads padded to 512) and "d>512" (the xwide kernels): the forward and the
+# backward's two entry points.
+launches = {"d<=128": 0, "d>128": 0, "d>512": 0, "bwd_dkv": 0, "bwd_dq": 0,
+            "bwd_dkv_d>128": 0, "bwd_dq_d>128": 0, "bwd_dkv_d>512": 0, "bwd_dq_d>512": 0}
 # The forward's and the backward's launches by the caller's head width
 # (before any pad): {d: count}.
 forward_launches_by_d: dict = {}
@@ -71,11 +73,12 @@ class FlashPlan(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def flash_plan(d: int) -> FlashPlan:
     """The kernels' plan for a head of d columns (the C entry points pick
-    the same configurations by width); raises past MAX_HEAD_DIM."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head width {d} unsupported by kernel A: it takes 1 <= d <= "
-                         f"{MAX_HEAD_DIM} (wider heads are still to port)")
+    the same configurations by width); raises for d < 1."""
+    if d < 1:
+        raise ValueError(f"head width {d} unsupported by kernel A: it takes d >= 1")
     w = round_up8(d)
+    if d > WIDE_HEAD_DIM:
+        return FlashPlan(w, "Xwide", "XwideDv+XwideDk/XwideDq")
     if w <= 40:
         return FlashPlan(w, "Cfg<48, 40>", "DkvCfg48/DqCfg48")
     if w <= 80:
@@ -85,7 +88,12 @@ def flash_plan(d: int) -> FlashPlan:
         return FlashPlan(w, "Cfg<128, 128>", "DkvCfg128/DqCfg128")
     if w == 128:
         return FlashPlan(w, "Cfg<128, 128, swizzled>", "DkvCfg128w/DqCfg128w")
-    return FlashPlan(MAX_HEAD_DIM, "Cfg<512, 256, wide>", "WideDv+WideDk/WideDq")
+    return FlashPlan(WIDE_HEAD_DIM, "Cfg<512, 256, wide>", "WideDv+WideDk/WideDq")
+
+
+def _width_key(width: int) -> str:
+    """The launch counter of the kernels that run a head ``width`` wide."""
+    return "d<=128" if width <= 128 else ("d>128" if width <= WIDE_HEAD_DIM else "d>512")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -168,7 +176,7 @@ def flash_attention_cuda(q, k, v, heads, key_bias=None):
              lse.data_ptr(), b, lq, lk, heads, plan.width, d,
              cuda_build.stream_handle(q.device))
     cuda_build.check(err, "flash attention launch")
-    launches["d<=128" if plan.width <= 128 else "d>128"] += 1
+    launches[_width_key(plan.width)] += 1
     forward_launches_by_d[d] = forward_launches_by_d.get(d, 0) + 1
     return resize_heads(out, heads, d), lse
 
@@ -235,7 +243,7 @@ def flash_attention_backward_cuda(q, k, v, key_bias, g, lse, delta, heads: int):
     common = (qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), bias_ptr, gk.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
     sizes = (b, lq, lk, heads, plan.width, d, stream)
-    wide = "_d>128" if plan.width > 128 else ""
+    wide = "" if plan.width <= 128 else "_" + _width_key(plan.width)
     fn = cuda_build.function("flash_attention_bwd", "hv_flash_bwd_dkv", _DKV_ARGTYPES)
     cuda_build.check(fn(*common, dk.data_ptr(), dv.data_ptr(), *sizes),
                      "flash attention dk/dv launch")

@@ -6,10 +6,12 @@ frames: ``softmax(q k^T * d^-1/2) v``. The output has the input's layout; no
 ``(b f) l c <-> (b l) f c`` rearrange happens.
 
 On a CUDA tensor it launches the hand-written kernel in
-``csrc/temporal_attention.cu`` (bf16 only, f <= 32, d <= 1280) or raises; on
-a CPU tensor it runs :func:`temporal_attention_plain`. The kernel's work
-item is a run of positions x all frames x a chunk of whole heads, or, for a
-head wider than CHUNK_COLUMNS, one head walked in column chunks
+``csrc/temporal_attention.cu`` (bf16 only, any f, d <= 1280) or raises; on
+a CPU tensor it runs :func:`temporal_attention_plain`. Up to ITEM_FRAMES
+frames the kernel's work item is a run of positions x all frames x a chunk
+of whole heads, or, for a head wider than CHUNK_COLUMNS, one head walked in
+column chunks; past ITEM_FRAMES the long kernels take one head in query and
+key tiles of 16 frames and LONG_COLUMNS-column pieces
 (:func:`temporal_plan`). A head whose width is no multiple of 8 runs
 zero-padded to the next one (``head_pad.resize_heads``), with the softmax
 scale of its true width.
@@ -32,16 +34,21 @@ import torch
 from . import cuda_build
 from .head_pad import resize_heads, round_up8
 
-MAX_FRAMES = 32  # the motion modules' position-encoding table bounds f
+ITEM_FRAMES = 32  # frames the item kernels hold; more run in the long kernels
+LONG_COLUMNS = 64  # the long kernels' depth pieces and output slabs (tiles::kPiece)
 
 MAX_HEAD_DIM = 1280  # one head over the widest motion channels
 CHUNK_COLUMNS = 160  # an item's columns (8 UNet heads, 320 bytes); a chunk's most
 
-launches = {"temporal": 0, "temporal_bwd": 0}
+# Launches by kernel: the item kernels ("temporal", "temporal_bwd") and the
+# long kernels past ITEM_FRAMES frames ("temporal_long", "temporal_bwd_long").
+launches = {"temporal": 0, "temporal_bwd": 0, "temporal_long": 0, "temporal_bwd_long": 0}
 # The forward's and the backward's launches by the caller's head width
-# (before any pad): {d: count}.
+# (before any pad) and by frame count: {d: count}, {f: count}.
 forward_launches_by_d: dict = {}
 backward_launches_by_d: dict = {}
+forward_launches_by_f: dict = {}
+backward_launches_by_f: dict = {}
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
@@ -54,7 +61,9 @@ class TemporalPlan(NamedTuple):
     where d is no multiple of it); loaded ``padded`` columns wide (an odd
     number of 16-byte units, at least 8 columns past the chunk: the frames
     of a head then sit in distinct shared-memory banks, and the last
-    16-deep step of a head with d % 16 == 8 stays inside the row)."""
+    16-deep step of a head with d % 16 == 8 stays inside the row). Past
+    ITEM_FRAMES frames (the long kernels): one head in ``chunks`` pieces of
+    LONG_COLUMNS columns, in tiles ``padded`` = LONG_COLUMNS + 8 wide."""
     heads: int
     cols: int
     padded: int
@@ -62,13 +71,16 @@ class TemporalPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def temporal_plan(c: int, heads: int) -> TemporalPlan:
+def temporal_plan(c: int, heads: int, frames: int = 1) -> TemporalPlan:
     """The most whole heads whose columns fit CHUNK_COLUMNS (at least
     one), or for a wider head the fewest chunks of at most CHUNK_COLUMNS
     columns, a multiple of 8, that cover it; and the width the kernel loads
     them at. ``csrc/temporal_attention*.cu`` derive the same chunk width
-    from d and the chunk count."""
+    from d and the chunk count. Past ITEM_FRAMES frames: the long kernels'
+    pieces."""
     d = c // heads
+    if frames > ITEM_FRAMES:
+        return TemporalPlan(1, LONG_COLUMNS, LONG_COLUMNS + 8, -(-d // LONG_COLUMNS))
     if d > CHUNK_COLUMNS:
         chunks = -(-d // CHUNK_COLUMNS)
         per, cols = 1, round_up8(-(-d // chunks))
@@ -99,20 +111,27 @@ def launch_sizes(shape, heads: int, scale_d: Optional[int] = None):
     b, f, l, c = shape
     d = c // heads
     if b > 65535 or heads > 65535 or min(b, f, l) < 1:
-        raise ValueError(f"unsupported sizes {tuple(shape)} heads={heads}")
-    if f > MAX_FRAMES:
-        raise ValueError(f"{f} frames > {MAX_FRAMES}")
+        raise ValueError(f"unsupported sizes {tuple(shape)} heads={heads}: b and heads "
+                         f"take at most 65535, b, frames and l at least 1")
     if d % 8 or d > MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} unsupported: needs d % 8 == 0 and d <= {MAX_HEAD_DIM}")
-    plan = temporal_plan(c, heads)
+    plan = temporal_plan(c, heads, f)
     return b, f, l, heads, d, plan.heads, plan.padded, plan.chunks, scale_d or d
 
 
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
-    forward_launches_by_d.clear()
-    backward_launches_by_d.clear()
+    for counts in (forward_launches_by_d, backward_launches_by_d, forward_launches_by_f,
+                   backward_launches_by_f):
+        counts.clear()
+
+
+def _count(kernel: str, by_d: dict, by_f: dict, d: int, f: int) -> None:
+    """One launch of ``kernel`` (its long variant past ITEM_FRAMES frames)."""
+    launches[kernel + ("_long" if f > ITEM_FRAMES else "")] += 1
+    by_d[d] = by_d.get(d, 0) + 1
+    by_f[f] = by_f.get(f, 0) + 1
 
 
 def temporal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -138,8 +157,6 @@ def _check(q, k, v, heads):
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     if q.shape[-1] % heads:
         raise ValueError(f"channels {q.shape[-1]} not divisible by {heads} heads")
-    if q.shape[1] > MAX_FRAMES:
-        raise ValueError(f"{q.shape[1]} frames > {MAX_FRAMES}")
 
 
 def _check_cuda(**tensors):
@@ -174,8 +191,7 @@ def temporal_attention_cuda(q, k, v, heads):
     err = fn(qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), out.data_ptr(), *sizes,
              cuda_build.stream_handle(q.device))
     cuda_build.check(err, "temporal attention launch")
-    launches["temporal"] += 1
-    forward_launches_by_d[d] = forward_launches_by_d.get(d, 0) + 1
+    _count("temporal", forward_launches_by_d, forward_launches_by_f, d, q.shape[1])
     return resize_heads(out, heads, d)
 
 
@@ -220,8 +236,7 @@ def temporal_attention_backward_cuda(q, k, v, g, heads: int):
     err = fn(qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), gk.data_ptr(), dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), *sizes, cuda_build.stream_handle(q.device))
     cuda_build.check(err, "temporal attention backward launch")
-    launches["temporal_bwd"] += 1
-    backward_launches_by_d[d] = backward_launches_by_d.get(d, 0) + 1
+    _count("temporal_bwd", backward_launches_by_d, backward_launches_by_f, d, q.shape[1])
     return tuple(resize_heads(t, heads, d) for t in (dq, dk, dv))
 
 

@@ -459,22 +459,16 @@ def test_kernels_reject_what_they_do_not_take():
     x = torch.zeros((1, 64, 64), device=dev)
     with pytest.raises(TypeError):
         fa.flash_attention_packed(x, x, x, 2)           # fp32 on the card
-    w = torch.zeros((1, 64, 1280), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head width 640"):
-        fa.flash_attention_packed(w, w, w, 2)           # d = 640 > 512: still to port
     u = torch.zeros((1, 4, 8, 2816), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim 1408"):
         ta.temporal_attention(u, u, u, 2)               # d = 1408 > 1280
-    t = torch.zeros((1, 33, 8, 64), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="frames"):
-        ta.temporal_attention(t, t, t, 2)               # f = 33 > 32: still to port
     z = torch.zeros((1, 4, 8, 64), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         ta.temporal_attention(z.transpose(1, 2), z.transpose(1, 2), z.transpose(1, 2), 2)
     x = torch.zeros((1, 64, 640), device=dev, dtype=torch.bfloat16)
     lse = torch.zeros((1, 1, 64), device=dev)
-    with pytest.raises(ValueError, match="head width 640"):  # d = 640 > 512
-        fa.flash_attention_backward_cuda(x, x, x, None, x, lse, lse, 1)
+    with pytest.raises(ValueError, match="lse must be contiguous fp32"):
+        fa.flash_attention_backward_cuda(x, x, x, None, x, lse[..., :32], lse, 1)
 
 
 @pytest.mark.cuda
@@ -1001,3 +995,90 @@ def test_bench_configs_c1_on_the_card(capsys):
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["metric"] == "pose2img_images_per_sec_256x256_ddim20_cfg"
     assert rec["ddim_steps"] == 2 and np.isfinite(rec["value"]) and rec["value"] > 0
+
+
+TEMPORAL_LONG = [
+    (1, 33, 40, 320, 8),     # one frame past the item kernels, d = 40
+    (1, 48, 100, 640, 8),    # the long path's 48 frames, d = 80 (two 64-column pieces)
+    (2, 64, 30, 1280, 8),    # 64 frames, d = 160 (three pieces)
+    (1, 96, 20, 1280, 5),    # 96 frames, d = 256
+    (1, 40, 16, 1280, 1),    # d = 1280: twenty pieces
+    (2, 37, 11, 180, 5),     # d = 36: zero-padded to 40, frames no multiple of 16
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,l,c,heads", TEMPORAL_LONG)
+def test_temporal_long_kernels_match_plain(b, f, l, c, heads):
+    """Past 32 frames: the long kernels, forward and backward, every head on
+    its own, each sample alone the same bits, a repeat the same bits."""
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    dev = _card()
+    q, k, v, g = (_randn((b, f, l, c), 20 + s, dev) for s in range(4))
+    before = dict(ta.launches)
+    out = ta.temporal_attention_cuda(q, k, v, heads)
+    grads = ta.temporal_attention_backward_cuda(q, k, v, g, heads)
+    ref = ta.temporal_attention_plain(q, k, v, heads)
+    refs = ta.temporal_attention_backward_plain(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    assert ta.launches["temporal_long"] == before["temporal_long"] + 1
+    assert ta.launches["temporal_bwd_long"] == before["temporal_bwd_long"] + 1
+    assert ta.launches["temporal"] == before["temporal"]
+    d = c // heads
+    for h in range(heads):
+        cols = slice(h * d, (h + 1) * d)
+        _assert_close(out[..., cols], ref[..., cols], TEMPORAL_TOL)
+    for got, want in zip(grads, refs):
+        _assert_close(got, want, TEMPORAL_BWD_TOL)
+    for i in range(b):
+        alone = ta.temporal_attention_cuda(*(t[i:i + 1].contiguous() for t in (q, k, v)), heads)
+        assert torch.equal(out[i:i + 1], alone)
+    assert torch.equal(out, ta.temporal_attention_cuda(q, k, v, heads))
+    again = ta.temporal_attention_backward_cuda(q, k, v, g, heads)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,heads,d,hide", [
+    (2, 300, 700, 1, 640, ((0, 350, 700),)),   # one spatial head at UNet level 1, CFG bias
+    (2, 200, 300, 2, 520, ()),                  # two heads: the second at a head offset
+    (1, 130, 257, 1, 1280, ((0, 128, 257),)),   # five slabs, Lk 1 past a key tile
+    (1, 100, 200, 3, 600, ()),                  # three heads of 600
+    (2, 65, 65, 1, 1000, ((0, 64, 65), (1, 10, 40))),  # Lq and Lk 1 past a tile
+    (2, 100, 200, 1, 516, ()),                  # d = 516: zero-padded to 520
+])
+def test_flash_xwide_kernels_match_plain(b, lq, lk, heads, d, hide):
+    """Past 512 columns: the xwide kernels, forward and backward, every head
+    on its own; hidden keys get exactly zero dk and dv; a repeat the same
+    bits."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
+
+    dev = _card()
+    q, g = (_randn((b, lq, heads * d), s, dev) for s in (0, 3))
+    k, v = (_randn((b, lk, heads * d), s, dev) for s in (1, 2))
+    bias = None
+    if hide:
+        bias = torch.zeros((b, lk), device=dev)
+        for row, start, stop in hide:
+            bias[row, start:stop] = -1e9
+    before = dict(fa.launches)
+    out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
+    args = (q, k, v, bias, g, lse, fa.attention_delta(g, out, heads), heads)
+    grads = fa.flash_attention_backward_cuda(*args)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, heads, bias)
+    refs = fa.flash_attention_backward_plain(*args)
+    torch.cuda.synchronize()
+    for key in ("d>512", "bwd_dkv_d>512", "bwd_dq_d>512"):
+        assert fa.launches[key] == before[key] + 1
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    for h in range(heads):
+        cols = slice(h * d, (h + 1) * d)
+        _assert_close(out[..., cols], ref[..., cols], FLASH_TOL)
+        for got, want in zip(grads, refs):
+            _assert_close(got[..., cols], want[..., cols], FLASH_BWD_TOL)
+    for row, start, stop in hide:
+        assert all((t[row, start:stop] == 0).all() for t in grads[1:])
+    again, lse_again = fa.flash_attention_cuda(q, k, v, heads, bias)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    assert all(torch.equal(x, y) for x, y in zip(grads, fa.flash_attention_backward_cuda(*args)))

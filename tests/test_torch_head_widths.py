@@ -7,9 +7,10 @@ and the whole slice at other head counts, on the CPU.
   pad columns' gradients are exactly zero (kernels A and B). Tolerance 1e-6
   (fp32): the padded sums add exact zeros, so only summation order differs.
 - The width plans, pure functions: which configuration kernel A's entry
-  points pick or which width a head is padded to (d > 512 raises), and
-  kernel B's item: whole heads up to 160 columns, column chunks up to 1280
-  (d > 1280 and f > 32 raise).
+  points pick or which width a head is padded to (d > 512 takes the xwide
+  kernels, d < 1 raises), and kernel B's item: whole heads up to 160
+  columns, column chunks up to 1280 (d > 1280 raises; f > 32 takes the long
+  kernels, ``test_torch_long_wide.py``).
 - The slice: the tiny config with other head counts (spatial heads 16 and
   32 wide, motion heads 32 and 64, camera-encoder heads 16; the shipped
   tiny config's are 4 to 16) through the port's and the JAX package's
@@ -146,8 +147,14 @@ def test_flash_plan_of_each_width(d, width, forward, backward):
 
 @pytest.mark.parametrize("d", [0, 513, 640, 1280])
 def test_flash_plan_raises_past_512(d):
-    with pytest.raises(ValueError, match=f"head width {d} unsupported"):
-        fa.flash_plan(d)
+    """Past 512 the plan is the xwide kernels' (the width padded to 8);
+    only d < 1 raises."""
+    if d < 1:
+        with pytest.raises(ValueError, match=f"head width {d} unsupported"):
+            fa.flash_plan(d)
+    else:
+        assert fa.flash_plan(d) == fa.FlashPlan(round_up8(d), "Xwide",
+                                                "XwideDv+XwideDk/XwideDq")
 
 
 def test_flash_plan_runs_every_width_at_a_width_a_configuration_holds():
@@ -209,8 +216,9 @@ def test_temporal_width_raises_past_1280(d):
 
 
 def test_launch_sizes_raise_past_32_frames():
-    with pytest.raises(ValueError, match="33 frames"):
-        ta.launch_sizes((1, 33, 8, 256), 1)
+    """33 frames no longer raise: they take the long kernels' plan (one head
+    an item in 64-column pieces, tiles 72 wide)."""
+    assert ta.launch_sizes((1, 33, 8, 256), 1) == (1, 33, 8, 1, 256, 1, 72, 4, 256)
 
 
 # ---- the slice at other head counts --------------------------------------------
