@@ -196,9 +196,12 @@ Every head width the JAX kernels take adds (after the probes, and
 The last shapes the JAX kernels take add (after the head widths, and
 ``long_wide`` after ``heads64``):
 
-- long and wide: kernel A's xwide kernels (d > 512: forward, dV, dK, dQ)
-  at d = 640 (the long_wide path's level-1 shapes, with the batched-CFG
-  and CFG-dropout biases), 520 and 1280, and kernel B's long kernels (f >
+- long and wide: kernel A's xwide kernels (d > 512: the forward, dK/dV
+  and dQ, the head's depth split over a thread-block cluster, each line
+  with the cluster plan) at d = 640 (the long_wide path's level-1 shapes:
+  sequential cond and uncond, the batched-CFG bias, the stage-2 forward
+  and backward with the CFG-dropout bias), 520 and 1280, and kernel B's
+  long kernels (f >
   32, forward and backward) at f = 48 (the path's four motion levels, at
   768x512 forward and 896x512 backward) and f = 33, 64 and 96 at d = 40,
   160 and 256; each held to its plain version, a repeat launch the same
@@ -440,16 +443,18 @@ def phase_flash(torch, results, dev, cases):
         width = fa.flash_plan(d).width
         kernel = _flash_kernel(width)
         extra = {}
-        if kernel == "flash_fwd_xwide":  # its device time beside the event time
+        if kernel == "flash_fwd_xwide":  # its device time beside the event time, its plan
             extra = dict(event_ms=ms, device_ms=_profile_split(
                 torch, lambda: fa.flash_attention_cuda(q, k, v, heads, bias),
-                ("flash_fwd_xwide_kernel",))["flash_fwd_xwide_kernel"])
+                ("flash_fwd_xwide_kernel",))["flash_fwd_xwide_kernel"],
+                plan=fa.xwide_plan(width)._asdict())
             ok = ok and extra["device_ms"] > 0
         print(f"  {name}: B={B} Lq={lq} Lk={lk} heads={heads} d={d}"
               + (f" (padded to {width})" if width != d else "")
               + f" max_abs_err={err:.3e} rel_l2={rel:.3e} lse_err={lse_err:.3e} "
               f"repeat same bits={repeat_same} ms={ms:.3f} "
-              + (f"device_ms={extra['device_ms']:.3f} " if extra else "")
+              + (f"device_ms={extra['device_ms']:.3f} plan={tuple(extra['plan'].values())} "
+                 if extra else "")
               + f"plain_ms={plain_ms:.3f} "
               f"library_ms={lib} sdpa_share={share if share is None else round(share, 3)} "
               f"bound_ms={b_ms:.3f} ({b_by}) TFLOP/s={flops / ms / 1e9:.1f} "
@@ -725,13 +730,15 @@ def phase_flash_bwd(torch, results, dev, cases):
         repeat_same = all(torch.equal(x, y) for x, y in zip(grads, again))
         del again
         ms = time_ms(torch, lambda: fa.flash_attention_backward_cuda(*args), 3)
-        # d = 512: the dk/dv entry point launches a dV and a dK kernel
-        # d > 512: the xwide kernels, one a gradient
-        keys = (tuple(f"flash_bwd_{which}_{'x' if xwide else ''}wide_kernel" for which in ("dv", "dk", "dq"))
-                if wide else ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
+        # d = 512: the dk/dv entry point launches a dV and a dK kernel;
+        # d > 512: the xwide dK/dV kernel and dQ kernel
+        d512 = wide and not xwide
+        keys = (tuple(f"flash_bwd_{which}_wide_kernel" for which in ("dv", "dk", "dq")) if d512
+                else ("flash_bwd_dkv_xwide_kernel", "flash_bwd_dq_xwide_kernel") if xwide
+                else ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
         split = _profile_split(torch, lambda: fa.flash_attention_backward_cuda(*args), keys)
-        split = dict(zip(("dv", "dk", "dq") if wide else ("dkv", "dq"), split.values()))
-        if wide:
+        split = dict(zip(("dv", "dk", "dq") if d512 else ("dkv", "dq"), split.values()))
+        if d512:
             split["dkv"] = split["dv"] + split["dk"]
         ok = (all(e[2] for e in errs) and hidden_zero and skip_same and repeat_same
               and all(ms > 0 for ms in split.values()))
@@ -763,12 +770,15 @@ def phase_flash_bwd(torch, results, dev, cases):
               f"max_err/rms dq/dk/dv={ratios} "
               f"hidden keys zero={hidden_zero} repeat same bits={repeat_same} "
               f"passed-over tiles same bits={skip_same} ms={ms:.3f} (dkv {split['dkv']:.3f}"
-              + (f" = dv {split['dv']:.3f} + dk {split['dk']:.3f}" if wide else "")
+              + (f" = dv {split['dv']:.3f} + dk {split['dk']:.3f}" if d512 else "")
               + f" + dq {split['dq']:.3f}) plain_ms={plain_ms:.3f} "
               f"library_ms={lib} bound_ms={b_ms:.3f} ({b_by}) "
               f"TFLOP/s={flops / ms / 1e9:.1f} {'ok' if ok else 'FAIL'}")
-        extra = dict(library_backends=backends, dv_ms=split["dv"], dk_ms=split["dk"]) \
-            if wide else {}
+        extra = dict(library_backends=backends) if wide else {}
+        if d512:
+            extra.update(dv_ms=split["dv"], dk_ms=split["dk"])
+        if xwide:
+            extra["plan"] = fa.xwide_plan(width)._asdict()
         results.append(dict(kernel=("flash_bwd_xwide" if xwide else "flash_bwd_d512") if wide
                             else "flash_bwd", shape=name,
                             d=d, kernel_d=width, max_abs_err=err, rel_l2=rel, ms=ms, dkv_ms=split["dkv"],
@@ -1107,11 +1117,14 @@ def phase_heads64(torch, np, dev, card):
 def long_wide_flash_cases():
     """Kernel A's xwide forward at the long_wide path's level-1 shapes
     (768x512: one 640-wide head, Lk doubled by the reference KV; sequential
-    cond and the batched-CFG bias) and at d = 520 and 1280: (name, B, Lq,
-    Lk, heads, d, bias rows)."""
+    cond and uncond, the batched-CFG bias; the stage-2 step's forward at
+    896x512, uncond with the CFG-dropout bias) and at d = 520 and 1280:
+    (name, B, Lq, Lk, heads, d, bias rows)."""
     return [
         ("long_wide level1 cond (ref KV) d640", 48, 1536, 3072, 1, 640, 0),
         ("long_wide level1 batched CFG bias d640", 96, 1536, 3072, 1, 640, 48),
+        ("long_wide level1 uncond d640", 48, 1536, 1536, 1, 640, 0),
+        ("long_wide stage-2 uncond (CFG dropout bias) d640", 48, 1792, 3584, 1, 640, 48),
         ("ragged d520 with the bias", 2, 300, 700, 1, 520, 1),
         ("d520 2 heads level1-size", 8, 1536, 3072, 2, 520, 0),
         ("ragged d1280 with the bias", 2, 300, 700, 1, 1280, 1),
@@ -3591,10 +3604,14 @@ def kernel_line(results, launches):
         if name == "flash_bwd":
             extra = dict(also_replaces="humanvid_tpu/ops/flash_attention.py:479",
                          dkv_ms=head["dkv_ms"], dq_ms=head["dq_ms"])
-        elif name in ("flash_bwd_d512", "flash_bwd_xwide"):
+        elif name == "flash_bwd_d512":
             extra = dict(also_replaces="humanvid_tpu/ops/flash_attention.py:537",
                          dkv_ms=head["dkv_ms"], dv_ms=head["dv_ms"], dk_ms=head["dk_ms"],
                          dq_ms=head["dq_ms"], library_backends=head["library_backends"])
+        elif name == "flash_bwd_xwide":  # the dK/dV kernel and the dQ kernel
+            extra = dict(also_replaces="humanvid_tpu/ops/flash_attention.py:537",
+                         dkv_ms=head["dkv_ms"], dq_ms=head["dq_ms"],
+                         library_backends=head["library_backends"], plan=head["plan"])
         elif name == "probe_pvt":
             extra = dict(kernel_a_ms=head["kernel_a_ms"],
                          untransposed_ms=head["untransposed_ms"])
@@ -3603,7 +3620,8 @@ def kernel_line(results, launches):
             # ms is the device time
             extra = dict(event_ms=head["event_ms"])
         elif name == "flash_fwd_xwide":  # ms is the event time, as kernel A's other rows
-            extra = dict(event_ms=head["event_ms"], device_ms=head["device_ms"])
+            extra = dict(event_ms=head["event_ms"], device_ms=head["device_ms"],
+                         plan=head["plan"])
         elif name == "group_norm":  # the statistics kernel and the folded apply
             # the headline is the two-pass decode; the one-pass kernel's is
             # the UNet's level 0

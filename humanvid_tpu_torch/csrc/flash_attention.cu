@@ -112,7 +112,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-#include "mma_tiles.cuh"
+#include "xwide.cuh"
 
 namespace {
 
@@ -454,170 +454,346 @@ int launch(const void* q, const void* k, const void* v, const void* bias, void* 
 
 // ---- heads wider than 512 columns: the xwide kernel -------------------------
 //
-// The d = 512 design keeps its 64-row Q tile resident (64 KB); a 640-wide
-// one is 80 KB and a 1280-wide one 160 KB, which beside a K/V ring do not
-// fit 227 KB, and a 64 x d fp32 O does not fit one warpgroup's registers.
-// So a block (4 warps, 16 query rows each, 64 rows) owns one slab of at
-// most kXSlab of O's columns (the grid's x axis walks the row tiles and
-// the slabs), and walks the keys in tiles of kXKeys:
-//   S = Q K^T    over the whole head, in kPiece-column depth pieces: each
-//                piece of Q and K copied by cp.async into a 2-stage ring
-//                (the next piece's copy runs under this piece's mma.sync);
-//   softmax      online, in the log2 domain (scale * log2e folded with the
-//                bias in one FMA, keys >= Lk at -inf), O rescaled when a
-//                row's max moves; P rounded to bf16 unnormalized, as the
-//                d <= 512 kernels round it;
-//   O += P V     over the slab's columns of V, whose tile is copied under
-//                the key tile's S.
-// Each block computes S for its slab, so a head of ceil(d / kXSlab) slabs
-// does that many QK^T products (at d = 640: 3, or 2x the least product
-// work). The row's log-sum-exp is written by slab 0. No atomics: the same
-// inputs give the same bits. What bounds it is the tensor cores (at the
-// 768x512 level-1 cond call, 48 x 1536 x 3072 x 640, 5.8e11 operations
-// against 0.57 GB); mma.sync, synchronous phases and the recomputed S keep
-// it well short of that: simple and right first.
-constexpr int kXRows = 64;   // query rows of a block: 16 a warp
-constexpr int kXKeys = 64;   // keys a tile
-constexpr int kXSlab = 256;  // the widest slab of O a block accumulates
-constexpr int kXThreads = 128;
+// Past 512 columns a 64-row Q tile (80 KB at d = 640) beside a K/V ring
+// does not fit 227 KB, and a 64 x d fp32 O does not fit one warpgroup's
+// registers. So the head's depth is split over a thread-block cluster
+// (csrc/xwide.cuh: slices, groups, the 4-D TMA maps, the exchange): a
+// cluster of n blocks owns one 64-row query tile, and block `rank` one
+// slice of SL <= 256 columns. A block is one consumer warpgroup and a
+// producer warp (in a warpgroup of its own). The producer loads the
+// block's Q slice once by TMA and keeps its K and V slices of each 64-key
+// tile in flight in a ring of `stages` pieces (full/empty mbarriers), with
+// the tile's bias in log2 units (-inf past Lk) and a skip flag in a ring
+// of words beside it. Per key tile the consumer warpgroup computes
+//   S_c = Q_c K_c^T    wgmma m64n64k16, both from shared memory, over the
+//                      slice (its columns past the head read zeros);
+//   S = sum_c S_c      over distributed shared memory in rank order (the
+//                      same bits in every block, so the same m, l and P);
+//   softmax            online, in the log2 domain, as the d <= 512 kernels
+//                      (scale * log2e folded with the bias in one FMA, P
+//                      rounded to bf16 unnormalized);
+//   O_c += P V_c       wgmma with P from registers, V MN-major.
+// Each block stores its own columns of O; rank 0 (of group 0) writes the
+// natural-log LSE. QK^T is computed once (with groups > 1 once per group,
+// the header), every byte of Q, K and V is read once per tile by one
+// block, and there are no atomics: the same inputs give the same bits.
+// A key tile whose bias hides every key (<= -1e9, NEG_INF of
+// ops/attention.py, or past Lk) is neither loaded nor multiplied, in a
+// batch row that sees some key: there every row's max is finite once a
+// visible tile comes, a hidden tile's p is exactly 0, and a hidden tile
+// before it is scaled by exactly 0, so passing it over gives the same bits
+// as computing it (a row that sees no key computes every tile).
+// What bounds it: the tensor cores (at long_wide's level-1 cond call, 48 x
+// 1536 x 3072 x 640: 5.8e11 operations against 0.57 GB); per block and
+// tile, 64 x 64 x 2 SL multiply-adds against (n - 1) x 16 KB of partials
+// read from the other blocks.
+constexpr float kHiddenBias = -1e9f;  // NEG_INF of ops/attention.py
 
-// Q and K piece tiles in two stages, then the V tile (kXKeys x sw + 8).
-__host__ __device__ inline size_t xwide_smem_bytes(int sw) {
-  return 128 + ((size_t)2 * (kXRows + kXKeys) * tiles::kLd + (size_t)kXKeys * (sw + 8)) * 2;
-}
-
-__global__ void __launch_bounds__(kXThreads)
-flash_fwd_xwide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const float* __restrict__ bias,
+template <int SL, bool EXTRA>
+__global__ void __launch_bounds__(384, 1)
+flash_fwd_xwide_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, const float* __restrict__ bias,
                        bf16* __restrict__ out, float* __restrict__ lse, int Lq, int Lk,
-                       int heads, int d, int SW, int slabs, float scale_log2) {
-  extern __shared__ unsigned char xwide_smem[];
-  bf16* sm = reinterpret_cast<bf16*>(
-      (reinterpret_cast<uintptr_t>(xwide_smem) + 127) & ~static_cast<uintptr_t>(127));
-  constexpr int STAGE = (kXRows + kXKeys) * tiles::kLd;  // a stage: Q piece, then K piece
-  bf16* vt = sm + 2 * STAGE;
-  const int LDV = SW + 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tid = threadIdx.x;
-  const int slab = blockIdx.x % slabs, q0 = (blockIdx.x / slabs) * kXRows;
+                       int heads, int d, int n, int groups, int stages, int xbufs,
+                       float scale_log2) {
+  using namespace xwide;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const Layout lay(SL, stages, xbufs);
+  unsigned char* sQ = smem;  // [2 consumer warpgroups] Q slices
+  float* xbuf = reinterpret_cast<float*>(smem + lay.off_x);  // [2 warpgroups][xbufs]
+  unsigned char* info = smem + lay.off_info;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.off_bar);
+  uint64_t* empty = full + stages;
+  uint64_t* ifull = empty + stages;
+  uint64_t* iempty = ifull + kInfoSlots;
+  uint64_t* own = iempty + kInfoSlots;
+  uint64_t* xfull = own + 1;                 // [2 warpgroups][xbufs][4 warps]
+  uint64_t* xempty = xfull + 2 * xbufs * 4;  // the same
+
+  const int rank = (int)cluster_ctarank();
+  const int g = (int)(blockIdx.x / n) % groups;  // this block's group of output slices
+  const int q0 = (int)(blockIdx.x / (n * groups)) * 2 * kRows;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int C = heads * d, c0 = slab * SW, w = min(SW, d - c0);
-  const bf16* qb = q + (size_t)b * Lq * C + (size_t)h * d;
-  const bf16* kb = k + (size_t)b * Lk * C + (size_t)h * d;
-  const bf16* vb = v + (size_t)b * Lk * C + (size_t)h * d + c0;
-  const float* bb = bias ? bias + (size_t)b * Lk : nullptr;
-  const int P = (d + tiles::kPiece - 1) / tiles::kPiece, nkt = (Lk + kXKeys - 1) / kXKeys;
-  const int steps = nkt * P;
+  const int n_kv = (Lk + kRows - 1) / kRows;
+  const int out_idx = rank + n * g;  // the output slice: depth slice jj = g
+  const int out_w = slice_cols(out_idx, SL, d);
+  Ring ring{smem + lay.off_ring, full, empty, stages, lay.piece, SL, h, b, 0};
 
-  auto load_piece = [&](int step) {
-    const int kt = step / P, p = step % P, pw = min(tiles::kPiece, d - p * tiles::kPiece);
-    bf16* st = sm + (step & 1) * STAGE;
-    tiles::load_rows_async<kXRows>(st, tiles::kLd, qb + p * tiles::kPiece, C, q0, Lq, pw, tid,
-                                   kXThreads);
-    tiles::load_rows_async<kXKeys>(st + kXRows * tiles::kLd, tiles::kLd, kb + p * tiles::kPiece,
-                                   C, kt * kXKeys, Lk, pw, tid, kXThreads);
-  };
-
-  float o[kXSlab / 8][4];
-  tiles::zero(o);
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int npairs = tiles::round16(w) / 16;
-  load_piece(0);
-  tiles::cp_async_commit();
-  for (int kt = 0; kt < nkt; ++kt) {
-    float s[kXKeys / 8][4];
-    tiles::zero(s);
-    for (int p = 0; p < P; ++p) {
-      const int step = kt * P + p;
-      // the V tile is free: the last key tile's PV ended at a barrier
-      if (p == 0)
-        tiles::load_rows_async<kXKeys>(vt, LDV, vb, C, kt * kXKeys, Lk, w, tid, kXThreads);
-      if (step + 1 < steps) load_piece(step + 1);
-      tiles::cp_async_commit();
-      tiles::cp_async_wait<1>();  // this step's piece has landed
-      __syncthreads();
-      const bf16* st = sm + (step & 1) * STAGE;
-      const int pw = min(tiles::kPiece, d - p * tiles::kPiece);
-      tiles::mma_abt<kXKeys / 8>(s, st + warp * 16 * tiles::kLd, tiles::kLd,
-                                 st + kXRows * tiles::kLd, tiles::kLd, tiles::round16(pw) / 16,
-                                 lane);
-      __syncthreads();  // the stage is free for the copy issued next step
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);   // tx
+      mbar_init(&empty[s], 8);  // one per consumer warp
     }
-    float mx[2] = {-INFINITY, -INFINITY};
+    for (int i = 0; i < kInfoSlots; ++i) {
+      mbar_init(&ifull[i], 32);  // the producer warp's lanes
+      mbar_init(&iempty[i], 8);
+    }
+    mbar_init(own, 1);
+    for (int i = 0; i < 2 * xbufs * 4; ++i) {
+      mbar_init(&xfull[i], n);  // the same warp of every block
+      mbar_init(&xempty[i], n);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  cluster_arrive();  // every block's barriers are initialized before any arrives remotely
+  cluster_wait();
+
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  if (wg == 2) {
+    // ---------------- producer ----------------
+    setmaxnreg_dec<24>();
+    if (warp > 0) return;  // one producer warp
+    const float* bias_b = bias ? bias + (size_t)b * Lk : nullptr;
+    // hidden tiles are passed over only in a batch row that sees some key
+    int sees = 0;
+    if (bias_b)
+      for (int i = lane; i < Lk; i += 32) sees |= bias_b[i] > kHiddenBias;
+    const bool may_skip = __any_sync(0xffffffffu, sees);
+    if (lane == 0) {
+      tma_prefetch_desc(&q_map);
+      tma_prefetch_desc(&k_map);
+      tma_prefetch_desc(&v_map);
+      mbar_arrive_expect_tx(own, 2 * lay.piece);
+      load_slice(sQ, &q_map, own, out_idx, SL, h, q0, b);
+      load_slice(sQ + lay.piece, &q_map, own, out_idx, SL, h, q0 + kRows, b);
+    }
+    for (int kt = 0; kt < n_kv; ++kt) {
+      const int k0 = kt * kRows, i = kt % kInfoSlots;
+      float w[2];
+      bool hidden = true;
 #pragma unroll
-    for (int j = 0; j < kXKeys / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt * kXKeys + 8 * j + 2 * (lane % 4) + (e & 1);
-        float x = -INFINITY;
-        if (key < Lk) x = s[j][e] * scale_log2 + (bb ? bb[key] * kLog2e : 0.f);
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + lane + 32 * e;
+        const float x = key < Lk && bias_b ? bias_b[key] : 0.f;
+        hidden = hidden && (key >= Lk || x <= kHiddenBias);
+        w[e] = key >= Lk ? -INFINITY : x * kLog2e;
       }
-    float ref[2];
+      const bool skip = may_skip && __all_sync(0xffffffffu, hidden);
+      mbar_wait(&iempty[i], ((kt / kInfoSlots) & 1) ^ 1);
+      float* words = reinterpret_cast<float*>(info + i * kInfoBytes);
+      words[lane] = w[0];
+      words[lane + 32] = w[1];
+      if (lane == 0) reinterpret_cast<int*>(words)[2 * kRows] = skip;
+      mbar_arrive(&ifull[i]);
+      if (skip) continue;
+      if constexpr (EXTRA) {
+        for (int jj = 0; jj < groups; ++jj) {  // the other depth slices
+          if (jj == g) continue;
+          ring.put(&q_map, rank + n * jj, q0, lane);
+          ring.put(&q_map, rank + n * jj, q0 + kRows, lane);
+          ring.put(&k_map, rank + n * jj, k0, lane);
+        }
+      }
+      ring.put(&k_map, out_idx, k0, lane);
+      ring.put(&v_map, out_idx, k0, lane);
+    }
+    return;
+  }
+
+  // ---------------- consumers: warpgroup wg owns query rows q0 + 64 wg.. ----------------
+  setmaxnreg_inc<240>();
+  const int t = threadIdx.x % 128;
+  const int c2 = 2 * (lane % 4);
+  const uint32_t ring0 = smem_u32(ring.base);
+  const uint64_t q_desc = gmma_desc(smem_u32(sQ + wg * lay.piece), 16, 1024, kSwizzle128B);
+  const uint64_t kmajor0 = gmma_desc(ring0, 16, 1024, kSwizzle128B);
+  // V as B, MN-major: LBO between 64-column boxes, SBO between 8-key atoms
+  const uint64_t mnmajor0 = gmma_desc(ring0, kBoxBytes, 1024, kSwizzle128B);
+  const int piece16 = lay.piece >> 4;
+  float* my_xbuf = xbuf + wg * xbufs * (kXBytes / 4);
+  uint64_t* my_xfull = xfull + wg * xbufs * 4 + warp;
+  uint64_t* my_xempty = xempty + wg * xbufs * 4 + warp;
+
+  float o[SL / 2];
+#pragma unroll
+  for (int i = 0; i < SL / 2; ++i) o[i] = 0.f;
+  float m_row[2] = {-INFINITY, -INFINITY};  // running max, scaled log2 units
+  float l_row[2] = {0.f, 0.f};              // partial sums over this lane's columns
+  const bool has_bias = bias != nullptr;
+
+  mbar_wait(own, 0);
+  int xi = 0;  // exchanges so far
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int i = kt % kInfoSlots;
+    mbar_wait(&ifull[i], (kt / kInfoSlots) & 1);
+    const float* bt = reinterpret_cast<const float*>(info + i * kInfoBytes);
+    if (reinterpret_cast<const int*>(bt)[2 * kRows]) {  // a hidden tile, not loaded
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&iempty[i]);
+      continue;
+    }
+
+    // S_c = Q_c K_c^T over this block's depth slices (64 rows x 64 keys)
+    float sc[32];
+    if constexpr (EXTRA) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sc[j] = 0.f;
+      for (int jj = 0; jj < groups; ++jj) {
+        if (jj == g) continue;
+        const int sq0 = ring.take(), sq1 = ring.take(), sk = ring.take();
+        wgmma_fence();
+        partial_product<SL>(sc, kmajor0 + (wg == 0 ? sq0 : sq1) * piece16,
+                            kmajor0 + sk * piece16, true);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        ring.release(sq0, lane);
+        ring.release(sq1, lane);
+        ring.release(sk, lane);
+      }
+    }
+    {
+      const int sk = ring.take();
+      wgmma_fence();
+      partial_product<SL>(sc, q_desc, kmajor0 + sk * piece16, EXTRA);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      ring.release(sk, lane);
+    }
+    // S = the cluster's partials summed in rank order
+    const int xb = xi % xbufs;
+    exchange(sc, my_xbuf + xb * (kXBytes / 4), my_xfull + xb * 4, my_xempty + xb * 4,
+             xi / xbufs, xbufs, n, rank, t, lane);
+    ++xi;
+
+    // the online softmax of flash_fwd_kernel, in place: sc[4j + e] (key
+    // 8j + c2 + (e & 1) of row g + 8 * (e >> 1)) becomes p
+    const bool use_bias = has_bias || (kt + 1) * kRows > Lk;
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (use_bias) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * j + c2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[4 * j + e] = fmaf(sc[4 * j + e], scale_log2, (e & 1) ? bb.y : bb.x);
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+      mx[0] *= scale_log2;  // scale > 0: the max commutes with it
+      mx[1] *= scale_log2;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&iempty[i]);  // the bias is read
+    float alpha[2], m_use[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float mn = fmaxf(m[r], tiles::quad_max(mx[r]));
-      ref[r] = mn == -INFINITY ? 0.f : mn;  // no key so far: every p is 0
-      const float corr = exp2f(m[r] - ref[r]);
-      l[r] *= corr;
-#pragma unroll
-      for (int n = 0; n < kXSlab / 8; ++n) {
-        o[n][2 * r] *= corr;
-        o[n][2 * r + 1] *= corr;
-      }
-      m[r] = mn;
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_row[r], mx[r]);
+      // a row whose keys are all masked so far keeps p = 0, alpha = 0
+      m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = fast_exp2(m_row[r] - m_use[r]);
+      m_row[r] = m_new;
+      l_row[r] *= alpha[r];
     }
-    uint32_t pa[kXKeys / 16][4];
+    const float mul = use_bias ? 1.f : scale_log2;
 #pragma unroll
-    for (int j = 0; j < kXKeys / 8; ++j)
+    for (int j = 0; j < 32; ++j) {
+      sc[j] = fast_exp2(fmaf(sc[j], mul, -m_use[(j >> 1) & 1]));
+      l_row[(j >> 1) & 1] += sc[j];
+    }
+    // bf16 P: n8 blocks 2t and 2t+1 form the A fragment of the 16-key step t
+    uint32_t p[4][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - ref[e >> 1]);
-        l[e >> 1] += s[j][e];
+    for (int tt = 0; tt < 4; ++tt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[tt][e] = pack_bf16x2(sc[8 * tt + 2 * e], sc[8 * tt + 2 * e + 1]);
+    }
+    // O *= alpha, in the warps where a row max moved
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < SL / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
       }
+    }
+
+    // O_c += P V_c
+    const int sv = ring.take();
+    wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < kXKeys / 16; ++t) tiles::pack_a(pa[t], s[2 * t], s[2 * t + 1]);
-    tiles::cp_async_wait<0>();  // the V tile (and the next piece) have landed
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < kXKeys / 16; ++t)
-      tiles::mma_av<kXSlab / 8>(o, pa[t], vt + t * 16 * LDV, LDV, npairs, lane);
-    __syncthreads();  // the V tile is free
+    for (int tt = 0; tt < 4; ++tt)
+      WgmmaRS<SL>::run(o, p[tt], mnmajor0 + sv * piece16 + ((tt * 2048) >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(p);
+    ring.release(sv, lane);
   }
-  float inv[2];
+  drain(my_xempty, xbufs, xi, n, lane);
+
+  // finish the row sums across the 4 lanes that share a row, then store
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] = tiles::quad_sum(l[r]);
-    inv[r] = 1.f / l[r];
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
   }
-  const int row0 = q0 + warp * 16;
-  tiles::store_acc<kXSlab / 8>(out + (size_t)b * Lq * C + (size_t)h * d + c0, C, o, row0, Lq, w,
-                               inv, lane);
-  if (slab == 0 && lane % 4 == 0) {
+  const int C_all = heads * d;
+  const int row0 = q0 + kRows * wg + 16 * warp + lane / 4;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + lane / 4 + 8 * r;
-      if (row < Lq) lse[((size_t)b * heads + h) * Lq + row] = (m[r] + log2f(l[r])) * kLn2;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Lq) continue;
+    const float inv = 1.f / l_row[r];
+    bf16* orow = out + ((size_t)b * Lq + row) * C_all + (size_t)h * d + out_idx * SL;
+#pragma unroll
+    for (int j = 0; j < SL / 8; ++j) {
+      if (8 * j + c2 < out_w) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c2) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      }
+    }
+    if (rank == 0 && g == 0 && lane % 4 == 0) {
+      lse[((size_t)b * heads + h) * Lq + row] = (m_row[r] + log2f(l_row[r])) * kLn2;
     }
   }
 }
 
+template <int SL, bool EXTRA>
 int launch_xwide(const void* q, const void* k, const void* v, const void* bias, void* out,
                  void* lse, int B, int Lq, int Lk, int heads, int d, int scale_d,
-                 cudaStream_t stream) {
-  const int slabs = (d + kXSlab - 1) / kXSlab;
-  const int SW = tiles::round16((d + slabs - 1) / slabs);
-  const int bytes = (int)xwide_smem_bytes(SW);
-  const void* fn = reinterpret_cast<const void*>(flash_fwd_xwide_kernel);
-  cudaError_t e = host_cache.reserve_smem(fn, bytes);
+                 const xwide::Plan& p, cudaStream_t stream) {
+  using namespace xwide;
+  CUtensorMap maps[3];
+  int err = make_head_map(&maps[0], q, d, heads, Lq, B, kBox, kRows);
+  if (!err) err = make_head_map(&maps[1], k, d, heads, Lk, B, kBox, kRows);
+  if (!err) err = make_head_map(&maps[2], v, d, heads, Lk, B, kBox, kRows);
+  if (err) return err;
+  auto kernel = flash_fwd_xwide_kernel<SL, EXTRA>;
+  cudaError_t e = host_cache.reserve_smem(reinterpret_cast<const void*>(kernel), p.smem);
   if (e != cudaSuccess) return (int)e;
-  const long long rows = (long long)(Lq + kXRows - 1) / kXRows * slabs;
-  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)rows, heads, B);
-  flash_fwd_xwide_kernel<<<grid, kXThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), static_cast<float*>(lse), Lq, Lk,
-      heads, d, SW, slabs, kLog2e / sqrtf((float)scale_d));
+  const long long blocks = (long long)((Lq + 2 * kRows - 1) / (2 * kRows)) * p.cluster * p.groups;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, heads, B);
+  cfg.blockDim = dim3(384, 1, 1);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], maps[2],
+                         static_cast<const float*>(bias), static_cast<bf16*>(out),
+                         static_cast<float*>(lse), Lq, Lk, heads, d, p.cluster, p.groups,
+                         p.stages, p.xbufs, kLog2e / sqrtf((float)scale_d));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -629,10 +805,14 @@ int launch_xwide(const void* q, const void* k, const void* v, const void* bias, 
 // logits are scaled by scale_d^-1/2, 1 <= scale_d <= d: the wrapper passes
 // the true width of a head it zero-pads (ops/flash_attention.py,
 // `flash_plan`), else d. Any d > 512 (a multiple of 8) runs in the xwide
-// kernel.
+// kernel, on the plan x_* (`xwide_plan`: slice, cluster, groups, key tile,
+// ring stages, exchange buffers, shared-memory bytes) that the wrapper
+// computes; the other widths ignore it.
 extern "C" int hv_flash_fwd(const void* q, const void* k, const void* v,
                             const void* bias, void* out, void* lse, int B,
-                            int Lq, int Lk, int heads, int d, int scale_d, void* stream) {
+                            int Lq, int Lk, int heads, int d, int scale_d, int x_slice,
+                            int x_cluster, int x_groups, int x_key_tile, int x_stages,
+                            int x_exchange, int x_smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 0 || d % 8 != 0 || scale_d < 1 || scale_d > d) return (int)cudaErrorInvalidValue;
   if (d <= 40)
@@ -648,6 +828,16 @@ extern "C" int hv_flash_fwd(const void* q, const void* k, const void* v,
   if (d == 512)
     return launch<Cfg<512, 256, true, 2>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d,
                                           scale_d, s);
-  if (d > 512) return launch_xwide(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, scale_d, s);
+  if (d > 512) {
+    const xwide::Plan p{x_slice, x_cluster, x_groups, x_key_tile, x_stages, x_exchange, x_smem};
+    // past one cluster a warpgroup holds three pieces at once (both Q slices and K)
+    if (!xwide::plan_ok(p, d) || (p.groups > 1 && p.stages < 3))
+      return (int)cudaErrorInvalidValue;
+#define XWIDE(SL, EXTRA) \
+  launch_xwide<SL, EXTRA>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, scale_d, p, s)
+    if (p.slice == 256) return p.groups > 1 ? XWIDE(256, true) : XWIDE(256, false);
+    return p.groups > 1 ? XWIDE(128, true) : XWIDE(128, false);
+#undef XWIDE
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -145,7 +145,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-#include "mma_tiles.cuh"
+#include "xwide.cuh"
 
 namespace {
 
@@ -1165,197 +1165,407 @@ int launch_wide(Kernel kernel, const void* q, const void* k, const void* v, cons
 
 // ---- heads wider than 512 columns: the xwide kernels ------------------------
 //
-// The d = 512 kernels hold two owned 64 x 512 tiles (128 KB) and a 64 x 512
-// fp32 gradient split over two warpgroups; at 640 or 1280 columns neither
-// fits. So, as the forward's xwide kernel does, a block (4 warps, 16 rows
-// each, 64 rows) writes one slab of at most kXSlab columns of one gradient,
-// one kernel per gradient (MODE: kDq over q rows, kDk and kDv over keys),
-// and walks the other side in tiles of 64:
-//   S = R X^T, dP = R2 X2^T   over the whole head in kPiece-column depth
-//                             pieces through a 2-stage cp.async ring (dQ: R
-//                             = Q, X = K, R2 = G, X2 = V; dK and dV: R = K,
-//                             X = Q, R2 = V, X2 = G; dV needs no dP);
-//   P = exp2(S * scale * log2e + bias * log2e - lse * log2e), dS = P (dP -
-//                             delta): the row's words (dQ: lse and delta
-//                             of the q row; dK, dV: the key's bias) in
-//                             registers, the columns' read per tile; columns
-//                             past the other side's length get P = 0;
-//   grad += A Y               A = dS (dQ, dK) or P (dV) rounded to bf16, Y
-//                             the slab's columns of K (dQ), Q (dK) or G
-//                             (dV), copied under the tile's products.
-// dQ and dK are scaled once at the end. A key hidden by a -1e9 bias gets P
-// == 0 exactly in every row, hence exactly zero dk and dv. Each gradient
-// element is written by one block, with no atomics: the same inputs give
-// the same bits. Every slab recomputes S and dP (2x the least at d = 640
-// for dK and dQ); simple and right first.
-constexpr int kXRows = 64;   // rows of a block: 16 a warp
-constexpr int kXCols = 64;   // the other side's rows a tile
-constexpr int kXSlab = 256;  // the widest slab of a gradient a block accumulates
-constexpr int kXThreads = 128;
+// The d = 512 kernels hold two owned 64 x 512 tiles and split one gradient
+// over two warpgroups; past 512 neither fits. As the forward's xwide
+// kernel does, the head's depth is split over a thread-block cluster
+// (csrc/xwide.cuh): a cluster of n blocks owns one 64-row tile, block
+// `rank` one slice of SL columns, and the recomputed products (S and dP,
+// sums over the head's depth) are summed from the blocks' partials over
+// distributed shared memory in rank order, so P and dS are computed once
+// and are the same bits in every block. FlashAttention's split into two
+// kernels, with no atomics:
+//   dk/dv (`flash_bwd_dkv_xwide_kernel`): a cluster owns 64 keys; K_c and
+//     V_c stay resident, and the producer streams 64-row q steps of Q_c
+//     and G_c with -lse * log2e and delta of their rows.
+//   dq (`flash_bwd_dq_xwide_kernel`): a cluster owns 64 q rows; Q_c and
+//     G_c stay resident, and the producer streams 64-key tiles of K_c and
+//     V_c with the keys' bias in log2 units (-inf past Lk).
+// A block is a producer warp (in a warpgroup of its own, whose registers
+// `setmaxnreg` moves to the consumers) and two consumer warpgroups:
+//   warpgroup 0: X1 = the partial of S^T = K Q^T (dk/dv) or S = Q K^T (dq),
+//     the exchange of X1, P = exp2(s * scale * log2e + the row's and the
+//     column's words) (P^T for dk/dv), P for warpgroup 1 in its own
+//     exchange buffer once the cluster has read X1 there (a named barrier
+//     per warp pair), and for dk/dv dV_c += P^T G_c;
+//   warpgroup 1: X2 = the partial of dP^T = V G^T or dP = G V^T, its
+//     exchange, dS = P (dP - delta) with P from warpgroup 0, and dK_c +=
+//     dS^T Q_c or dQ_c += dS K_c;
+// the partials as wgmma m64n64k16 from shared memory (K-major), the
+// gradients as wgmma m64nSLk16 with A = P or dS rounded to bf16 from
+// registers and B the streamed slice, MN-major. A step holds its two
+// streamed slices to its end; the ring has 4 (shared memory holds the two
+// owned slices, 4 pieces and the two partials: 227 KB at SL = 256), so the
+// next step's are loaded under this one's. That is 7 products of the
+// size of QK^T where the least is 5 (S and dP twice). dQ and dK are
+// scaled once at the end. Hidden keys: a 64-key block all of whose keys
+// carry a bias <= -1e9 writes exact zeros to its dk and dv and returns,
+// and the dq producer loads nothing for such a key tile and flags it in
+// the words ring, where every row of the block sees some key (its lse >
+// -5e8) and |s * scale| < 4e8: the result is the same bits as computing
+// it. Each gradient element is written by one block: the same inputs give
+// the same bits. What bounds it: the tensor cores (long_wide's level-1
+// uncond step, 48 x 1792 x 3584 x 640: 9.9e11 operations of which the
+// bias hides half, against 1.0 GB); per block and step 4 x 64 x 64 x SL
+// multiply-adds against 2 (n - 1) x 16 KB of partials read from the other
+// blocks.
+enum XwideMode { kXDkv = 0, kXDq = 1 };
 
-// Two stages of four piece tiles (R, X, R2, X2), then the Y tile (kXCols x
-// sw + 8).
-__host__ __device__ inline size_t xwide_smem_bytes(int sw) {
-  return 128 + ((size_t)2 * 2 * (kXRows + kXCols) * tiles::kLd + (size_t)kXCols * (sw + 8)) * 2;
-}
-
-template <int MODE>
+template <int MODE, int SL, bool EXTRA>
 __device__ __forceinline__ void flash_bwd_xwide(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const float* __restrict__ bias, const bf16* __restrict__ g, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ grad, int Lq, int Lk, int heads, int d,
-    int SW, int slabs, float scale_log2, float scale) {
-  constexpr bool kRowsQ = MODE == kDq, kDp = MODE != kDv;
-  extern __shared__ unsigned char xwide_bwd_smem[];
-  bf16* sm = reinterpret_cast<bf16*>(
-      (reinterpret_cast<uintptr_t>(xwide_bwd_smem) + 127) & ~static_cast<uintptr_t>(127));
-  constexpr int HALF = (kXRows + kXCols) * tiles::kLd;  // an R piece then an X piece
-  constexpr int STAGE = 2 * HALF;                        // S's pair, then dP's
-  bf16* yt = sm + 2 * STAGE;
-  const int LDY = SW + 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tid = threadIdx.x;
-  const int slab = blockIdx.x % slabs, r0 = (blockIdx.x / slabs) * kXRows;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int C = heads * d, c0 = slab * SW, w = min(SW, d - c0);
-  const int Lr = kRowsQ ? Lq : Lk, Lc = kRowsQ ? Lk : Lq;
-  const size_t head = (size_t)h * d;
-  const bf16* rb = (kRowsQ ? q + (size_t)b * Lq * C : k + (size_t)b * Lk * C) + head;
-  const bf16* xb = (kRowsQ ? k + (size_t)b * Lk * C : q + (size_t)b * Lq * C) + head;
-  const bf16* r2b = (kRowsQ ? g + (size_t)b * Lq * C : v + (size_t)b * Lk * C) + head;
-  const bf16* x2b = (kRowsQ ? v + (size_t)b * Lk * C : g + (size_t)b * Lq * C) + head;
-  const bf16* yb = (MODE == kDq ? k + (size_t)b * Lk * C
-                                : (MODE == kDk ? q : g) + (size_t)b * Lq * C) + head + c0;
-  const float* bb = bias ? bias + (size_t)b * Lk : nullptr;
-  const float* lb = lse + ((size_t)b * heads + h) * Lq;
-  const float* db = delta + ((size_t)b * heads + h) * Lq;
-  const int P = (d + tiles::kPiece - 1) / tiles::kPiece, nct = (Lc + kXCols - 1) / kXCols;
-  const int steps = nct * P;
+    const CUtensorMap* q_map, const CUtensorMap* k_map, const CUtensorMap* v_map,
+    const CUtensorMap* g_map, const float* __restrict__ bias, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ grad1, bf16* __restrict__ grad2, int Lq,
+    int Lk, int heads, int d, int n, int groups, int stages, float scale_log2, float scale) {
+  using namespace xwide;
+  constexpr bool KEYS = MODE == kXDkv;  // the block owns keys (else q rows)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const Layout lay(SL, stages, 1);
+  float* xbuf = reinterpret_cast<float*>(smem + lay.off_x);  // [2 matrices]
+  unsigned char* info = smem + lay.off_info;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.off_bar);
+  uint64_t* empty = full + stages;
+  uint64_t* ifull = empty + stages;
+  uint64_t* iempty = ifull + kInfoSlots;
+  uint64_t* own = iempty + kInfoSlots;
+  uint64_t* xfull = own + 1;         // [2 matrices][4 warps]
+  uint64_t* xempty = xfull + 2 * 4;  // the same
 
-  // the words of this thread's two rows: dQ's -lse * log2e and delta of
-  // the q row, dK's and dV's bias * log2e of the key
-  float word[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
+  const int rank = (int)cluster_ctarank();
+  const int g = (int)(blockIdx.x / n) % groups;
+  const int r0 = (int)(blockIdx.x / (n * groups)) * kRows;  // the block's first owned row
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int C_all = heads * d;
+  const int L_own = KEYS ? Lk : Lq;
+  const int n_steps = ((KEYS ? Lq : Lk) + kRows - 1) / kRows;
+  const int out_idx = rank + n * g;
+  const int out_w = slice_cols(out_idx, SL, d);
+  const float* lse_bh = lse + ((size_t)b * heads + h) * Lq;
+  const float* delta_bh = delta + ((size_t)b * heads + h) * Lq;
+  const float* bias_b = bias ? bias + (size_t)b * Lk : nullptr;
+
+  if constexpr (KEYS) {
+    // every key of the block hidden from every row: dk = dv = 0 exactly (the
+    // whole cluster decides alike and leaves together)
+    if (bias_b && block_all_le(bias_b + r0, min(kRows, Lk - r0), kHiddenBias) &&
+        block_all_gt(lse_bh, Lq, kLseFloor)) {
+      const int vecs = out_w / 8;
+      const int nz = min(kRows, Lk - r0) * vecs;
+      for (int i = threadIdx.x; i < nz; i += blockDim.x) {
+        const size_t at = ((size_t)b * Lk + r0 + i / vecs) * C_all + (size_t)h * d +
+                          out_idx * SL + 8 * (i % vecs);
+        *reinterpret_cast<uint4*>(grad1 + at) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(grad2 + at) = make_uint4(0u, 0u, 0u, 0u);
+      }
+      return;
+    }
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);   // tx
+      mbar_init(&empty[s], 8);  // one per consumer warp
+    }
+    for (int i = 0; i < kInfoSlots; ++i) {
+      mbar_init(&ifull[i], 32);  // the producer warp's lanes
+      mbar_init(&iempty[i], 8);
+    }
+    mbar_init(own, 1);
+    for (int i = 0; i < 2 * 4; ++i) {
+      mbar_init(&xfull[i], n);  // the same warp of every block
+      mbar_init(&xempty[i], n);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  cluster_arrive();  // every block's barriers are initialized before any arrives remotely
+  cluster_wait();
+
+  // the owned side's tiles A1, A2 and the streamed side's B1, B2: dk/dv K,
+  // V; Q, G. dq: Q, G; K, V.
+  const CUtensorMap* a1 = KEYS ? k_map : q_map;
+  const CUtensorMap* a2 = KEYS ? v_map : g_map;
+  const CUtensorMap* b1 = KEYS ? q_map : k_map;
+  const CUtensorMap* b2 = KEYS ? g_map : v_map;
+  Ring ring{smem + lay.off_ring, full, empty, stages, lay.piece, SL, h, b, 0};
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+
+  if (wg == 2) {
+    // ---------------- producer ----------------
+    setmaxnreg_dec<24>();
+    if (warp != 0) return;
+    // dq: hidden key tiles may be passed over only if every row of the
+    // block sees some key
+    bool may_skip = false;
+    if (!KEYS && bias_b) {
+      int ok = 1;
+      for (int e = 0; e < 2; ++e) {
+        const int row = r0 + lane + 32 * e;
+        ok &= row >= Lq || lse_bh[row] > kLseFloor;
+      }
+      may_skip = __all_sync(0xffffffffu, ok);
+    }
+    if (lane == 0) {
+      tma_prefetch_desc(q_map);
+      tma_prefetch_desc(k_map);
+      tma_prefetch_desc(v_map);
+      tma_prefetch_desc(g_map);
+      mbar_arrive_expect_tx(own, 2 * lay.piece);
+      load_slice(smem, a1, own, out_idx, SL, h, r0, b);
+      load_slice(smem + lay.piece, a2, own, out_idx, SL, h, r0, b);
+    }
+    for (int step = 0; step < n_steps; ++step) {
+      const int s0 = step * kRows, i = step % kInfoSlots;
+      // the step's words: dk/dv -lse * log2e and delta of the q rows (p = 0
+      // past Lq); dq the keys' bias in log2 units (-inf past Lk)
+      float wa[2], wb[2];
+      bool hidden = true;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = s0 + lane + 32 * e;
+        if constexpr (KEYS) {
+          wa[e] = row < Lq ? -lse_bh[row] * kLog2e : -INFINITY;
+          wb[e] = row < Lq ? delta_bh[row] : 0.f;
+        } else {
+          const float x = row < Lk && bias_b ? bias_b[row] : 0.f;
+          hidden = hidden && (row >= Lk || x <= kHiddenBias);
+          wa[e] = row >= Lk ? -INFINITY : x * kLog2e;
+          wb[e] = 0.f;
+        }
+      }
+      const bool skip = may_skip && __all_sync(0xffffffffu, hidden);
+      mbar_wait(&iempty[i], ((step / kInfoSlots) & 1) ^ 1);
+      float* words = reinterpret_cast<float*>(info + i * kInfoBytes);
+      words[lane] = wa[0];
+      words[lane + 32] = wa[1];
+      words[kRows + lane] = wb[0];
+      words[kRows + lane + 32] = wb[1];
+      if (lane == 0) reinterpret_cast<int*>(words)[2 * kRows] = skip;
+      mbar_arrive(&ifull[i]);
+      if (skip) continue;
+      if constexpr (EXTRA) {
+        for (int jj = 0; jj < groups; ++jj) {  // the other depth slices
+          if (jj == g) continue;
+          const int idx = rank + n * jj;
+          ring.put(a1, idx, r0, lane);
+          ring.put(b1, idx, s0, lane);
+          ring.put(a2, idx, r0, lane);
+          ring.put(b2, idx, s0, lane);
+        }
+      }
+      ring.put(b1, out_idx, s0, lane);
+      ring.put(b2, out_idx, s0, lane);
+    }
+    return;
+  }
+
+  // ---------------- consumers ----------------
+  setmaxnreg_inc<240>();
+  const int t = threadIdx.x % 128;
+  const int c2 = 2 * (lane % 4);
+  // per owned row (this thread's rows 16 warp + lane/4, + 8): dk/dv the
+  // key's bias in log2 units (-inf past Lk); dq -lse * log2e and delta
+  float ra[2], rb[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = r0 + warp * 16 + lane / 4 + 8 * r;
-    if (row < Lr) {
-      if (kRowsQ) {
-        word[r] = -lb[row] * kLog2e;
-        row_delta[r] = db[row];
-      } else if (bb) {
-        word[r] = bb[row] * kLog2e;
-      }
+    const int row = r0 + 16 * warp + lane / 4 + 8 * r;
+    if constexpr (KEYS) {
+      ra[r] = row >= Lk ? -INFINITY : (bias_b ? bias_b[row] * kLog2e : 0.f);
+      rb[r] = 0.f;
+    } else {
+      ra[r] = row < Lq ? -lse_bh[row] * kLog2e : -INFINITY;
+      rb[r] = row < Lq ? delta_bh[row] : 0.f;
     }
   }
+  const uint32_t ring0 = smem_u32(ring.base);
+  const uint64_t kmajor0 = gmma_desc(ring0, 16, 1024, kSwizzle128B);
+  const uint64_t mnmajor0 = gmma_desc(ring0, kBoxBytes, 1024, kSwizzle128B);
+  const uint64_t own_desc = gmma_desc(smem_u32(smem + wg * lay.piece), 16, 1024, kSwizzle128B);
+  const int piece16 = lay.piece >> 4;
+  // P of this thread's positions, passed to warpgroup 1 in warpgroup 0's
+  // exchange buffer once the cluster has read the partial there
+  float4* lp = reinterpret_cast<float4*>(xbuf) + t;
 
-  auto load_piece = [&](int step) {
-    const int ct = step / P, p = step % P, pw = min(tiles::kPiece, d - p * tiles::kPiece);
-    bf16* st = sm + (step & 1) * STAGE;
-    const int col = p * tiles::kPiece;
-    tiles::load_rows_async<kXRows>(st, tiles::kLd, rb + col, C, r0, Lr, pw, tid, kXThreads);
-    tiles::load_rows_async<kXCols>(st + kXRows * tiles::kLd, tiles::kLd, xb + col, C,
-                                   ct * kXCols, Lc, pw, tid, kXThreads);
-    if (kDp) {
-      tiles::load_rows_async<kXRows>(st + HALF, tiles::kLd, r2b + col, C, r0, Lr, pw, tid,
-                                     kXThreads);
-      tiles::load_rows_async<kXCols>(st + HALF + kXRows * tiles::kLd, tiles::kLd, x2b + col, C,
-                                     ct * kXCols, Lc, pw, tid, kXThreads);
-    }
-  };
+  // dk/dv: dV (warpgroup 0) and dK (1); dq: dQ (1)
+  float acc[SL / 2];
+#pragma unroll
+  for (int i = 0; i < SL / 2; ++i) acc[i] = 0.f;
 
-  float acc[kXSlab / 8][4];
-  tiles::zero(acc);
-  const int npairs = tiles::round16(w) / 16;
-  load_piece(0);
-  tiles::cp_async_commit();
-  for (int ct = 0; ct < nct; ++ct) {
-    float s[kXCols / 8][4], dp[kXCols / 8][4];
-    tiles::zero(s);
-    tiles::zero(dp);
-    for (int p = 0; p < P; ++p) {
-      const int step = ct * P + p;
-      // the Y tile is free: the last tile's product ended at a barrier
-      if (p == 0)
-        tiles::load_rows_async<kXCols>(yt, LDY, yb, C, ct * kXCols, Lc, w, tid, kXThreads);
-      if (step + 1 < steps) load_piece(step + 1);
-      tiles::cp_async_commit();
-      tiles::cp_async_wait<1>();  // this step's pieces have landed
-      __syncthreads();
-      const bf16* st = sm + (step & 1) * STAGE;
-      const int ks = tiles::round16(min(tiles::kPiece, d - p * tiles::kPiece)) / 16;
-      tiles::mma_abt<kXCols / 8>(s, st + warp * 16 * tiles::kLd, tiles::kLd,
-                                 st + kXRows * tiles::kLd, tiles::kLd, ks, lane);
-      if (kDp)
-        tiles::mma_abt<kXCols / 8>(dp, st + HALF + warp * 16 * tiles::kLd, tiles::kLd,
-                                   st + HALF + kXRows * tiles::kLd, tiles::kLd, ks, lane);
-      __syncthreads();  // the stage is free for the copy issued next step
+  mbar_wait(own, 0);
+  int xi = 0;  // exchanges so far
+  for (int step = 0; step < n_steps; ++step) {
+    const int i = step % kInfoSlots;
+    mbar_wait(&ifull[i], (step / kInfoSlots) & 1);
+    const float* w = reinterpret_cast<const float*>(info + i * kInfoBytes);
+    if (reinterpret_cast<const int*>(w)[2 * kRows]) {  // a hidden key tile, not loaded
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&iempty[i]);
+      continue;
     }
+
+    // this warpgroup's partial over the block's depth slices: warpgroup 0
+    // A1 B1^T, warpgroup 1 A2 B2^T (64 owned x 64 streamed rows)
+    float x[32];
+    if constexpr (EXTRA) {
 #pragma unroll
-    for (int j = 0; j < kXCols / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = ct * kXCols + 8 * j + 2 * (lane % 4) + (e & 1);
-        float a = 0.f;
-        if (col < Lc) {
-          float x = s[j][e] * scale_log2 + word[e >> 1], dl = row_delta[e >> 1];
-          if (kRowsQ) {
-            if (bb) x += bb[col] * kLog2e;
-          } else {
-            x -= lb[col] * kLog2e;
-            dl = db[col];
+      for (int j = 0; j < 32; ++j) x[j] = 0.f;
+      for (int jj = 0; jj < groups; ++jj) {
+        if (jj == g) continue;
+        for (int pair = 0; pair < 2; ++pair) {  // (A1, B1), then (A2, B2)
+          const int sa = ring.take(), sb = ring.take();
+          if (pair == wg) {
+            wgmma_fence();
+            partial_product<SL>(x, kmajor0 + sa * piece16, kmajor0 + sb * piece16, true);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(x);
           }
-          const float pr = exp2f(x);
-          a = MODE == kDv ? pr : pr * (dp[j][e] - dl);
+          ring.release(sa, lane);
+          ring.release(sb, lane);
         }
-        s[j][e] = a;
       }
-    uint32_t pa[kXCols / 16][4];
+    }
+    // the output slice's B1 and B2
+    const int s1 = ring.take(), s2 = ring.take();
+    wgmma_fence();
+    partial_product<SL>(x, own_desc, kmajor0 + (wg == 0 ? s1 : s2) * piece16, EXTRA);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+    if (wg == 0 && xi > 0) named_bar_sync(5 + warp, 64);  // warpgroup 1 read the last P
+    exchange(x, xbuf + wg * (kXBytes / 4), &xfull[wg * 4 + warp], &xempty[wg * 4 + warp], xi,
+             1, n, rank, t, lane);
+
+    if (wg == 0) {
+      // P = exp2(s * scale*log2e + the streamed row's word + the owned
+      // row's word), in place; element 4j + e is owned row 16 warp + lane/4
+      // + 8 (e >> 1), streamed row 8j + c2 + (e & 1)
 #pragma unroll
-    for (int t = 0; t < kXCols / 16; ++t) tiles::pack_a(pa[t], s[2 * t], s[2 * t + 1]);
-    tiles::cp_async_wait<0>();  // the Y tile (and the next pieces) have landed
-    __syncthreads();
+      for (int j = 0; j < 8; ++j) {
+        const float2 wc = *reinterpret_cast<const float2*>(w + 8 * j + c2);
 #pragma unroll
-    for (int t = 0; t < kXCols / 16; ++t)
-      tiles::mma_av<kXSlab / 8>(acc, pa[t], yt + t * 16 * LDY, LDY, npairs, lane);
-    __syncthreads();  // the Y tile is free
+        for (int e = 0; e < 4; ++e)
+          x[4 * j + e] =
+              fast_exp2(fmaf(x[4 * j + e], scale_log2, (e & 1) ? wc.y : wc.x) + ra[e >> 1]);
+      }
+      wait_read(&xempty[warp], xi);  // the cluster read this step's partial
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        lp[q * 128] = make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+      named_bar_arrive(1 + warp, 64);
+      if constexpr (KEYS) {
+        // dV += P^T G
+        uint32_t pa[4][4];
+        pack_a<64>(pa, x);
+        wgmma_fence();
+#pragma unroll
+        for (int tt = 0; tt < 4; ++tt)
+          WgmmaRS<SL>::run(acc, pa[tt], mnmajor0 + s2 * piece16 + ((tt * 2048) >> 4));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(pa);
+      }
+    } else {
+      // dS = P (dP - delta), delta per streamed q row (dk/dv) or owned row (dq)
+      named_bar_sync(1 + warp, 64);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float4 p4 = lp[q * 128];
+        const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = 4 * q + e;  // element 4j + e' with j = k / 4
+          const float dd = KEYS ? w[kRows + 8 * (k / 4) + c2 + (e & 1)] : rb[(e >> 1) & 1];
+          x[k] = pv[e] * (x[k] - dd);
+        }
+      }
+      named_bar_arrive(5 + warp, 64);
+      {
+        // dK += dS^T Q (dk/dv) or dQ += dS K (dq)
+        uint32_t da[4][4];
+        pack_a<64>(da, x);
+        wgmma_fence();
+#pragma unroll
+        for (int tt = 0; tt < 4; ++tt)
+          WgmmaRS<SL>::run(acc, da[tt], mnmajor0 + s1 * piece16 + ((tt * 2048) >> 4));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(da);
+      }
+    }
+    ++xi;
+    ring.release(s1, lane);
+    ring.release(s2, lane);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&iempty[i]);
   }
-  const float mul[2] = {MODE == kDv ? 1.f : scale, MODE == kDv ? 1.f : scale};
-  tiles::store_acc<kXSlab / 8>(grad + (size_t)b * Lr * C + head + c0, C, acc,
-                               r0 + warp * 16, Lr, w, mul, lane);
+  drain(xempty + wg * 4 + warp, 1, xi, n, lane);
+  if (wg == 0 && xi > 0) named_bar_sync(5 + warp, 64);  // pairs warpgroup 1's last arrival
+
+  if (out_w && (KEYS || wg == 1)) {
+    bf16* dst = (wg == 1 ? grad1 : grad2) + (size_t)b * L_own * C_all + (size_t)h * d +
+                out_idx * SL;
+    store_acc<SL>(dst, C_all, acc, r0 + 16 * warp, L_own, out_w, wg == 1 ? scale : 1.f, lane);
+  }
 }
 
-// one kernel of its own name per gradient, so a profile tells them apart
-#define XWIDE_KERNEL(name, MODE)                                                              \
-  __global__ void __launch_bounds__(kXThreads)                                                \
-      name(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, \
-           const float* __restrict__ bias, const bf16* __restrict__ g,                        \
-           const float* __restrict__ lse, const float* __restrict__ delta,                    \
-           bf16* __restrict__ grad, int Lq, int Lk, int heads, int d, int SW, int slabs,      \
-           float scale_log2, float scale) {                                                   \
-    flash_bwd_xwide<MODE>(q, k, v, bias, g, lse, delta, grad, Lq, Lk, heads, d, SW, slabs,     \
-                          scale_log2, scale);                                                 \
+// one kernel of its own name per entry point, so a profile tells them apart
+#define XWIDE_KERNEL(name, MODE)                                                            \
+  template <int SL, bool EXTRA>                                                             \
+  __global__ void __launch_bounds__(384, 1)                                                 \
+      name(const __grid_constant__ CUtensorMap q_map,                                       \
+           const __grid_constant__ CUtensorMap k_map,                                       \
+           const __grid_constant__ CUtensorMap v_map,                                       \
+           const __grid_constant__ CUtensorMap g_map, const float* __restrict__ bias,       \
+           const float* __restrict__ lse, const float* __restrict__ delta,                  \
+           bf16* __restrict__ grad1, bf16* __restrict__ grad2, int Lq, int Lk, int heads,   \
+           int d, int n, int groups, int stages, float scale_log2, float scale) {           \
+    flash_bwd_xwide<MODE, SL, EXTRA>(&q_map, &k_map, &v_map, &g_map, bias, lse, delta, grad1,\
+                                     grad2, Lq, Lk, heads, d, n, groups, stages, scale_log2, \
+                                     scale);                                                \
   }
-XWIDE_KERNEL(flash_bwd_dv_xwide_kernel, kDv)
-XWIDE_KERNEL(flash_bwd_dk_xwide_kernel, kDk)
-XWIDE_KERNEL(flash_bwd_dq_xwide_kernel, kDq)
+XWIDE_KERNEL(flash_bwd_dkv_xwide_kernel, kXDkv)
+XWIDE_KERNEL(flash_bwd_dq_xwide_kernel, kXDq)
 #undef XWIDE_KERNEL
 
-template <int MODE, class Kernel>
+template <class Kernel>
 int launch_xwide(Kernel kernel, const void* q, const void* k, const void* v, const void* bias,
-                 const void* g, const void* lse, const void* delta, void* grad, int B, int Lq,
-                 int Lk, int heads, int d, int scale_d, cudaStream_t stream) {
-  const int slabs = (d + kXSlab - 1) / kXSlab;
-  const int SW = tiles::round16((d + slabs - 1) / slabs);
-  const int bytes = (int)xwide_smem_bytes(SW);
-  cudaError_t e = host_cache.reserve_smem(reinterpret_cast<const void*>(kernel), bytes);
+                 const void* g, const void* lse, const void* delta, void* grad1, void* grad2,
+                 int B, int Lq, int Lk, int heads, int d, int scale_d, int owned_rows,
+                 const xwide::Plan& p, cudaStream_t stream) {
+  using namespace xwide;
+  CUtensorMap maps[4];  // q, k, v, g: boxes of 64 columns x 64 rows
+  int err = make_head_map(&maps[0], q, d, heads, Lq, B, kBox, kRows);
+  if (!err) err = make_head_map(&maps[1], k, d, heads, Lk, B, kBox, kRows);
+  if (!err) err = make_head_map(&maps[2], v, d, heads, Lk, B, kBox, kRows);
+  if (!err) err = make_head_map(&maps[3], g, d, heads, Lq, B, kBox, kRows);
+  if (err) return err;
+  cudaError_t e = host_cache.reserve_smem(reinterpret_cast<const void*>(kernel), p.smem);
   if (e != cudaSuccess) return (int)e;
-  const long long rows = (long long)((MODE == kDq ? Lq : Lk) + kXRows - 1) / kXRows * slabs;
-  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)((owned_rows + kRows - 1) / kRows) * p.cluster * p.groups;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, heads, B);
+  cfg.blockDim = dim3(384, 1, 1);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   const float scale = 1.f / sqrtf((float)scale_d);
-  kernel<<<dim3((unsigned)rows, heads, B), kXThreads, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(bias), static_cast<const bf16*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(grad),
-      Lq, Lk, heads, d, SW, slabs, scale * kLog2e, scale);
+  e = cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], maps[2], maps[3],
+                         static_cast<const float*>(bias), static_cast<const float*>(lse),
+                         static_cast<const float*>(delta), static_cast<bf16*>(grad1),
+                         static_cast<bf16*>(grad2), Lq, Lk, heads, d, p.cluster, p.groups,
+                         p.stages, scale * kLog2e, scale);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -1366,12 +1576,16 @@ int launch_xwide(Kernel kernel, const void* q, const void* k, const void* v, con
 // s and dp contracted over 48 / 80 / 128) or d = 512 (the VAE's one head).
 // The logits are scaled by scale_d^-1/2, 1 <= scale_d <= d (the true width
 // of a head the wrapper zero-pads, else d). Any d > 512 (a multiple of 8)
-// runs in the xwide kernels: dV and dK from the dk/dv entry point, dQ from
-// the dq entry point.
+// runs in the xwide kernels: dK and dV from the dk/dv entry point, dQ from
+// the dq entry point, on the plan x_* (`xwide_plan`: slice, cluster,
+// groups, key tile, ring stages, exchange buffers, shared-memory bytes)
+// that the wrapper computes; the other widths ignore it.
 extern "C" int hv_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* bias, const void* g, const void* lse,
                                 const void* delta, void* dk, void* dv, int B, int Lq,
-                                int Lk, int heads, int d, int scale_d, void* stream) {
+                                int Lk, int heads, int d, int scale_d, int x_slice,
+                                int x_cluster, int x_groups, int x_key_tile, int x_stages,
+                                int x_exchange, int x_smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 0 || d % 8 != 0 || scale_d < 1 || scale_d > d) return (int)cudaErrorInvalidValue;
 #define DKV(Cfg) \
@@ -1390,11 +1604,14 @@ extern "C" int hv_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                Lq, Lk, heads, d, scale_d, s);
   }
   if (d > 512) {
-    const int err = launch_xwide<kDv>(flash_bwd_dv_xwide_kernel, q, k, v, bias, g, lse, delta,
-                                      dv, B, Lq, Lk, heads, d, scale_d, s);
-    if (err) return err;
-    return launch_xwide<kDk>(flash_bwd_dk_xwide_kernel, q, k, v, bias, g, lse, delta, dk, B, Lq,
-                             Lk, heads, d, scale_d, s);
+    const xwide::Plan p{x_slice, x_cluster, x_groups, x_key_tile, x_stages, x_exchange, x_smem};
+    if (p.xbufs != 1 || !xwide::plan_ok(p, d)) return (int)cudaErrorInvalidValue;
+#define XWIDE(SL, EXTRA)                                                                       \
+  launch_xwide(flash_bwd_dkv_xwide_kernel<SL, EXTRA>, q, k, v, bias, g, lse, delta, dk, dv, B, \
+               Lq, Lk, heads, d, scale_d, Lk, p, s)
+    if (p.slice == 256) return p.groups > 1 ? XWIDE(256, true) : XWIDE(256, false);
+    return p.groups > 1 ? XWIDE(128, true) : XWIDE(128, false);
+#undef XWIDE
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1402,7 +1619,9 @@ extern "C" int hv_flash_bwd_dkv(const void* q, const void* k, const void* v,
 extern "C" int hv_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* bias, const void* g, const void* lse,
                                const void* delta, void* dq, int B, int Lq, int Lk,
-                               int heads, int d, int scale_d, void* stream) {
+                               int heads, int d, int scale_d, int x_slice, int x_cluster,
+                               int x_groups, int x_key_tile, int x_stages, int x_exchange,
+                               int x_smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 0 || d % 8 != 0 || scale_d < 1 || scale_d > d) return (int)cudaErrorInvalidValue;
 #define DQ(Cfg) launch_dq<Cfg>(q, k, v, bias, g, lse, delta, dq, B, Lq, Lk, heads, d, scale_d, s)
@@ -1415,8 +1634,15 @@ extern "C" int hv_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (d == 512)
     return launch_wide<WideDq>(flash_bwd_dq_wide_kernel, q, k, v, bias, g, lse, delta, dq, B,
                                Lq, Lk, heads, d, scale_d, s);
-  if (d > 512)
-    return launch_xwide<kDq>(flash_bwd_dq_xwide_kernel, q, k, v, bias, g, lse, delta, dq, B, Lq,
-                             Lk, heads, d, scale_d, s);
+  if (d > 512) {
+    const xwide::Plan p{x_slice, x_cluster, x_groups, x_key_tile, x_stages, x_exchange, x_smem};
+    if (p.xbufs != 1 || !xwide::plan_ok(p, d)) return (int)cudaErrorInvalidValue;
+#define XWIDE(SL, EXTRA)                                                                      \
+  launch_xwide(flash_bwd_dq_xwide_kernel<SL, EXTRA>, q, k, v, bias, g, lse, delta, dq, nullptr, \
+               B, Lq, Lk, heads, d, scale_d, Lq, p, s)
+    if (p.slice == 256) return p.groups > 1 ? XWIDE(256, true) : XWIDE(256, false);
+    return p.groups > 1 ? XWIDE(128, true) : XWIDE(128, false);
+#undef XWIDE
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -216,6 +216,50 @@ __device__ __forceinline__ float2 ld_dsmem_f2(uint32_t addr) {
   return v;
 }
 
+// A load of another block's shared memory that the compiler may schedule
+// freely (no volatile, no memory clobber), so that several are in flight:
+// its address must come from a `dsmem_addr` made after the wait that
+// orders it, and its value must be used before the arrival that says it
+// was read.
+__device__ __forceinline__ float4 ld_dsmem_f4(uint32_t addr) {
+  float4 v;
+  asm("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "r"(addr));
+  return v;
+}
+
+// Orders this thread's earlier memory accesses (and those ordered before
+// them, e.g. by a warp barrier) before its later ones, at cluster scope.
+__device__ __forceinline__ void fence_acq_rel_cluster() {
+  asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+}
+
+// Arrive on the barrier at `bar`'s offset in block `rank` of the cluster
+// (this block included), relaxed: after a fence_acq_rel_cluster it
+// releases what the fence ordered.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile("mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   dsmem_addr(bar, rank))
+               : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: what the arriving blocks wrote
+// before their arrivals is visible after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
 // ---- warpgroup register reallocation ---------------------------------------
 
 template <int N>
@@ -713,6 +757,12 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// Arrive on named barrier `id` without waiting; the threads that wait there
+// with named_bar_sync see this thread's earlier shared-memory writes.
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // Four 8 x 8 bf16 matrices to shared memory: lane i gives the address of row
 // i % 8 of matrix i / 8; register j of lane t holds row t / 4, columns
 // 2 * (t % 4) and + 1 of matrix j (the mma accumulator layout, packed).
@@ -779,6 +829,26 @@ inline int make_map_4d(CUtensorMap* map, const void* ptr, int C, int L, int F, i
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A 4-D map (d, heads, L, B) of a packed bf16 (B, L, heads * d) tensor, one
+// head a slab: boxes of `cols` x 1 head x `rows` x 1 in the 128-byte swizzle
+// land as [rows][cols]. The columns of a box past the head's last column
+// read zeros, never the next head's columns (d a multiple of 8).
+inline int make_head_map(CUtensorMap* map, const void* ptr, int d, int heads, int L, int B,
+                         int cols, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t C = (cuuint64_t)heads * d;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, C * 2, (cuuint64_t)L * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

@@ -20,8 +20,10 @@ Head widths (:func:`flash_plan`): the kernels hold d a multiple of 8 up to
 128, and d = 512. Any other d up to 512 runs through a zero pad
 (``head_pad.resize_heads``): to the next multiple of 8 up to 128, to 512
 above it, with the softmax scale of the true d. Past 512 every width runs
-in the xwide kernels (forward, dV, dK and dQ; column slabs of at most 256),
-padded to the next multiple of 8.
+in the xwide kernels (forward, dK/dV and dQ), padded to the next multiple
+of 8: the head's depth split over a thread-block cluster in slices of at
+most 256 columns, on the plan :func:`xwide_plan` computes and the wrapper
+passes to the C entry points.
 """
 
 from __future__ import annotations
@@ -37,9 +39,11 @@ from .head_pad import resize_heads, round_up8
 
 WIDE_HEAD_DIM = 512  # the 512-wide kernels' width; wider heads run in the xwide kernels
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_DKV_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_DQ_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# pointers, the sizes (B, Lq, Lk, heads, d, scale_d), the xwide plan's seven
+# ints (``_plan_args``), the stream
+_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+_DKV_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+_DQ_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 
 # Launches of the CUDA kernels by the width they ran at, "d<=128" (the
 # UNet's heads), "d>128" (the 512-wide kernels: the VAE's single head, and
@@ -78,7 +82,7 @@ def flash_plan(d: int) -> FlashPlan:
         raise ValueError(f"head width {d} unsupported by kernel A: it takes d >= 1")
     w = round_up8(d)
     if d > WIDE_HEAD_DIM:
-        return FlashPlan(w, "Xwide", "XwideDv+XwideDk/XwideDq")
+        return FlashPlan(w, "Xwide", "XwideDkv/XwideDq")
     if w <= 40:
         return FlashPlan(w, "Cfg<48, 40>", "DkvCfg48/DqCfg48")
     if w <= 80:
@@ -89,6 +93,86 @@ def flash_plan(d: int) -> FlashPlan:
     if w == 128:
         return FlashPlan(w, "Cfg<128, 128, swizzled>", "DkvCfg128w/DqCfg128w")
     return FlashPlan(WIDE_HEAD_DIM, "Cfg<512, 256, wide>", "WideDv+WideDk/WideDq")
+
+
+# The xwide kernels (csrc/xwide.cuh): slices of XWIDE_SLICE columns, one
+# 64-row tile a cluster of at most XWIDE_MAX_CLUSTER blocks, shared memory
+# reckoned as the kernels lay it out.
+XWIDE_SLICE = 256
+XWIDE_SLICES = (128, 256)  # the slice widths the kernels are built for
+XWIDE_KEY_TILE = 64
+XWIDE_MAX_CLUSTER = 8
+XWIDE_INFO_SLOTS, XWIDE_INFO_BYTES = 3, 2 * 64 * 4 + 16
+SMEM_LIMIT = 232448  # shared memory a block can use on the H100
+
+
+class XwidePlan(NamedTuple):
+    """How the xwide kernels run a head of d > 512 columns: slices of
+    ``slice`` columns, ``cluster`` blocks a cluster (each one slice of the
+    head's depth), ``groups`` clusters a tile (each writes ``cluster``
+    slices of the output and computes S again), ``key_tile`` keys (or q
+    rows) a streamed step, the ring's pieces of each direction, and the
+    forward's exchange buffers (the backward's is one)."""
+    slice: int
+    cluster: int
+    groups: int
+    key_tile: int
+    fwd_stages: int
+    fwd_exchange: int
+    bwd_stages: int
+
+
+def xwide_smem(plan: XwidePlan, kernel: str) -> int:
+    """Bytes of shared memory a block of the forward (``"fwd"``) or of the
+    dk/dv and dq kernels (``"bwd"``) lays out for ``plan``: its two
+    resident pieces (the Q slices of its two consumer warpgroups; or the
+    two owned tiles), the ring, the exchange buffers (a partial of each
+    consumer warpgroup a buffer), the words ring, the barriers and 1024
+    bytes of alignment (``xwide::Layout``)."""
+    fwd = kernel == "fwd"
+    if not fwd and kernel != "bwd":
+        raise ValueError(f"kernel {kernel!r}: 'fwd' or 'bwd'")
+    stages = plan.fwd_stages if fwd else plan.bwd_stages
+    xbufs = plan.fwd_exchange if fwd else 1
+    piece = plan.key_tile * plan.slice * 2
+    partial = plan.key_tile * plan.key_tile * 4
+    bars = 2 * stages + 2 * XWIDE_INFO_SLOTS + 1 + 2 * xbufs * 2 * 4
+    return ((2 + stages) * piece + 2 * xbufs * partial
+            + XWIDE_INFO_SLOTS * XWIDE_INFO_BYTES + 8 * bars + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def xwide_plan(d: int, slice: int = XWIDE_SLICE) -> XwidePlan:
+    """The xwide kernels' plan for a head of d > 512 columns (d a multiple
+    of 8): ceil(d / slice) slices, at most XWIDE_MAX_CLUSTER a cluster and
+    as many groups of clusters as that takes. The forward (two query tiles
+    a block) double-buffers the exchange beside a ring of 2 pieces (3 fit,
+    and were slower on the H100), 3 past one cluster, where a warpgroup
+    holds both Q slices and K of a depth slice at once; the backward,
+    whose steps hold two pieces each, takes a ring of 4 beside its two
+    owned tiles and one exchange buffer a matrix, whose reuse waits on the
+    cluster's reads."""
+    if d <= WIDE_HEAD_DIM or d % 8:
+        raise ValueError(f"head width {d}: the xwide kernels take d > {WIDE_HEAD_DIM}, "
+                         "a multiple of 8")
+    if slice not in XWIDE_SLICES:
+        raise ValueError(f"slice {slice}: the xwide kernels are built for {XWIDE_SLICES}")
+    slices = -(-d // slice)
+    groups = -(-slices // XWIDE_MAX_CLUSTER)
+    return XwidePlan(slice, -(-slices // groups), groups, XWIDE_KEY_TILE,
+                     fwd_stages=2 if groups == 1 else 3, fwd_exchange=2, bwd_stages=4)
+
+
+def _plan_args(width: int, kernel: str, plan: Optional[XwidePlan] = None) -> tuple:
+    """The seven plan ints of the C entry points (slice, cluster, groups,
+    key tile, stages, exchange buffers, shared-memory bytes): zeros below
+    the xwide kernels' widths."""
+    if width <= WIDE_HEAD_DIM:
+        return (0,) * 7
+    p = plan or xwide_plan(width)
+    fwd = kernel == "fwd"
+    return (p.slice, p.cluster, p.groups, p.key_tile, p.fwd_stages if fwd else p.bwd_stages,
+            p.fwd_exchange if fwd else 1, xwide_smem(p, kernel))
 
 
 def _width_key(width: int) -> str:
@@ -173,7 +257,7 @@ def flash_attention_cuda(q, k, v, heads, key_bias=None):
     fn = cuda_build.function("flash_attention", "hv_flash_fwd", _FWD_ARGTYPES)
     bias_ptr = key_bias.data_ptr() if key_bias is not None else None
     err = fn(qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), bias_ptr, out.data_ptr(),
-             lse.data_ptr(), b, lq, lk, heads, plan.width, d,
+             lse.data_ptr(), b, lq, lk, heads, plan.width, d, *_plan_args(plan.width, "fwd"),
              cuda_build.stream_handle(q.device))
     cuda_build.check(err, "flash attention launch")
     launches[_width_key(plan.width)] += 1
@@ -242,7 +326,7 @@ def flash_attention_backward_cuda(q, k, v, key_bias, g, lse, delta, heads: int):
     stream = cuda_build.stream_handle(q.device)
     common = (qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), bias_ptr, gk.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
-    sizes = (b, lq, lk, heads, plan.width, d, stream)
+    sizes = (b, lq, lk, heads, plan.width, d, *_plan_args(plan.width, "bwd"), stream)
     wide = "" if plan.width <= 128 else "_" + _width_key(plan.width)
     fn = cuda_build.function("flash_attention_bwd", "hv_flash_bwd_dkv", _DKV_ARGTYPES)
     cuda_build.check(fn(*common, dk.data_ptr(), dv.data_ptr(), *sizes),

@@ -15,6 +15,8 @@
         [--against FILE] [--iters N]
     python -m humanvid_tpu_torch.tools.flash_variants --temporal-bwd [variant ...]
         [--against FILE] [--iters N]
+    python -m humanvid_tpu_torch.tools.flash_variants --xwide [variant ...]
+        [--against FWD_FILE] [--against BWD_FILE] [--iters N]
 
 Each variant is ``csrc/flash_attention.cu`` with a few named text edits
 (``VARIANTS``), built by nvcc with the port's flags into ``build/`` and
@@ -73,6 +75,15 @@ the five stage-2 shapes and the stage-1 camera encoder's
 (``TEMPORAL_BWD_SHAPES``), beside SDPA's backward; ``against`` may be the
 first design with its entry point. A timed turn of both is 20 x
 ``--iters`` launches.
+With ``--xwide`` those of kernel A past 512 columns, the xwide forward and
+backward (``XWIDE_VARIANTS``: the plan's slice width, ring stages and
+exchange buffers, which the same build takes as arguments, and hidden key
+tiles computed instead of passed over, an edit of both sources), the
+forward at the long_wide path's level-1 shapes (``XWIDE_SHAPES``) and the
+backward's dk/dv and dq entry points timed apart at its stage-2 shapes
+(``XWIDE_BWD_SHAPES``), each held to its plain version and to the bits of
+``kernel``, beside SDPA; ``--against`` takes a forward source and a
+backward source (an earlier commit's, called with its own entry points).
 At each of kernel A's main-path shapes (``SHAPES``, those of
 ``chip_smoke.py``) every variant that computes the same function is first
 held to the plain version on 128 query rows (``chip_smoke.py``'s limits);
@@ -240,6 +251,65 @@ BWD_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
                                 True),
 }
 
+
+# kernel A past 512 columns (the xwide kernels) at the long_wide path's
+# level-1 shapes: the forward's (name, B, Lq, Lk, heads, d, bias rows) and
+# the backward's, the bias hiding the second half of the keys of its rows
+XWIDE_SHAPES = (("long_wide level1 cond (ref KV) d640", 48, 1536, 3072, 1, 640, 0),
+                ("long_wide level1 batched CFG bias d640", 96, 1536, 3072, 1, 640, 48),
+                ("long_wide level1 uncond d640", 48, 1536, 1536, 1, 640, 0),
+                ("d1280 level1-size", 8, 1536, 3072, 1, 1280, 0))
+XWIDE_BWD_SHAPES = (("long_wide level1 uncond (CFG dropout bias) d640", 48, 1792, 3584, 1, 640,
+                     48),
+                    ("long_wide level1 cond (ref KV) d640", 48, 1792, 3584, 1, 640, 0))
+_NO_SKIP = (("constexpr float kHiddenBias = -1e9f;", None,
+             "constexpr float kHiddenBias = -INFINITY;"),)
+_X_REMOTE_LOADS = "        for (int k = 0; k < 4; ++k) v[k] = ld_dsmem_f4(peer + k * 128 * 16);"
+_X_OWN = ("        for (int k = 0; k < 4; ++k) v[k] = make_float4(x[16 * half + 4 * k], "
+          "x[16 * half + 4 * k + 1], x[16 * half + 4 * k + 2], x[16 * half + 4 * k + 3]);")
+# name: (edits of both sources, edits of csrc/xwide.cuh (inlined into both),
+# the plan's slice, fields of the plan replaced, ablation)
+XWIDE_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], Tuple[Edit, ...], int, Dict[str, int],
+                                bool]] = {
+    "kernel": ((), (), fa.XWIDE_SLICE, {}, False),
+    # slices of 128 columns: d = 640 in 5 blocks a cluster, balanced
+    "slice_128": ((), (), 128, {}, False),
+    # rings of other depths
+    "fwd_stages_3": ((), (), fa.XWIDE_SLICE, {"fwd_stages": 3}, False),
+    "bwd_stages_3": ((), (), fa.XWIDE_SLICE, {"bwd_stages": 3}, False),
+    # the forward's exchange in one buffer (the next tile's partial waits
+    # for the cluster's reads)
+    "fwd_single_exchange": ((), (), fa.XWIDE_SLICE, {"fwd_exchange": 1}, False),
+    # hidden key tiles loaded and multiplied
+    "no_skip": (_NO_SKIP, (), fa.XWIDE_SLICE, {}, False),
+    # ablations of the exchange: the other blocks' partials not read (each
+    # block sums its own n times), or neither read nor waited for
+    "no_remote_loads": ((), ((_X_REMOTE_LOADS, None, _X_OWN),), fa.XWIDE_SLICE, {}, True),
+    "no_exchange": ((), (("  if (xbufs == 1 && use > 0) mbar_wait(empty, (use - 1) & 1);", None,
+                          "  return;"),
+                         ("  mbar_wait(empty, use & 1);\n}", None, "  (void)empty, (void)use;\n}"),
+                         ("  if (uses == 0) return;", None, "  return;")),
+                    fa.XWIDE_SLICE, {}, True),
+}
+
+
+def xwide_variant_plan(name: str, d: int) -> "fa.XwidePlan":
+    """The plan the variant runs a d-wide head on."""
+    _, _, slice_, fields, _ = XWIDE_VARIANTS[name]
+    return fa.xwide_plan(d, slice_)._replace(**fields)
+
+
+def xwide_variant_sources(name: str) -> Tuple[str, str]:
+    """The forward's and the backward's source with the variant's edits;
+    the edits of the shared header are made in a copy inlined in place of
+    its #include."""
+    edits, header_edits = XWIDE_VARIANTS[name][:2]
+    if header_edits:
+        header = variant_source(name, {name: (header_edits, False)}, "xwide.cuh")
+        edits = edits + (('#include "xwide.cuh"\n', None, header),)
+    table = {name: (edits, False)}
+    return (variant_source(name, table, "flash_attention.cu"),
+            variant_source(name, table, "flash_attention_bwd.cu"))
 
 # kernel 9 (csrc/probe_pvt.cu) at the microbench probe's shapes: (name, B,
 # Lq, Lk, heads, d, every 7th key hidden)
@@ -564,6 +634,24 @@ def _build(texts: Dict[str, str], prefix: str = "flash_variant") -> Dict[str, ct
     return libs
 
 
+def _entry_ints(text: str) -> int:
+    """The int parameters of a kernel-A source's C entry points: 13 since
+    the xwide plan was passed in, 6 since the padded head widths (scale_d),
+    5 before."""
+    return 13 if "int x_slice" in text else (6 if "int scale_d" in text else 5)
+
+
+def _entry_sizes(n_ints: int, sizes, scale_d: int, kernel: str,
+                 plan: Optional["fa.XwidePlan"] = None) -> tuple:
+    """``sizes`` (B, Lq, Lk, heads, d) with what an entry point of
+    ``n_ints`` ints takes after them: scale_d, and the xwide plan's ints."""
+    if n_ints == 5:
+        return tuple(sizes)
+    if n_ints == 6:
+        return (*sizes, scale_d)
+    return (*sizes, scale_d, *fa._plan_args(sizes[4], kernel, plan))
+
+
 def _time_ms(fn, iters: int) -> float:
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -602,7 +690,8 @@ def run(names: Sequence[str], iters: int = 5) -> List[dict]:
         def call(name):
             err = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             None if bias is None else bias.data_ptr(), out.data_ptr(),
-                            lse.data_ptr(), B, lq, lk, heads, d, d, stream)
+                            lse.data_ptr(), B, lq, lk, heads, d, d, *fa._plan_args(d, "fwd"),
+                            stream)
             cuda_build.check(err, f"variant {name}")
 
         rows = torch.cat([torch.arange(64, device=dev), torch.arange(lq - 64, lq, device=dev)])
@@ -671,18 +760,13 @@ def run_bwd(names: Sequence[str], iters: int = 5, against: Optional[str] = None)
     texts = {n: variant_source(n, BWD_VARIANTS, "flash_attention_bwd.cu") for n in names}
     if against:
         texts["against"] = Path(against).read_text()
-    # a source without the scale_d argument (before the padded head widths)
-    # is called without it
-    old_entry = {n for n, t in texts.items() if "int scale_d" not in t}
+    entry = {n: _entry_ints(t) for n, t in texts.items()}
     fns = {}
     for name, lib in _build(texts, "flash_bwd_variant").items():
         dkv, dq = lib.hv_flash_bwd_dkv, lib.hv_flash_bwd_dq
         dkv.restype = dq.restype = ctypes.c_int
-        old = name in old_entry
-        dkv.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p] if old
-                        else fa._DKV_ARGTYPES)
-        dq.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] if old
-                       else fa._DQ_ARGTYPES)
+        dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * entry[name] + [ctypes.c_void_p]
+        dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * entry[name] + [ctypes.c_void_p]
         fns[name] = (dkv, dq)
     stream = cuda_build.stream_handle(dev)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -708,7 +792,7 @@ def run_bwd(names: Sequence[str], iters: int = 5, against: Optional[str] = None)
                   delta.data_ptr())
 
         def sizes(name):
-            return (B, lq, lk, heads, d) if name in old_entry else (B, lq, lk, heads, d, d)
+            return _entry_sizes(entry[name], (B, lq, lk, heads, d), d, "bwd")
 
         def call_dkv(name):
             cuda_build.check(fns[name][0](*common, grads[1].data_ptr(), grads[2].data_ptr(),
@@ -754,6 +838,183 @@ def run_bwd(names: Sequence[str], iters: int = 5, against: Optional[str] = None)
                        ablation=name in BWD_VARIANTS and BWD_VARIANTS[name][1], ok=ok,
                        rel_l2=rel, same_bits_as_first=same,
                        device=torch.cuda.get_device_name())
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        del q, k, v, g, lse, delta, grads
+        torch.cuda.empty_cache()
+    return records
+
+
+def run_xwide(names: Sequence[str], iters: int = 5,
+              against: Sequence[str] = ()) -> List[dict]:
+    """The xwide kernels' variants: the forward at ``XWIDE_SHAPES`` and the
+    backward (dk/dv and dq entry points timed apart) at
+    ``XWIDE_BWD_SHAPES``, each held to its plain version (the forward's
+    limits on 128 q rows; the backward's per gradient, all rows) and to the
+    bits of ``kernel``, timed by CUDA events in turns beside SDPA (its
+    backward through autograd). ``against``: another forward source and/or
+    backward source of the same entry points (the parent commit's, which
+    takes its own design and no plan), timed as ``against``. Returns the
+    records (also printed, one JSON line each)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the variants run on the CUDA card, and none is available")
+    dev = torch.device("cuda")
+    sources = {n: xwide_variant_sources(n) for n in names}
+    texts = {}  # one build a distinct source
+    for name, (fwd_text, bwd_text) in sources.items():
+        texts.setdefault(("fwd", fwd_text), f"xwide_fwd_{name}")
+        texts.setdefault(("bwd", bwd_text), f"xwide_bwd_{name}")
+    for path in against:
+        text = Path(path).read_text()
+        kind = "bwd" if "hv_flash_bwd_dkv" in text else "fwd"
+        texts[(kind, text)] = f"xwide_{kind}_against"
+    libs = _build({label: text for (_, text), label in texts.items()}, "flash_xwide_variant")
+    entry = {label: _entry_ints(text) for (_, text), label in texts.items()}
+    calls = {}  # name -> (fwd lib label, bwd lib label)
+    for name, (fwd_text, bwd_text) in sources.items():
+        calls[name] = (texts[("fwd", fwd_text)], texts[("bwd", bwd_text)])
+    if against:
+        labels = [texts[k] for k in texts if texts[k].endswith("_against")]
+        fwd_l = next((x for x in labels if x.startswith("xwide_fwd")), None)
+        bwd_l = next((x for x in labels if x.startswith("xwide_bwd")), None)
+        calls["against"] = (fwd_l, bwd_l)
+    fns = {}
+    for label, lib in libs.items():
+        n = entry[label]
+        if label.startswith("xwide_fwd"):
+            fn = lib.hv_flash_fwd
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns[label] = fn
+        else:
+            dkv, dq = lib.hv_flash_bwd_dkv, lib.hv_flash_bwd_dq
+            dkv.restype = dq.restype = ctypes.c_int
+            dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * n + [ctypes.c_void_p]
+            dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * n + [ctypes.c_void_p]
+            fns[label] = (dkv, dq)
+    stream = cuda_build.stream_handle(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    records = []
+    card = torch.cuda.get_device_name()
+
+    def plan_of(name, d):
+        return xwide_variant_plan(name, d) if name in XWIDE_VARIANTS else None
+
+    def inputs(B, lq, lk, c, bias_rows, with_g):
+        q = torch.randn((B, lq, c), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((B, lk, c), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        g = torch.randn((B, lq, c), generator=gen, device=dev).to(torch.bfloat16) \
+            if with_g else None
+        bias, unmasked = None, B * lk
+        if bias_rows:
+            bias = torch.zeros((B, lk), device=dev)
+            bias[:bias_rows, lk // 2:] = -1e9
+            unmasked -= bias_rows * (lk // 2)
+        return q, k, v, g, bias, unmasked
+
+    for shape, B, lq, lk, heads, d, bias_rows in XWIDE_SHAPES:
+        q, k, v, _, bias, unmasked = inputs(B, lq, lk, heads * d, bias_rows, False)
+        out, lse = torch.empty_like(q), torch.empty((B, heads, lq), device=dev)
+        runs = {n: c[0] for n, c in calls.items() if c[0] is not None}
+
+        def call(name):
+            label = runs[name]
+            sizes = _entry_sizes(entry[label], (B, lq, lk, heads, d), d, "fwd", plan_of(name, d))
+            cuda_build.check(fns[label](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                        None if bias is None else bias.data_ptr(),
+                                        out.data_ptr(), lse.data_ptr(), *sizes, stream),
+                             f"xwide variant {name}")
+
+        rows = torch.cat([torch.arange(64, device=dev), torch.arange(lq - 64, lq, device=dev)])
+        ref, ref_lse = fa.flash_attention_plain(q[:, rows], k, v, heads, bias)
+        checks, first = {}, None
+        for name in runs:
+            call(name)
+            torch.cuda.synchronize()
+            ok, rel = _agree(out[:, rows], ref, FLASH_TOL)
+            lse_err = (lse[:, :, rows] - ref_lse).abs().max().item()
+            if first is None:
+                first = out.clone()
+            checks[name] = (ok and lse_err <= LSE_TOL, rel, lse_err, torch.equal(out, first))
+        del first, ref, ref_lse
+        turns = _turns({name: (lambda name=name: call(name)) for name in runs}, iters)
+        qh, kh, vh = (t.view(B, t.shape[1], heads, d).transpose(1, 2) for t in (q, k, v))
+        mask = None if bias is None else bias.to(torch.bfloat16)[:, None, None, :]
+        sdpa_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask), iters)
+        flops = 4.0 * heads * lq * unmasked * d
+        for name in runs:
+            ms = min(turns[name])
+            ok, rel, lse_err, same = checks[name]
+            plan = plan_of(name, d)
+            ablation = name in XWIDE_VARIANTS and XWIDE_VARIANTS[name][4]
+            rec = dict(mode="xwide_fwd", variant=name, shape=shape, ms=ms, turns=turns[name],
+                       tflops=flops / ms / 1e9, sdpa_ms=sdpa_ms, ablation=ablation,
+                       ok=None if ablation else ok, rel_l2=rel,
+                       lse_err=lse_err, same_bits_as_first=same,
+                       plan=None if plan is None else plan._asdict(), device=card)
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        del q, k, v, out, lse, qh, kh, vh
+        torch.cuda.empty_cache()
+
+    for shape, B, lq, lk, heads, d, bias_rows in XWIDE_BWD_SHAPES:
+        q, k, v, g, bias, unmasked = inputs(B, lq, lk, heads * d, bias_rows, True)
+        o, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
+        delta = fa.attention_delta(g, o, heads)
+        del o
+        refs = fa.flash_attention_backward_plain(q, k, v, bias, g, lse, delta, heads)
+        grads = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  None if bias is None else bias.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr())
+        runs = {n: c[1] for n, c in calls.items() if c[1] is not None}
+
+        def sizes(name):
+            return _entry_sizes(entry[runs[name]], (B, lq, lk, heads, d), d, "bwd",
+                                plan_of(name, d))
+
+        def call_dkv(name):
+            cuda_build.check(fns[runs[name]][0](*common, grads[1].data_ptr(), grads[2].data_ptr(),
+                                                *sizes(name), stream),
+                             f"xwide variant {name} dk/dv")
+
+        def call_dq(name):
+            cuda_build.check(fns[runs[name]][1](*common, grads[0].data_ptr(), *sizes(name),
+                                                stream), f"xwide variant {name} dq")
+
+        checks, first = {}, None
+        for name in runs:
+            call_dkv(name)
+            call_dq(name)
+            torch.cuda.synchronize()
+            agreed = [_agree(got, ref, FLASH_BWD_TOL) for got, ref in zip(grads, refs)]
+            hidden_zero = not bias_rows or all(
+                bool((t[:bias_rows, lk // 2:] == 0).all()) for t in grads[1:])
+            if first is None:
+                first = [t.clone() for t in grads]
+            checks[name] = (all(a[0] for a in agreed) and hidden_zero,
+                            max(a[1] for a in agreed), hidden_zero,
+                            all(torch.equal(a, b) for a, b in zip(grads, first)))
+        del first, refs
+        torch.cuda.empty_cache()
+        turns_dkv = _turns({name: (lambda name=name: call_dkv(name)) for name in runs}, iters)
+        turns_dq = _turns({name: (lambda name=name: call_dq(name)) for name in runs}, iters)
+        sdpa_ms = _sdpa_backward_ms(q, k, v, g, heads, bias, iters)
+        flops = 10.0 * heads * lq * unmasked * d
+        for name in runs:
+            dkv_ms, dq_ms = min(turns_dkv[name]), min(turns_dq[name])
+            ok, rel, hidden_zero, same = checks[name]
+            plan = plan_of(name, d)
+            ablation = name in XWIDE_VARIANTS and XWIDE_VARIANTS[name][4]
+            rec = dict(mode="xwide_bwd", variant=name, shape=shape, ms=dkv_ms + dq_ms,
+                       dkv_ms=dkv_ms, dq_ms=dq_ms, dkv_turns=turns_dkv[name],
+                       dq_turns=turns_dq[name], tflops=flops / (dkv_ms + dq_ms) / 1e9,
+                       sdpa_ms=sdpa_ms, ablation=ablation, ok=None if ablation else ok,
+                       rel_l2=rel, hidden_keys_zero=hidden_zero,
+                       same_bits_as_first=same,
+                       plan=None if plan is None else plan._asdict(), device=card)
             print(json.dumps(rec), flush=True)
             records.append(rec)
         del q, k, v, g, lse, delta, grads
@@ -1265,7 +1526,8 @@ def main(argv: Sequence[str] = None) -> int:
                              f"{', '.join(DMAJOR_VARIANTS)}; with --hbm: {', '.join(HBM_VARIANTS)}; "
                              f"with --gn: {', '.join(GN_VARIANTS)}; with --temporal: "
                              f"{', '.join(TEMPORAL_VARIANTS)}; with --temporal-bwd: "
-                             f"{', '.join(TEMPORAL_BWD_VARIANTS)}")
+                             f"{', '.join(TEMPORAL_BWD_VARIANTS)}; with --xwide: "
+                             f"{', '.join(XWIDE_VARIANTS)}")
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--bwd", action="store_true", help="the backward's variants")
     mode.add_argument("--pvt", action="store_true", help="kernel 9's variants")
@@ -1275,9 +1537,12 @@ def main(argv: Sequence[str] = None) -> int:
     mode.add_argument("--temporal", action="store_true", help="kernel B's forward variants")
     mode.add_argument("--temporal-bwd", action="store_true",
                       help="kernel B's backward variants")
-    parser.add_argument("--against", metavar="FILE",
+    mode.add_argument("--xwide", action="store_true",
+                      help="kernel A's variants past 512 columns, forward and backward")
+    parser.add_argument("--against", metavar="FILE", action="append", default=[],
                         help="with any mode but the forward's: another source of the same "
-                             "kernels, timed as 'against'")
+                             "kernels, timed as 'against' (with --xwide a forward source, "
+                             "a backward source or one of each: give it twice)")
     parser.add_argument("--iters", type=int, default=5,
                         help="launches per timed turn (20 times as many with --dmajor, --hbm, "
                              "--gn, --temporal, --temporal-bwd)")
@@ -1285,7 +1550,8 @@ def main(argv: Sequence[str] = None) -> int:
     modes = {"bwd": (BWD_VARIANTS, run_bwd), "pvt": (PVT_VARIANTS, run_pvt),
              "dmajor": (DMAJOR_VARIANTS, run_dmajor), "hbm": (HBM_VARIANTS, run_hbm),
              "gn": (GN_VARIANTS, run_gn), "temporal": (TEMPORAL_VARIANTS, run_temporal),
-             "temporal_bwd": (TEMPORAL_BWD_VARIANTS, run_temporal_bwd)}
+             "temporal_bwd": (TEMPORAL_BWD_VARIANTS, run_temporal_bwd),
+             "xwide": (XWIDE_VARIANTS, run_xwide)}
     mode_name = next((m for m in modes if getattr(args, m)), None)
     table = modes[mode_name][0] if mode_name else VARIANTS
     names = args.variants or list(table)
@@ -1293,12 +1559,17 @@ def main(argv: Sequence[str] = None) -> int:
     if unknown:
         parser.error(f"unknown variants {unknown}; the variants are {', '.join(table)}")
     if args.against and not mode_name:
-        parser.error("--against needs --bwd, --pvt, --dmajor, --hbm, --gn, --temporal or "
-                     "--temporal-bwd")
+        parser.error("--against needs --bwd, --pvt, --dmajor, --hbm, --gn, --temporal, "
+                     "--temporal-bwd or --xwide")
+    if len(args.against) > (2 if mode_name == "xwide" else 1):
+        parser.error("--against takes one source (with --xwide two)")
     if "kernel" not in names:
         names = ["kernel", *names]
-    if mode_name:
-        records = modes[mode_name][1](names, args.iters, args.against)
+    if mode_name == "xwide":
+        records = run_xwide(names, args.iters, args.against)
+    elif mode_name:
+        records = modes[mode_name][1](names, args.iters,
+                                      args.against[0] if args.against else None)
     else:
         records = run(names, args.iters)
     return 0 if all(r["ok"] is not False for r in records) else 1

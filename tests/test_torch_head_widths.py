@@ -153,8 +153,7 @@ def test_flash_plan_raises_past_512(d):
         with pytest.raises(ValueError, match=f"head width {d} unsupported"):
             fa.flash_plan(d)
     else:
-        assert fa.flash_plan(d) == fa.FlashPlan(round_up8(d), "Xwide",
-                                                "XwideDv+XwideDk/XwideDq")
+        assert fa.flash_plan(d) == fa.FlashPlan(round_up8(d), "Xwide", "XwideDkv/XwideDq")
 
 
 def test_flash_plan_runs_every_width_at_a_width_a_configuration_holds():

@@ -13,7 +13,11 @@ frames and kernel A past 512 columns, against the JAX package.
   in interpret mode, at the tolerances of ``test_torch_flash_attention.py``
   (2e-4 forward, 5e-4 gradients; observed near 1e-6).
 - The plans: d > 512 and f > 32 get the new kernels' plans, every d <= 512
-  and f <= 32 the plan it had.
+  and f <= 32 the plan it had. Past 512 the xwide kernels' cluster plan
+  (``xwide_plan``) at every width from 520 to 4104: slices that are
+  multiples of 16 and cover the head, clusters of at most 8 blocks, and
+  shared memory, reckoned as the kernels lay it out, that a block can use;
+  its constants are those of ``csrc/xwide.cuh``.
 - The slice: the tiny config with one spatial head and a 40-frame motion
   and camera table, pose2vid over 40 frames in one window (2 DDIM steps,
   batched CFG) and one stage-2 loss and its gradients, through the port and
@@ -152,7 +156,7 @@ def test_flash_attention_past_512_columns_matches_jax(d, with_bias):
 
 # ---- the plans ------------------------------------------------------------------------
 
-XWIDE = ("Xwide", "XwideDv+XwideDk/XwideDq")
+XWIDE = ("Xwide", "XwideDkv/XwideDq")
 
 
 @pytest.mark.parametrize("d,plan", [
@@ -168,6 +172,69 @@ XWIDE = ("Xwide", "XwideDv+XwideDk/XwideDq")
 ])
 def test_flash_plan_past_512_and_below(d, plan):
     assert fa.flash_plan(d) == plan
+
+
+def test_xwide_plan_of_every_width_fits_one_block():
+    for d in range(520, 4105, 8):
+        p = fa.xwide_plan(d)
+        assert p.slice % 16 == 0 and p.slice <= 256 and p.key_tile == 64
+        assert 1 <= p.cluster <= 8 and p.groups >= 1
+        slices = p.cluster * p.groups
+        assert slices * p.slice >= d > (slices - p.cluster) * p.slice  # cover, no idle group
+        assert p.fwd_stages >= 2 and p.bwd_stages >= 2 and p.fwd_exchange in (1, 2)
+        assert p.groups == 1 or p.fwd_stages >= 3
+        for kernel in ("fwd", "bwd"):
+            assert fa.xwide_smem(p, kernel) <= fa.SMEM_LIMIT, (d, kernel)
+        assert fa._plan_args(d, "fwd") == (p.slice, p.cluster, p.groups, 64, p.fwd_stages,
+                                           p.fwd_exchange, fa.xwide_smem(p, "fwd"))
+
+
+@pytest.mark.parametrize("d,cluster,groups", [
+    (520, 3, 1),    # a last slice of 8 columns
+    (640, 3, 1),    # long_wide's level 1: 256 + 256 + 128
+    (1280, 5, 1),
+    (2048, 8, 1),   # one cluster's reach at 256 columns a slice
+    (2056, 5, 2),   # past it: two groups of five slices
+    (4104, 6, 3),
+])
+def test_xwide_plan_at_named_widths(d, cluster, groups):
+    p = fa.xwide_plan(d)
+    assert (p.slice, p.cluster, p.groups) == (256, cluster, groups)
+    fwd_stages = 2 if groups == 1 else 3  # both Q slices and K held at once past one cluster
+    assert (p.fwd_stages, p.fwd_exchange, p.bwd_stages) == (fwd_stages, 2, 4)
+    half = fa.xwide_plan(d, 128)  # the variants' slice width
+    assert half.slice == 128 and half.cluster * half.groups * 128 >= d
+
+
+def test_xwide_plan_raises_below_its_widths_and_passes_zeros_there():
+    for d, slice_ in ((512, 256), (644, 256), (640, 192)):
+        with pytest.raises(ValueError):
+            fa.xwide_plan(d, slice_)
+    assert fa._plan_args(512, "bwd") == (0,) * 7 and fa._plan_args(40, "fwd") == (0,) * 7
+
+
+def test_xwide_smem_reckons_as_the_kernels_header():
+    """The wrapper's constants and its reckoning of shared memory are those
+    of ``xwide::Layout`` in csrc/xwide.cuh (which checks the bytes passed
+    to it against its own on the card)."""
+    import re
+
+    from humanvid_tpu_torch.ops import cuda_build
+
+    text = (cuda_build.CSRC / "xwide.cuh").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    assert const("kInfoSlots") == fa.XWIDE_INFO_SLOTS and const("kRows") == fa.XWIDE_KEY_TILE
+    assert const("kMaxCluster") == fa.XWIDE_MAX_CLUSTER and const("kSmemLimit") == fa.SMEM_LIMIT
+    assert "kInfoBytes = 2 * kRows * 4 + 16" in text and fa.XWIDE_INFO_BYTES == 2 * 64 * 4 + 16
+    p = fa.xwide_plan(640)
+    piece, partial = 64 * 256 * 2, 64 * 64 * 4
+    bars_fwd = 2 * 2 + 2 * 3 + 1 + 2 * 2 * 2 * 4
+    assert fa.xwide_smem(p, "fwd") == 4 * piece + 4 * partial + 3 * 528 + 8 * bars_fwd + 1024
+    bars_bwd = 2 * 4 + 2 * 3 + 1 + 2 * 1 * 2 * 4
+    assert fa.xwide_smem(p, "bwd") == 6 * piece + 2 * partial + 3 * 528 + 8 * bars_bwd + 1024
 
 
 @pytest.mark.parametrize("shape,heads,sizes", [

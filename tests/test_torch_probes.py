@@ -252,6 +252,41 @@ def test_temporal_bwd_mode_raises_without_a_card(monkeypatch):
         with pytest.raises(SystemExit):
             flash_variants.main(argv)
 
+@pytest.mark.parametrize("name", sorted(flash_variants.XWIDE_VARIANTS))
+def test_xwide_variant_edits_apply_to_the_kernel_sources(name):
+    """The same for the xwide kernels' variants, on the forward's and the
+    backward's source (the shared header's edits in a copy inlined in
+    place of its #include); the variants without edits run the kernel's
+    own build on another plan, which fits a block."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
+
+    fwd, bwd = flash_variants.xwide_variant_sources(name)
+    edits, header_edits = flash_variants.XWIDE_VARIANTS[name][:2]
+    for text, source in ((fwd, "flash_attention.cu"), (bwd, "flash_attention_bwd.cu")):
+        base = (cuda_build.CSRC / source).read_text()
+        assert (text == base) == (not edits and not header_edits)
+        assert ('#include "xwide.cuh"' in text) == (not header_edits)
+    plan = flash_variants.xwide_variant_plan(name, 640)
+    assert max(fa.xwide_smem(plan, k) for k in ("fwd", "bwd")) <= fa.SMEM_LIMIT
+
+
+def test_xwide_mode_raises_without_a_card(monkeypatch):
+    """``--xwide`` needs the card, takes ``--against`` up to twice (a
+    forward and a backward source), excludes the other modes and takes
+    only its own variants; the other modes take one ``--against``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.run_xwide(["kernel", "no_skip"])
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.main(["--xwide", "slice_128", "--against", "flash_attention.cu",
+                             "--against", "flash_attention_bwd.cu"])
+    for argv in (["--xwide", "--bwd"], ["--xwide", "two_stages"], ["--bwd", "slice_128"],
+                 ["--bwd", "--against", "a.cu", "--against", "b.cu"],
+                 ["--xwide", "--against", "a", "--against", "b", "--against", "c"]):
+        with pytest.raises(SystemExit):
+            flash_variants.main(argv)
+
+
 def test_dmajor_and_hbm_modes_raise_without_a_card(monkeypatch):
     """``--dmajor`` and ``--hbm`` need the card, take ``--against``, exclude
     each other and the other modes, and take only their own variants."""
