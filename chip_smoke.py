@@ -173,6 +173,11 @@ a rank that fails fails the phase):
   ranks' latents the same bits and near the one-process batched run;
   then ``tools.bench_configs`` at its four op-points (3 steps, one run).
 
+``python3 chip_smoke.py --long-wide-steps TREE`` times the long_wide path
+alone with the port of the checkout at TREE (its own kernels, built into
+its own ``build/``), so that two commits compare in one call, in turns:
+``long_wide_steps``.
+
 Every head width the JAX kernels take adds (after the probes, and
 ``heads64`` before stage 1):
 
@@ -200,27 +205,30 @@ The last shapes the JAX kernels take add (after the head widths, and
   and dQ, the head's depth split over a thread-block cluster, each line
   with the cluster plan) at d = 640 (the long_wide path's level-1 shapes:
   sequential cond and uncond, the batched-CFG bias, the stage-2 forward
-  and backward with the CFG-dropout bias), 520 and 1280, and kernel B's
-  long kernels (f >
-  32, forward and backward) at f = 48 (the path's four motion levels, at
-  768x512 forward and 896x512 backward) and f = 33, 64 and 96 at d = 40,
-  160 and 256; each held to its plain version, a repeat launch the same
-  bits, device ms (torch.profiler) and event ms beside the bound, the
-  plain version's and the library's ms;
+  and backward with the CFG-dropout bias), 520 and 1280, and kernel B
+  past 32 frames (the long forward; the backward's frames kernel up to 96
+  frames, its long kernel past that) at f = 48 (the path's four motion
+  levels, at 768x512 forward and 896x512 backward), f = 33, 64 and 96 at
+  d = 40, 160 and 256, and the backward at f = 100, d = 40; each held to
+  its plain version, a repeat launch the same bits, device ms
+  (torch.profiler) and event ms beside the bound, the plain version's and
+  the library's ms;
 - long_wide: ``long_wide_config()`` (one spatial head in both UNets, so
   heads 320, 640 and 1280 wide; motion and camera tables of 48 frames) at
   full width: pose2vid at 768x512x48f in one 48-frame window with
   LONG_WIDE_STEPS DDIM steps, sequential and batched CFG, then one uncond
-  stage-2 step at 896x512x48f (grad checkpointing); checks finite outputs,
-  kernel A's xwide launches at d = 640 (forward; backward in the step),
-  kernel B's long launches at f = 48 (forward and backward), no plain
-  attention on CUDA tensors but the short-sequence route; prints each
-  run's seconds, peak GiB and launches by d and by f.
+  stage-2 step at 896x512x48f (grad checkpointing), then one uncond
+  stage-2 step of ``long_frames_config()`` (motion and camera tables of
+  100 frames) at 256x256x100f; checks finite outputs, kernel A's xwide
+  launches at d = 640 and its mid forward's at d = 320 (forward; backward
+  in the step), kernel B's past 32 frames at f = 48 (the long forward;
+  the backward's frames kernel) and at f = 100 (the backward's long
+  kernel), no plain attention on CUDA tensors but the short-sequence
+  route; prints each run's seconds, peak GiB and launches by d and by f.
 
 Every main-path run (pose2vid, the stage-2 steps, pose2img, the stage-1
 steps, the denoise step and decode of the profile phase, the heads64 and
-long_wide runs,
-the cli run, the train_cli stage-2 and stage-1 runs, the eval generation
+long_wide runs (the 100-frame stage-2 step among them), the cli run, the train_cli stage-2 and stage-1 runs, the eval generation
 and its pose2img run, each rank's dp_train and fanout runs, the pose runs
 and the microbench run) sets every launch count to 0 just before it and
 reads the counts just after.
@@ -393,6 +401,12 @@ def flash_cases():
         ("cli 896x512 level0 batched CFG bias", 48, 7168, 14336, 8, 40, 24),
         ("cli 896x512 level1 batched CFG bias", 48, 1792, 3584, 8, 80, 24),
         ("cli 896x512 VAE mid decode chunk", 8, 7168, 7168, 1, 512, 0),
+        # the long_wide path's level 0 (768x512, one 320-wide head): the mid
+        # kernel, sequential cond (Lk doubled by the reference KV) and
+        # uncond, and batched CFG with the bias
+        ("long_wide level0 cond (ref KV) d320", 48, 6144, 12288, 1, 320, 0),
+        ("long_wide level0 uncond d320", 48, 6144, 6144, 1, 320, 0),
+        ("long_wide level0 batched CFG bias d320", 96, 6144, 12288, 1, 320, 48),
     ]
 
 
@@ -417,6 +431,16 @@ def phase_flash(torch, results, dev, cases):
         again = fa.flash_attention_cuda(q, k, v, heads, bias)
         repeat_same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
         del again
+        width = fa.flash_plan(d).width
+        kernel = _flash_kernel(width)
+        hidden_exact = None
+        if bias_rows and kernel == "flash_fwd_mid":
+            # the keys the bias hides add exactly nothing: other values there
+            # give the same bits
+            v2 = v.clone()
+            v2[:bias_rows, lk // 2:] = torch.randn_like(v2[:bias_rows, lk // 2:])
+            hidden_exact = torch.equal(out, fa.flash_attention_cuda(q, k, v2, heads, bias)[0])
+            del v2
         rows = torch.cat([torch.arange(64, device=dev), torch.arange(lq - 64, lq, device=dev)])
         ref, ref_lse = fa.flash_attention_plain(q[:, rows], k, v, heads, bias)
         torch.cuda.synchronize()
@@ -438,21 +462,25 @@ def phase_flash(torch, results, dev, cases):
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * lse.numel() \
             + (0 if bias is None else 4 * bias.numel())
         b_ms, b_by = bound(flops, nbytes)
-        ok = close and lse_err <= 1e-3 and repeat_same
+        ok = close and lse_err <= 1e-3 and repeat_same and hidden_exact is not False
         share = None if lib is None else ms / lib  # < 1: faster than SDPA
-        width = fa.flash_plan(d).width
-        kernel = _flash_kernel(width)
         extra = {}
-        if kernel == "flash_fwd_xwide":  # its device time beside the event time, its plan
+        if kernel in ("flash_fwd_xwide", "flash_fwd_mid"):
+            # its device time beside the event time, its plan
+            key = kernel + "_kernel"
+            plan = fa.xwide_plan(width) if kernel == "flash_fwd_xwide" else fa.mid_plan(width)
             extra = dict(event_ms=ms, device_ms=_profile_split(
-                torch, lambda: fa.flash_attention_cuda(q, k, v, heads, bias),
-                ("flash_fwd_xwide_kernel",))["flash_fwd_xwide_kernel"],
-                plan=fa.xwide_plan(width)._asdict())
+                torch, lambda: fa.flash_attention_cuda(q, k, v, heads, bias), (key,))[key],
+                plan=plan._asdict())
             ok = ok and extra["device_ms"] > 0
+        if hidden_exact is not None:
+            extra["hidden_keys_exact"] = hidden_exact
         print(f"  {name}: B={B} Lq={lq} Lk={lk} heads={heads} d={d}"
               + (f" (padded to {width})" if width != d else "")
               + f" max_abs_err={err:.3e} rel_l2={rel:.3e} lse_err={lse_err:.3e} "
-              f"repeat same bits={repeat_same} ms={ms:.3f} "
+              f"repeat same bits={repeat_same} "
+              + (f"hidden keys add nothing={hidden_exact} " if hidden_exact is not None else "")
+              + f"ms={ms:.3f} "
               + (f"device_ms={extra['device_ms']:.3f} plan={tuple(extra['plan'].values())} "
                  if extra else "")
               + f"plain_ms={plain_ms:.3f} "
@@ -468,17 +496,22 @@ def phase_flash(torch, results, dev, cases):
 
 
 def _flash_kernel(width):
-    """Kernel A's kernel (the name of its row) for heads run ``width`` wide."""
-    return "flash_fwd" if width <= 128 else ("flash_fwd_d512" if width <= 512
-                                             else "flash_fwd_xwide")
+    """Kernel A's forward kernel (the name of its row) for heads run
+    ``width`` wide."""
+    if width <= 128:
+        return "flash_fwd"
+    if width < 512:
+        return "flash_fwd_mid"
+    return "flash_fwd_d512" if width == 512 else "flash_fwd_xwide"
 
 
 def phase_flash_isolation(torch, dev, direction):
     """Kernel A (forward, or the dk/dv and dq backward) with an Inf in one
     head's q, k, v and g columns at every third position, at d = 40 and 80,
-    64 and 128 (the heads of 5-head configs) and 36 and 192 (through the
-    zero pad), the poisoned head in the middle and last, with and without
-    the bias:
+    64 and 128 (the heads of 5-head configs), 36 (through the zero pad to
+    40) and 192 and 320 (the mid forward; the backward through the zero pad
+    to 512), the poisoned head in the middle and last, with and without the
+    bias:
     every element outside that head's columns (and the forward's lse of the
     other heads) must be finite and the same bits as the clean run. Returns
     ok."""
@@ -486,7 +519,7 @@ def phase_flash_isolation(torch, dev, direction):
 
     b, lq, lk, heads = 2, 300, 700, 8
     ok = True
-    for d in (40, 80, 64, 128, 36, 192):
+    for d in (40, 80, 64, 128, 36, 192, 320):
         c = heads * d
         gen = torch.Generator(device=dev).manual_seed(d)
         clean = [torch.randn((b, n, c), generator=gen, device=dev).to(torch.bfloat16)
@@ -579,14 +612,20 @@ def phase_temporal(torch, results, dev, cases):
                             library_ms=lib, bound_ms=b_ms, bound_by=b_by, same_bits=same, ok=ok))
 
 
-def _temporal_route(ta, c, heads, f):
+def _temporal_route(ta, c, heads, f, backward=False):
     """Which item kernel B runs a head of c // heads columns over f frames
     in: whole heads, or column chunks (the wide kernels), after any zero
-    pad; past ITEM_FRAMES frames the long kernels' pieces."""
+    pad; past ITEM_FRAMES frames the long kernels' pieces, or the
+    backward's frames kernel and its plan."""
     d = c // heads
     width = ta.temporal_width(d)
     plan = ta.temporal_plan(heads * width, heads, f)
     pad = f"padded to {width}, " if width != d else ""
+    frames = ta.long_backward_plan(heads * width, heads, f) if backward else None
+    if frames is not None:
+        item = (f"{frames.heads} heads an item" if frames.chunks == 1
+                else f"{frames.chunks} chunks of {frames.cols} columns")
+        return f"({pad}frames kernel: {item}, {frames.stages} stages, {frames.smem} bytes)"
     if f > ta.ITEM_FRAMES:
         return f"({pad}long kernel: {plan.chunks} pieces of {plan.cols} columns)"
     if plan.chunks > 1:
@@ -707,7 +746,7 @@ def phase_flash_bwd(torch, results, dev, cases):
             bias = torch.zeros((B, lk), device=dev)
             bias[:bias_rows, lk // 2:] = -1e9
             unmasked = B * lk - bias_rows * (lk // 2)
-        width = fa.flash_plan(d).width
+        width = fa.flash_plan(d).backward_width
         wide = width > 128
         xwide = width > 512
         out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
@@ -833,7 +872,8 @@ def phase_temporal_bwd(torch, results, dev, cases):
         del grads, refs
         event_ms = time_ms(torch, run, 10)
         long = f > ta.ITEM_FRAMES
-        key = ("temporal_bwd_long_kernel" if long else "temporal_bwd_wide_kernel"
+        key = ("temporal_bwd_long_kernel" if f > ta.FRAMES_KERNEL_FRAMES
+               else "temporal_bwd_frames_kernel" if long else "temporal_bwd_wide_kernel"
                if d > ta.CHUNK_COLUMNS else "temporal_bwd_kernel")
         ms = _profile_split(torch, run, (key,))[key]
         ok = ok and ms > 0
@@ -850,12 +890,14 @@ def phase_temporal_bwd(torch, results, dev, cases):
         flops = 10.0 * b * l * heads * f * f * d
         b_ms, b_by = bound(flops, 2.0 * 7 * q.numel())
         print(f"  {name}: b={b} f={f} l={l} c={c} heads={heads} d={d} "
-              f"{_temporal_route(ta, c, heads, f)} "
+              f"{_temporal_route(ta, c, heads, f, backward=True)} "
               f"rel_l2 dq/dk/dv={errs[0][1]:.3e}/{errs[1][1]:.3e}/{errs[2][1]:.3e} "
               f"max_err/rms dq/dk/dv={ratios} same_bits={same} "
               f"device_ms={ms:.4f} event_ms={event_ms:.4f} plain_ms={plain_ms:.3f} "
               f"library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
-        results.append(dict(kernel="temporal_bwd_long" if long else "temporal_bwd", shape=name,
+        kernel = ("temporal_bwd_long" if f > ta.FRAMES_KERNEL_FRAMES
+                  else "temporal_bwd_frames" if long else "temporal_bwd")
+        results.append(dict(kernel=kernel, shape=name,
                             d=d, f=f,
                             max_abs_err=max(e[0] for e in errs),
                             rel_l2=max(e[1] for e in errs), ms=ms, event_ms=event_ms,
@@ -866,20 +908,53 @@ def phase_temporal_bwd(torch, results, dev, cases):
         torch.cuda.empty_cache()
 
 
+def phase_temporal_isolation(torch, dev):
+    """Kernel B's backward past 32 frames (the frames kernel, and the long
+    kernel past 96) with an Inf in one head's q, k, v and g columns at
+    every third position: every element outside that head's columns at
+    those positions must be finite and the same bits as the clean run.
+    Returns ok."""
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    ok = True
+    b, l = 2, 30
+    for f, c, heads, hot in ((33, 320, 8, 1), (48, 320, 8, 3), (48, 640, 8, 7), (48, 1280, 8, 2),
+                             (64, 1280, 5, 4), (96, 1280, 5, 2), (96, 320, 8, 7),
+                             (100, 320, 8, 1)):
+        d = c // heads
+        gen = torch.Generator(device=dev).manual_seed(f + c)
+        clean = [torch.randn((b, f, l, c), generator=gen, device=dev).to(torch.bfloat16)
+                 for _ in range(4)]
+        hot_in = [t.clone() for t in clean]
+        for t in hot_in:
+            t[:, :, 1::3, hot * d:(hot + 1) * d] = float("inf")
+        hit = torch.zeros((b, f, l, c), dtype=torch.bool, device=dev)
+        hit[:, :, 1::3, hot * d:(hot + 1) * d] = True
+        grads = [ta.temporal_attention_backward_cuda(*ts, heads) for ts in (clean, hot_in)]
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(got[~hit]).all()) for got in grads[1])
+        same = all(torch.equal(want[~hit], got[~hit]) for want, got in zip(*grads))
+        ok = ok and finite and same
+        print(f"  isolation backward f={f} d={d} Inf in head {hot}: other heads and positions "
+              f"finite {finite}, same bits {same} {'ok' if finite and same else 'FAIL'}")
+    return ok
+
+
 # ---- every head width the kernels take (other head counts, the zero pad) ----
 
 HEADS64_STEPS = 2          # DDIM steps of each heads64 pose2vid run
 LONG_WIDE_STEPS = 2        # DDIM steps of each long_wide pose2vid run
 LONG_WIDE_SIZE = (48, 768, 512)        # frames, height, width: one 48-frame window
 LONG_WIDE_TRAIN_SIZE = (48, 896, 512)  # the stage-2 step's
+LONG_FRAMES_TRAIN_SIZE = (100, 256, 256)  # a stage-2 step past 96 frames
 
 
 def head_width_cases():
     """Kernel A's forward at the widths 5-head configs give (d = 64 at
     level 0 and 128 at level 1 of the 768x512 main path, with the batched
-    CFG bias), d = 96 (8-column boxes, depth padded to 128), and through
-    the zero pad: d = 36 (to 40) and d = 192 (to 512); ragged cases with
-    the bias: (name, B, Lq, Lk, heads, d, bias rows)."""
+    CFG bias), d = 96 (8-column boxes, depth padded to 128), d = 36
+    through the zero pad to 40, and d = 192 (the mid kernel); ragged cases
+    with the bias: (name, B, Lq, Lk, heads, d, bias rows)."""
     return [
         ("heads64 level0 cond (ref KV) d64", 24, 6144, 12288, 5, 64, 0),
         ("heads64 level0 batched CFG bias d64", 48, 6144, 12288, 5, 64, 24),
@@ -890,8 +965,8 @@ def head_width_cases():
         ("level1-size d96", 24, 1536, 3072, 4, 96, 0),
         ("pad d36 to 40, ragged with the bias", 2, 300, 700, 5, 36, 1),
         ("pad d36 to 40, level0-size", 24, 6144, 12288, 5, 36, 0),
-        ("pad d192 to 512, ragged with the bias", 2, 300, 700, 2, 192, 1),
-        ("pad d192 to 512, level1-size", 24, 1536, 3072, 5, 192, 0),
+        ("d192 (mid kernel), ragged with the bias", 2, 300, 700, 2, 192, 1),
+        ("d192 (mid kernel), level1-size", 24, 1536, 3072, 5, 192, 0),
     ]
 
 
@@ -1010,12 +1085,16 @@ def _plain_attention_calls():
 
 def _launches_by_width():
     """Kernel A's and B's launches since the last reset, forward and
-    backward, by the caller's head width (and kernel B's by frame count)."""
+    backward, by the caller's head width (and kernel B's by frame count);
+    kernel A's that ran through the zero pad to 512, by the same width."""
     from humanvid_tpu_torch.ops import flash_attention as fa
     from humanvid_tpu_torch.ops import temporal_attention as ta
 
     return {"flash forward_launches_by_d": dict(sorted(fa.forward_launches_by_d.items())),
             "flash backward_launches_by_d": dict(sorted(fa.backward_launches_by_d.items())),
+            "flash forward_pad_launches_by_d": dict(sorted(fa.forward_pad_launches_by_d.items())),
+            "flash backward_pad_launches_by_d":
+                dict(sorted(fa.backward_pad_launches_by_d.items())),
             "temporal forward_launches_by_d": dict(sorted(ta.forward_launches_by_d.items())),
             "temporal backward_launches_by_d": dict(sorted(ta.backward_launches_by_d.items())),
             "temporal forward_launches_by_f": dict(sorted(ta.forward_launches_by_f.items())),
@@ -1163,8 +1242,10 @@ def long_wide_temporal_cases():
 
 
 def long_wide_temporal_bwd_cases():
-    """Kernel B's long backward at the long_wide stage-2 step's motion
-    levels (896x512x48f) and at f = 33, 64 and 96: (name, b, f, l, c,
+    """Kernel B's backward past 32 frames: the frames kernel at the
+    long_wide stage-2 step's motion levels (896x512x48f) and at f = 33, 64
+    and 96, PR 17's long kernel at f = 100 (the frames kernel's first shape
+    is its headline, the long kernel's its only one): (name, b, f, l, c,
     heads)."""
     return [
         ("long_wide motion level0 f48", 1, 48, 7168, 320, 8),
@@ -1174,14 +1255,15 @@ def long_wide_temporal_bwd_cases():
         ("f33 d40", 1, 33, 7168, 320, 8),
         ("f64 d160", 1, 64, 448, 1280, 8),
         ("f96 d256", 1, 96, 448, 1280, 5),
+        ("f100 d40", 1, 100, 7168, 320, 8),
     ]
 
 
 def long_wide_config():
     """``CamAnimateConfig`` with one attention head in both UNets (spatial
-    heads 320, 640 and 1280 wide: level 0 through the zero pad to 512,
-    level 1 in kernel A's xwide kernels at Lq >= 1024, level 2 on the
-    short-sequence route) and motion and camera position tables of 48
+    heads 320, 640 and 1280 wide: level 0 in kernel A's mid forward and
+    its backward through the zero pad to 512, level 1 in the xwide kernels
+    at Lq >= 1024, level 2 on the short-sequence route) and motion and camera position tables of 48
     frames (motion heads stay 8: d = 40, 80, 160; kernel B's long kernels
     at f = 48)."""
     from humanvid_tpu_torch.models.configs import CameraEncoderConfig, UNetConfig
@@ -1193,6 +1275,75 @@ def long_wide_config():
         camera_encoder=CameraEncoderConfig(position_encoding_max_len=48))
 
 
+def _long_wide_pipeline(torch, np, dev):
+    """``long_wide_config()`` at full width, seeded random weights, bf16:
+    (system, its Pose2VideoPipeline, the seeded 768x512x48f inputs)."""
+    from humanvid_tpu_torch.pipelines import CamAnimate, Pose2VideoPipeline
+
+    F, H, W = LONG_WIDE_SIZE
+    system = CamAnimate(long_wide_config(), device=dev, dtype=torch.bfloat16).init_random(0)
+    return system, Pose2VideoPipeline(system), _inputs(np, F, H, W,
+                                                       system.config.clip.image_size, 0)
+
+
+def _stage2_step_setup(torch, np, dev, config, size):
+    """A stage-2 system of ``config`` at full width (grad checkpointing,
+    seeded random weights, the zero-initialized layers made non-zero), its
+    state and schedule, a seeded bs-1 batch of ``size`` (frames, height,
+    width) and step 0's draws forced uncond (the CFG-dropout bias):
+    (system, state, sched, batch, draws)."""
+    from humanvid_tpu_torch.pipelines import CamAnimate
+    from humanvid_tpu_torch.train import (
+        OptimizerConfig, TrainState, sample_draws, stage2_trainable, stage_config)
+
+    F, H, W = size
+    system = CamAnimate(stage_config(2, config, gradient_checkpointing=True, camera_frames=F),
+                        device=dev, dtype=torch.bfloat16).init_random(0)
+    _unzero_(torch, system, 1)
+    state = TrainState(system, stage2_trainable, OptimizerConfig(warmup_steps=1))
+    sched = system.make_schedule(beta_schedule="scaled_linear")
+    batch = _train_batch(np, 1, F, H, W, system.config.clip.image_size, 10)
+    draws = sample_draws(torch.Generator(device=dev).manual_seed(11), 1, F, H, W,
+                         sched.num_train_timesteps, 0.0)._replace(uncond=True)
+    return system, state, sched, batch, draws
+
+
+def _timed_stage2_step(torch, np, system, state, sched, batch, draws):
+    """One stage-2 step with the launch and plain-attention counts reset
+    just before it: (seconds, launches, by width, plain counts, peak GiB,
+    loss, grad norm, finite)."""
+    from humanvid_tpu_torch.train import TrainConfig, train_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    with _plain_attention_calls() as plain:
+        t0 = time.perf_counter()
+        out = train_step(system, state, sched, TrainConfig(), batch, draws=draws)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches, by_d = _launch_counts(), _launches_by_width()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss, norm = out["loss"].item(), out["grad_norm"].item()
+    finite = np.isfinite(loss) and np.isfinite(norm) and all(
+        bool(torch.isfinite(m).all()) for m in state.masters)
+    return seconds, launches, by_d, dict(plain), peak, loss, norm, finite
+
+
+def long_frames_config():
+    """``CamAnimateConfig`` with motion and camera position tables of
+    LONG_FRAMES_TRAIN_SIZE's frames, past the frames kernel's 96: kernel
+    B's backward there runs in PR 17's long kernel (motion heads d = 40, 80
+    and 160)."""
+    from humanvid_tpu_torch.models.configs import CameraEncoderConfig, UNetConfig
+    from humanvid_tpu_torch.pipelines import CamAnimateConfig
+
+    F = LONG_FRAMES_TRAIN_SIZE[0]
+    return CamAnimateConfig(
+        denoising_unet=UNetConfig(use_motion_module=True, motion_max_len=F),
+        camera_encoder=CameraEncoderConfig(position_encoding_max_len=F))
+
+
 def phase_long_wide(torch, np, dev, card):
     """The long_wide path: ``long_wide_config()`` at full width with seeded
     random weights, bf16: Pose2VideoPipeline at 768x512x48f in one 48-frame
@@ -1200,24 +1351,21 @@ def phase_long_wide(torch, np, dev, card):
     batched CFG (the reference-KV bias through the xwide forward), then one
     stage-2 step at 896x512x48f, bs 1, grad checkpointing, step 0 forced
     uncond (the CFG-dropout bias in both of kernel A's backward entry
-    points). Checks finite outputs, the xwide kernels' launches at d = 640
-    and the long kernels' at f = 48 (forward; backward in the step), and
-    no plain attention on CUDA tensors but the short-sequence route.
+    points). Checks finite outputs, the mid forward's launches at d = 320
+    and none through the zero pad, the xwide kernels' at d = 640 and the
+    long kernels' at f = 48 (forward; backward in the step: the frames
+    kernel), and no plain attention on CUDA tensors but the short-sequence
+    route. Then one stage-2 step of ``long_frames_config()`` at
+    LONG_FRAMES_TRAIN_SIZE (100 frames at 256x256), whose backward past 96
+    frames runs in the long kernel and never in the frames kernel.
     Returns (ok, {run: launches})."""
-    from humanvid_tpu_torch.pipelines import CamAnimate, Pose2VideoPipeline
-    from humanvid_tpu_torch.train import (
-        OptimizerConfig, TrainConfig, TrainState, sample_draws, stage2_trainable,
-        stage_config, train_step)
-
     F, H, W = LONG_WIDE_SIZE
     ok, runs = True, {}
     t0 = time.perf_counter()
-    system = CamAnimate(long_wide_config(), device=dev, dtype=torch.bfloat16).init_random(0)
+    system, pipe, inputs = _long_wide_pipeline(torch, np, dev)
     n_params = sum(p.numel() for m in system.components().values() for p in m.parameters())
     print(f"[long_wide] {card}: CamAnimate with one spatial head and {F}-frame tables, "
           f"{n_params / 1e9:.3f} B params, built in {time.perf_counter() - t0:.1f} s")
-    pipe = Pose2VideoPipeline(system)
-    inputs = _inputs(np, F, H, W, system.config.clip.image_size, 0)
     for mode in ("sequential", "batched"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1235,6 +1383,8 @@ def phase_long_wide(torch, np, dev, card):
         run_ok = (v.shape == (1, F, H, W, 3) and bool(np.isfinite(v).all())
                   and float(v.min()) >= 0.0 and float(v.max()) <= 1.0
                   and launches["flash_fwd_xwide"] > 0 and launches["temporal_fwd_long"] > 0
+                  and launches["flash_fwd_mid"] > 0
+                  and not by_d["flash forward_pad_launches_by_d"]
                   and all(by_d["flash forward_launches_by_d"].get(d, 0) > 0 for d in (320, 640))
                   and by_d["temporal forward_launches_by_f"].get(F, 0) > 0
                   and set(by_d["temporal forward_launches_by_f"]) == {F}
@@ -1251,46 +1401,94 @@ def phase_long_wide(torch, np, dev, card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    F, H, W = LONG_WIDE_TRAIN_SIZE
-    system = CamAnimate(stage_config(2, long_wide_config(), gradient_checkpointing=True,
-                                     camera_frames=F),
-                        device=dev, dtype=torch.bfloat16).init_random(0)
-    _unzero_(torch, system, 1)
-    state = TrainState(system, stage2_trainable, OptimizerConfig(warmup_steps=1))
-    sched = system.make_schedule(beta_schedule="scaled_linear")
-    batch = _train_batch(np, 1, F, H, W, system.config.clip.image_size, 10)
-    draws = sample_draws(torch.Generator(device=dev).manual_seed(11), 1, F, H, W,
-                         sched.num_train_timesteps, 0.0)._replace(uncond=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_launches()
-    with _plain_attention_calls() as plain:
-        t0 = time.perf_counter()
-        out = train_step(system, state, sched, TrainConfig(), batch, draws=draws)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    launches, by_d = _launch_counts(), _launches_by_width()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    loss, norm = out["loss"].item(), out["grad_norm"].item()
-    finite = np.isfinite(loss) and np.isfinite(norm) and all(
-        bool(torch.isfinite(m).all()) for m in state.masters)
-    step_ok = (finite and launches["flash_bwd_xwide"] > 0 and launches["temporal_bwd_long"] > 0
-               and all(by_d["flash backward_launches_by_d"].get(d, 0) > 0 for d in (320, 640))
-               and all(by_d[f"temporal {k}_launches_by_f"].get(F, 0) > 0
-                       for k in ("forward", "backward"))
-               and plain["kernel fallbacks"] == 0 and plain["long sequences"] == 0)
-    ok = ok and step_ok
-    runs["long_wide_train"] = launches
-    print(f"[long_wide] stage-2 step {H}x{W}x{F}f bs 1 (step 0, uncond: the CFG-dropout bias), "
-          f"grad checkpointing: {seconds:.3f} s (with the kernels' first launches at these "
-          f"shapes), peak {peak:.2f} GiB, loss {loss:.5f}, grad norm {norm:.4f}, finite {finite}")
-    print(f"[long_wide]   launches {launches}; {by_d}; plain attention on CUDA tensors "
-          f"{plain} (kernel fallbacks must be 0) {'ok' if step_ok else 'FAIL'}")
+    for run, config, size in (("long_wide_train", long_wide_config(), LONG_WIDE_TRAIN_SIZE),
+                              ("long_frames_train", long_frames_config(),
+                               LONG_FRAMES_TRAIN_SIZE)):
+        F, H, W = size
+        setup = _stage2_step_setup(torch, np, dev, config, size)
+        seconds, launches, by_d, plain, peak, loss, norm, finite = _timed_stage2_step(
+            torch, np, *setup)
+        step_ok = (finite and all(by_d[f"temporal {k}_launches_by_f"].get(F, 0) > 0
+                                  for k in ("forward", "backward"))
+                   and plain["kernel fallbacks"] == 0 and plain["long sequences"] == 0)
+        if run == "long_wide_train":
+            step_ok = (step_ok and launches["flash_bwd_xwide"] > 0
+                       and launches["temporal_bwd_frames"] > 0 and launches["flash_fwd_mid"] > 0
+                       and launches["temporal_bwd_long"] == 0
+                       and not by_d["flash forward_pad_launches_by_d"]
+                       and all(by_d["flash backward_launches_by_d"].get(d, 0) > 0
+                               for d in (320, 640)))
+            what = "one spatial head"
+        else:
+            step_ok = (step_ok and launches["temporal_bwd_long"] > 0
+                       and launches["temporal_bwd_frames"] == 0
+                       and set(by_d["temporal backward_launches_by_f"]) == {F})
+            what = f"{F}-frame tables"
+        ok = ok and step_ok
+        runs[run] = launches
+        print(f"[long_wide] stage-2 step, {what}, {H}x{W}x{F}f bs 1 (step 0, uncond: the "
+              f"CFG-dropout bias), grad checkpointing: {seconds:.3f} s (with the kernels' first "
+              f"launches at these shapes), peak {peak:.2f} GiB, loss {loss:.5f}, grad norm "
+              f"{norm:.4f}, finite {finite}")
+        print(f"[long_wide]   launches {launches}; {by_d}; plain attention on CUDA tensors "
+              f"{plain} (kernel fallbacks must be 0) {'ok' if step_ok else 'FAIL'}")
+        del setup
+        gc.collect()
+        torch.cuda.empty_cache()
     print(f"[long_wide] {card}")
-    del system, state, batch, out
+    return ok, runs
+
+
+def long_wide_steps(tree):
+    """The long_wide path end to end with the port of the checkout at
+    ``tree``: pose2vid at 768x512x48f, 3 DDIM steps in each CFG mode, and 3
+    uncond stage-2 steps at 896x512x48f (the first of each cold), then one
+    more under torch.profiler; prints one JSON line: the steps' seconds,
+    the peaks and the stage-2 step's device ms by kernel. Returns 0."""
+    import os
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from humanvid_tpu_torch.train import TrainConfig, train_step
+
+    dev = torch.device("cuda")
+    rec = {"tree": tree}
+    system, pipe, inputs = _long_wide_pipeline(torch, np, dev)
+    for mode in ("sequential", "batched"):
+        torch.cuda.reset_peak_memory_stats()
+        out = pipe(**inputs, num_inference_steps=3, guidance_scale=3.5,
+                   context_frames=LONG_WIDE_SIZE[0], cfg_mode=mode, decode_chunk=8,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+        rec[f"{mode}_steps"] = [round(x, 4) for x in out.seconds["denoise_steps"]]
+        rec[f"{mode}_peak_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
+    del pipe, system, out
     gc.collect()
     torch.cuda.empty_cache()
-    return ok, runs
+    setup = _stage2_step_setup(torch, np, dev, long_wide_config(), LONG_WIDE_TRAIN_SIZE)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(*setup[:3], TrainConfig(), setup[3], draws=setup[4])
+        torch.cuda.synchronize()
+        steps.append(round(time.perf_counter() - t0, 4))
+    rec["stage2_steps"] = steps
+    rec["stage2_peak_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        train_step(*setup[:3], TrainConfig(), setup[3], draws=setup[4])
+        torch.cuda.synchronize()
+    by_kernel = {e.key[:90]: round(e.self_device_time_total / 1e3, 3)
+                 for e in prof.key_averages() if e.self_device_time_total > 0}
+    rec["stage2_device_ms"] = round(sum(by_kernel.values()), 1)
+    rec["stage2_device_ms_by_kernel"] = dict(
+        sorted(by_kernel.items(), key=lambda kv: -kv[1])[:20])
+    rec["device"] = torch.cuda.get_device_name(0)
+    print(json.dumps(rec), flush=True)
+    return 0
 
 
 def group_norm_cases():
@@ -1750,8 +1948,10 @@ MODEL_KERNELS = MODEL_FWD_KERNELS + ("flash_bwd", "temporal_bwd")
 
 def _launch_counts():
     """Launches of every kernel since the last reset: the six of the model
-    paths, the wide-head backward, the four of the last shapes (kernel A
-    past 512 columns, kernel B past 32 frames) and the three probe
+    paths, the wide-head backward, the five of the last shapes (kernel A
+    past 512 columns; kernel B past 32 frames: the long forward, the
+    backward's frames kernel up to 96 frames and its long kernel past
+    that), kernel A's mid forward (128 < d < 512) and the three probe
     kernels."""
     from humanvid_tpu_torch.ops import flash_attention as fa
     from humanvid_tpu_torch.ops import group_norm as gn
@@ -1767,7 +1967,9 @@ def _launch_counts():
             "flash_fwd_xwide": fa.launches["d>512"],
             "flash_bwd_xwide": min(fa.launches["bwd_dkv_d>512"], fa.launches["bwd_dq_d>512"]),
             "temporal_fwd_long": ta.launches["temporal_long"],
+            "temporal_bwd_frames": ta.launches["temporal_bwd_frames"],
             "temporal_bwd_long": ta.launches["temporal_bwd_long"],
+            "flash_fwd_mid": fa.launches["128<d<512"],
             **pk.launches}
 
 
@@ -3569,13 +3771,15 @@ def kernel_line(results, launches):
     run of its path (the forward kernels and kernel C: pose2vid; the
     backward kernels: the stage-2 training path; the wide-head backward and
     the probe kernels, which no model path runs: the microbench run; the
-    last shapes' kernels: long_wide's sequential pose2vid and its stage-2
-    step); ``launches_by_path`` has every run's counts."""
+    last shapes' kernels and the mid forward: long_wide's sequential
+    pose2vid and its stage-2 steps, the 100-frame one for the long
+    backward); ``launches_by_path`` has every run's counts."""
     paths = {"flash_bwd": "train", "temporal_bwd": "train", "flash_bwd_d512": "microbench",
              "probe_dmajor": "microbench", "probe_pvt": "microbench",
              "probe_hbm": "microbench", "flash_fwd_xwide": "long_wide_sequential",
              "temporal_fwd_long": "long_wide_sequential", "flash_bwd_xwide": "long_wide_train",
-             "temporal_bwd_long": "long_wide_train"}
+             "temporal_bwd_frames": "long_wide_train", "temporal_bwd_long": "long_frames_train",
+             "flash_fwd_mid": "long_wide_sequential"}
     replaces = {
         "flash_fwd": ("humanvid_tpu/ops/flash_attention.py:172", FLASH_SRC),
         "flash_fwd_d512": ("humanvid_tpu/ops/flash_attention.py:96", FLASH_SRC),
@@ -3594,6 +3798,12 @@ def kernel_line(results, launches):
         "flash_bwd_xwide": ("humanvid_tpu/ops/flash_attention.py:354", FLASH_BWD_SRC),
         "temporal_fwd_long": ("humanvid_tpu/ops/temporal_attention.py:81", TEMPORAL_SRC),
         "temporal_bwd_long": ("humanvid_tpu/ops/temporal_attention.py:116", TEMPORAL_BWD_SRC),
+        # kernel B's backward from 33 to 96 frames (the long kernel's past that)
+        "temporal_bwd_frames": ("humanvid_tpu/ops/temporal_attention.py:116",
+                                TEMPORAL_BWD_SRC),
+        # _fwd_kernel at the widths between 128 and 512 (the VAE's 512 is
+        # flash_fwd_d512's)
+        "flash_fwd_mid": ("humanvid_tpu/ops/flash_attention.py:96", FLASH_SRC),
     }
     kernels = []
     for name, (rep, src) in replaces.items():
@@ -3616,10 +3826,11 @@ def kernel_line(results, launches):
             extra = dict(kernel_a_ms=head["kernel_a_ms"],
                          untransposed_ms=head["untransposed_ms"])
         elif name in ("probe_dmajor", "probe_hbm", "temporal_fwd", "temporal_bwd",
-                      "temporal_fwd_long", "temporal_bwd_long"):
+                      "temporal_fwd_long", "temporal_bwd_frames", "temporal_bwd_long"):
             # ms is the device time
             extra = dict(event_ms=head["event_ms"])
-        elif name == "flash_fwd_xwide":  # ms is the event time, as kernel A's other rows
+        elif name in ("flash_fwd_xwide", "flash_fwd_mid"):
+            # ms is the event time, as kernel A's other rows
             extra = dict(event_ms=head["event_ms"], device_ms=head["device_ms"],
                          plan=head["plan"])
         elif name == "group_norm":  # the statistics kernel and the folded apply
@@ -3650,6 +3861,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--long-wide-steps"]:
+        return long_wide_steps(sys.argv[2])
     try:
         import humanvid_tpu_torch  # noqa: F401
     except ImportError as err:
@@ -3681,6 +3894,7 @@ def main() -> int:
     phase_flash_bwd(torch, results, dev, long_wide_flash_bwd_cases())
     phase_temporal(torch, results, dev, long_wide_temporal_cases())
     phase_temporal_bwd(torch, results, dev, long_wide_temporal_bwd_cases())
+    isolation_long = phase_temporal_isolation(torch, dev)
     failed = [f"{r['kernel']} {r['shape']}" for r in results if not r["ok"]]
 
     def check(name, good):
@@ -3689,6 +3903,7 @@ def main() -> int:
 
     check("kernel A forward head isolation", isolation_fwd)
     check("kernel A backward head isolation", isolation_bwd)
+    check("kernel B backward head isolation past 32 frames", isolation_long)
     check("kernel C grad", phase_group_norm_grad(torch, dev))
     check("tiny reference", phase_tiny_reference(torch, np, dev))
     check("tiny train", phase_tiny_train(torch, np, dev))

@@ -2,8 +2,8 @@
 //
 // Replaces: humanvid_tpu/ops/flash_attention.py, the Pallas kernels
 // `_fwd_kernel_t` (:172, d + 1 <= 128) and `_fwd_kernel` (:96, wide heads),
-// both launched by `_flash_fwd` (:323); past d = 512, the xwide kernel at
-// the end of this file.
+// both launched by `_flash_fwd` (:323); past d = 512 the xwide kernel, and
+// for 128 < d < 512 the mid kernel, both near the end of this file.
 //
 // Computes, for each batch row b and head h,
 //   out_h = softmax(q_h k_h^T * d_s^-1/2 + bias[b]) v_h
@@ -797,6 +797,363 @@ int launch_xwide(const void* q, const void* k, const void* v, const void* bias, 
   return (int)cudaGetLastError();
 }
 
+// ---- 128 < d < 512: the forward at the head's own width ---------------------
+//
+// Between 128 and 512 columns the d <= 128 tiles no longer fit, and the
+// d = 512 kernel on a head zero-padded to 512 would multiply zero columns
+// (2.7x the work at d = 192, 1.6x at 320) and compute S twice, after the
+// wrapper's pad copies. Here the head is read through 4-D maps (d, heads,
+// L, B) (`make_head_map`): 64-column swizzled boxes whose columns past the
+// head's last read zeros, never the next head's, so no width of the band
+// needs a copy, and the products run over the width rounded up to 64
+// (DQK). A block is two consumer warpgroups and a producer warp, in one of
+// two layouts (`mid_plan` in ops/flash_attention.py picks it):
+//   rows (DQK = 192, 256: FlashAttention-3's head-dim-256 point; and 320):
+//     the warpgroups own two 64-row query tiles (BQ = 128) and share each K
+//     and V tile; the whole depth of O stays in a warpgroup's registers (64
+//     x 256 fp32: 128 a thread; at 320, 160 a thread, its product in a
+//     256- and a 64-column wgmma, as wgmma's N stops at 256); S is computed
+//     once: 2 DQK units of product work. 64-key tiles in 2 stages up to
+//     256 (Q 64 KB + 2 x (K 32 + V 32) KB), 32-key tiles in 3 stages at
+//     320 (Q 80 KB + 3 x (K 20 + V 20) KB).
+//   columns (DQK = 384, 448, and 512 for 448 < d < 512, where O no longer
+//     fits a warpgroup's registers; 320 only in the variants' ablation,
+//     built there in place of the rows layout):
+//     the d = 512 kernel's split at the head's width. Both warpgroups take
+//     the same 64 query rows, each computes S over DQK and owns DV = DQK /
+//     2 columns of O (160, 192, 224, 256): 3 DQK units of product work
+//     where the pad to 512 took 3 x 512.
+//     A warpgroup's V columns start at DV * wg, no multiple of 64 at 320
+//     and 448, so each warpgroup's V is loaded by boxes of its own from its
+//     first column (the second set's last box reads zeros past d). 64-key
+//     tiles at 320 (Q 40 + 2 x (K 40 + V 48) KB), 32 above.
+// The softmax is flash_fwd_kernel's (log2 domain, the scale of the true d,
+// the bias folded into one FMA, P rounded to bf16 unnormalized), the LSE
+// natural-log at the true width. A key tile whose bias hides every key
+// (<= -1e9, or past Lk) is neither loaded nor multiplied, in a batch row
+// that sees some key: the xwide kernel's rule, which gives the same bits
+// as computing it. Such a tile takes no stage of the ring either: the
+// producer fills stages with the tiles to compute only, each naming its
+// first key, and ends with a stage that names none (turning the ring once
+// a hidden tile, long_wide's batched-CFG call took 16.4 ms on the H100;
+// with this ring and the bias read below, 14.2). No atomics: the same
+// inputs give the same bits.
+// What bounds it: the tensor cores (long_wide's level-0 cond call, 48 x
+// 6144 x 12288 x 320: 4.6e12 operations against 0.9 GB).
+template <int DQK_, bool ROWS_>
+struct MidCfg {
+  static constexpr int DQK = DQK_;
+  static constexpr bool ROWS = ROWS_;
+  static constexpr int DV = ROWS ? DQK : DQK / 2;  // O columns of one consumer warpgroup
+  static constexpr int BQ = ROWS ? 128 : 64;       // query rows per block
+  static constexpr int BK = DQK <= 256 || (!ROWS && DQK <= 320) ? 64 : 32;
+  static constexpr int STAGES = ROWS && DQK > 256 ? 3 : 2;
+  static constexpr int THREADS = 384;
+  static constexpr int QBOX = DQK / 64;        // 64-column boxes of a Q or K row
+  static constexpr int VBOX = (DV + 63) / 64;  // of one warpgroup's V columns
+  static constexpr int VSETS = ROWS ? 1 : 2;   // V column sets of a stage
+  static constexpr int Q_BYTES = BQ * DQK * 2;
+  static constexpr int K_BYTES = BK * DQK * 2;
+  static constexpr int V_BYTES = VSETS * VBOX * BK * 128;
+  static constexpr int INFO_BYTES = BK * 4 + 16;  // the tile's bias words, its skip flag
+  // shared memory: Q, K ring, V ring, words ring, barriers (1024-aligned tiles)
+  static constexpr int OFF_K = Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * K_BYTES;
+  static constexpr int OFF_INFO = OFF_V + STAGES * V_BYTES;
+  static constexpr int OFF_BAR = OFF_INFO + STAGES * INFO_BYTES;
+  static constexpr int SMEM = OFF_BAR + (3 * STAGES + 1) * 8 + 1024;  // + alignment
+  // O in one wgmma's N, or (rows past 256) in a 256 and a 64 piece
+  static_assert(DQK % 64 == 0 && (DV <= 256 || DV == 320), "wgmma's N");
+  static_assert(Q_BYTES % 1024 == 0 && K_BYTES % 1024 == 0 && V_BYTES % 1024 == 0, "");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// The byte offset of 16-deep step kk in a K-major tile of `rows` rows in
+// 64-column swizzled boxes.
+__device__ __forceinline__ uint32_t swizzled_step(int kk, int rows) {
+  return (kk / 4) * rows * 128 + (kk % 4) * 32;
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1)
+flash_fwd_mid_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map, const float* __restrict__ bias,
+                     bf16* __restrict__ out, float* __restrict__ lse, int Lq, int Lk, int heads,
+                     int d, float scale_log2) {
+  constexpr int BQ = C::BQ, BK = C::BK, STAGES = C::STAGES, DV = C::DV;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sQ = smem;
+  unsigned char* sK = smem + C::OFF_K;
+  unsigned char* sV = smem + C::OFF_V;
+  unsigned char* sInfo = smem + C::OFF_INFO;
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);  // K and the words
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty = full_v + STAGES;
+  uint64_t* full_q = empty + STAGES;
+
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_kv = (Lk + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_k[s], 32);  // the producer warp's lanes (the words)
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_init(full_q, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---------------- producer ----------------
+    setmaxnreg_dec<24>();
+    if (warp > 0) return;  // one producer warp
+    const float* bias_b = bias ? bias + (size_t)b * Lk : nullptr;
+    // hidden tiles are passed over only in a batch row that sees some key:
+    // the scan stops at the first 32 keys that hold one (a scan of the
+    // whole row, 12288 keys at long_wide's level 0, delayed every block's
+    // first loads)
+    bool may_skip = false;
+    if (bias_b)
+      for (int i = 0; i < Lk && !may_skip; i += 32)
+        may_skip = __any_sync(0xffffffffu, i + lane < Lk && bias_b[i + lane] > kHiddenBias);
+    if (lane == 0) {
+      tma_prefetch_desc(&q_map);
+      tma_prefetch_desc(&k_map);
+      tma_prefetch_desc(&v_map);
+      mbar_arrive_expect_tx(full_q, C::Q_BYTES);
+      for (int i = 0; i < C::QBOX; ++i)
+        tma_load_4d(sQ + i * BQ * 128, &q_map, full_q, i * 64, h, q0, b);
+    }
+    // the ring holds only the tiles some key of the batch row sees; each
+    // stage's words name its tile's first key, and a last stage with -1
+    // ends the consumers' loop. The bias is read 128 keys a round, 4 a
+    // lane, all loads in flight together: one load's latency a hidden tile
+    // (192 of them a block on the batched-CFG call's uncond rows) added
+    // 1.5 ms to that call on the H100
+    int n = 0;  // stages filled
+    for (int base = 0; base <= n_kv * BK; base += 128) {
+      float x[4];
+      bool hid = true;  // this lane's 4 keys hidden
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = base + 4 * lane + e;
+        x[e] = key < Lk && bias_b ? bias_b[key] : 0.f;
+        hid = hid && (key >= Lk || x[e] <= kHiddenBias);
+      }
+      const unsigned hidden = __ballot_sync(0xffffffffu, hid);
+#pragma unroll
+      for (int t = 0; t < 128 / BK; ++t) {
+        const int k0 = base + t * BK < n_kv * BK ? base + t * BK : -1;
+        constexpr int LANES = BK / 4;  // lanes that hold a tile's keys
+        const unsigned mine = (LANES == 32 ? 0xffffffffu : (1u << LANES) - 1u) << (t * LANES);
+        if (k0 >= 0 && may_skip && (hidden & mine) == mine) continue;
+        const int s = n % STAGES;
+        mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+        ++n;
+        float* words = reinterpret_cast<float*>(sInfo + s * C::INFO_BYTES);
+        if (k0 >= 0 && (mine >> lane) & 1u) {
+          // the bias words, log2 units; keys >= Lk are masked here
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = base + 4 * lane + e;
+            words[key - k0] = key >= Lk ? -INFINITY : x[e] * kLog2e;
+          }
+        }
+        if (lane == 0) {
+          reinterpret_cast<int*>(words)[BK] = k0;
+          if (k0 < 0) {  // the end: nothing loaded
+            mbar_arrive(&full_k[s]);
+          } else {
+            mbar_arrive_expect_tx(&full_k[s], C::K_BYTES);
+            for (int i = 0; i < C::QBOX; ++i)
+              tma_load_4d(sK + s * C::K_BYTES + i * BK * 128, &k_map, &full_k[s], i * 64, h, k0,
+                          b);
+            mbar_arrive_expect_tx(&full_v[s], C::V_BYTES);
+            for (int g = 0; g < C::VSETS; ++g)
+              for (int i = 0; i < C::VBOX; ++i)
+                tma_load_4d(sV + s * C::V_BYTES + (g * C::VBOX + i) * BK * 128, &v_map,
+                            &full_v[s], g * DV + i * 64, h, k0, b);
+          }
+        } else {
+          mbar_arrive(&full_k[s]);
+        }
+        if (k0 < 0) break;
+      }
+    }
+    return;
+  }
+
+  // ---------------- consumers ----------------
+  setmaxnreg_inc<240>();
+  const int qoff = C::ROWS ? 64 * wg : 0;  // this warpgroup's first query row
+  const int voff = C::ROWS ? 0 : DV * wg;  // and first column of O
+  const int c2 = 2 * (lane % 4);
+  const uint64_t q_desc = gmma_desc(smem_u32(sQ) + qoff * 128, 16, 1024, kSwizzle128B);
+  const uint64_t k_desc0 = gmma_desc(smem_u32(sK), 16, 1024, kSwizzle128B);
+  // V as B, MN-major: LBO between 64-column boxes, SBO between 8-key atoms
+  const uint64_t v_desc0 = gmma_desc(smem_u32(sV) + (C::ROWS ? 0 : wg * C::VBOX * BK * 128),
+                                     BK * 128, 1024, kSwizzle128B);
+
+  float o[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  float m_row[2] = {-INFINITY, -INFINITY};  // running max, scaled log2 units
+  float l_row[2] = {0.f, 0.f};              // partial sums over this lane's columns
+  const bool has_bias = bias != nullptr;
+
+  mbar_wait(full_q, 0);  // this block's Q tiles
+  for (int n = 0;; ++n) {
+    const int s = n % STAGES;
+    const uint32_t phase = (n / STAGES) & 1;
+    mbar_wait(&full_k[s], phase);
+    const float* bt = reinterpret_cast<const float*>(sInfo + s * C::INFO_BYTES);
+    const int k0 = reinterpret_cast<const int*>(bt)[BK];
+    if (k0 < 0) break;  // every tile the block computes is done
+
+    // S = Q K^T (64 rows x BK keys) over DQK
+    float sc[BK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::DQK / 16; ++kk)
+      WgmmaSS<BK>::run(sc, q_desc + (swizzled_step(kk, BQ) >> 4),
+                       k_desc0 + ((s * C::K_BYTES + swizzled_step(kk, BK)) >> 4), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // the online softmax of flash_fwd_kernel, in place: sc[4j + e] (key 8j
+    // + c2 + (e & 1) of row g + 8 * (e >> 1)) becomes p
+    const bool use_bias = has_bias || k0 + BK > Lk;
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (use_bias) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * j + c2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[4 * j + e] = fmaf(sc[4 * j + e], scale_log2, (e & 1) ? bb.y : bb.x);
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      mx[0] *= scale_log2;  // scale > 0: the max commutes with it
+      mx[1] *= scale_log2;
+    }
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_row[r], mx[r]);
+      // a row whose keys are all masked so far keeps p = 0, alpha = 0
+      m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = fast_exp2(m_row[r] - m_use[r]);
+      m_row[r] = m_new;
+      l_row[r] *= alpha[r];
+    }
+    const float mul = use_bias ? 1.f : scale_log2;
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) {
+      sc[j] = fast_exp2(fmaf(sc[j], mul, -m_use[(j >> 1) & 1]));
+      l_row[(j >> 1) & 1] += sc[j];
+    }
+    // bf16 P: n8 blocks 2t and 2t+1 form the A fragment of the 16-key step t
+    uint32_t p[BK / 16][4];
+#pragma unroll
+    for (int t = 0; t < BK / 16; ++t) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[t][e] = pack_bf16x2(sc[8 * t + 2 * e], sc[8 * t + 2 * e + 1]);
+    }
+    // O *= alpha, in the warps where a row max moved
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+    }
+
+    // O += P V (16 keys: two 8-key atoms)
+    mbar_wait(&full_v[s], phase);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BK / 16; ++t) {
+      const uint64_t vd = v_desc0 + ((s * C::V_BYTES + t * 2048) >> 4);
+      if constexpr (DV <= 256) {
+        WgmmaRS<DV>::run(o, p[t], vd);
+      } else {  // columns 0..255, then 256..319 (four boxes on)
+        WgmmaRS<256>::run(*reinterpret_cast<float(*)[128]>(o), p[t], vd);
+        WgmmaRS<64>::run(*reinterpret_cast<float(*)[32]>(o + 128), p[t],
+                         vd + ((4 * BK * 128) >> 4));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(p);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // finish the row sums across the 4 lanes that share a row, then store
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
+  }
+  const int row0 = q0 + qoff + 16 * warp + lane / 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Lq) continue;
+    const float inv = 1.f / l_row[r];
+    bf16* orow = out + ((size_t)b * Lq + row) * ((size_t)heads * d) + (size_t)h * d + voff;
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j) {
+      if (voff + 8 * j < d) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c2) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      }
+    }
+    if (voff == 0 && lane % 4 == 0) {
+      lse[((size_t)b * heads + h) * Lq + row] = (m_row[r] + log2f(l_row[r])) * kLn2;
+    }
+  }
+}
+
+template <class C>
+int launch_mid(const void* q, const void* k, const void* v, const void* bias, void* out,
+               void* lse, int B, int Lq, int Lk, int heads, int d, int scale_d,
+               cudaStream_t stream) {
+  CUtensorMap maps[3];
+  int err = make_head_map(&maps[0], q, d, heads, Lq, B, 64, C::BQ);
+  if (!err) err = make_head_map(&maps[1], k, d, heads, Lk, B, 64, C::BK);
+  if (!err) err = make_head_map(&maps[2], v, d, heads, Lk, B, 64, C::BK);
+  if (err) return err;
+  auto kernel = flash_fwd_mid_kernel<C>;
+  cudaError_t e = host_cache.reserve_smem(reinterpret_cast<const void*>(kernel), C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Lq + C::BQ - 1) / C::BQ, heads, B);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const float*>(bias), static_cast<bf16*>(out),
+      static_cast<float*>(lse), Lq, Lk, heads, d, kLog2e / sqrtf((float)scale_d));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Head widths the kernel takes: d a multiple of 8 with d <= 128 (SD's UNet
@@ -807,7 +1164,10 @@ int launch_xwide(const void* q, const void* k, const void* v, const void* bias, 
 // `flash_plan`), else d. Any d > 512 (a multiple of 8) runs in the xwide
 // kernel, on the plan x_* (`xwide_plan`: slice, cluster, groups, key tile,
 // ring stages, exchange buffers, shared-memory bytes) that the wrapper
-// computes; the other widths ignore it.
+// computes. 128 < d < 512 runs at its own width in the mid kernel, on the
+// plan `mid_plan` passes as x_slice (the products' depth DQK >= d) and
+// x_cluster (1: the rows layout, 2: the columns layout), the other five
+// zero. The widths <= 128 and 512 ignore the plan.
 extern "C" int hv_flash_fwd(const void* q, const void* k, const void* v,
                             const void* bias, void* out, void* lse, int B,
                             int Lq, int Lk, int heads, int d, int scale_d, int x_slice,
@@ -828,6 +1188,20 @@ extern "C" int hv_flash_fwd(const void* q, const void* k, const void* v,
   if (d == 512)
     return launch<Cfg<512, 256, true, 2>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d,
                                           scale_d, s);
+  if (d < 512) {
+    if (x_slice < d || x_groups || x_key_tile || x_stages || x_exchange || x_smem)
+      return (int)cudaErrorInvalidValue;
+#define MID(DQK, ROWS) \
+  launch_mid<MidCfg<DQK, ROWS>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, scale_d, s)
+    if (x_cluster == 1 && x_slice == 192) return MID(192, true);
+    if (x_cluster == 1 && x_slice == 256) return MID(256, true);
+    if (x_cluster == 1 && x_slice == 320) return MID(320, true);
+    if (x_cluster == 2 && x_slice == 384) return MID(384, false);
+    if (x_cluster == 2 && x_slice == 448) return MID(448, false);
+    if (x_cluster == 2 && x_slice == 512) return MID(512, false);
+#undef MID
+    return (int)cudaErrorInvalidValue;
+  }
   if (d > 512) {
     const xwide::Plan p{x_slice, x_cluster, x_groups, x_key_tile, x_stages, x_exchange, x_smem};
     // past one cluster a warpgroup holds three pieces at once (both Q slices and K)

@@ -7,7 +7,8 @@
 //   out = softmax_over_frames(q k^T * d^-1/2) v
 // (the forward of csrc/temporal_attention.cu) given g = dL/dout, on
 // q/k/v/g/dq/dk/dv of shape (b, f, l, c) with heads packed in c, f <= 32
-// (more: the long kernel at the end of this file):
+// (more: the frames kernel up to 96 frames, the long kernel past them, near
+// the end of this file):
 //   p  = softmax(q k^T * scale)            (recomputed, fp32)
 //   dv = p^T g
 //   dp = g v^T,  delta = rowsum(dp * p),  ds = p * (dp - delta)
@@ -967,6 +968,551 @@ int launch_long(const void* q, const void* k, const void* v, const void* g, void
   return (int)cudaGetLastError();
 }
 
+// ---- more than 32 frames: the frames kernel --------------------------------
+//
+// The long kernel above reloads its operands for every product (Q and K
+// four times, G and V three times at one slab) from one head's 80-byte row
+// pieces, with nothing overlapped, and reached 3-10% of its byte bound.
+// This kernel takes the item design of the f <= 32 kernels past 32 frames,
+// up to kFramesTiles 16-frame tiles (96 frames; past that the plan keeps
+// the long kernel). An item is one position x all f frames x a chunk of
+// whole heads (`long_backward_plan` in ops/temporal_attention.py: the most
+// heads whose stages leave one spare beside the consumer groups'), loaded
+// by one TMA box a tensor from the 4-D maps (c, l, f, b) into a ring of
+// `stages` stages (a producer warp, mbarriers with transaction counts, a
+// persistent grid). A head wider than the plan's chunk is an item of its
+// own, walked in `chunks` column chunks twice, as the wide kernel does at
+// f <= 32: the first pass loads Q, K, V and G of each chunk and sums S and
+// dP over the chunks (in kPiece-column partials, added in fp32), the
+// second loads Q, K and G again and writes the chunk's gradients.
+// A group of QT = ceil(f / 16) consumer warps works on one head at a time,
+// warp w of the group on query tile w and, for the transposed products,
+// key tile w:
+//   1. S and dP of its query rows (16 x 16 QT each, in registers, by
+//      `mma.sync.m16n8k16` from the stage), the softmax in the log2 domain,
+//      delta, P and dS = P (dP - delta), both rounded to bf16 as the plain
+//      version rounds them and written to shared memory (P and dS, [16 QT]
+//      x [16 QT + 8] each: 9 KB at 48 frames);
+//   2. dV of its key rows = P^T G (A by ldmatrix.trans from P), over V;
+//   3. dQ of its query rows = dS K * scale, over G;
+//   4. dK of its key rows = dS^T Q * scale, over K;
+// with a named barrier of the group's warps after the P and dS writes (the
+// inputs' reads and P and dS whole), and, as each step writes over an input
+// the step before read in every row, between 2, 3 and 4 and before the
+// next head's P and dS writes. Up to 64 columns a warp holds dQ and dK in
+// registers until one barrier says K and G are read, then writes both: two
+// barriers a head. S and dP are computed once. Up to 48 frames a block
+// holds three groups (`frames_groups`, P and dS each), which take the
+// block's items in turn: a group's chain of products, softmax and barriers
+// is latency-bound (on the H100 one group ran level 0 at 31% of its byte
+// bound, two 54%, three 62%, with 80-column items that leave a stage
+// spare). Every
+// warp waits for every stage and frees it, the other groups' too, so that
+// no warp can be lapped by the ring. The gradients leave as in the f <= 32
+// kernels: the producer warp's lane 0 stores each by one bulk copy a frame
+// row once the stage is freed (144 copies an item at 48 frames; the loop
+// must stay free of integer divisions, which doubled the kernel's time,
+// and 32 lanes issuing them were slower than one), then loads the stage
+// again. Rows past f, and columns past a head's (or a chunk's, or a
+// partial's) last in the last 16-deep step, are removed by selects, never
+// by a multiply, as there. No atomics: the same inputs give the same bits.
+constexpr int kFramesTiles = 6;  // 16-frame tiles of the frames kernel: 96 frames
+
+// Consumer groups of a block at QT 16-frame tiles: three up to 48 frames.
+__host__ __device__ constexpr int frames_groups(int QT) { return QT <= 3 ? 3 : 1; }
+// Blocks an SM the registers are budgeted for.
+constexpr int kFramesBlocks = 1;
+// Lanes of the producer warp that issue a stage's gradient copies.
+constexpr int kStoreLanes = 1;
+// The widest head whose dQ and dK a warp holds in registers (one 64-column
+// piece each) until the group has read K and G: two barriers a head, not
+// four.
+constexpr int kFramesHeld = 64;
+
+// Store the gradients a stage holds for the item `w` (columns col ..
+// col + width): dQ from the G tile, dK from the K tile, dV from the V
+// tile, one bulk copy a frame row, rows r0, r0 + n, .. of each by this
+// thread; then commit them as one bulk group.
+__device__ __forceinline__ void frames_store(const Item& w, const bf16* t, int TILE, int CWP,
+                                             bf16* dq, bf16* dk, bf16* dv, int F, int L, int C,
+                                             int col, int width, int r0, int n) {
+  const bf16* src[3] = {t + 3 * TILE, t + TILE, t + 2 * TILE};
+  bf16* dst[3] = {dq, dk, dv};
+  const size_t step = (size_t)n * L * C;  // n frame rows of a gradient
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    bf16* out = dst[g] + (((size_t)w.b * F + r0) * L + w.pos) * C + col;
+    const bf16* in = src[g] + (size_t)r0 * CWP;
+    for (int r = r0; r < F; r += n, out += step, in += (size_t)n * CWP)
+      bulk_store(out, in, (uint32_t)width * 2);
+  }
+  bulk_commit();
+}
+
+__host__ __device__ inline int frames_room_elems(int F, int cwp) {
+  return ((((F + 15) / 16) * 16 - F) * cwp + 63) / 64 * 64;
+}
+
+// The stages' Q, K, V and G tiles ([F][cwp] each), the room past the last
+// for the mma tiles' rows past F, each group's P and dS, the barriers.
+// `long_backward_smem` in ops/temporal_attention.py reckons the same.
+__host__ __device__ inline size_t frames_smem_bytes(int F, int cwp, int stages) {
+  const int FP = (F + 15) / 16 * 16;
+  return 128 + ((size_t)stages * 4 * tile_elems(F, cwp) + (size_t)frames_room_elems(F, cwp) +
+                (size_t)frames_groups(FP / 16) * 2 * FP * (FP + 8)) * 2 + 2 * stages * 8;
+}
+
+// s += Q K^T and dp += G V^T for rows 16 r.. of Q and G against all 16 QT
+// rows of K and V (s[j] is key rows 8j..), over `width` columns from the
+// tiles (rows LD apart), both products in one loop; the columns past width
+// in the last 16-deep step are zeroed in every operand.
+template <int QT>
+__device__ __forceinline__ void frames_rows(float (&s)[2 * QT][4], float (&dp)[2 * QT][4],
+                                            const bf16* sq, const bf16* sk, const bf16* sg,
+                                            const bf16* sv, int LD, int r, int width,
+                                            int lane) {
+  const int arow = (16 * r + lane % 16) * LD + (lane / 16) * 8;
+  const int brow = ((lane % 8) + (lane / 16) * 8) * LD + ((lane / 8) % 2) * 8;
+  for (int kk = 0; 16 * kk < width; ++kk) {
+    const bool tail = 16 * kk + 8 >= width;
+    uint32_t aq[4], ag[4];
+    ldmatrix_x4(aq, sq + arow + kk * 16);
+    ldmatrix_x4(ag, sg + arow + kk * 16);
+    if (tail) aq[2] = aq[3] = ag[2] = ag[3] = 0u;
+#pragma unroll
+    for (int jp = 0; jp < QT; ++jp) {
+      uint32_t bk[4], bv[4];
+      ldmatrix_x4(bk, sk + jp * 16 * LD + brow + kk * 16);
+      ldmatrix_x4(bv, sv + jp * 16 * LD + brow + kk * 16);
+      if (tail) bk[1] = bk[3] = bv[1] = bv[3] = 0u;
+      mma_bf16(s[2 * jp], aq, bk[0], bk[1]);
+      mma_bf16(s[2 * jp + 1], aq, bk[2], bk[3]);
+      mma_bf16(dp[2 * jp], ag, bv[0], bv[1]);
+      mma_bf16(dp[2 * jp + 1], ag, bv[2], bv[3]);
+    }
+  }
+}
+
+template <int QT>
+__device__ __forceinline__ void frames_zero(float (&acc)[2 * QT][4]) {
+#pragma unroll
+  for (int j = 0; j < 2 * QT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+}
+
+// s and dp += the products over `width` columns in kPiece-column partials
+// (each summed from zero by the tensor cores, then added in fp32: the wide
+// kernel's bound on the accumulation's error at d = 1280).
+template <int QT>
+__device__ __forceinline__ void frames_rows_pieces(float (&s)[2 * QT][4],
+                                                   float (&dp)[2 * QT][4], const bf16* sq,
+                                                   const bf16* sk, const bf16* sg,
+                                                   const bf16* sv, int LD, int r, int width,
+                                                   int lane) {
+  for (int off = 0; off < width; off += kPiece) {
+    float ps[2 * QT][4], pdp[2 * QT][4];
+    frames_zero<QT>(ps);
+    frames_zero<QT>(pdp);
+    frames_rows<QT>(ps, pdp, sq + off, sk + off, sg + off, sv + off, LD, r,
+                    min(kPiece, width - off), lane);
+#pragma unroll
+    for (int j = 0; j < 2 * QT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] += ps[j][e];
+        dp[j][e] += pdp[j][e];
+      }
+  }
+}
+
+// From S and dP of query tile r (s, dp: element e of tile j is key 8j +
+// 2 (lane % 4) + (e & 1) of query 16 r + lane / 4 + 8 (e >> 1)): P and dS,
+// zero at query or key frames >= F, rounded to bf16 into rows 16 r.. of sp
+// and sd ([FP][FP + 8]). The selects run only on the 8-key tiles and the
+// 16-row tile that reach frame F (none at f = 48 and 64): at d = 40 the
+// softmax is most of a head's instructions.
+template <int QT>
+__device__ __forceinline__ void frames_softmax(float (&s)[2 * QT][4], float (&dp)[2 * QT][4],
+                                               bf16* sp, bf16* sd, int F, int r,
+                                               float scale_log2, int lane) {
+  constexpr int LDP = 16 * QT + 8;
+  const int c2 = 2 * (lane % 4);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 2 * QT; ++j) {
+    if (8 * j + 8 > F) {  // keys >= F: no logit, no dP
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool key_ok = 8 * j + c2 + (e & 1) < F;
+        s[j][e] = key_ok ? s[j][e] * scale_log2 : -INFINITY;
+        dp[j][e] = key_ok ? dp[j][e] : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+  }
+  float sum[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < 2 * QT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = exp2f(s[j][e] - mx[e >> 1]);
+      sum[e >> 1] += s[j][e];
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+    sum[i] = 1.f / sum[i];
+  }
+#pragma unroll
+  for (int j = 0; j < 2 * QT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] *= sum[e >> 1];
+      delta[e >> 1] += s[j][e] * dp[j][e];
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 1);
+    delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 2);
+  }
+  const int row = 16 * r + lane / 4;
+  const bool rows_ok = 16 * r + 16 <= F;  // no query >= F in this tile
+#pragma unroll
+  for (int j = 0; j < 2 * QT; ++j) {
+    float pv[4], dv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[e] = s[j][e] * (dp[j][e] - delta[e >> 1]);
+    if (!rows_ok || 8 * j + 8 > F) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = 8 * j + c2 + (e & 1) < F && row + 8 * (e >> 1) < F;
+        dv[e] = valid ? dv[e] : 0.f;
+        pv[e] = valid ? s[j][e] : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[e] = s[j][e];
+    }
+    *reinterpret_cast<uint32_t*>(sp + row * LDP + 8 * j + c2) = pack_bf16(pv[0], pv[1]);
+    *reinterpret_cast<uint32_t*>(sp + (row + 8) * LDP + 8 * j + c2) = pack_bf16(pv[2], pv[3]);
+    *reinterpret_cast<uint32_t*>(sd + row * LDP + 8 * j + c2) = pack_bf16(dv[0], dv[1]);
+    *reinterpret_cast<uint32_t*>(sd + (row + 8) * LDP + 8 * j + c2) = pack_bf16(dv[2], dv[3]);
+  }
+}
+
+// The A fragments of rows 16 r.. of X, the 16 QT-square bf16 matrix at sx
+// ([FP][FP + 8]): its rows r (TRANS false) or its columns r (TRANS true:
+// X^T's rows, by ldmatrix.trans), a[t] contracting frames 16 t.. .
+template <int QT, bool TRANS>
+__device__ __forceinline__ void frames_a(uint32_t (&a)[QT][4], const bf16* sx, int r,
+                                         int lane) {
+  constexpr int LDP = 16 * QT + 8;
+#pragma unroll
+  for (int t = 0; t < QT; ++t) {
+    if constexpr (TRANS)
+      ldmatrix_x4_trans(a[t], sx + (16 * t + 8 * (lane / 16) + lane % 8) * LDP + 16 * r +
+                                  8 * ((lane / 8) % 2));
+    else
+      ldmatrix_x4(a[t], sx + (16 * r + lane % 16) * LDP + 16 * t + (lane / 16) * 8);
+  }
+}
+
+// o = A B over the columns n0 .. n0 + min(64, width - n0) of B, from sb
+// (frames LDB apart; rows >= F zeroed in the fragments); o[n] is columns
+// n0 + 8 n.. .
+template <int QT>
+__device__ __forceinline__ void frames_piece(float (&o)[8][4], const uint32_t (&a)[QT][4],
+                                             const bf16* sb, int LDB, int n0, int F, int width,
+                                             int lane) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+  for (int t = 0; t < QT; ++t) {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      if (n0 + 16 * np >= width) break;
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, sb + (t * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LDB + n0 +
+                               np * 16 + (lane / 16) * 8);
+      if (16 * t + 16 > F) {  // only the last tile holds frames >= F
+        // registers 0 and 2 hold frames t*16 + 2*(lane%4) (+1), 1 and 3 eight later
+        const int fr = t * 16 + 2 * (lane % 4);
+        b[0] = mask_frames(b[0], fr, F);
+        b[2] = mask_frames(b[2], fr, F);
+        b[1] = mask_frames(b[1], fr + 8, F);
+        b[3] = mask_frames(b[3], fr + 8, F);
+      }
+      mma_bf16(o[2 * np], a[t], b[0], b[1]);
+      mma_bf16(o[2 * np + 1], a[t], b[2], b[3]);
+    }
+  }
+}
+
+// o times `mul` as bf16 to rows 16 r.. (< F) of dst (LDO apart), columns
+// n0 .. n0 + min(64, width - n0).
+__device__ __forceinline__ void frames_piece_store(const float (&o)[8][4], bf16* dst, int LDO,
+                                                   int r, int n0, int F, int width, float mul,
+                                                   int lane) {
+  const int row = 16 * r + lane / 4;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    if (n0 + 8 * n >= width) break;
+    const int col = n0 + 8 * n + 2 * (lane % 4);
+    if (row < F)
+      *reinterpret_cast<__nv_bfloat162*>(dst + row * LDO + col) =
+          __floats2bfloat162_rn(o[n][0] * mul, o[n][1] * mul);
+    if (row + 8 < F)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (row + 8) * LDO + col) =
+          __floats2bfloat162_rn(o[n][2] * mul, o[n][3] * mul);
+  }
+}
+
+// Rows 16 r.. of X B times `mul` over `width` columns (frames_a,
+// frames_piece), stored as bf16 to dst's rows < F, in pieces of 64 columns.
+template <int QT, bool TRANS>
+__device__ __forceinline__ void frames_grad(const bf16* sx, const bf16* sb, int LDB, bf16* dst,
+                                            int LDO, int r, int F, int width, float mul,
+                                            int lane) {
+  uint32_t a[QT][4];
+  frames_a<QT, TRANS>(a, sx, r, lane);
+  for (int n0 = 0; n0 < width; n0 += 64) {
+    float o[8][4];
+    frames_piece<QT>(o, a, sb, LDB, n0, F, width, lane);
+    frames_piece_store(o, dst, LDO, r, n0, F, width, mul, lane);
+  }
+}
+
+// grid: persistent, at most one block per item; block 32 (G QT + 1).
+template <int QT>
+__global__ void __launch_bounds__(32 * (frames_groups(QT) * QT + 1), kFramesBlocks)
+temporal_bwd_frames_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap g_map, bf16* __restrict__ dq,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int F, int L,
+                           int C, int d, int CW, int CWP, int chunks, int stages,
+                           float scale_log2, float scale) {
+  constexpr int G = frames_groups(QT), FP = 16 * QT, LDP = FP + 8;
+  constexpr int NT = 32 * QT;  // the threads of a consumer group
+  extern __shared__ unsigned char smem_raw[];
+  bf16* tiles = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~static_cast<uintptr_t>(127));
+  const int TILE = tile_elems(F, CWP), STAGE = 4 * TILE;  // Q, K, V, G
+  bf16* pds = tiles + (size_t)stages * STAGE + frames_room_elems(F, CWP);
+  uint64_t* full = reinterpret_cast<uint64_t*>(pds + (size_t)G * 2 * FP * LDP);
+  uint64_t* empty = full + stages;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool wide = chunks > 1;  // one head an item, in chunks, two passes
+  const int per = wide ? 1 : CW / d;           // heads of an item
+  const int per_pos = wide ? C / d : C / CW;   // items of a position
+  const int items = B * L * per_pos;
+  const int steps = wide ? 2 * chunks : 1;     // stages an item takes
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], G * QT);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the gradients of step m leave its stage (a first-pass step of a wide
+  // item has none), by `n` threads of which this is thread i0
+  auto store = [&](int m, int i0, int n) {
+    const int j = m % steps;
+    if (wide && j < chunks) return;
+    const Item w = item_of(blockIdx.x + (m / steps) * gridDim.x, per_pos, L);
+    frames_store(w, tiles + (size_t)(m % stages) * STAGE, TILE, CWP, dq, dk, dv, F, L, C,
+                 wide ? w.chunk * d + (j - chunks) * CW : w.chunk * CW,
+                 wide ? min(CW, d - (j - chunks) * CW) : CW, i0, n);
+  };
+
+  if (warp == G * QT) {
+    // producer warp: once a stage is free, kStoreLanes lanes store its
+    // gradients, each a share of the rows, and lane 0 loads it again after
+    // every copy has read it (each lane waits for its own copies' reads,
+    // then the warp meets, so that no lane spins on the next stage while
+    // lane 0 loads)
+    int n = 0;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const Item w = item_of(it, per_pos, L);
+      for (int j = 0; j < steps; ++j, ++n) {
+        const int s = n % stages;
+        bf16* t = tiles + (size_t)s * STAGE;
+        if (n >= stages) {
+          mbar_wait(&empty[s], ((n / stages) - 1) & 1);
+          if (lane < kStoreLanes) {
+            store(n - stages, lane, kStoreLanes);
+            bulk_wait<0, true>();  // the stores have read the stage the loads below write
+          }
+          __syncwarp();
+        }
+        if (lane == 0) {
+          const bool first = !wide || j < chunks;  // V is loaded in the first pass only
+          const int col = wide ? w.chunk * d + (j % chunks) * CW : w.chunk * CW;
+          mbar_arrive_expect_tx(&full[s], (first ? 4u : 3u) * F * CWP * 2);
+          tma_load_4d(t, &q_map, &full[s], col, w.pos, 0, w.b);
+          tma_load_4d(t + TILE, &k_map, &full[s], col, w.pos, 0, w.b);
+          if (first) tma_load_4d(t + 2 * TILE, &v_map, &full[s], col, w.pos, 0, w.b);
+          tma_load_4d(t + 3 * TILE, &g_map, &full[s], col, w.pos, 0, w.b);
+        }
+        __syncwarp();
+      }
+    }
+    for (int m = n > stages ? n - stages : 0; m < n; ++m) {
+      mbar_wait(&empty[m % stages], (m / stages) & 1);
+      if (lane < kStoreLanes) store(m, lane, kStoreLanes);
+    }
+    bulk_wait<0, false>();
+    return;
+  }
+  // a group's end of a step that holds gradients: its writes before the
+  // bulk copies read them, then the stage freed
+  auto leave = [&](int st) {
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+
+  // consumers: group `group` takes the block's items group, group + G, ..;
+  // its warp `wq` owns query tile wq and key tile wq of every head; every
+  // warp waits for every step and frees it
+  const int group = warp / QT, wq = warp % QT, bar = 1 + group;
+  bf16* sp = pds + (size_t)group * 2 * FP * LDP;
+  bf16* sd = sp + FP * LDP;
+  float s[2 * QT][4], dp[2 * QT][4];
+  int n = 0, mine = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x, ++mine) {
+    if (mine % G != group) {  // the other group's item: its stages pass by
+      for (int j = 0; j < steps; ++j, ++n) {
+        mbar_wait(&full[n % stages], (n / stages) & 1);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[n % stages]);
+      }
+      continue;
+    }
+    if (!wide) {
+      const int st = n % stages;
+      mbar_wait(&full[st], (n / stages) & 1);
+      bf16* tq = tiles + (size_t)st * STAGE;
+      bf16 *tk = tq + TILE, *tv = tq + 2 * TILE, *tg = tq + 3 * TILE;
+      for (int hh = 0; hh < per; ++hh) {
+        const int off = hh * d;
+        frames_zero<QT>(s);
+        frames_zero<QT>(dp);
+        frames_rows<QT>(s, dp, tq + off, tk + off, tg + off, tv + off, CWP, wq, d,
+                        lane);  // S = Q K^T, dP = G V^T
+        if (hh == 0 || d > kFramesHeld)
+          named_bar_sync(bar, NT);  // every warp's reads of the last head's dS done
+        frames_softmax<QT>(s, dp, sp, sd, F, wq, scale_log2, lane);
+        named_bar_sync(bar, NT);  // P and dS whole; every read of V done
+        frames_grad<QT, true>(sp, tg + off, CWP, tv + off, CWP, wq, F, d, 1.f, lane);
+        if (d <= kFramesHeld) {
+          // dQ and dK in registers until every warp has read G and K, then
+          // over them: two barriers a head
+          float oq[8][4], ok[8][4];
+          uint32_t a[QT][4];
+          frames_a<QT, false>(a, sd, wq, lane);
+          frames_piece<QT>(oq, a, tk + off, CWP, 0, F, d, lane);
+          frames_a<QT, true>(a, sd, wq, lane);
+          frames_piece<QT>(ok, a, tq + off, CWP, 0, F, d, lane);
+          named_bar_sync(bar, NT);  // every read of G, K, Q and dS done
+          frames_piece_store(oq, tg + off, CWP, wq, 0, F, d, scale, lane);
+          frames_piece_store(ok, tk + off, CWP, wq, 0, F, d, scale, lane);
+          continue;
+        }
+        named_bar_sync(bar, NT);  // every read of G done
+        frames_grad<QT, false>(sd, tk + off, CWP, tg + off, CWP, wq, F, d, scale, lane);
+        named_bar_sync(bar, NT);  // every read of K done
+        frames_grad<QT, true>(sd, tq + off, CWP, tk + off, CWP, wq, F, d, scale, lane);
+      }
+      leave(st);
+      ++n;
+      continue;
+    }
+    // a wide item: S and dP summed over the chunks, then the gradients
+    frames_zero<QT>(s);
+    frames_zero<QT>(dp);
+    for (int c = 0; c < chunks; ++c, ++n) {
+      const int st = n % stages;
+      mbar_wait(&full[st], (n / stages) & 1);
+      const bf16* tq = tiles + (size_t)st * STAGE;
+      const int width = min(CW, d - c * CW);
+      frames_rows_pieces<QT>(s, dp, tq, tq + TILE, tq + 3 * TILE, tq + 2 * TILE, CWP, wq,
+                             width, lane);  // Q K^T, G V^T
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+    named_bar_sync(bar, NT);  // every warp's dK of the last item has read dS
+    frames_softmax<QT>(s, dp, sp, sd, F, wq, scale_log2, lane);
+    named_bar_sync(bar, NT);
+    for (int c = 0; c < chunks; ++c, ++n) {
+      const int st = n % stages;
+      mbar_wait(&full[st], (n / stages) & 1);
+      bf16* tq = tiles + (size_t)st * STAGE;
+      bf16 *tk = tq + TILE, *tv = tq + 2 * TILE, *tg = tq + 3 * TILE;
+      const int width = min(CW, d - c * CW);
+      // dV into the V tile (not loaded in this pass)
+      frames_grad<QT, true>(sp, tg, CWP, tv, CWP, wq, F, width, 1.f, lane);
+      named_bar_sync(bar, NT);  // every read of G done
+      frames_grad<QT, false>(sd, tk, CWP, tg, CWP, wq, F, width, scale, lane);
+      named_bar_sync(bar, NT);  // every read of K done
+      frames_grad<QT, true>(sd, tq, CWP, tk, CWP, wq, F, width, scale, lane);
+      leave(st);
+    }
+  }
+}
+
+template <int QT>
+int launch_frames_kernel(const void* q, const void* k, const void* v, const void* g, void* dq,
+                         void* dk, void* dv, int B, int F, int L, int heads, int d, int CW,
+                         int CWP, int chunks, int stages, int smem, int scale_d,
+                         cudaStream_t stream) {
+  const int C = heads * d;
+  CUtensorMap maps[4];
+  int err = make_map_4d(&maps[0], q, C, L, F, B, CWP, 1, F);
+  if (!err) err = make_map_4d(&maps[1], k, C, L, F, B, CWP, 1, F);
+  if (!err) err = make_map_4d(&maps[2], v, C, L, F, B, CWP, 1, F);
+  if (!err) err = make_map_4d(&maps[3], g, C, L, F, B, CWP, 1, F);
+  if (err) return err;
+  const int bytes = (int)frames_smem_bytes(F, CWP, stages);
+  if (bytes != smem || bytes > 232448) return (int)cudaErrorInvalidValue;
+  auto kernel = temporal_bwd_frames_kernel<QT>;
+  constexpr int kThreadsF = 32 * (frames_groups(QT) * QT + 1);
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  cudaError_t e = host_cache.reserve_smem(fn, bytes);
+  if (e != cudaSuccess) return (int)e;
+  int slots = 0;  // blocks the card holds at once: the persistent grid
+  e = host_cache.get(fn, bytes, 0, &slots, [&](int* value) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t r = cudaGetDevice(&dev);
+    if (r == cudaSuccess) r = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (r == cudaSuccess)
+      r = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreadsF, bytes);
+    *value = sms * per_sm;
+    return r;
+  });
+  if (e != cudaSuccess) return (int)e;
+  if (slots < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long items = (long long)B * L * (chunks > 1 ? heads : C / CW);
+  const int grid = (int)(items < slots ? items : slots);
+  const float scale = 1.f / sqrtf((float)scale_d);
+  kernel<<<grid, kThreadsF, bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), B, F, L, C, d, CW, CWP, chunks, stages, scale * kLog2e, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Head widths the kernel takes: d a multiple of 8, d <= 160 (the motion
@@ -976,15 +1522,21 @@ int launch_long(const void* q, const void* k, const void* v, const void* g, void
 // = ceil(d / chunks) rounded up to 8 columns (heads_per_item = 1). Either is
 // loaded `cwp` columns wide (the wrapper's `temporal_plan`). The logits are
 // scaled by scale_d^-1/2, 1 <= scale_d <= d (the true width of a head the
-// wrapper zero-pads, else d). Past kMaxFrames frames (any f), every d a
-// multiple of 8 up to 1280 runs in the long kernel, with the forward's plan
+// wrapper zero-pads, else d). Past kMaxFrames frames, up to 16 kFramesTiles,
+// the frames kernel takes the same items (`long_backward_plan`: any d a
+// multiple of 8 up to 1280, in chunks of at most 160 columns, whole heads or
+// one head in chunks) in a ring of `stages` >= 2 stages, `smem` the bytes
+// the plan reckons for them (the kernel checks them against its own). With
+// stages = 0 (past 16 kFramesTiles frames, any f), every d a multiple of 8
+// up to 1280 runs in the long kernel, with the forward's plan
 // (heads_per_item = 1, chunks = ceil(d / tiles::kPiece), cwp = tiles::kLd).
+// Up to kMaxFrames frames `stages` and `smem` are not read.
 extern "C" int hv_temporal_bwd(const void* q, const void* k, const void* v, const void* g,
                                void* dq, void* dk, void* dv, int B, int F, int L, int heads,
                                int d, int heads_per_item, int cwp, int chunks, int scale_d,
-                               void* stream) {
+                               int stages, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (F > kMaxFrames) {
+  if (F > kMaxFrames && stages == 0) {
     if (B < 1 || L < 1 || d <= 0 || d % 8 != 0 || d > 8 * kChunkColumns || heads < 1 ||
         heads_per_item != 1 || cwp != tiles::kLd ||
         chunks != (d + tiles::kPiece - 1) / tiles::kPiece || scale_d < 1 || scale_d > d ||
@@ -999,6 +1551,21 @@ extern "C" int hv_temporal_bwd(const void* q, const void* k, const void* v, cons
       cwp < CW + 8 || (cwp / 8) % 2 != 1 || scale_d < 1 || scale_d > d ||
       (long long)B * heads * d * F * L >= (1LL << 40))
     return (int)cudaErrorInvalidValue;
+  if (F > kMaxFrames) {
+    if (F > 16 * kFramesTiles || stages < 2 || d > 8 * kChunkColumns || CW > kChunkColumns ||
+        (chunks > 1 && (chunks - 1) * CW >= d))
+      return (int)cudaErrorInvalidValue;
+#define FRAMES_KERNEL(QT)                                                                     \
+  launch_frames_kernel<QT>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, cwp, chunks, stages, \
+                           smem, scale_d, s)
+    switch ((F + 15) / 16) {
+      case 3: return FRAMES_KERNEL(3);
+      case 4: return FRAMES_KERNEL(4);
+      case 5: return FRAMES_KERNEL(5);
+      default: return FRAMES_KERNEL(6);
+    }
+#undef FRAMES_KERNEL
+  }
   if (chunks > 1) {
     if (d <= kChunkColumns || d > 8 * kChunkColumns || CW > kChunkColumns ||
         (chunks - 1) * CW >= d)

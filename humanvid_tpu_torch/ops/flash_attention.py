@@ -18,12 +18,15 @@ through :func:`flash_attention_backward_plain`.
 
 Head widths (:func:`flash_plan`): the kernels hold d a multiple of 8 up to
 128, and d = 512. Any other d up to 512 runs through a zero pad
-(``head_pad.resize_heads``): to the next multiple of 8 up to 128, to 512
-above it, with the softmax scale of the true d. Past 512 every width runs
-in the xwide kernels (forward, dK/dV and dQ), padded to the next multiple
-of 8: the head's depth split over a thread-block cluster in slices of at
-most 256 columns, on the plan :func:`xwide_plan` computes and the wrapper
-passes to the C entry points.
+(``head_pad.resize_heads``) to the next multiple of 8, with the softmax
+scale of the true d; between 128 and 512 the forward runs at that width in
+the mid kernel (its layout from :func:`mid_plan`), and the backward
+through the zero pad to 512 (zero columns add nothing to S, so the LSE of
+the forward at the true width is the LSE the padded backward needs). Past
+512 every width runs in the xwide kernels (forward, dK/dV and dQ), padded
+to the next multiple of 8: the head's depth split over a thread-block
+cluster in slices of at most 256 columns, on the plan :func:`xwide_plan`
+computes and the wrapper passes to the C entry points.
 """
 
 from __future__ import annotations
@@ -46,32 +49,69 @@ _DKV_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 _DQ_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 
 # Launches of the CUDA kernels by the width they ran at, "d<=128" (the
-# UNet's heads), "d>128" (the 512-wide kernels: the VAE's single head, and
-# heads padded to 512) and "d>512" (the xwide kernels): the forward and the
-# backward's two entry points.
-launches = {"d<=128": 0, "d>128": 0, "d>512": 0, "bwd_dkv": 0, "bwd_dq": 0,
+# UNet's heads), "128<d<512" (the mid forward), "d>128" (the 512-wide
+# kernels: the VAE's single head, and the backward of heads padded to 512)
+# and "d>512" (the xwide kernels): the forward and the backward's two entry
+# points.
+launches = {"d<=128": 0, "128<d<512": 0, "d>128": 0, "d>512": 0, "bwd_dkv": 0, "bwd_dq": 0,
             "bwd_dkv_d>128": 0, "bwd_dq_d>128": 0, "bwd_dkv_d>512": 0, "bwd_dq_d>512": 0}
 # The forward's and the backward's launches by the caller's head width
-# (before any pad): {d: count}.
+# (before any pad): {d: count}; and those of them that ran through the zero
+# pad past the next multiple of 8 (to 512).
 forward_launches_by_d: dict = {}
 backward_launches_by_d: dict = {}
+forward_pad_launches_by_d: dict = {}
+backward_pad_launches_by_d: dict = {}
 
 
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
-    forward_launches_by_d.clear()
-    backward_launches_by_d.clear()
+    for counts in (forward_launches_by_d, backward_launches_by_d, forward_pad_launches_by_d,
+                   backward_pad_launches_by_d):
+        counts.clear()
+
+
+def _count(by_d: dict, pad_by_d: dict, d: int, width: int) -> None:
+    by_d[d] = by_d.get(d, 0) + 1
+    if width > round_up8(d):
+        pad_by_d[d] = pad_by_d.get(d, 0) + 1
 
 
 class FlashPlan(NamedTuple):
-    """How the kernels run a d-wide head: at ``width`` columns (d, or d
-    zero-padded), through the forward's configuration ``forward`` in
-    ``csrc/flash_attention.cu`` and the backward's ``backward`` in
-    ``csrc/flash_attention_bwd.cu`` (dk/dv, dq)."""
+    """How the kernels run a d-wide head: the forward at ``width`` columns
+    (d, or d zero-padded to the next multiple of 8) through its
+    configuration ``forward`` in ``csrc/flash_attention.cu``, the backward
+    at ``backward_width`` columns (``width``, or 512 through the zero pad)
+    through ``backward`` in ``csrc/flash_attention_bwd.cu`` (dk/dv, dq)."""
     width: int
     forward: str
     backward: str
+    backward_width: int
+
+
+# The mid forward (128 < d < 512): the products' depth (d rounded up to 64)
+# and its layout, "rows" (two 64-row query tiles, O whole in each
+# warpgroup) or "columns" (one 64-row tile, O's columns split between the
+# two warpgroups): the widths each layout is built for, and each width's
+# layout.
+MID_WIDTHS = {"rows": (192, 256, 320), "columns": (384, 448, 512)}
+MID_LAYOUTS = {w: layout for layout, widths in MID_WIDTHS.items() for w in widths}
+
+
+class MidPlan(NamedTuple):
+    width: int
+    layout: str
+
+
+@functools.lru_cache(maxsize=None)
+def mid_plan(d: int) -> MidPlan:
+    """The mid forward's plan for 128 < d < 512 (d a multiple of 8): d
+    rounded up to 64 in the layout MID_LAYOUTS names."""
+    if not WIDE_HEAD_DIM // 4 < d < WIDE_HEAD_DIM or d % 8:
+        raise ValueError(f"head width {d}: the mid forward takes 128 < d < 512, a multiple of 8")
+    w = -(-d // 64) * 64
+    return MidPlan(w, MID_LAYOUTS[w])
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,17 +122,21 @@ def flash_plan(d: int) -> FlashPlan:
         raise ValueError(f"head width {d} unsupported by kernel A: it takes d >= 1")
     w = round_up8(d)
     if d > WIDE_HEAD_DIM:
-        return FlashPlan(w, "Xwide", "XwideDkv/XwideDq")
+        return FlashPlan(w, "Xwide", "XwideDkv/XwideDq", w)
     if w <= 40:
-        return FlashPlan(w, "Cfg<48, 40>", "DkvCfg48/DqCfg48")
+        return FlashPlan(w, "Cfg<48, 40>", "DkvCfg48/DqCfg48", w)
     if w <= 80:
         return FlashPlan(w, "Cfg<80, 80>", "DkvCfg80s/DqCfg80s" if w % 16 == 0
-                         else "DkvCfg80/DqCfg80")
+                         else "DkvCfg80/DqCfg80", w)
     if w < 128:
-        return FlashPlan(w, "Cfg<128, 128>", "DkvCfg128/DqCfg128")
+        return FlashPlan(w, "Cfg<128, 128>", "DkvCfg128/DqCfg128", w)
     if w == 128:
-        return FlashPlan(w, "Cfg<128, 128, swizzled>", "DkvCfg128w/DqCfg128w")
-    return FlashPlan(WIDE_HEAD_DIM, "Cfg<512, 256, wide>", "WideDv+WideDk/WideDq")
+        return FlashPlan(w, "Cfg<128, 128, swizzled>", "DkvCfg128w/DqCfg128w", w)
+    if w == WIDE_HEAD_DIM:
+        return FlashPlan(w, "Cfg<512, 256, wide>", "WideDv+WideDk/WideDq", w)
+    mid = mid_plan(w)
+    return FlashPlan(w, f"Mid<{mid.width}, {mid.layout}>", "WideDv+WideDk/WideDq",
+                     WIDE_HEAD_DIM)
 
 
 # The xwide kernels (csrc/xwide.cuh): slices of XWIDE_SLICE columns, one
@@ -163,10 +207,15 @@ def xwide_plan(d: int, slice: int = XWIDE_SLICE) -> XwidePlan:
                      fwd_stages=2 if groups == 1 else 3, fwd_exchange=2, bwd_stages=4)
 
 
-def _plan_args(width: int, kernel: str, plan: Optional[XwidePlan] = None) -> tuple:
-    """The seven plan ints of the C entry points (slice, cluster, groups,
-    key tile, stages, exchange buffers, shared-memory bytes): zeros below
-    the xwide kernels' widths."""
+def _plan_args(width: int, kernel: str, plan=None) -> tuple:
+    """The seven plan ints of the C entry points: past 512 the xwide plan
+    (slice, cluster, groups, key tile, stages, exchange buffers,
+    shared-memory bytes); the mid forward's (its width, 1 for the rows
+    layout or 2 for the columns layout, five zeros); zeros at the other
+    widths."""
+    if 128 < width < WIDE_HEAD_DIM and kernel == "fwd":
+        mid = plan or mid_plan(width)
+        return (mid.width, 1 if mid.layout == "rows" else 2, 0, 0, 0, 0, 0)
     if width <= WIDE_HEAD_DIM:
         return (0,) * 7
     p = plan or xwide_plan(width)
@@ -175,9 +224,14 @@ def _plan_args(width: int, kernel: str, plan: Optional[XwidePlan] = None) -> tup
             p.fwd_exchange if fwd else 1, xwide_smem(p, kernel))
 
 
-def _width_key(width: int) -> str:
-    """The launch counter of the kernels that run a head ``width`` wide."""
-    return "d<=128" if width <= 128 else ("d>128" if width <= WIDE_HEAD_DIM else "d>512")
+def _width_key(width: int, kernel: str = "bwd") -> str:
+    """The launch counter of the forward (``"fwd"``) or backward kernels
+    that run a head ``width`` wide."""
+    if width <= 128:
+        return "d<=128"
+    if kernel == "fwd" and width < WIDE_HEAD_DIM:
+        return "128<d<512"
+    return "d>128" if width <= WIDE_HEAD_DIM else "d>512"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -260,8 +314,8 @@ def flash_attention_cuda(q, k, v, heads, key_bias=None):
              lse.data_ptr(), b, lq, lk, heads, plan.width, d, *_plan_args(plan.width, "fwd"),
              cuda_build.stream_handle(q.device))
     cuda_build.check(err, "flash attention launch")
-    launches[_width_key(plan.width)] += 1
-    forward_launches_by_d[d] = forward_launches_by_d.get(d, 0) + 1
+    launches[_width_key(plan.width, "fwd")] += 1
+    _count(forward_launches_by_d, forward_pad_launches_by_d, d, plan.width)
     return resize_heads(out, heads, d), lse
 
 
@@ -320,14 +374,15 @@ def flash_attention_backward_cuda(q, k, v, key_bias, g, lse, delta, heads: int):
             raise ValueError(f"{name} must be contiguous fp32 {(b, heads, lq)} on q's device")
     if min(b, lq, lk) < 1 or heads > 65535 or b > 65535:
         raise ValueError(f"unsupported sizes b={b} lq={lq} lk={lk} heads={heads}")
-    qk, kk, vk, gk = _kernel_inputs(heads, plan.width, q=q, k=k, v=v, g=g)
+    width = plan.backward_width
+    qk, kk, vk, gk = _kernel_inputs(heads, width, q=q, k=k, v=v, g=g)
     dq, dk, dv = torch.empty_like(qk), torch.empty_like(kk), torch.empty_like(vk)
     bias_ptr = key_bias.data_ptr() if key_bias is not None else None
     stream = cuda_build.stream_handle(q.device)
     common = (qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), bias_ptr, gk.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
-    sizes = (b, lq, lk, heads, plan.width, d, *_plan_args(plan.width, "bwd"), stream)
-    wide = "" if plan.width <= 128 else "_" + _width_key(plan.width)
+    sizes = (b, lq, lk, heads, width, d, *_plan_args(width, "bwd"), stream)
+    wide = "" if width <= 128 else "_" + _width_key(width)
     fn = cuda_build.function("flash_attention_bwd", "hv_flash_bwd_dkv", _DKV_ARGTYPES)
     cuda_build.check(fn(*common, dk.data_ptr(), dv.data_ptr(), *sizes),
                      "flash attention dk/dv launch")
@@ -335,7 +390,7 @@ def flash_attention_backward_cuda(q, k, v, key_bias, g, lse, delta, heads: int):
     fn = cuda_build.function("flash_attention_bwd", "hv_flash_bwd_dq", _DQ_ARGTYPES)
     cuda_build.check(fn(*common, dq.data_ptr(), *sizes), "flash attention dq launch")
     launches["bwd_dq" + wide] += 1
-    backward_launches_by_d[d] = backward_launches_by_d.get(d, 0) + 1
+    _count(backward_launches_by_d, backward_pad_launches_by_d, d, width)
     return tuple(resize_heads(t, heads, d) for t in (dq, dk, dv))
 
 

@@ -10,8 +10,8 @@ On a CUDA tensor it launches the hand-written kernel in
 a CPU tensor it runs :func:`temporal_attention_plain`. Up to ITEM_FRAMES
 frames the kernel's work item is a run of positions x all frames x a chunk
 of whole heads, or, for a head wider than CHUNK_COLUMNS, one head walked in
-column chunks; past ITEM_FRAMES the long kernels take one head in query and
-key tiles of 16 frames and LONG_COLUMNS-column pieces
+column chunks; past ITEM_FRAMES the long forward takes one head in query
+and key tiles of 16 frames and LONG_COLUMNS-column pieces
 (:func:`temporal_plan`). A head whose width is no multiple of 8 runs
 zero-padded to the next one (``head_pad.resize_heads``), with the softmax
 scale of its true width.
@@ -19,7 +19,11 @@ scale of its true width.
 The gradient (:class:`TemporalAttention`, an autograd Function) keeps only
 q, k and v: on a CUDA tensor the one-pass kernel of
 ``csrc/temporal_attention_bwd.cu`` recomputes the softmax and writes dq, dk
-and dv, over the forward's items; on a CPU tensor
+and dv, over the forward's items; past ITEM_FRAMES frames, up to
+FRAMES_KERNEL_FRAMES, the frames kernel takes the same kind of item (one
+position x all frames x whole heads, or one head in column chunks) in a ring
+whose stages :func:`long_backward_plan` fits to shared memory, and past
+FRAMES_KERNEL_FRAMES the long kernel; on a CPU tensor
 :func:`temporal_attention_backward_plain` does.
 """
 
@@ -40,9 +44,19 @@ LONG_COLUMNS = 64  # the long kernels' depth pieces and output slabs (tiles::kPi
 MAX_HEAD_DIM = 1280  # one head over the widest motion channels
 CHUNK_COLUMNS = 160  # an item's columns (8 UNet heads, 320 bytes); a chunk's most
 
-# Launches by kernel: the item kernels ("temporal", "temporal_bwd") and the
-# long kernels past ITEM_FRAMES frames ("temporal_long", "temporal_bwd_long").
-launches = {"temporal": 0, "temporal_bwd": 0, "temporal_long": 0, "temporal_bwd_long": 0}
+# The backward's frames kernel past ITEM_FRAMES frames (kFramesTiles 16-frame
+# tiles in csrc/temporal_attention_bwd.cu): the most frames it takes, the
+# most stages of its ring, and the shared memory a block can use.
+FRAMES_KERNEL_FRAMES = 96
+FRAMES_KERNEL_MAX_STAGES = 4
+SMEM_LIMIT = 232448
+
+# Launches by kernel: the item kernels ("temporal", "temporal_bwd"), and past
+# ITEM_FRAMES frames the long forward ("temporal_long"), the backward's frames
+# kernel up to FRAMES_KERNEL_FRAMES ("temporal_bwd_frames") and its long
+# kernel past that ("temporal_bwd_long").
+launches = {"temporal": 0, "temporal_bwd": 0, "temporal_long": 0, "temporal_bwd_frames": 0,
+            "temporal_bwd_long": 0}
 # The forward's and the backward's launches by the caller's head width
 # (before any pad) and by frame count: {d: count}, {f: count}.
 forward_launches_by_d: dict = {}
@@ -51,7 +65,7 @@ forward_launches_by_f: dict = {}
 backward_launches_by_f: dict = {}
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 class TemporalPlan(NamedTuple):
@@ -89,7 +103,91 @@ def temporal_plan(c: int, heads: int, frames: int = 1) -> TemporalPlan:
         per = max(h for h in range(1, heads + 1)
                   if heads % h == 0 and h * d <= CHUNK_COLUMNS)
         cols = per * d
-    return TemporalPlan(per, cols, cols + (8 if (cols // 8) % 2 == 0 else 16), chunks)
+    return TemporalPlan(per, cols, _padded_width(cols), chunks)
+
+
+class LongBackwardPlan(NamedTuple):
+    """The backward's frames kernel past ITEM_FRAMES frames: items of
+    ``heads`` whole heads (``cols`` = heads * d columns), or (``chunks`` >
+    1) one head walked twice in ``chunks`` chunks of ``cols`` columns;
+    loaded ``padded`` columns wide (as :class:`TemporalPlan`), in a ring of
+    ``stages`` stages; ``smem`` the bytes of shared memory a block lays out
+    (:func:`long_backward_smem`)."""
+    heads: int
+    cols: int
+    padded: int
+    chunks: int
+    stages: int
+    smem: int
+
+
+def _padded_width(cols: int) -> int:
+    """At least 8 columns past ``cols``, an odd number of 16-byte units."""
+    return cols + (8 if (cols // 8) % 2 == 0 else 16)
+
+
+def frames_groups(frames: int) -> int:
+    """The frames kernel's consumer groups (each one warp a 16-frame tile,
+    its own P and dS): three up to 48 frames, else one (``frames_groups``
+    in csrc/temporal_attention_bwd.cu)."""
+    return 3 if frames <= 48 else 1
+
+
+def long_backward_smem(frames: int, padded: int, stages: int,
+                       groups: Optional[int] = None) -> int:
+    """Bytes of shared memory the frames kernel lays out: ``stages`` x the
+    Q, K, V and G tiles ([frames][padded] bf16 each, rounded to 128
+    bytes), the room past the last for the 16-frame tiles' rows past
+    ``frames``, each consumer group's P and dS ([fp][fp + 8] bf16, fp =
+    frames rounded up to 16; ``groups`` of them, :func:`frames_groups` by
+    default), the barriers and 128 bytes of alignment
+    (``frames_smem_bytes`` in csrc/temporal_attention_bwd.cu)."""
+    fp = -(-frames // 16) * 16
+    tile = -(-frames * padded // 64) * 64
+    room = -(-(fp - frames) * padded // 64) * 64
+    pds = (groups or frames_groups(fp)) * 2 * fp * (fp + 8)
+    return 128 + (stages * 4 * tile + room + pds) * 2 + 2 * stages * 8
+
+
+@functools.lru_cache(maxsize=None)
+def long_backward_plan(c: int, heads: int, frames: int, max_cols: int = CHUNK_COLUMNS,
+                       max_stages: int = FRAMES_KERNEL_MAX_STAGES,
+                       groups: Optional[int] = None) -> Optional[LongBackwardPlan]:
+    """The frames kernel's plan for ``frames`` > ITEM_FRAMES (None past
+    FRAMES_KERNEL_FRAMES: the long kernel runs there): items of whole heads
+    of at most ``max_cols`` columns, the most heads whose stages leave one
+    stage spare beside the consumer groups' (at 48 frames, 2 heads of 40
+    where 4 would leave none: 0.735 against 0.780 ms at level 0 on the
+    H100), else the most whose stages fit SMEM_LIMIT at least twice, else
+    one head in the fewest chunks (at most ``max_cols`` columns, multiples
+    of 8) that do; the ring as deep as fits, up to ``max_stages``.
+    ``max_cols`` and ``max_stages`` below their defaults, and ``groups``
+    (the consumer groups the kernel is built with), are the variants'
+    ablations."""
+    if not ITEM_FRAMES < frames <= FRAMES_KERNEL_FRAMES:
+        return None
+    d = c // heads
+    groups = groups or frames_groups(frames)
+
+    def plan(per, cols, chunks):
+        padded = _padded_width(cols)
+        fixed = long_backward_smem(frames, padded, 0, groups)
+        stage = long_backward_smem(frames, padded, 1, groups) - fixed
+        stages = min(max_stages, (SMEM_LIMIT - fixed) // stage)
+        return LongBackwardPlan(per, cols, padded, chunks, stages,
+                                long_backward_smem(frames, padded, stages, groups))
+
+    whole = [plan(per, per * d, 1) for per in range(heads, 0, -1)
+             if heads % per == 0 and per * d <= max_cols]
+    for least in (min(groups + 1, max_stages), 2):
+        for p in whole:
+            if p.stages >= least:
+                return p
+    for n in range(max(-(-d // max_cols), 2), d // 8 + 1):
+        p = plan(1, round_up8(-(-d // n)), n)
+        if p.stages >= 2 and (n - 1) * p.cols < d:
+            return p
+    raise ValueError(f"no frames-kernel plan for d={d} at {frames} frames")
 
 
 def temporal_width(d: int) -> int:
@@ -119,6 +217,19 @@ def launch_sizes(shape, heads: int, scale_d: Optional[int] = None):
     return b, f, l, heads, d, plan.heads, plan.padded, plan.chunks, scale_d or d
 
 
+def backward_launch_sizes(shape, heads: int, scale_d: Optional[int] = None):
+    """The size arguments the backward kernel takes for q of ``shape``:
+    :func:`launch_sizes`, then the ring's stages and its shared-memory
+    bytes (zeros up to ITEM_FRAMES frames and past FRAMES_KERNEL_FRAMES);
+    between them the item of :func:`long_backward_plan` in place of the
+    long kernels' pieces."""
+    sizes = launch_sizes(shape, heads, scale_d)
+    plan = long_backward_plan(shape[-1], heads, shape[1])
+    if plan is None:
+        return (*sizes, 0, 0)
+    return (*sizes[:5], plan.heads, plan.padded, plan.chunks, sizes[8], plan.stages, plan.smem)
+
+
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
@@ -128,8 +239,14 @@ def reset_launches() -> None:
 
 
 def _count(kernel: str, by_d: dict, by_f: dict, d: int, f: int) -> None:
-    """One launch of ``kernel`` (its long variant past ITEM_FRAMES frames)."""
-    launches[kernel + ("_long" if f > ITEM_FRAMES else "")] += 1
+    """One launch of ``kernel`` (past ITEM_FRAMES frames its frames or long
+    variant)."""
+    if f <= ITEM_FRAMES:
+        launches[kernel] += 1
+    elif kernel == "temporal_bwd" and f <= FRAMES_KERNEL_FRAMES:
+        launches["temporal_bwd_frames"] += 1
+    else:
+        launches[kernel + "_long"] += 1
     by_d[d] = by_d.get(d, 0) + 1
     by_f[f] = by_f.get(f, 0) + 1
 
@@ -230,7 +347,7 @@ def temporal_attention_backward_cuda(q, k, v, g, heads: int):
     d = q.shape[-1] // heads
     width = temporal_width(d)
     qk, kk, vk, gk = _padded(heads, width, q=q, k=k, v=v, g=g)
-    sizes = launch_sizes(tuple(qk.shape), heads, d)
+    sizes = backward_launch_sizes(tuple(qk.shape), heads, d)
     dq, dk, dv = torch.empty_like(qk), torch.empty_like(kk), torch.empty_like(vk)
     fn = cuda_build.function("temporal_attention_bwd", "hv_temporal_bwd", _BWD_ARGTYPES)
     err = fn(qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), gk.data_ptr(), dq.data_ptr(),

@@ -17,6 +17,8 @@
         [--against FILE] [--iters N]
     python -m humanvid_tpu_torch.tools.flash_variants --xwide [variant ...]
         [--against FWD_FILE] [--against BWD_FILE] [--iters N]
+    python -m humanvid_tpu_torch.tools.flash_variants --mid [variant ...]
+        [--against FILE] [--iters N]
 
 Each variant is ``csrc/flash_attention.cu`` with a few named text edits
 (``VARIANTS``), built by nvcc with the port's flags into ``build/`` and
@@ -72,8 +74,13 @@ consumer warps, gradients in tiles of their own against over dead inputs,
 P^T and dS^T through shared memory against ``movmatrix``, 32-row tiles at
 f <= 16, and ablations without the loads, the products or the stores), at
 the five stage-2 shapes and the stage-1 camera encoder's
-(``TEMPORAL_BWD_SHAPES``), beside SDPA's backward; ``against`` may be the
-first design with its entry point. A timed turn of both is 20 x
+(``TEMPORAL_BWD_SHAPES``), and past 32 frames those of its frames kernel
+(``FRAMES_BWD_VARIANTS``: ring depth and chunk width through the plan,
+other numbers of consumer groups, registers for two blocks an SM) at the
+long_wide stage-2 shapes and f = 33, 64 and 96 (``TEMPORAL_BWD_LONG_SHAPES``,
+each variant up to its own frame count), beside SDPA's backward;
+``against`` may be an earlier design with its entry point (past 32 frames
+an earlier source runs its long kernel). A timed turn of both is 20 x
 ``--iters`` launches.
 With ``--xwide`` those of kernel A past 512 columns, the xwide forward and
 backward (``XWIDE_VARIANTS``: the plan's slice width, ring stages and
@@ -84,6 +91,15 @@ backward's dk/dv and dq entry points timed apart at its stage-2 shapes
 (``XWIDE_BWD_SHAPES``), each held to its plain version and to the bits of
 ``kernel``, beside SDPA; ``--against`` takes a forward source and a
 backward source (an earlier commit's, called with its own entry points).
+With ``--mid`` those of kernel A's forward between 128 and 512 columns, the
+mid kernel (``MID_VARIANTS``: the other layout at d = 320, d rounded up to
+128 instead of 64, hidden key tiles computed instead of passed over), at
+d = 192 and the long_wide path's level-0 shapes at d = 320
+(``MID_SHAPES``), each held to the plain version on 128 query rows and to
+the bits of ``kernel``, timed in turns beside SDPA; ``--against`` takes an
+earlier forward source, which runs these widths through the zero pad to
+512: it is called on inputs padded beforehand (the pad copies, timed
+apart, are ``pad_ms``).
 At each of kernel A's main-path shapes (``SHAPES``, those of
 ``chip_smoke.py``) every variant that computes the same function is first
 held to the plain version on 128 query rows (``chip_smoke.py``'s limits);
@@ -310,6 +326,42 @@ def xwide_variant_sources(name: str) -> Tuple[str, str]:
     table = {name: (edits, False)}
     return (variant_source(name, table, "flash_attention.cu"),
             variant_source(name, table, "flash_attention_bwd.cu"))
+
+# kernel A's forward between 128 and 512 columns (the mid kernel) at the
+# aim shapes: (name, B, Lq, Lk, heads, d, bias rows)
+MID_SHAPES = (("d192 level1-size 5 heads", 24, 1536, 3072, 5, 192, 0),
+              ("long_wide level0 cond (ref KV) d320", 48, 6144, 12288, 1, 320, 0),
+              ("long_wide level0 uncond d320", 48, 6144, 6144, 1, 320, 0),
+              ("long_wide level0 batched CFG bias d320", 96, 6144, 12288, 1, 320, 48))
+_ROWS_320 = "    if (x_cluster == 1 && x_slice == 320) return MID(320, true);"
+# name: (edits of csrc/flash_attention.cu, the plan's width: None for d
+# rounded up to 64, "128" for d rounded up to 128; the only plan width the
+# variant runs at, or None for every width; ablation). A variant whose plan
+# the kernel is not built for at a width skips that shape.
+MID_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], Optional[str], Optional[int], bool]] = {
+    "kernel": ((), None, None, False),
+    # the other layout at 320: one 64-row tile, O's columns split between
+    # the two warpgroups (S computed by both), built in place of the rows
+    # layout at 320 (the plan's ints still name the rows layout)
+    "columns": (((_ROWS_320, None, _ROWS_320.replace("true", "false")),), None, 320, False),
+    # the products' depth rounded up to 128: 192 at 256 (rows), 320 at 384
+    # (columns)
+    "width_128": ((), "128", None, False),
+    # hidden key tiles loaded and multiplied
+    "no_skip": (_NO_SKIP, None, None, False),
+}
+
+
+def mid_variant_plan(name: str, d: int) -> Optional["fa.MidPlan"]:
+    """The plan the variant runs a d-wide head on; None where the variant
+    does not run or the mid kernel is not built for it."""
+    _, width, only, _ = MID_VARIANTS[name]
+    plan = fa.mid_plan(d)
+    if width == "128":
+        w = -(-d // 128) * 128
+        plan = fa.MidPlan(w, fa.MID_LAYOUTS[w]) if w in fa.MID_LAYOUTS else None
+    return None if plan is None or only not in (None, plan.width) else plan
+
 
 # kernel 9 (csrc/probe_pvt.cu) at the microbench probe's shapes: (name, B,
 # Lq, Lk, heads, d, every 7th key hidden)
@@ -559,6 +611,15 @@ TEMPORAL_BWD_SHAPES = (("motion level0", 1, 24, 7168, 320, 8),
                        ("motion level3/mid", 1, 24, 112, 1280, 8),
                        ("camera encoder", 1, 24, 7168, 320, 8),
                        ("stage1 camera encoder", 8, 1, 7168, 320, 8))
+# and past 32 frames, at the long_wide stage-2 step's motion levels
+# (896x512x48f) and at f = 33, 64 and 96
+TEMPORAL_BWD_LONG_SHAPES = (("long_wide motion level0 f48", 1, 48, 7168, 320, 8),
+                            ("long_wide motion level1 f48", 1, 48, 1792, 640, 8),
+                            ("long_wide motion level2 f48", 1, 48, 448, 1280, 8),
+                            ("long_wide motion level3/mid f48", 1, 48, 112, 1280, 8),
+                            ("f33 d40", 1, 33, 7168, 320, 8),
+                            ("f64 d256", 1, 64, 448, 1280, 5),
+                            ("f96 d256", 1, 96, 448, 1280, 5))
 TEMPORAL_BWD_TOL = (2e-4, 0.2)  # chip_smoke.py's limits, per gradient
 TEMPORAL_BWD_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
     "kernel": ((), False),
@@ -593,6 +654,58 @@ TEMPORAL_BWD_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
     "no_stores": ((("  if constexpr (kInPlace) {\n    const bf16* src[3]", None,
                     "  return;\n  if constexpr (kInPlace) {\n    const bf16* src[3]"),), True),
 }
+
+
+# the frames kernel's variants past 32 frames: name -> (edits of
+# csrc/temporal_attention_bwd.cu, arguments of ``long_backward_plan``, the
+# most frames it runs at)
+def _groups_edit(rule: str) -> Tuple[Edit, ...]:
+    head = "__host__ __device__ constexpr int frames_groups(int QT) "
+    return ((head + "{ return QT <= 3 ? 3 : 1; }", None, head + f"{{ return {rule}; }}"),)
+
+
+FRAMES_BWD_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], Dict[str, int], int]] = {
+    # rings of at most 2 or 3 stages (at most 4 by default)
+    "frames_stages_2": ((), {"max_stages": 2}, 96),
+    "frames_stages_3": ((), {"max_stages": 3}, 96),
+    # chunks of at most 80 columns (two 40-wide heads, one 80-wide head)
+    "frames_cols_80": ((), {"max_cols": 80}, 96),
+    # one or two consumer groups a block up to 48 frames (three by default)
+    "frames_one_group": (_groups_edit("1"), {"groups": 1}, 48),
+    "frames_two_groups": (_groups_edit("QT <= 3 ? 2 : 1"), {"groups": 2}, 48),
+    # two consumer groups up to 64 frames (one past 48 by default)
+    "frames_two_groups_to_64": (_groups_edit("QT <= 4 ? 2 : 1"), {"groups": 2}, 64),
+    # two blocks an SM: registers budgeted for two, items of at most 80
+    # columns in 2 stages, two groups a block
+    "frames_two_blocks": ((_set_const("kFramesBlocks", 1, 2),
+                           *_groups_edit("QT <= 3 ? 2 : 1")),
+                          {"max_cols": 80, "max_stages": 2, "groups": 2}, 48),
+    # the gradients' bulk copies issued by all 32 lanes of the producer warp
+    # (by its lane 0 by default)
+    "frames_32_store_lanes": ((_set_const("kStoreLanes", 1, 32),), {}, 96),
+    # dQ and dK over K and G as soon as computed, four barriers a head (two
+    # up to 64 columns by default)
+    "frames_four_barriers": ((_set_const("kFramesHeld", 64, 0),), {}, 96),
+    # ablation: no gradient stores (the ring still turns)
+    "frames_no_stores": ((_set_const("kStoreLanes", 1, 0),), {}, 96),
+}
+
+
+# the frames variants that drop work, and so are only timed
+FRAMES_BWD_ABLATIONS = ("frames_no_stores",)
+
+
+def frames_variant_sizes(name: str, shape, heads: int) -> tuple:
+    """The backward entry point's eleven size ints for the frames kernel's
+    variant (``kernel``: the wrapper's own)."""
+    from ..ops import temporal_attention as ta
+
+    if name not in FRAMES_BWD_VARIANTS:
+        return ta.backward_launch_sizes(shape, heads)
+    b, f, l, c = shape
+    p = ta.long_backward_plan(c, heads, f, **FRAMES_BWD_VARIANTS[name][1])
+    d = c // heads
+    return (b, f, l, heads, d, p.heads, p.padded, p.chunks, d, p.stages, p.smem)
 
 
 def variant_source(name: str, variants=None, source: str = "flash_attention.cu") -> str:
@@ -1360,9 +1473,13 @@ def _temporal_sizes_taken(text: str) -> int:
     (b, f, l, heads, d) in the first design, 7 with the item plan (heads
     an item, padded width), 9 with the column chunks and the softmax's
     width; :func:`~humanvid_tpu_torch.ops.temporal_attention.launch_sizes`
-    gives them in that order."""
+    gives them in that order. The backward's takes 11 since its frames
+    kernel (the ring's stages and shared memory,
+    :func:`~humanvid_tpu_torch.ops.temporal_attention.backward_launch_sizes`)."""
     if "int heads_per_item" not in text:
         return 5
+    if "int stages, int smem" in text:
+        return 11
     return 9 if "int scale_d" in text else 7
 
 
@@ -1439,7 +1556,9 @@ def run_temporal(names: Sequence[str], iters: int = 5,
 
 def run_temporal_bwd(names: Sequence[str], iters: int = 5,
                      against: Optional[str] = None) -> List[dict]:
-    """Kernel B's backward variants at every shape of ``TEMPORAL_BWD_SHAPES``:
+    """Kernel B's backward variants at every shape of ``TEMPORAL_BWD_SHAPES``
+    (those of ``TEMPORAL_BWD_VARIANTS``) and of ``TEMPORAL_BWD_LONG_SHAPES``
+    (those of ``FRAMES_BWD_VARIANTS``), ``kernel`` and ``against`` at both:
     each but the ablations held to ``temporal_attention_backward_plain``
     (``chip_smoke.py``'s limits per gradient) and to its own bits on a
     repeat launch, then timed in turns beside SDPA's backward on head-split
@@ -1454,7 +1573,9 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
     if not torch.cuda.is_available():
         raise RuntimeError("the variants run on the CUDA card, and none is available")
     dev = torch.device("cuda")
-    texts = _named_sources(names, TEMPORAL_BWD_VARIANTS, "temporal_attention_bwd.cu", against)
+    table = {**TEMPORAL_BWD_VARIANTS,
+             **{n: (v[0], False) for n, v in FRAMES_BWD_VARIANTS.items()}}
+    texts = _named_sources(names, table, "temporal_attention_bwd.cu", against)
     n_sizes = {n: _temporal_sizes_taken(t) for n, t in texts.items()}
     fns = {}
     for name, lib in _build(texts, "temporal_bwd_variant").items():
@@ -1464,21 +1585,29 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
     stream = cuda_build.stream_handle(dev)
     gen = torch.Generator(device=dev).manual_seed(3)
     records = []
-    for shape_name, b, f, l, c, heads in TEMPORAL_BWD_SHAPES:
+    for shape_name, b, f, l, c, heads in TEMPORAL_BWD_SHAPES + TEMPORAL_BWD_LONG_SHAPES:
+        long = f > ta.ITEM_FRAMES
+        runs = [n for n in fns if n in ("kernel", "against")
+                or (n in FRAMES_BWD_VARIANTS) == long
+                and (not long or f <= FRAMES_BWD_VARIANTS[n][2])]
+        if runs == ["kernel"] and names != ["kernel"]:
+            continue  # none of the named variants differs from the kernel here
         q, k, v, g = (torch.randn((b, f, l, c), generator=gen, device=dev).to(torch.bfloat16)
                       for _ in range(4))
         grads = [torch.empty_like(q) for _ in range(3)]
-        sizes = ta.launch_sizes(tuple(q.shape), heads)
         ptrs = tuple(t.data_ptr() for t in (q, k, v, g, *grads))
         calls = {}
-        for name, fn in fns.items():
-            args = (*ptrs, *sizes[:n_sizes[name]], stream)
-            calls[name] = (lambda fn=fn, args=args, name=name:
+        for name in runs:
+            n = n_sizes[name]
+            sizes = (frames_variant_sizes(name, q.shape, heads) if n == 11
+                     else ta.launch_sizes(tuple(q.shape), heads))[:n]
+            calls[name] = (lambda fn=fns[name], args=(*ptrs, *sizes, stream), name=name:
                            cuda_build.check(fn(*args), f"variant {name}"))
         refs = ta.temporal_attention_backward_plain(q, k, v, g, heads)
         checks = {}
-        for name in fns:
-            if name in TEMPORAL_BWD_VARIANTS and TEMPORAL_BWD_VARIANTS[name][1]:
+        for name in runs:
+            if (name in TEMPORAL_BWD_VARIANTS and TEMPORAL_BWD_VARIANTS[name][1]
+                    or name in FRAMES_BWD_ABLATIONS):
                 checks[name] = (None, None, None)
                 continue
             for t in grads:
@@ -1502,20 +1631,124 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
             sdpa_ms = _sdpa_backward_ms(*(split(t) for t in (q, k, v, g)), heads, None,
                                         20 * iters)
         bound_ms = 14.0 * q.numel() / 3.35e12 * 1e3
-        for name in fns:
+        for name in runs:
             ms = min(turns[name])
             ok, rel, same = checks[name]
+            plan = (ta.long_backward_plan(c, heads, f,
+                                          **FRAMES_BWD_VARIANTS.get(name, ((), {}, 0))[1])
+                    if long and name != "against" else None)
             rec = dict(variant=name, shape=f"{shape_name} {(b, f, l, c)} heads={heads}", ms=ms,
                        turns=turns[name], library_ms=sdpa_ms, bound_ms=bound_ms,
                        share_of_bound=bound_ms / ms,
-                       ablation=name in TEMPORAL_BWD_VARIANTS and TEMPORAL_BWD_VARIANTS[name][1],
+                       ablation=(name in TEMPORAL_BWD_VARIANTS and TEMPORAL_BWD_VARIANTS[name][1]
+                                 or name in FRAMES_BWD_ABLATIONS),
                        ok=ok, rel_l2=rel, same_bits_on_repeat=same,
+                       plan=None if plan is None else plan._asdict(),
                        device=torch.cuda.get_device_name())
             print(json.dumps(rec), flush=True)
             records.append(rec)
         del q, k, v, g, grads
         torch.cuda.empty_cache()
     return records
+
+
+def run_mid(names: Sequence[str], iters: int = 5, against: Optional[str] = None) -> List[dict]:
+    """The mid kernel's variants at every shape of ``MID_SHAPES`` where the
+    kernel is built for their plan: each held to the plain version on 128
+    query rows (``chip_smoke.py``'s limits) and to the bits of ``kernel``,
+    timed by CUDA events in turns beside SDPA. ``against`` is an earlier
+    forward source, called at width 512 on inputs zero-padded beforehand
+    (its output cut back to d before the check); the pad copies of q, k and
+    v are timed apart (``pad_ms``). Returns the records (also printed, one
+    JSON line each)."""
+    from ..ops.head_pad import resize_heads
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the variants run on the CUDA card, and none is available")
+    dev = torch.device("cuda")
+    texts = _named_sources(names, {n: (v[0], v[3]) for n, v in MID_VARIANTS.items()},
+                           "flash_attention.cu", against)
+    entry = {n: _entry_ints(t) for n, t in texts.items()}
+    fns = {}
+    for name, lib in _build(texts, "flash_mid_variant").items():
+        fn = fns[name] = lib.hv_flash_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * entry[name] + [ctypes.c_void_p]
+    stream = cuda_build.stream_handle(dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    card = torch.cuda.get_device_name()
+    records = []
+    for shape, B, lq, lk, heads, d, bias_rows in MID_SHAPES:
+        c = heads * d
+        q = torch.randn((B, lq, c), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((B, lk, c), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        bias, unmasked = None, B * lk
+        if bias_rows:
+            bias = torch.zeros((B, lk), device=dev)
+            bias[:bias_rows, lk // 2:] = -1e9
+            unmasked -= bias_rows * (lk // 2)
+        bias_ptr = None if bias is None else bias.data_ptr()
+        lse = torch.empty((B, heads, lq), device=dev)
+        plans = {n: mid_variant_plan(n, d) for n in fns if n != "against"}
+        runs = [n for n in fns if n == "against" or plans[n] is not None]
+        outs, calls, pad_ms = {}, {}, None
+        for name in runs:
+            if name == "against":
+                padded = [resize_heads(t, heads, fa.WIDE_HEAD_DIM) for t in (q, k, v)]
+                out = outs[name] = torch.empty_like(padded[0])
+                args = (*(t.data_ptr() for t in padded), bias_ptr, out.data_ptr(),
+                        lse.data_ptr(), *_entry_sizes(entry[name], (B, lq, lk, heads,
+                                                                    fa.WIDE_HEAD_DIM), d, "fwd"))
+                pad_ms = _time_ms(lambda: [resize_heads(t, heads, fa.WIDE_HEAD_DIM)
+                                           for t in (q, k, v)], iters)
+            else:
+                out = outs[name] = torch.empty_like(q)
+                args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, out.data_ptr(),
+                        lse.data_ptr(), B, lq, lk, heads, d, d,
+                        *fa._plan_args(d, "fwd", plans[name]))
+            calls[name] = (lambda fn=fns[name], args=(*args, stream), name=name:
+                           cuda_build.check(fn(*args), f"mid variant {name}"))
+        rows = torch.cat([torch.arange(64, device=dev), torch.arange(lq - 64, lq, device=dev)])
+        ref, ref_lse = fa.flash_attention_plain(q[:, rows], k, v, heads, bias)
+        checks, first = {}, None
+        for name in runs:
+            calls[name]()
+            torch.cuda.synchronize()
+            got = resize_heads(outs[name], heads, d)
+            ok, rel = _agree(got[:, rows], ref, FLASH_TOL)
+            lse_err = (lse[:, :, rows] - ref_lse).abs().max().item()
+            if first is None:
+                first = got.clone()
+            checks[name] = (ok and lse_err <= LSE_TOL, rel, lse_err, torch.equal(got, first))
+        del first, ref, ref_lse
+        turns = _turns(calls, iters)
+        qh, kh, vh = (t.view(B, t.shape[1], heads, d).transpose(1, 2) for t in (q, k, v))
+        mask = None if bias is None else bias.to(torch.bfloat16)[:, None, None, :]
+        try:
+            sdpa_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask), iters)
+        except (torch.OutOfMemoryError, RuntimeError):
+            sdpa_ms = None
+            torch.cuda.empty_cache()
+        flops = 4.0 * heads * lq * unmasked * d
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
+        bound_ms = max(flops / 989e12, nbytes / 3.35e12) * 1e3
+        for name in runs:
+            ms = min(turns[name])
+            ok, rel, lse_err, same = checks[name]
+            plan = plans.get(name)
+            rec = dict(mode="mid", variant=name, shape=shape, ms=ms, turns=turns[name],
+                       tflops=flops / ms / 1e9, bound_ms=bound_ms, sdpa_ms=sdpa_ms, ok=ok,
+                       rel_l2=rel, lse_err=lse_err, same_bits_as_first=same,
+                       plan=None if plan is None else plan._asdict(),
+                       pad_ms=pad_ms if name == "against" else None, device=card)
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        del q, k, v, outs, lse, qh, kh, vh
+        torch.cuda.empty_cache()
+    return records
+
 
 def main(argv: Sequence[str] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1526,8 +1759,9 @@ def main(argv: Sequence[str] = None) -> int:
                              f"{', '.join(DMAJOR_VARIANTS)}; with --hbm: {', '.join(HBM_VARIANTS)}; "
                              f"with --gn: {', '.join(GN_VARIANTS)}; with --temporal: "
                              f"{', '.join(TEMPORAL_VARIANTS)}; with --temporal-bwd: "
-                             f"{', '.join(TEMPORAL_BWD_VARIANTS)}; with --xwide: "
-                             f"{', '.join(XWIDE_VARIANTS)}")
+                             f"{', '.join([*TEMPORAL_BWD_VARIANTS, *FRAMES_BWD_VARIANTS])}; "
+                             f"with --xwide: {', '.join(XWIDE_VARIANTS)}; with --mid: "
+                             f"{', '.join(MID_VARIANTS)}")
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--bwd", action="store_true", help="the backward's variants")
     mode.add_argument("--pvt", action="store_true", help="kernel 9's variants")
@@ -1539,6 +1773,8 @@ def main(argv: Sequence[str] = None) -> int:
                       help="kernel B's backward variants")
     mode.add_argument("--xwide", action="store_true",
                       help="kernel A's variants past 512 columns, forward and backward")
+    mode.add_argument("--mid", action="store_true",
+                      help="kernel A's forward variants between 128 and 512 columns")
     parser.add_argument("--against", metavar="FILE", action="append", default=[],
                         help="with any mode but the forward's: another source of the same "
                              "kernels, timed as 'against' (with --xwide a forward source, "
@@ -1550,8 +1786,9 @@ def main(argv: Sequence[str] = None) -> int:
     modes = {"bwd": (BWD_VARIANTS, run_bwd), "pvt": (PVT_VARIANTS, run_pvt),
              "dmajor": (DMAJOR_VARIANTS, run_dmajor), "hbm": (HBM_VARIANTS, run_hbm),
              "gn": (GN_VARIANTS, run_gn), "temporal": (TEMPORAL_VARIANTS, run_temporal),
-             "temporal_bwd": (TEMPORAL_BWD_VARIANTS, run_temporal_bwd),
-             "xwide": (XWIDE_VARIANTS, run_xwide)}
+             "temporal_bwd": ({**TEMPORAL_BWD_VARIANTS, **FRAMES_BWD_VARIANTS},
+                              run_temporal_bwd),
+             "xwide": (XWIDE_VARIANTS, run_xwide), "mid": (MID_VARIANTS, run_mid)}
     mode_name = next((m for m in modes if getattr(args, m)), None)
     table = modes[mode_name][0] if mode_name else VARIANTS
     names = args.variants or list(table)
@@ -1560,7 +1797,7 @@ def main(argv: Sequence[str] = None) -> int:
         parser.error(f"unknown variants {unknown}; the variants are {', '.join(table)}")
     if args.against and not mode_name:
         parser.error("--against needs --bwd, --pvt, --dmajor, --hbm, --gn, --temporal, "
-                     "--temporal-bwd or --xwide")
+                     "--temporal-bwd, --xwide or --mid")
     if len(args.against) > (2 if mode_name == "xwide" else 1):
         parser.error("--against takes one source (with --xwide two)")
     if "kernel" not in names:

@@ -80,8 +80,8 @@ def _randn(shape, seed, dev):
     (2, 256, 512, 4, 96, False),   # d = 96: 8-column boxes, depth padded to 128
     (1, 100, 200, 3, 120, True),   # d = 120
     (2, 300, 700, 5, 36, True),    # d = 36: zero-padded to 40
-    (2, 200, 300, 2, 192, True),   # d = 192: zero-padded to 512
-    (1, 100, 200, 3, 260, False),  # d = 260: zero-padded to 512, at a head offset
+    (2, 200, 300, 2, 192, True),   # d = 192: the mid kernel
+    (1, 100, 200, 3, 260, False),  # d = 260: the mid kernel (depth 320), at a head offset
 ])
 def test_flash_kernel_matches_plain(b, lq, lk, heads, d, with_bias):
     from humanvid_tpu_torch.ops import flash_attention as fa
@@ -92,7 +92,7 @@ def test_flash_kernel_matches_plain(b, lq, lk, heads, d, with_bias):
     if with_bias:
         bias = torch.zeros((b, lk), device=dev)
         bias[0, lk // 2:] = -1e9
-    key = "d<=128" if fa.flash_plan(d).width <= 128 else "d>128"
+    key = fa._width_key(fa.flash_plan(d).width, "fwd")
     before = fa.launches[key]
     out, lse = fa.flash_attention_packed(q, k, v, heads, bias)
     ref, ref_lse = fa.flash_attention_plain(q, k, v, heads, bias)
@@ -209,6 +209,7 @@ def test_temporal_kernel_every_head_and_no_leak_across_samples(b, f, l, c, heads
     (1, 100, 200, 3, 120, ((0, 100, 200),)),  # d = 120
     (2, 300, 700, 5, 36, ((0, 350, 700),)),   # d = 36, zero-padded to 40
     (2, 200, 300, 2, 192, ((0, 150, 300),)),  # d = 192, zero-padded to 512
+    (1, 100, 200, 1, 320, ((0, 100, 200),)),  # d = 320 (long_wide's level 0), the same
 ])
 def test_flash_backward_kernels_match_plain(b, lq, lk, heads, d, hide):
     from humanvid_tpu_torch.ops import flash_attention as fa
@@ -227,7 +228,7 @@ def test_flash_backward_kernels_match_plain(b, lq, lk, heads, d, hide):
     grads = fa.flash_attention_backward_cuda(*args)
     refs = fa.flash_attention_backward_plain(*args)
     torch.cuda.synchronize()
-    wide = "_d>128" if fa.flash_plan(d).width > 128 else ""
+    wide = "_d>128" if fa.flash_plan(d).backward_width > 128 else ""
     assert fa.launches["bwd_dkv" + wide] == before["bwd_dkv" + wide] + 1
     assert fa.launches["bwd_dq" + wide] == before["bwd_dq" + wide] + 1
     again = fa.flash_attention_backward_cuda(*args)
@@ -391,10 +392,13 @@ def test_temporal_heads_and_positions_isolated_from_an_inf(c, hot, direction):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,hot", [(40, 1), (40, 7), (80, 1), (80, 7), (64, 1), (128, 1),
-                                   (128, 7), (96, 7), (36, 1), (192, 7)],
+                                   (128, 7), (96, 7), (36, 1), (192, 7), (136, 1), (200, 7),
+                                   (264, 1), (320, 7), (448, 1), (504, 7)],
                          ids=["d40-head1", "d40-last-head", "d80-head1", "d80-last-head",
                               "d64-head1", "d128-head1", "d128-last-head", "d96-last-head",
-                              "d36-padded", "d192-padded-last-head"])
+                              "d36-padded", "d192-mid-last-head", "d136-mid-head1",
+                              "d200-mid-last-head", "d264-mid-head1", "d320-mid-last-head",
+                              "d448-mid-head1", "d504-mid-last-head"])
 @pytest.mark.parametrize("with_bias", [False, True], ids=["no-bias", "bias"])
 @pytest.mark.parametrize("direction", ["forward", "backward"])
 def test_flash_heads_isolated_from_an_inf(d, hot, with_bias, direction):
@@ -1023,7 +1027,7 @@ def test_temporal_long_kernels_match_plain(b, f, l, c, heads):
     refs = ta.temporal_attention_backward_plain(q, k, v, g, heads)
     torch.cuda.synchronize()
     assert ta.launches["temporal_long"] == before["temporal_long"] + 1
-    assert ta.launches["temporal_bwd_long"] == before["temporal_bwd_long"] + 1
+    assert ta.launches["temporal_bwd_frames"] == before["temporal_bwd_frames"] + 1
     assert ta.launches["temporal"] == before["temporal"]
     d = c // heads
     for h in range(heads):
@@ -1090,3 +1094,98 @@ def test_flash_xwide_kernels_match_plain(b, lq, lk, heads, d, hide):
     again, lse_again = fa.flash_attention_cuda(q, k, v, heads, bias)
     assert torch.equal(out, again) and torch.equal(lse, lse_again)
     assert all(torch.equal(x, y) for x, y in zip(grads, fa.flash_attention_backward_cuda(*args)))
+
+
+MID_WIDTHS = [136, 192, 200, 256, 264, 320, 448, 504]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", MID_WIDTHS)
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no-bias", "bias"])
+def test_flash_mid_forward_matches_plain(d, with_bias):
+    """Between 128 and 512 columns: the mid forward at the head's own width
+    (no launch through the pad), ragged Lq and Lk, two heads side by side,
+    every head on its own against the plain version; with the bias, the
+    keys it hides add exactly nothing (other values of v there give the
+    same bits) and whole hidden key tiles passed over give the bits of the
+    same tiles computed (a bias of -0.99e9 hides them all the same); a
+    repeat the same bits."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
+
+    dev = _card()
+    b, lq, lk, heads = 2, 300, 700, 2
+    q, k, v = (_randn((b, n, heads * d), 60 + s, dev) for s, n in enumerate((lq, lk, lk)))
+    bias = None
+    if with_bias:
+        bias = torch.zeros((b, lk), device=dev)
+        bias[0, 128:512] = -1e9  # whole 64- and 32-key tiles of row 0
+        bias[1, 650:] = -1e9
+    before = dict(fa.launches)
+    pad_before = dict(fa.forward_pad_launches_by_d)
+    out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, heads, bias)
+    torch.cuda.synchronize()
+    assert fa.launches["128<d<512"] == before["128<d<512"] + 1
+    assert fa.launches["d>128"] == before["d>128"] and fa.forward_pad_launches_by_d == pad_before
+    for h in range(heads):
+        cols = slice(h * d, (h + 1) * d)
+        _assert_close(out[..., cols], ref[..., cols], FLASH_TOL)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    again, lse_again = fa.flash_attention_cuda(q, k, v, heads, bias)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    if with_bias:
+        v2 = torch.where((bias <= -1e9)[..., None], _randn(v.shape, 70, dev), v)
+        assert torch.equal(out, fa.flash_attention_cuda(q, k, v2, heads, bias)[0])
+        computed = fa.flash_attention_cuda(q, k, v, heads,
+                                           torch.where(bias <= -1e9, -0.99e9, bias))
+        assert torch.equal(out, computed[0]) and torch.equal(lse, computed[1])
+
+
+FRAMES_LONG = [(f, c, heads) for f in (33, 48, 64, 96, 100)
+               for c, heads in ((320, 8), (640, 8), (1280, 8), (1280, 5), (1280, 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,c,heads", FRAMES_LONG,
+                         ids=[f"f{f}-d{c // h}" for f, c, h in FRAMES_LONG])
+def test_temporal_frames_backward_matches_plain(f, c, heads):
+    """Kernel B's backward past 32 frames at d = 40, 80, 160, 256 and 1280
+    (the frames kernel up to 96 frames, the long kernel at 100): dq, dk and
+    dv against the plain version, every head within the max-error limit on
+    its own; each sample alone the same bits; a repeat the same bits; an
+    Inf in one head's columns at some positions reaches no other head or
+    position."""
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    dev = _card()
+    b, l = 2, 11
+    d = c // heads
+    q, k, v, g = (_randn((b, f, l, c), 80 + s, dev) for s in range(4))
+    before = dict(ta.launches)
+    grads = ta.temporal_attention_backward_cuda(q, k, v, g, heads)
+    refs = ta.temporal_attention_backward_plain(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    long = f > ta.FRAMES_KERNEL_FRAMES  # the long kernel
+    assert ta.launches["temporal_bwd_long"] == before["temporal_bwd_long"] + long
+    assert ta.launches["temporal_bwd_frames"] == before["temporal_bwd_frames"] + (not long)
+    for got, ref in zip(grads, refs):
+        _assert_close(got, ref, TEMPORAL_BWD_TOL)
+        for h in range(heads):
+            head, want = got[..., h * d:(h + 1) * d].float(), ref[..., h * d:(h + 1) * d].float()
+            assert (head - want).abs().max().item() <= \
+                TEMPORAL_BWD_TOL[1] * want.pow(2).mean().sqrt().item()
+    for i in range(b):
+        alone = ta.temporal_attention_backward_cuda(
+            *(t[i:i + 1].contiguous() for t in (q, k, v, g)), heads)
+        assert all(torch.equal(x[i:i + 1], y) for x, y in zip(grads, alone))
+    again = ta.temporal_attention_backward_cuda(q, k, v, g, heads)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))  # no atomics
+    hot = heads // 2
+    hot_in = [t.clone() for t in (q, k, v, g)]
+    for t in hot_in:
+        t[:, :, 1::3, hot * d:(hot + 1) * d] = float("inf")
+    hit = torch.zeros((b, f, l, c), dtype=torch.bool, device=dev)
+    hit[:, :, 1::3, hot * d:(hot + 1) * d] = True
+    for want, got in zip(grads, ta.temporal_attention_backward_cuda(*hot_in, heads)):
+        assert torch.isfinite(got[~hit]).all()
+        assert torch.equal(got[~hit], want[~hit])

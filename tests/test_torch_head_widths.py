@@ -6,9 +6,14 @@ and the whole slice at other head counts, on the CPU.
   width, in the output, the log-sum-exp and all three gradients, and the
   pad columns' gradients are exactly zero (kernels A and B). Tolerance 1e-6
   (fp32): the padded sums add exact zeros, so only summation order differs.
+  Kernel A's backward through the pad to 512 with the LSE of the forward at
+  the true width (d = 320 and 448, the mid forward's contract): 1e-5, as
+  the summation order of 320 to 512 terms moves fp32 sums further.
 - The width plans, pure functions: which configuration kernel A's entry
-  points pick or which width a head is padded to (d > 512 takes the xwide
-  kernels, d < 1 raises), and kernel B's item: whole heads up to 160
+  points pick or which width a head is padded to, forward and backward
+  apart (128 < d < 512: the mid forward at the head's width, the backward
+  through the pad to 512; d > 512 takes the xwide kernels, d < 1 raises),
+  and kernel B's item: whole heads up to 160
   columns, column chunks up to 1280 (d > 1280 raises; f > 32 takes the long
   kernels, ``test_torch_long_wide.py``).
 - The slice: the tiny config with other head counts (spatial heads 16 and
@@ -74,7 +79,7 @@ def test_resize_heads_pads_with_zeros_and_cuts_back():
 @pytest.mark.parametrize("d,width,with_bias", [
     (36, 40, True),     # kernel A's pad to the next multiple of 8
     (100, 104, False),
-    (192, 512, True),   # and to the 512-wide kernels
+    (192, 512, True),   # and the backward's to the 512-wide kernels
     (260, 512, False),
 ])
 def test_flash_on_padded_heads_equals_the_true_width(d, width, with_bias):
@@ -105,6 +110,46 @@ def test_flash_on_padded_heads_equals_the_true_width(d, width, with_bias):
         assert (got.view(*got.shape[:2], heads, width)[..., d:] == 0).all()
 
 
+# The same pad past 256 columns: fp32 sums of 320 to 512 terms in another
+# order differ by more than PAD_TOL (observed: outputs 1.3e-6, gradients
+# 1.5e-6, delta 5.7e-6), so this test holds them to 1e-5 apart from it.
+WIDE_PAD_TOL = 1e-5
+
+
+@pytest.mark.parametrize("d,with_bias", [(320, True), (448, False)])
+def test_flash_backward_through_the_pad_takes_the_true_width_lse(d, with_bias):
+    """The contract of the mid forward and the padded backward (128 < d <
+    512), at long_wide's level-0 width and near 512: the forward on heads
+    zero-padded to 512 gives the true width's output and LSE, and the
+    backward there, given the LSE and delta of the forward at the true
+    width (as ``FlashAttention.backward`` passes them), the true width's
+    gradients and exact zeros in the pad columns."""
+    b, lq, lk, heads, width = 2, 37, 53, 3, 512
+    q, k, v = (_normal((b, n, heads * d), 20 + s) for s, n in enumerate((lq, lk, lk)))
+    g = _normal((b, lq, heads * d), 23)
+    bias = None
+    if with_bias:
+        bias = torch.zeros((b, lk))
+        bias[0, lk // 2:] = -1e9
+    out, lse = fa.flash_attention_plain(q, k, v, heads, bias)
+    pq, pk, pv, pg = (resize_heads(t, heads, width) for t in (q, k, v, g))
+    pout, plse = fa.flash_attention_plain(pq, pk, pv, heads, bias, scale_d=d)
+    np.testing.assert_allclose(resize_heads(pout, heads, d).numpy(), out.numpy(),
+                               atol=WIDE_PAD_TOL, rtol=0)
+    np.testing.assert_allclose(plse.numpy(), lse.numpy(), atol=WIDE_PAD_TOL, rtol=0)
+    assert (pout.view(b, lq, heads, width)[..., d:] == 0).all()
+    delta = fa.attention_delta(g, out, heads)
+    np.testing.assert_allclose(fa.attention_delta(pg, pout, heads).numpy(), delta.numpy(),
+                               atol=WIDE_PAD_TOL, rtol=WIDE_PAD_TOL)
+    grads = fa.flash_attention_backward_plain(q, k, v, bias, g, lse, delta, heads)
+    pgrads = fa.flash_attention_backward_plain(pq, pk, pv, bias, pg, lse, delta, heads,
+                                               scale_d=d)
+    for got, ref in zip(pgrads, grads):
+        np.testing.assert_allclose(resize_heads(got, heads, d).numpy(), ref.numpy(),
+                                   atol=WIDE_PAD_TOL, rtol=0)
+        assert (got.view(*got.shape[:2], heads, width)[..., d:] == 0).all()
+
+
 @pytest.mark.parametrize("f,d", [(24, 36), (7, 100), (1, 12)])
 def test_temporal_on_padded_heads_equals_the_true_width(f, d):
     b, l, heads = 2, 5, 3
@@ -126,23 +171,34 @@ def test_temporal_on_padded_heads_equals_the_true_width(f, d):
 
 # ---- the width plans ----------------------------------------------------------
 
-@pytest.mark.parametrize("d,width,forward,backward", [
-    (8, 8, "Cfg<48, 40>", "DkvCfg48/DqCfg48"),
-    (36, 40, "Cfg<48, 40>", "DkvCfg48/DqCfg48"),
-    (40, 40, "Cfg<48, 40>", "DkvCfg48/DqCfg48"),
-    (64, 64, "Cfg<80, 80>", "DkvCfg80s/DqCfg80s"),
-    (72, 72, "Cfg<80, 80>", "DkvCfg80/DqCfg80"),
-    (80, 80, "Cfg<80, 80>", "DkvCfg80s/DqCfg80s"),
-    (81, 88, "Cfg<128, 128>", "DkvCfg128/DqCfg128"),
-    (96, 96, "Cfg<128, 128>", "DkvCfg128/DqCfg128"),
-    (120, 120, "Cfg<128, 128>", "DkvCfg128/DqCfg128"),
-    (128, 128, "Cfg<128, 128, swizzled>", "DkvCfg128w/DqCfg128w"),
-    (129, 512, "Cfg<512, 256, wide>", "WideDv+WideDk/WideDq"),
-    (192, 512, "Cfg<512, 256, wide>", "WideDv+WideDk/WideDq"),
-    (512, 512, "Cfg<512, 256, wide>", "WideDv+WideDk/WideDq"),
+WIDE_BWD = "WideDv+WideDk/WideDq"
+
+
+@pytest.mark.parametrize("d,width,forward,backward,backward_width", [
+    (8, 8, "Cfg<48, 40>", "DkvCfg48/DqCfg48", 8),
+    (36, 40, "Cfg<48, 40>", "DkvCfg48/DqCfg48", 40),
+    (40, 40, "Cfg<48, 40>", "DkvCfg48/DqCfg48", 40),
+    (64, 64, "Cfg<80, 80>", "DkvCfg80s/DqCfg80s", 64),
+    (72, 72, "Cfg<80, 80>", "DkvCfg80/DqCfg80", 72),
+    (80, 80, "Cfg<80, 80>", "DkvCfg80s/DqCfg80s", 80),
+    (81, 88, "Cfg<128, 128>", "DkvCfg128/DqCfg128", 88),
+    (96, 96, "Cfg<128, 128>", "DkvCfg128/DqCfg128", 96),
+    (120, 120, "Cfg<128, 128>", "DkvCfg128/DqCfg128", 120),
+    (128, 128, "Cfg<128, 128, swizzled>", "DkvCfg128w/DqCfg128w", 128),
+    # 128 < d < 512: the mid forward at d (to 8), its depth d rounded up to
+    # 64; the backward through the pad to 512
+    (129, 136, "Mid<192, rows>", WIDE_BWD, 512),
+    (136, 136, "Mid<192, rows>", WIDE_BWD, 512),
+    (192, 192, "Mid<192, rows>", WIDE_BWD, 512),
+    (256, 256, "Mid<256, rows>", WIDE_BWD, 512),
+    (264, 264, "Mid<320, rows>", WIDE_BWD, 512),
+    (320, 320, "Mid<320, rows>", WIDE_BWD, 512),
+    (448, 448, "Mid<448, columns>", WIDE_BWD, 512),
+    (504, 504, "Mid<512, columns>", WIDE_BWD, 512),
+    (512, 512, "Cfg<512, 256, wide>", WIDE_BWD, 512),
 ])
-def test_flash_plan_of_each_width(d, width, forward, backward):
-    assert fa.flash_plan(d) == fa.FlashPlan(width, forward, backward)
+def test_flash_plan_of_each_width(d, width, forward, backward, backward_width):
+    assert fa.flash_plan(d) == fa.FlashPlan(width, forward, backward, backward_width)
 
 
 @pytest.mark.parametrize("d", [0, 513, 640, 1280])
@@ -153,12 +209,20 @@ def test_flash_plan_raises_past_512(d):
         with pytest.raises(ValueError, match=f"head width {d} unsupported"):
             fa.flash_plan(d)
     else:
-        assert fa.flash_plan(d) == fa.FlashPlan(round_up8(d), "Xwide", "XwideDkv/XwideDq")
+        assert fa.flash_plan(d) == fa.FlashPlan(round_up8(d), "Xwide", "XwideDkv/XwideDq",
+                                                round_up8(d))
 
 
 def test_flash_plan_runs_every_width_at_a_width_a_configuration_holds():
+    """The forward runs every d at d rounded up to 8 (past 128 the mid
+    forward, whose depth d rounded up to 64 it is built for, and 512); the
+    backward at that width up to 128 and at 512 above it."""
     for d in range(1, 513):
-        w = fa.flash_plan(d).width
+        p = fa.flash_plan(d)
+        assert p.width == round_up8(d)
+        if 128 < p.width < 512:
+            assert fa.mid_plan(p.width).width in fa.MID_WIDTHS[fa.mid_plan(p.width).layout]
+        w = p.backward_width
         assert w >= d and w % 8 == 0 and (w <= 128 or w == 512)
         assert w - d < 8 or d > 128
 

@@ -8,16 +8,25 @@ frames and kernel A past 512 columns, against the JAX package.
   f = 33, 48 and 64, forward and gradients, against the JAX Pallas kernel
   and its vjp in TPU interpret mode. atol 1e-5: both sides compute in fp32
   and differ by summation order only (observed near 1e-6).
-- Kernel A's ``flash_attention_packed`` at d = 520 and 640, forward and
-  gradients, with and without the bias, against the JAX kernel and its vjp
-  in interpret mode, at the tolerances of ``test_torch_flash_attention.py``
-  (2e-4 forward, 5e-4 gradients; observed near 1e-6).
-- The plans: d > 512 and f > 32 get the new kernels' plans, every d <= 512
-  and f <= 32 the plan it had. Past 512 the xwide kernels' cluster plan
-  (``xwide_plan``) at every width from 520 to 4104: slices that are
-  multiples of 16 and cover the head, clusters of at most 8 blocks, and
-  shared memory, reckoned as the kernels lay it out, that a block can use;
-  its constants are those of ``csrc/xwide.cuh``.
+- Kernel A's ``flash_attention_packed`` at d = 520 and 640, and between
+  128 and 512 at d = 192 and 320 (the mid forward's two widths on the
+  long_wide and heads64 paths), forward and gradients, with and without
+  the bias, against the JAX kernel and its vjp in interpret mode, at the
+  tolerances of ``test_torch_flash_attention.py`` (2e-4 forward, 5e-4
+  gradients; observed near 1e-6).
+- The plans: d > 512 and f > 32 get the new kernels' plans, every d <= 128
+  and f <= 32 the plan it had, 128 < d < 512 the mid forward at the head's
+  width (to 8) and the backward through the zero pad to 512. Past 512 the
+  xwide kernels' cluster plan (``xwide_plan``) at every width from 520 to
+  4104: slices that are multiples of 16 and cover the head, clusters of at
+  most 8 blocks, and shared memory, reckoned as the kernels lay it out,
+  that a block can use; its constants are those of ``csrc/xwide.cuh``.
+  Kernel B's backward past 32 frames (``long_backward_plan``): the frames
+  kernel's items up to 96 frames at every width to 1280 (whole heads of
+  at most 160 columns where two stages fit, else one head in chunks), the
+  long kernel past 96 frames; shared memory reckoned as
+  ``csrc/temporal_attention_bwd.cu`` lays it out, its constants read from
+  that source.
 - The slice: the tiny config with one spatial head and a 40-frame motion
   and camera table, pose2vid over 40 frames in one window (2 DDIM steps,
   batched CFG) and one stage-2 loss and its gradients, through the port and
@@ -130,9 +139,7 @@ def test_temporal_attention_past_32_frames_matches_jax(b, f, l, c, heads):
 
 # ---- kernel A past 512 columns ----------------------------------------------------
 
-@pytest.mark.parametrize("d", [520, 640])
-@pytest.mark.parametrize("with_bias", [False, True])
-def test_flash_attention_past_512_columns_matches_jax(d, with_bias):
+def _flash_against_jax(d, with_bias):
     b, lq, lk = 2, 128, 256
     q, g = _rand((b, lq, d), 0), _rand((b, lq, d), 3)
     k, v = _rand((b, lk, d), 1), _rand((b, lk, d), 2)
@@ -154,21 +161,34 @@ def test_flash_attention_past_512_columns_matches_jax(d, with_bias):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FLASH_BWD_TOL, rtol=0)
 
 
+@pytest.mark.parametrize("d", [520, 640])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_flash_attention_past_512_columns_matches_jax(d, with_bias):
+    _flash_against_jax(d, with_bias)
+
+
+@pytest.mark.parametrize("d", [192, 320])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_flash_attention_between_128_and_512_columns_matches_jax(d, with_bias):
+    _flash_against_jax(d, with_bias)
+
+
 # ---- the plans ------------------------------------------------------------------------
 
 XWIDE = ("Xwide", "XwideDkv/XwideDq")
 
 
 @pytest.mark.parametrize("d,plan", [
-    (513, fa.FlashPlan(520, *XWIDE)),     # past 512: the xwide kernels, padded to 8
-    (520, fa.FlashPlan(520, *XWIDE)),
-    (640, fa.FlashPlan(640, *XWIDE)),     # one spatial head at UNet level 1
-    (1280, fa.FlashPlan(1280, *XWIDE)),   # one head at levels 2-3
-    (4100, fa.FlashPlan(4104, *XWIDE)),
-    (40, fa.FlashPlan(40, "Cfg<48, 40>", "DkvCfg48/DqCfg48")),  # unchanged below
-    (128, fa.FlashPlan(128, "Cfg<128, 128, swizzled>", "DkvCfg128w/DqCfg128w")),
-    (320, fa.FlashPlan(512, "Cfg<512, 256, wide>", "WideDv+WideDk/WideDq")),
-    (512, fa.FlashPlan(512, "Cfg<512, 256, wide>", "WideDv+WideDk/WideDq")),
+    (513, fa.FlashPlan(520, *XWIDE, 520)),     # past 512: the xwide kernels, padded to 8
+    (520, fa.FlashPlan(520, *XWIDE, 520)),
+    (640, fa.FlashPlan(640, *XWIDE, 640)),     # one spatial head at UNet level 1
+    (1280, fa.FlashPlan(1280, *XWIDE, 1280)),  # one head at levels 2-3
+    (4100, fa.FlashPlan(4104, *XWIDE, 4104)),
+    (40, fa.FlashPlan(40, "Cfg<48, 40>", "DkvCfg48/DqCfg48", 40)),  # unchanged below
+    (128, fa.FlashPlan(128, "Cfg<128, 128, swizzled>", "DkvCfg128w/DqCfg128w", 128)),
+    # level 0's one head: the mid forward at 320, the backward padded to 512
+    (320, fa.FlashPlan(320, "Mid<320, rows>", "WideDv+WideDk/WideDq", 512)),
+    (512, fa.FlashPlan(512, "Cfg<512, 256, wide>", "WideDv+WideDk/WideDq", 512)),
 ])
 def test_flash_plan_past_512_and_below(d, plan):
     assert fa.flash_plan(d) == plan
@@ -254,6 +274,116 @@ def test_launch_sizes_past_32_frames_and_below(shape, heads, sizes):
     assert ta.launch_sizes(shape, heads) == sizes
     plan = ta.temporal_plan(shape[-1], heads, shape[1])
     assert (plan.heads, plan.padded, plan.chunks) == sizes[5:8]
+
+
+@pytest.mark.parametrize("f,c,heads,plan", [
+    # the long_wide stage-2 step's levels: whole heads with a stage spare
+    # beside the 3 groups' where one fits (80 columns in 4 stages), else 160
+    # columns in 3
+    (48, 320, 8, ta.LongBackwardPlan(2, 80, 88, 1, 4, 167616)),
+    (48, 640, 8, ta.LongBackwardPlan(1, 80, 88, 1, 4, 167616)),
+    (48, 1280, 8, ta.LongBackwardPlan(1, 160, 168, 1, 3, 225968)),
+    (33, 320, 8, ta.LongBackwardPlan(4, 160, 168, 1, 4, 215744)),   # room for 4 stages
+    # one 256-wide head in chunks: 2 of 128 at 64 frames, 3 of 88 at 96
+    (64, 1280, 5, ta.LongBackwardPlan(1, 128, 136, 2, 3, 227504)),
+    (96, 1280, 5, ta.LongBackwardPlan(1, 88, 104, 3, 2, 199840)),
+    # at 96 frames 160 columns no longer fit two stages: 2 heads of 40, a
+    # 160-wide head in 2 chunks
+    (96, 320, 8, ta.LongBackwardPlan(2, 80, 88, 1, 2, 175264)),
+    (96, 1280, 8, ta.LongBackwardPlan(1, 80, 88, 2, 2, 175264)),
+    (40, 1280, 1, ta.LongBackwardPlan(1, 160, 168, 8, 3, 196400)),  # d = 1280
+])
+def test_long_backward_plan_at_named_frame_counts(f, c, heads, plan):
+    assert ta.long_backward_plan(c, heads, f) == plan
+    assert ta.backward_launch_sizes((1, f, 7, c), heads) == (
+        1, f, 7, heads, c // heads, plan.heads, plan.padded, plan.chunks, c // heads,
+        plan.stages, plan.smem)
+
+
+@pytest.mark.parametrize("f", [32, 97, 100, 256])
+def test_long_backward_plan_boundaries(f):
+    """Up to 32 frames the item kernels' plan and past 96 the long kernel's
+    pieces, both with zeros for the ring's stages and bytes: the frames
+    kernel takes 33 to 96."""
+    assert ta.long_backward_plan(320, 8, f) is None
+    assert ta.backward_launch_sizes((1, f, 7, 320), 8) == (*ta.launch_sizes((1, f, 7, 320), 8),
+                                                            0, 0)
+    assert ta.long_backward_plan(320, 8, 33) is not None
+    assert ta.long_backward_plan(320, 8, ta.FRAMES_KERNEL_FRAMES) is not None
+
+
+def test_long_backward_plan_of_every_shape_fits_one_block():
+    """From 33 to 96 frames, every width the motion modules and the heads64
+    and long_wide configs give (and the narrowest and widest): a ring of at
+    least 2 stages in a block's shared memory, chunks of at most 160
+    columns, multiples of 8, covering the head with none empty, or whole
+    heads that divide the head count; loaded at a width the C side takes."""
+    for f in range(33, ta.FRAMES_KERNEL_FRAMES + 1):
+        for c, heads in ((320, 8), (640, 8), (1280, 8), (1280, 5), (320, 5), (640, 5), (64, 8),
+                         (1280, 1), (640, 1), (320, 1), (1272, 1), (8, 1), (200, 5)):
+            d = c // heads
+            p = ta.long_backward_plan(c, heads, f)
+            assert 2 <= p.stages <= ta.FRAMES_KERNEL_MAX_STAGES
+            assert p.smem == ta.long_backward_smem(f, p.padded, p.stages) <= ta.SMEM_LIMIT
+            assert p.cols % 8 == 0 and p.cols <= ta.CHUNK_COLUMNS
+            assert p.padded >= p.cols + 8 and (p.padded // 8) % 2 == 1 and p.padded <= 256
+            if p.chunks == 1:
+                assert heads % p.heads == 0 and p.cols == p.heads * d
+            else:
+                assert p.heads == 1 and (p.chunks - 1) * p.cols < d <= p.chunks * p.cols
+
+
+def test_long_backward_smem_reckons_as_the_kernels_source():
+    """The wrapper's constants and its reckoning of the frames kernel's
+    shared memory are those of csrc/temporal_attention_bwd.cu (which checks
+    the bytes passed to it against its own on the card)."""
+    import re
+
+    from humanvid_tpu_torch.ops import cuda_build
+
+    text = (cuda_build.CSRC / "temporal_attention_bwd.cu").read_text()
+    tiles = int(re.search(r"constexpr int kFramesTiles = (\d+);", text).group(1))
+    assert 16 * tiles == ta.FRAMES_KERNEL_FRAMES
+    assert "constexpr int frames_groups(int QT) { return QT <= 3 ? 3 : 1; }" in text
+    assert [ta.frames_groups(f) for f in (33, 48, 49, 96)] == [3, 3, 1, 1]
+    assert ("(size_t)frames_groups(FP / 16) * 2 * FP * (FP + 8)) * 2 + 2 * stages * 8;"
+            in text)
+    assert "if (bytes != smem || bytes > 232448)" in text and ta.SMEM_LIMIT == 232448
+    assert "constexpr int kChunkColumns = 160;" in text and ta.CHUNK_COLUMNS == 160
+    # 48 frames, 168 columns: 3 x 4 tiles of 48 x 168, no room, three groups'
+    # P and dS of 48 x 56, 6 barriers, 128 bytes of alignment
+    assert ta.long_backward_smem(48, 168, 3) == 128 + (3 * 4 * 8064 + 0 + 3 * 2 * 48 * 56) * 2 + 48
+    # 33 frames: each tile rounded to 64 elements, the room of 15 rows
+    assert ta.long_backward_smem(33, 168, 4) == \
+        128 + (4 * 4 * 5568 + 2560 + 3 * 2 * 48 * 56) * 2 + 64
+    # 64 frames: one group
+    assert ta.long_backward_smem(64, 136, 3) == 128 + (3 * 4 * 8704 + 0 + 1 * 2 * 64 * 72) * 2 + 48
+
+
+def test_mid_plan_of_every_width_and_the_c_side():
+    """Between 128 and 512 (multiples of 8) the mid forward runs d rounded
+    up to 64 in the layout MID_LAYOUTS names; the C entry point takes
+    exactly the (width, layout) pairs MID_WIDTHS lists, one layout a width;
+    the plan ints are zeros for the backward and outside the band."""
+    import re
+
+    from humanvid_tpu_torch.ops import cuda_build
+
+    for d in range(136, 512, 8):
+        p = fa.mid_plan(d)
+        assert p.width == -(-d // 64) * 64 and p.layout == fa.MID_LAYOUTS[p.width]
+        assert fa._plan_args(d, "fwd") == (p.width, 1 if p.layout == "rows" else 2, 0, 0, 0, 0, 0)
+        assert fa._plan_args(fa.flash_plan(d).backward_width, "bwd") == (0,) * 7
+    for d in (128, 512, 130, 0, 520):
+        with pytest.raises(ValueError):
+            fa.mid_plan(d)
+    text = (cuda_build.CSRC / "flash_attention.cu").read_text()
+    built = {"rows": (), "columns": ()}
+    for cluster, width in re.findall(r"x_cluster == (\d) && x_slice == (\d+)\) return MID", text):
+        key = "rows" if cluster == "1" else "columns"
+        built[key] += (int(width),)
+    assert built == fa.MID_WIDTHS
+    assert not set(built["rows"]) & set(built["columns"])
 
 
 # ---- the slice: one spatial head, 40 frames --------------------------------------------

@@ -270,6 +270,59 @@ def test_xwide_variant_edits_apply_to_the_kernel_sources(name):
     assert max(fa.xwide_smem(plan, k) for k in ("fwd", "bwd")) <= fa.SMEM_LIMIT
 
 
+@pytest.mark.parametrize("name", sorted(flash_variants.FRAMES_BWD_VARIANTS))
+def test_frames_bwd_variants_apply_and_fit_one_block(name):
+    """Kernel B's frames-kernel variants: each edit found exactly once in
+    the backward's source, and the plan each runs fits a block at every
+    shape past 32 frames the tool times it at."""
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    edits, overrides, most = flash_variants.FRAMES_BWD_VARIANTS[name]
+    text = flash_variants.variant_source(name, {name: (edits, False)},
+                                         "temporal_attention_bwd.cu")
+    base = (cuda_build.CSRC / "temporal_attention_bwd.cu").read_text()
+    assert (text == base) == (not edits)
+    assert 48 <= most <= ta.FRAMES_KERNEL_FRAMES
+    for _, b, f, l, c, heads in flash_variants.TEMPORAL_BWD_LONG_SHAPES:
+        if f > most:
+            continue
+        sizes = flash_variants.frames_variant_sizes(name, (b, f, l, c), heads)
+        assert len(sizes) == 11 and 2 <= sizes[9] and sizes[10] <= ta.SMEM_LIMIT
+        assert sizes[:5] == (b, f, l, heads, c // heads)
+
+
+@pytest.mark.parametrize("name", sorted(flash_variants.MID_VARIANTS))
+def test_mid_variants_apply_to_the_kernel_source(name):
+    """The mid forward's variants: each edit found exactly once in the
+    forward's source, and a plan the kernel is built for at d = 320 (at
+    d = 192 every variant but the columns layout)."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
+
+    edits = flash_variants.MID_VARIANTS[name][0]
+    text = flash_variants.variant_source(name, {name: (edits, False)})
+    base = (cuda_build.CSRC / "flash_attention.cu").read_text()
+    assert (text == base) == (not edits)
+    plan = flash_variants.mid_variant_plan(name, 320)
+    assert plan.width in fa.MID_WIDTHS[plan.layout] and plan.width >= 320
+    assert (flash_variants.mid_variant_plan(name, 192) is None) == (name == "columns")
+
+
+def test_mid_mode_raises_without_a_card(monkeypatch):
+    """``--mid`` needs the card, takes one ``--against``, excludes the other
+    modes and takes only its own variants."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.run_mid(["kernel", "columns"])
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.main(["--mid", "no_skip", "--against", "flash_attention.cu"])
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.main(["--temporal-bwd", "frames_stages_2"])
+    for argv in (["--mid", "--xwide"], ["--mid", "slice_128"], ["--xwide", "columns"],
+                 ["--mid", "--against", "a.cu", "--against", "b.cu"]):
+        with pytest.raises(SystemExit):
+            flash_variants.main(argv)
+
+
 def test_xwide_mode_raises_without_a_card(monkeypatch):
     """``--xwide`` needs the card, takes ``--against`` up to twice (a
     forward and a backward source), excludes the other modes and takes
