@@ -183,9 +183,10 @@ Every head width the JAX kernels take adds (after the probes, and
 
 - head widths: kernel A's forward and backward at d = 64 and 128 (the
   heads of 5-head configs, at the main path's and the stage-2 step's
-  shapes, with the batched-CFG and CFG-dropout biases), d = 96, and
-  through the zero pad at d = 36 (to 40) and 192 (to 512), ragged with the
-  bias; kernel B's forward and backward at d = 64, 128 and 256 (the 5-head
+  shapes, with the batched-CFG and CFG-dropout biases), d = 96, through
+  the zero pad at d = 36 (to 40), and d = 192 (the mid kernels: the
+  forward and, at a level-1 size, the backward at the head's own width),
+  ragged with the bias; kernel B's forward and backward at d = 64, 128 and 256 (the 5-head
   motion modules) and at d = 320, 640 and 1280 (column chunks) and 36
   (padded), at f = 24 and one frame; each held to its plain version with
   the same bits on a repeat launch, timed beside its bound and SDPA; kernel
@@ -205,12 +206,15 @@ The last shapes the JAX kernels take add (after the head widths, and
   and dQ, the head's depth split over a thread-block cluster, each line
   with the cluster plan) at d = 640 (the long_wide path's level-1 shapes:
   sequential cond and uncond, the batched-CFG bias, the stage-2 forward
-  and backward with the CFG-dropout bias), 520 and 1280, and kernel B
-  past 32 frames (the long forward; the backward's frames kernel up to 96
-  frames, its long kernel past that) at f = 48 (the path's four motion
-  levels, at 768x512 forward and 896x512 backward), f = 33, 64 and 96 at
-  d = 40, 160 and 256, and the backward at f = 100, d = 40; each held to
-  its plain version, a repeat launch the same bits, device ms
+  and backward with the CFG-dropout bias), 520 and 1280, kernel A's mid
+  backward at the long_wide stage-2 step's level-0 shapes (d = 320, cond
+  and uncond with the CFG-dropout bias on every row, with SDPA's backward
+  by backend), and kernel B past 32 frames (the long forward; the
+  backward's frames kernel up to 128 frames, its long kernel past that) at
+  f = 48 (the path's four motion levels, at 768x512 forward and 896x512
+  backward), f = 33, 64 and 96 at d = 40, 160 and 256, and the backward at
+  f = 100 and 128 (d = 40, and 160 at 128) and, in the long kernel, 136;
+  each held to its plain version, a repeat launch the same bits, device ms
   (torch.profiler) and event ms beside the bound, the plain version's and
   the library's ms;
 - long_wide: ``long_wide_config()`` (one spatial head in both UNets, so
@@ -219,16 +223,18 @@ The last shapes the JAX kernels take add (after the head widths, and
   LONG_WIDE_STEPS DDIM steps, sequential and batched CFG, then one uncond
   stage-2 step at 896x512x48f (grad checkpointing), then one uncond
   stage-2 step of ``long_frames_config()`` (motion and camera tables of
-  100 frames) at 256x256x100f; checks finite outputs, kernel A's xwide
-  launches at d = 640 and its mid forward's at d = 320 (forward; backward
-  in the step), kernel B's past 32 frames at f = 48 (the long forward;
-  the backward's frames kernel) and at f = 100 (the backward's long
-  kernel), no plain attention on CUDA tensors but the short-sequence
-  route; prints each run's seconds, peak GiB and launches by d and by f.
+  100 frames) at 256x256x100f and one of 136 frames at 128x128x136f;
+  checks finite outputs, kernel A's xwide launches at d = 640 and its mid
+  kernels' at d = 320 (forward; backward in the step) with none through
+  the zero pad, kernel B's past 32 frames at f = 48 (the long forward; the
+  backward's frames kernel), at f = 100 (the backward's frames kernel, no
+  long kernel) and at f = 136 (the backward's long kernel), no plain
+  attention on CUDA tensors but the short-sequence route; prints each
+  run's seconds, peak GiB and launches by d and by f.
 
 Every main-path run (pose2vid, the stage-2 steps, pose2img, the stage-1
 steps, the denoise step and decode of the profile phase, the heads64 and
-long_wide runs (the 100-frame stage-2 step among them), the cli run, the train_cli stage-2 and stage-1 runs, the eval generation
+long_wide runs (the 100- and 136-frame stage-2 steps among them), the cli run, the train_cli stage-2 and stage-1 runs, the eval generation
 and its pose2img run, each rank's dp_train and fanout runs, the pose runs
 and the microbench run) sets every launch count to 0 just before it and
 reads the counts just after.
@@ -289,6 +295,7 @@ PROFILE_TRIES = 8          # torch.profiler sessions a device-time reading may t
 FLASH_SRC = "humanvid_tpu_torch/csrc/flash_attention.cu"
 TEMPORAL_SRC = "humanvid_tpu_torch/csrc/temporal_attention.cu"
 FLASH_BWD_SRC = "humanvid_tpu_torch/csrc/flash_attention_bwd.cu"
+MID_BWD_SRC = "humanvid_tpu_torch/csrc/flash_attention_mid_bwd.cu"
 TEMPORAL_BWD_SRC = "humanvid_tpu_torch/csrc/temporal_attention_bwd.cu"
 GN_SRC = "humanvid_tpu_torch/csrc/group_norm.cu"
 DMAJOR_SRC = "humanvid_tpu_torch/csrc/probe_dmajor.cu"
@@ -749,6 +756,7 @@ def phase_flash_bwd(torch, results, dev, cases):
         width = fa.flash_plan(d).backward_width
         wide = width > 128
         xwide = width > 512
+        mid = 128 < width < fa.WIDE_HEAD_DIM
         out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
         delta = fa.attention_delta(g, out, heads)
         args = (q, k, v, bias, g, lse, delta, heads)
@@ -769,15 +777,20 @@ def phase_flash_bwd(torch, results, dev, cases):
         repeat_same = all(torch.equal(x, y) for x, y in zip(grads, again))
         del again
         ms = time_ms(torch, lambda: fa.flash_attention_backward_cuda(*args), 3)
-        # d = 512: the dk/dv entry point launches a dV and a dK kernel;
-        # d > 512: the xwide dK/dV kernel and dQ kernel
-        d512 = wide and not xwide
-        keys = (tuple(f"flash_bwd_{which}_wide_kernel" for which in ("dv", "dk", "dq")) if d512
-                else ("flash_bwd_dkv_xwide_kernel", "flash_bwd_dq_xwide_kernel") if xwide
-                else ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))
+        # d = 512 (and 128 < d < 512 past 320): the dk/dv entry point
+        # launches a dV and a dK kernel; d > 512: the xwide dK/dV kernel and
+        # dQ kernel; 128 < d <= 320: the mid dK/dV and dQ kernels
+        mid_plan = fa.mid_backward_plan(width) if mid else None
+        dv_dk = (wide and not xwide and not mid) or (mid and mid_plan.layout == "split")
+        kind = "mid" if mid else "wide" if dv_dk else "xwide" if xwide else ""
+        names = ("dv", "dk", "dq") if dv_dk else ("dkv", "dq")
+        keys = tuple(f"flash_bwd_{n}_{kind}_kernel" if kind else f"flash_bwd_{n}_kernel"
+                     for n in names)
+        if mid and mid_plan.dq_layout == "roles":  # dq by role: a kernel of its own name
+            keys = keys[:-1] + ("flash_bwd_dqr_mid_kernel",)
         split = _profile_split(torch, lambda: fa.flash_attention_backward_cuda(*args), keys)
-        split = dict(zip(("dv", "dk", "dq") if d512 else ("dkv", "dq"), split.values()))
-        if d512:
+        split = dict(zip(names, split.values()))
+        if dv_dk:
             split["dkv"] = split["dv"] + split["dk"]
         ok = (all(e[2] for e in errs) and hidden_zero and skip_same and repeat_same
               and all(ms > 0 for ms in split.values()))
@@ -804,21 +817,26 @@ def phase_flash_bwd(torch, results, dev, cases):
         err = max(e[0] for e in errs)
         rel = max(e[1] for e in errs)
         print(f"  {name}: B={B} Lq={lq} Lk={lk} heads={heads} d={d}"
-              + (f" (padded to {width})" if width != d else "") + " "
+              + (f" (padded to {width})" if width != d else "")
+              + (f" (mid backward {mid_plan.layout}, depth {mid_plan.width})" if mid else "")
+              + " "
               f"rel_l2 dq/dk/dv={errs[0][1]:.3e}/{errs[1][1]:.3e}/{errs[2][1]:.3e} "
               f"max_err/rms dq/dk/dv={ratios} "
               f"hidden keys zero={hidden_zero} repeat same bits={repeat_same} "
               f"passed-over tiles same bits={skip_same} ms={ms:.3f} (dkv {split['dkv']:.3f}"
-              + (f" = dv {split['dv']:.3f} + dk {split['dk']:.3f}" if d512 else "")
+              + (f" = dv {split['dv']:.3f} + dk {split['dk']:.3f}" if dv_dk else "")
               + f" + dq {split['dq']:.3f}) plain_ms={plain_ms:.3f} "
               f"library_ms={lib} bound_ms={b_ms:.3f} ({b_by}) "
               f"TFLOP/s={flops / ms / 1e9:.1f} {'ok' if ok else 'FAIL'}")
         extra = dict(library_backends=backends) if wide else {}
-        if d512:
+        if dv_dk:
             extra.update(dv_ms=split["dv"], dk_ms=split["dk"])
         if xwide:
             extra["plan"] = fa.xwide_plan(width)._asdict()
-        results.append(dict(kernel=("flash_bwd_xwide" if xwide else "flash_bwd_d512") if wide
+        if mid:
+            extra["plan"] = mid_plan._asdict()
+        results.append(dict(kernel=("flash_bwd_xwide" if xwide else "flash_bwd_mid" if mid
+                                    else "flash_bwd_d512") if wide
                             else "flash_bwd", shape=name,
                             d=d, kernel_d=width, max_abs_err=err, rel_l2=rel, ms=ms, dkv_ms=split["dkv"],
                             dq_ms=split["dq"], plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
@@ -910,7 +928,7 @@ def phase_temporal_bwd(torch, results, dev, cases):
 
 def phase_temporal_isolation(torch, dev):
     """Kernel B's backward past 32 frames (the frames kernel, and the long
-    kernel past 96) with an Inf in one head's q, k, v and g columns at
+    kernel past 128) with an Inf in one head's q, k, v and g columns at
     every third position: every element outside that head's columns at
     those positions must be finite and the same bits as the clean run.
     Returns ok."""
@@ -920,7 +938,8 @@ def phase_temporal_isolation(torch, dev):
     b, l = 2, 30
     for f, c, heads, hot in ((33, 320, 8, 1), (48, 320, 8, 3), (48, 640, 8, 7), (48, 1280, 8, 2),
                              (64, 1280, 5, 4), (96, 1280, 5, 2), (96, 320, 8, 7),
-                             (100, 320, 8, 1)):
+                             (100, 320, 8, 1), (128, 640, 8, 3), (128, 1280, 5, 2),
+                             (136, 320, 8, 1)):
         d = c // heads
         gen = torch.Generator(device=dev).manual_seed(f + c)
         clean = [torch.randn((b, f, l, c), generator=gen, device=dev).to(torch.bfloat16)
@@ -946,7 +965,10 @@ HEADS64_STEPS = 2          # DDIM steps of each heads64 pose2vid run
 LONG_WIDE_STEPS = 2        # DDIM steps of each long_wide pose2vid run
 LONG_WIDE_SIZE = (48, 768, 512)        # frames, height, width: one 48-frame window
 LONG_WIDE_TRAIN_SIZE = (48, 896, 512)  # the stage-2 step's
-LONG_FRAMES_TRAIN_SIZE = (100, 256, 256)  # a stage-2 step past 96 frames
+LONG_FRAMES_TRAIN_SIZE = (100, 256, 256)  # a stage-2 step of the frames kernel's 7 tiles
+LONG_FRAMES_PAST_SIZE = (136, 128, 128)  # one past the frames kernel's 128
+# the mid backward's headline: the long_wide stage-2 step's level-0 cond call
+MID_BWD_HEADLINE = "long_wide level0 cond (ref KV) d320"
 
 
 def head_width_cases():
@@ -973,8 +995,9 @@ def head_width_cases():
 def head_width_bwd_cases():
     """Kernel A's backward at the heads64 stage-2 shapes (896x512x24f:
     level 0 d = 64 with and without the CFG-dropout bias, level 1 d = 128),
-    and ragged with the bias at d = 128, 96, 36 (padded to 40) and 192
-    (padded to 512): (name, B, Lq, Lk, heads, d, bias rows)."""
+    ragged with the bias at d = 128, 96, 36 (padded to 40) and 192 (the mid
+    backward), and d = 192 at a level-1 size: (name, B, Lq, Lk, heads, d,
+    bias rows)."""
     return [
         ("heads64 level0 cond (ref KV) d64", 24, 7168, 14336, 5, 64, 0),
         ("heads64 level0 uncond (CFG dropout bias) d64", 24, 7168, 14336, 5, 64, 24),
@@ -983,8 +1006,8 @@ def head_width_bwd_cases():
         ("ragged d128 with the bias", 2, 300, 700, 5, 128, 1),
         ("ragged d96 with the bias", 2, 300, 700, 4, 96, 1),
         ("pad d36 to 40, ragged with the bias", 2, 300, 700, 5, 36, 1),
-        ("pad d192 to 512, ragged with the bias", 2, 300, 700, 2, 192, 1),
-        ("pad d192 to 512, level1-size", 8, 1792, 3584, 5, 192, 0),
+        ("d192 (mid backward), ragged with the bias", 2, 300, 700, 2, 192, 1),
+        ("d192 (mid backward), level1-size", 8, 1792, 3584, 5, 192, 0),
     ]
 
 
@@ -1214,14 +1237,18 @@ def long_wide_flash_cases():
 def long_wide_flash_bwd_cases():
     """Kernel A's xwide backward at the long_wide stage-2 step's level-1
     shapes (896x512x48f: uncond with the CFG-dropout bias on every row, and
-    cond) and ragged with the bias at d = 520 and 1280: (name, B, Lq, Lk,
-    heads, d, bias rows)."""
+    cond) and ragged with the bias at d = 520 and 1280; its mid backward at
+    the step's level-0 shapes (d = 320, cond, and uncond with the bias on
+    every row): (name, B, Lq, Lk, heads, d, bias rows)."""
     return [
         ("long_wide level1 uncond (CFG dropout bias) d640", 48, 1792, 3584, 1, 640, 48),
         ("long_wide level1 cond (ref KV) d640", 48, 1792, 3584, 1, 640, 0),
         ("ragged d520 with the bias", 2, 300, 700, 1, 520, 1),
         ("ragged d1280 with the bias", 2, 300, 700, 1, 1280, 1),
+        (MID_BWD_HEADLINE, 48, 7168, 14336, 1, 320, 0),
+        ("long_wide level0 uncond (CFG dropout bias) d320", 48, 7168, 14336, 1, 320, 48),
     ]
+
 
 
 def long_wide_temporal_cases():
@@ -1243,10 +1270,10 @@ def long_wide_temporal_cases():
 
 def long_wide_temporal_bwd_cases():
     """Kernel B's backward past 32 frames: the frames kernel at the
-    long_wide stage-2 step's motion levels (896x512x48f) and at f = 33, 64
-    and 96, PR 17's long kernel at f = 100 (the frames kernel's first shape
-    is its headline, the long kernel's its only one): (name, b, f, l, c,
-    heads)."""
+    long_wide stage-2 step's motion levels (896x512x48f) and at f = 33, 64,
+    96, 100 and 128, the long kernel at f = 136, past the frames kernel's
+    reach (the frames kernel's first shape is its headline, the long
+    kernel's its only one): (name, b, f, l, c, heads)."""
     return [
         ("long_wide motion level0 f48", 1, 48, 7168, 320, 8),
         ("long_wide motion level1 f48", 1, 48, 1792, 640, 8),
@@ -1256,6 +1283,9 @@ def long_wide_temporal_bwd_cases():
         ("f64 d160", 1, 64, 448, 1280, 8),
         ("f96 d256", 1, 96, 448, 1280, 5),
         ("f100 d40", 1, 100, 7168, 320, 8),
+        ("f128 level0-size d40", 1, 128, 7168, 320, 8),
+        ("f128 level2-size d160", 1, 128, 448, 1280, 8),
+        ("f136 d40 (long kernel)", 1, 136, 7168, 320, 8),
     ]
 
 
@@ -1330,15 +1360,13 @@ def _timed_stage2_step(torch, np, system, state, sched, batch, draws):
     return seconds, launches, by_d, dict(plain), peak, loss, norm, finite
 
 
-def long_frames_config():
-    """``CamAnimateConfig`` with motion and camera position tables of
-    LONG_FRAMES_TRAIN_SIZE's frames, past the frames kernel's 96: kernel
-    B's backward there runs in PR 17's long kernel (motion heads d = 40, 80
-    and 160)."""
+def long_frames_config(F=LONG_FRAMES_TRAIN_SIZE[0]):
+    """``CamAnimateConfig`` with motion and camera position tables of F
+    frames (motion heads d = 40, 80 and 160): kernel B's backward runs in
+    the frames kernel up to 128 frames and in the long kernel past them."""
     from humanvid_tpu_torch.models.configs import CameraEncoderConfig, UNetConfig
     from humanvid_tpu_torch.pipelines import CamAnimateConfig
 
-    F = LONG_FRAMES_TRAIN_SIZE[0]
     return CamAnimateConfig(
         denoising_unet=UNetConfig(use_motion_module=True, motion_max_len=F),
         camera_encoder=CameraEncoderConfig(position_encoding_max_len=F))
@@ -1351,14 +1379,18 @@ def phase_long_wide(torch, np, dev, card):
     batched CFG (the reference-KV bias through the xwide forward), then one
     stage-2 step at 896x512x48f, bs 1, grad checkpointing, step 0 forced
     uncond (the CFG-dropout bias in both of kernel A's backward entry
-    points). Checks finite outputs, the mid forward's launches at d = 320
-    and none through the zero pad, the xwide kernels' at d = 640 and the
-    long kernels' at f = 48 (forward; backward in the step: the frames
-    kernel), and no plain attention on CUDA tensors but the short-sequence
-    route. Then one stage-2 step of ``long_frames_config()`` at
-    LONG_FRAMES_TRAIN_SIZE (100 frames at 256x256), whose backward past 96
-    frames runs in the long kernel and never in the frames kernel.
+    points). Checks finite outputs, the mid kernels' launches at d = 320
+    (forward; the backward in the step) and none through the zero pad, the
+    xwide kernels' at d = 640 and the long kernels' at f = 48 (forward;
+    backward in the step: the frames kernel), and no plain attention on
+    CUDA tensors but the short-sequence route. Then one stage-2 step of
+    ``long_frames_config()`` at LONG_FRAMES_TRAIN_SIZE (100 frames at
+    256x256), whose backward runs in the frames kernel and never in the
+    long kernel, and one at LONG_FRAMES_PAST_SIZE (136 frames at 128x128),
+    past the frames kernel's reach, in the long kernel only.
     Returns (ok, {run: launches})."""
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
     F, H, W = LONG_WIDE_SIZE
     ok, runs = True, {}
     t0 = time.perf_counter()
@@ -1403,7 +1435,10 @@ def phase_long_wide(torch, np, dev, card):
 
     for run, config, size in (("long_wide_train", long_wide_config(), LONG_WIDE_TRAIN_SIZE),
                               ("long_frames_train", long_frames_config(),
-                               LONG_FRAMES_TRAIN_SIZE)):
+                               LONG_FRAMES_TRAIN_SIZE),
+                              ("long_frames_past_train",
+                               long_frames_config(LONG_FRAMES_PAST_SIZE[0]),
+                               LONG_FRAMES_PAST_SIZE)):
         F, H, W = size
         setup = _stage2_step_setup(torch, np, dev, config, size)
         seconds, launches, by_d, plain, peak, loss, norm, finite = _timed_stage2_step(
@@ -1414,14 +1449,17 @@ def phase_long_wide(torch, np, dev, card):
         if run == "long_wide_train":
             step_ok = (step_ok and launches["flash_bwd_xwide"] > 0
                        and launches["temporal_bwd_frames"] > 0 and launches["flash_fwd_mid"] > 0
+                       and launches["flash_bwd_mid"] > 0 and launches["flash_bwd_d512"] == 0
                        and launches["temporal_bwd_long"] == 0
                        and not by_d["flash forward_pad_launches_by_d"]
+                       and not by_d["flash backward_pad_launches_by_d"]
                        and all(by_d["flash backward_launches_by_d"].get(d, 0) > 0
                                for d in (320, 640)))
             what = "one spatial head"
         else:
-            step_ok = (step_ok and launches["temporal_bwd_long"] > 0
-                       and launches["temporal_bwd_frames"] == 0
+            past = F > ta.FRAMES_KERNEL_FRAMES  # the long kernel's, else the frames kernel's
+            step_ok = (step_ok and (launches["temporal_bwd_long"] > 0) == past
+                       and (launches["temporal_bwd_frames"] > 0) != past
                        and set(by_d["temporal backward_launches_by_f"]) == {F})
             what = f"{F}-frame tables"
         ok = ok and step_ok
@@ -1950,9 +1988,9 @@ def _launch_counts():
     """Launches of every kernel since the last reset: the six of the model
     paths, the wide-head backward, the five of the last shapes (kernel A
     past 512 columns; kernel B past 32 frames: the long forward, the
-    backward's frames kernel up to 96 frames and its long kernel past
-    that), kernel A's mid forward (128 < d < 512) and the three probe
-    kernels."""
+    backward's frames kernel up to 128 frames and its long kernel past
+    that), kernel A's mid forward and backward (128 < d < 512) and the three
+    probe kernels."""
     from humanvid_tpu_torch.ops import flash_attention as fa
     from humanvid_tpu_torch.ops import group_norm as gn
     from humanvid_tpu_torch.ops import temporal_attention as ta
@@ -1970,6 +2008,8 @@ def _launch_counts():
             "temporal_bwd_frames": ta.launches["temporal_bwd_frames"],
             "temporal_bwd_long": ta.launches["temporal_bwd_long"],
             "flash_fwd_mid": fa.launches["128<d<512"],
+            "flash_bwd_mid": min(fa.launches["bwd_dkv_128<d<512"],
+                                 fa.launches["bwd_dq_128<d<512"]),
             **pk.launches}
 
 
@@ -3778,8 +3818,9 @@ def kernel_line(results, launches):
              "probe_dmajor": "microbench", "probe_pvt": "microbench",
              "probe_hbm": "microbench", "flash_fwd_xwide": "long_wide_sequential",
              "temporal_fwd_long": "long_wide_sequential", "flash_bwd_xwide": "long_wide_train",
-             "temporal_bwd_frames": "long_wide_train", "temporal_bwd_long": "long_frames_train",
-             "flash_fwd_mid": "long_wide_sequential"}
+             "temporal_bwd_frames": "long_wide_train",
+             "temporal_bwd_long": "long_frames_past_train",
+             "flash_fwd_mid": "long_wide_sequential", "flash_bwd_mid": "long_wide_train"}
     replaces = {
         "flash_fwd": ("humanvid_tpu/ops/flash_attention.py:172", FLASH_SRC),
         "flash_fwd_d512": ("humanvid_tpu/ops/flash_attention.py:96", FLASH_SRC),
@@ -3798,17 +3839,21 @@ def kernel_line(results, launches):
         "flash_bwd_xwide": ("humanvid_tpu/ops/flash_attention.py:354", FLASH_BWD_SRC),
         "temporal_fwd_long": ("humanvid_tpu/ops/temporal_attention.py:81", TEMPORAL_SRC),
         "temporal_bwd_long": ("humanvid_tpu/ops/temporal_attention.py:116", TEMPORAL_BWD_SRC),
-        # kernel B's backward from 33 to 96 frames (the long kernel's past that)
+        # kernel B's backward from 33 to 128 frames (the long kernel's past that)
         "temporal_bwd_frames": ("humanvid_tpu/ops/temporal_attention.py:116",
                                 TEMPORAL_BWD_SRC),
         # _fwd_kernel at the widths between 128 and 512 (the VAE's 512 is
         # flash_fwd_d512's)
         "flash_fwd_mid": ("humanvid_tpu/ops/flash_attention.py:96", FLASH_SRC),
+        # _dkv_kernel (:354) and _dq_kernel (:537) at the same widths
+        "flash_bwd_mid": ("humanvid_tpu/ops/flash_attention.py:354", MID_BWD_SRC),
     }
+    headlines = {"flash_bwd_mid": MID_BWD_HEADLINE}
     kernels = []
     for name, (rep, src) in replaces.items():
         rows = [r for r in results if r["kernel"] == name]
-        head = rows[0]  # the first case of each kernel is its headline shape
+        # the first case of each kernel is its headline shape, unless named
+        head = next(r for r in rows if r["shape"] == headlines.get(name, rows[0]["shape"]))
         path = paths.get(name, "pose2vid")
         extra = {}
         if name == "flash_bwd":
@@ -3818,7 +3863,7 @@ def kernel_line(results, launches):
             extra = dict(also_replaces="humanvid_tpu/ops/flash_attention.py:537",
                          dkv_ms=head["dkv_ms"], dv_ms=head["dv_ms"], dk_ms=head["dk_ms"],
                          dq_ms=head["dq_ms"], library_backends=head["library_backends"])
-        elif name == "flash_bwd_xwide":  # the dK/dV kernel and the dQ kernel
+        elif name in ("flash_bwd_xwide", "flash_bwd_mid"):  # the dK/dV and dQ kernels
             extra = dict(also_replaces="humanvid_tpu/ops/flash_attention.py:537",
                          dkv_ms=head["dkv_ms"], dq_ms=head["dq_ms"],
                          library_backends=head["library_backends"], plan=head["plan"])

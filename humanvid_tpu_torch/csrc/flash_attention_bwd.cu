@@ -144,12 +144,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_bwd.cuh"
 #include "hopper.cuh"
 #include "xwide.cuh"
 
 namespace {
 
 using namespace hopper;
+using namespace flash_bwd;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -202,21 +204,6 @@ struct BwdCfg {
   static_assert(R_BYTES % 1024 == 0 && S_BYTES % 1024 == 0, "");
   static_assert(SMEM <= 232448, "shared memory");
 };
-
-// In every thread of the block: whether every x[i], i < n, is <= hi (NaN
-// is not). A block-wide barrier.
-__device__ __forceinline__ bool block_all_le(const float* x, int n, float hi) {
-  int ok = 1;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) ok &= x[i] <= hi;
-  return __syncthreads_and(ok);
-}
-
-// The same for x[i] > lo.
-__device__ __forceinline__ bool block_all_gt(const float* x, int n, float lo) {
-  int ok = 1;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) ok &= x[i] > lo;
-  return __syncthreads_and(ok);
-}
 
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
@@ -311,27 +298,6 @@ __device__ __forceinline__ void produce(const CUtensorMap* r1, const CUtensorMap
   }
 }
 
-// Store this warp's rows (row0 + lane/4, +8) of a 64 x DV accumulator of
-// one head as bf16, times `mul`, skipping rows >= valid_rows and columns >= d.
-template <int DV>
-__device__ __forceinline__ void store_acc(bf16* dst, int C_all, const float (&acc)[DV / 2],
-                                          int row0, int valid_rows, int d, float mul,
-                                          int lane) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + lane / 4 + 8 * r;
-    if (row >= valid_rows) continue;
-#pragma unroll
-    for (int j = 0; j < DV / 8; ++j) {
-      const int col = 8 * j + 2 * (lane % 4);
-      if (col < d) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * C_all + col) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
-      }
-    }
-  }
-}
-
 // Tiles are [DQK / CW boxes][rows][CW]: a box of CW columns lands as one
 // slab of 8-row atoms (core matrices without swizzle, 32- or 128-byte
 // swizzled atoms with it). A 16-deep step of a K-major operand starts
@@ -374,16 +340,6 @@ __device__ __forceinline__ void product_ab(float (&acc)[N / 2], uint64_t a_desc,
   for (int kk = 0; kk < C::DQK / 16; ++kk)
     WgmmaSS<N>::run(acc, a_desc + (kstep<C>(kk, C::BR) >> 4),
                     b_desc + (kstep<C>(kk, C::BS) >> 4), kk > 0);
-}
-
-// P (or dS) as bf16: the accumulators' n8 blocks 2t and 2t+1 form the A
-// fragment of the 16-deep step t.
-template <int N>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
-#pragma unroll
-  for (int t = 0; t < N / 16; ++t)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[t][i] = pack_bf16x2(x[8 * t + 2 * i], x[8 * t + 2 * i + 1]);
 }
 
 // dk/dv: grid (key blocks of BR, heads, B). Accumulator element 4j + e of a

@@ -274,7 +274,7 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 
 // ---- wgmma ---------------------------------------------------------------
 
-enum : uint32_t { kNoSwizzle = 0, kSwizzle128B = 1, kSwizzle32B = 3 };
+enum : uint32_t { kNoSwizzle = 0, kSwizzle128B = 1, kSwizzle64B = 2, kSwizzle32B = 3 };
 
 // Matrix descriptor; byte offsets are multiples of 16.
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t smem_addr, uint32_t lbo, uint32_t sbo,
@@ -448,6 +448,29 @@ struct WgmmaRS<80> {
           "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
           "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
           "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaRS<96> {
+  __device__ __forceinline__ static void run(float (&d)[48], const uint32_t (&a)[4],
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47 "
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 };
@@ -957,11 +980,13 @@ inline int make_map_4d(CUtensorMap* map, const void* ptr, int C, int L, int F, i
 }
 
 // A 4-D map (d, heads, L, B) of a packed bf16 (B, L, heads * d) tensor, one
-// head a slab: boxes of `cols` x 1 head x `rows` x 1 in the 128-byte swizzle
-// land as [rows][cols]. The columns of a box past the head's last column
-// read zeros, never the next head's columns (d a multiple of 8).
+// head a slab: boxes of `cols` x 1 head x `rows` x 1 in the given swizzle
+// (the 128-byte one by default) land as [rows][cols]. The columns of a box
+// past the head's last column read zeros, never the next head's columns (d
+// a multiple of 8).
 inline int make_head_map(CUtensorMap* map, const void* ptr, int d, int heads, int L, int B,
-                         int cols, int rows) {
+                         int cols, int rows,
+                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return (int)cudaErrorSymbolNotFound;
   const cuuint64_t C = (cuuint64_t)heads * d;
@@ -970,9 +995,8 @@ inline int make_head_map(CUtensorMap* map, const void* ptr, int d, int heads, in
   const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

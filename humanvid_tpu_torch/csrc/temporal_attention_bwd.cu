@@ -7,7 +7,7 @@
 //   out = softmax_over_frames(q k^T * d^-1/2) v
 // (the forward of csrc/temporal_attention.cu) given g = dL/dout, on
 // q/k/v/g/dq/dk/dv of shape (b, f, l, c) with heads packed in c, f <= 32
-// (more: the frames kernel up to 96 frames, the long kernel past them, near
+// (more: the frames kernel up to 128 frames, the long kernel past them, near
 // the end of this file):
 //   p  = softmax(q k^T * scale)            (recomputed, fp32)
 //   dv = p^T g
@@ -784,8 +784,9 @@ int launch_wide(const void* q, const void* k, const void* v, const void* g, void
   return (int)cudaGetLastError();
 }
 
-// ---- more than 32 frames: the long kernel -----------------------------------
+// ---- more than 128 frames: the long kernel ----------------------------------
 //
+// Past the frames kernel's reach (128 frames, below) it takes the backward.
 // Past 32 frames a row's softmax no longer fits a warp's two 16-row tiles,
 // and the transposes (LP, movmatrix) are sized for 32 frames. So a block of
 // kLongWarps warps owns one (sample, position, head), all f frames, and
@@ -974,7 +975,7 @@ int launch_long(const void* q, const void* k, const void* v, const void* g, void
 // four times, G and V three times at one slab) from one head's 80-byte row
 // pieces, with nothing overlapped, and reached 3-10% of its byte bound.
 // This kernel takes the item design of the f <= 32 kernels past 32 frames,
-// up to kFramesTiles 16-frame tiles (96 frames; past that the plan keeps
+// up to kFramesTiles 16-frame tiles (128 frames; past that the plan keeps
 // the long kernel). An item is one position x all f frames x a chunk of
 // whole heads (`long_backward_plan` in ops/temporal_attention.py: the most
 // heads whose stages leave one spare beside the consumer groups'), loaded
@@ -992,7 +993,7 @@ int launch_long(const void* q, const void* k, const void* v, const void* g, void
 //      `mma.sync.m16n8k16` from the stage), the softmax in the log2 domain,
 //      delta, P and dS = P (dP - delta), both rounded to bf16 as the plain
 //      version rounds them and written to shared memory (P and dS, [16 QT]
-//      x [16 QT + 8] each: 9 KB at 48 frames);
+//      x [16 QT + 8] each: 9 KB at 48 frames, 69.6 KB the pair at 128);
 //   2. dV of its key rows = P^T G (A by ldmatrix.trans from P), over V;
 //   3. dQ of its query rows = dS K * scale, over G;
 //   4. dK of its key rows = dS^T Q * scale, over K;
@@ -1016,7 +1017,12 @@ int launch_long(const void* q, const void* k, const void* v, const void* g, void
 // again. Rows past f, and columns past a head's (or a chunk's, or a
 // partial's) last in the last 16-deep step, are removed by selects, never
 // by a multiply, as there. No atomics: the same inputs give the same bits.
-constexpr int kFramesTiles = 6;  // 16-frame tiles of the frames kernel: 96 frames
+// Registers: at 7-8 tiles (97-128 frames) S and dP of a warp's query rows
+// are 8 QT = 56-64 fp32 a thread each, held whole beside the products'
+// fragments, in one group of QT + 1 warps (up to 224 registers a thread);
+// a wide item's chunk partials are summed one 16-key tile at a time, so
+// they add 16 fp32, not 16 QT.
+constexpr int kFramesTiles = 8;  // 16-frame tiles of the frames kernel: 128 frames
 
 // Consumer groups of a block at QT 16-frame tiles: three up to 48 frames.
 __host__ __device__ constexpr int frames_groups(int QT) { return QT <= 3 ? 3 : 1; }
@@ -1101,7 +1107,8 @@ __device__ __forceinline__ void frames_zero(float (&acc)[2 * QT][4]) {
 
 // s and dp += the products over `width` columns in kPiece-column partials
 // (each summed from zero by the tensor cores, then added in fp32: the wide
-// kernel's bound on the accumulation's error at d = 1280).
+// kernel's bound on the accumulation's error at d = 1280), one 16-key tile
+// of partials at a time (the same sums in the same order as all at once).
 template <int QT>
 __device__ __forceinline__ void frames_rows_pieces(float (&s)[2 * QT][4],
                                                    float (&dp)[2 * QT][4], const bf16* sq,
@@ -1109,18 +1116,21 @@ __device__ __forceinline__ void frames_rows_pieces(float (&s)[2 * QT][4],
                                                    const bf16* sv, int LD, int r, int width,
                                                    int lane) {
   for (int off = 0; off < width; off += kPiece) {
-    float ps[2 * QT][4], pdp[2 * QT][4];
-    frames_zero<QT>(ps);
-    frames_zero<QT>(pdp);
-    frames_rows<QT>(ps, pdp, sq + off, sk + off, sg + off, sv + off, LD, r,
-                    min(kPiece, width - off), lane);
 #pragma unroll
-    for (int j = 0; j < 2 * QT; ++j)
+    for (int jp = 0; jp < QT; ++jp) {
+      float ps[2][4], pdp[2][4];
+      frames_zero<1>(ps);
+      frames_zero<1>(pdp);
+      frames_rows<1>(ps, pdp, sq + off, sk + jp * 16 * LD + off, sg + off,
+                     sv + jp * 16 * LD + off, LD, r, min(kPiece, width - off), lane);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] += ps[j][e];
-        dp[j][e] += pdp[j][e];
-      }
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[2 * jp + j][e] += ps[j][e];
+          dp[2 * jp + j][e] += pdp[j][e];
+        }
+    }
   }
 }
 
@@ -1522,8 +1532,8 @@ int launch_frames_kernel(const void* q, const void* k, const void* v, const void
 // = ceil(d / chunks) rounded up to 8 columns (heads_per_item = 1). Either is
 // loaded `cwp` columns wide (the wrapper's `temporal_plan`). The logits are
 // scaled by scale_d^-1/2, 1 <= scale_d <= d (the true width of a head the
-// wrapper zero-pads, else d). Past kMaxFrames frames, up to 16 kFramesTiles,
-// the frames kernel takes the same items (`long_backward_plan`: any d a
+// wrapper zero-pads, else d). Past kMaxFrames frames, up to 16 kFramesTiles
+// (128), the frames kernel takes the same items (`long_backward_plan`: any d a
 // multiple of 8 up to 1280, in chunks of at most 160 columns, whole heads or
 // one head in chunks) in a ring of `stages` >= 2 stages, `smem` the bytes
 // the plan reckons for them (the kernel checks them against its own). With
@@ -1562,7 +1572,9 @@ extern "C" int hv_temporal_bwd(const void* q, const void* k, const void* v, cons
       case 3: return FRAMES_KERNEL(3);
       case 4: return FRAMES_KERNEL(4);
       case 5: return FRAMES_KERNEL(5);
-      default: return FRAMES_KERNEL(6);
+      case 6: return FRAMES_KERNEL(6);
+      case 7: return FRAMES_KERNEL(7);
+      default: return FRAMES_KERNEL(8);
     }
 #undef FRAMES_KERNEL
   }

@@ -20,13 +20,13 @@ Head widths (:func:`flash_plan`): the kernels hold d a multiple of 8 up to
 128, and d = 512. Any other d up to 512 runs through a zero pad
 (``head_pad.resize_heads``) to the next multiple of 8, with the softmax
 scale of the true d; between 128 and 512 the forward runs at that width in
-the mid kernel (its layout from :func:`mid_plan`), and the backward
-through the zero pad to 512 (zero columns add nothing to S, so the LSE of
-the forward at the true width is the LSE the padded backward needs). Past
-512 every width runs in the xwide kernels (forward, dK/dV and dQ), padded
-to the next multiple of 8: the head's depth split over a thread-block
-cluster in slices of at most 256 columns, on the plan :func:`xwide_plan`
-computes and the wrapper passes to the C entry points.
+the mid kernel (its layout from :func:`mid_plan`), and so does the
+backward, in ``csrc/flash_attention_mid_bwd.cu`` (its kernels and ring from
+:func:`mid_backward_plan`; the LSE of the forward at the true width is the
+LSE it needs). Past 512 every width runs in the xwide kernels (forward,
+dK/dV and dQ), padded to the next multiple of 8: the head's depth split
+over a thread-block cluster in slices of at most 256 columns, on the plan
+:func:`xwide_plan` computes and the wrapper passes to the C entry points.
 """
 
 from __future__ import annotations
@@ -49,15 +49,15 @@ _DKV_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 _DQ_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 
 # Launches of the CUDA kernels by the width they ran at, "d<=128" (the
-# UNet's heads), "128<d<512" (the mid forward), "d>128" (the 512-wide
-# kernels: the VAE's single head, and the backward of heads padded to 512)
-# and "d>512" (the xwide kernels): the forward and the backward's two entry
-# points.
+# UNet's heads), "128<d<512" (the mid kernels), "d>128" (the 512-wide
+# kernels: the VAE's single head) and "d>512" (the xwide kernels): the
+# forward and the backward's two entry points.
 launches = {"d<=128": 0, "128<d<512": 0, "d>128": 0, "d>512": 0, "bwd_dkv": 0, "bwd_dq": 0,
-            "bwd_dkv_d>128": 0, "bwd_dq_d>128": 0, "bwd_dkv_d>512": 0, "bwd_dq_d>512": 0}
+            "bwd_dkv_128<d<512": 0, "bwd_dq_128<d<512": 0, "bwd_dkv_d>128": 0,
+            "bwd_dq_d>128": 0, "bwd_dkv_d>512": 0, "bwd_dq_d>512": 0}
 # The forward's and the backward's launches by the caller's head width
 # (before any pad): {d: count}; and those of them that ran through the zero
-# pad past the next multiple of 8 (to 512).
+# pad past the next multiple of 8.
 forward_launches_by_d: dict = {}
 backward_launches_by_d: dict = {}
 forward_pad_launches_by_d: dict = {}
@@ -82,8 +82,9 @@ class FlashPlan(NamedTuple):
     """How the kernels run a d-wide head: the forward at ``width`` columns
     (d, or d zero-padded to the next multiple of 8) through its
     configuration ``forward`` in ``csrc/flash_attention.cu``, the backward
-    at ``backward_width`` columns (``width``, or 512 through the zero pad)
-    through ``backward`` in ``csrc/flash_attention_bwd.cu`` (dk/dv, dq)."""
+    at ``backward_width`` columns (the same width) through ``backward``
+    (dk/dv, dq) in ``csrc/flash_attention_bwd.cu``, or between 128 and 512
+    in ``csrc/flash_attention_mid_bwd.cu``."""
     width: int
     forward: str
     backward: str
@@ -135,8 +136,90 @@ def flash_plan(d: int) -> FlashPlan:
     if w == WIDE_HEAD_DIM:
         return FlashPlan(w, "Cfg<512, 256, wide>", "WideDv+WideDk/WideDq", w)
     mid = mid_plan(w)
-    return FlashPlan(w, f"Mid<{mid.width}, {mid.layout}>", "WideDv+WideDk/WideDq",
-                     WIDE_HEAD_DIM)
+    bwd = mid_backward_plan(w)
+    dkv = "MidDkv" if bwd.layout == "merged" else "MidDv+MidDk"
+    return FlashPlan(w, f"Mid<{mid.width}, {mid.layout}>", f"{dkv}<{bwd.width}>/MidDq<{bwd.width}>",
+                     w)
+
+
+# The mid backward (128 < d < 512, csrc/flash_attention_mid_bwd.cu): the
+# products' depth (d rounded up to 64); up to 320 one merged dk/dv kernel
+# (dK and dV of 64 keys in registers, DQK / 2 fp32 a thread each) and dq by
+# role (dQ of 64 q rows in one warpgroup's registers), past it a dV and a dK
+# kernel and dq by columns; the rows of a step (64 where the ring still
+# fits two stages or more, else 32), and rings as deep as shared memory
+# holds up to MID_BWD_MAX_STAGES.
+MID_BWD_MERGED_MAX = 320
+MID_BWD_ROWS = {192: 64, 256: 64}  # dk/dv rows a step; 32 at the other widths
+MID_BWD_DQ_ROWS = {192: 64}        # dq keys a step; 32 at the other widths
+MID_BWD_MAX_STAGES = 4
+
+
+class MidBackwardPlan(NamedTuple):
+    """How the mid backward runs a head of 128 < d < 512 columns: products
+    over ``width`` columns; ``layout`` "merged" (one dk/dv kernel) or
+    "split" (a dV and a dK kernel); ``rows`` q rows a dk/dv step, in a ring
+    of ``stages`` (merged, or dV's) and ``dk_stages`` (split: dK's; 0
+    merged); the dq kernel's ``dq_layout``, "roles" (warpgroup 1 takes all
+    of dQ) or "columns" (the two split its columns), ``dq_rows`` keys a
+    step in ``dq_stages``."""
+    width: int
+    layout: str
+    rows: int
+    stages: int
+    dk_stages: int
+    dq_layout: str
+    dq_rows: int
+    dq_stages: int
+
+
+def mid_bwd_smem(kernel: str, width: int, rows: int, stages: int) -> int:
+    """Bytes of shared memory a block of the mid backward's ``kernel``
+    ("dkv" merged, "dv", "dk", "dq" by columns or "dq_roles") lays out
+    (``mid_smem`` in csrc/flash_attention_mid_bwd.cu): the owned 64-row
+    tiles (one for dV), a stage's two streamed tiles and words, the
+    exchange (64 x rows fp32: by role two slots of warpgroup 0's with a
+    full and an empty barrier each, by columns both warpgroups' twice by
+    step parity), the barriers and 1024 bytes of alignment."""
+    if kernel not in ("dkv", "dv", "dk", "dq", "dq_roles"):
+        raise ValueError(f"kernel {kernel!r}: 'dkv', 'dv', 'dk', 'dq' or 'dq_roles'")
+    own = 1 if kernel == "dv" else 2
+    roles = kernel in ("dkv", "dq_roles")
+    return (own * 64 * width * 2 + stages * (2 * rows * width * 2 + 2 * rows * 4 + 16)
+            + (2 if roles else 4) * 64 * rows * 4 + (3 * stages + 1 + (4 if roles else 0)) * 8
+            + 1024)
+
+
+def _mid_stages(kernel: str, width: int, rows: int, max_stages: int) -> int:
+    stages = max((n for n in range(1, max_stages + 1)
+                  if mid_bwd_smem(kernel, width, rows, n) <= SMEM_LIMIT), default=0)
+    if not stages:
+        raise ValueError(f"no stage of the mid backward's {kernel} fits at width {width}")
+    return stages
+
+
+@functools.lru_cache(maxsize=None)
+def mid_backward_plan(d: int, layout: Optional[str] = None, rows: Optional[int] = None,
+                      max_stages: int = MID_BWD_MAX_STAGES, dq_layout: Optional[str] = None,
+                      dq_rows: Optional[int] = None) -> MidBackwardPlan:
+    """The mid backward's plan for 128 < d < 512 (d a multiple of 8): d
+    rounded up to 64, merged and dq by role up to MID_BWD_MERGED_MAX, the
+    rings as deep as fit. Arguments other than d are the variants'
+    ablations."""
+    if not WIDE_HEAD_DIM // 4 < d < WIDE_HEAD_DIM or d % 8:
+        raise ValueError(f"head width {d}: the mid backward takes 128 < d < 512, a multiple of 8")
+    w = -(-d // 64) * 64
+    small = w <= MID_BWD_MERGED_MAX
+    layout = layout or ("merged" if small else "split")
+    rows = rows or (MID_BWD_ROWS.get(w, 32) if layout == "merged" else 32)
+    dq_layout = dq_layout or ("roles" if small else "columns")
+    dq_rows = dq_rows or (MID_BWD_DQ_ROWS.get(w, 32) if dq_layout == "roles" else 32)
+    first = "dkv" if layout == "merged" else "dv"
+    dq = "dq_roles" if dq_layout == "roles" else "dq"
+    return MidBackwardPlan(
+        w, layout, rows, _mid_stages(first, w, rows, max_stages),
+        0 if layout == "merged" else _mid_stages("dk", w, rows, max_stages),
+        dq_layout, dq_rows, _mid_stages(dq, w, dq_rows, max_stages))
 
 
 # The xwide kernels (csrc/xwide.cuh): slices of XWIDE_SLICE columns, one
@@ -208,30 +291,47 @@ def xwide_plan(d: int, slice: int = XWIDE_SLICE) -> XwidePlan:
 
 
 def _plan_args(width: int, kernel: str, plan=None) -> tuple:
-    """The seven plan ints of the C entry points: past 512 the xwide plan
-    (slice, cluster, groups, key tile, stages, exchange buffers,
-    shared-memory bytes); the mid forward's (its width, 1 for the rows
-    layout or 2 for the columns layout, five zeros); zeros at the other
-    widths."""
-    if 128 < width < WIDE_HEAD_DIM and kernel == "fwd":
-        mid = plan or mid_plan(width)
-        return (mid.width, 1 if mid.layout == "rows" else 2, 0, 0, 0, 0, 0)
+    """The seven plan ints of the C entry points of the forward (``"fwd"``)
+    or the backward's dk/dv (``"dkv"``) and dq (``"dq"``) kernels: past 512
+    the xwide plan (slice, cluster, groups, key tile, stages, exchange
+    buffers, shared-memory bytes); between 128 and 512 the mid forward's
+    (its width, 1 for the rows layout or 2 for the columns layout, five
+    zeros) and the mid backward's (its width, 1 merged or 2 split, the
+    split dK kernel's bytes, rows a step, stages, the split dK kernel's
+    stages, bytes; dq: its width, 1 by role or 2 by columns, 0, keys a
+    step, stages, 0, bytes); zeros at the other widths."""
+    if kernel not in ("fwd", "dkv", "dq"):
+        raise ValueError(f"kernel {kernel!r}: 'fwd', 'dkv' or 'dq'")
+    if 128 < width < WIDE_HEAD_DIM:
+        if kernel == "fwd":
+            mid = plan or mid_plan(width)
+            return (mid.width, 1 if mid.layout == "rows" else 2, 0, 0, 0, 0, 0)
+        p = plan or mid_backward_plan(width)
+        if kernel == "dq":
+            roles = p.dq_layout == "roles"
+            return (p.width, 1 if roles else 2, 0, p.dq_rows, p.dq_stages, 0,
+                    mid_bwd_smem("dq_roles" if roles else "dq", p.width, p.dq_rows, p.dq_stages))
+        if p.layout == "merged":
+            return (p.width, 1, 0, p.rows, p.stages, 0,
+                    mid_bwd_smem("dkv", p.width, p.rows, p.stages))
+        return (p.width, 2, mid_bwd_smem("dk", p.width, p.rows, p.dk_stages), p.rows, p.stages,
+                p.dk_stages, mid_bwd_smem("dv", p.width, p.rows, p.stages))
     if width <= WIDE_HEAD_DIM:
         return (0,) * 7
     p = plan or xwide_plan(width)
     fwd = kernel == "fwd"
     return (p.slice, p.cluster, p.groups, p.key_tile, p.fwd_stages if fwd else p.bwd_stages,
-            p.fwd_exchange if fwd else 1, xwide_smem(p, kernel))
+            p.fwd_exchange if fwd else 1, xwide_smem(p, "fwd" if fwd else "bwd"))
 
 
-def _width_key(width: int, kernel: str = "bwd") -> str:
-    """The launch counter of the forward (``"fwd"``) or backward kernels
-    that run a head ``width`` wide."""
+def _width_key(width: int) -> str:
+    """The launch counter of the forward or backward kernels that run a
+    head ``width`` wide."""
     if width <= 128:
         return "d<=128"
-    if kernel == "fwd" and width < WIDE_HEAD_DIM:
+    if width < WIDE_HEAD_DIM:
         return "128<d<512"
-    return "d>128" if width <= WIDE_HEAD_DIM else "d>512"
+    return "d>128" if width == WIDE_HEAD_DIM else "d>512"
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -314,7 +414,7 @@ def flash_attention_cuda(q, k, v, heads, key_bias=None):
              lse.data_ptr(), b, lq, lk, heads, plan.width, d, *_plan_args(plan.width, "fwd"),
              cuda_build.stream_handle(q.device))
     cuda_build.check(err, "flash attention launch")
-    launches[_width_key(plan.width, "fwd")] += 1
+    launches[_width_key(plan.width)] += 1
     _count(forward_launches_by_d, forward_pad_launches_by_d, d, plan.width)
     return resize_heads(out, heads, d), lse
 
@@ -381,14 +481,17 @@ def flash_attention_backward_cuda(q, k, v, key_bias, g, lse, delta, heads: int):
     stream = cuda_build.stream_handle(q.device)
     common = (qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), bias_ptr, gk.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
-    sizes = (b, lq, lk, heads, width, d, *_plan_args(width, "bwd"), stream)
+    sizes = (b, lq, lk, heads, width, d)
     wide = "" if width <= 128 else "_" + _width_key(width)
-    fn = cuda_build.function("flash_attention_bwd", "hv_flash_bwd_dkv", _DKV_ARGTYPES)
-    cuda_build.check(fn(*common, dk.data_ptr(), dv.data_ptr(), *sizes),
-                     "flash attention dk/dv launch")
+    source, mid = (("flash_attention_mid_bwd", "_mid") if 128 < width < WIDE_HEAD_DIM
+                   else ("flash_attention_bwd", ""))
+    fn = cuda_build.function(source, f"hv_flash_bwd{mid}_dkv", _DKV_ARGTYPES)
+    cuda_build.check(fn(*common, dk.data_ptr(), dv.data_ptr(), *sizes,
+                        *_plan_args(width, "dkv"), stream), "flash attention dk/dv launch")
     launches["bwd_dkv" + wide] += 1
-    fn = cuda_build.function("flash_attention_bwd", "hv_flash_bwd_dq", _DQ_ARGTYPES)
-    cuda_build.check(fn(*common, dq.data_ptr(), *sizes), "flash attention dq launch")
+    fn = cuda_build.function(source, f"hv_flash_bwd{mid}_dq", _DQ_ARGTYPES)
+    cuda_build.check(fn(*common, dq.data_ptr(), *sizes, *_plan_args(width, "dq"), stream),
+                     "flash attention dq launch")
     launches["bwd_dq" + wide] += 1
     _count(backward_launches_by_d, backward_pad_launches_by_d, d, width)
     return tuple(resize_heads(t, heads, d) for t in (dq, dk, dv))

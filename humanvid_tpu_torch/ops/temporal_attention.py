@@ -45,9 +45,10 @@ MAX_HEAD_DIM = 1280  # one head over the widest motion channels
 CHUNK_COLUMNS = 160  # an item's columns (8 UNet heads, 320 bytes); a chunk's most
 
 # The backward's frames kernel past ITEM_FRAMES frames (kFramesTiles 16-frame
-# tiles in csrc/temporal_attention_bwd.cu): the most frames it takes, the
-# most stages of its ring, and the shared memory a block can use.
-FRAMES_KERNEL_FRAMES = 96
+# tiles in csrc/temporal_attention_bwd.cu): the most frames it takes (past
+# them the long kernel), the most stages of its ring, and the shared
+# memory a block can use.
+FRAMES_KERNEL_FRAMES = 128
 FRAMES_KERNEL_MAX_STAGES = 4
 SMEM_LIMIT = 232448
 

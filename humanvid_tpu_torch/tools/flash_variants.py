@@ -19,6 +19,8 @@
         [--against FWD_FILE] [--against BWD_FILE] [--iters N]
     python -m humanvid_tpu_torch.tools.flash_variants --mid [variant ...]
         [--against FILE] [--iters N]
+    python -m humanvid_tpu_torch.tools.flash_variants --mid-bwd [variant ...]
+        [--against FILE] [--iters N]
 
 Each variant is ``csrc/flash_attention.cu`` with a few named text edits
 (``VARIANTS``), built by nvcc with the port's flags into ``build/`` and
@@ -77,11 +79,12 @@ the five stage-2 shapes and the stage-1 camera encoder's
 (``TEMPORAL_BWD_SHAPES``), and past 32 frames those of its frames kernel
 (``FRAMES_BWD_VARIANTS``: ring depth and chunk width through the plan,
 other numbers of consumer groups, registers for two blocks an SM) at the
-long_wide stage-2 shapes and f = 33, 64 and 96 (``TEMPORAL_BWD_LONG_SHAPES``,
-each variant up to its own frame count), beside SDPA's backward;
-``against`` may be an earlier design with its entry point (past 32 frames
-an earlier source runs its long kernel). A timed turn of both is 20 x
-``--iters`` launches.
+long_wide stage-2 shapes and f = 33, 64, 96, 100 and 128
+(``TEMPORAL_BWD_LONG_SHAPES``, each variant up to its own frame count),
+beside SDPA's backward; ``against`` may be an earlier design with its entry
+point (past 32 frames, or past its own frames kernel's reach, an earlier
+source runs its long kernel). A timed turn of both is 20 x ``--iters``
+launches.
 With ``--xwide`` those of kernel A past 512 columns, the xwide forward and
 backward (``XWIDE_VARIANTS``: the plan's slice width, ring stages and
 exchange buffers, which the same build takes as arguments, and hidden key
@@ -100,6 +103,19 @@ the bits of ``kernel``, timed in turns beside SDPA; ``--against`` takes an
 earlier forward source, which runs these widths through the zero pad to
 512: it is called on inputs padded beforehand (the pad copies, timed
 apart, are ``pad_ms``).
+With ``--mid-bwd`` those of kernel A's backward between 128 and 512
+columns, ``csrc/flash_attention_mid_bwd.cu`` (``MID_BWD_VARIANTS``: a dV and
+a dK kernel against the merged dk/dv kernel, dq by columns against dq by
+role, ring depth, 32-row dk/dv and dq steps at d = 192, hidden key tiles
+computed instead of passed over, and an ablation without the streamed
+tiles' loads), at d = 192 and
+the long_wide stage-2 step's level-0 shapes at d = 320 (``MID_BWD_SHAPES``),
+each held to the plain backward on two batch rows and to the bits of
+``kernel``, its dk/dv and dq entry points timed apart in turns, beside SDPA's
+backward under each backend that runs the shape; ``--against`` takes an
+earlier backward source, which runs these widths through the zero pad to
+512: it is called on inputs padded beforehand (the four pad copies in and
+the three slices out, timed apart, are ``pad_ms``; its ``ms`` adds them).
 At each of kernel A's main-path shapes (``SHAPES``, those of
 ``chip_smoke.py``) every variant that computes the same function is first
 held to the plain version on 128 query rows (``chip_smoke.py``'s limits);
@@ -363,6 +379,62 @@ def mid_variant_plan(name: str, d: int) -> Optional["fa.MidPlan"]:
     return None if plan is None or only not in (None, plan.width) else plan
 
 
+# kernel A's backward between 128 and 512 columns (the mid backward) at the
+# aim shapes: (name, B, Lq, Lk, heads, d, rows whose second half of keys the
+# bias hides): d = 192 at a level-1 size, and the long_wide stage-2 step's
+# level 0 (896x512x48f, one 320-wide head), cond and uncond
+MID_BWD_SHAPES = (("d192 8x(1792x3584) 5 heads", 8, 1792, 3584, 5, 192, 0),
+                  ("long_wide level0 cond (ref KV) d320", 48, 7168, 14336, 1, 320, 0),
+                  ("long_wide level0 uncond (CFG dropout bias) d320", 48, 7168, 14336, 1, 320,
+                   48))
+_SPLIT_384 = "    if (x_slice == 384) SPLIT(384, 32)"
+_MERGED_192 = "    if (x_slice == 192 && x_key_tile == 64) return MERGED(192, 64);"
+_DQ_192 = "    if (x_slice == 192 && x_key_tile == 64) return ROLES(192, 64);"
+_COLUMNS_384 = "    if (x_slice == 384 && x_key_tile == 32) return COLUMNS(384, 32);"
+# name: (edits of csrc/flash_attention_mid_bwd.cu, arguments of
+# ``mid_backward_plan`` (with "widths", the plan widths they apply at; the
+# kernel's plan elsewhere), ablation)
+MID_BWD_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], Dict[str, object], bool]] = {
+    "kernel": ((), {}, False),
+    # a dV and a dK kernel (S^T twice, 5 products) instead of the merged
+    # dk/dv kernel at d <= 320
+    "split": (((_SPLIT_384, None, "".join(f"    if (x_slice == {w}) SPLIT({w}, 32)\n"
+                                           for w in (192, 256, 320)) + _SPLIT_384),),
+              {"layout": "split"}, False),
+    # rings of at most 1 or 2 stages (as deep as fit up to 4 by default)
+    "stages_1": ((), {"max_stages": 1}, False),
+    "stages_2": ((), {"max_stages": 2}, False),
+    # 32-row dk/dv steps at d = 192 and 256 (64 by default)
+    "rows_32": (((_MERGED_192, None, _MERGED_192 + "\n    if (x_slice == 192 && x_key_tile == "
+                  "32) return MERGED(192, 32);\n    if (x_slice == 256 && x_key_tile == 32) "
+                  "return MERGED(256, 32);"),), {"rows": 32, "widths": (192, 256)}, False),
+    # dq by role in 32-key steps at d = 192 (64 by default)
+    "dq_rows_32": (((_DQ_192, None, _DQ_192 + "\n    if (x_slice == 192 && x_key_tile == 32) "
+                     "return ROLES(192, 32);"),), {"dq_rows": 32, "widths": (192,)}, False),
+    # dq by columns at d <= 320 (both warpgroups form dS and take half of
+    # dQ's columns, in lockstep) instead of by role
+    "dq_columns": (((_COLUMNS_384, None, "".join(
+        f"    if (x_slice == {w} && x_key_tile == 32) return COLUMNS({w}, 32);\n"
+        for w in (192, 256, 320)) + _COLUMNS_384),),
+                   {"dq_layout": "columns", "widths": (192, 256, 320)}, False),
+    # hidden key tiles loaded and multiplied
+    "no_skip": (_NO_SKIP, {}, False),
+    # ablation: the streamed tiles never loaded (the ring still turns, the
+    # products read stale tiles)
+    "no_stream_loads": ((("        if (skip) {  // nothing loaded", None,
+                          "        if (true) {  // nothing loaded"),), {}, True),
+}
+
+
+def mid_bwd_variant_plan(name: str, d: int) -> "fa.MidBackwardPlan":
+    """The mid backward's plan the variant runs a d-wide head on."""
+    overrides = dict(MID_BWD_VARIANTS[name][1])
+    widths = overrides.pop("widths", None)
+    if widths is not None and fa.mid_backward_plan(d).width not in widths:
+        overrides = {}
+    return fa.mid_backward_plan(d, **overrides)
+
+
 # kernel 9 (csrc/probe_pvt.cu) at the microbench probe's shapes: (name, B,
 # Lq, Lk, heads, d, every 7th key hidden)
 PVT_SHAPES = (("level0 cond", 24, 6144, 12288, 8, 40, False),
@@ -619,7 +691,12 @@ TEMPORAL_BWD_LONG_SHAPES = (("long_wide motion level0 f48", 1, 48, 7168, 320, 8)
                             ("long_wide motion level3/mid f48", 1, 48, 112, 1280, 8),
                             ("f33 d40", 1, 33, 7168, 320, 8),
                             ("f64 d256", 1, 64, 448, 1280, 5),
-                            ("f96 d256", 1, 96, 448, 1280, 5))
+                            ("f96 d256", 1, 96, 448, 1280, 5),
+                            # past 96 frames: the 100-frame step's level 0, and 128
+                            # frames at level-0 and level-2 sizes
+                            ("f100 d40", 1, 100, 7168, 320, 8),
+                            ("f128 level0-size d40", 1, 128, 7168, 320, 8),
+                            ("f128 level2-size d160", 1, 128, 448, 1280, 8))
 TEMPORAL_BWD_TOL = (2e-4, 0.2)  # chip_smoke.py's limits, per gradient
 TEMPORAL_BWD_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
     "kernel": ((), False),
@@ -666,10 +743,12 @@ def _groups_edit(rule: str) -> Tuple[Edit, ...]:
 
 FRAMES_BWD_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], Dict[str, int], int]] = {
     # rings of at most 2 or 3 stages (at most 4 by default)
-    "frames_stages_2": ((), {"max_stages": 2}, 96),
-    "frames_stages_3": ((), {"max_stages": 3}, 96),
-    # chunks of at most 80 columns (two 40-wide heads, one 80-wide head)
-    "frames_cols_80": ((), {"max_cols": 80}, 96),
+    "frames_stages_2": ((), {"max_stages": 2}, 128),
+    "frames_stages_3": ((), {"max_stages": 3}, 128),
+    # chunks of at most 80 or 40 columns (two 40-wide heads, one 80-wide
+    # head; one 40-wide head)
+    "frames_cols_80": ((), {"max_cols": 80}, 128),
+    "frames_cols_40": ((), {"max_cols": 40}, 128),
     # one or two consumer groups a block up to 48 frames (three by default)
     "frames_one_group": (_groups_edit("1"), {"groups": 1}, 48),
     "frames_two_groups": (_groups_edit("QT <= 3 ? 2 : 1"), {"groups": 2}, 48),
@@ -682,12 +761,12 @@ FRAMES_BWD_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], Dict[str, int], int]] = {
                           {"max_cols": 80, "max_stages": 2, "groups": 2}, 48),
     # the gradients' bulk copies issued by all 32 lanes of the producer warp
     # (by its lane 0 by default)
-    "frames_32_store_lanes": ((_set_const("kStoreLanes", 1, 32),), {}, 96),
+    "frames_32_store_lanes": ((_set_const("kStoreLanes", 1, 32),), {}, 128),
     # dQ and dK over K and G as soon as computed, four barriers a head (two
     # up to 64 columns by default)
-    "frames_four_barriers": ((_set_const("kFramesHeld", 64, 0),), {}, 96),
+    "frames_four_barriers": ((_set_const("kFramesHeld", 64, 0),), {}, 128),
     # ablation: no gradient stores (the ring still turns)
-    "frames_no_stores": ((_set_const("kStoreLanes", 1, 0),), {}, 96),
+    "frames_no_stores": ((_set_const("kStoreLanes", 1, 0),), {}, 128),
 }
 
 
@@ -695,11 +774,23 @@ FRAMES_BWD_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], Dict[str, int], int]] = {
 FRAMES_BWD_ABLATIONS = ("frames_no_stores",)
 
 
-def frames_variant_sizes(name: str, shape, heads: int) -> tuple:
+def frames_reach(text: str) -> int:
+    """The most frames a backward source's frames kernel takes (16 x its
+    ``kFramesTiles``; 32 before it had one)."""
+    import re
+
+    m = re.search(r"constexpr int kFramesTiles = (\d+);", text)
+    return 16 * int(m.group(1)) if m else 32
+
+
+def frames_variant_sizes(name: str, shape, heads: int, reach: Optional[int] = None) -> tuple:
     """The backward entry point's eleven size ints for the frames kernel's
-    variant (``kernel``: the wrapper's own)."""
+    variant (``kernel``: the wrapper's own); past ``reach`` frames (another
+    source's frames kernel's) the long kernel's, with zero stages."""
     from ..ops import temporal_attention as ta
 
+    if reach is not None and shape[1] > reach:
+        return (*ta.launch_sizes(shape, heads), 0, 0)
     if name not in FRAMES_BWD_VARIANTS:
         return ta.backward_launch_sizes(shape, heads)
     b, f, l, c = shape
@@ -905,7 +996,7 @@ def run_bwd(names: Sequence[str], iters: int = 5, against: Optional[str] = None)
                   delta.data_ptr())
 
         def sizes(name):
-            return _entry_sizes(entry[name], (B, lq, lk, heads, d), d, "bwd")
+            return _entry_sizes(entry[name], (B, lq, lk, heads, d), d, "dkv")
 
         def call_dkv(name):
             cuda_build.check(fns[name][0](*common, grads[1].data_ptr(), grads[2].data_ptr(),
@@ -1085,7 +1176,7 @@ def run_xwide(names: Sequence[str], iters: int = 5,
         runs = {n: c[1] for n, c in calls.items() if c[1] is not None}
 
         def sizes(name):
-            return _entry_sizes(entry[runs[name]], (B, lq, lk, heads, d), d, "bwd",
+            return _entry_sizes(entry[runs[name]], (B, lq, lk, heads, d), d, "dkv",
                                 plan_of(name, d))
 
         def call_dkv(name):
@@ -1577,6 +1668,7 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
              **{n: (v[0], False) for n, v in FRAMES_BWD_VARIANTS.items()}}
     texts = _named_sources(names, table, "temporal_attention_bwd.cu", against)
     n_sizes = {n: _temporal_sizes_taken(t) for n, t in texts.items()}
+    reach = {n: frames_reach(t) if n == "against" else None for n, t in texts.items()}
     fns = {}
     for name, lib in _build(texts, "temporal_bwd_variant").items():
         fn = fns[name] = lib.hv_temporal_bwd
@@ -1599,7 +1691,7 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
         calls = {}
         for name in runs:
             n = n_sizes[name]
-            sizes = (frames_variant_sizes(name, q.shape, heads) if n == 11
+            sizes = (frames_variant_sizes(name, q.shape, heads, reach[name]) if n == 11
                      else ta.launch_sizes(tuple(q.shape), heads))[:n]
             calls[name] = (lambda fn=fns[name], args=(*ptrs, *sizes, stream), name=name:
                            cuda_build.check(fn(*args), f"variant {name}"))
@@ -1750,6 +1842,143 @@ def run_mid(names: Sequence[str], iters: int = 5, against: Optional[str] = None)
     return records
 
 
+def _sdpa_backward_by_backend(q, k, v, g, heads, bias, iters: int) -> Dict[str, float]:
+    """SDPA's backward under each backend that runs the shape: {name: ms}."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                ms = _sdpa_backward_ms(q, k, v, g, heads, bias, iters)
+        except RuntimeError:  # no kernel of this backend for the shape
+            ms = None
+        torch.cuda.empty_cache()
+        if ms is not None:
+            times[backend.name] = ms
+    return times
+
+
+def run_mid_bwd(names: Sequence[str], iters: int = 5,
+                against: Optional[str] = None) -> List[dict]:
+    """The mid backward's variants at every shape of ``MID_BWD_SHAPES``:
+    each held to the plain backward on the first two batch rows
+    (``chip_smoke.py``'s limits per gradient) and to the bits of
+    ``kernel``, its dk/dv and dq entry points timed in turns beside SDPA's
+    backward by backend. ``against`` is an earlier backward source, called
+    at width 512 on inputs zero-padded beforehand (its gradients cut back
+    to d before the check); the pad copies of q, k, v and g and the slices
+    of dq, dk and dv back to d are timed apart (``pad_ms``) and added to its
+    ``ms``. Returns the records (also printed, one JSON line each)."""
+    from ..ops.head_pad import resize_heads
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the variants run on the CUDA card, and none is available")
+    dev = torch.device("cuda")
+    texts = _named_sources(names, {n: (v[0], v[2]) for n, v in MID_BWD_VARIANTS.items()},
+                           "flash_attention_mid_bwd.cu", against)
+    entry = {n: _entry_ints(t) for n, t in texts.items()}
+    fns = {}
+    for name, lib in _build(texts, "flash_mid_bwd_variant").items():
+        mid = "" if name == "against" else "_mid"
+        dkv, dq = getattr(lib, f"hv_flash_bwd{mid}_dkv"), getattr(lib, f"hv_flash_bwd{mid}_dq")
+        dkv.restype = dq.restype = ctypes.c_int
+        dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * entry[name] + [ctypes.c_void_p]
+        dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * entry[name] + [ctypes.c_void_p]
+        fns[name] = (dkv, dq)
+    stream = cuda_build.stream_handle(dev)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    card = torch.cuda.get_device_name()
+    wide = fa.WIDE_HEAD_DIM
+    records = []
+    for shape, B, lq, lk, heads, d, bias_rows in MID_BWD_SHAPES:
+        c = heads * d
+        q, g = (torch.randn((B, lq, c), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        k, v = (torch.randn((B, lk, c), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        bias, unmasked = None, B * lk
+        if bias_rows:
+            bias = torch.zeros((B, lk), device=dev)
+            bias[:bias_rows, lk // 2:] = -1e9
+            unmasked -= bias_rows * (lk // 2)
+        out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
+        delta = fa.attention_delta(g, out, heads)
+        del out
+        bias_ptr = None if bias is None else bias.data_ptr()
+        plans = {n: mid_bwd_variant_plan(n, d) for n in fns if n != "against"}
+        grads, calls, pad_ms = {}, {}, None
+        for name in fns:
+            if name == "against":
+                ins = [resize_heads(t, heads, wide) for t in (q, k, v, g)]
+                width = wide
+                pad_ms = _time_ms(lambda: ([resize_heads(t, heads, wide) for t in (q, k, v, g)],
+                                           [resize_heads(t, heads, d) for t in ins[:3]]), iters)
+            else:
+                ins, width = [q, k, v, g], d
+            grads[name] = [torch.empty_like(t) for t in ins[:3]]
+            common = (ins[0].data_ptr(), ins[1].data_ptr(), ins[2].data_ptr(), bias_ptr,
+                      ins[3].data_ptr(), lse.data_ptr(), delta.data_ptr())
+            dq_, dk_, dv_ = (t.data_ptr() for t in grads[name])
+            sizes = (B, lq, lk, heads, width, d)
+            plan = plans.get(name)
+            extra = entry[name] - 6  # the plan's ints the entry point takes
+            dkv_args = (*common, dk_, dv_, *sizes, *fa._plan_args(width, "dkv", plan)[:extra],
+                        stream)
+            dq_args = (*common, dq_, *sizes, *fa._plan_args(width, "dq", plan)[:extra], stream)
+            calls[name] = (
+                lambda fn=fns[name][0], args=dkv_args, name=name:
+                    cuda_build.check(fn(*args), f"mid bwd variant {name} dk/dv"),
+                lambda fn=fns[name][1], args=dq_args, name=name:
+                    cuda_build.check(fn(*args), f"mid bwd variant {name} dq"))
+        n = min(2, B)  # the plain version on the first batch rows
+        refs = fa.flash_attention_backward_plain(
+            q[:n], k[:n], v[:n], None if bias is None else bias[:n], g[:n], lse[:n], delta[:n],
+            heads)
+        checks, first = {}, None
+        for name in fns:
+            if name in MID_BWD_VARIANTS and MID_BWD_VARIANTS[name][2]:
+                checks[name] = (None, None, None)  # an ablation computes something else
+                continue
+            for call in calls[name]:
+                call()
+            torch.cuda.synchronize()
+            got = [resize_heads(t, heads, d) for t in grads[name]]
+            agree = [_agree(x[:n], r, FLASH_BWD_TOL) for x, r in zip(got, refs)]
+            if first is None:
+                first = [x.clone() for x in got]
+            same = all(torch.equal(a, b_) for a, b_ in zip(got, first))
+            checks[name] = (all(a[0] for a in agree), max(a[1] for a in agree), same)
+        del refs, first
+        torch.cuda.empty_cache()
+        dkv_turns = _turns({n: calls[n][0] for n in fns}, iters)
+        dq_turns = _turns({n: calls[n][1] for n in fns}, iters)
+        del grads, calls
+        torch.cuda.empty_cache()
+        sdpa = _sdpa_backward_by_backend(q, k, v, g, heads, bias, iters)
+        flops = 10.0 * heads * lq * unmasked * d
+        nbytes = 2 * (3 * q.numel() + 4 * k.numel()) + 4 * (lse.numel() + delta.numel()) \
+            + (0 if bias is None else 4 * bias.numel())
+        bound_ms = max(flops / 989e12, nbytes / 3.35e12) * 1e3
+        for name in fns:
+            dkv_ms, dq_ms = min(dkv_turns[name]), min(dq_turns[name])
+            ms = dkv_ms + dq_ms + (pad_ms if name == "against" else 0.0)
+            ok, rel, same = checks[name]
+            plan = plans.get(name)
+            rec = dict(mode="mid_bwd", variant=name, shape=shape, ms=ms, dkv_ms=dkv_ms,
+                       dq_ms=dq_ms, dkv_turns=dkv_turns[name], dq_turns=dq_turns[name],
+                       pad_ms=pad_ms if name == "against" else None, tflops=flops / ms / 1e9,
+                       bound_ms=bound_ms, share_of_bound=bound_ms / ms, sdpa_ms=sdpa,
+                       ok=ok, rel_l2=rel, same_bits_as_first=same,
+                       plan=None if plan is None else plan._asdict(), device=card)
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        del q, k, v, g, lse, delta
+        torch.cuda.empty_cache()
+    return records
+
+
 def main(argv: Sequence[str] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("variants", nargs="*", metavar="variant",
@@ -1761,7 +1990,8 @@ def main(argv: Sequence[str] = None) -> int:
                              f"{', '.join(TEMPORAL_VARIANTS)}; with --temporal-bwd: "
                              f"{', '.join([*TEMPORAL_BWD_VARIANTS, *FRAMES_BWD_VARIANTS])}; "
                              f"with --xwide: {', '.join(XWIDE_VARIANTS)}; with --mid: "
-                             f"{', '.join(MID_VARIANTS)}")
+                             f"{', '.join(MID_VARIANTS)}; with --mid-bwd: "
+                             f"{', '.join(MID_BWD_VARIANTS)}")
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--bwd", action="store_true", help="the backward's variants")
     mode.add_argument("--pvt", action="store_true", help="kernel 9's variants")
@@ -1775,6 +2005,8 @@ def main(argv: Sequence[str] = None) -> int:
                       help="kernel A's variants past 512 columns, forward and backward")
     mode.add_argument("--mid", action="store_true",
                       help="kernel A's forward variants between 128 and 512 columns")
+    mode.add_argument("--mid-bwd", action="store_true",
+                      help="kernel A's backward variants between 128 and 512 columns")
     parser.add_argument("--against", metavar="FILE", action="append", default=[],
                         help="with any mode but the forward's: another source of the same "
                              "kernels, timed as 'against' (with --xwide a forward source, "
@@ -1788,7 +2020,8 @@ def main(argv: Sequence[str] = None) -> int:
              "gn": (GN_VARIANTS, run_gn), "temporal": (TEMPORAL_VARIANTS, run_temporal),
              "temporal_bwd": ({**TEMPORAL_BWD_VARIANTS, **FRAMES_BWD_VARIANTS},
                               run_temporal_bwd),
-             "xwide": (XWIDE_VARIANTS, run_xwide), "mid": (MID_VARIANTS, run_mid)}
+             "xwide": (XWIDE_VARIANTS, run_xwide), "mid": (MID_VARIANTS, run_mid),
+             "mid_bwd": (MID_BWD_VARIANTS, run_mid_bwd)}
     mode_name = next((m for m in modes if getattr(args, m)), None)
     table = modes[mode_name][0] if mode_name else VARIANTS
     names = args.variants or list(table)
@@ -1797,7 +2030,7 @@ def main(argv: Sequence[str] = None) -> int:
         parser.error(f"unknown variants {unknown}; the variants are {', '.join(table)}")
     if args.against and not mode_name:
         parser.error("--against needs --bwd, --pvt, --dmajor, --hbm, --gn, --temporal, "
-                     "--temporal-bwd, --xwide or --mid")
+                     "--temporal-bwd, --xwide, --mid or --mid-bwd")
     if len(args.against) > (2 if mode_name == "xwide" else 1):
         parser.error("--against takes one source (with --xwide two)")
     if "kernel" not in names:

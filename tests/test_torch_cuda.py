@@ -92,7 +92,7 @@ def test_flash_kernel_matches_plain(b, lq, lk, heads, d, with_bias):
     if with_bias:
         bias = torch.zeros((b, lk), device=dev)
         bias[0, lk // 2:] = -1e9
-    key = fa._width_key(fa.flash_plan(d).width, "fwd")
+    key = fa._width_key(fa.flash_plan(d).width)
     before = fa.launches[key]
     out, lse = fa.flash_attention_packed(q, k, v, heads, bias)
     ref, ref_lse = fa.flash_attention_plain(q, k, v, heads, bias)
@@ -208,7 +208,7 @@ def test_temporal_kernel_every_head_and_no_leak_across_samples(b, f, l, c, heads
     (2, 200, 300, 4, 96, ()),    # d = 96: 8-column boxes, depth padded to 128
     (1, 100, 200, 3, 120, ((0, 100, 200),)),  # d = 120
     (2, 300, 700, 5, 36, ((0, 350, 700),)),   # d = 36, zero-padded to 40
-    (2, 200, 300, 2, 192, ((0, 150, 300),)),  # d = 192, zero-padded to 512
+    (2, 200, 300, 2, 192, ((0, 150, 300),)),  # d = 192: the mid backward, merged
     (1, 100, 200, 1, 320, ((0, 100, 200),)),  # d = 320 (long_wide's level 0), the same
 ])
 def test_flash_backward_kernels_match_plain(b, lq, lk, heads, d, hide):
@@ -228,7 +228,8 @@ def test_flash_backward_kernels_match_plain(b, lq, lk, heads, d, hide):
     grads = fa.flash_attention_backward_cuda(*args)
     refs = fa.flash_attention_backward_plain(*args)
     torch.cuda.synchronize()
-    wide = "_d>128" if fa.flash_plan(d).backward_width > 128 else ""
+    width = fa.flash_plan(d).backward_width
+    wide = "_" + fa._width_key(width) if width > 128 else ""
     assert fa.launches["bwd_dkv" + wide] == before["bwd_dkv" + wide] + 1
     assert fa.launches["bwd_dq" + wide] == before["bwd_dq" + wide] + 1
     again = fa.flash_attention_backward_cuda(*args)
@@ -1141,7 +1142,60 @@ def test_flash_mid_forward_matches_plain(d, with_bias):
         assert torch.equal(out, computed[0]) and torch.equal(lse, computed[1])
 
 
-FRAMES_LONG = [(f, c, heads) for f in (33, 48, 64, 96, 100)
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", MID_WIDTHS)
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no-bias", "bias"])
+def test_flash_mid_backward_matches_plain(d, with_bias):
+    """Between 128 and 512 columns: the mid backward at the head's own width
+    (its own launch keys, none through the pad), ragged Lq and Lk, two
+    heads side by side, every head and gradient on its own against the
+    plain version; with the bias, the keys it hides get exactly zero dk and
+    dv, whole hidden key blocks and steps passed over give the bits of the
+    same computed (a bias of -0.99e9), and a batch row that sees no key
+    (every step computed there) holds to the plain version too; a repeat
+    the same bits."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
+
+    dev = _card()
+    b, lq, lk, heads = 3, 300, 700, 2
+    q, g = (_randn((b, lq, heads * d), 90 + s, dev) for s in (0, 3))
+    k, v = (_randn((b, lk, heads * d), 90 + s, dev) for s in (1, 2))
+    bias = None
+    if with_bias:
+        bias = torch.zeros((b, lk), device=dev)
+        bias[0, 128:512] = -1e9  # whole 64-key blocks and 32-key steps of row 0
+        bias[1, 32:64] = -1e9    # one 32-key step: the steps around it computed in turn
+        bias[1, 650:] = -1e9     # part of the last block
+        bias[2] = -1e9           # row 2 sees no key
+    out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
+    args = (q, k, v, bias, g, lse, fa.attention_delta(g, out, heads), heads)
+    before = dict(fa.launches)
+    pad_before = dict(fa.backward_pad_launches_by_d)
+    grads = fa.flash_attention_backward_cuda(*args)
+    refs = fa.flash_attention_backward_plain(*args)
+    torch.cuda.synchronize()
+    for key in ("bwd_dkv_128<d<512", "bwd_dq_128<d<512"):
+        assert fa.launches[key] == before[key] + 1
+    for key in ("bwd_dkv_d>128", "bwd_dq_d>128"):
+        assert fa.launches[key] == before[key]
+    assert fa.backward_pad_launches_by_d == pad_before
+    for got, ref in zip(grads, refs):
+        for h in range(heads):
+            cols = slice(h * d, (h + 1) * d)
+            _assert_close(got[..., cols], ref[..., cols], FLASH_BWD_TOL)
+    again = fa.flash_attention_backward_cuda(*args)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))  # no atomics
+    if with_bias:
+        for row, keys in ((0, slice(128, 512)), (1, slice(32, 64)), (1, slice(650, None))):
+            assert all((t[row, keys] == 0).all() for t in grads[1:])
+        # (row 2, which sees no key, keeps its bias: nothing is passed over there)
+        sees = (bias > -1e9).any(-1, keepdim=True)
+        computed = fa.flash_attention_backward_cuda(
+            q, k, v, torch.where((bias <= -1e9) & sees, -0.99e9, bias), *args[4:])
+        assert all(torch.equal(x, y) for x, y in zip(grads, computed))
+
+
+FRAMES_LONG = [(f, c, heads) for f in (33, 48, 64, 96, 97, 100, 112, 128, 129)
                for c, heads in ((320, 8), (640, 8), (1280, 8), (1280, 5), (1280, 1))]
 
 
@@ -1150,7 +1204,7 @@ FRAMES_LONG = [(f, c, heads) for f in (33, 48, 64, 96, 100)
                          ids=[f"f{f}-d{c // h}" for f, c, h in FRAMES_LONG])
 def test_temporal_frames_backward_matches_plain(f, c, heads):
     """Kernel B's backward past 32 frames at d = 40, 80, 160, 256 and 1280
-    (the frames kernel up to 96 frames, the long kernel at 100): dq, dk and
+    (the frames kernel up to 128 frames, the long kernel at 129): dq, dk and
     dv against the plain version, every head within the max-error limit on
     its own; each sample alone the same bits; a repeat the same bits; an
     Inf in one head's columns at some positions reaches no other head or

@@ -185,16 +185,16 @@ WIDE_BWD = "WideDv+WideDk/WideDq"
     (96, 96, "Cfg<128, 128>", "DkvCfg128/DqCfg128", 96),
     (120, 120, "Cfg<128, 128>", "DkvCfg128/DqCfg128", 120),
     (128, 128, "Cfg<128, 128, swizzled>", "DkvCfg128w/DqCfg128w", 128),
-    # 128 < d < 512: the mid forward at d (to 8), its depth d rounded up to
-    # 64; the backward through the pad to 512
-    (129, 136, "Mid<192, rows>", WIDE_BWD, 512),
-    (136, 136, "Mid<192, rows>", WIDE_BWD, 512),
-    (192, 192, "Mid<192, rows>", WIDE_BWD, 512),
-    (256, 256, "Mid<256, rows>", WIDE_BWD, 512),
-    (264, 264, "Mid<320, rows>", WIDE_BWD, 512),
-    (320, 320, "Mid<320, rows>", WIDE_BWD, 512),
-    (448, 448, "Mid<448, columns>", WIDE_BWD, 512),
-    (504, 504, "Mid<512, columns>", WIDE_BWD, 512),
+    # 128 < d < 512: the mid forward and backward at d (to 8), their depth
+    # d rounded up to 64; one dk/dv kernel up to 320, a dV and a dK past it
+    (129, 136, "Mid<192, rows>", "MidDkv<192>/MidDq<192>", 136),
+    (136, 136, "Mid<192, rows>", "MidDkv<192>/MidDq<192>", 136),
+    (192, 192, "Mid<192, rows>", "MidDkv<192>/MidDq<192>", 192),
+    (256, 256, "Mid<256, rows>", "MidDkv<256>/MidDq<256>", 256),
+    (264, 264, "Mid<320, rows>", "MidDkv<320>/MidDq<320>", 264),
+    (320, 320, "Mid<320, rows>", "MidDkv<320>/MidDq<320>", 320),
+    (448, 448, "Mid<448, columns>", "MidDv+MidDk<448>/MidDq<448>", 448),
+    (504, 504, "Mid<512, columns>", "MidDv+MidDk<512>/MidDq<512>", 504),
     (512, 512, "Cfg<512, 256, wide>", WIDE_BWD, 512),
 ])
 def test_flash_plan_of_each_width(d, width, forward, backward, backward_width):
@@ -214,17 +214,15 @@ def test_flash_plan_raises_past_512(d):
 
 
 def test_flash_plan_runs_every_width_at_a_width_a_configuration_holds():
-    """The forward runs every d at d rounded up to 8 (past 128 the mid
-    forward, whose depth d rounded up to 64 it is built for, and 512); the
-    backward at that width up to 128 and at 512 above it."""
+    """The forward and the backward run every d at d rounded up to 8 (past
+    128 the mid kernels, whose depth d rounded up to 64 they are built for,
+    and 512): no width goes through the pad past the next multiple of 8."""
     for d in range(1, 513):
         p = fa.flash_plan(d)
-        assert p.width == round_up8(d)
+        assert p.width == round_up8(d) == p.backward_width
         if 128 < p.width < 512:
             assert fa.mid_plan(p.width).width in fa.MID_WIDTHS[fa.mid_plan(p.width).layout]
-        w = p.backward_width
-        assert w >= d and w % 8 == 0 and (w <= 128 or w == 512)
-        assert w - d < 8 or d > 128
+            assert fa.mid_backward_plan(p.width).width == fa.mid_plan(p.width).width
 
 
 @pytest.mark.parametrize("d,plan", [

@@ -5,26 +5,28 @@ frames and kernel A past 512 columns, against the JAX package.
   frames than ``max_len``, as the JAX block does; with the table it still
   raises there (the JAX block fails to broadcast). fp32, atol 1e-5.
 - Kernel B's autograd Function (on CPU tensors: the plain versions) at
-  f = 33, 48 and 64, forward and gradients, against the JAX Pallas kernel
+  f = 33, 48, 64, 100 and 128, forward and gradients, against the JAX Pallas kernel
   and its vjp in TPU interpret mode. atol 1e-5: both sides compute in fp32
   and differ by summation order only (observed near 1e-6).
 - Kernel A's ``flash_attention_packed`` at d = 520 and 640, and between
-  128 and 512 at d = 192 and 320 (the mid forward's two widths on the
-  long_wide and heads64 paths), forward and gradients, with and without
+  128 and 512 at d = 192 and 320 (the mid kernels' two widths on the
+  long_wide and heads64 paths) and 256 and 448 (the mid backward's other
+  layouts), forward and gradients, with and without
   the bias, against the JAX kernel and its vjp in interpret mode, at the
   tolerances of ``test_torch_flash_attention.py`` (2e-4 forward, 5e-4
   gradients; observed near 1e-6).
 - The plans: d > 512 and f > 32 get the new kernels' plans, every d <= 128
-  and f <= 32 the plan it had, 128 < d < 512 the mid forward at the head's
-  width (to 8) and the backward through the zero pad to 512. Past 512 the
+  and f <= 32 the plan it had, 128 < d < 512 the mid forward and backward
+  at the head's width (to 8), the backward's shared memory reckoned as
+  ``csrc/flash_attention_mid_bwd.cu`` lays it out. Past 512 the
   xwide kernels' cluster plan (``xwide_plan``) at every width from 520 to
   4104: slices that are multiples of 16 and cover the head, clusters of at
   most 8 blocks, and shared memory, reckoned as the kernels lay it out,
   that a block can use; its constants are those of ``csrc/xwide.cuh``.
   Kernel B's backward past 32 frames (``long_backward_plan``): the frames
-  kernel's items up to 96 frames at every width to 1280 (whole heads of
+  kernel's items up to 128 frames at every width to 1280 (whole heads of
   at most 160 columns where two stages fit, else one head in chunks), the
-  long kernel past 96 frames; shared memory reckoned as
+  long kernel past 128 frames; shared memory reckoned as
   ``csrc/temporal_attention_bwd.cu`` lays it out, its constants read from
   that source.
 - The slice: the tiny config with one spatial head and a 40-frame motion
@@ -122,6 +124,8 @@ def test_motion_module_with_position_table_raises_past_it():
     (1, 33, 5, 64, 2),     # one frame past the item kernels, d = 32
     (1, 48, 4, 160, 4),    # the long path's 48 frames, d = 40 (the motion modules' level 0)
     (1, 64, 3, 256, 1),    # 64 frames, d = 256 (four 64-column pieces)
+    (1, 100, 2, 160, 4),   # the 100-frame step's frame count, d = 40
+    (1, 128, 2, 128, 1),   # the frames kernel's reach, d = 128
 ])
 def test_temporal_attention_past_32_frames_matches_jax(b, f, l, c, heads):
     q, k, v, g = (_rand((b, f, l, c), s) for s in range(4))
@@ -167,7 +171,7 @@ def test_flash_attention_past_512_columns_matches_jax(d, with_bias):
     _flash_against_jax(d, with_bias)
 
 
-@pytest.mark.parametrize("d", [192, 320])
+@pytest.mark.parametrize("d", [192, 256, 320, 448])
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_flash_attention_between_128_and_512_columns_matches_jax(d, with_bias):
     _flash_against_jax(d, with_bias)
@@ -186,8 +190,8 @@ XWIDE = ("Xwide", "XwideDkv/XwideDq")
     (4100, fa.FlashPlan(4104, *XWIDE, 4104)),
     (40, fa.FlashPlan(40, "Cfg<48, 40>", "DkvCfg48/DqCfg48", 40)),  # unchanged below
     (128, fa.FlashPlan(128, "Cfg<128, 128, swizzled>", "DkvCfg128w/DqCfg128w", 128)),
-    # level 0's one head: the mid forward at 320, the backward padded to 512
-    (320, fa.FlashPlan(320, "Mid<320, rows>", "WideDv+WideDk/WideDq", 512)),
+    # level 0's one head: the mid forward and backward at 320
+    (320, fa.FlashPlan(320, "Mid<320, rows>", "MidDkv<320>/MidDq<320>", 320)),
     (512, fa.FlashPlan(512, "Cfg<512, 256, wide>", "WideDv+WideDk/WideDq", 512)),
 ])
 def test_flash_plan_past_512_and_below(d, plan):
@@ -230,7 +234,7 @@ def test_xwide_plan_raises_below_its_widths_and_passes_zeros_there():
     for d, slice_ in ((512, 256), (644, 256), (640, 192)):
         with pytest.raises(ValueError):
             fa.xwide_plan(d, slice_)
-    assert fa._plan_args(512, "bwd") == (0,) * 7 and fa._plan_args(40, "fwd") == (0,) * 7
+    assert fa._plan_args(512, "dkv") == (0,) * 7 and fa._plan_args(40, "fwd") == (0,) * 7
 
 
 def test_xwide_smem_reckons_as_the_kernels_header():
@@ -292,6 +296,11 @@ def test_launch_sizes_past_32_frames_and_below(shape, heads, sizes):
     (96, 320, 8, ta.LongBackwardPlan(2, 80, 88, 1, 2, 175264)),
     (96, 1280, 8, ta.LongBackwardPlan(1, 80, 88, 2, 2, 175264)),
     (40, 1280, 1, ta.LongBackwardPlan(1, 160, 168, 8, 3, 196400)),  # d = 1280
+    # past 96 frames P and dS take 53.8 KB (100) to 69.6 KB (128): the
+    # 100-frame step's level 0 in two heads of 40, one head of 40 at 128
+    (100, 320, 8, ta.LongBackwardPlan(2, 80, 88, 1, 2, 197408)),
+    (128, 320, 8, ta.LongBackwardPlan(1, 40, 56, 1, 2, 184480)),
+    (128, 1280, 1, ta.LongBackwardPlan(1, 64, 72, 20, 2, 217248)),
 ])
 def test_long_backward_plan_at_named_frame_counts(f, c, heads, plan):
     assert ta.long_backward_plan(c, heads, f) == plan
@@ -300,20 +309,25 @@ def test_long_backward_plan_at_named_frame_counts(f, c, heads, plan):
         plan.stages, plan.smem)
 
 
-@pytest.mark.parametrize("f", [32, 97, 100, 256])
+@pytest.mark.parametrize("f", [32, 97, 100, 128, 129, 256])
 def test_long_backward_plan_boundaries(f):
-    """Up to 32 frames the item kernels' plan and past 96 the long kernel's
+    """Up to 32 frames the item kernels' plan and past 128 the long kernel's
     pieces, both with zeros for the ring's stages and bytes: the frames
-    kernel takes 33 to 96."""
-    assert ta.long_backward_plan(320, 8, f) is None
-    assert ta.backward_launch_sizes((1, f, 7, 320), 8) == (*ta.launch_sizes((1, f, 7, 320), 8),
-                                                            0, 0)
+    kernel takes 33 to 128."""
+    assert ta.FRAMES_KERNEL_FRAMES == 128
+    plan = ta.long_backward_plan(320, 8, f)
+    sizes = ta.backward_launch_sizes((1, f, 7, 320), 8)
+    if ta.ITEM_FRAMES < f <= ta.FRAMES_KERNEL_FRAMES:
+        assert plan is not None and sizes[-2:] == (plan.stages, plan.smem)
+    else:
+        assert plan is None
+        assert sizes == (*ta.launch_sizes((1, f, 7, 320), 8), 0, 0)
     assert ta.long_backward_plan(320, 8, 33) is not None
     assert ta.long_backward_plan(320, 8, ta.FRAMES_KERNEL_FRAMES) is not None
 
 
 def test_long_backward_plan_of_every_shape_fits_one_block():
-    """From 33 to 96 frames, every width the motion modules and the heads64
+    """From 33 to 128 frames, every width the motion modules and the heads64
     and long_wide configs give (and the narrowest and widest): a ring of at
     least 2 stages in a block's shared memory, chunks of at most 160
     columns, multiples of 8, covering the head with none empty, or whole
@@ -373,7 +387,8 @@ def test_mid_plan_of_every_width_and_the_c_side():
         p = fa.mid_plan(d)
         assert p.width == -(-d // 64) * 64 and p.layout == fa.MID_LAYOUTS[p.width]
         assert fa._plan_args(d, "fwd") == (p.width, 1 if p.layout == "rows" else 2, 0, 0, 0, 0, 0)
-        assert fa._plan_args(fa.flash_plan(d).backward_width, "bwd") == (0,) * 7
+        assert fa.flash_plan(d).backward_width == d
+        assert fa._plan_args(d, "dkv")[0] == fa._plan_args(d, "dq")[0] == p.width
     for d in (128, 512, 130, 0, 520):
         with pytest.raises(ValueError):
             fa.mid_plan(d)
@@ -384,6 +399,73 @@ def test_mid_plan_of_every_width_and_the_c_side():
         built[key] += (int(width),)
     assert built == fa.MID_WIDTHS
     assert not set(built["rows"]) & set(built["columns"])
+
+
+def test_mid_backward_plan_of_every_width_and_the_c_side():
+    """Between 128 and 512 (multiples of 8) the mid backward runs d rounded
+    up to 64: one merged dk/dv kernel and dq by role up to 320, a dV and a
+    dK kernel and dq by columns past it, every ring at least one stage in a
+    block's shared memory, reckoned as ``mid_smem`` in
+    csrc/flash_attention_mid_bwd.cu reckons it; the C entry points take
+    exactly the (width, layout, rows) the plans give."""
+    import re
+
+    from humanvid_tpu_torch.ops import cuda_build
+
+    text = (cuda_build.CSRC / "flash_attention_mid_bwd.cu").read_text()
+    assert f"constexpr int kSmemLimit = {fa.SMEM_LIMIT};" in text
+    assert ("return (mode == kDv ? 1 : 2) * kRows * dqk * 2 + stages * (2 * bs * dqk * 2 + "
+            "2 * bs * 4 + 16) +\n         (by_roles(mode) ? kXSlots : 4) * kRows * bs * 4 +\n"
+            "         (3 * stages + 1 + (by_roles(mode) ? 2 * kXSlots : 0)) * 8 + 1024;") in text
+    assert "constexpr int kXSlots = 2;" in text
+    assert ("return mode == kDkv || mode == kDqRoles;" in text)
+    merged = {(int(w), int(r)) for w, r in re.findall(
+        r"if \(x_slice == (\d+) && x_key_tile == (\d+)\) return MERGED", text)}
+    split = {int(w) for w in re.findall(r"if \(x_slice == (\d+)\) SPLIT", text)}
+    dq = {(int(w), int(r), kind) for w, r, kind in re.findall(
+        r"if \(x_slice == (\d+) && x_key_tile == (\d+)\) return (ROLES|COLUMNS)", text)}
+    for d in range(136, 512, 8):
+        p = fa.mid_backward_plan(d)
+        assert p.width == -(-d // 64) * 64 == fa.mid_plan(d).width
+        assert p.layout == ("merged" if p.width <= 320 else "split")
+        roles = p.dq_layout == "roles"
+        assert roles == (p.width <= 320)
+        assert (p.width, p.dq_rows, "ROLES" if roles else "COLUMNS") in dq
+        if p.layout == "merged":
+            assert (p.width, p.rows) in merged and p.dk_stages == 0
+            kernels = (("dkv", p.rows, p.stages),)
+        else:
+            assert p.width in split and p.rows == 32
+            kernels = (("dv", p.rows, p.stages), ("dk", p.rows, p.dk_stages))
+        dq_kernel = "dq_roles" if roles else "dq"
+        for kernel, rows, stages in kernels + ((dq_kernel, p.dq_rows, p.dq_stages),):
+            assert 1 <= stages <= fa.MID_BWD_MAX_STAGES
+            smem = fa.mid_bwd_smem(kernel, p.width, rows, stages)
+            assert smem <= fa.SMEM_LIMIT < fa.mid_bwd_smem(kernel, p.width, rows, stages + 1) \
+                or stages == fa.MID_BWD_MAX_STAGES
+        dkv, dq_args = fa._plan_args(d, "dkv"), fa._plan_args(d, "dq")
+        assert dq_args == (p.width, 1 if roles else 2, 0, p.dq_rows, p.dq_stages, 0,
+                           fa.mid_bwd_smem(dq_kernel, p.width, p.dq_rows, p.dq_stages))
+        if p.layout == "merged":
+            assert dkv == (p.width, 1, 0, p.rows, p.stages, 0,
+                           fa.mid_bwd_smem("dkv", p.width, p.rows, p.stages))
+        else:
+            assert dkv == (p.width, 2, fa.mid_bwd_smem("dk", p.width, 32, p.dk_stages), 32,
+                           p.stages, p.dk_stages, fa.mid_bwd_smem("dv", p.width, 32, p.stages))
+    # the named layouts: level 0's d = 320 in 32-row steps, 3 stages each;
+    # d = 192 in 64-row steps, 3 stages (232096 bytes of 232448)
+    assert fa.mid_backward_plan(320) == fa.MidBackwardPlan(320, "merged", 32, 3, 0, "roles", 32, 3)
+    assert fa.mid_backward_plan(192) == fa.MidBackwardPlan(192, "merged", 64, 3, 0, "roles", 64, 3)
+    assert fa.mid_backward_plan(448) == fa.MidBackwardPlan(448, "split", 32, 2, 1, "columns", 32, 1)
+    assert fa.mid_bwd_smem("dkv", 192, 64, 3) == (2 * 64 * 192 * 2 + 3 * (2 * 64 * 192 * 2 + 528)
+                                                 + 2 * 64 * 64 * 4 + 14 * 8 + 1024) == 232096
+    assert fa.mid_bwd_smem("dq", 448, 32, 1) == (2 * 64 * 448 * 2 + (2 * 32 * 448 * 2 + 272)
+                                                + 4 * 64 * 32 * 4 + 4 * 8 + 1024)
+    for d in (128, 512, 130, 0, 520):
+        with pytest.raises(ValueError):
+            fa.mid_backward_plan(d)
+    with pytest.raises(ValueError):
+        fa._plan_args(320, "bwd")
 
 
 # ---- the slice: one spatial head, 40 frames --------------------------------------------

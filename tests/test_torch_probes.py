@@ -323,6 +323,66 @@ def test_mid_mode_raises_without_a_card(monkeypatch):
             flash_variants.main(argv)
 
 
+@pytest.mark.parametrize("name", sorted(flash_variants.MID_BWD_VARIANTS))
+def test_mid_bwd_variants_apply_to_the_kernel_source(name):
+    """The mid backward's variants: each edit found exactly once in its
+    source, and at every width the tool times the plan each runs fits a
+    block and is one the variant's source dispatches."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
+
+    edits = flash_variants.MID_BWD_VARIANTS[name][0]
+    text = flash_variants.variant_source(name, {name: (edits, False)},
+                                         "flash_attention_mid_bwd.cu")
+    base = (cuda_build.CSRC / "flash_attention_mid_bwd.cu").read_text()
+    assert (text == base) == (not edits)
+    for *_, d, _ in flash_variants.MID_BWD_SHAPES:
+        p = flash_variants.mid_bwd_variant_plan(name, d)
+        if p.layout == "merged":
+            assert f"if (x_slice == {p.width} && x_key_tile == {p.rows}) return MERGED" in text
+            kernels = (("dkv", p.stages),)
+        else:
+            assert f"if (x_slice == {p.width}) SPLIT({p.width}, {p.rows})" in text
+            kernels = (("dv", p.stages), ("dk", p.dk_stages))
+        kind = "ROLES" if p.dq_layout == "roles" else "COLUMNS"
+        assert (f"if (x_slice == {p.width} && x_key_tile == {p.dq_rows}) "
+                f"return {kind}({p.width}, {p.dq_rows});") in text
+        for kernel, stages in kernels:
+            assert stages >= 1 and fa.mid_bwd_smem(kernel, p.width, p.rows, stages) <= fa.SMEM_LIMIT
+        dq = "dq_roles" if p.dq_layout == "roles" else "dq"
+        assert fa.mid_bwd_smem(dq, p.width, p.dq_rows, p.dq_stages) <= fa.SMEM_LIMIT
+
+
+def test_mid_bwd_mode_raises_without_a_card(monkeypatch):
+    """``--mid-bwd`` needs the card, takes one ``--against``, excludes the
+    other modes and takes only its own variants."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.run_mid_bwd(["kernel", "split"])
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        flash_variants.main(["--mid-bwd", "no_skip", "--against", "flash_attention_bwd.cu"])
+    for argv in (["--mid-bwd", "--mid"], ["--mid-bwd", "columns"], ["--mid", "split"],
+                 ["--mid-bwd", "--against", "a.cu", "--against", "b.cu"]):
+        with pytest.raises(SystemExit):
+            flash_variants.main(argv)
+
+
+def test_frames_reach_of_a_source():
+    """An earlier backward source's frames-kernel reach (16 x its
+    kFramesTiles, 32 before it had one), and the long kernel's sizes past
+    it."""
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    text = (cuda_build.CSRC / "temporal_attention_bwd.cu").read_text()
+    assert flash_variants.frames_reach(text) == ta.FRAMES_KERNEL_FRAMES == 128
+    assert flash_variants.frames_reach(text.replace("kFramesTiles = 8;", "kFramesTiles = 6;")) == 96
+    assert flash_variants.frames_reach("int main() {}") == 32
+    shape = (1, 100, 7, 320)
+    assert flash_variants.frames_variant_sizes("kernel", shape, 8, 96) == (
+        *ta.launch_sizes(shape, 8), 0, 0)
+    assert flash_variants.frames_variant_sizes("kernel", shape, 8, 128) == \
+        ta.backward_launch_sizes(shape, 8)
+
+
 def test_xwide_mode_raises_without_a_card(monkeypatch):
     """``--xwide`` needs the card, takes ``--against`` up to twice (a
     forward and a backward source), excludes the other modes and takes
@@ -499,7 +559,8 @@ def test_argtypes_match_the_c_entry_points():
 
     entries = _c_entry_points()
     bound = {"hv_flash_fwd": fa._FWD_ARGTYPES, "hv_flash_bwd_dkv": fa._DKV_ARGTYPES,
-             "hv_flash_bwd_dq": fa._DQ_ARGTYPES,
+             "hv_flash_bwd_dq": fa._DQ_ARGTYPES, "hv_flash_bwd_mid_dkv": fa._DKV_ARGTYPES,
+             "hv_flash_bwd_mid_dq": fa._DQ_ARGTYPES,
              "hv_group_norm_fwd": gn._TWO_PASS_ARGTYPES,
              "hv_group_norm_cluster": gn._CLUSTER_ARGTYPES,
              "hv_temporal_fwd": ta._FWD_ARGTYPES, "hv_temporal_bwd": ta._BWD_ARGTYPES,
