@@ -212,9 +212,11 @@ The last shapes the JAX kernels take add (after the head widths, and
   by backend), and kernel B past 32 frames (the long forward; the
   backward's frames kernel up to 128 frames, its long kernel past that) at
   f = 48 (the path's four motion levels, at 768x512 forward and 896x512
-  backward), f = 33, 64 and 96 at d = 40, 160 and 256, and the backward at
-  f = 100 and 128 (d = 40, and 160 at 128) and, in the long kernel, 136;
-  each held to its plain version, a repeat launch the same bits, device ms
+  backward), f = 33, 64 and 96 at d = 40, 160 and 256, f = 200 and 256 (d
+  = 40, and 160 in streamed panels) and the backward at f = 100 and 128
+  (d = 40, and 160 at 128) and, in the long kernel, 136, 200 and 256, the
+  backward's head isolation at f = 33-200; each line with the kernel's
+  plan, each held to its plain version, a repeat launch the same bits, device ms
   (torch.profiler) and event ms beside the bound, the plain version's and
   the library's ms;
 - long_wide: ``long_wide_config()`` (one spatial head in both UNets, so
@@ -239,7 +241,8 @@ and its pose2img run, each rank's dp_train and fanout runs, the pose runs
 and the microbench run) sets every launch count to 0 just before it and
 reads the counts just after.
 
-Then one JSON line of per-kernel numbers, the card line, and the last line
+Then one JSON line of per-kernel numbers, a ``[phase seconds]`` line (each
+phase's wall seconds), the card line, and the last line
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits 2 without one.
 
 Each kernel is held to its plain version (bf16 in, fp32 softmax) by two
@@ -291,6 +294,12 @@ H100_BF16_FLOPS = 989e12   # dense tensor-core peak (data sheet, SXM, 700 W)
 H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores (data sheet)
 H100_BYTES = 3.35e12       # HBM3 rate (data sheet)
 PROFILE_TRIES = 8          # torch.profiler sessions a device-time reading may take
+PROFILE_RETRIES_AFTER_MISS = 2  # and right after a reading that captured nothing
+# Host pauses (s) in a session before the launches and after their
+# synchronize: the first session's, and each retry's. Without them the
+# profiler missed every launch of a session now and then (tools/profiler_window.py).
+PROFILE_PADS = (0.05, 0.2)
+_profiler_missed = False
 
 FLASH_SRC = "humanvid_tpu_torch/csrc/flash_attention.cu"
 TEMPORAL_SRC = "humanvid_tpu_torch/csrc/temporal_attention.cu"
@@ -596,9 +605,11 @@ def phase_temporal(torch, results, dev, cases):
         long = f > ta.ITEM_FRAMES
         key = ("temporal_fwd_long_kernel" if long else "temporal_fwd_wide_kernel"
                if d > ta.CHUNK_COLUMNS else "temporal_fwd_kernel")
-        ms = _profile_split(torch, lambda: ta.temporal_attention_cuda(q, k, v, heads),
-                            (key,))[key]
-        ok = ok and same and ms > 0
+        kernel = "temporal_fwd_long" if long else "temporal_fwd"
+        headline = _is_headline(results, kernel, name)
+        ms, ms_from = _device_ms(torch, lambda: ta.temporal_attention_cuda(q, k, v, heads),
+                                 key, event_ms, headline)
+        ok = ok and same and ms > 0 and (ms_from == "profiler" or not headline)
         plain_ms = time_ms(torch, lambda: ta.temporal_attention_plain(q, k, v, heads), 3)
 
         def split(t):
@@ -610,20 +621,21 @@ def phase_temporal(torch, results, dev, cases):
         b_ms, b_by = bound(flops, 2.0 * 4 * q.numel())
         print(f"  {name}: b={b} f={f} l={l} c={c} heads={heads} d={d} "
               f"{_temporal_route(ta, c, heads, f)} max_abs_err={err:.3e} "
-              f"rel_l2={rel:.3e} same_bits={same} device_ms={ms:.4f} event_ms={event_ms:.4f} "
-              f"plain_ms={plain_ms:.3f} library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) "
-              f"{'ok' if ok else 'FAIL'}")
-        results.append(dict(kernel="temporal_fwd_long" if long else "temporal_fwd", shape=name,
-                            d=d, f=f, max_abs_err=err, rel_l2=rel,
-                            ms=ms, event_ms=event_ms, device_ms=ms, plain_ms=plain_ms,
-                            library_ms=lib, bound_ms=b_ms, bound_by=b_by, same_bits=same, ok=ok))
+              f"rel_l2={rel:.3e} same_bits={same} device_ms={ms:.4f} ({ms_from}) "
+              f"event_ms={event_ms:.4f} plain_ms={plain_ms:.3f} library_ms={lib} "
+              f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+        results.append(dict(kernel=kernel, shape=name, d=d, f=f, max_abs_err=err, rel_l2=rel,
+                            ms=ms, event_ms=event_ms, device_ms=ms, device_ms_from=ms_from,
+                            plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                            same_bits=same, ok=ok))
 
 
 def _temporal_route(ta, c, heads, f, backward=False):
     """Which item kernel B runs a head of c // heads columns over f frames
     in: whole heads, or column chunks (the wide kernels), after any zero
-    pad; past ITEM_FRAMES frames the long kernels' pieces, or the
-    backward's frames kernel and its plan."""
+    pad; past ITEM_FRAMES frames the long kernels' plans (whole heads, or
+    one head streamed in panels and chunks), or the backward's frames
+    kernel and its plan."""
     d = c // heads
     width = ta.temporal_width(d)
     plan = ta.temporal_plan(heads * width, heads, f)
@@ -634,7 +646,11 @@ def _temporal_route(ta, c, heads, f, backward=False):
                 else f"{frames.chunks} chunks of {frames.cols} columns")
         return f"({pad}frames kernel: {item}, {frames.stages} stages, {frames.smem} bytes)"
     if f > ta.ITEM_FRAMES:
-        return f"({pad}long kernel: {plan.chunks} pieces of {plan.cols} columns)"
+        p = (ta.long_bwd_plan if backward else ta.long_fwd_plan)(heads * width, heads, f)
+        item = (f"{p.heads} heads an item, all frames a stage" if p.mode == ta.MODE_RESIDENT
+                else f"one head in {p.chunks} chunks of {p.cols} columns, "
+                     f"{ta.LONG_PANEL}-frame panels")
+        return f"({pad}long kernel: {item}, {p.stages} stages, {p.smem} bytes)"
     if plan.chunks > 1:
         return f"({pad}{plan.chunks} chunks of {plan.cols} columns)"
     return f"({pad}{plan.heads} heads an item)"
@@ -655,27 +671,36 @@ def flash_bwd_cases():
     ]
 
 
-def _profile_split(torch, fn, keys):
+def _profile_split(torch, fn, keys, tries=None):
     """Device ms per call of ``fn`` summed over the CUDA kernels whose names
     contain each key (each launched once a call), from torch.profiler over 3
     calls. A kernel's time is its captured total over its captured launches:
     the profiler can miss a launch, and a total over the 3 calls then reads a
-    third low (kernel 8's QK arms read 2/3 of their CUDA-event time so). Now
-    and then a session holds no device record of a kernel at all (on the
-    H100, 4 of ~80 sessions of one run, and a miss is often followed by
-    another): it is taken again after a pause that grows, up to
-    PROFILE_TRIES sessions, and a key captured in none reads 0."""
+    third low. A session that stops right after the launches' synchronize
+    at times holds fewer of their device records, or none, though it holds
+    their runtime calls (on the H100, 12 of 174 sessions of three
+    long-forward launches, 10 of them none; with 50 ms of host pause before
+    the launches and after the synchronize, 0 of 174:
+    ``tools/profiler_window.py``, PERF.md §7). So each session pauses
+    so (PROFILE_PADS), and a key it missed is taken again with longer
+    pauses, up to PROFILE_TRIES sessions; a key captured in none reads 0.
+    After a call that captured nothing, the next takes at most
+    PROFILE_RETRIES_AFTER_MISS sessions (``tries`` where given) until one
+    captures again."""
     from torch.profiler import ProfilerActivity, profile
 
+    global _profiler_missed
     fn()
     torch.cuda.synchronize()
-    for attempt in range(PROFILE_TRIES):
-        if attempt:
-            time.sleep(0.5 * attempt)  # misses come in runs: let the profiler settle
+    tries = tries or (PROFILE_RETRIES_AFTER_MISS if _profiler_missed else PROFILE_TRIES)
+    for attempt in range(tries):
+        pad = PROFILE_PADS[min(attempt, 1)]
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             for _ in range(3):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(pad)  # the launches' device records come after them
         out, missed = {key: 0.0 for key in keys}, set(keys)
         for evt in prof.key_averages():
             for key in keys:
@@ -685,7 +710,30 @@ def _profile_split(torch, fn, keys):
         if not missed:
             break
         print(f"  (the profiler captured no launch of {sorted(missed)}: profiling again)")
+    _profiler_missed = len(missed) == len(keys)
     return out
+
+
+def _is_headline(results, kernel, shape):
+    """Whether ``kernel``'s case ``shape``, about to join ``results``, gives
+    numbers of the kernels line: the kernel's headline (its first case,
+    unless HEADLINES names one), or kernel C's one-pass headline."""
+    if kernel in HEADLINES:
+        return shape == HEADLINES[kernel]
+    return shape == GN_ONE_PASS_HEADLINE or not any(r["kernel"] == kernel for r in results)
+
+
+def _device_ms(torch, fn, key, event_ms, headline):
+    """(ms, source): the device ms of the kernel named by ``key`` per call
+    of ``fn`` from torch.profiler, or, where no session captured it, the
+    CUDA-event ms per call already taken (``event_ms``). A ``headline``
+    case takes every session PROFILE_TRIES allows, and its caller fails it
+    where the events stand in."""
+    ms = _profile_split(torch, fn, (key,), PROFILE_TRIES if headline else None)[key]
+    if ms > 0:
+        return ms, "profiler"
+    print(f"  (no device record of {key}: its CUDA-event time stands for it)")
+    return event_ms, "events"
 
 
 def _sdpa_backward_ms(torch, tensors, g, mask, reps):
@@ -893,8 +941,11 @@ def phase_temporal_bwd(torch, results, dev, cases):
         key = ("temporal_bwd_long_kernel" if f > ta.FRAMES_KERNEL_FRAMES
                else "temporal_bwd_frames_kernel" if long else "temporal_bwd_wide_kernel"
                if d > ta.CHUNK_COLUMNS else "temporal_bwd_kernel")
-        ms = _profile_split(torch, run, (key,))[key]
-        ok = ok and ms > 0
+        kernel = ("temporal_bwd_long" if f > ta.FRAMES_KERNEL_FRAMES
+                  else "temporal_bwd_frames" if long else "temporal_bwd")
+        headline = _is_headline(results, kernel, name)
+        ms, ms_from = _device_ms(torch, run, key, event_ms, headline)
+        ok = ok and ms > 0 and (ms_from == "profiler" or not headline)
         plain_ms = time_ms(
             torch, lambda: ta.temporal_attention_backward_plain(q, k, v, g, heads), 3)
 
@@ -911,15 +962,13 @@ def phase_temporal_bwd(torch, results, dev, cases):
               f"{_temporal_route(ta, c, heads, f, backward=True)} "
               f"rel_l2 dq/dk/dv={errs[0][1]:.3e}/{errs[1][1]:.3e}/{errs[2][1]:.3e} "
               f"max_err/rms dq/dk/dv={ratios} same_bits={same} "
-              f"device_ms={ms:.4f} event_ms={event_ms:.4f} plain_ms={plain_ms:.3f} "
+              f"device_ms={ms:.4f} ({ms_from}) event_ms={event_ms:.4f} plain_ms={plain_ms:.3f} "
               f"library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
-        kernel = ("temporal_bwd_long" if f > ta.FRAMES_KERNEL_FRAMES
-                  else "temporal_bwd_frames" if long else "temporal_bwd")
-        results.append(dict(kernel=kernel, shape=name,
-                            d=d, f=f,
+        results.append(dict(kernel=kernel, shape=name, d=d, f=f,
                             max_abs_err=max(e[0] for e in errs),
                             rel_l2=max(e[1] for e in errs), ms=ms, event_ms=event_ms,
-                            device_ms=ms, plain_ms=plain_ms, library_ms=lib,
+                            device_ms=ms, device_ms_from=ms_from, plain_ms=plain_ms,
+                            library_ms=lib,
                             library_backend=backend.name if backend else "default",
                             bound_ms=b_ms, bound_by=b_by, same_bits=same, ok=ok))
         del q, k, v, g
@@ -939,7 +988,7 @@ def phase_temporal_isolation(torch, dev):
     for f, c, heads, hot in ((33, 320, 8, 1), (48, 320, 8, 3), (48, 640, 8, 7), (48, 1280, 8, 2),
                              (64, 1280, 5, 4), (96, 1280, 5, 2), (96, 320, 8, 7),
                              (100, 320, 8, 1), (128, 640, 8, 3), (128, 1280, 5, 2),
-                             (136, 320, 8, 1)):
+                             (136, 320, 8, 1), (200, 320, 8, 5), (200, 1280, 8, 6)):
         d = c // heads
         gen = torch.Generator(device=dev).manual_seed(f + c)
         clean = [torch.randn((b, f, l, c), generator=gen, device=dev).to(torch.bfloat16)
@@ -969,6 +1018,8 @@ LONG_FRAMES_TRAIN_SIZE = (100, 256, 256)  # a stage-2 step of the frames kernel'
 LONG_FRAMES_PAST_SIZE = (136, 128, 128)  # one past the frames kernel's 128
 # the mid backward's headline: the long_wide stage-2 step's level-0 cond call
 MID_BWD_HEADLINE = "long_wide level0 cond (ref KV) d320"
+# each kernel's headline case in the kernels line: its first, unless named here
+HEADLINES = {"flash_bwd_mid": MID_BWD_HEADLINE}
 
 
 def head_width_cases():
@@ -1254,8 +1305,9 @@ def long_wide_flash_bwd_cases():
 def long_wide_temporal_cases():
     """Kernel B's long forward at the long_wide path's motion levels
     (768x512x48f: d = 40, 80, 160, 160; the camera encoder's is level 0's
-    shape) and at f = 33, 64 and 96 (d = 40, 160, 256): (name, b, f, l, c,
-    heads)."""
+    shape), at f = 33, 64 and 96 (d = 40, 160, 256), and at f = 200 and 256
+    (d = 40 at the 128x128 step's level-0 size, and 160 in streamed
+    panels): (name, b, f, l, c, heads)."""
     return [
         ("long_wide motion level0 f48", 1, 48, 6144, 320, 8),
         ("long_wide motion level1 f48", 1, 48, 1536, 640, 8),
@@ -1265,6 +1317,8 @@ def long_wide_temporal_cases():
         ("f33 d40", 1, 33, 6144, 320, 8),
         ("f64 d160", 1, 64, 384, 1280, 8),
         ("f96 d256", 1, 96, 384, 1280, 5),
+        ("f200 d40", 1, 200, 256, 320, 8),
+        ("f256 d160", 1, 256, 64, 1280, 8),
     ]
 
 
@@ -1272,8 +1326,9 @@ def long_wide_temporal_bwd_cases():
     """Kernel B's backward past 32 frames: the frames kernel at the
     long_wide stage-2 step's motion levels (896x512x48f) and at f = 33, 64,
     96, 100 and 128, the long kernel at f = 136, past the frames kernel's
-    reach (the frames kernel's first shape is its headline, the long
-    kernel's its only one): (name, b, f, l, c, heads)."""
+    reach, and at f = 200 and 256 (d = 40 at the 128x128 step's level-0
+    size, 160 in streamed panels; the frames kernel's first shape is its
+    headline, the long kernel's f = 136): (name, b, f, l, c, heads)."""
     return [
         ("long_wide motion level0 f48", 1, 48, 7168, 320, 8),
         ("long_wide motion level1 f48", 1, 48, 1792, 640, 8),
@@ -1286,6 +1341,8 @@ def long_wide_temporal_bwd_cases():
         ("f128 level0-size d40", 1, 128, 7168, 320, 8),
         ("f128 level2-size d160", 1, 128, 448, 1280, 8),
         ("f136 d40 (long kernel)", 1, 136, 7168, 320, 8),
+        ("f200 d40 (long kernel)", 1, 200, 256, 320, 8),
+        ("f256 d160 (long kernel, streamed)", 1, 256, 64, 1280, 8),
     ]
 
 
@@ -1606,21 +1663,24 @@ def phase_group_norm(torch, results, dev, cases):
                 ok = close and same and y.is_contiguous(memory_format=fmt)
                 del y, again, ref
                 event_ms = time_ms(torch, kernel, 20)
-                ms = _profile_split(torch, kernel, ("gn_",))["gn_"]
-                ok = ok and ms > 0
+                label = f"{name} {layout} act={act}"
+                headline = _is_headline(results, "group_norm", label)
+                ms, ms_from = _device_ms(torch, kernel, "gn_", event_ms, headline)
+                ok = ok and ms > 0 and (ms_from == "profiler" or not headline)
                 plain_ms = time_ms(torch, lambda: gn.group_norm_act_plain(
                     x, weight, bias, 32, eps, act), 3)
                 lib = library_ms(torch, library, 20)
                 b_ms, b_by = bound(x.numel() * (5.0 + 4.0 * (act == "silu")),
                                    2.0 * 2 * x.numel() + 2 * 2 * 2 * c, H100_FP32_FLOPS)
-                label = f"{name} {layout} act={act}"
                 print(f"  {label}: {tuple(shape)} {path} max_abs_err={err:.3e} "
                       f"max_err/rms={ratio:.3e} rel_l2={rel:.3e} same_bits={same} "
-                      f"device_ms={ms:.4f} event_ms={event_ms:.4f} plain_ms={plain_ms:.3f} "
+                      f"device_ms={ms:.4f} ({ms_from}) event_ms={event_ms:.4f} "
+                      f"plain_ms={plain_ms:.3f} "
                       f"library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
                 results.append(dict(kernel="group_norm", shape=label, path=path, max_abs_err=err,
                                     rel_l2=rel, same_bits=same, ms=ms, event_ms=event_ms,
-                                    device_ms=ms, plain_ms=plain_ms, library_ms=lib,
+                                    device_ms=ms, device_ms_from=ms_from, plain_ms=plain_ms,
+                                    library_ms=lib,
                                     bound_ms=b_ms, bound_by=b_by, ok=ok))
         del base, x
         torch.cuda.empty_cache()
@@ -1817,21 +1877,23 @@ def phase_probes(torch, results, dev):
         ok = torch.equal(y, ref) and torch.equal(y, torch.add(x, 0.5))
         err = (y.float() - ref.float()).abs().max().item()
         ms = time_ms(torch, lambda: pk.hbm_map_cuda(x), 20)
-        dev_ms = _profile_split(torch, lambda: pk.hbm_map_cuda(x), ("probe_hbm",))["probe_hbm"]
-        ok = ok and dev_ms > 0
+        headline = _is_headline(results, "probe_hbm", name)
+        dev_ms, ms_from = _device_ms(torch, lambda: pk.hbm_map_cuda(x), "probe_hbm", ms, headline)
+        ok = ok and dev_ms > 0 and (ms_from == "profiler" or not headline)
         plain_ms = time_ms(torch, lambda: pk.hbm_map_plain(x), 5)
         lib = library_ms(torch, lambda: torch.add(x, 0.5, out=out), 20)
         copy_ms = time_ms(torch, lambda: out.copy_(x), 20)
         nbytes = 2.0 * 2 * x.numel()
         b_ms, b_by = bound(2.0 * x.numel(), nbytes)
-        print(f"  hbm {name}: exact={ok} event_ms={ms:.4f} device_ms={dev_ms:.4f} "
+        print(f"  hbm {name}: exact={ok} event_ms={ms:.4f} device_ms={dev_ms:.4f} ({ms_from}) "
               f"({nbytes / dev_ms / 1e6:.1f} GB/s) "
               f"plain_ms={plain_ms:.3f} library_ms={lib:.4f} ({nbytes / lib / 1e6:.1f} GB/s) "
               f"copy_ms={copy_ms:.4f} ({nbytes / copy_ms / 1e6:.1f} GB/s) bound_ms={b_ms:.4f} "
               f"({b_by}) {'ok' if ok else 'FAIL'}")
         results.append(dict(kernel="probe_hbm", shape=name, max_abs_err=err, rel_l2=0.0,
-                            ms=dev_ms, event_ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                            library_ms=lib, copy_ms=copy_ms, gbs=nbytes / dev_ms / 1e6,
+                            ms=dev_ms, event_ms=ms, device_ms=dev_ms, device_ms_from=ms_from,
+                            plain_ms=plain_ms, library_ms=lib, copy_ms=copy_ms,
+                            gbs=nbytes / dev_ms / 1e6,
                             bound_ms=b_ms, bound_by=b_by, ok=ok))
         del x, y, ref, out
         torch.cuda.empty_cache()
@@ -3806,6 +3868,24 @@ def phase_pose(torch, np, dev, card):
     return ok, launches
 
 
+PHASE_SECONDS = {}  # wall seconds of each phase of main(), in order
+
+
+def _timed(name, fn, *args):
+    """fn(*args), its wall seconds added to PHASE_SECONDS[name]."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+
+
+# the kernels whose ms in the kernels line is their device time (torch.profiler)
+DEVICE_MS_KERNELS = ("probe_dmajor", "probe_hbm", "temporal_fwd", "temporal_bwd",
+                     "temporal_fwd_long", "temporal_bwd_frames", "temporal_bwd_long",
+                     "group_norm")
+
+
 def kernel_line(results, launches):
     """The per-kernel JSON line. ``launches`` is each kernel's count in the
     run of its path (the forward kernels and kernel C: pose2vid; the
@@ -3848,12 +3928,11 @@ def kernel_line(results, launches):
         # _dkv_kernel (:354) and _dq_kernel (:537) at the same widths
         "flash_bwd_mid": ("humanvid_tpu/ops/flash_attention.py:354", MID_BWD_SRC),
     }
-    headlines = {"flash_bwd_mid": MID_BWD_HEADLINE}
     kernels = []
     for name, (rep, src) in replaces.items():
         rows = [r for r in results if r["kernel"] == name]
         # the first case of each kernel is its headline shape, unless named
-        head = next(r for r in rows if r["shape"] == headlines.get(name, rows[0]["shape"]))
+        head = next(r for r in rows if r["shape"] == HEADLINES.get(name, rows[0]["shape"]))
         path = paths.get(name, "pose2vid")
         extra = {}
         if name == "flash_bwd":
@@ -3870,9 +3949,10 @@ def kernel_line(results, launches):
         elif name == "probe_pvt":
             extra = dict(kernel_a_ms=head["kernel_a_ms"],
                          untransposed_ms=head["untransposed_ms"])
-        elif name in ("probe_dmajor", "probe_hbm", "temporal_fwd", "temporal_bwd",
-                      "temporal_fwd_long", "temporal_bwd_frames", "temporal_bwd_long"):
-            # ms is the device time
+        elif name in DEVICE_MS_KERNELS and name != "group_norm":
+            # ms is the device time (torch.profiler): the run fails where a
+            # headline's reading is not; a case in ``shapes`` whose
+            # ``device_ms_from`` is "events" holds the CUDA-event time there
             extra = dict(event_ms=head["event_ms"])
         elif name in ("flash_fwd_xwide", "flash_fwd_mid"):
             # ms is the event time, as kernel A's other rows
@@ -3887,8 +3967,13 @@ def kernel_line(results, launches):
                          one_pass_ms=one["ms"], one_pass_event_ms=one["event_ms"],
                          one_pass_plain_ms=one["plain_ms"], one_pass_bound_ms=one["bound_ms"],
                          one_pass_library_ms=one["library_ms"])
+        # where ms came from: the profiler's device time, or the CUDA events'
+        # time through the wrapper (kernel A's rows and kernel 9's)
+        ms_from = head.get("device_ms_from", "profiler") if name in DEVICE_MS_KERNELS \
+            else "events"
         kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=rep, path=path, **extra,
+            name=name, route="cuda", source=src, replaces=rep, path=path, ms_from=ms_from,
+            **extra,
             launches=launches[path][name],
             launches_by_path={p: counts.get(name, 0) for p, counts in launches.items()},
             max_abs_err=max(r["max_abs_err"] for r in rows),
@@ -3917,29 +4002,34 @@ def main() -> int:
     if sys.argv[1:2] == ["--rank-worker"]:
         return rank_worker(*sys.argv[2:4])
     dev = torch.device("cuda")
-    card = phase_card()
-    phase_build()
+    card = _timed("card", phase_card)
+    _timed("build", phase_build)
     results = []
-    phase_flash(torch, results, dev, flash_cases())
-    isolation_fwd = phase_flash_isolation(torch, dev, "forward")
-    phase_temporal(torch, results, dev, temporal_cases())
-    phase_flash_bwd(torch, results, dev, flash_bwd_cases())
-    isolation_bwd = phase_flash_isolation(torch, dev, "backward")
-    phase_temporal_bwd(torch, results, dev, temporal_bwd_cases())
-    phase_group_norm(torch, results, dev, group_norm_cases())
-    phase_probes(torch, results, dev)
+    _timed("flash", phase_flash, torch, results, dev, flash_cases())
+    isolation_fwd = _timed("flash_isolation", phase_flash_isolation, torch, dev, "forward")
+    _timed("temporal", phase_temporal, torch, results, dev, temporal_cases())
+    _timed("flash_bwd", phase_flash_bwd, torch, results, dev, flash_bwd_cases())
+    isolation_bwd = _timed("flash_isolation_bwd", phase_flash_isolation, torch, dev,
+                           "backward")
+    _timed("temporal_bwd", phase_temporal_bwd, torch, results, dev, temporal_bwd_cases())
+    _timed("group_norm", phase_group_norm, torch, results, dev, group_norm_cases())
+    _timed("probes", phase_probes, torch, results, dev)
     print("[head widths] kernels A and B at the widths other head counts give, and through "
           "the zero pad")
-    phase_flash(torch, results, dev, head_width_cases())
-    phase_flash_bwd(torch, results, dev, head_width_bwd_cases())
-    phase_temporal(torch, results, dev, temporal_width_cases())
-    phase_temporal_bwd(torch, results, dev, temporal_width_bwd_cases())
+    _timed("widths flash", phase_flash, torch, results, dev, head_width_cases())
+    _timed("widths flash_bwd", phase_flash_bwd, torch, results, dev,
+           head_width_bwd_cases())
+    _timed("widths temporal", phase_temporal, torch, results, dev, temporal_width_cases())
+    _timed("widths temporal_bwd", phase_temporal_bwd, torch, results, dev,
+           temporal_width_bwd_cases())
     print("[long and wide] kernel A past 512 columns, kernel B past 32 frames")
-    phase_flash(torch, results, dev, long_wide_flash_cases())
-    phase_flash_bwd(torch, results, dev, long_wide_flash_bwd_cases())
-    phase_temporal(torch, results, dev, long_wide_temporal_cases())
-    phase_temporal_bwd(torch, results, dev, long_wide_temporal_bwd_cases())
-    isolation_long = phase_temporal_isolation(torch, dev)
+    _timed("long flash", phase_flash, torch, results, dev, long_wide_flash_cases())
+    _timed("long flash_bwd", phase_flash_bwd, torch, results, dev,
+           long_wide_flash_bwd_cases())
+    _timed("long temporal", phase_temporal, torch, results, dev, long_wide_temporal_cases())
+    _timed("long temporal_bwd", phase_temporal_bwd, torch, results, dev,
+           long_wide_temporal_bwd_cases())
+    isolation_long = _timed("temporal_isolation", phase_temporal_isolation, torch, dev)
     failed = [f"{r['kernel']} {r['shape']}" for r in results if not r["ok"]]
 
     def check(name, good):
@@ -3949,56 +4039,59 @@ def main() -> int:
     check("kernel A forward head isolation", isolation_fwd)
     check("kernel A backward head isolation", isolation_bwd)
     check("kernel B backward head isolation past 32 frames", isolation_long)
-    check("kernel C grad", phase_group_norm_grad(torch, dev))
-    check("tiny reference", phase_tiny_reference(torch, np, dev))
-    check("tiny train", phase_tiny_train(torch, np, dev))
-    main_ok, main_launches, pipe, inputs = phase_main(torch, np, dev)
+    check("kernel C grad", _timed("group_norm_grad", phase_group_norm_grad, torch, dev))
+    check("tiny reference", _timed("tiny_reference", phase_tiny_reference, torch, np, dev))
+    check("tiny train", _timed("tiny_train", phase_tiny_train, torch, np, dev))
+    main_ok, main_launches, pipe, inputs = _timed("main", phase_main, torch, np, dev)
     check("main", main_ok)
-    per_call = phase_profile(torch, dev, pipe, inputs)
+    per_call = _timed("profile", phase_profile, torch, dev, pipe, inputs)
     del pipe
     torch.cuda.empty_cache()
-    train_ok, train_launches, system, state, batch = phase_train(torch, np, dev)
+    train_ok, train_launches, system, state, batch = _timed("train", phase_train, torch, np,
+                                                            dev)
     check("train", train_ok)
-    phase_profile_train(torch, dev, system, state, batch)
+    _timed("profile_train", phase_profile_train, torch, dev, system, state, batch)
     # stage 1 needs the card's memory to itself
     del system, state, batch
     gc.collect()
     torch.cuda.empty_cache()
-    heads64_ok, heads64_launches = phase_heads64(torch, np, dev, card)
+    heads64_ok, heads64_launches = _timed("heads64", phase_heads64, torch, np, dev, card)
     check("heads64", heads64_ok)
-    long_wide_ok, long_wide_launches = phase_long_wide(torch, np, dev, card)
+    long_wide_ok, long_wide_launches = _timed("long_wide", phase_long_wide, torch, np, dev,
+                                              card)
     check("long_wide", long_wide_ok)
-    stage1_ok, stage1_launches = phase_stage1(torch, np, dev)
+    stage1_ok, stage1_launches = _timed("stage1", phase_stage1, torch, np, dev)
     check("stage 1", stage1_ok)
     gc.collect()
     torch.cuda.empty_cache()
-    cli_ok, cli_launches = phase_cli(torch, np, dev, card)
+    cli_ok, cli_launches = _timed("cli", phase_cli, torch, np, dev, card)
     check("cli", cli_ok)
     gc.collect()
     torch.cuda.empty_cache()
-    train_cli_ok, train_cli_launches = phase_train_cli(torch, np, dev, card)
+    train_cli_ok, train_cli_launches = _timed("train_cli", phase_train_cli, torch, np, dev,
+                                              card)
     check("train_cli", train_cli_ok)
     gc.collect()
     torch.cuda.empty_cache()
-    bench_ok, bench_launches, bench_name = phase_microbench(torch)
+    bench_ok, bench_launches, bench_name = _timed("microbench", phase_microbench, torch)
     check(bench_name, bench_ok)
     gc.collect()
     torch.cuda.empty_cache()
     # last: when the microbench ran after this phase, its torch.profiler
     # sessions found no device record
-    eval_ok, eval_launches = phase_eval(torch, np, dev, card)
+    eval_ok, eval_launches = _timed("eval", phase_eval, torch, np, dev, card)
     check("eval", eval_ok)
     gc.collect()
     torch.cuda.empty_cache()
     # the ranks of the data-parallel phases are processes of their own: the
     # card's memory goes to them
-    dp_ok, dp_launches = phase_dp_train(torch, np, card)
+    dp_ok, dp_launches = _timed("dp_train", phase_dp_train, torch, np, card)
     check("dp_train", dp_ok)
-    fanout_ok, fanout_launches = phase_fanout(torch, np, dev, card)
+    fanout_ok, fanout_launches = _timed("fanout", phase_fanout, torch, np, dev, card)
     check("fanout", fanout_ok)
     gc.collect()
     torch.cuda.empty_cache()
-    pose_ok, pose_launches = phase_pose(torch, np, dev, card)
+    pose_ok, pose_launches = _timed("pose", phase_pose, torch, np, dev, card)
     check("pose", pose_ok)
     print(kernel_line(results, {"pose2vid": main_launches, "train": train_launches,
                                 **stage1_launches, **heads64_launches, **long_wide_launches,
@@ -4008,6 +4101,9 @@ def main() -> int:
                                 "fanout": fanout_launches, **pose_launches,
                                 "denoise_step": per_call["denoise step"],
                                 "decode": per_call["decode"], "microbench": bench_launches}))
+    # each phase's wall seconds (a phase run more than once: the sum)
+    print("[phase seconds] " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
+          + f"; total {sum(PHASE_SECONDS.values()):.1f}")
     print(card)
     if failed:
         # on standard error too, whose end is what a caller often keeps

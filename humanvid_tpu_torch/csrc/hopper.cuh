@@ -143,6 +143,16 @@ __device__ __forceinline__ void tma_store_4d(const void* map, const void* src, i
       : "memory");
 }
 
+// The same for a 5-D tensor map, box at (c0, c1, c2, c3, c4).
+__device__ __forceinline__ void tma_store_5d(const void* map, const void* src, int c0, int c1,
+                                             int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5, %6}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_desc(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -973,6 +983,28 @@ inline int make_map_4d(CUtensorMap* map, const void* ptr, int C, int L, int F, i
   const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, (cuuint32_t)frames, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A 5-D map (d, heads, L, F, B) of a packed bf16 (B, F, L, heads * d)
+// tensor, one head a slab: unswizzled boxes of `cols` x 1 head x 1 position
+// x `frames` x 1 land as [frames][cols]. A store writes nothing past a
+// head's last column or past frame F.
+inline int make_frames_head_map(CUtensorMap* map, const void* ptr, int d, int heads, int L,
+                                int F, int B, int cols, int frames) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t C = (cuuint64_t)heads * d;
+  const cuuint64_t dims[5] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)L, (cuuint64_t)F,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[4] = {(cuuint64_t)d * 2, C * 2, (cuuint64_t)L * C * 2,
+                                 (cuuint64_t)F * L * C * 2};
+  const cuuint32_t box[5] = {(cuuint32_t)cols, 1, 1, (cuuint32_t)frames, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

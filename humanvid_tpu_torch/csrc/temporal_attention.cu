@@ -605,97 +605,324 @@ int launch_wide(const void* q, const void* k, const void* v, void* out, int B, i
 
 // ---- more than 32 frames: the long kernel -----------------------------------
 //
-// Past 32 frames a whole item (all f frames of a position) no longer fits
-// the two 16-row mma tiles, and its Q, K and V grow with f (at f = 96 and
-// 160 columns, 3 x 31 KB a stage). So the long kernel takes f in tiles: a
-// warp's work item is (sample, position, head, query tile of 16 frames,
-// output slab of kPiece columns), and it walks the key frames in tiles of
-// 16 twice:
-//   pass 1: S = Q K^T over the head's depth in kPiece-column pieces (each
-//     piece of Q and K copied to the warp's tiles by cp.async, zeros past f
-//     and past the piece), scaled in the log2 domain, keys >= f at -inf;
-//     the running row max and the row sum rescaled to it;
-//   pass 2: the same S again, P = exp2(S - max) / sum, normalized before
-//     its bf16 rounding as the plain version rounds it, and O += P V over
-//     the slab's columns of V.
-// Shared memory is per warp (3 tiles of 16 x kLd), so warps never wait for
-// one another; the warps of a block take neighbouring items (the query
-// tiles and slabs of one head), which read the same K and V from L1.
-// No atomics: the same inputs give the same bits. What bounds it is still
-// the bytes (at f = 48 a call at level 0 is 4 x 189 MB against 1.8e10
-// operations), but this design reads Q and K once per query tile, slab and
-// pass (from L1 and L2) and overlaps little: simple and right first.
-constexpr int kLongWarps = 4;
+// Replaces, past 32 frames: humanvid_tpu/ops/temporal_attention.py, the
+// Pallas kernel `_fwd_kernel` (:81), which takes any frame count.
+//
+// What bounds it on the H100: device-memory bytes. At f = 48 the long_wide
+// path's level 0 (1,48,6144,320) reads q, k and v and writes out, 755 MB
+// (225 us at 3.35 TB/s), against 1.8e10 operations (18 us at the bf16
+// peak). The earlier long kernel (a warp a 16-frame query tile and a 64-column
+// slab, its operands copied by cp.async into the warp's own tiles for
+// every product) read Q and K again for every slab and sweep and reached
+// 5-23% of that bound.
+//
+// What this design does about it:
+// - A work item is one whole position, as in the frames kernel: all f
+//   frames of `per` whole heads (a chunk of at most 160 columns), Q, K and V each read by
+//   one 4-D TMA box from the (c, l, f, b) maps, FP = f rounded up to 16
+//   frames tall (the box's frames past f read zeros). A producer warp keeps
+//   `stages` such items in flight in a ring (mbarriers with transaction
+//   counts) over a persistent grid of as many blocks as the card holds at
+//   once. Each tensor leaves device memory once.
+// - kLongConsumers consumer warps, however many frames: a task is one
+//   16-frame query tile of one head, and a warp takes the block's tasks in
+//   turn (across items, so that none idles at an item's end). It computes
+//   S against the 16-frame key tiles from shared memory with
+//   `mma.sync.m16n8k16` (bf16 in, fp32 accumulate; `wgmma`'s 64-row tiles
+//   would pad a head's 48 frames to 64 and its products are not what
+//   bounds the kernel), keys >= f at -inf; a first sweep keeps the running
+//   row max and sum, a second forms P = exp2(S - max) / sum, normalized
+//   before its bf16 rounding as `temporal_attention_plain` rounds it, and
+//   O += P V. Both sweeps read shared memory only, and a thread holds one
+//   16 x 16 tile of S, the row words and O (16 x d). The products are
+//   straight-line code over the head's 16-deep steps (a template constant)
+//   and kLongUnroll key tiles are unrolled together, so that neighbouring
+//   tiles' products overlap (runtime loops there cost 1.6x at f = 200).
+// - O is staged in the warp's own tile [16][d] and written by one 5-D TMA
+//   store (d, heads, l, f, b), which writes nothing past frame f; a warp
+//   waits for its last store's read only when it stages the next one.
+// - Large items (the plan's streamed mode, where Q, K and V of one head do
+//   not fit one stage with the staging tiles, as at f = 256 and d = 160,
+//   or for heads wider than 160 columns): one head an item, its frames in panels of kPanel frames
+//   and its columns in chunks of at most kLongChunk, Q and K of one (query
+//   panel, key panel, chunk) a stage and, in the second sweep, V of the
+//   output chunk with the last one. Warp w < kPanel / 16 owns query tile w
+//   of the panel and sums S of its 64 keys over the chunks in registers;
+//   the other warps leave. Shared memory and registers do not grow with f
+//   or d; Q and K are read again (from L2) for every key panel and chunk.
+// No atomics: the same inputs give the same bits.
+constexpr int kLongConsumers = 8;  // consumer warps
+constexpr int kLongThreads = 32 * (kLongConsumers + 1);
+constexpr int kPanel = 64;         // frames of a streamed panel
+constexpr int kStreamWarps = kPanel / 16;  // consumer warps of a streamed item
+constexpr int kLongMaxStages = 4;
+// Key tiles of a resident task's sweep unrolled together.
+constexpr int kLongUnroll = 2;
+constexpr int kLongChunk = 160;    // the widest column chunk of a streamed item
+// The plan's modes (`mode` of the entry point): the item kernels, the long
+// kernel with whole items, with streamed panels.
+constexpr int kModeItems = 0, kModeResident = 2, kModeStreamed = 3;
 
-__global__ void __launch_bounds__(32 * kLongWarps)
-temporal_fwd_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ out, int B, int F, int L,
-                         int heads, int d, float scale_log2) {
-  __shared__ __align__(128) bf16 smem[kLongWarps][3][16 * tiles::kLd];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int QT = (F + 15) / 16, slabs = (d + tiles::kPiece - 1) / tiles::kPiece;
-  const long long item = (long long)blockIdx.x * kLongWarps + warp;
-  if (item >= (long long)B * L * heads * slabs * QT) return;
-  const int qt = (int)(item % QT);
-  long long rest = item / QT;
-  const int slab = (int)(rest % slabs);
-  rest /= slabs;
-  const int h = (int)(rest % heads);
-  rest /= heads;
-  const int l = (int)(rest % L), b = (int)(rest / L);
-  const int C = heads * d;
-  const size_t fs = (size_t)L * C;                                  // elements between frames
-  const size_t base = ((size_t)b * F * L + l) * C + (size_t)h * d;  // (b, frame 0, l, head h)
-  bf16* sq = smem[warp][0];
-  bf16* sk = smem[warp][1];
-  bf16* sv = smem[warp][2];
+// Bytes of shared memory the long forward lays out: `stages` x the Q, K
+// and V tiles ([rows][cwp] bf16: FP rows, or kPanel streamed), the
+// consumer warps' staging tiles ([16][ow]), the barriers and 128 bytes of
+// alignment. `long_fwd_smem` in ops/temporal_attention.py reckons the same.
+__host__ __device__ inline size_t long_fwd_smem(int rows, int cwp, int ow, int stages) {
+  return 128 + (size_t)stages * 3 * rows * cwp * 2 + (size_t)kLongConsumers * 16 * ow * 2 +
+         (size_t)stages * 16;
+}
 
-  // S of key tile kt, scaled to the log2 domain, keys >= F at -inf
-  auto logits = [&](float (&s)[2][4], int kt) {
-    tiles::frames_product(s, q + base, qt, k + base, kt, fs, F, d, sq, sk, lane);
-    tiles::scale_mask_keys(s, kt, F, scale_log2, lane);
-  };
+// o (16 rows x w columns) times mul to the warp's staging tile buf
+// ([16][w]), then one TMA store of it to the box at (c0, head, l, f0, b);
+// the tile is written again only after its last store has read it.
+template <int NT>
+__device__ __forceinline__ void store_tile(bf16* buf, const CUtensorMap* map,
+                                           const float (&o)[NT][4], int w, float mul, int c0,
+                                           int head, int l, int f0, int b, int lane) {
+  if (lane == 0) bulk_wait<0, true>();
+  __syncwarp();
+  tiles::stage_rows<NT>(buf, o, w, mul, lane);
+  fence_proxy_async();  // the staging writes before the TMA store reads them
+  __syncwarp();
+  if (lane == 0) {
+    tma_store_5d(map, buf, c0, head, l, f0, b);
+    bulk_commit();
+  }
+}
 
-  // pass 1: row max and sum
+// P = exp2(s - m) / sum (the inverse sum `inv`) as the A fragment a.
+__device__ __forceinline__ void probs(uint32_t (&a)[4], float (&s)[2][4], const float (&m)[2],
+                                      const float (&inv)[2]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = exp2f(s[j][e] - m[e >> 1]) * inv[e >> 1];
+  tiles::pack_a(a, s[0], s[1]);
+}
+
+// A resident item's task: O (16 x d, d <= 16 KS) of the query tile at q
+// against KT 16-frame key tiles from k and v (each at the head's first
+// column of frame 0, rows ld apart), in two sweeps.
+template <int KS>
+__device__ __forceinline__ void fwd_resident_task(float (&o)[2 * KS][4], const bf16* q,
+                                                  const bf16* k, const bf16* v, int ld, int KT,
+                                                  int F, int d, float scale_log2, int lane) {
   float m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
-  for (int kt = 0; kt < QT; ++kt) {
+#pragma unroll kLongUnroll
+  for (int kt = 0; kt < KT; ++kt) {
     float s[2][4];
-    logits(s, kt);
+    tiles::tile_abt_k<KS>(s, q, ld, k + (size_t)kt * 16 * ld, ld, d, lane);
+    tiles::scale_mask_keys(s, 16 * kt, F, scale_log2, lane);
     tiles::row_stats(s, m, lsum);
   }
   const float inv[2] = {1.f / tiles::quad_sum(lsum[0]), 1.f / tiles::quad_sum(lsum[1])};
-
-  // pass 2: O over the slab's columns
-  const int c0 = slab * tiles::kPiece, w = min(tiles::kPiece, d - c0);
-  float o[tiles::kPiece / 8][4];
   tiles::zero(o);
-  for (int kt = 0; kt < QT; ++kt) {
-    // V's tile lands under the logits' loads (their wait covers it)
-    tiles::load_rows_async<16>(sv, tiles::kLd, v + base + c0, fs, kt * 16, F, w, lane, 32);
+#pragma unroll kLongUnroll
+  for (int kt = 0; kt < KT; ++kt) {
     float s[2][4];
-    logits(s, kt);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = exp2f(s[j][e] - m[e >> 1]) * inv[e >> 1];
+    tiles::tile_abt_k<KS>(s, q, ld, k + (size_t)kt * 16 * ld, ld, d, lane);
+    tiles::scale_mask_keys(s, 16 * kt, F, scale_log2, lane);
     uint32_t a[4];
-    tiles::pack_a(a, s[0], s[1]);
-    tiles::mma_av<tiles::kPiece / 8>(o, a, sv, tiles::kLd, tiles::round16(w) / 16, lane);
-    __syncwarp();
+    probs(a, s, m, inv);
+    tiles::tile_av_k<KS>(o, a, v + (size_t)kt * 16 * ld, ld, lane);
   }
-  const float one[2] = {1.f, 1.f};
-  tiles::store_acc<tiles::kPiece / 8>(out + base + c0, fs, o, qt * 16, F, w, one, lane);
 }
 
+// grid: persistent, at most one block per item; block kLongThreads. Items
+// are (sample, position, group of `per` heads), resident (K: the 16-deep
+// steps of a head, ceil(d / 16) or one more) or streamed (per = 1, chunks
+// of CW columns; K: O's 8-column tiles a chunk); every tile is `rows` x
+// CWP.
+template <bool STREAMED, int K>
+__global__ void __launch_bounds__(kLongThreads)
+temporal_fwd_long_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap o_map, int B, int F, int L,
+                         int heads, int d, int per, int CW, int CWP, int chunks, int stages,
+                         float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* tiles_ = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~static_cast<uintptr_t>(127));
+  const int FP = (F + 15) / 16 * 16;
+  const int ROWS = STREAMED ? kPanel : FP;
+  const int TILE = ROWS * CWP, STAGE = 3 * TILE;
+  const int OW = STREAMED ? CW : d;  // columns a warp's output tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  bf16* staging = tiles_ + (size_t)stages * STAGE + (size_t)warp * 16 * OW;
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles_ + (size_t)stages * STAGE +
+                                               (size_t)kLongConsumers * 16 * OW);
+  uint64_t* empty = full + stages;
+  const int groups = heads / per;  // items of a position
+  const long long items = (long long)B * L * groups;
+  const int NP = (F + kPanel - 1) / kPanel;  // panels of a streamed item
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], STREAMED ? kStreamWarps : kLongConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kLongConsumers) {
+    // producer (one thread): each step waits for its stage to be freed,
+    // then loads it
+    if (lane != 0) return;
+    int n = 0;
+    for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+      const int g = (int)(it % groups), l = (int)((it / groups) % L), b = (int)(it / groups / L);
+      auto step = [&](int qf, int kf, int col, int vcol) {
+        const int s = n % stages;
+        if (n >= stages) mbar_wait(&empty[s], ((n / stages) - 1) & 1);
+        bf16* t = tiles_ + (size_t)s * STAGE;
+        mbar_arrive_expect_tx(&full[s], (vcol >= 0 ? 3u : 2u) * TILE * 2);
+        tma_load_4d(t, &q_map, &full[s], col, l, qf, b);
+        tma_load_4d(t + TILE, &k_map, &full[s], col, l, kf, b);
+        if (vcol >= 0) tma_load_4d(t + 2 * TILE, &v_map, &full[s], vcol, l, kf, b);
+        ++n;
+      };
+      if constexpr (!STREAMED) {
+        step(0, 0, g * CW, g * CW);
+      } else {
+        const int col0 = g * d;
+        for (int qp = 0; qp < NP; ++qp) {
+          for (int kp = 0; kp < NP; ++kp)
+            for (int c = 0; c < chunks; ++c) step(qp * kPanel, kp * kPanel, col0 + c * CW, -1);
+          for (int oc = 0; oc < chunks; ++oc)
+            for (int kp = 0; kp < NP; ++kp)
+              for (int c = 0; c < chunks; ++c)
+                step(qp * kPanel, kp * kPanel, col0 + c * CW,
+                     c == chunks - 1 ? col0 + oc * CW : -1);
+        }
+      }
+    }
+    return;
+  }
+
+  int n = 0;
+  auto wait_step = [&]() -> const bf16* {
+    const int s = n % stages;
+    mbar_wait(&full[s], (n / stages) & 1);
+    return tiles_ + (size_t)s * STAGE;
+  };
+  auto free_step = [&]() {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[n % stages]);
+    ++n;
+  };
+
+  if constexpr (!STREAMED) {
+    // task g = base + t of an item goes to warp g % kLongConsumers
+    const int QT = FP / 16, tasks = QT * per;
+    int base = 0;
+    for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+      const int g = (int)(it % groups), l = (int)((it / groups) % L), b = (int)(it / groups / L);
+      const bf16* tq = wait_step();
+      for (int t = (warp - base + kLongConsumers) % kLongConsumers; t < tasks;
+           t += kLongConsumers) {
+        const int qt = t / per, h = t % per;
+        float o[2 * K][4];
+        fwd_resident_task<K>(o, tq + (size_t)qt * 16 * CWP + h * d, tq + TILE + h * d,
+                             tq + 2 * TILE + h * d, CWP, QT, F, d, scale_log2, lane);
+        store_tile<2 * K>(staging, &o_map, o, d, 1.f, 0, g * per + h, l, 16 * qt, b, lane);
+      }
+      base = (base + tasks) % kLongConsumers;
+      free_step();
+    }
+  } else {
+    // warp w owns query tile w of each query panel
+    if (warp >= kStreamWarps) return;
+    for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+      const int h = (int)(it % heads), l = (int)((it / heads) % L), b = (int)(it / heads / L);
+      for (int qp = 0; qp < NP; ++qp) {
+        const int q0 = qp * kPanel + 16 * warp;  // the tile's first frame
+        float m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+        float sacc[kStreamWarps][2][4];
+        // one key panel's S, summed over the chunks; `last` gets each key
+        // tile once it is whole, while the last chunk's stage is held
+        auto panel = [&](int kp, auto&& last) {
+          for (int c = 0; c < chunks; ++c) {
+            const bf16* t = wait_step();
+            const int wc = min(CW, d - c * CW);
+#pragma unroll
+            for (int j = 0; j < kStreamWarps; ++j) {
+              float part[2][4];
+              tiles::tile_abt(part, t + (size_t)warp * 16 * CWP, CWP, t + TILE + (size_t)j * 16 * CWP,
+                              CWP, wc, lane);
+#pragma unroll
+              for (int i = 0; i < 2; ++i)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) sacc[j][i][e] = (c ? sacc[j][i][e] : 0.f) + part[i][e];
+            }
+            if (c == chunks - 1) {
+#pragma unroll
+              for (int j = 0; j < kStreamWarps; ++j) {
+                tiles::scale_mask_keys(sacc[j], kp * kPanel + 16 * j, F, scale_log2, lane);
+                last(j, t);
+              }
+            }
+            free_step();
+          }
+        };
+        for (int kp = 0; kp < NP; ++kp)
+          panel(kp, [&](int j, const bf16*) { tiles::row_stats(sacc[j], m, lsum); });
+        const float inv[2] = {1.f / tiles::quad_sum(lsum[0]), 1.f / tiles::quad_sum(lsum[1])};
+        for (int oc = 0; oc < chunks; ++oc) {
+          const int wo = min(CW, d - oc * CW);
+          float o[K][4];
+          tiles::zero(o);
+          for (int kp = 0; kp < NP; ++kp)
+            panel(kp, [&](int j, const bf16* t) {
+              uint32_t a[4];
+              probs(a, sacc[j], m, inv);
+              tiles::tile_av<K>(o, a, t + 2 * TILE + (size_t)j * 16 * CWP, CWP, wo, lane);
+            });
+          if (q0 < F) store_tile<K>(staging, &o_map, o, CW, 1.f, oc * CW, h, l, q0, b, lane);
+        }
+      }
+    }
+  }
+  if (lane == 0) bulk_wait<0, false>();
+}
+
+template <bool STREAMED, int K>
 int launch_long(const void* q, const void* k, const void* v, void* out, int B, int F, int L,
-                int heads, int d, int scale_d, cudaStream_t stream) {
-  const int QT = (F + 15) / 16, slabs = (d + tiles::kPiece - 1) / tiles::kPiece;
-  const long long items = (long long)B * L * heads * slabs * QT;
-  const long long blocks = (items + kLongWarps - 1) / kLongWarps;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  temporal_fwd_long_kernel<<<(unsigned)blocks, 32 * kLongWarps, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), B, F, L, heads, d, kLog2e / sqrtf((float)scale_d));
+                int heads, int d, int per, int CW, int CWP, int chunks, int stages, int smem,
+                int scale_d, cudaStream_t stream) {
+  const int C = heads * d;
+  const int rows = STREAMED ? kPanel : (F + 15) / 16 * 16;
+  const int ow = STREAMED ? CW : d;
+  CUtensorMap maps[4];
+  int err = make_map_4d(&maps[0], q, C, L, F, B, CWP, 1, rows);
+  if (!err) err = make_map_4d(&maps[1], k, C, L, F, B, CWP, 1, rows);
+  if (!err) err = make_map_4d(&maps[2], v, C, L, F, B, CWP, 1, rows);
+  if (!err) err = make_frames_head_map(&maps[3], out, d, heads, L, F, B, ow, 16);
+  if (err) return err;
+  const int bytes = (int)long_fwd_smem(rows, CWP, ow, stages);
+  if (bytes != smem || bytes > 232448) return (int)cudaErrorInvalidValue;
+  auto kernel = temporal_fwd_long_kernel<STREAMED, K>;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  cudaError_t e = host_cache.reserve_smem(fn, bytes);
+  if (e != cudaSuccess) return (int)e;
+  int slots = 0;  // blocks the card holds at once: the persistent grid
+  e = host_cache.get(fn, bytes, 0, &slots, [&](int* value) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t r = cudaGetDevice(&dev);
+    if (r == cudaSuccess) r = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (r == cudaSuccess)
+      r = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kLongThreads, bytes);
+    *value = sms * per_sm;
+    return r;
+  });
+  if (e != cudaSuccess) return (int)e;
+  if (slots < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long items = (long long)B * L * (heads / per);
+  const int grid = (int)(items < slots ? items : slots);
+  kernel<<<grid, kLongThreads, bytes, stream>>>(maps[0], maps[1], maps[2], maps[3], B, F, L,
+                                                heads, d, per, CW, CWP, chunks, stages,
+                                                kLog2e / sqrtf((float)scale_d));
   return (int)cudaGetLastError();
 }
 
@@ -708,33 +935,56 @@ int launch_long(const void* q, const void* k, const void* v, void* out, int B, i
 // = ceil(d / chunks) rounded up to 8 columns (heads_per_item = 1). Either is
 // loaded `cwp` columns wide (the wrapper's `temporal_plan`). The logits are
 // scaled by scale_d^-1/2, 1 <= scale_d <= d (the true width of a head the
-// wrapper zero-pads, else d). Past kMaxFrames frames (any f), every d a
-// multiple of 8 up to 1280 runs in the long kernel: the wrapper's plan is
-// then one head an item (heads_per_item = 1) in pieces of tiles::kPiece
-// columns (chunks = ceil(d / kPiece)), tiles tiles::kLd wide (cwp).
+// wrapper zero-pads, else d). Up to kMaxFrames frames `mode` is kModeItems
+// and `stages` and `smem` are not read. Past them (any f) the long kernel
+// runs the wrapper's `long_fwd_plan`: `mode` kModeResident (whole heads
+// of d <= 160, CW = heads_per_item * d, f rounded up to 16 at most 256) or
+// kModeStreamed (one head in `chunks` chunks of at most kLongChunk
+// columns), a ring of `stages` stages and `smem` the bytes the plan
+// reckons for them (the kernel checks them against its own).
 extern "C" int hv_temporal_fwd(const void* q, const void* k, const void* v, void* out, int B,
                                int F, int L, int heads, int d, int heads_per_item, int cwp,
-                               int chunks, int scale_d, void* stream) {
+                               int chunks, int scale_d, int mode, int stages, int smem,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (F > kMaxFrames) {
-    if (B < 1 || L < 1 || d <= 0 || d % 8 != 0 || d > 8 * kChunkColumns || heads < 1 ||
-        heads_per_item != 1 || cwp != tiles::kLd ||
-        chunks != (d + tiles::kPiece - 1) / tiles::kPiece || scale_d < 1 || scale_d > d ||
-        (long long)B * heads * d * F * L >= (1LL << 40))
-      return (int)cudaErrorInvalidValue;
-    return launch_long(q, k, v, out, B, F, L, heads, d, scale_d, s);
-  }
   if (chunks < 1 || (chunks > 1 && heads_per_item != 1)) return (int)cudaErrorInvalidValue;
   const int CW = chunks == 1 ? heads_per_item * d : ((d + chunks - 1) / chunks + 7) / 8 * 8;
-  if (B < 1 || L < 1 || F < 1 || d <= 0 || d % 8 != 0 || heads < 1 ||
+  if (B < 1 || L < 1 || F < 1 || d <= 0 || d % 8 != 0 || d > 8 * kChunkColumns || heads < 1 ||
       heads_per_item < 1 || heads % heads_per_item != 0 || cwp > 256 || cwp % 8 != 0 ||
       cwp < CW + 8 || (cwp / 8) % 2 != 1 || scale_d < 1 || scale_d > d ||
-      (long long)B * heads * d * F * L >= (1LL << 40))
+      (chunks > 1 && (chunks - 1) * CW >= d) || (long long)B * heads * d * F * L >= (1LL << 40))
     return (int)cudaErrorInvalidValue;
-  if (chunks > 1) {
-    if (d <= kChunkColumns || d > 8 * kChunkColumns || CW > kChunkColumns ||
-        (chunks - 1) * CW >= d)
+  if (F > kMaxFrames) {
+    if (stages < 1 || stages > kLongMaxStages) return (int)cudaErrorInvalidValue;
+    if (mode == kModeResident) {
+      if (chunks != 1 || CW > kChunkColumns || (F + 15) / 16 * 16 > 256)
+        return (int)cudaErrorInvalidValue;
+#define RESIDENT(KS)                                                                  \
+  launch_long<false, KS>(q, k, v, out, B, F, L, heads, d, heads_per_item, CW, cwp, chunks, \
+                         stages, smem, scale_d, s)
+      switch ((d + 15) / 16) {  // the head's 16-deep steps (7 and 9 take one more)
+        case 1: return RESIDENT(1);
+        case 2: return RESIDENT(2);
+        case 3: return RESIDENT(3);
+        case 4: return RESIDENT(4);
+        case 5: return RESIDENT(5);
+        case 6: return RESIDENT(6);
+        case 7: case 8: return RESIDENT(8);
+        default: return RESIDENT(10);
+      }
+#undef RESIDENT
+    }
+    if (mode != kModeStreamed || heads_per_item != 1 || CW > kLongChunk)
       return (int)cudaErrorInvalidValue;
+    if (CW <= 64)
+      return launch_long<true, 8>(q, k, v, out, B, F, L, heads, d, 1, CW, cwp, chunks, stages,
+                                  smem, scale_d, s);
+    return launch_long<true, 20>(q, k, v, out, B, F, L, heads, d, 1, CW, cwp, chunks, stages,
+                                 smem, scale_d, s);
+  }
+  if (mode != kModeItems) return (int)cudaErrorInvalidValue;
+  if (chunks > 1) {
+    if (d <= kChunkColumns || CW > kChunkColumns) return (int)cudaErrorInvalidValue;
     return launch_wide(q, k, v, out, B, F, L, heads, d, CW, cwp, chunks, scale_d, s);
   }
   if (d <= 48) return launch<48>(q, k, v, out, B, F, L, heads, d, CW, cwp, scale_d, s);

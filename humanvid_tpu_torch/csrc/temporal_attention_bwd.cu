@@ -784,199 +784,761 @@ int launch_wide(const void* q, const void* k, const void* v, const void* g, void
   return (int)cudaGetLastError();
 }
 
-// ---- more than 128 frames: the long kernel ----------------------------------
+// ---- past the frames kernel's reach: the long kernel --------------------------
 //
-// Past the frames kernel's reach (128 frames, below) it takes the backward.
-// Past 32 frames a row's softmax no longer fits a warp's two 16-row tiles,
-// and the transposes (LP, movmatrix) are sized for 32 frames. So a block of
-// kLongWarps warps owns one (sample, position, head), all f frames, and
-// takes it in three phases over query and key tiles of 16 frames, each
-// product over the head's depth in kPiece-column pieces (copied to the
-// warp's own tiles by cp.async, zeros past f and past the piece):
-//   1. per query tile: the row max and sum of S = Q K^T * scale (one sweep
-//      over the key tiles, the sum rescaled to the running max), then
-//      delta = rowsum(P * dP), dP = G V^T, P normalized (a second sweep);
-//      the three words of every row go to shared memory;
-//   2. per (query tile, slab of kPiece columns): dQ = dS K * scale, with
-//      P and dP recomputed per key tile and dS = P (dP - delta) rounded to
-//      bf16, as the plain version rounds it;
-//   3. per (key tile, slab): dV = P^T G and dK = dS^T Q * scale, from S^T =
-//      K Q^T and dP^T = V G^T recomputed per query tile, the words of the
-//      tile's query columns read from shared memory (query columns >= f
-//      get P = 0).
-// Each gradient element is written by one warp, with no atomics: the same
-// inputs give the same bits. Recomputation costs operations (S three times,
-// dP twice, once more per extra slab), which the bytes still bound.
-constexpr int kLongWarps = 4;
-constexpr int kLongTiles = 4;  // shared tiles of a warp: two product operands, two slabs
+// Replaces, past FRAMES_KERNEL_FRAMES (128) frames: humanvid_tpu/ops/
+// temporal_attention.py, the Pallas kernel `_bwd_kernel` (:116), which
+// takes any frame count.
+//
+// What bounds it on the H100: device-memory bytes. At f = 136 the
+// 128x128x136f step's shape at the size of level 0 (1,136,7168,320) reads
+// q, k, v and g and writes dq, dk and dv, 4.4 GB (1.30 ms at 3.35 TB/s),
+// against 4.0e11 operations (0.41 ms at the bf16 peak). The earlier long
+// kernel (a block a (position, head), every product's operands copied
+// again by cp.async for each warp) reached 3% of that bound; the frames kernel,
+// which holds S and dP of a query tile's whole row in registers and P and
+// dS of f x f frames in shared memory, spills past 7 tiles and cannot go
+// further.
+//
+// What this design does about it:
+// - A work item is one whole position, as the forward's: all f frames of
+//   `per` whole heads, Q, K, V and G each read by one 4-D TMA box (f
+//   rounded up to 16 frames tall, zeros past f) into a ring of `stages`
+//   stages fed by a producer warp, over a persistent grid. Each tensor
+//   leaves device memory once.
+// - kLongConsumers consumer warps, however many frames, take the tasks of
+//   each phase in turn, every product by `mma.sync.m16n8k16` from shared
+//   memory, 16 x 16 tiles of S and dP at a time, straight-line code over
+//   the head's 16-deep steps (a template constant: runtime loops there
+//   kept the products of neighbouring tiles from overlapping, 1.5x slower):
+//   A. per (query tile, head; at d <= 64 and half of the key tiles): S =
+//      Q K^T and dP = G V^T, the running row max, the sum and the sum of
+//      P * dP, both rescaled to the running max, gathered in one sweep;
+//      the three words of every row (max, 1 / sum, delta = rowsum(P * dP):
+//      f x 12 bytes a head) written, at d <= 64 after a named barrier from
+//      the two halves' sums;
+//   at d <= 64 (the motion modules' 40), per head and key panel of up to
+//   kPanelTiles 16-frame tiles:
+//   B. per (pair of query tiles, key tile of the panel): S and dP again, P
+//      and dS = P (dP - delta), both rounded to bf16 as
+//      `temporal_attention_backward_plain` rounds them, into shared memory
+//      (f x panel each, not f x f);
+//   C. after a named barrier, per key tile of the panel: dV = P^T G (even
+//      warps) and dK = dS^T Q (odd) over every query tile in order, each
+//      key row owned by one warp; and each warp's dQ += dS K for the query
+//      tiles it holds (at most kHeldTiles, in registers, for the item);
+//   past d = 64, where dQ of two tiles would not fit the registers:
+//   B'. per (key tile, head, slab of at most 64 columns): S^T = K Q^T and
+//      dP^T = V G^T over the query tiles, P^T from the words of each query
+//      column, dS^T, then dV += P^T G and dK += dS^T Q of the slab;
+//   C'. per (query tile, head, slab): S and dP a third time, dS, dQ += dS K.
+//   A thread holds two 16 x 16 tiles of S and dP, the row words and its
+//   gradients' tiles: registers do not grow with f, nor shared memory past
+//   the row words and the f x panel P and dS.
+// - Each gradient tile is staged in the warp's own tiles ([16][slab], two
+//   of them) and written by one 5-D TMA store (d, heads, l, f, b), which
+//   writes nothing past frame f or past the head's last column.
+// - Large items (the plan's streamed mode, where Q, K, V and G of one head
+//   do not fit one stage, as at f = 256 and d = 160, or for heads wider
+//   than 160 columns): one head an item, its frames in panels of kPanel
+//   frames and its columns in chunks of at most 64, a (query panel, key
+//   panel, chunk) a stage (Q and G of the one, K and V of the other). Warp
+//   w < kPanel / 16 owns tile w of the panel the phase walks (query tiles
+//   in A and C, key tiles in B) and sums S and dP of the other panel over
+//   the chunks in registers; the chunks of a gradient's pass are walked so
+//   that its own chunk comes last, while the stage holds the operand of
+//   its product. The row words of the whole item (f x 12 bytes, twice) sit
+//   in shared memory; tiles are read again (from L2) for each panel pair.
+// No atomics: the same inputs give the same bits, and each sample's and
+// each head's gradients do not depend on the others'.
+constexpr int kLongConsumers = 8;  // consumer warps
+constexpr int kLongThreads = 32 * (kLongConsumers + 1);
+constexpr int kPanel = 64;         // frames of a streamed panel
+constexpr int kStreamWarps = kPanel / 16;  // consumer warps of a streamed item
+constexpr int kLongMaxStages = 4;
+constexpr int kLongChunk = 64;     // the widest column chunk of a streamed item
+constexpr int kSlab = 64;          // the widest gradient slab of a resident item
+// The plan's modes (`mode` of the entry point): the item kernels, the
+// frames kernel, the long kernel with whole items, with streamed panels.
+constexpr int kModeItems = 0, kModeFrames = 1, kModeResident = 2, kModeStreamed = 3;
 
-__host__ __device__ inline size_t long_smem_bytes(int F) {
-  return (size_t)kLongWarps * kLongTiles * 16 * tiles::kLd * 2 +
-         (size_t)3 * ((F + 15) / 16 * 16) * 4;
+// The resident items of heads at most kPanelWidth wide take P and dS
+// through shared memory, kPanelTiles 16-frame key tiles at a time, in
+// [FP][kPanelLd] bf16 tiles (a row of 144 bytes: an odd number of 16-byte
+// units), and hold dQ of at most kHeldTiles query tiles a warp.
+constexpr int kPanelWidth = 64;
+constexpr int kPanelTiles = 4;
+constexpr int kPanelLd = 16 * kPanelTiles + 8;
+constexpr int kHeldTiles = 2;
+
+// Bytes of shared memory the long backward lays out: `stages` x the Q, K,
+// V and G tiles ([rows][cwp] bf16), the consumer warps' two staging tiles
+// each ([16][ow]), `words` row words (fp32), `pds` elements of P and dS
+// (bf16), the barriers and 128 bytes of alignment. `long_bwd_smem` in
+// ops/temporal_attention.py reckons the same.
+__host__ __device__ inline size_t long_bwd_smem(int rows, int cwp, int ow, int stages,
+                                                int words, int pds) {
+  return 128 + (size_t)stages * 4 * rows * cwp * 2 + (size_t)kLongConsumers * 2 * 16 * ow * 2 +
+         (size_t)words * 4 + (size_t)pds * 2 + (size_t)stages * 16;
 }
 
-__global__ void __launch_bounds__(32 * kLongWarps)
-temporal_bwd_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ g,
-                         bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                         int F, int L, int heads, int d, float scale_log2, float scale) {
-  extern __shared__ __align__(128) unsigned char long_smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int QT = (F + 15) / 16, FP = QT * 16, slabs = (d + tiles::kPiece - 1) / tiles::kPiece;
-  bf16* t0 = reinterpret_cast<bf16*>(long_smem) + (size_t)warp * kLongTiles * 16 * tiles::kLd;
-  bf16* t1 = t0 + 16 * tiles::kLd;
-  bf16* t2 = t1 + 16 * tiles::kLd;
-  bf16* t3 = t2 + 16 * tiles::kLd;
-  float* row_max = reinterpret_cast<float*>(reinterpret_cast<bf16*>(long_smem) +
-                                            (size_t)kLongWarps * kLongTiles * 16 * tiles::kLd);
-  float* row_inv = row_max + FP;
-  float* row_delta = row_inv + FP;
-  const int h = blockIdx.x % heads, l = (blockIdx.x / heads) % L, b = blockIdx.x / (heads * L);
-  const int C = heads * d;
-  const size_t fs = (size_t)L * C;                                  // elements between frames
-  const size_t base = ((size_t)b * F * L + l) * C + (size_t)h * d;  // (b, frame 0, l, head h)
+// The words of rows row0 + lane / 4 (+ 8) from the two halves' partial
+// sums at w (max, sum and delta sum of half i at w[(3 i + k) stride + row]):
+// max, 1 / sum, delta.
+__device__ __forceinline__ void merge_words(float (&m)[2], float (&inv)[2], float (&delta)[2],
+                                            const float* w, int stride, int row0, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + lane / 4 + 8 * r;
+    const float m0 = w[row], m1 = w[3 * stride + row];
+    const float mx = fmaxf(m0, m1), a0 = exp2f(m0 - mx), a1 = exp2f(m1 - mx);
+    const float sum = w[stride + row] * a0 + w[4 * stride + row] * a1;
+    m[r] = mx;
+    inv[r] = 1.f / sum;
+    delta[r] = (w[2 * stride + row] * a0 + w[5 * stride + row] * a1) / sum;
+  }
+}
 
-  // s = X Y^T over the head's depth: rows xt*16.. of x against rows yt*16.. of y
-  auto product = [&](float (&s)[2][4], const bf16* x, int xt, const bf16* y, int yt) {
-    tiles::frames_product(s, x + base, xt, y + base, yt, fs, F, d, t0, t1, lane);
-  };
-  // S of query tile qt against key tile kt, log2 domain, keys >= F at -inf
-  auto logits = [&](float (&s)[2][4], int qt, int kt) {
-    product(s, q, qt, k, kt);
-    tiles::scale_mask_keys(s, kt, F, scale_log2, lane);
-  };
+// P and dS of the query tile whose first frame is row0 (this lane's rows
+// row0 + lane / 4 (+ 8), their words m, inv, delta) against one key tile
+// (first key key0), from S (s) and dP (dp): zero at query or key frames
+// >= F, rounded to bf16 into columns col0.. of sp and sd ([..][kPanelLd]).
+__device__ __forceinline__ void panel_tile(bf16* sp, bf16* sd, const float (&s)[2][4],
+                                           const float (&dp)[2][4], const float (&m)[2],
+                                           const float (&inv)[2], const float (&delta)[2],
+                                           int row0, int key0, int col0, int F,
+                                           float scale_log2, int lane) {
+  const int row = row0 + lane / 4;
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    float pv[4], dv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const bool ok = key0 + 8 * jj + 2 * (lane % 4) + (e & 1) < F && row + 8 * r < F;
+      const float pr = exp2f(s[jj][e] * scale_log2 - m[r]) * inv[r];
+      pv[e] = ok ? pr : 0.f;
+      dv[e] = ok ? pr * (dp[jj][e] - delta[r]) : 0.f;
+    }
+    const int col = col0 + 8 * jj + 2 * (lane % 4);
+    *reinterpret_cast<uint32_t*>(sp + row * kPanelLd + col) = pack_bf16(pv[0], pv[1]);
+    *reinterpret_cast<uint32_t*>(sp + (row + 8) * kPanelLd + col) = pack_bf16(pv[2], pv[3]);
+    *reinterpret_cast<uint32_t*>(sd + row * kPanelLd + col) = pack_bf16(dv[0], dv[1]);
+    *reinterpret_cast<uint32_t*>(sd + (row + 8) * kPanelLd + col) = pack_bf16(dv[2], dv[3]);
+  }
+}
 
-  // 1. the words of every row: max, 1 / sum, delta
-  for (int qt = warp; qt < QT; qt += kLongWarps) {
-    float m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
-    for (int kt = 0; kt < QT; ++kt) {
-      float s[2][4];
-      logits(s, qt, kt);
-      tiles::row_stats(s, m, lsum);
+// Partial sums of rows row0 + lane / 4 (+ 8) to w: max, sum, delta sum.
+__device__ __forceinline__ void put_partial(float* w, int stride, int row0, const float (&m)[2],
+                                            const float (&ls)[2], const float (&ds)[2],
+                                            int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float sum = tiles::quad_sum(ls[r]), dsum = tiles::quad_sum(ds[r]);
+    if (lane % 4 == 0) {
+      const int row = row0 + lane / 4 + 8 * r;
+      w[row] = m[r];
+      w[stride + row] = sum;
+      w[2 * stride + row] = dsum;
     }
-    const float inv[2] = {1.f / tiles::quad_sum(lsum[0]), 1.f / tiles::quad_sum(lsum[1])};
-    float delta[2] = {0.f, 0.f};
-    for (int kt = 0; kt < QT; ++kt) {
-      float s[2][4], dp[2][4];
-      logits(s, qt, kt);
-      product(dp, g, qt, v, kt);
+  }
+}
+
+// o (16 rows x w columns) times mul to the warp's staging tile `k % 2` of
+// buf ([2][16][w]), then one TMA store of it to the box at (c0, head, l,
+// f0, b); a tile is written again only after its last store has read it.
+template <int NT>
+__device__ __forceinline__ void store_grad(bf16* buf, int& k, const CUtensorMap* map,
+                                           const float (&o)[NT][4], int w, float mul, int c0,
+                                           int head, int l, int f0, int b, int lane) {
+  bf16* t = buf + (size_t)(k++ % 2) * 16 * w;
+  if (lane == 0) bulk_wait<1, true>();
+  __syncwarp();
+  tiles::stage_rows<NT>(t, o, w, mul, lane);
+  fence_proxy_async();  // the staging writes before the TMA store reads them
+  __syncwarp();
+  if (lane == 0) {
+    tma_store_5d(map, t, c0, head, l, f0, b);
+    bulk_commit();
+  }
+}
+
+// One sweep step of phase A: the running max m, sum ls and delta sum ds of
+// this lane's columns over one more 16 x 16 tile of S (log2 domain, keys
+// >= F at -inf) and dP (keys >= F at 0), rescaled when m moves.
+__device__ __forceinline__ void stats_step(const float (&s)[2][4], const float (&dp)[2][4],
+                                           float (&m)[2], float (&ls)[2], float (&ds)[2]) {
+  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+  for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          delta[e >> 1] += exp2f(s[j][e] - m[e >> 1]) * inv[e >> 1] * dp[j][e];
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m[r], tiles::quad_max(mx[r]));
+    const float corr = exp2f(m[r] - mn);
+    ls[r] *= corr;
+    ds[r] *= corr;
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(s[j][e] - m[e >> 1]);
+      ls[e >> 1] += p;
+      ds[e >> 1] += p * dp[j][e];
     }
+}
+
+// The words of rows row0 + lane / 4 (+ 8) from the sweep's sums: max,
+// 1 / sum and delta, at w[0][row], w[1][row], w[2][row] (rows `stride`
+// apart).
+__device__ __forceinline__ void put_words(float* w, int stride, int row0, const float (&m)[2],
+                                          const float (&ls)[2], const float (&ds)[2], int lane) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      delta[r] = tiles::quad_sum(delta[r]);
-      if (lane % 4 == 0) {
-        const int row = qt * 16 + lane / 4 + 8 * r;
-        row_max[row] = m[r];
-        row_inv[row] = inv[r];
-        row_delta[row] = delta[r];
+  for (int r = 0; r < 2; ++r) {
+    const float sum = tiles::quad_sum(ls[r]), delta = tiles::quad_sum(ds[r]) / sum;
+    if (lane % 4 == 0) {
+      const int row = row0 + lane / 4 + 8 * r;
+      w[row] = m[r];
+      w[stride + row] = 1.f / sum;
+      w[2 * stride + row] = delta;
+    }
+  }
+}
+
+// Keys >= F of a 16 x 16 tile of dP to zero (key0 the tile's first key).
+__device__ __forceinline__ void mask_keys(float (&dp)[2][4], int key0, int F, int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (key0 + 8 * j + 2 * (lane % 4) + (e & 1) >= F) dp[j][e] = 0.f;
+}
+
+// P^T and dS^T (A fragments pa, da) from S^T and dP^T of one key tile
+// against the query tile whose first frame is q0: rows keys, columns
+// queries, whose words come from w (rows `stride` apart); zero at queries
+// >= F.
+__device__ __forceinline__ void probs_t(uint32_t (&pa)[4], uint32_t (&da)[4], float (&st)[2][4],
+                                        float (&dpt)[2][4], const float* w, int stride, int q0,
+                                        int F, float scale_log2, int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = q0 + 8 * j + 2 * (lane % 4) + (e & 1);
+      float p = 0.f, ds = 0.f;
+      if (q < F) {
+        p = exp2f(st[j][e] * scale_log2 - w[q]) * w[stride + q];
+        ds = p * (dpt[j][e] - w[2 * stride + q]);
       }
+      st[j][e] = p;
+      dpt[j][e] = ds;
     }
+  tiles::pack_a(pa, st[0], st[1]);
+  tiles::pack_a(da, dpt[0], dpt[1]);
+}
+
+// dS (A fragment da) from S and dP of the query tile whose row words are
+// m, inv, delta against one key tile (first key key0): zero at keys >= F.
+__device__ __forceinline__ void dscores(uint32_t (&da)[4], float (&s)[2][4], float (&dp)[2][4],
+                                        const float (&m)[2], const float (&inv)[2],
+                                        const float (&delta)[2], int key0, int F,
+                                        float scale_log2, int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + 8 * j + 2 * (lane % 4) + (e & 1);
+      const int r = e >> 1;
+      const float p = exp2f(s[j][e] * scale_log2 - m[r]) * inv[r];
+      dp[j][e] = key < F ? p * (dp[j][e] - delta[r]) : 0.f;
+    }
+  tiles::pack_a(da, dp[0], dp[1]);
+}
+
+// The row words of rows row0 + lane / 4 (+ 8) from w (rows `stride` apart).
+__device__ __forceinline__ void get_words(float (&m)[2], float (&inv)[2], float (&delta)[2],
+                                          const float* w, int stride, int row0, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + lane / 4 + 8 * r;
+    m[r] = w[row];
+    inv[r] = w[stride + row];
+    delta[r] = w[2 * stride + row];
+  }
+}
+
+// grid: persistent, at most one block per item; block kLongThreads. Items
+// are (sample, position, group of `per` heads), resident (KS: the 16-deep
+// steps of a head, ceil(d / 16) or one more) or streamed (per = 1, chunks
+// of CW columns); every tile is `rows` x CWP.
+template <bool STREAMED, bool PANELS, int KS>
+__global__ void __launch_bounds__(kLongThreads)
+temporal_bwd_long_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap g_map,
+                         const __grid_constant__ CUtensorMap dq_map,
+                         const __grid_constant__ CUtensorMap dk_map,
+                         const __grid_constant__ CUtensorMap dv_map, int B, int F, int L,
+                         int heads, int d, int per, int CW, int CWP, int chunks, int stages,
+                         float scale_log2, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* tiles_ = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~static_cast<uintptr_t>(127));
+  const int FP = (F + 15) / 16 * 16;
+  const int NP = (F + kPanel - 1) / kPanel;  // panels of a streamed item
+  const int ROWS = STREAMED ? kPanel : FP;
+  const int TILE = ROWS * CWP, STAGE = 4 * TILE;  // Q, K, V, G
+  const int OW = STREAMED ? CW : min(kSlab, d);   // columns a gradient tile
+  const int WS = STREAMED ? NP * kPanel : FP;      // rows of a word array
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  bf16* staging = tiles_ + (size_t)stages * STAGE + (size_t)warp * 2 * 16 * OW;
+  float* words = reinterpret_cast<float*>(tiles_ + (size_t)stages * STAGE +
+                                          (size_t)kLongConsumers * 2 * 16 * OW);
+  const int WORDS = STREAMED ? 2 * 3 * WS : stages * per * (PANELS ? 6 : 3) * WS;
+  bf16* sp = reinterpret_cast<bf16*>(words + WORDS);  // P and dS of a key panel
+  bf16* sd = sp + (size_t)FP * kPanelLd;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sp + (PANELS ? 2 * (size_t)FP * kPanelLd : 0));
+  uint64_t* empty = full + stages;
+  const int groups = heads / per;  // items of a position
+  const long long items = (long long)B * L * groups;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], STREAMED ? kStreamWarps : kLongConsumers);
+    }
+    fence_barrier_init();
   }
   __syncthreads();
 
-  // 2. dQ, per (query tile, slab)
-  for (int t = warp; t < QT * slabs; t += kLongWarps) {
-    const int qt = t % QT, c0 = (t / QT) * tiles::kPiece, w = min(tiles::kPiece, d - c0);
-    float m[2], inv[2], delta[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = qt * 16 + lane / 4 + 8 * r;
-      m[r] = row_max[row];
-      inv[r] = row_inv[row];
-      delta[r] = row_delta[row];
+  if (warp == kLongConsumers) {
+    // producer (one thread): each step waits for its stage to be freed,
+    // then loads Q and G of the query frames, K and V of the key frames
+    if (lane != 0) return;
+    int n = 0;
+    for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+      const int g = (int)(it % groups), l = (int)((it / groups) % L), b = (int)(it / groups / L);
+      auto step = [&](int qf, int kf, int col) {
+        const int s = n % stages;
+        if (n >= stages) mbar_wait(&empty[s], ((n / stages) - 1) & 1);
+        bf16* t = tiles_ + (size_t)s * STAGE;
+        mbar_arrive_expect_tx(&full[s], 4u * TILE * 2);
+        tma_load_4d(t, &q_map, &full[s], col, l, qf, b);
+        tma_load_4d(t + TILE, &k_map, &full[s], col, l, kf, b);
+        tma_load_4d(t + 2 * TILE, &v_map, &full[s], col, l, kf, b);
+        tma_load_4d(t + 3 * TILE, &g_map, &full[s], col, l, qf, b);
+        ++n;
+      };
+      if constexpr (!STREAMED) {
+        step(0, 0, g * CW);
+      } else {
+        const int col0 = g * d;
+        for (int qp = 0; qp < NP; ++qp)  // A
+          for (int kp = 0; kp < NP; ++kp)
+            for (int c = 0; c < chunks; ++c) step(qp * kPanel, kp * kPanel, col0 + c * CW);
+        for (int kp = 0; kp < NP; ++kp)  // B
+          for (int oc = 0; oc < chunks; ++oc)
+            for (int qp = 0; qp < NP; ++qp)
+              for (int j = 1; j <= chunks; ++j)
+                step(qp * kPanel, kp * kPanel, col0 + (oc + j) % chunks * CW);
+        for (int qp = 0; qp < NP; ++qp)  // C
+          for (int oc = 0; oc < chunks; ++oc)
+            for (int kp = 0; kp < NP; ++kp)
+              for (int j = 1; j <= chunks; ++j)
+                step(qp * kPanel, kp * kPanel, col0 + (oc + j) % chunks * CW);
+      }
     }
-    float acc[tiles::kPiece / 8][4];
-    tiles::zero(acc);
-    for (int kt = 0; kt < QT; ++kt) {
-      // K's slab lands under the products' loads (their waits cover it)
-      tiles::load_rows_async<16>(t2, tiles::kLd, k + base + c0, fs, kt * 16, F, w, lane, 32);
-      float s[2][4], dp[2][4];
-      logits(s, qt, kt);
-      product(dp, g, qt, v, kt);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(s[j][e] - m[e >> 1]) * inv[e >> 1];
-          s[j][e] = p * (dp[j][e] - delta[e >> 1]);
-        }
-      uint32_t a[4];
-      tiles::pack_a(a, s[0], s[1]);
-      tiles::mma_av<tiles::kPiece / 8>(acc, a, t2, tiles::kLd, tiles::round16(w) / 16, lane);
-      __syncwarp();
-    }
-    const float mul[2] = {scale, scale};
-    tiles::store_acc<tiles::kPiece / 8>(dq + base + c0, fs, acc, qt * 16, F, w, mul, lane);
+    return;
   }
 
-  // 3. dK and dV, per (key tile, slab)
-  for (int t = warp; t < QT * slabs; t += kLongWarps) {
-    const int kt = t % QT, c0 = (t / QT) * tiles::kPiece, w = min(tiles::kPiece, d - c0);
-    float acc_k[tiles::kPiece / 8][4], acc_v[tiles::kPiece / 8][4];
-    tiles::zero(acc_k);
-    tiles::zero(acc_v);
-    for (int qt = 0; qt < QT; ++qt) {
-      tiles::load_rows_async<16>(t2, tiles::kLd, g + base + c0, fs, qt * 16, F, w, lane, 32);
-      tiles::load_rows_async<16>(t3, tiles::kLd, q + base + c0, fs, qt * 16, F, w, lane, 32);
-      float st[2][4], dpt[2][4];
-      product(st, k, kt, q, qt);   // S^T: rows keys, columns queries
-      product(dpt, v, kt, g, qt);  // dP^T
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = qt * 16 + 8 * j + 2 * (lane % 4) + (e & 1);
-          float p = 0.f, ds = 0.f;
-          if (col < F) {
-            p = exp2f(st[j][e] * scale_log2 - row_max[col]) * row_inv[col];
-            ds = p * (dpt[j][e] - row_delta[col]);
-          }
-          st[j][e] = p;
-          dpt[j][e] = ds;
+  int n = 0, staged = 0;
+  auto wait_step = [&]() -> const bf16* {
+    const int s = n % stages;
+    mbar_wait(&full[s], (n / stages) & 1);
+    return tiles_ + (size_t)s * STAGE;
+  };
+  auto free_step = [&]() {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[n % stages]);
+    ++n;
+  };
+
+  if constexpr (!STREAMED && PANELS) {
+    // the tasks of each phase go to the warps in turn, each phase's first
+    // to the warp after the one that took the last phase's last; the
+    // query tiles whose dQ a warp holds are fixed for an item
+    const int QT = FP / 16;
+    const int panels = (QT + kPanelTiles - 1) / kPanelTiles;
+    const int PT = (QT + panels - 1) / panels;  // key tiles of a panel
+    int base = 0;
+    auto first = [&](int tasks) {
+      const int t = (warp - base + kLongConsumers) % kLongConsumers;
+      base = (base + tasks) % kLongConsumers;
+      return t;
+    };
+    for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+      const int g = (int)(it % groups), l = (int)((it / groups) % L), b = (int)(it / groups / L);
+      const int s = n % stages;
+      const bf16* t = wait_step();
+      const bf16 *tq = t, *tk = t + TILE, *tv = t + 2 * TILE, *tg = t + 3 * TILE;
+      float* wd = words + (size_t)s * per * 6 * FP;
+      // A. the row sums of each half of the key tiles
+      const int half = (QT + 1) / 2;
+      for (int task = first(QT * per * 2); task < QT * per * 2; task += kLongConsumers) {
+        const int qt = task / (2 * per), h = (task / 2) % per, i = task % 2;
+        const size_t qo = (size_t)qt * 16 * CWP + h * d;
+        float m[2] = {-INFINITY, -INFINITY}, ls[2] = {0.f, 0.f}, ds[2] = {0.f, 0.f};
+        for (int kt = i * half; kt < (i ? QT : half); ++kt) {
+          const size_t ko = (size_t)kt * 16 * CWP + h * d;
+          float sc[2][4], dp[2][4];
+          tiles::tile_abt_k<KS>(sc, tq + qo, CWP, tk + ko, CWP, d, lane);
+          tiles::tile_abt_k<KS>(dp, tg + qo, CWP, tv + ko, CWP, d, lane);
+          tiles::scale_mask_keys(sc, 16 * kt, F, scale_log2, lane);
+          mask_keys(dp, 16 * kt, F, lane);
+          stats_step(sc, dp, m, ls, ds);
         }
-      uint32_t a[4];
-      tiles::pack_a(a, st[0], st[1]);
-      tiles::mma_av<tiles::kPiece / 8>(acc_v, a, t2, tiles::kLd, tiles::round16(w) / 16, lane);
-      tiles::pack_a(a, dpt[0], dpt[1]);
-      tiles::mma_av<tiles::kPiece / 8>(acc_k, a, t3, tiles::kLd, tiles::round16(w) / 16, lane);
-      __syncwarp();
+        put_partial(wd + (size_t)(h * 2 + i) * 3 * FP, FP, 16 * qt, m, ls, ds, lane);
+      }
+      named_bar_sync(1, 32 * kLongConsumers);  // every row's partial sums written
+      // the halves' sums merged into the words of each row (over half 0's)
+      for (int task = first(QT * per); task < QT * per; task += kLongConsumers) {
+        float* wr = wd + (size_t)(task % per) * 6 * FP;
+        float m[2], inv[2], delta[2];
+        merge_words(m, inv, delta, wr, FP, 16 * (task / per), lane);
+        __syncwarp();
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = 16 * (task / per) + lane / 4 + 8 * r;
+          if (lane % 4 == 0) {
+            wr[row] = m[r];
+            wr[FP + row] = inv[r];
+            wr[2 * FP + row] = delta[r];
+          }
+        }
+      }
+      named_bar_sync(1, 32 * kLongConsumers);  // every row's words written
+      for (int h = 0; h < per; ++h) {
+        const float* wh = wd + (size_t)h * 6 * FP;
+        const int held0 = (warp - base + kLongConsumers) % kLongConsumers;  // first held tile
+        float dq[kHeldTiles][2 * KS][4];
+#pragma unroll
+        for (int i = 0; i < kHeldTiles; ++i) tiles::zero(dq[i]);
+        for (int p0 = 0; p0 < QT; p0 += PT) {
+          const int pt = min(PT, QT - p0);
+          // P and dS of every query tile against the panel's key tiles, a
+          // pair of query tiles (K's and V's fragments loaded once) and a
+          // key tile a task
+          const int pairs = (QT + 1) / 2;
+          for (int task = first(pairs * pt); task < pairs * pt; task += kLongConsumers) {
+            const int qa = 2 * (task / pt), qb = min(qa + 1, QT - 1), j = task % pt;
+            const int kt = p0 + j;
+            const size_t ko = (size_t)kt * 16 * CWP + h * d;
+            const size_t oa = (size_t)qa * 16 * CWP + h * d, ob = (size_t)qb * 16 * CWP + h * d;
+            float sa[2][4], sb[2][4], da[2][4], db[2][4];
+            tiles::tile_abt2_k<KS>(sa, sb, tq + oa, tq + ob, CWP, tk + ko, CWP, d, lane);
+            tiles::tile_abt2_k<KS>(da, db, tg + oa, tg + ob, CWP, tv + ko, CWP, d, lane);
+            float m[2], inv[2], delta[2];
+            get_words(m, inv, delta, wh, FP, 16 * qa, lane);
+            panel_tile(sp, sd, sa, da, m, inv, delta, 16 * qa, 16 * kt, 16 * j, F, scale_log2,
+                       lane);
+            if (qb != qa) {
+              get_words(m, inv, delta, wh, FP, 16 * qb, lane);
+              panel_tile(sp, sd, sb, db, m, inv, delta, 16 * qb, 16 * kt, 16 * j, F, scale_log2,
+                         lane);
+            }
+          }
+          named_bar_sync(1, 32 * kLongConsumers);  // the panel's P and dS whole
+          // dV (even warps) and dK (odd) of the panel's key tiles, a warp
+          // a tile: P^T G and dS^T Q over every query tile
+          if (warp < 2 * pt) {
+            const int j = warp / 2, kt = p0 + j;
+            const bool is_v = warp % 2 == 0;
+            const bf16* x = is_v ? sp : sd;
+            const bf16* y = is_v ? tg : tq;
+            float acc[2 * KS][4];
+            tiles::zero(acc);
+            for (int qt = 0; qt < QT; ++qt) {
+              uint32_t a[4];
+              ldmatrix_x4_trans(a, x + (16 * qt + 8 * (lane / 16) + lane % 8) * kPanelLd + 16 * j +
+                                       8 * ((lane / 8) % 2));
+              tiles::tile_av_k<KS>(acc, a, y + (size_t)qt * 16 * CWP + h * d, CWP, lane);
+            }
+            store_grad(staging, staged, is_v ? &dv_map : &dk_map, acc, OW, is_v ? 1.f : scale, 0,
+                       g * per + h, l, 16 * kt, b, lane);
+          }
+          // dQ of the held query tiles += dS K over the panel's keys
+#pragma unroll
+          for (int i = 0; i < kHeldTiles; ++i) {
+            const int qt = held0 + i * kLongConsumers;
+            if (qt >= QT) break;
+            for (int j = 0; j < pt; ++j) {
+              uint32_t a[4];
+              ldmatrix_x4(a, sd + (16 * qt + lane % 16) * kPanelLd + 16 * j + (lane / 16) * 8);
+              tiles::tile_av_k<KS>(dq[i], a, tk + (size_t)(p0 + j) * 16 * CWP + h * d, CWP, lane);
+            }
+          }
+          named_bar_sync(1, 32 * kLongConsumers);  // every read of the panel done
+        }
+#pragma unroll
+        for (int i = 0; i < kHeldTiles; ++i) {
+          const int qt = held0 + i * kLongConsumers;
+          if (qt >= QT) break;
+          store_grad(staging, staged, &dq_map, dq[i], OW, scale, 0, g * per + h, l, 16 * qt, b,
+                     lane);
+        }
+      }
+      free_step();
     }
-    const float one[2] = {1.f, 1.f}, mul[2] = {scale, scale};
-    tiles::store_acc<tiles::kPiece / 8>(dv + base + c0, fs, acc_v, kt * 16, F, w, one, lane);
-    tiles::store_acc<tiles::kPiece / 8>(dk + base + c0, fs, acc_k, kt * 16, F, w, mul, lane);
+  } else if constexpr (!STREAMED) {
+    // the tasks of each phase go to the warps in turn, each phase's first
+    // to the warp after the one that took the last phase's last
+    const int QT = FP / 16, slabs = (d + OW - 1) / OW;
+    int base = 0;
+    auto first = [&](int tasks) {
+      const int t = (warp - base + kLongConsumers) % kLongConsumers;
+      base = (base + tasks) % kLongConsumers;
+      return t;
+    };
+    for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+      const int g = (int)(it % groups), l = (int)((it / groups) % L), b = (int)(it / groups / L);
+      const int s = n % stages;
+      const bf16* t = wait_step();
+      const bf16 *tq = t, *tk = t + TILE, *tv = t + 2 * TILE, *tg = t + 3 * TILE;
+      float* wd = words + (size_t)s * per * 3 * FP;
+      // A. the row words
+      for (int task = first(QT * per); task < QT * per; task += kLongConsumers) {
+        const int qt = task / per, h = task % per;
+        const size_t qo = (size_t)qt * 16 * CWP + h * d;
+        float m[2] = {-INFINITY, -INFINITY}, ls[2] = {0.f, 0.f}, ds[2] = {0.f, 0.f};
+        for (int kt = 0; kt < QT; ++kt) {
+          const size_t ko = (size_t)kt * 16 * CWP + h * d;
+          float sc[2][4], dp[2][4];
+          tiles::tile_abt_k<KS>(sc, tq + qo, CWP, tk + ko, CWP, d, lane);
+          tiles::tile_abt_k<KS>(dp, tg + qo, CWP, tv + ko, CWP, d, lane);
+          tiles::scale_mask_keys(sc, 16 * kt, F, scale_log2, lane);
+          mask_keys(dp, 16 * kt, F, lane);
+          stats_step(sc, dp, m, ls, ds);
+        }
+        put_words(wd + (size_t)h * 3 * FP, FP, 16 * qt, m, ls, ds, lane);
+      }
+      named_bar_sync(1, 32 * kLongConsumers);  // every row's words written
+      // B. dV and dK, a key tile's slab a task
+      for (int task = first(QT * per * slabs); task < QT * per * slabs;
+           task += kLongConsumers) {
+        const int kt = task / (per * slabs), h = (task / slabs) % per, c0 = (task % slabs) * OW;
+        const size_t ko = (size_t)kt * 16 * CWP + h * d;
+        const float* wh = wd + (size_t)h * 3 * FP;
+        float acc_v[8][4], acc_k[8][4];
+        tiles::zero(acc_v);
+        tiles::zero(acc_k);
+        for (int qt = 0; qt < QT; ++qt) {
+          const size_t qo = (size_t)qt * 16 * CWP + h * d;
+          float st[2][4], dpt[2][4];
+          tiles::tile_abt_k<KS>(st, tk + ko, CWP, tq + qo, CWP, d, lane);
+          tiles::tile_abt_k<KS>(dpt, tv + ko, CWP, tg + qo, CWP, d, lane);
+          uint32_t pa[4], da[4];
+          probs_t(pa, da, st, dpt, wh, FP, 16 * qt, F, scale_log2, lane);
+          tiles::tile_av_k<4>(acc_v, pa, tg + qo + c0, CWP, lane);
+          tiles::tile_av_k<4>(acc_k, da, tq + qo + c0, CWP, lane);
+        }
+        store_grad(staging, staged, &dv_map, acc_v, OW, 1.f, c0, g * per + h, l, 16 * kt, b,
+                   lane);
+        store_grad(staging, staged, &dk_map, acc_k, OW, scale, c0, g * per + h, l, 16 * kt, b,
+                   lane);
+      }
+      // C. dQ, a query tile's slab a task
+      for (int task = first(QT * per * slabs); task < QT * per * slabs;
+           task += kLongConsumers) {
+        const int qt = task / (per * slabs), h = (task / slabs) % per, c0 = (task % slabs) * OW;
+        const size_t qo = (size_t)qt * 16 * CWP + h * d;
+        float m[2], inv[2], delta[2];
+        get_words(m, inv, delta, wd + (size_t)h * 3 * FP, FP, 16 * qt, lane);
+        float acc_q[8][4];
+        tiles::zero(acc_q);
+        for (int kt = 0; kt < QT; ++kt) {
+          const size_t ko = (size_t)kt * 16 * CWP + h * d;
+          float sc[2][4], dp[2][4];
+          tiles::tile_abt_k<KS>(sc, tq + qo, CWP, tk + ko, CWP, d, lane);
+          tiles::tile_abt_k<KS>(dp, tg + qo, CWP, tv + ko, CWP, d, lane);
+          uint32_t da[4];
+          dscores(da, sc, dp, m, inv, delta, 16 * kt, F, scale_log2, lane);
+          tiles::tile_av_k<4>(acc_q, da, tk + ko + c0, CWP, lane);
+        }
+        store_grad(staging, staged, &dq_map, acc_q, OW, scale, c0, g * per + h, l, 16 * qt, b,
+                   lane);
+      }
+      free_step();
+    }
+  } else {
+    // warp w owns tile w of the panel each phase walks
+    if (warp >= kStreamWarps) return;
+    int parity = 0;
+    for (long long it = blockIdx.x; it < items; it += gridDim.x, parity ^= 1) {
+      const int h = (int)(it % heads), l = (int)((it / heads) % L), b = (int)(it / heads / L);
+      float* wd = words + (size_t)parity * 3 * WS;
+      float sacc[kStreamWarps][2][4], dacc[kStreamWarps][2][4];
+      // one step's products of the owned tile (rows 16 w of xa, ya) against
+      // the other panel's four tiles (xb, yb), summed over the chunks
+      auto products = [&](int c, const bf16* xa, const bf16* xb, const bf16* ya,
+                          const bf16* yb, int wc) {
+#pragma unroll
+        for (int j = 0; j < kStreamWarps; ++j) {
+          float p1[2][4], p2[2][4];
+          tiles::tile_abt(p1, xa + (size_t)warp * 16 * CWP, CWP, xb + (size_t)j * 16 * CWP, CWP,
+                          wc, lane);
+          tiles::tile_abt(p2, ya + (size_t)warp * 16 * CWP, CWP, yb + (size_t)j * 16 * CWP, CWP,
+                          wc, lane);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              sacc[j][i][e] = (c ? sacc[j][i][e] : 0.f) + p1[i][e];
+              dacc[j][i][e] = (c ? dacc[j][i][e] : 0.f) + p2[i][e];
+            }
+        }
+      };
+      // A. the row words of the query tiles
+      for (int qp = 0; qp < NP; ++qp) {
+        float m[2] = {-INFINITY, -INFINITY}, ls[2] = {0.f, 0.f}, ds[2] = {0.f, 0.f};
+        for (int kp = 0; kp < NP; ++kp)
+          for (int c = 0; c < chunks; ++c) {
+            const bf16* t = wait_step();
+            products(c, t, t + TILE, t + 3 * TILE, t + 2 * TILE, min(CW, d - c * CW));
+            if (c == chunks - 1) {
+#pragma unroll
+              for (int j = 0; j < kStreamWarps; ++j) {
+                tiles::scale_mask_keys(sacc[j], kp * kPanel + 16 * j, F, scale_log2, lane);
+                mask_keys(dacc[j], kp * kPanel + 16 * j, F, lane);
+                stats_step(sacc[j], dacc[j], m, ls, ds);
+              }
+            }
+            free_step();
+          }
+        put_words(wd, WS, qp * kPanel + 16 * warp, m, ls, ds, lane);
+      }
+      named_bar_sync(1, 32 * kStreamWarps);  // every row's words written
+      // B. dV and dK of the key tiles, a chunk a pass
+      for (int kp = 0; kp < NP; ++kp) {
+        const int k0 = kp * kPanel + 16 * warp;
+        for (int oc = 0; oc < chunks; ++oc) {
+          const int wo = min(CW, d - oc * CW);
+          float acc_v[8][4], acc_k[8][4];
+          tiles::zero(acc_v);
+          tiles::zero(acc_k);
+          for (int qp = 0; qp < NP; ++qp)
+            for (int j = 1; j <= chunks; ++j) {
+              const int c = (oc + j) % chunks;
+              const bf16* t = wait_step();
+              // S^T = K Q^T, dP^T = V G^T
+              products(j - 1, t + TILE, t, t + 2 * TILE, t + 3 * TILE, min(CW, d - c * CW));
+              if (j == chunks) {  // the stage holds chunk oc
+#pragma unroll
+                for (int i = 0; i < kStreamWarps; ++i) {
+                  uint32_t pa[4], da[4];
+                  probs_t(pa, da, sacc[i], dacc[i], wd, WS, qp * kPanel + 16 * i, F, scale_log2,
+                          lane);
+                  tiles::tile_av<8>(acc_v, pa, t + 3 * TILE + (size_t)i * 16 * CWP, CWP, wo, lane);
+                  tiles::tile_av<8>(acc_k, da, t + (size_t)i * 16 * CWP, CWP, wo, lane);
+                }
+              }
+              free_step();
+            }
+          if (k0 < F) {
+            store_grad(staging, staged, &dv_map, acc_v, CW, 1.f, oc * CW, h, l, k0, b, lane);
+            store_grad(staging, staged, &dk_map, acc_k, CW, scale, oc * CW, h, l, k0, b, lane);
+          }
+        }
+      }
+      // C. dQ of the query tiles, a chunk a pass
+      for (int qp = 0; qp < NP; ++qp) {
+        const int q0 = qp * kPanel + 16 * warp;
+        float m[2], inv[2], delta[2];
+        get_words(m, inv, delta, wd, WS, q0, lane);
+        for (int oc = 0; oc < chunks; ++oc) {
+          const int wo = min(CW, d - oc * CW);
+          float acc_q[8][4];
+          tiles::zero(acc_q);
+          for (int kp = 0; kp < NP; ++kp)
+            for (int j = 1; j <= chunks; ++j) {
+              const int c = (oc + j) % chunks;
+              const bf16* t = wait_step();
+              products(j - 1, t, t + TILE, t + 3 * TILE, t + 2 * TILE, min(CW, d - c * CW));
+              if (j == chunks) {  // the stage holds chunk oc
+#pragma unroll
+                for (int i = 0; i < kStreamWarps; ++i) {
+                  uint32_t da[4];
+                  dscores(da, sacc[i], dacc[i], m, inv, delta, kp * kPanel + 16 * i, F,
+                          scale_log2, lane);
+                  tiles::tile_av<8>(acc_q, da, t + TILE + (size_t)i * 16 * CWP, CWP, wo, lane);
+                }
+              }
+              free_step();
+            }
+          if (q0 < F)
+            store_grad(staging, staged, &dq_map, acc_q, CW, scale, oc * CW, h, l, q0, b, lane);
+        }
+      }
+    }
   }
+  if (lane == 0) bulk_wait<0, false>();
 }
 
+template <bool STREAMED, bool PANELS, int KS>
 int launch_long(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
-                void* dv, int B, int F, int L, int heads, int d, int scale_d,
-                cudaStream_t stream) {
-  const long long blocks = (long long)B * L * heads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int bytes = (int)long_smem_bytes(F);
-  const void* fn = reinterpret_cast<const void*>(temporal_bwd_long_kernel);
+                void* dv, int B, int F, int L, int heads, int d, int per, int CW, int CWP,
+                int chunks, int stages, int smem, int scale_d, cudaStream_t stream) {
+  const int C = heads * d;
+  const int FP = (F + 15) / 16 * 16, NP = (F + kPanel - 1) / kPanel;
+  const int rows = STREAMED ? kPanel : FP;
+  const int ow = STREAMED ? CW : min(kSlab, d);
+  const int words = STREAMED ? 2 * 3 * NP * kPanel : stages * per * (PANELS ? 6 : 3) * FP;
+  const int pds = PANELS ? 2 * FP * kPanelLd : 0;
+  CUtensorMap maps[7];
+  int err = make_map_4d(&maps[0], q, C, L, F, B, CWP, 1, rows);
+  if (!err) err = make_map_4d(&maps[1], k, C, L, F, B, CWP, 1, rows);
+  if (!err) err = make_map_4d(&maps[2], v, C, L, F, B, CWP, 1, rows);
+  if (!err) err = make_map_4d(&maps[3], g, C, L, F, B, CWP, 1, rows);
+  if (!err) err = make_frames_head_map(&maps[4], dq, d, heads, L, F, B, ow, 16);
+  if (!err) err = make_frames_head_map(&maps[5], dk, d, heads, L, F, B, ow, 16);
+  if (!err) err = make_frames_head_map(&maps[6], dv, d, heads, L, F, B, ow, 16);
+  if (err) return err;
+  const int bytes = (int)long_bwd_smem(rows, CWP, ow, stages, words, pds);
+  if (bytes != smem || bytes > 232448) return (int)cudaErrorInvalidValue;
+  auto kernel = temporal_bwd_long_kernel<STREAMED, PANELS, KS>;
+  const void* fn = reinterpret_cast<const void*>(kernel);
   cudaError_t e = host_cache.reserve_smem(fn, bytes);
   if (e != cudaSuccess) return (int)e;
+  int slots = 0;  // blocks the card holds at once: the persistent grid
+  e = host_cache.get(fn, bytes, 0, &slots, [&](int* value) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t r = cudaGetDevice(&dev);
+    if (r == cudaSuccess) r = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (r == cudaSuccess)
+      r = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kLongThreads, bytes);
+    *value = sms * per_sm;
+    return r;
+  });
+  if (e != cudaSuccess) return (int)e;
+  if (slots < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long items = (long long)B * L * (heads / per);
+  const int grid = (int)(items < slots ? items : slots);
   const float scale = 1.f / sqrtf((float)scale_d);
-  temporal_bwd_long_kernel<<<(unsigned)blocks, 32 * kLongWarps, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), F, L, heads, d, scale * kLog2e, scale);
+  kernel<<<grid, kLongThreads, bytes, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4],
+                                                maps[5], maps[6], B, F, L, heads, d, per, CW,
+                                                CWP, chunks, stages, scale * kLog2e, scale);
   return (int)cudaGetLastError();
 }
 
 // ---- more than 32 frames: the frames kernel --------------------------------
 //
-// The long kernel above reloads its operands for every product (Q and K
-// four times, G and V three times at one slab) from one head's 80-byte row
-// pieces, with nothing overlapped, and reached 3-10% of its byte bound.
 // This kernel takes the item design of the f <= 32 kernels past 32 frames,
-// up to kFramesTiles 16-frame tiles (128 frames; past that the plan keeps
-// the long kernel). An item is one position x all f frames x a chunk of
+// up to kFramesTiles 16-frame tiles (128 frames; past that the plan takes
+// the long kernel above). An item is one position x all f frames x a chunk of
 // whole heads (`long_backward_plan` in ops/temporal_attention.py: the most
 // heads whose stages leave one spare beside the consumer groups'), loaded
 // by one TMA box a tensor from the 4-D maps (c, l, f, b) into a ring of
@@ -1532,38 +2094,30 @@ int launch_frames_kernel(const void* q, const void* k, const void* v, const void
 // = ceil(d / chunks) rounded up to 8 columns (heads_per_item = 1). Either is
 // loaded `cwp` columns wide (the wrapper's `temporal_plan`). The logits are
 // scaled by scale_d^-1/2, 1 <= scale_d <= d (the true width of a head the
-// wrapper zero-pads, else d). Past kMaxFrames frames, up to 16 kFramesTiles
-// (128), the frames kernel takes the same items (`long_backward_plan`: any d a
-// multiple of 8 up to 1280, in chunks of at most 160 columns, whole heads or
-// one head in chunks) in a ring of `stages` >= 2 stages, `smem` the bytes
-// the plan reckons for them (the kernel checks them against its own). With
-// stages = 0 (past 16 kFramesTiles frames, any f), every d a multiple of 8
-// up to 1280 runs in the long kernel, with the forward's plan
-// (heads_per_item = 1, chunks = ceil(d / tiles::kPiece), cwp = tiles::kLd).
-// Up to kMaxFrames frames `stages` and `smem` are not read.
+// wrapper zero-pads, else d). `mode` names the kernel: kModeItems up to
+// kMaxFrames frames (`stages` and `smem` not read); past them kModeFrames,
+// up to 16 kFramesTiles (128) frames, the frames kernel with the items of
+// `long_backward_plan` (any d a multiple of 8 up to 1280, in chunks of at
+// most 160 columns, whole heads or one head in chunks) in a ring of
+// `stages` >= 2 stages; or the long kernel with the wrapper's
+// `long_bwd_plan`, kModeResident (whole heads of d <= 160, f rounded up to
+// 16 at most 256) or kModeStreamed (one head in `chunks` chunks of at most
+// kLongChunk columns). `smem` is the bytes the plan reckons for its
+// stages (the kernel checks them against its own).
 extern "C" int hv_temporal_bwd(const void* q, const void* k, const void* v, const void* g,
                                void* dq, void* dk, void* dv, int B, int F, int L, int heads,
                                int d, int heads_per_item, int cwp, int chunks, int scale_d,
-                               int stages, int smem, void* stream) {
+                               int mode, int stages, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (F > kMaxFrames && stages == 0) {
-    if (B < 1 || L < 1 || d <= 0 || d % 8 != 0 || d > 8 * kChunkColumns || heads < 1 ||
-        heads_per_item != 1 || cwp != tiles::kLd ||
-        chunks != (d + tiles::kPiece - 1) / tiles::kPiece || scale_d < 1 || scale_d > d ||
-        (long long)B * heads * d * F * L >= (1LL << 40))
-      return (int)cudaErrorInvalidValue;
-    return launch_long(q, k, v, g, dq, dk, dv, B, F, L, heads, d, scale_d, s);
-  }
   if (chunks < 1 || (chunks > 1 && heads_per_item != 1)) return (int)cudaErrorInvalidValue;
   const int CW = chunks == 1 ? heads_per_item * d : ((d + chunks - 1) / chunks + 7) / 8 * 8;
-  if (B < 1 || L < 1 || F < 1 || d <= 0 || d % 8 != 0 || heads < 1 ||
+  if (B < 1 || L < 1 || F < 1 || d <= 0 || d % 8 != 0 || d > 8 * kChunkColumns || heads < 1 ||
       heads_per_item < 1 || heads % heads_per_item != 0 || cwp > 256 || cwp % 8 != 0 ||
       cwp < CW + 8 || (cwp / 8) % 2 != 1 || scale_d < 1 || scale_d > d ||
-      (long long)B * heads * d * F * L >= (1LL << 40))
+      (chunks > 1 && (chunks - 1) * CW >= d) || (long long)B * heads * d * F * L >= (1LL << 40))
     return (int)cudaErrorInvalidValue;
-  if (F > kMaxFrames) {
-    if (F > 16 * kFramesTiles || stages < 2 || d > 8 * kChunkColumns || CW > kChunkColumns ||
-        (chunks > 1 && (chunks - 1) * CW >= d))
+  if (F > kMaxFrames && mode == kModeFrames) {
+    if (F > 16 * kFramesTiles || stages < 2 || CW > kChunkColumns)
       return (int)cudaErrorInvalidValue;
 #define FRAMES_KERNEL(QT)                                                                     \
   launch_frames_kernel<QT>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, cwp, chunks, stages, \
@@ -1578,10 +2132,39 @@ extern "C" int hv_temporal_bwd(const void* q, const void* k, const void* v, cons
     }
 #undef FRAMES_KERNEL
   }
-  if (chunks > 1) {
-    if (d <= kChunkColumns || d > 8 * kChunkColumns || CW > kChunkColumns ||
-        (chunks - 1) * CW >= d)
+  if (F > kMaxFrames) {
+    if (stages < 1 || stages > kLongMaxStages) return (int)cudaErrorInvalidValue;
+    if (mode == kModeResident) {
+      if (chunks != 1 || CW > kChunkColumns || (F + 15) / 16 * 16 > 256)
+        return (int)cudaErrorInvalidValue;
+#define RESIDENT(PANELS, KS)                                                               \
+  launch_long<false, PANELS, KS>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, heads_per_item, CW, \
+                                 cwp, chunks, stages, smem, scale_d, s)
+      // the head's 16-deep steps: up to 4 with the key panels, else 4, 6,
+      // 8 or 10 (one more step where that many would be odd)
+      const int steps = (d + 15) / 16;
+      if (d <= kPanelWidth && (F + 15) / 16 <= kHeldTiles * kLongConsumers) {
+        switch (steps) {
+          case 1: return RESIDENT(true, 1);
+          case 2: return RESIDENT(true, 2);
+          case 3: return RESIDENT(true, 3);
+          default: return RESIDENT(true, 4);
+        }
+      }
+      if (steps <= 4) return RESIDENT(false, 4);
+      if (steps <= 6) return RESIDENT(false, 6);
+      if (steps <= 8) return RESIDENT(false, 8);
+      return RESIDENT(false, 10);
+#undef RESIDENT
+    }
+    if (mode != kModeStreamed || heads_per_item != 1 || CW > kLongChunk)
       return (int)cudaErrorInvalidValue;
+    return launch_long<true, false, 0>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, 1, CW, cwp,
+                                       chunks, stages, smem, scale_d, s);
+  }
+  if (mode != kModeItems) return (int)cudaErrorInvalidValue;
+  if (chunks > 1) {
+    if (d <= kChunkColumns || CW > kChunkColumns) return (int)cudaErrorInvalidValue;
     if (F <= 16)
       return launch_wide<1>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, cwp, chunks, scale_d,
                             s);

@@ -10,11 +10,11 @@ On a CUDA tensor it launches the hand-written kernel in
 a CPU tensor it runs :func:`temporal_attention_plain`. Up to ITEM_FRAMES
 frames the kernel's work item is a run of positions x all frames x a chunk
 of whole heads, or, for a head wider than CHUNK_COLUMNS, one head walked in
-column chunks; past ITEM_FRAMES the long forward takes one head in query
-and key tiles of 16 frames and LONG_COLUMNS-column pieces
-(:func:`temporal_plan`). A head whose width is no multiple of 8 runs
-zero-padded to the next one (``head_pad.resize_heads``), with the softmax
-scale of its true width.
+column chunks; past ITEM_FRAMES the long forward takes one position x all
+frames x whole heads where they fit its ring, else one head in panels of
+LONG_PANEL frames and column chunks (:func:`long_fwd_plan`). A head whose
+width is no multiple of 8 runs zero-padded to the next one
+(``head_pad.resize_heads``), with the softmax scale of its true width.
 
 The gradient (:class:`TemporalAttention`, an autograd Function) keeps only
 q, k and v: on a CUDA tensor the one-pass kernel of
@@ -23,7 +23,8 @@ and dv, over the forward's items; past ITEM_FRAMES frames, up to
 FRAMES_KERNEL_FRAMES, the frames kernel takes the same kind of item (one
 position x all frames x whole heads, or one head in column chunks) in a ring
 whose stages :func:`long_backward_plan` fits to shared memory, and past
-FRAMES_KERNEL_FRAMES the long kernel; on a CPU tensor
+FRAMES_KERNEL_FRAMES the long backward, whose items :func:`long_bwd_plan`
+fits as the forward's; on a CPU tensor
 :func:`temporal_attention_backward_plain` does.
 """
 
@@ -39,7 +40,6 @@ from . import cuda_build
 from .head_pad import resize_heads, round_up8
 
 ITEM_FRAMES = 32  # frames the item kernels hold; more run in the long kernels
-LONG_COLUMNS = 64  # the long kernels' depth pieces and output slabs (tiles::kPiece)
 
 MAX_HEAD_DIM = 1280  # one head over the widest motion channels
 CHUNK_COLUMNS = 160  # an item's columns (8 UNet heads, 320 bytes); a chunk's most
@@ -51,6 +51,36 @@ CHUNK_COLUMNS = 160  # an item's columns (8 UNet heads, 320 bytes); a chunk's mo
 FRAMES_KERNEL_FRAMES = 128
 FRAMES_KERNEL_MAX_STAGES = 4
 SMEM_LIMIT = 232448
+
+# The long kernels past ITEM_FRAMES frames (the forward) and past
+# FRAMES_KERNEL_FRAMES (the backward), csrc/temporal_attention*.cu: their
+# consumer warps (kLongConsumers), the frames of a streamed panel (kPanel),
+# the widest column chunk of a streamed item (kLongChunk: the forward's,
+# the backward's), the widest gradient slab of a resident backward item
+# (kSlab), the deepest ring, the most frames a resident item takes (one
+# TMA box), and the shared memory of a block when two share an SM (the
+# forward's at d <= LONG_TWO_BLOCK_WIDTH, whose registers let two in).
+LONG_CONSUMERS = 8
+LONG_PANEL = 64
+LONG_CHUNK = 64
+LONG_FWD_CHUNK = 160
+LONG_SLAB = 64
+LONG_MAX_STAGES = 4
+LONG_BOX_FRAMES = 256
+LONG_TWO_BLOCK_WIDTH = 64
+TWO_BLOCK_SMEM = 115712
+# The long backward's resident items of heads at most LONG_PANEL_WIDTH
+# wide and at most LONG_HELD_FRAMES frames take P and dS through shared
+# memory a panel of LONG_PANEL_LD - 8 key frames at a time ([frames][ld]
+# bf16 each) and hold dQ in registers (kPanelWidth, kPanelLd, kHeldTiles x
+# kLongConsumers tiles).
+LONG_PANEL_WIDTH = 64
+LONG_PANEL_LD = 72
+LONG_HELD_FRAMES = 256
+# The entry points' `mode`: the item kernels (up to ITEM_FRAMES), the
+# backward's frames kernel, the long kernels with whole items in the ring
+# or with one head streamed in panels and chunks.
+MODE_ITEMS, MODE_FRAMES, MODE_RESIDENT, MODE_STREAMED = 0, 1, 2, 3
 
 # Launches by kernel: the item kernels ("temporal", "temporal_bwd"), and past
 # ITEM_FRAMES frames the long forward ("temporal_long"), the backward's frames
@@ -65,8 +95,8 @@ backward_launches_by_d: dict = {}
 forward_launches_by_f: dict = {}
 backward_launches_by_f: dict = {}
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 
 
 class TemporalPlan(NamedTuple):
@@ -77,8 +107,7 @@ class TemporalPlan(NamedTuple):
     number of 16-byte units, at least 8 columns past the chunk: the frames
     of a head then sit in distinct shared-memory banks, and the last
     16-deep step of a head with d % 16 == 8 stays inside the row). Past
-    ITEM_FRAMES frames (the long kernels): one head in ``chunks`` pieces of
-    LONG_COLUMNS columns, in tiles ``padded`` = LONG_COLUMNS + 8 wide."""
+    ITEM_FRAMES frames: the long forward's item (:func:`long_fwd_plan`)."""
     heads: int
     cols: int
     padded: int
@@ -91,11 +120,12 @@ def temporal_plan(c: int, heads: int, frames: int = 1) -> TemporalPlan:
     one), or for a wider head the fewest chunks of at most CHUNK_COLUMNS
     columns, a multiple of 8, that cover it; and the width the kernel loads
     them at. ``csrc/temporal_attention*.cu`` derive the same chunk width
-    from d and the chunk count. Past ITEM_FRAMES frames: the long kernels'
-    pieces."""
+    from d and the chunk count. Past ITEM_FRAMES frames: the long forward's
+    item (:func:`long_fwd_plan`)."""
     d = c // heads
     if frames > ITEM_FRAMES:
-        return TemporalPlan(1, LONG_COLUMNS, LONG_COLUMNS + 8, -(-d // LONG_COLUMNS))
+        p = long_fwd_plan(c, heads, frames)
+        return TemporalPlan(p.heads, p.cols, p.padded, p.chunks)
     if d > CHUNK_COLUMNS:
         chunks = -(-d // CHUNK_COLUMNS)
         per, cols = 1, round_up8(-(-d // chunks))
@@ -191,6 +221,148 @@ def long_backward_plan(c: int, heads: int, frames: int, max_cols: int = CHUNK_CO
     raise ValueError(f"no frames-kernel plan for d={d} at {frames} frames")
 
 
+class LongPlan(NamedTuple):
+    """A long kernel's plan: ``mode`` MODE_RESIDENT (items of ``heads``
+    whole heads, ``cols`` = heads * d columns, all frames in one stage) or
+    MODE_STREAMED (one head an item in ``chunks`` chunks of ``cols``
+    columns, its frames in panels of LONG_PANEL); loaded ``padded`` columns
+    wide (as :class:`TemporalPlan`), in a ring of ``stages`` stages;
+    ``smem`` the bytes of shared memory a block lays out."""
+    mode: int
+    heads: int
+    cols: int
+    padded: int
+    chunks: int
+    stages: int
+    smem: int
+
+
+def _round16(frames: int) -> int:
+    return -(-frames // 16) * 16
+
+
+def long_fwd_smem(rows: int, padded: int, out_cols: int, stages: int,
+                  consumers: int = LONG_CONSUMERS) -> int:
+    """Bytes of shared memory the long forward lays out: ``stages`` x the
+    Q, K and V tiles ([rows][padded] bf16: the item's frames rounded up to
+    16, or LONG_PANEL streamed), each consumer warp's staging tile
+    ([16][out_cols]: the head's width, or a streamed chunk's), the barriers
+    and 128 bytes of alignment (``long_fwd_smem`` in
+    csrc/temporal_attention.cu)."""
+    return (128 + stages * 3 * rows * padded * 2 + consumers * 16 * out_cols * 2
+            + stages * 16)
+
+
+def long_bwd_smem(rows: int, padded: int, out_cols: int, stages: int, words: int,
+                  pds: int = 0, consumers: int = LONG_CONSUMERS) -> int:
+    """Bytes of shared memory the long backward lays out: ``stages`` x the
+    Q, K, V and G tiles, two staging tiles a consumer warp ([16][out_cols]:
+    a slab of at most LONG_SLAB of the head, or a streamed chunk), ``words``
+    fp32 row words (max, 1 / sum, delta: a stage's heads' frames rounded up
+    to 16, twice with the key panels, as the sums of two halves; twice the
+    streamed item's panels), ``pds`` bf16 elements of P and dS, the
+    barriers and 128 bytes of alignment (``long_bwd_smem`` in
+    csrc/temporal_attention_bwd.cu)."""
+    return (128 + stages * 4 * rows * padded * 2 + consumers * 2 * 16 * out_cols * 2
+            + words * 4 + pds * 2 + stages * 16)
+
+
+def long_bwd_panels(frames: int, d: int, consumers: int = LONG_CONSUMERS) -> bool:
+    """Whether the long backward's resident item takes P and dS through
+    shared memory a key panel at a time, dQ held in registers (at most
+    LONG_HELD_FRAMES with LONG_CONSUMERS warps, in proportion with others)."""
+    held = LONG_HELD_FRAMES * consumers // LONG_CONSUMERS
+    return d <= LONG_PANEL_WIDTH and _round16(frames) <= held
+
+
+def _long_smem(backward: bool, mode: int, frames: int, d: int, per: int, cols: int,
+               padded: int, stages: int, consumers: int = LONG_CONSUMERS,
+               panel: int = LONG_PANEL, panels: bool = True) -> int:
+    if mode == MODE_RESIDENT:
+        rows = _round16(frames)
+        if not backward:
+            return long_fwd_smem(rows, padded, d, stages, consumers)
+        if panels and long_bwd_panels(frames, d, consumers):
+            return long_bwd_smem(rows, padded, d, stages, stages * per * 6 * rows,
+                                 2 * rows * LONG_PANEL_LD, consumers)
+        return long_bwd_smem(rows, padded, min(LONG_SLAB, d), stages, stages * per * 3 * rows,
+                             0, consumers)
+    if not backward:
+        return long_fwd_smem(panel, padded, cols, stages, consumers)
+    panels = -(-frames // panel)
+    return long_bwd_smem(panel, padded, cols, stages, 2 * 3 * panels * panel, 0, consumers)
+
+
+def _long_plan(backward: bool, c: int, heads: int, frames: int, max_cols: int = CHUNK_COLUMNS,
+               max_stages: int = LONG_MAX_STAGES, streamed: bool = False,
+               consumers: int = LONG_CONSUMERS, panel: int = LONG_PANEL,
+               panels: bool = True) -> LongPlan:
+    """The long kernels' plan (:func:`long_fwd_plan`, :func:`long_bwd_plan`).
+    ``max_cols``, ``max_stages`` and ``streamed`` (the streamed mode where
+    the resident one fits) below or off their defaults are the variants'
+    ablations; ``consumers``, ``panel`` and ``panels`` (the backward's key
+    panels of P and dS) are those of a source built with others."""
+    d = c // heads
+
+    def plan(mode, per, cols, chunks, limit=SMEM_LIMIT):
+        padded = _padded_width(cols)
+
+        def smem(n):
+            return _long_smem(backward, mode, frames, d, per, cols, padded, n, consumers, panel,
+                              panels)
+
+        fits = [n for n in range(1, max_stages + 1) if smem(n) <= limit]
+        if not fits:
+            return None
+        return LongPlan(mode, per, cols, padded, chunks, fits[-1], smem(fits[-1]))
+
+    if not streamed and d <= CHUNK_COLUMNS and _round16(frames) <= LONG_BOX_FRAMES:
+        pers = [per for per in range(heads, 0, -1) if heads % per == 0 and per * d <= max_cols]
+        if not backward and d <= LONG_TWO_BLOCK_WIDTH:
+            # two blocks an SM where two stages fit half of its memory
+            for per in pers:
+                p = plan(MODE_RESIDENT, per, per * d, 1, TWO_BLOCK_SMEM)
+                if p is not None and p.stages >= min(2, max_stages):
+                    return p
+        whole = [p for p in (plan(MODE_RESIDENT, per, per * d, 1) for per in pers)
+                 if p is not None]
+        for least in (min(2, max_stages), 1):
+            for p in whole:
+                if p.stages >= least:
+                    return p
+    chunks = -(-d // (LONG_CHUNK if backward else LONG_FWD_CHUNK))
+    p = plan(MODE_STREAMED, 1, round_up8(-(-d // chunks)), chunks)
+    if p is None:
+        raise ValueError(f"no long-kernel plan for d={d} at {frames} frames")
+    return p
+
+
+@functools.lru_cache(maxsize=None)
+def long_fwd_plan(c: int, heads: int, frames: int) -> LongPlan:
+    """The long forward's plan for ``frames`` > ITEM_FRAMES: resident items
+    of whole heads (d <= CHUNK_COLUMNS, frames rounded up to 16 at most
+    LONG_BOX_FRAMES): at d <= LONG_TWO_BLOCK_WIDTH the most heads of at
+    most CHUNK_COLUMNS columns whose two stages fit TWO_BLOCK_SMEM (two
+    blocks an SM), else the most heads whose ring holds 2 stages, else 1,
+    as deep as fits up to LONG_MAX_STAGES; else streamed, one head in the
+    fewest chunks of at most LONG_FWD_CHUNK columns (multiples of 8)."""
+    if frames <= ITEM_FRAMES:
+        raise ValueError(f"the long forward takes more than {ITEM_FRAMES} frames, got {frames}")
+    return _long_plan(False, c, heads, frames)
+
+
+@functools.lru_cache(maxsize=None)
+def long_bwd_plan(c: int, heads: int, frames: int) -> Optional[LongPlan]:
+    """The long backward's plan past FRAMES_KERNEL_FRAMES frames (None up
+    to it: the item kernels and the frames kernel run there): resident
+    items of the most heads whose ring holds 2 stages (Q, K, V and G and
+    the row words a stage), else 1; else streamed, one head in chunks of
+    at most LONG_CHUNK columns."""
+    if frames <= FRAMES_KERNEL_FRAMES:
+        return None
+    return _long_plan(True, c, heads, frames)
+
+
 def temporal_width(d: int) -> int:
     """The head width the kernels run a d-wide head at: d, or d zero-padded
     to the next multiple of 8; raises past MAX_HEAD_DIM."""
@@ -201,12 +373,11 @@ def temporal_width(d: int) -> int:
 
 
 def launch_sizes(shape, heads: int, scale_d: Optional[int] = None):
-    """The size arguments both kernels take for q of ``shape`` (b, f, l, c),
-    d a multiple of 8 (the wrapper pads first): (b, f, l, heads, d, heads
-    an item, padded width, chunks a head, scale_d) from
-    :func:`temporal_plan`, where ``scale_d`` (d by default) is the width
-    whose d^-1/2 scales the logits; raises on sizes the kernels do not
-    take."""
+    """The item both kernels take for q of ``shape`` (b, f, l, c), d a
+    multiple of 8 (the wrapper pads first): (b, f, l, heads, d, heads an
+    item, padded width, chunks a head, scale_d) from :func:`temporal_plan`,
+    where ``scale_d`` (d by default) is the width whose d^-1/2 scales the
+    logits; raises on sizes the kernels do not take."""
     b, f, l, c = shape
     d = c // heads
     if b > 65535 or heads > 65535 or min(b, f, l) < 1:
@@ -218,17 +389,35 @@ def launch_sizes(shape, heads: int, scale_d: Optional[int] = None):
     return b, f, l, heads, d, plan.heads, plan.padded, plan.chunks, scale_d or d
 
 
+def forward_launch_sizes(shape, heads: int, scale_d: Optional[int] = None):
+    """The size arguments the forward kernel takes for q of ``shape``:
+    :func:`launch_sizes`, then the mode, the ring's stages and its
+    shared-memory bytes, those of :func:`long_fwd_plan` past ITEM_FRAMES
+    frames (zeros up to it)."""
+    sizes = launch_sizes(shape, heads, scale_d)
+    if shape[1] <= ITEM_FRAMES:
+        return (*sizes, MODE_ITEMS, 0, 0)
+    p = long_fwd_plan(shape[-1], heads, shape[1])
+    return (*sizes, p.mode, p.stages, p.smem)
+
+
 def backward_launch_sizes(shape, heads: int, scale_d: Optional[int] = None):
     """The size arguments the backward kernel takes for q of ``shape``:
-    :func:`launch_sizes`, then the ring's stages and its shared-memory
-    bytes (zeros up to ITEM_FRAMES frames and past FRAMES_KERNEL_FRAMES);
-    between them the item of :func:`long_backward_plan` in place of the
-    long kernels' pieces."""
+    :func:`launch_sizes`, then the mode, the ring's stages and its
+    shared-memory bytes: up to ITEM_FRAMES the item kernels' (zeros), up
+    to FRAMES_KERNEL_FRAMES the frames kernel's item, ring and bytes
+    (:func:`long_backward_plan`, MODE_FRAMES), past it the long backward's
+    (:func:`long_bwd_plan`)."""
     sizes = launch_sizes(shape, heads, scale_d)
-    plan = long_backward_plan(shape[-1], heads, shape[1])
-    if plan is None:
-        return (*sizes, 0, 0)
-    return (*sizes[:5], plan.heads, plan.padded, plan.chunks, sizes[8], plan.stages, plan.smem)
+    b, f, l, c = shape
+    if f <= ITEM_FRAMES:
+        return (*sizes, MODE_ITEMS, 0, 0)
+    frames = long_backward_plan(c, heads, f)
+    if frames is not None:
+        return (*sizes[:5], frames.heads, frames.padded, frames.chunks, sizes[8], MODE_FRAMES,
+                frames.stages, frames.smem)
+    p = long_bwd_plan(c, heads, f)
+    return (*sizes[:5], p.heads, p.padded, p.chunks, sizes[8], p.mode, p.stages, p.smem)
 
 
 def reset_launches() -> None:
@@ -303,7 +492,7 @@ def temporal_attention_cuda(q, k, v, heads):
     d = q.shape[-1] // heads
     width = temporal_width(d)
     qk, kk, vk = _padded(heads, width, q=q, k=k, v=v)
-    sizes = launch_sizes(tuple(qk.shape), heads, d)
+    sizes = forward_launch_sizes(tuple(qk.shape), heads, d)
     out = torch.empty_like(qk)
     fn = cuda_build.function("temporal_attention", "hv_temporal_fwd", _FWD_ARGTYPES)
     err = fn(qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), out.data_ptr(), *sizes,

@@ -68,8 +68,14 @@ entry point ``hv_group_norm_fwd``. With ``--temporal`` those of kernel B's
 forward, ``csrc/temporal_attention.cu`` (``TEMPORAL_VARIANTS``: positions
 per item, ring depth, consumer warps, and ablations without the loads, the
 products or the stores), at the motion modules' four shapes
-(``TEMPORAL_SHAPES``), beside SDPA on the head-split permuted views;
-``against`` may be an earlier design with the earlier entry point. With
+(``TEMPORAL_SHAPES``), and past 32 frames those of its long kernel
+(``LONG_VARIANTS``: the ring's depth and the heads an item through the
+plan, the streamed panels where whole items fit, 32-frame panels, four
+consumer warps) at ``chip_smoke.py``'s long cases
+(``TEMPORAL_LONG_SHAPES``), beside SDPA on the head-split permuted views;
+``against`` may be an earlier design with the earlier entry point (past 32
+frames the earlier long kernel, whose per-warp cp.async copies are the
+comparison the TMA items answer). With
 ``--temporal-bwd`` those of kernel B's backward,
 ``csrc/temporal_attention_bwd.cu`` (``TEMPORAL_BWD_VARIANTS``: ring depth,
 consumer warps, gradients in tiles of their own against over dead inputs,
@@ -81,10 +87,13 @@ the five stage-2 shapes and the stage-1 camera encoder's
 other numbers of consumer groups, registers for two blocks an SM) at the
 long_wide stage-2 shapes and f = 33, 64, 96, 100 and 128
 (``TEMPORAL_BWD_LONG_SHAPES``, each variant up to its own frame count),
-beside SDPA's backward; ``against`` may be an earlier design with its entry
-point (past 32 frames, or past its own frames kernel's reach, an earlier
-source runs its long kernel). A timed turn of both is 20 x ``--iters``
-launches.
+and past 128 frames those of its long kernel (``LONG_VARIANTS``) at
+``chip_smoke.py``'s cases there (``TEMPORAL_BWD_PAST_SHAPES``), where
+``long_at_frames`` also runs the long kernel at the frames kernel's
+shapes; beside SDPA's backward; ``against`` may be an earlier design with
+its entry point (past 32 frames, or past its own frames kernel's reach, an
+earlier source runs its long kernel). A timed turn of both is 20 x
+``--iters`` launches.
 With ``--xwide`` those of kernel A past 512 columns, the xwide forward and
 backward (``XWIDE_VARIANTS``: the plan's slice width, ring stages and
 exchange buffers, which the same build takes as arguments, and hidden key
@@ -643,6 +652,18 @@ TEMPORAL_SHAPES = (("motion level0", 1, 24, 6144, 320, 8),
                    ("motion level1", 1, 24, 1536, 640, 8),
                    ("motion level2", 1, 24, 384, 1280, 8),
                    ("motion level3/mid", 1, 24, 96, 1280, 8))
+# and past 32 frames, chip_smoke.py's long cases (long_wide's motion levels
+# at 768x512x48f, f = 33, 64, 96, 200 and 256)
+TEMPORAL_LONG_SHAPES = (("long_wide motion level0 f48", 1, 48, 6144, 320, 8),
+                        ("long_wide motion level1 f48", 1, 48, 1536, 640, 8),
+                        ("long_wide motion level2 f48", 1, 48, 384, 1280, 8),
+                        ("long_wide motion level3/mid f48", 1, 48, 96, 1280, 8),
+                        ("long_wide batched CFG level0 f48", 2, 48, 6144, 320, 8),
+                        ("f33 d40", 1, 33, 6144, 320, 8),
+                        ("f64 d160", 1, 64, 384, 1280, 8),
+                        ("f96 d256", 1, 96, 384, 1280, 5),
+                        ("f200 d40", 1, 200, 256, 320, 8),
+                        ("f256 d160", 1, 256, 64, 1280, 8))
 TEMPORAL_TOL = (2e-4, 0.08)  # chip_smoke.py's limits
 _TEMPORAL_LOADS = ("      mbar_arrive_expect_tx(&full[s], bytes);\n",
                    "      // every store but the one just issued",
@@ -675,6 +696,91 @@ TEMPORAL_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
 }
 
 
+# kernel B's long kernels (past 32 frames forward, past the frames kernel's
+# reach backward): name -> (edits of both sources, arguments of their plans)
+LONG_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], Dict[str, int]]] = {
+    # rings of at most 1 or 2 stages (at most 4 by default; the forward's
+    # one stage lets two blocks share an SM at f = 200)
+    "long_stages_1": ((), {"max_stages": 1}),
+    "long_stages_2": ((), {"max_stages": 2}),
+    # items of at most 80 or 40 columns (whole heads of at most 160 by default)
+    "long_cols_80": ((), {"max_cols": 80}),
+    "long_cols_40": ((), {"max_cols": 40}),
+    # the streamed mode (64-frame panels, 64-column chunks) where whole
+    # items fit the ring
+    "long_streamed": ((), {"streamed": True}),
+    # streamed panels of 32 frames (two warps a panel)
+    "long_panel_32": ((_set_const("kPanel", 64, 32),), {"streamed": True, "panel": 32}),
+    # four, twelve or sixteen consumer warps instead of eight
+    "long_consumers_4": ((_set_const("kLongConsumers", 8, 4),), {"consumers": 4}),
+    "long_consumers_12": ((_set_const("kLongConsumers", 8, 12),), {"consumers": 12}),
+    "long_consumers_16": ((_set_const("kLongConsumers", 8, 16),), {"consumers": 16}),
+}
+# the forward's alone: a resident task's sweeps one tile at a time, or
+# four, instead of two
+LONG_FWD_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], Dict[str, int]]] = {
+    "long_unroll_1": ((_set_const("kLongUnroll", 2, 1),), {}),
+    "long_unroll_4": ((_set_const("kLongUnroll", 2, 4),), {}),
+}
+# the backward's alone: the three-phase item (S and dP a third time for dQ)
+# where the key panels of P and dS hold dQ in registers (d <= 64)
+LONG_BWD_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], Dict[str, int]]] = {
+    "long_no_panels": ((_set_const("kPanelWidth", 64, 0),), {"panels": False}),
+    # ablations of the key panels' item (d <= 64), which drop work and so
+    # are only timed: no row sums (phase A's products), no P and dS, no dV
+    # and dK, no dQ products
+    "long_no_sums": ((("for (int kt = i * half; kt < (i ? QT : half); ++kt) {", None,
+                       "for (int kt = i * half; kt < (i ? QT : half) && !QT; ++kt) {"),), {}),
+    "long_no_pds": ((("for (int task = first(pairs * pt); task < pairs * pt; "
+                      "task += kLongConsumers) {", None,
+                      "for (int task = first(pairs * pt) + pairs * pt; task < pairs * pt; "
+                      "task += kLongConsumers) {"),), {}),
+    "long_no_dkdv": ((("if (warp < 2 * pt) {", None, "if (!QT && warp < 2 * pt) {"),), {}),
+    "long_no_dq": ((("            for (int j = 0; j < pt; ++j) {", None,
+                     "            for (int j = 0; j < pt && !QT; ++j) {"),), {}),
+}
+LONG_BWD_ABLATIONS = ("long_no_sums", "long_no_pds", "long_no_dkdv", "long_no_dq")
+# the backward's long kernel at the frames kernel's shapes (33 to 128 frames)
+LONG_AT_FRAMES = "long_at_frames"
+
+
+def long_variant_sizes(name: str, shape, heads: int, backward: bool) -> tuple:
+    """The entry point's twelve size ints for the long kernels' variant
+    (``kernel``, and ``long_at_frames`` past 128 frames: the wrapper's
+    own)."""
+    from ..ops import temporal_attention as ta
+
+    b, f, l, c = shape
+    table = {**LONG_VARIANTS, **(LONG_BWD_VARIANTS if backward else LONG_FWD_VARIANTS)}
+    if name not in table and name != LONG_AT_FRAMES:
+        return (ta.backward_launch_sizes if backward else ta.forward_launch_sizes)(shape, heads)
+    p = ta._long_plan(backward, c, heads, f, **table.get(name, ((), {}))[1])
+    d = c // heads
+    return (b, f, l, heads, d, p.heads, p.padded, p.chunks, d, p.mode, p.stages, p.smem)
+
+
+def earlier_sizes(n_ints: int, shape, heads: int, backward: bool, reach: int = 32) -> tuple:
+    """The size ints an earlier source's entry point of ``n_ints`` ints
+    takes: 9 (the forward before the long plan), 11 (the backward with the
+    frames kernel's ring, up to ``reach`` frames, past it zeros) or fewer;
+    past 32 frames the earlier long kernels took one head an item in 64-column
+    pieces, tiles 72 wide."""
+    from ..ops import temporal_attention as ta
+
+    b, f, l, c = shape
+    d = c // heads
+    if f > ta.ITEM_FRAMES:
+        item = (b, f, l, heads, d, 1, 72, -(-d // 64), d)
+    else:
+        item = ta.launch_sizes(shape, heads)
+    if n_ints == 11:
+        if ta.ITEM_FRAMES < f <= reach:
+            return ta.backward_launch_sizes(shape, heads)[:9] + \
+                ta.backward_launch_sizes(shape, heads)[10:]
+        return (*item, 0, 0)
+    return item[:n_ints]
+
+
 # kernel B's backward (csrc/temporal_attention_bwd.cu) at chip_smoke.py's
 # stage-2 shapes and the stage-1 camera encoder's: (name, b, f, l, c, heads)
 TEMPORAL_BWD_SHAPES = (("motion level0", 1, 24, 7168, 320, 8),
@@ -697,6 +803,10 @@ TEMPORAL_BWD_LONG_SHAPES = (("long_wide motion level0 f48", 1, 48, 7168, 320, 8)
                             ("f100 d40", 1, 100, 7168, 320, 8),
                             ("f128 level0-size d40", 1, 128, 7168, 320, 8),
                             ("f128 level2-size d160", 1, 128, 448, 1280, 8))
+# and past the frames kernel's reach: chip_smoke.py's cases of the long kernel
+TEMPORAL_BWD_PAST_SHAPES = (("f136 d40", 1, 136, 7168, 320, 8),
+                            ("f200 d40", 1, 200, 256, 320, 8),
+                            ("f256 d160", 1, 256, 64, 1280, 8))
 TEMPORAL_BWD_TOL = (2e-4, 0.2)  # chip_smoke.py's limits, per gradient
 TEMPORAL_BWD_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
     "kernel": ((), False),
@@ -783,20 +893,17 @@ def frames_reach(text: str) -> int:
     return 16 * int(m.group(1)) if m else 32
 
 
-def frames_variant_sizes(name: str, shape, heads: int, reach: Optional[int] = None) -> tuple:
-    """The backward entry point's eleven size ints for the frames kernel's
-    variant (``kernel``: the wrapper's own); past ``reach`` frames (another
-    source's frames kernel's) the long kernel's, with zero stages."""
+def frames_variant_sizes(name: str, shape, heads: int) -> tuple:
+    """The backward entry point's twelve size ints for the frames kernel's
+    variant (``kernel``: the wrapper's own)."""
     from ..ops import temporal_attention as ta
 
-    if reach is not None and shape[1] > reach:
-        return (*ta.launch_sizes(shape, heads), 0, 0)
     if name not in FRAMES_BWD_VARIANTS:
         return ta.backward_launch_sizes(shape, heads)
     b, f, l, c = shape
     p = ta.long_backward_plan(c, heads, f, **FRAMES_BWD_VARIANTS[name][1])
     d = c // heads
-    return (b, f, l, heads, d, p.heads, p.padded, p.chunks, d, p.stages, p.smem)
+    return (b, f, l, heads, d, p.heads, p.padded, p.chunks, d, ta.MODE_FRAMES, p.stages, p.smem)
 
 
 def variant_source(name: str, variants=None, source: str = "flash_attention.cu") -> str:
@@ -1564,31 +1671,44 @@ def _temporal_sizes_taken(text: str) -> int:
     (b, f, l, heads, d) in the first design, 7 with the item plan (heads
     an item, padded width), 9 with the column chunks and the softmax's
     width; :func:`~humanvid_tpu_torch.ops.temporal_attention.launch_sizes`
-    gives them in that order. The backward's takes 11 since its frames
-    kernel (the ring's stages and shared memory,
+    gives them in that order. The backward's took 11 with its frames
+    kernel (the ring's stages and shared memory); both take 12 since the
+    long kernels' plans (the mode, then those two:
+    :func:`~humanvid_tpu_torch.ops.temporal_attention.forward_launch_sizes`,
     :func:`~humanvid_tpu_torch.ops.temporal_attention.backward_launch_sizes`)."""
     if "int heads_per_item" not in text:
         return 5
+    if "int mode, int stages, int smem" in text:
+        return 12
     if "int stages, int smem" in text:
         return 11
     return 9 if "int scale_d" in text else 7
 
 
+def _long_table(backward: bool) -> Dict[str, Tuple[Tuple[Edit, ...], bool]]:
+    own = LONG_BWD_VARIANTS if backward else LONG_FWD_VARIANTS
+    return {n: (v[0], False) for n, v in {**LONG_VARIANTS, **own}.items()}
+
+
 def run_temporal(names: Sequence[str], iters: int = 5,
                  against: Optional[str] = None) -> List[dict]:
-    """Kernel B's forward variants at every shape of ``TEMPORAL_SHAPES``:
-    each but the ablations held to ``temporal_attention_plain``
-    (``chip_smoke.py``'s limits), then timed in turns beside SDPA on the
-    head-split permuted views. ``against`` is another source of
+    """Kernel B's forward variants at every shape of ``TEMPORAL_SHAPES``
+    (those of ``TEMPORAL_VARIANTS``) and of ``TEMPORAL_LONG_SHAPES`` (those
+    of ``LONG_VARIANTS``), ``kernel`` and ``against`` at both: each but the
+    ablations held to ``temporal_attention_plain`` (``chip_smoke.py``'s
+    limits) and to its own bits on a repeat, then timed in turns beside
+    SDPA on the head-split permuted views. ``against`` is another source of
     ``hv_temporal_fwd``; an earlier design's is called with the size
-    arguments its entry point takes (:func:`_temporal_sizes_taken`).
-    Returns the records (also printed, one JSON line each)."""
+    arguments its entry point takes (:func:`_temporal_sizes_taken`,
+    :func:`earlier_sizes`). Returns the records (also printed, one JSON
+    line each)."""
     from ..ops import temporal_attention as ta
 
     if not torch.cuda.is_available():
         raise RuntimeError("the variants run on the CUDA card, and none is available")
     dev = torch.device("cuda")
-    texts = _named_sources(names, TEMPORAL_VARIANTS, "temporal_attention.cu", against)
+    table = {**TEMPORAL_VARIANTS, **_long_table(False)}
+    texts = _named_sources(names, table, "temporal_attention.cu", against)
     n_sizes = {n: _temporal_sizes_taken(t) for n, t in texts.items()}
     fns = {}
     for name, lib in _build(texts, "temporal_variant").items():
@@ -1598,30 +1718,44 @@ def run_temporal(names: Sequence[str], iters: int = 5,
     stream = cuda_build.stream_handle(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     records = []
-    for shape_name, b, f, l, c, heads in TEMPORAL_SHAPES:
+    for shape_name, b, f, l, c, heads in TEMPORAL_SHAPES + TEMPORAL_LONG_SHAPES:
+        long = f > ta.ITEM_FRAMES
+        runs = [n for n in fns if n in ("kernel", "against")
+                or (n in LONG_VARIANTS or n in LONG_FWD_VARIANTS) == long]
+        if runs == ["kernel"] and names != ["kernel"]:
+            continue  # none of the named variants differs from the kernel here
         d = c // heads
-        plan = ta.temporal_plan(c, heads)
         q, k, v = (torch.randn((b, f, l, c), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
         out = torch.empty_like(q)
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
         calls = {}
-        for name, fn in fns.items():
-            padded = plan.cols if name == "no_pad" else plan.padded
-            sizes = (b, f, l, heads, d, plan.heads, padded, plan.chunks, d)
-            args = (*ptrs, *sizes[:n_sizes[name]], stream)
-            calls[name] = (lambda fn=fn, args=args, name=name:
+        for name in runs:
+            n = n_sizes[name]
+            if n == 12:
+                sizes = long_variant_sizes(name, q.shape, heads, False)
+            elif name == "against":
+                sizes = earlier_sizes(n, tuple(q.shape), heads, False)
+            else:
+                sizes = ta.launch_sizes(tuple(q.shape), heads)
+                if name == "no_pad":
+                    plan = ta.temporal_plan(c, heads)
+                    sizes = (*sizes[:6], plan.cols, *sizes[7:])
+            calls[name] = (lambda fn=fns[name], args=(*ptrs, *sizes[:n], stream), name=name:
                            cuda_build.check(fn(*args), f"variant {name}"))
         ref = ta.temporal_attention_plain(q, k, v, heads)
         checks = {}
-        for name in fns:
+        for name in runs:
             if name in TEMPORAL_VARIANTS and TEMPORAL_VARIANTS[name][1]:
-                checks[name] = (None, None)
+                checks[name] = (None, None, None)
                 continue
             out.zero_()
             calls[name]()
             torch.cuda.synchronize()
-            checks[name] = _agree(out, ref, TEMPORAL_TOL)
+            ok, rel = _agree(out, ref, TEMPORAL_TOL)
+            first = out.clone()
+            calls[name]()
+            checks[name] = (ok, rel, torch.equal(out, first))
         turns = _turns(calls, 20 * iters)
 
         def split(t):
@@ -1630,14 +1764,20 @@ def run_temporal(names: Sequence[str], iters: int = 5,
         sdpa_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             split(q), split(k), split(v)), 20 * iters)
         bound_ms = 8.0 * q.numel() / 3.35e12 * 1e3
-        for name in fns:
+        for name in runs:
             ms = min(turns[name])
-            ok, rel = checks[name]
+            ok, rel, same = checks[name]
+            plan = None
+            if long and name != "against":
+                p = ta._long_plan(False, c, heads, f, **{**LONG_VARIANTS, **LONG_FWD_VARIANTS}
+                                  .get(name, ((), {}))[1])
+                plan = p._asdict()
             rec = dict(variant=name, shape=f"{shape_name} {(b, f, l, c)} heads={heads}", ms=ms,
                        turns=turns[name], library_ms=sdpa_ms, bound_ms=bound_ms,
                        share_of_bound=bound_ms / ms,
                        ablation=name in TEMPORAL_VARIANTS and TEMPORAL_VARIANTS[name][1],
-                       ok=ok, rel_l2=rel, device=torch.cuda.get_device_name())
+                       ok=ok, rel_l2=rel, same_bits_on_repeat=same, plan=plan,
+                       device=torch.cuda.get_device_name())
             print(json.dumps(rec), flush=True)
             records.append(rec)
         del q, k, v, out, ref
@@ -1648,15 +1788,17 @@ def run_temporal(names: Sequence[str], iters: int = 5,
 def run_temporal_bwd(names: Sequence[str], iters: int = 5,
                      against: Optional[str] = None) -> List[dict]:
     """Kernel B's backward variants at every shape of ``TEMPORAL_BWD_SHAPES``
-    (those of ``TEMPORAL_BWD_VARIANTS``) and of ``TEMPORAL_BWD_LONG_SHAPES``
-    (those of ``FRAMES_BWD_VARIANTS``), ``kernel`` and ``against`` at both:
-    each but the ablations held to ``temporal_attention_backward_plain``
-    (``chip_smoke.py``'s limits per gradient) and to its own bits on a
-    repeat launch, then timed in turns beside SDPA's backward on head-split
-    copies. ``against`` is another source of ``hv_temporal_bwd``; an
-    earlier design's is called with the size arguments its entry point
-    takes (:func:`_temporal_sizes_taken`). Returns the records (also
-    printed, one JSON line each)."""
+    (those of ``TEMPORAL_BWD_VARIANTS``), of ``TEMPORAL_BWD_LONG_SHAPES``
+    (those of ``FRAMES_BWD_VARIANTS``, and ``long_at_frames``) and of
+    ``TEMPORAL_BWD_PAST_SHAPES`` (those of ``LONG_VARIANTS``), ``kernel``
+    and ``against`` at all: each but the ablations held to
+    ``temporal_attention_backward_plain`` (``chip_smoke.py``'s limits per
+    gradient) and to its own bits on a repeat launch, then timed in turns
+    beside SDPA's backward on head-split copies. ``against`` is another
+    source of ``hv_temporal_bwd``; an earlier design's is called with the
+    size arguments its entry point takes (:func:`_temporal_sizes_taken`,
+    :func:`earlier_sizes`). Returns the records (also printed, one JSON
+    line each)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from ..ops import temporal_attention as ta
@@ -1665,10 +1807,11 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
         raise RuntimeError("the variants run on the CUDA card, and none is available")
     dev = torch.device("cuda")
     table = {**TEMPORAL_BWD_VARIANTS,
-             **{n: (v[0], False) for n, v in FRAMES_BWD_VARIANTS.items()}}
+             **{n: (v[0], False) for n, v in FRAMES_BWD_VARIANTS.items()},
+             **_long_table(True), LONG_AT_FRAMES: ((), False)}
     texts = _named_sources(names, table, "temporal_attention_bwd.cu", against)
     n_sizes = {n: _temporal_sizes_taken(t) for n, t in texts.items()}
-    reach = {n: frames_reach(t) if n == "against" else None for n, t in texts.items()}
+    reach = frames_reach(texts["against"]) if "against" in texts else None
     fns = {}
     for name, lib in _build(texts, "temporal_bwd_variant").items():
         fn = fns[name] = lib.hv_temporal_bwd
@@ -1677,11 +1820,23 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
     stream = cuda_build.stream_handle(dev)
     gen = torch.Generator(device=dev).manual_seed(3)
     records = []
-    for shape_name, b, f, l, c, heads in TEMPORAL_BWD_SHAPES + TEMPORAL_BWD_LONG_SHAPES:
-        long = f > ta.ITEM_FRAMES
-        runs = [n for n in fns if n in ("kernel", "against")
-                or (n in FRAMES_BWD_VARIANTS) == long
-                and (not long or f <= FRAMES_BWD_VARIANTS[n][2])]
+    shapes = TEMPORAL_BWD_SHAPES + TEMPORAL_BWD_LONG_SHAPES + TEMPORAL_BWD_PAST_SHAPES
+    for shape_name, b, f, l, c, heads in shapes:
+        frames = ta.ITEM_FRAMES < f <= ta.FRAMES_KERNEL_FRAMES
+        past = f > ta.FRAMES_KERNEL_FRAMES
+
+        def runs_at(n):
+            if n in ("kernel", "against"):
+                return True
+            if n in FRAMES_BWD_VARIANTS:
+                return frames and f <= FRAMES_BWD_VARIANTS[n][2]
+            if n == LONG_AT_FRAMES:
+                return frames
+            if n in LONG_VARIANTS or n in LONG_BWD_VARIANTS:
+                return past
+            return not frames and not past
+
+        runs = [n for n in fns if runs_at(n)]
         if runs == ["kernel"] and names != ["kernel"]:
             continue  # none of the named variants differs from the kernel here
         q, k, v, g = (torch.randn((b, f, l, c), generator=gen, device=dev).to(torch.bfloat16)
@@ -1691,15 +1846,19 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
         calls = {}
         for name in runs:
             n = n_sizes[name]
-            sizes = (frames_variant_sizes(name, q.shape, heads, reach[name]) if n == 11
-                     else ta.launch_sizes(tuple(q.shape), heads))[:n]
-            calls[name] = (lambda fn=fns[name], args=(*ptrs, *sizes, stream), name=name:
+            if name == "against" and n != 12:
+                sizes = earlier_sizes(n, tuple(q.shape), heads, True, reach)
+            elif name in FRAMES_BWD_VARIANTS:
+                sizes = frames_variant_sizes(name, q.shape, heads)
+            else:
+                sizes = long_variant_sizes(name, q.shape, heads, True)
+            calls[name] = (lambda fn=fns[name], args=(*ptrs, *sizes[:n], stream), name=name:
                            cuda_build.check(fn(*args), f"variant {name}"))
         refs = ta.temporal_attention_backward_plain(q, k, v, g, heads)
         checks = {}
         for name in runs:
             if (name in TEMPORAL_BWD_VARIANTS and TEMPORAL_BWD_VARIANTS[name][1]
-                    or name in FRAMES_BWD_ABLATIONS):
+                    or name in FRAMES_BWD_ABLATIONS or name in LONG_BWD_ABLATIONS):
                 checks[name] = (None, None, None)
                 continue
             for t in grads:
@@ -1726,16 +1885,19 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
         for name in runs:
             ms = min(turns[name])
             ok, rel, same = checks[name]
-            plan = (ta.long_backward_plan(c, heads, f,
-                                          **FRAMES_BWD_VARIANTS.get(name, ((), {}, 0))[1])
-                    if long and name != "against" else None)
+            plan = None
+            if name in FRAMES_BWD_VARIANTS or (frames and name == "kernel"):
+                plan = ta.long_backward_plan(
+                    c, heads, f, **FRAMES_BWD_VARIANTS.get(name, ((), {}, 0))[1])._asdict()
+            elif name != "against" and (past or name == LONG_AT_FRAMES):
+                plan = ta._long_plan(True, c, heads, f, **{**LONG_VARIANTS, **LONG_BWD_VARIANTS}
+                                     .get(name, ((), {}))[1])._asdict()
             rec = dict(variant=name, shape=f"{shape_name} {(b, f, l, c)} heads={heads}", ms=ms,
                        turns=turns[name], library_ms=sdpa_ms, bound_ms=bound_ms,
                        share_of_bound=bound_ms / ms,
                        ablation=(name in TEMPORAL_BWD_VARIANTS and TEMPORAL_BWD_VARIANTS[name][1]
-                                 or name in FRAMES_BWD_ABLATIONS),
-                       ok=ok, rel_l2=rel, same_bits_on_repeat=same,
-                       plan=None if plan is None else plan._asdict(),
+                                 or name in FRAMES_BWD_ABLATIONS or name in LONG_BWD_ABLATIONS),
+                       ok=ok, rel_l2=rel, same_bits_on_repeat=same, plan=plan,
                        device=torch.cuda.get_device_name())
             print(json.dumps(rec), flush=True)
             records.append(rec)
@@ -1987,8 +2149,12 @@ def main(argv: Sequence[str] = None) -> int:
                              f"{', '.join(PVT_VARIANTS)}; with --dmajor: "
                              f"{', '.join(DMAJOR_VARIANTS)}; with --hbm: {', '.join(HBM_VARIANTS)}; "
                              f"with --gn: {', '.join(GN_VARIANTS)}; with --temporal: "
-                             f"{', '.join(TEMPORAL_VARIANTS)}; with --temporal-bwd: "
-                             f"{', '.join([*TEMPORAL_BWD_VARIANTS, *FRAMES_BWD_VARIANTS])}; "
+                             f"{', '.join([*TEMPORAL_VARIANTS, *LONG_VARIANTS])}, "
+                             f"{', '.join(LONG_FWD_VARIANTS)}; with "
+                             f"--temporal-bwd: "
+                             f"{', '.join([*TEMPORAL_BWD_VARIANTS, *FRAMES_BWD_VARIANTS])}, "
+                             f"{', '.join([*LONG_VARIANTS, *LONG_BWD_VARIANTS])}, "
+                             f"{LONG_AT_FRAMES}; "
                              f"with --xwide: {', '.join(XWIDE_VARIANTS)}; with --mid: "
                              f"{', '.join(MID_VARIANTS)}; with --mid-bwd: "
                              f"{', '.join(MID_BWD_VARIANTS)}")
@@ -2017,9 +2183,11 @@ def main(argv: Sequence[str] = None) -> int:
     args = parser.parse_args(argv)
     modes = {"bwd": (BWD_VARIANTS, run_bwd), "pvt": (PVT_VARIANTS, run_pvt),
              "dmajor": (DMAJOR_VARIANTS, run_dmajor), "hbm": (HBM_VARIANTS, run_hbm),
-             "gn": (GN_VARIANTS, run_gn), "temporal": (TEMPORAL_VARIANTS, run_temporal),
-             "temporal_bwd": ({**TEMPORAL_BWD_VARIANTS, **FRAMES_BWD_VARIANTS},
-                              run_temporal_bwd),
+             "gn": (GN_VARIANTS, run_gn),
+             "temporal": ({**TEMPORAL_VARIANTS, **LONG_VARIANTS, **LONG_FWD_VARIANTS},
+                          run_temporal),
+             "temporal_bwd": ({**TEMPORAL_BWD_VARIANTS, **FRAMES_BWD_VARIANTS, **LONG_VARIANTS,
+                               **LONG_BWD_VARIANTS, LONG_AT_FRAMES: None}, run_temporal_bwd),
              "xwide": (XWIDE_VARIANTS, run_xwide), "mid": (MID_VARIANTS, run_mid),
              "mid_bwd": (MID_BWD_VARIANTS, run_mid_bwd)}
     mode_name = next((m for m in modes if getattr(args, m)), None)

@@ -1195,6 +1195,70 @@ def test_flash_mid_backward_matches_plain(d, with_bias):
         assert all(torch.equal(x, y) for x, y in zip(grads, computed))
 
 
+# the long kernels' redesign: d = 8, 40, 160, 256 and 1280 (resident items
+# up to 160 columns where they fit the ring, streamed panels past that)
+LONG_PAST = [(f, c, heads) for f in (33, 48, 100, 136, 200, 256)
+             for c, heads in ((32, 4), (320, 8), (640, 4), (1280, 5), (1280, 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,c,heads", LONG_PAST,
+                         ids=[f"f{f}-d{c // h}" for f, c, h in LONG_PAST])
+def test_temporal_long_redesign_matches_plain(f, c, heads):
+    """Kernel B's long forward past 32 frames and its long backward past
+    the frames kernel's reach, at a ragged L: every head against the plain
+    version on its own, each sample alone the same bits, a repeat the same
+    bits (no atomics), the launch keys, and for the backward an Inf in one
+    head's columns at some positions reaching no other head or position
+    (the backward's gradients held head by head, as the forward)."""
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    dev = _card()
+    b, l = 2, 7
+    d = c // heads
+    q, k, v, g = (_randn((b, f, l, c), 120 + s, dev) for s in range(4))
+    before = dict(ta.launches)
+    out = ta.temporal_attention_cuda(q, k, v, heads)
+    ref = ta.temporal_attention_plain(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert ta.launches["temporal_long"] == before["temporal_long"] + 1
+    assert ta.launches["temporal"] == before["temporal"]
+    for h in range(heads):
+        cols = slice(h * d, (h + 1) * d)
+        _assert_close(out[..., cols], ref[..., cols], TEMPORAL_TOL)
+    assert torch.equal(out, ta.temporal_attention_cuda(q, k, v, heads))
+    for i in range(b):
+        alone = ta.temporal_attention_cuda(*(t[i:i + 1].contiguous() for t in (q, k, v)), heads)
+        assert torch.equal(out[i:i + 1], alone)
+    if f <= ta.FRAMES_KERNEL_FRAMES:
+        return
+    before = dict(ta.launches)
+    grads = ta.temporal_attention_backward_cuda(q, k, v, g, heads)
+    refs = ta.temporal_attention_backward_plain(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    assert ta.launches["temporal_bwd_long"] == before["temporal_bwd_long"] + 1
+    assert ta.launches["temporal_bwd_frames"] == before["temporal_bwd_frames"]
+    for got, want in zip(grads, refs):
+        for h in range(heads):
+            cols = slice(h * d, (h + 1) * d)
+            _assert_close(got[..., cols], want[..., cols], TEMPORAL_BWD_TOL)
+    again = ta.temporal_attention_backward_cuda(q, k, v, g, heads)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))  # no atomics
+    for i in range(b):
+        alone = ta.temporal_attention_backward_cuda(
+            *(t[i:i + 1].contiguous() for t in (q, k, v, g)), heads)
+        assert all(torch.equal(x[i:i + 1], y) for x, y in zip(grads, alone))
+    hot = heads // 2
+    hot_in = [t.clone() for t in (q, k, v, g)]
+    for t in hot_in:
+        t[:, :, 1::3, hot * d:(hot + 1) * d] = float("inf")
+    hit = torch.zeros((b, f, l, c), dtype=torch.bool, device=dev)
+    hit[:, :, 1::3, hot * d:(hot + 1) * d] = True
+    for want, got in zip(grads, ta.temporal_attention_backward_cuda(*hot_in, heads)):
+        assert torch.isfinite(got[~hit]).all()
+        assert torch.equal(got[~hit], want[~hit])
+
+
 FRAMES_LONG = [(f, c, heads) for f in (33, 48, 64, 96, 97, 100, 112, 128, 129)
                for c, heads in ((320, 8), (640, 8), (1280, 8), (1280, 5), (1280, 1))]
 

@@ -277,9 +277,9 @@ def test_temporal_width_raises_past_1280(d):
 
 
 def test_launch_sizes_raise_past_32_frames():
-    """33 frames no longer raise: they take the long kernels' plan (one head
-    an item in 64-column pieces, tiles 72 wide)."""
-    assert ta.launch_sizes((1, 33, 8, 256), 1) == (1, 33, 8, 1, 256, 1, 72, 4, 256)
+    """33 frames no longer raise: they take the long forward's plan (a head
+    of 256 streamed in two 128-column chunks, tiles 136 wide)."""
+    assert ta.launch_sizes((1, 33, 8, 256), 1) == (1, 33, 8, 1, 256, 1, 136, 2, 256)
 
 
 # ---- the slice at other head counts --------------------------------------------

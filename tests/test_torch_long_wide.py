@@ -5,9 +5,10 @@ frames and kernel A past 512 columns, against the JAX package.
   frames than ``max_len``, as the JAX block does; with the table it still
   raises there (the JAX block fails to broadcast). fp32, atol 1e-5.
 - Kernel B's autograd Function (on CPU tensors: the plain versions) at
-  f = 33, 48, 64, 100 and 128, forward and gradients, against the JAX Pallas kernel
-  and its vjp in TPU interpret mode. atol 1e-5: both sides compute in fp32
-  and differ by summation order only (observed near 1e-6).
+  f = 33, 48, 64, 100, 128, 136 and 200, forward and gradients, against the
+  JAX Pallas kernel and its vjp in TPU interpret mode. atol 1e-5: both
+  sides compute in fp32 and differ by summation order only (observed near
+  1e-6).
 - Kernel A's ``flash_attention_packed`` at d = 520 and 640, and between
   128 and 512 at d = 192 and 320 (the mid kernels' two widths on the
   long_wide and heads64 paths) and 256 and 448 (the mid backward's other
@@ -28,7 +29,11 @@ frames and kernel A past 512 columns, against the JAX package.
   at most 160 columns where two stages fit, else one head in chunks), the
   long kernel past 128 frames; shared memory reckoned as
   ``csrc/temporal_attention_bwd.cu`` lays it out, its constants read from
-  that source.
+  that source. The long kernels' plans (``long_fwd_plan`` past 32 frames,
+  ``long_bwd_plan`` past 128): at every d that is a multiple of 8 up to
+  1280 and f up to 1024, resident items of whole heads or one head
+  streamed in panels and chunks, within a block's shared memory as both
+  sources reckon it; the boundaries at 32/33 and 128/129.
 - The slice: the tiny config with one spatial head and a 40-frame motion
   and camera table, pose2vid over 40 frames in one window (2 DDIM steps,
   batched CFG) and one stage-2 loss and its gradients, through the port and
@@ -123,9 +128,11 @@ def test_motion_module_with_position_table_raises_past_it():
 @pytest.mark.parametrize("b,f,l,c,heads", [
     (1, 33, 5, 64, 2),     # one frame past the item kernels, d = 32
     (1, 48, 4, 160, 4),    # the long path's 48 frames, d = 40 (the motion modules' level 0)
-    (1, 64, 3, 256, 1),    # 64 frames, d = 256 (four 64-column pieces)
+    (1, 64, 3, 256, 1),    # 64 frames, d = 256
     (1, 100, 2, 160, 4),   # the 100-frame step's frame count, d = 40
     (1, 128, 2, 128, 1),   # the frames kernel's reach, d = 128
+    (1, 136, 2, 64, 2),    # past it: the 136-frame step's frame count, d = 32
+    (1, 200, 1, 48, 3),    # 200 frames (four 64-frame panels when streamed), d = 16
 ])
 def test_temporal_attention_past_32_frames_matches_jax(b, f, l, c, heads):
     q, k, v, g = (_rand((b, f, l, c), s) for s in range(4))
@@ -262,12 +269,14 @@ def test_xwide_smem_reckons_as_the_kernels_header():
 
 
 @pytest.mark.parametrize("shape,heads,sizes", [
-    # past 32 frames: one head an item in 64-column pieces, tiles 72 wide
-    ((1, 33, 8, 256), 1, (1, 33, 8, 1, 256, 1, 72, 4, 256)),
-    ((1, 48, 6144, 320), 8, (1, 48, 6144, 8, 40, 1, 72, 1, 40)),   # level 0 of the long path
-    ((1, 48, 1792, 640), 8, (1, 48, 1792, 8, 80, 1, 72, 2, 80)),
-    ((1, 96, 96, 1280), 8, (1, 96, 96, 8, 160, 1, 72, 3, 160)),
-    ((1, 64, 9, 1280), 1, (1, 64, 9, 1, 1280, 1, 72, 20, 1280)),
+    # past 32 frames: the long forward's plan, whole heads of at most 160
+    # columns where their ring fits (all frames a stage), else one head in
+    # chunks of at most 160 columns of 64-frame panels
+    ((1, 33, 8, 256), 1, (1, 33, 8, 1, 256, 1, 136, 2, 256)),
+    ((1, 48, 6144, 320), 8, (1, 48, 6144, 8, 40, 4, 168, 1, 40)),   # level 0 of the long path
+    ((1, 48, 1792, 640), 8, (1, 48, 1792, 8, 80, 2, 168, 1, 80)),
+    ((1, 96, 96, 1280), 8, (1, 96, 96, 8, 160, 1, 168, 1, 160)),
+    ((1, 64, 9, 1280), 1, (1, 64, 9, 1, 1280, 1, 168, 8, 1280)),
     # up to 32 frames: the item kernels' plans as before
     ((1, 32, 8, 256), 1, (1, 32, 8, 1, 256, 1, 136, 2, 256)),
     ((1, 24, 7168, 320), 8, (1, 24, 7168, 8, 40, 4, 168, 1, 40)),
@@ -278,6 +287,13 @@ def test_launch_sizes_past_32_frames_and_below(shape, heads, sizes):
     assert ta.launch_sizes(shape, heads) == sizes
     plan = ta.temporal_plan(shape[-1], heads, shape[1])
     assert (plan.heads, plan.padded, plan.chunks) == sizes[5:8]
+    tail = ta.forward_launch_sizes(shape, heads)[9:]
+    if shape[1] <= ta.ITEM_FRAMES:
+        assert tail == (ta.MODE_ITEMS, 0, 0)
+    else:
+        p = ta.long_fwd_plan(shape[-1], heads, shape[1])
+        assert tail == (p.mode, p.stages, p.smem)
+        assert p.mode == (ta.MODE_RESIDENT if sizes[7] == 1 else ta.MODE_STREAMED)
 
 
 @pytest.mark.parametrize("f,c,heads,plan", [
@@ -306,22 +322,27 @@ def test_long_backward_plan_at_named_frame_counts(f, c, heads, plan):
     assert ta.long_backward_plan(c, heads, f) == plan
     assert ta.backward_launch_sizes((1, f, 7, c), heads) == (
         1, f, 7, heads, c // heads, plan.heads, plan.padded, plan.chunks, c // heads,
-        plan.stages, plan.smem)
+        ta.MODE_FRAMES, plan.stages, plan.smem)
 
 
 @pytest.mark.parametrize("f", [32, 97, 100, 128, 129, 256])
 def test_long_backward_plan_boundaries(f):
-    """Up to 32 frames the item kernels' plan and past 128 the long kernel's
-    pieces, both with zeros for the ring's stages and bytes: the frames
-    kernel takes 33 to 128."""
+    """Up to 32 frames the item kernels' plan with zeros for the mode, the
+    ring's stages and bytes; the frames kernel from 33 to 128; past 128
+    the long backward's plan (``long_bwd_plan``)."""
     assert ta.FRAMES_KERNEL_FRAMES == 128
     plan = ta.long_backward_plan(320, 8, f)
     sizes = ta.backward_launch_sizes((1, f, 7, 320), 8)
     if ta.ITEM_FRAMES < f <= ta.FRAMES_KERNEL_FRAMES:
-        assert plan is not None and sizes[-2:] == (plan.stages, plan.smem)
+        assert plan is not None and sizes[-3:] == (ta.MODE_FRAMES, plan.stages, plan.smem)
+        assert ta.long_bwd_plan(320, 8, f) is None
+    elif f <= ta.ITEM_FRAMES:
+        assert plan is None and sizes == (*ta.launch_sizes((1, f, 7, 320), 8), 0, 0, 0)
     else:
         assert plan is None
-        assert sizes == (*ta.launch_sizes((1, f, 7, 320), 8), 0, 0)
+        p = ta.long_bwd_plan(320, 8, f)
+        assert sizes == (1, f, 7, 8, 40, p.heads, p.padded, p.chunks, 40, p.mode, p.stages,
+                         p.smem)
     assert ta.long_backward_plan(320, 8, 33) is not None
     assert ta.long_backward_plan(320, 8, ta.FRAMES_KERNEL_FRAMES) is not None
 
@@ -372,6 +393,150 @@ def test_long_backward_smem_reckons_as_the_kernels_source():
         128 + (4 * 4 * 5568 + 2560 + 3 * 2 * 48 * 56) * 2 + 64
     # 64 frames: one group
     assert ta.long_backward_smem(64, 136, 3) == 128 + (3 * 4 * 8704 + 0 + 1 * 2 * 64 * 72) * 2 + 48
+
+
+# ---- the long kernels' plans (the forward past 32 frames, the backward past 128) --
+
+def _check_long_plan(p, c, heads, f, backward):
+    d = c // heads
+    assert 1 <= p.stages <= ta.LONG_MAX_STAGES
+    assert p.padded >= p.cols + 8 and (p.padded // 8) % 2 == 1 and p.padded <= 256
+    if p.mode == ta.MODE_RESIDENT:
+        assert p.chunks == 1 and heads % p.heads == 0 and p.cols == p.heads * d
+        assert p.cols <= ta.CHUNK_COLUMNS and -(-f // 16) * 16 <= ta.LONG_BOX_FRAMES
+    else:
+        assert p.mode == ta.MODE_STREAMED and p.heads == 1 and p.cols % 8 == 0
+        assert p.cols <= (ta.LONG_CHUNK if backward else ta.LONG_FWD_CHUNK)
+        assert (p.chunks - 1) * p.cols < d <= p.chunks * p.cols
+    smem = ta._long_smem(backward, p.mode, f, d, p.heads, p.cols, p.padded, p.stages)
+    assert p.smem == smem <= ta.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_long_plans_of_every_width_fit_one_block(backward):
+    """At every d that is a multiple of 8 up to 1280 (one head, the widest
+    item) and every f from 33 (forward) or 129 (backward) up to 1024: a
+    plan whose ring and staging fit a block's shared memory, chunks that
+    cover the head with none empty; and at the motion modules' and the
+    heads64 config's head counts the whole-head items divide the heads."""
+    plan = ta.long_bwd_plan if backward else ta.long_fwd_plan
+    first = ta.FRAMES_KERNEL_FRAMES + 1 if backward else ta.ITEM_FRAMES + 1
+    for d in range(8, ta.MAX_HEAD_DIM + 1, 8):
+        for f in list(range(first, 300)) + list(range(300, 1025, 29)) + [1024]:
+            _check_long_plan(plan(d, 1, f), d, 1, f, backward)
+    for c, heads in ((320, 8), (640, 8), (1280, 8), (1280, 5), (320, 5), (640, 5), (64, 8)):
+        for f in range(first, 1025, 7):
+            _check_long_plan(plan(c, heads, f), c, heads, f, backward)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("f,c,heads,mode,per,stages", [
+    # the long_wide path's level 0: 4 heads an item, two stages in half an
+    # SM's memory (the forward: two blocks an SM)
+    (48, 320, 8, ta.MODE_RESIDENT, 4, 2),
+    (136, 320, 8, ta.MODE_RESIDENT, None, 2),  # the 136-frame step's level 0
+    (256, 320, 8, ta.MODE_RESIDENT, None, None),
+    (256, 1280, 8, ta.MODE_STREAMED, 1, None),  # d = 160 at 256 frames: panels (and chunks)
+    (136, 1280, 1, ta.MODE_STREAMED, 1, None),  # d = 1280: chunks of 160 (64 backward)
+])
+def test_long_plans_at_named_shapes(backward, f, c, heads, mode, per, stages):
+    plan = ta.long_bwd_plan if backward else ta.long_fwd_plan
+    if backward and f <= ta.FRAMES_KERNEL_FRAMES:
+        assert plan(c, heads, f) is None
+        return
+    p = plan(c, heads, f)
+    assert p.mode == mode
+    assert per is None or p.heads == per
+    assert stages is None or p.stages == stages
+    if mode == ta.MODE_STREAMED:
+        d = c // heads
+        chunk = ta.LONG_CHUNK if backward else ta.LONG_FWD_CHUNK
+        assert p.chunks == -(-d // chunk) and p.cols == (-(-d // p.chunks) + 7) // 8 * 8
+    # the streamed mode where the resident one fits (the variants' ablation)
+    s = ta._long_plan(backward, c, heads, f, streamed=True)
+    assert s.mode == ta.MODE_STREAMED and s.heads == 1
+
+
+@pytest.mark.parametrize("f", [32, 33])
+def test_long_forward_boundary(f):
+    """32 frames take the item kernels (mode 0, no ring), 33 the long
+    forward; ``long_fwd_plan`` raises at or below 32."""
+    sizes = ta.forward_launch_sizes((1, f, 7, 320), 8)
+    assert sizes[:9] == ta.launch_sizes((1, f, 7, 320), 8)
+    if f <= ta.ITEM_FRAMES:
+        assert sizes[9:] == (ta.MODE_ITEMS, 0, 0)
+        with pytest.raises(ValueError):
+            ta.long_fwd_plan(320, 8, f)
+    else:
+        p = ta.long_fwd_plan(320, 8, f)
+        assert sizes[9:] == (p.mode, p.stages, p.smem) and p.mode == ta.MODE_RESIDENT
+
+
+def test_long_smem_reckons_as_the_kernels_sources():
+    """The wrappers' constants and their reckoning of the long kernels'
+    shared memory are those of csrc/temporal_attention.cu and
+    csrc/temporal_attention_bwd.cu (which check the bytes passed to them
+    against their own on the card)."""
+    import re
+
+    from humanvid_tpu_torch.ops import cuda_build
+
+    for name, backward in (("temporal_attention.cu", False), ("temporal_attention_bwd.cu", True)):
+        text = (cuda_build.CSRC / name).read_text()
+
+        def const(key):
+            return int(re.search(rf"constexpr int {key} = (\d+);", text).group(1))
+
+        assert const("kLongConsumers") == ta.LONG_CONSUMERS and const("kPanel") == ta.LONG_PANEL
+        assert const("kLongChunk") == (ta.LONG_CHUNK if backward else ta.LONG_FWD_CHUNK)
+        assert const("kLongMaxStages") == ta.LONG_MAX_STAGES
+        assert "if (bytes != smem || bytes > 232448)" in text and ta.SMEM_LIMIT == 232448
+        assert "(F + 15) / 16 * 16 > 256" in text and ta.LONG_BOX_FRAMES == 256
+        assert ("constexpr int kModeItems = 0, kModeResident = 2, kModeStreamed = 3;" in text
+                or "constexpr int kModeItems = 0, kModeFrames = 1, kModeResident = 2, "
+                   "kModeStreamed = 3;" in text)
+        if backward:
+            assert const("kSlab") == ta.LONG_SLAB
+            assert ("return 128 + (size_t)stages * 4 * rows * cwp * 2 + (size_t)kLongConsumers * 2 "
+                    "* 16 * ow * 2 +\n         (size_t)words * 4 + (size_t)pds * 2 + "
+                    "(size_t)stages * 16;") in text
+            assert ("const int words = STREAMED ? 2 * 3 * NP * kPanel : stages * per * (PANELS ? "
+                    "6 : 3) * FP;") in text
+            assert "const int pds = PANELS ? 2 * FP * kPanelLd : 0;" in text
+            assert const("kPanelWidth") == ta.LONG_PANEL_WIDTH
+            assert 16 * const("kPanelTiles") + 8 == ta.LONG_PANEL_LD
+            assert 16 * const("kHeldTiles") * const("kLongConsumers") == ta.LONG_HELD_FRAMES
+            assert ("if (d <= kPanelWidth && (F + 15) / 16 <= kHeldTiles * kLongConsumers)"
+                    in text)
+            assert "const int ow = STREAMED ? CW : min(kSlab, d);" in text
+        else:
+            assert ("return 128 + (size_t)stages * 3 * rows * cwp * 2 + "
+                    "(size_t)kLongConsumers * 16 * ow * 2 +\n         (size_t)stages * 16;") in text
+            assert "const int ow = STREAMED ? CW : d;" in text
+        assert "const int rows = STREAMED ? kPanel : (F + 15) / 16 * 16;" in text or \
+            "const int rows = STREAMED ? kPanel : FP;" in text
+    assert (ta.MODE_ITEMS, ta.MODE_FRAMES, ta.MODE_RESIDENT, ta.MODE_STREAMED) == (0, 1, 2, 3)
+    # 48 frames, 4 heads of 40 (168 wide), 2 stages: 3 tiles of 48 x 168, eight
+    # 16 x 40 staging tiles, 4 barriers, 128 bytes of alignment: half an SM
+    assert ta.long_fwd_smem(48, 168, 40, 2) == 128 + 2 * 3 * 48 * 168 * 2 + 8 * 16 * 40 * 2 + 32
+    assert ta.long_fwd_plan(320, 8, 48).smem == ta.long_fwd_smem(48, 168, 40, 2)
+    assert ta.long_fwd_smem(48, 168, 40, 2) <= ta.TWO_BLOCK_SMEM < ta.long_fwd_smem(48, 168, 40, 3)
+    # 136 frames, one head of 40 (56 wide), 2 stages: 4 tiles of 144 x 56,
+    # two 16 x 40 staging tiles a warp, the two halves' words of 144 rows a
+    # stage, P and dS of a 64-key panel (144 x 72 each)
+    assert ta.long_bwd_smem(144, 56, 40, 2, 2 * 6 * 144, 2 * 144 * 72) == \
+        128 + 2 * 4 * 144 * 56 * 2 + 8 * 2 * 16 * 40 * 2 + 2 * 6 * 144 * 4 + 2 * 144 * 72 * 2 + 32
+    assert ta.long_bwd_plan(320, 8, 136).smem == \
+        ta.long_bwd_smem(144, 56, 40, 2, 2 * 6 * 144, 2 * 144 * 72)
+    # past 64 columns: the words once, no panel (d = 80 at 136 frames)
+    p = ta.long_bwd_plan(640, 8, 136)
+    assert p.smem == ta.long_bwd_smem(144, p.padded, 64, p.stages, p.stages * p.heads * 3 * 144)
+    # streamed: 64-frame panels, d = 160 in 3 chunks of 56 (72 wide), the
+    # item's words twice
+    assert ta.long_bwd_plan(1280, 8, 256).smem == ta.long_bwd_smem(64, 72, 56, 4, 2 * 3 * 256)
+    assert ta.long_bwd_panels(136, 40) and not ta.long_bwd_panels(136, 80)
+    # the forward's: d = 256 in two chunks of 128 (136 wide)
+    assert ta.long_fwd_plan(1280, 5, 96).smem == ta.long_fwd_smem(64, 136, 128, 3)
 
 
 def test_mid_plan_of_every_width_and_the_c_side():

@@ -287,7 +287,8 @@ def test_frames_bwd_variants_apply_and_fit_one_block(name):
         if f > most:
             continue
         sizes = flash_variants.frames_variant_sizes(name, (b, f, l, c), heads)
-        assert len(sizes) == 11 and 2 <= sizes[9] and sizes[10] <= ta.SMEM_LIMIT
+        assert len(sizes) == 12 and sizes[9] == ta.MODE_FRAMES
+        assert 2 <= sizes[10] and sizes[11] <= ta.SMEM_LIMIT
         assert sizes[:5] == (b, f, l, heads, c // heads)
 
 
@@ -368,8 +369,10 @@ def test_mid_bwd_mode_raises_without_a_card(monkeypatch):
 
 def test_frames_reach_of_a_source():
     """An earlier backward source's frames-kernel reach (16 x its
-    kFramesTiles, 32 before it had one), and the long kernel's sizes past
-    it."""
+    kFramesTiles, 32 before it had one), and the sizes its entry point of
+    11 ints takes: the frames kernel's up to it, the earlier long
+    kernel's pieces past it; an earlier forward's 9 ints past 32 frames the same
+    pieces."""
     from humanvid_tpu_torch.ops import temporal_attention as ta
 
     text = (cuda_build.CSRC / "temporal_attention_bwd.cu").read_text()
@@ -377,10 +380,54 @@ def test_frames_reach_of_a_source():
     assert flash_variants.frames_reach(text.replace("kFramesTiles = 8;", "kFramesTiles = 6;")) == 96
     assert flash_variants.frames_reach("int main() {}") == 32
     shape = (1, 100, 7, 320)
-    assert flash_variants.frames_variant_sizes("kernel", shape, 8, 96) == (
-        *ta.launch_sizes(shape, 8), 0, 0)
-    assert flash_variants.frames_variant_sizes("kernel", shape, 8, 128) == \
-        ta.backward_launch_sizes(shape, 8)
+    pieces = (1, 100, 7, 8, 40, 1, 72, 1, 40)
+    assert flash_variants.earlier_sizes(11, shape, 8, True, 96) == (*pieces, 0, 0)
+    new = ta.backward_launch_sizes(shape, 8)
+    assert flash_variants.earlier_sizes(11, shape, 8, True, 128) == (*new[:9], *new[10:])
+    assert flash_variants.earlier_sizes(9, shape, 8, False) == pieces
+    assert flash_variants.earlier_sizes(9, (1, 24, 7, 320), 8, False) == \
+        ta.launch_sizes((1, 24, 7, 320), 8)
+    assert flash_variants.frames_variant_sizes("kernel", shape, 8) == new
+
+
+@pytest.mark.parametrize("name", sorted(flash_variants.LONG_VARIANTS))
+def test_long_variants_apply_and_fit_one_block(name):
+    """The long kernels' variants: each edit found exactly once in both
+    sources, and the plan each runs fits a block at every shape past 32
+    (forward) or 128 (backward) frames the tool times it at; the entry
+    points' twelve size ints."""
+    from humanvid_tpu_torch.ops import temporal_attention as ta
+
+    edits, overrides = flash_variants.LONG_VARIANTS[name]
+    for source in ("temporal_attention.cu", "temporal_attention_bwd.cu"):
+        text = flash_variants.variant_source(name, {name: (edits, False)}, source)
+        assert (text == (cuda_build.CSRC / source).read_text()) == (not edits)
+    for backward, shapes in ((False, flash_variants.TEMPORAL_LONG_SHAPES),
+                             (True, flash_variants.TEMPORAL_BWD_PAST_SHAPES)):
+        for _, b, f, l, c, heads in shapes:
+            sizes = flash_variants.long_variant_sizes(name, (b, f, l, c), heads, backward)
+            assert len(sizes) == 12 and sizes[:5] == (b, f, l, heads, c // heads)
+            assert sizes[9] in (ta.MODE_RESIDENT, ta.MODE_STREAMED)
+            assert 1 <= sizes[10] and sizes[11] <= ta.SMEM_LIMIT
+            if overrides.get("streamed"):
+                assert sizes[9] == ta.MODE_STREAMED
+    # each direction's own, and the backward's long kernel at the frames
+    # kernel's shapes
+    for table, source, shapes, backward in (
+            (flash_variants.LONG_BWD_VARIANTS, "temporal_attention_bwd.cu",
+             flash_variants.TEMPORAL_BWD_PAST_SHAPES, True),
+            (flash_variants.LONG_FWD_VARIANTS, "temporal_attention.cu",
+             flash_variants.TEMPORAL_LONG_SHAPES, False)):
+        for name, (edits, overrides) in table.items():
+            text = flash_variants.variant_source(name, {name: (edits, False)}, source)
+            assert text != (cuda_build.CSRC / source).read_text()
+            for _, b, f, l, c, heads in shapes:
+                sizes = flash_variants.long_variant_sizes(name, (b, f, l, c), heads, backward)
+                assert sizes[11] <= ta.SMEM_LIMIT
+    for _, b, f, l, c, heads in flash_variants.TEMPORAL_BWD_LONG_SHAPES:
+        sizes = flash_variants.long_variant_sizes(flash_variants.LONG_AT_FRAMES, (b, f, l, c),
+                                                  heads, True)
+        assert sizes[9] in (ta.MODE_RESIDENT, ta.MODE_STREAMED) and sizes[11] <= ta.SMEM_LIMIT
 
 
 def test_xwide_mode_raises_without_a_card(monkeypatch):
