@@ -115,8 +115,8 @@ The training command lines add:
   checkpoint writes and the peak memory. A resume at step 2 for one more
   step: the step counter, masters and moments equal to the files bit for
   bit before it, step 3's files after it. Stage 1 at full width (bs 8,
-  896x512, grad checkpointing on, 2 steps) and its ~19 GiB final save,
-  timed and then deleted.
+  896x512, grad checkpointing on, 2 steps) and its final save, gathered
+  but not written (the ~19 GiB it would write, counted).
 
 The evaluation command lines add:
 
@@ -145,7 +145,7 @@ The data-preparation path adds:
   seeded POSE_CLIPS clips, 1080x1920 and 1920x1080, decoding and encoding
   through the port's native libav core where it builds there, else serving
   ``read_frames``, ``get_fps`` and ``save_video`` from memory (it says
-  which); then its ``--smplx`` branch on a 48-frame ``.npz``. Checks a
+  which); then its ``--smplx`` branch on a POSE_SMPLX_FRAMES-frame ``.npz``. Checks a
   canvas a frame with drawn limbs, a person in every frame, and no
   hand-written kernel launched (the path has none: its networks are plain
   PyTorch on cuDNN and cuBLAS); prints the seconds a frame of detection,
@@ -160,18 +160,20 @@ a rank that fails fails the phase):
 - dp_train: ``cli.train_stage_1``'s setup and loop for stage 2 at full
   width (896x512x24f, grad checkpointing, ``shard_optimizer_states``, 1 clip
   a rank, the train_cli phase's clips from memory, each sample's crop
-  generator seeded alike): world 1 on NCCL at global batch 2, then world 2
-  on gloo with both ranks on the one card (NCCL refuses two ranks on one
-  device): ZeRO-1, a save at step 2 and a resume from it. Checks the
-  ranks' masters the same bits after each update, the gathered moments
-  within DP_MOMENT_TOL of the one-rank run's, the resumed state equal to
-  the files bit for bit, kernels A, B and C (forward and backward)
-  launched; prints per rank s/step, the all-reduce's seconds and bytes a
-  step and the peak memory;
+  generator seeded alike): world 1 on NCCL at global batch 2 (DP_STEPS
+  steps), then world 2 on gloo with both ranks on the one card (NCCL
+  refuses two ranks on one device): ZeRO-1, DP_SAVE_STEP steps, its save
+  and a resume from it to DP_STEPS. Checks the ranks' masters the same
+  bits after each update, the gathered moments after the resume within
+  DP_MOMENT_TOL of the one-rank run's, the resumed state equal to the
+  files bit for bit, kernels A, B and C (forward and backward) launched;
+  prints per rank s/step, the all-reduce's seconds and bytes a step and
+  the peak memory;
 - fanout: ``Pose2VideoPipeline`` with a mesh at full width, 768x512x48f
   (3 windows x CFG = 6 rows) over 2 gloo ranks sharing the card, the
-  ranks' latents the same bits and near the one-process batched run;
-  then ``tools.bench_configs`` at its four op-points (3 steps, one run).
+  ranks' latents the same bits and near the one-process batched run
+  (FANOUT_STEPS DDIM steps); then ``tools.bench_configs`` at its four
+  op-points (BENCH_STEPS steps, one run).
 
 ``python3 chip_smoke.py --long-wide-steps TREE`` times the long_wide path
 alone with the port of the checkout at TREE (its own kernels, built into
@@ -183,20 +185,22 @@ Every head width the JAX kernels take adds (after the probes, and
 
 - head widths: kernel A's forward and backward at d = 64 and 128 (the
   heads of 5-head configs, at the main path's and the stage-2 step's
-  shapes, with the batched-CFG and CFG-dropout biases), d = 96, through
-  the zero pad at d = 36 (to 40), and d = 192 (the mid kernels: the
-  forward and, at a level-1 size, the backward at the head's own width),
-  ragged with the bias; kernel B's forward and backward at d = 64, 128 and 256 (the 5-head
-  motion modules) and at d = 320, 640 and 1280 (column chunks) and 36
-  (padded), at f = 24 and one frame; each held to its plain version with
+  shapes, with the batched-CFG and CFG-dropout biases), d = 96 and 112
+  (the own-width kernels' other boxes; d = 96 at a level-1 size both
+  ways), through the zero pad at d = 36 (to 40), and d = 192 (the mid
+  kernels: the forward and, at a level-1 size, the backward at the head's
+  own width), ragged with the bias; kernel B's forward and backward at d =
+  64, 128 and 256 (the 5-head motion modules) and at d = 320, 640 and 1280
+  (column chunks) and 36 (padded), at f = 24 and one frame; each held to its plain version with
   the same bits on a repeat launch, timed beside its bound and SDPA; kernel
   A's head isolation at d = 64, 128, 36 and 192 too;
 - heads64: ``heads64_config()`` (5 heads wherever the default has 8) at
   full width: pose2vid at 768x512x24f with HEADS64_STEPS DDIM steps,
   sequential and batched CFG, then one uncond stage-2 step at 896x512x24f;
   checks finite outputs, launches of kernel A at d = 64 and 128 (forward;
-  backward in the step) and of kernel B at d = 64, 128 and 256, printed by
-  head width, and no plain attention on CUDA tensors but the
+  backward in the step), every one in the own-width configurations
+  (printed by width and configuration), and of kernel B at d = 64, 128
+  and 256, printed by head width, and no plain attention on CUDA tensors but the
   short-sequence route (Lq < 1024) that the JAX package also takes.
 
 The last shapes the JAX kernels take add (after the head widths, and
@@ -450,7 +454,7 @@ def phase_flash(torch, results, dev, cases):
         width = fa.flash_plan(d).width
         kernel = _flash_kernel(width)
         hidden_exact = None
-        if bias_rows and kernel == "flash_fwd_mid":
+        if bias_rows and kernel in ("flash_fwd_mid", "flash_fwd_own"):
             # the keys the bias hides add exactly nothing: other values there
             # give the same bits
             v2 = v.clone()
@@ -482,13 +486,16 @@ def phase_flash(torch, results, dev, cases):
         share = None if lib is None else ms / lib  # < 1: faster than SDPA
         extra = {}
         if kernel in ("flash_fwd_xwide", "flash_fwd_mid"):
-            # its device time beside the event time, its plan
-            key = kernel + "_kernel"
+            # its device time beside the event time, its plan; a case but the
+            # headline whose sessions all miss the kernel keeps the events'
+            headline = _is_headline(results, kernel, name)
             plan = fa.xwide_plan(width) if kernel == "flash_fwd_xwide" else fa.mid_plan(width)
-            extra = dict(event_ms=ms, device_ms=_profile_split(
-                torch, lambda: fa.flash_attention_cuda(q, k, v, heads, bias), (key,))[key],
-                plan=plan._asdict())
-            ok = ok and extra["device_ms"] > 0
+            dev_ms, source = _device_ms(
+                torch, lambda: fa.flash_attention_cuda(q, k, v, heads, bias), kernel + "_kernel",
+                ms, headline)
+            extra = dict(event_ms=ms, device_ms=dev_ms, device_ms_from=source,
+                         plan=plan._asdict())
+            ok = ok and (source == "profiler" or not headline)
         if hidden_exact is not None:
             extra["hidden_keys_exact"] = hidden_exact
         print(f"  {name}: B={B} Lq={lq} Lk={lk} heads={heads} d={d}"
@@ -498,12 +505,12 @@ def phase_flash(torch, results, dev, cases):
               + (f"hidden keys add nothing={hidden_exact} " if hidden_exact is not None else "")
               + f"ms={ms:.3f} "
               + (f"device_ms={extra['device_ms']:.3f} plan={tuple(extra['plan'].values())} "
-                 if extra else "")
+                 if "device_ms" in extra else "")
               + f"plain_ms={plain_ms:.3f} "
               f"library_ms={lib} sdpa_share={share if share is None else round(share, 3)} "
               f"bound_ms={b_ms:.3f} ({b_by}) TFLOP/s={flops / ms / 1e9:.1f} "
               f"{'ok' if ok else 'FAIL'}")
-        results.append(dict(kernel=kernel, shape=name,
+        results.append(dict(kernel=kernel, shape=name, config=fa.flash_plan(d).forward,
                             d=d, kernel_d=width, max_abs_err=err, rel_l2=rel, ms=ms,
                             plain_ms=plain_ms, library_ms=lib, sdpa_share=share, bound_ms=b_ms,
                             bound_by=b_by, ok=ok, **extra))
@@ -514,6 +521,10 @@ def phase_flash(torch, results, dev, cases):
 def _flash_kernel(width):
     """Kernel A's forward kernel (the name of its row) for heads run
     ``width`` wide."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
+
+    if fa.is_own(width):
+        return "flash_fwd_own"
     if width <= 128:
         return "flash_fwd"
     if width < 512:
@@ -885,7 +896,8 @@ def phase_flash_bwd(torch, results, dev, cases):
             extra["plan"] = mid_plan._asdict()
         results.append(dict(kernel=("flash_bwd_xwide" if xwide else "flash_bwd_mid" if mid
                                     else "flash_bwd_d512") if wide
-                            else "flash_bwd", shape=name,
+                            else "flash_bwd_own" if fa.is_own(width) else "flash_bwd",
+                            shape=name, config=fa.flash_plan(d).backward,
                             d=d, kernel_d=width, max_abs_err=err, rel_l2=rel, ms=ms, dkv_ms=split["dkv"],
                             dq_ms=split["dq"], plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
                             bound_by=b_by, ok=ok, **extra))
@@ -1025,9 +1037,10 @@ HEADLINES = {"flash_bwd_mid": MID_BWD_HEADLINE}
 def head_width_cases():
     """Kernel A's forward at the widths 5-head configs give (d = 64 at
     level 0 and 128 at level 1 of the 768x512 main path, with the batched
-    CFG bias), d = 96 (8-column boxes, depth padded to 128), d = 36
-    through the zero pad to 40, and d = 192 (the mid kernel); ragged cases
-    with the bias: (name, B, Lq, Lk, heads, d, bias rows)."""
+    CFG bias), d = 96 and 112 (the own-width kernel's 32- and 16-column
+    boxes), d = 36 through the zero pad to 40, and d = 192 (the mid
+    kernel); ragged cases with the bias: (name, B, Lq, Lk, heads, d, bias
+    rows)."""
     return [
         ("heads64 level0 cond (ref KV) d64", 24, 6144, 12288, 5, 64, 0),
         ("heads64 level0 batched CFG bias d64", 48, 6144, 12288, 5, 64, 24),
@@ -1036,6 +1049,7 @@ def head_width_cases():
         ("ragged d128 with the bias", 2, 300, 700, 5, 128, 1),
         ("ragged d96 with the bias", 2, 300, 700, 4, 96, 1),
         ("level1-size d96", 24, 1536, 3072, 4, 96, 0),
+        ("ragged d112 with the bias", 2, 300, 700, 4, 112, 1),
         ("pad d36 to 40, ragged with the bias", 2, 300, 700, 5, 36, 1),
         ("pad d36 to 40, level0-size", 24, 6144, 12288, 5, 36, 0),
         ("d192 (mid kernel), ragged with the bias", 2, 300, 700, 2, 192, 1),
@@ -1046,9 +1060,9 @@ def head_width_cases():
 def head_width_bwd_cases():
     """Kernel A's backward at the heads64 stage-2 shapes (896x512x24f:
     level 0 d = 64 with and without the CFG-dropout bias, level 1 d = 128),
-    ragged with the bias at d = 128, 96, 36 (padded to 40) and 192 (the mid
-    backward), and d = 192 at a level-1 size: (name, B, Lq, Lk, heads, d,
-    bias rows)."""
+    ragged with the bias at d = 128, 96, 112, 36 (padded to 40) and 192 (the
+    mid backward), and d = 96 and 192 at a level-1 size: (name, B, Lq, Lk,
+    heads, d, bias rows)."""
     return [
         ("heads64 level0 cond (ref KV) d64", 24, 7168, 14336, 5, 64, 0),
         ("heads64 level0 uncond (CFG dropout bias) d64", 24, 7168, 14336, 5, 64, 24),
@@ -1056,6 +1070,8 @@ def head_width_bwd_cases():
         ("heads64 level1 cond (ref KV) d128", 24, 1792, 3584, 5, 128, 0),
         ("ragged d128 with the bias", 2, 300, 700, 5, 128, 1),
         ("ragged d96 with the bias", 2, 300, 700, 4, 96, 1),
+        ("level1-size d96", 24, 1792, 3584, 4, 96, 0),
+        ("ragged d112 with the bias", 2, 300, 700, 4, 112, 1),
         ("pad d36 to 40, ragged with the bias", 2, 300, 700, 5, 36, 1),
         ("d192 (mid backward), ragged with the bias", 2, 300, 700, 2, 192, 1),
         ("d192 (mid backward), level1-size", 8, 1792, 3584, 5, 192, 0),
@@ -1160,7 +1176,8 @@ def _plain_attention_calls():
 def _launches_by_width():
     """Kernel A's and B's launches since the last reset, forward and
     backward, by the caller's head width (and kernel B's by frame count);
-    kernel A's that ran through the zero pad to 512, by the same width."""
+    kernel A's that ran through the zero pad to 512, by the same width, and
+    kernel A's by width and configuration."""
     from humanvid_tpu_torch.ops import flash_attention as fa
     from humanvid_tpu_torch.ops import temporal_attention as ta
 
@@ -1172,7 +1189,24 @@ def _launches_by_width():
             "temporal forward_launches_by_d": dict(sorted(ta.forward_launches_by_d.items())),
             "temporal backward_launches_by_d": dict(sorted(ta.backward_launches_by_d.items())),
             "temporal forward_launches_by_f": dict(sorted(ta.forward_launches_by_f.items())),
-            "temporal backward_launches_by_f": dict(sorted(ta.backward_launches_by_f.items()))}
+            "temporal backward_launches_by_f": dict(sorted(ta.backward_launches_by_f.items())),
+            "flash forward_launches_by_config":
+                {f"{d} {c}": n for (d, c), n in sorted(fa.forward_launches_by_config.items())},
+            "flash backward_launches_by_config":
+                {f"{d} {c}": n for (d, c), n in sorted(fa.backward_launches_by_config.items())}}
+
+
+def _own_launches_only(direction):
+    """Whether kernel A's launches at d = 64 and 128 since the last reset
+    (forward or backward) all ran in the own-width configurations, and
+    some did at each width."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
+
+    counts = (fa.forward_launches_by_config if direction == "forward"
+              else fa.backward_launches_by_config)
+    prefix = "Own<" if direction == "forward" else "DkvOwn<"
+    return all(any(w == d for w, _ in counts) for d in (64, 128)) and all(
+        c.startswith(prefix) for (w, c) in counts if w in (64, 128))
 
 
 def phase_heads64(torch, np, dev, card):
@@ -1183,6 +1217,7 @@ def phase_heads64(torch, np, dev, card):
     stage-2 step at 896x512x24f, bs 1, grad checkpointing, forced uncond
     (the CFG-dropout bias in kernel A's backward). Checks finite outputs,
     kernel A's launches at d = 64 and 128 (forward; backward in the step),
+    every one of them in the own-width configurations,
     kernel B's at 64, 128 and 256 (forward and backward), and no plain
     attention on CUDA tensors but the short-sequence route. Returns (ok,
     {run: launches})."""
@@ -1213,6 +1248,7 @@ def phase_heads64(torch, np, dev, card):
         run_ok = (v.shape == (1, F, H, W, 3) and bool(np.isfinite(v).all())
                   and float(v.min()) >= 0.0 and float(v.max()) <= 1.0
                   and all(by_d["flash forward_launches_by_d"].get(d, 0) > 0 for d in (64, 128))
+                  and _own_launches_only("forward")
                   and all(by_d["temporal forward_launches_by_d"].get(d, 0) > 0
                           for d in (64, 128, 256))
                   and plain["kernel fallbacks"] == 0 and plain["long sequences"] == 0)
@@ -1249,6 +1285,7 @@ def phase_heads64(torch, np, dev, card):
         bool(torch.isfinite(m).all()) for m in state.masters)
     step_ok = (finite
                and all(by_d["flash backward_launches_by_d"].get(d, 0) > 0 for d in (64, 128))
+               and _own_launches_only("forward") and _own_launches_only("backward")
                and all(by_d[f"temporal {k}_launches_by_d"].get(d, 0) > 0
                        for k in ("forward", "backward") for d in (64, 128, 256))
                and plain["kernel fallbacks"] == 0 and plain["long sequences"] == 0)
@@ -2051,8 +2088,9 @@ def _launch_counts():
     paths, the wide-head backward, the five of the last shapes (kernel A
     past 512 columns; kernel B past 32 frames: the long forward, the
     backward's frames kernel up to 128 frames and its long kernel past
-    that), kernel A's mid forward and backward (128 < d < 512) and the three
-    probe kernels."""
+    that), kernel A's mid forward and backward (128 < d < 512), its forward
+    and backward at the head's own width (d = 64 and 80 < d <= 128; also
+    counted in kernel A's d <= 128 counts) and the three probe kernels."""
     from humanvid_tpu_torch.ops import flash_attention as fa
     from humanvid_tpu_torch.ops import group_norm as gn
     from humanvid_tpu_torch.ops import temporal_attention as ta
@@ -2070,6 +2108,8 @@ def _launch_counts():
             "temporal_bwd_frames": ta.launches["temporal_bwd_frames"],
             "temporal_bwd_long": ta.launches["temporal_bwd_long"],
             "flash_fwd_mid": fa.launches["128<d<512"],
+            "flash_fwd_own": fa.launches["own"],
+            "flash_bwd_own": min(fa.launches["bwd_dkv_own"], fa.launches["bwd_dq_own"]),
             "flash_bwd_mid": min(fa.launches["bwd_dkv_128<d<512"],
                                  fa.launches["bwd_dq_128<d<512"]),
             **pk.launches}
@@ -2755,8 +2795,11 @@ def phase_train_cli(torch, np, dev, card):
        before its step the state holds step 2 and the saved masters and
        moments bit for bit; it takes one step and writes step 3's files;
     3. stage 1 at full width (stage1.yaml's bs 8 at 896x512, with grad
-       checkpointing on), 2 steps and its final save (the ~20 GB of fp32
-       masters and moments: its seconds and size), then the directory goes.
+       checkpointing on), 2 steps and its final save, whose files are not
+       written (`_unwritten_saves`: the ~19 GiB of fp32 masters and moments
+       took ~27 s to write; stage 2 writes the same kind of files): the
+       seconds to gather it and the bytes it would write, then the
+       directory goes.
 
     Returns (ok, {"train_cli": stage-2 launches, "train_cli_stage1": ...})."""
     import os
@@ -2858,7 +2901,7 @@ def phase_train_cli(torch, np, dev, card):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _reset_launches()
-            with _device_step_times(torch, drv) as pairs:
+            with _device_step_times(torch, drv) as pairs, _unwritten_saves() as would:
                 out = drv.train(run)
             torch.cuda.synchronize()
             device_s = _seconds(pairs)
@@ -2880,13 +2923,45 @@ def phase_train_cli(torch, np, dev, card):
                   f"{[round(x, 3) for x in out['step_seconds']]} s, device time a step "
                   f"{[round(x, 3) for x in device_s]} s, data waits "
                   f"{[round(x, 3) for x in out['data_seconds']]} s, peak memory {peak:.2f} GiB; "
-                  f"final save "
-                  f"{save['seconds']:.1f} s, {save['bytes'] / 2**30:.2f} GiB (deleted)")
+                  f"final save gathered in {save['seconds']:.1f} s, its files not written "
+                  f"({sum(would) / 2**30:.2f} GiB of tensors in {len(would)} files)")
             print(f"[train_cli] stage 1 logged {out['logged']}; launches "
                   f"{launches['train_cli_stage1']} {'ok' if s1_ok else 'FAIL'}")
         finally:
             datasets.read_frames = real_read
     return ok, launches
+
+
+@contextlib.contextmanager
+def _unwritten_saves():
+    """``train.checkpoint.save_checkpoint`` writes an empty file in place
+    of each checkpoint while the block runs; yields the list of the bytes
+    of tensors each would have held."""
+    from humanvid_tpu_torch.train import checkpoint as ckpt
+
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        if isinstance(tree, (list, tuple)):
+            return sum(nbytes(v) for v in tree)
+        return tree.numel() * tree.element_size() if hasattr(tree, "element_size") else 0
+
+    real, would = ckpt.save_checkpoint, []
+
+    def unwritten(save_dir, prefix, tree, step, total_limit=None):
+        import os
+
+        would.append(nbytes(tree))
+        os.makedirs(save_dir, exist_ok=True)
+        path = os.path.join(save_dir, f"{prefix}-{step}.pt")
+        open(path, "wb").close()
+        return path
+
+    ckpt.save_checkpoint = unwritten
+    try:
+        yield would
+    finally:
+        ckpt.save_checkpoint = real
 
 
 def _holds_saved(torch, state, save_dir, step):
@@ -2910,15 +2985,18 @@ def _holds_saved(torch, state, save_dir, step):
 
 
 DP_STEPS = 3               # global steps of the dp_train phase's runs (batch 2)
+DP_SAVE_STEP = 2           # the world-2 run's steps and save, where its resume starts
 FANOUT_SIZE = (48, 768, 512)  # frames, height, width: 3 windows of 24, overlap 4
-FANOUT_STEPS = 3           # DDIM steps of the fanout phase (the sampler runs 30)
+FANOUT_STEPS = 2           # DDIM steps of the fanout phase (the sampler runs 30)
+BENCH_STEPS = 1            # DDIM steps of its bench_configs runs (the op-points run 20 or 30)
 RANK_TIMEOUT = 600         # seconds a torchrun launch of the dp phases may take
 # Largest relative L2 distance of the 2-rank run's gathered moments from the
 # one-rank run's over the same global batch. The ranks' bf16 forward and
 # backward at batch 1 round where the one-rank run's at batch 2 round
 # elsewhere, which moves the moments by bf16 noise: 2.2e-3 (mu) and 5.7e-3
-# (nu) on an H100. The limit is 3.5 times the larger; a wrong reduction (the
-# sum for the mean: 100%) or wrong rows (other clips: ~100%) lands far above.
+# (nu) on an H100 at step 3. The limit is 3.5 times the larger; a wrong
+# reduction (the sum for the mean: 100%) or wrong rows (other clips: ~100%)
+# lands far above.
 DP_MOMENT_TOL = 0.02
 DP_KERNELS = ("flash_fwd", "flash_bwd", "temporal_fwd", "temporal_bwd", "group_norm")
 
@@ -3019,7 +3097,7 @@ def _dp_train_worker(spec):
     if spec.get("resume_config"):
         drv.train_step = real
         run = drv.setup(2, ["--config", spec["resume_config"]] + argv)
-        rec["resume_held"] = _holds_saved_dp(torch, dist, run.state, save_dir, 2)
+        rec["resume_held"] = _holds_saved_dp(torch, dist, run.state, save_dir, DP_SAVE_STEP)
         out = drv.train(run)
         rec["resume_logged"] = out["logged"]
         rec["resume_digest"] = _digest(torch, run.state.masters)
@@ -3057,22 +3135,23 @@ def phase_dp_train(torch, np, card):
     setup and loop under ``torch.distributed.run``, on the train_cli
     phase's seeded clips (served from memory; each sample's crop generator
     seeded alike), 896x512x24f, grad checkpointing, 1 clip a rank,
-    ``shard_optimizer_states: true``:
+    ``shard_optimizer_states: true``, one launch after the other:
 
     1. world 1 on NCCL, global batch 2 (the one-rank run of leg 2's
        batches), DP_STEPS steps, the final save;
     2. world 2 on gloo, the two ranks sharing the card (NCCL refuses two
-       ranks on one device), global batch 2, DP_STEPS steps, ZeRO-1 over
-       the 2 ranks, a save at step 2 and the final save; then a resume from
-       step 2 for one step.
+       ranks on one device), global batch 2, DP_SAVE_STEP steps, ZeRO-1
+       over the 2 ranks, its final save; then a resume from that save up to
+       DP_STEPS.
 
     Checks: finite losses and masters; the two ranks' masters the same bits
-    after each update; leg 2's gathered moments within DP_MOMENT_TOL of leg
-    1's (and how many leaves are the same bits); the resumed state equal to
-    the step-2 files bit for bit; kernels A, A bwd, B, B bwd and C
-    launched. Prints, per rank, s/step, the all-reduce's seconds and bytes
-    a step and the peak memory. Returns (ok, launches summed over every
-    rank of both legs)."""
+    after each update, the resumed ones too; leg 2's gathered moments
+    after the resume within DP_MOMENT_TOL of leg 1's at DP_STEPS (and how
+    many leaves are the same bits); the resumed state
+    equal to the step-DP_SAVE_STEP files bit for bit; kernels A, A bwd, B,
+    B bwd and C launched. Prints, per rank, s/step, the all-reduce's
+    seconds and bytes a step and the peak memory. Returns (ok, launches
+    summed over every rank of both legs)."""
     import os
     import tempfile
 
@@ -3082,27 +3161,30 @@ def phase_dp_train(torch, np, card):
         out = os.path.join(root, "records")
         os.makedirs(out)
         _, meta2, _ = _train_cli_data(np, root, write=False)
+        data = dict(train_bs=2, train_size_small=512, train_size_large=896, horizontal_meta=[],
+                    vertical_meta=[meta2], sample_rate=4, n_sample_frames=24, num_workers=2)
         legs = {}
         for leg, world, backend in (("world1_nccl", 1, "nccl"), ("world2_gloo", 2, "gloo")):
-            # leg 1 saves once, at the end (the moments leg 2 is held to)
-            over = dict(max_train_steps=DP_STEPS, checkpointing_steps=2 if world == 2 else 5000,
-                        data=dict(train_bs=2, train_size_small=512, train_size_large=896,
-                                  horizontal_meta=[], vertical_meta=[meta2], sample_rate=4,
-                                  n_sample_frames=24, num_workers=2))
+            # leg 1 saves once, at its end (the moments leg 2's resume is
+            # held to); leg 2 ends with its save at DP_SAVE_STEP
+            over = dict(max_train_steps=DP_STEPS if world == 1 else DP_SAVE_STEP,
+                        checkpointing_steps=5000, data=data)
             spec = dict(root=root, out=out, leg=leg, backend=backend,
                         config=_train_cli_config(root, leg, 2, meta2, exp_name=leg, **over))
             if world == 2:
                 spec["resume_config"] = _train_cli_config(
                     root, leg + "_resume", 2, meta2, exp_name=leg + "_resume",
-                    resume_from_checkpoint=os.path.join(root, "out", leg), resume_step=2,
-                    **over)
+                    resume_from_checkpoint=os.path.join(root, "out", leg),
+                    resume_step=DP_SAVE_STEP, **dict(over, max_train_steps=DP_STEPS))
             spec_path = os.path.join(root, f"{leg}.json")
             with open(spec_path, "w") as f:
                 json.dump(spec, f)
             t0 = time.perf_counter()
             ran = _torchrun("dp_train", world, spec_path)
             print(f"[dp_train] {leg}: {world} rank(s) in {time.perf_counter() - t0:.1f} s "
-                  f"(torchrun, setup, {DP_STEPS} steps, saves{', resume' if world == 2 else ''})")
+                  f"(torchrun, setup, "
+                  f"{DP_STEPS if world == 1 else DP_SAVE_STEP} steps, saves"
+                  f"{', resume to step %d' % DP_STEPS if world == 2 else ''})")
             recs = []
             for r in range(world):
                 path = os.path.join(out, f"{leg}-rank{r}.json")
@@ -3133,34 +3215,29 @@ def phase_dp_train(torch, np, card):
             same = two[0]["digests"] == two[1]["digests"]
             same_resume = two[0]["resume_digest"] == two[1]["resume_digest"]
             held = all(r["resume_held"] for r in two)
-            ok = ok and same and same_resume and held and len(two[0]["digests"]) == DP_STEPS
+            ok = (ok and same and same_resume and held
+                  and len(two[0]["digests"]) == DP_SAVE_STEP)
             print(f"[dp_train] world 2: the ranks' masters the same bits after each of "
-                  f"{len(two[0]['digests'])} updates {same}, after the resumed step "
-                  f"{same_resume}; the resumed state equal to the step-2 files bit for bit "
-                  f"{held}; resumed run logged {two[0]['resume_logged']}")
-        one_dir = os.path.join(root, "out", "world1_nccl")
-        two_dir = os.path.join(root, "out", "world2_gloo")
+                  f"{len(two[0]['digests'])} updates {same}, after the resumed steps "
+                  f"{same_resume}; the resumed state equal to the step-{DP_SAVE_STEP} files bit "
+                  f"for bit {held}; resumed run logged {two[0]['resume_logged']}")
         if ok:
-            def load(path):
-                return torch.load(os.path.join(path, f"opt_state-{DP_STEPS}.pt"),
+            def load(leg, step):
+                return torch.load(os.path.join(root, "out", leg, f"opt_state-{step}.pt"),
                                   map_location="cpu", weights_only=True)
 
-            a, b = load(one_dir), load(two_dir)
-            resumed = load(os.path.join(root, "out", "world2_gloo_resume"))
+            a, b = load("world1_nccl", DP_STEPS), load("world2_gloo_resume", DP_STEPS)
             for key in ("mu", "nu"):
                 names = sorted(a[key])
                 x = torch.cat([a[key][n].flatten().float() for n in names])
                 y = torch.cat([b[key][n].flatten().float() for n in names])
                 dist = ((y - x).norm() / x.norm()).item()
                 bits = sum(torch.equal(a[key][n], b[key][n]) for n in names)
-                res = sum(torch.equal(resumed[key][n], b[key][n]) for n in names)
                 good = dist <= DP_MOMENT_TOL and b["step"] == a["step"] == DP_STEPS
                 ok = ok and good
-                print(f"[dp_train] {key}: world 2 (ZeRO-1, gathered) against world 1 at step "
-                      f"{DP_STEPS}: relative L2 {dist:.3e} (limit {DP_MOMENT_TOL}), "
-                      f"{bits}/{len(names)} leaves the same bits; the resumed run's "
-                      f"{res}/{len(names)} the same bits as the unbroken one's "
-                      f"{'ok' if good else 'FAIL'}")
+                print(f"[dp_train] {key}: world 2 (ZeRO-1, gathered, resumed) against world 1 "
+                      f"at step {DP_STEPS}: relative L2 {dist:.3e} (limit {DP_MOMENT_TOL}), "
+                      f"{bits}/{len(names)} leaves the same bits {'ok' if good else 'FAIL'}")
     launched = all(total.get(k, 0) > 0 for k in DP_KERNELS)
     ok = ok and launched
     print(f"[dp_train] launches over every rank {total} {'ok' if ok else 'FAIL'}")
@@ -3213,7 +3290,7 @@ def phase_fanout(torch, np, dev, card):
     twice the distance two one-process batchings land apart (batched CFG
     against sequential CFG, same weights and initial latents) plus 1e-3,
     relative L2, of the one-process batched run; kernels A, B and C
-    launched. Then ``tools.bench_configs`` at every op-point, FANOUT_STEPS
+    launched. Then ``tools.bench_configs`` at every op-point, BENCH_STEPS
     steps, one run: every line finite. Returns (ok, launches summed over
     the ranks)."""
     import os
@@ -3221,7 +3298,6 @@ def phase_fanout(torch, np, dev, card):
 
     from humanvid_tpu_torch.pipelines import CamAnimate, CamAnimateConfig, Pose2VideoPipeline
 
-    ok = True
     total = {}
     with tempfile.TemporaryDirectory(prefix="hv_fanout_") as root:
         spec_path = os.path.join(root, "spec.json")
@@ -3284,7 +3360,7 @@ def phase_fanout(torch, np, dev, card):
 
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "humanvid_tpu_torch.tools.bench_configs",
-                          "c1", "c2", "c4h", "c4v", "--steps", str(FANOUT_STEPS), "--runs", "1"],
+                          "c1", "c2", "c4h", "c4v", "--steps", str(BENCH_STEPS), "--runs", "1"],
                          capture_output=True, text=True, timeout=RANK_TIMEOUT,
                          cwd=os.path.dirname(os.path.abspath(__file__)))
     lines = [json.loads(x) for x in res.stdout.splitlines() if x.startswith("{")]
@@ -3643,8 +3719,8 @@ def phase_eval(torch, np, dev, card):
     return ok, launches
 
 
-POSE_CLIPS = {"landscape.mp4": (48, 1080, 1920), "portrait.mp4": (48, 1920, 1080)}
-POSE_SMPLX_FRAMES = 48
+POSE_CLIPS = {"landscape.mp4": (24, 1080, 1920), "portrait.mp4": (24, 1920, 1080)}
+POSE_SMPLX_FRAMES = 24
 # The card against the CPU, both in IEEE fp32 (only the order of sums
 # differs): boxes in pixels; SimCC logits relative to the largest CPU logit;
 # the share of a canvas's pixels that may differ, each on a stroke's edge
@@ -3893,14 +3969,17 @@ def kernel_line(results, launches):
     the probe kernels, which no model path runs: the microbench run; the
     last shapes' kernels and the mid forward: long_wide's sequential
     pose2vid and its stage-2 steps, the 100-frame one for the long
-    backward); ``launches_by_path`` has every run's counts."""
+    backward; kernel A at the head's own width: heads64's sequential
+    pose2vid and its stage-2 step); ``launches_by_path`` has every run's
+    counts, and kernel A's rows the configurations their cases ran in."""
     paths = {"flash_bwd": "train", "temporal_bwd": "train", "flash_bwd_d512": "microbench",
              "probe_dmajor": "microbench", "probe_pvt": "microbench",
              "probe_hbm": "microbench", "flash_fwd_xwide": "long_wide_sequential",
              "temporal_fwd_long": "long_wide_sequential", "flash_bwd_xwide": "long_wide_train",
              "temporal_bwd_frames": "long_wide_train",
              "temporal_bwd_long": "long_frames_past_train",
-             "flash_fwd_mid": "long_wide_sequential", "flash_bwd_mid": "long_wide_train"}
+             "flash_fwd_mid": "long_wide_sequential", "flash_bwd_mid": "long_wide_train",
+             "flash_fwd_own": "heads64_sequential", "flash_bwd_own": "heads64_train"}
     replaces = {
         "flash_fwd": ("humanvid_tpu/ops/flash_attention.py:172", FLASH_SRC),
         "flash_fwd_d512": ("humanvid_tpu/ops/flash_attention.py:96", FLASH_SRC),
@@ -3927,6 +4006,10 @@ def kernel_line(results, launches):
         "flash_fwd_mid": ("humanvid_tpu/ops/flash_attention.py:96", FLASH_SRC),
         # _dkv_kernel (:354) and _dq_kernel (:537) at the same widths
         "flash_bwd_mid": ("humanvid_tpu/ops/flash_attention.py:354", MID_BWD_SRC),
+        # _fwd_kernel_t, _dkv_kernel_t and _dq_kernel_t at d = 64 and 80 < d <=
+        # 128, at the head's own width
+        "flash_fwd_own": ("humanvid_tpu/ops/flash_attention.py:172", FLASH_SRC),
+        "flash_bwd_own": ("humanvid_tpu/ops/flash_attention.py:415", FLASH_BWD_SRC),
     }
     kernels = []
     for name, (rep, src) in replaces.items():
@@ -3935,7 +4018,7 @@ def kernel_line(results, launches):
         head = next(r for r in rows if r["shape"] == HEADLINES.get(name, rows[0]["shape"]))
         path = paths.get(name, "pose2vid")
         extra = {}
-        if name == "flash_bwd":
+        if name in ("flash_bwd", "flash_bwd_own"):
             extra = dict(also_replaces="humanvid_tpu/ops/flash_attention.py:479",
                          dkv_ms=head["dkv_ms"], dq_ms=head["dq_ms"])
         elif name == "flash_bwd_d512":
@@ -3971,6 +4054,8 @@ def kernel_line(results, launches):
         # time through the wrapper (kernel A's rows and kernel 9's)
         ms_from = head.get("device_ms_from", "profiler") if name in DEVICE_MS_KERNELS \
             else "events"
+        if "config" in head:  # kernel A: the configurations its cases ran in
+            extra["configs"] = sorted({r["config"] for r in rows})
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep, path=path, ms_from=ms_from,
             **extra,

@@ -26,7 +26,8 @@
 // pack): the consumer warps' instruction issue comes first. At d = 80 the
 // K/V loads (16-byte TMA boxes, below) come first.
 //
-// Design (FlashAttention-3's shape, without its ping-pong scheduling).
+// Design (FlashAttention-3's shape; its ping-pong scheduling in the
+// own-width kernel at d = 128 only, below).
 // A block is 1 producer warpgroup and NC consumer warpgroups that run
 // `wgmma`; the producer's first warp keeps TMA loads of K, V and the
 // per-key bias in flight into a ring of stages (full/empty mbarrier
@@ -47,7 +48,8 @@
 // the same bits.
 //
 // Tiles and layouts, per head width:
-//   d <= 80 (Cfg<48, 40> for d <= 40, Cfg<80, 80> up to 80): 3 consumer
+//   d <= 80 but 64 (Cfg<48, 40> for d <= 40, Cfg<80, 80> for 48, 56, 72
+//     and 80): 3 consumer
 //     warpgroups own 64 query rows each (BQ = 192) and share each 128-key
 //     tile (BK = 128); 3 stages; 160 registers a consumer thread, 24 in the
 //     producer. Every tile uses the no-swizzle layout: TMA boxes of 8
@@ -75,19 +77,8 @@
 //     row; MN-major V: LBO = rows*128 between 64-column atoms, SBO = 1024
 //     between 8-key atoms). Shared memory: Q 64 KB + 2 x (K 32 + V 32) KB =
 //     192 KB (193.3 KB with the bias, barriers and alignment) of 227 KB.
-//   80 < d <= 128 (Cfg128): FlashAttention-3's d = 128 point. At d = 128
-//     the d <= 80 shape does not fit: Q of 192 rows is 48 KB and 3 stages of
-//     K and V 192 KB. So 2 consumer warpgroups own 64 query rows each (BQ =
-//     128) and share 128-key tiles, 2 stages: Q 32 KB + 2 x (K 32 + V 32)
-//     KB = 160 KB (162 KB with the bias, barriers and alignment); 240
-//     registers a consumer thread (S and O 64 each, P 32). At d = 128 a
-//     head is two whole 64-column rows, so the 128-byte swizzle with
-//     64-column boxes never reads the next head's columns (unlike at 40 and
-//     80): Cfg128<true> takes the d = 512 path's layouts (K-major Q and K,
-//     MN-major V, the 16-key step of PV 2048 bytes). Widths 88..120 keep
-//     8-column boxes, QK^T's depth padded to 128 by zeroed slabs as d = 40
-//     pads to 48 (Cfg128<false>); PV's N is 128, the columns past d are not
-//     stored.
+//   d = 64 and 80 < d <= 128: `flash_fwd_own_kernel`, at the head's own
+//     width (below).
 // TMA maps are 3-D (C, L, B), so a ragged last tile reads zeros, never the
 // next batch row's keys or queries. They are encoded on the host for each
 // call (`make_map` in hopper.cuh: cuTensorMapEncodeTiled through the
@@ -152,37 +143,6 @@ struct Cfg {
   static constexpr int OFF_BIAS = OFF_V + STAGES * V_BYTES;
   static constexpr int OFF_BAR = OFF_BIAS + STAGES * BK * 4;
   static constexpr int SMEM = OFF_BAR + (3 * STAGES + 1) * 8 + 1024;  // + alignment
-  static_assert(Q_BYTES % 1024 == 0 && K_BYTES % 1024 == 0 && V_BYTES % 1024 == 0, "");
-  static_assert(SMEM <= 232448, "shared memory");
-};
-
-// 80 < d <= 128: 2 consumer warpgroups of 64 query rows over 128-key tiles
-// in 2 stages; SWZ at d = 128 (the header).
-template <bool SWZ_>
-struct Cfg128 {
-  static constexpr int DQK = 128;
-  static constexpr int DV = 128;
-  static constexpr bool WIDE = false;
-  static constexpr bool SWZ = SWZ_;
-  static constexpr int NC = 2;
-  static constexpr int THREADS = 128 * (NC + 1);
-  static constexpr int PRODUCER_REGS = 24;
-  static constexpr int CONSUMER_REGS = 240;
-  static_assert(128 * (PRODUCER_REGS + NC * CONSUMER_REGS) <= 65536, "registers");
-  static constexpr int BQ = 64 * NC;
-  static constexpr int BK = 128;
-  static constexpr int STAGES = 2;
-  static constexpr int DVT = DV;
-  static constexpr int CW = SWZ ? 64 : 8;
-  static constexpr uint32_t LAYOUT = SWZ ? kSwizzle128B : kNoSwizzle;
-  static constexpr int Q_BYTES = BQ * DQK * 2;
-  static constexpr int K_BYTES = BK * DQK * 2;
-  static constexpr int V_BYTES = BK * DVT * 2;
-  static constexpr int OFF_K = Q_BYTES;
-  static constexpr int OFF_V = OFF_K + STAGES * K_BYTES;
-  static constexpr int OFF_BIAS = OFF_V + STAGES * V_BYTES;
-  static constexpr int OFF_BAR = OFF_BIAS + STAGES * BK * 4;
-  static constexpr int SMEM = OFF_BAR + (3 * STAGES + 1) * 8 + 1024;
   static_assert(Q_BYTES % 1024 == 0 && K_BYTES % 1024 == 0 && V_BYTES % 1024 == 0, "");
   static_assert(SMEM <= 232448, "shared memory");
 };
@@ -1154,11 +1114,509 @@ int launch_mid(const void* q, const void* k, const void* v, const void* bias, vo
   return (int)cudaGetLastError();
 }
 
+// ---- d = 64 and 80 < d <= 128: the forward at the head's own width ---------
+//
+// The d <= 80 tiles padded a 64-wide head's QK^T depth and PV's N to 80
+// (25% more products), and 88 <= d < 128 to 128 (33% more at d = 96), on
+// 8-column boxes without swizzle. Here the products run over W = d rounded
+// up to 16 (64, 96, 112, 128; 88, 104 and 120 run in the next one's tiles,
+// QK^T's depth padded by zeroed slabs, PV's columns past d not stored), and
+// each head arrives in the widest TMA box that divides d: 64 columns in the
+// 128-byte swizzle at 64 and 128, 32 in the 64-byte swizzle at 96, 16 in
+// the 32-byte swizzle at 112, 8 without swizzle at 88, 104 and 120. The box
+// divides d, so no box reads the next head's columns or past C. A tile is
+// [W / CW boxes][rows][CW]; Q and K K-major (SBO = 8 rows of the box, a
+// 16-deep step 32 bytes into a swizzled row or the next box), V MN-major
+// (LBO between boxes, SBO between 8-key atoms).
+// Tiles (FlashAttention-3's points):
+//   W = 64, 96: 3 consumer warpgroups of 64 query rows (BQ = 192) on
+//     128-key tiles, 160 registers a consumer thread; 4 stages at 64 (Q 24
+//     KB + 4 x (K 16 + V 16) KB), 3 at 96 (Q 36 + 3 x 48 KB).
+//   W = 112: 2 consumer warpgroups (BQ = 128), 240 registers, 3 stages (Q
+//     28 + 3 x 56 KB).
+//   W = 128: 2 consumer warpgroups (BQ = 128), 3 stages (Q 32 + 3 x 64 KB
+//     = 224 KB of 227), FA3's intra-warpgroup overlap (S of tile n issued
+//     before PV of tile n - 1, the softmax of tile n under PV's product) and
+//     its ping-pong: the two warpgroups issue their products in turns on two
+//     named barriers, so that one warpgroup's softmax runs under the other's
+//     products.
+// What bounds it on the H100 (`flash_variants --own`): at d = 64 the
+// consumers' instruction issue, as at d <= 80 (one more FMA and bias word a
+// logit cost the level-0 call about 30%); at d = 128 the K and V loads from L2
+// (each 128-row block reads its head's whole K and V, 128 flops a byte):
+// two stages instead of three took 1.5x as long (K released apart from V,
+// V loaded a tile behind K, gained nothing measurable and spilled the
+// producer's 24 registers).
+// A key tile whose bias hides every key (<= -1e9, or past Lk) is neither
+// loaded nor multiplied and takes no stage of the ring, in a batch row that
+// sees some key: the mid kernel's rule and ring (each stage's words name
+// its first key, a last stage names none), the same bits as computing it.
+// The softmax and stores are flash_fwd_kernel's; a tile whose keys are all
+// below Lk with a zero bias (the producer's flag in its words) takes the
+// softmax's path without the bias, as a call without one does: one FMA and
+// a bias word a logit fewer on the batched-CFG calls' cond rows and on the
+// uncond rows' keys they see. No atomics: the same inputs give the same
+// bits.
+
+// W: the products' width; CW: columns of one TMA box; NC: consumer
+// warpgroups; OVERLAP: S of the next tile before PV of this one; PP: the two
+// consumer warpgroups' products in turns.
+template <int W_, int CW_, int NC_, int STAGES_, bool OVERLAP_, bool PP_>
+struct OwnCfg {
+  static constexpr int W = W_;
+  static constexpr int CW = CW_;
+  static constexpr int NC = NC_;
+  static constexpr int STAGES = STAGES_;
+  static constexpr bool OVERLAP = OVERLAP_;
+  static constexpr bool PP = PP_;
+  static_assert(W % 16 == 0 && W % CW == 0 && (CW == 8 || CW % 16 == 0) && CW <= 64, "boxes");
+  static_assert(!PP || (NC == 2 && OVERLAP), "ping-pong: two overlapped consumer warpgroups");
+  static constexpr int THREADS = 128 * (NC + 1);  // + the producer warpgroup
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = NC == 2 ? 240 : 160;
+  static_assert(128 * (PRODUCER_REGS + NC * CONSUMER_REGS) <= 65536, "registers");
+  static constexpr int BQ = 64 * NC;  // query rows per block
+  static constexpr int BK = 128;      // keys per stage: one bias round of the producer
+  static constexpr uint32_t LAYOUT =
+      CW == 64 ? kSwizzle128B : CW == 32 ? kSwizzle64B : CW == 16 ? kSwizzle32B : kNoSwizzle;
+  static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
+      CW == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : CW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : CW == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                 : CU_TENSOR_MAP_SWIZZLE_NONE;
+  static constexpr int Q_BYTES = BQ * W * 2;
+  static constexpr int K_BYTES = BK * W * 2;  // and V's
+  static constexpr int INFO_BYTES = BK * 4 + 16;  // the tile's bias words, its first key
+  // shared memory: Q, K ring, V ring, words ring, barriers (1024-aligned tiles)
+  static constexpr int OFF_K = Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * K_BYTES;
+  static constexpr int OFF_INFO = OFF_V + STAGES * K_BYTES;
+  static constexpr int OFF_BAR = OFF_INFO + STAGES * INFO_BYTES;
+  static constexpr int SMEM = OFF_BAR + (3 * STAGES + 1) * 8 + 1024;  // + alignment
+  static_assert(Q_BYTES % 1024 == 0 && K_BYTES % 1024 == 0, "tile alignment");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// The byte offset of the 16-deep step kk in an own-width K-major tile of
+// `rows` rows.
+template <class C>
+__device__ __forceinline__ uint32_t own_kstep(int kk, int rows) {
+  if constexpr (C::CW == 8) return kk * rows * 32;  // two 8-column slabs
+  else return (kk / (C::CW / 16)) * rows * C::CW * 2 + (kk % (C::CW / 16)) * 32;
+}
+
+// K-major operand of a tile of `rows` rows from `addr` (its first row).
+template <class C>
+__device__ __forceinline__ uint64_t own_kmajor(uint32_t addr, int rows) {
+  if constexpr (C::CW == 8) return gmma_desc(addr, rows * 16, 128, C::LAYOUT);
+  else return gmma_desc(addr, 16, 16 * C::CW, C::LAYOUT);
+}
+
+// MN-major operand: the tile's rows contracted, its columns along N.
+template <class C>
+__device__ __forceinline__ uint64_t own_mnmajor(uint32_t addr, int rows) {
+  if constexpr (C::CW == 8) return gmma_desc(addr, 128, rows * 16, C::LAYOUT);
+  else return gmma_desc(addr, rows * C::CW * 2, 16 * C::CW, C::LAYOUT);
+}
+
+// flash_fwd_kernel's online softmax of one key tile, in place: sc[4j + e]
+// (key 8j + c2 + (e & 1) of row g + 8 * (e >> 1)) becomes p, unnormalized,
+// the running max and this lane's partial sums move, and alpha is O's
+// factor.
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], const float* bt,
+                                               bool use_bias, float scale_log2, int c2,
+                                               float (&m_row)[2], float (&l_row)[2],
+                                               float (&alpha)[2]) {
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (use_bias) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * j + c2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[4 * j + e] = fmaf(sc[4 * j + e], scale_log2, (e & 1) ? bb.y : bb.x);
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    mx[0] *= scale_log2;  // scale > 0: the max commutes with it
+    mx[1] *= scale_log2;
+  }
+  float m_use[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_row[r], mx[r]);
+    // a row whose keys are all masked so far keeps p = 0, alpha = 0
+    m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = fast_exp2(m_row[r] - m_use[r]);
+    m_row[r] = m_new;
+    l_row[r] *= alpha[r];
+  }
+  // the biased logits are scaled already; raw ones take the scale here
+  const float mul = use_bias ? 1.f : scale_log2;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    sc[i] = fast_exp2(fmaf(sc[i], mul, -m_use[r]));
+    l_row[r] += sc[i];
+  }
+}
+
+// P as bf16: the accumulators' n8 blocks 2t and 2t+1 form the A fragment of
+// the 16-key step t.
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[BK / 16][4], const float (&sc)[BK / 2]) {
+#pragma unroll
+  for (int t = 0; t < BK / 16; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[t][e] = pack_bf16x2(sc[8 * t + 2 * e], sc[8 * t + 2 * e + 1]);
+}
+
+// O *= alpha, in the warps where a row max moved.
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
+  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+  }
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1)
+flash_fwd_own_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map, const float* __restrict__ bias,
+                     bf16* __restrict__ out, float* __restrict__ lse, int Lq, int Lk, int heads,
+                     int d, float scale_log2) {
+  constexpr int BQ = C::BQ, BK = C::BK, STAGES = C::STAGES, W = C::W, CW = C::CW;
+  constexpr int NC = C::NC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sQ = smem;
+  unsigned char* sK = smem + C::OFF_K;
+  unsigned char* sV = smem + C::OFF_V;
+  unsigned char* sInfo = smem + C::OFF_INFO;
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);  // K and the words
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty = full_v + STAGES;
+  uint64_t* full_q = empty + STAGES;
+
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_kv = (Lk + BK - 1) / BK;
+  const int n_box = d / CW;  // boxes of a head; W / CW - n_box pad slabs
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_k[s], 32);  // the producer warp's lanes (the words)
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], 4 * NC);  // one arrival per consumer warp
+    }
+    mbar_init(full_q, 1);
+    fence_barrier_init();
+  }
+  if constexpr (CW == 8) {
+    // 88, 104, 120: QK^T's contracted pad must read zeros. TMA writes only
+    // the d/8 slabs of a head; the pad slab of Q and of every K stage is
+    // zeroed here once and never written again.
+    for (int s = -1; s < STAGES; ++s) {
+      unsigned char* tile = s < 0 ? sQ : sK + s * C::K_BYTES;
+      const int rows = s < 0 ? BQ : BK;
+      uint4* pad = reinterpret_cast<uint4*>(tile + n_box * rows * 16);
+      const int n = (W / 8 - n_box) * rows;
+      for (int i = threadIdx.x; i < n; i += C::THREADS) pad[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (wg == NC) {
+    // ---------------- producer ----------------
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (warp > 0) return;  // one producer warp
+    const float* bias_b = bias ? bias + (size_t)b * Lk : nullptr;
+    const int col0 = h * d;
+    // hidden tiles are passed over only in a batch row that sees some key
+    // (the scan stops at the first 32 keys that hold one)
+    bool may_skip = false;
+    if (bias_b)
+      for (int i = 0; i < Lk && !may_skip; i += 32)
+        may_skip = __any_sync(0xffffffffu, i + lane < Lk && bias_b[i + lane] > kHiddenBias);
+    if (lane == 0) {
+      tma_prefetch_desc(&q_map);
+      tma_prefetch_desc(&k_map);
+      tma_prefetch_desc(&v_map);
+      mbar_arrive_expect_tx(full_q, BQ * n_box * CW * 2);
+      for (int i = 0; i < n_box; ++i)
+        tma_load_3d(sQ + i * BQ * CW * 2, &q_map, full_q, col0 + i * CW, q0, b);
+    }
+    // the ring holds only the tiles some key of the batch row sees; each
+    // stage's words name its tile's first key, and a last stage with -1
+    // ends the consumers' loop. A tile's 128 bias words are read 4 a lane,
+    // all loads in flight together.
+    int n = 0;  // stages filled
+    for (int k0 = 0;; k0 += BK) {
+      const bool end = k0 >= n_kv * BK;
+      float x[4];
+      bool hid = true;    // this lane's 4 keys hidden
+      bool plain = true;  // and all four below Lk with a zero bias
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 4 * lane + e;
+        x[e] = key < Lk && bias_b ? bias_b[key] : 0.f;
+        hid = hid && (key >= Lk || x[e] <= kHiddenBias);
+        plain = plain && key < Lk && x[e] == 0.f;
+      }
+      plain = __all_sync(0xffffffffu, plain);
+      if (!end && may_skip && __all_sync(0xffffffffu, hid)) continue;
+      const int s = n % STAGES;
+      mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+      ++n;
+      float* words = reinterpret_cast<float*>(sInfo + s * C::INFO_BYTES);
+      if (!end) {
+        // the bias words, log2 units; keys >= Lk are masked here
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 4 * lane + e;
+          words[4 * lane + e] = key >= Lk ? -INFINITY : x[e] * kLog2e;
+        }
+      }
+      if (lane == 0) {
+        reinterpret_cast<int*>(words)[BK] = end ? -1 : k0;
+        reinterpret_cast<int*>(words)[BK + 1] = plain;
+        if (end) {  // nothing loaded
+          mbar_arrive(&full_k[s]);
+        } else {
+          mbar_arrive_expect_tx(&full_k[s], BK * n_box * CW * 2);
+          for (int i = 0; i < n_box; ++i)
+            tma_load_3d(sK + s * C::K_BYTES + i * BK * CW * 2, &k_map, &full_k[s],
+                        col0 + i * CW, k0, b);
+          mbar_arrive_expect_tx(&full_v[s], BK * n_box * CW * 2);
+          for (int i = 0; i < n_box; ++i)
+            tma_load_3d(sV + s * C::K_BYTES + i * BK * CW * 2, &v_map, &full_v[s],
+                        col0 + i * CW, k0, b);
+        }
+      } else {
+        mbar_arrive(&full_k[s]);
+      }
+      if (end) break;
+    }
+    return;
+  }
+
+  // ---------------- consumers ----------------
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int qoff = 64 * wg;  // this warpgroup's first query row
+  const int c2 = 2 * (lane % 4);
+  const uint64_t q_desc = own_kmajor<C>(smem_u32(sQ) + qoff * CW * 2, BQ);
+  const uint64_t k_desc0 = own_kmajor<C>(smem_u32(sK), BK);
+  const uint64_t v_desc0 = own_mnmajor<C>(smem_u32(sV), BK);
+  // a tile takes the softmax's bias path unless every key of it is below Lk
+  // with a zero bias (the producer's flag beside its first key)
+  auto biased = [&](const float* bt) { return !reinterpret_cast<const int*>(bt)[BK + 1]; };
+
+  // S = Q K^T (64 rows x BK keys) from stage s; O += P V from stage s
+  auto qk = [&](float (&sc)[BK / 2], int s) {
+#pragma unroll
+    for (int kk = 0; kk < W / 16; ++kk)
+      WgmmaSS<BK>::run(sc, q_desc + (own_kstep<C>(kk, BQ) >> 4),
+                       k_desc0 + ((s * C::K_BYTES + own_kstep<C>(kk, BK)) >> 4), kk > 0);
+  };
+  auto pv = [&](float (&o)[W / 2], const uint32_t (&p)[BK / 16][4], int s) {
+#pragma unroll
+    for (int t = 0; t < BK / 16; ++t)
+      WgmmaRS<W>::run(o, p[t], v_desc0 + ((s * C::K_BYTES + t * 32 * CW) >> 4));
+  };
+  // ping-pong: a warpgroup issues its products in its turn (named barrier
+  // 1 + wg, both warpgroups' 256 threads), then hands the turn over
+  auto turn_begin = [&] {
+    if constexpr (C::PP) named_bar_sync(1 + wg, 256);
+  };
+  auto turn_end = [&] {
+    if constexpr (C::PP) named_bar_arrive(2 - wg, 256);
+  };
+  if constexpr (C::PP) {
+    if (wg == 1) named_bar_arrive(1, 256);  // warpgroup 0 takes the first turn
+  }
+
+  float o[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) o[i] = 0.f;
+  float m_row[2] = {-INFINITY, -INFINITY};  // running max, scaled log2 units
+  float l_row[2] = {0.f, 0.f};              // partial sums over this lane's columns
+  uint32_t p[BK / 16][4];
+
+  mbar_wait(full_q, 0);  // this block's Q tile
+  if constexpr (!C::OVERLAP) {
+    for (int n = 0;; ++n) {
+      const int s = n % STAGES;
+      const uint32_t phase = (n / STAGES) & 1;
+      mbar_wait(&full_k[s], phase);
+      const float* bt = reinterpret_cast<const float*>(sInfo + s * C::INFO_BYTES);
+      const int k0 = reinterpret_cast<const int*>(bt)[BK];
+      if (k0 < 0) break;  // every tile the block computes is done
+      float sc[BK / 2];
+      wgmma_fence();
+      qk(sc, s);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      float alpha[2];
+      online_softmax<BK>(sc, bt, biased(bt), scale_log2, c2, m_row, l_row, alpha);
+      pack_p<BK>(p, sc);
+      rescale(o, alpha);
+      mbar_wait(&full_v[s], phase);
+      wgmma_fence();
+      pv(o, p, s);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+  } else {
+    // tile 0: S, the softmax, P (a row computes at least one tile: every
+    // tile where no key of its batch row is seen)
+    int n = 0;
+    {
+      mbar_wait(&full_k[0], 0);
+      const float* bt = reinterpret_cast<const float*>(sInfo);
+      float sc[BK / 2];
+      turn_begin();
+      wgmma_fence();
+      qk(sc, 0);
+      wgmma_commit();
+      turn_end();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      float alpha[2];  // O is still 0
+      online_softmax<BK>(sc, bt, biased(bt), scale_log2, c2, m_row, l_row, alpha);
+      pack_p<BK>(p, sc);
+    }
+    // tile n: S_n and PV_{n-1} issued together, the softmax of S_n under
+    // PV's product, then O = alpha_n (O + P_{n-1} V_{n-1})
+    for (n = 1;; ++n) {
+      const int s = n % STAGES, sp = (n - 1) % STAGES;
+      mbar_wait(&full_k[s], (n / STAGES) & 1);
+      const float* bt = reinterpret_cast<const float*>(sInfo + s * C::INFO_BYTES);
+      const int k0 = reinterpret_cast<const int*>(bt)[BK];
+      if (k0 < 0) break;
+      float sc[BK / 2];
+      turn_begin();
+      // O's rescale and P's pack are done before the fence (else ptxas
+      // waits for the products it finds them beside, C7519)
+      fence_regs(o);
+      fence_regs(p);
+      wgmma_fence();
+      qk(sc, s);
+      wgmma_commit();
+      mbar_wait(&full_v[sp], ((n - 1) / STAGES) & 1);
+      pv(o, p, sp);
+      wgmma_commit();
+      turn_end();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      float alpha[2];
+      online_softmax<BK>(sc, bt, biased(bt), scale_log2, c2, m_row, l_row, alpha);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p);
+      rescale(o, alpha);
+      pack_p<BK>(p, sc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[sp]);
+    }
+    // the last tile's PV
+    const int sp = (n - 1) % STAGES;
+    turn_begin();
+    mbar_wait(&full_v[sp], ((n - 1) / STAGES) & 1);
+    fence_regs(o);
+    fence_regs(p);
+    wgmma_fence();
+    pv(o, p, sp);
+    wgmma_commit();
+    turn_end();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(p);
+    if constexpr (C::PP) {
+      if (wg == 0) named_bar_sync(1, 256);  // warpgroup 1's last hand-over
+    }
+  }
+
+  // finish the row sums across the 4 lanes that share a row, then store
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
+  }
+  const int row0 = q0 + qoff + 16 * warp + lane / 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Lq) continue;
+    const float inv = 1.f / l_row[r];
+    bf16* orow = out + ((size_t)b * Lq + row) * ((size_t)heads * d) + (size_t)h * d;
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      if (8 * j < d) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c2) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      }
+    }
+    if (lane % 4 == 0) {
+      lse[((size_t)b * heads + h) * Lq + row] = (m_row[r] + log2f(l_row[r])) * kLn2;
+    }
+  }
+}
+
+template <class C>
+int launch_own(const void* q, const void* k, const void* v, const void* bias, void* out,
+               void* lse, int B, int Lq, int Lk, int heads, int d, int scale_d,
+               cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const int C_all = heads * d;
+  int err = make_map(&maps[0], q, C_all, Lq, B, C::CW, C::BQ, C::TMA_SWIZZLE);
+  if (!err) err = make_map(&maps[1], k, C_all, Lk, B, C::CW, C::BK, C::TMA_SWIZZLE);
+  if (!err) err = make_map(&maps[2], v, C_all, Lk, B, C::CW, C::BK, C::TMA_SWIZZLE);
+  if (err) return err;
+  auto kernel = flash_fwd_own_kernel<C>;
+  cudaError_t e = host_cache.reserve_smem(reinterpret_cast<const void*>(kernel), C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Lq + C::BQ - 1) / C::BQ, heads, B);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const float*>(bias), static_cast<bf16*>(out),
+      static_cast<float*>(lse), Lq, Lk, heads, d, kLog2e / sqrtf((float)scale_d));
+  return (int)cudaGetLastError();
+}
+
+// The configurations by width (W, and the box for widths that W's box does
+// not divide: 88, 104 and 120 take 8-column boxes).
+template <int W, int CW>
+using Own = OwnCfg<W, CW, W <= 96 ? 3 : 2, W == 64 ? 4 : 3, W == 128, W == 128>;
+
 }  // namespace
 
 // Head widths the kernel takes: d a multiple of 8 with d <= 128 (SD's UNet
-// heads, d = 40 and 80, and the 64- and 128-wide heads of other head counts;
-// QK^T's depth padded to 48 / 80 / 128) or d = 512 (the VAE's one head). The
+// heads, d = 40 and 80, QK^T's depth padded to 48 / 80; the 64- and
+// 128-wide heads of other head counts, and every d from 88 to 128, at the
+// head's own width in the own-width kernel) or d = 512 (the VAE's one head). The
 // logits are scaled by scale_d^-1/2, 1 <= scale_d <= d: the wrapper passes
 // the true width of a head it zero-pads (ops/flash_attention.py,
 // `flash_plan`), else d. Any d > 512 (a multiple of 8) runs in the xwide
@@ -1178,13 +1636,16 @@ extern "C" int hv_flash_fwd(const void* q, const void* k, const void* v,
   if (d <= 40)
     return launch<Cfg<48, 40, false, 3>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, scale_d,
                                          s);
+#define OWN(W, CW) \
+  launch_own<Own<W, CW>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, scale_d, s)
+  if (d == 64) return OWN(64, 64);
   if (d <= 80)
     return launch<Cfg<80, 80, false, 3>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, scale_d,
                                          s);
-  if (d < 128)
-    return launch<Cfg128<false>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, scale_d, s);
-  if (d == 128)
-    return launch<Cfg128<true>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d, scale_d, s);
+  if (d <= 96) return d == 96 ? OWN(96, 32) : OWN(96, 8);
+  if (d <= 112) return d == 112 ? OWN(112, 16) : OWN(112, 8);
+  if (d <= 128) return d == 128 ? OWN(128, 64) : OWN(128, 8);
+#undef OWN
   if (d == 512)
     return launch<Cfg<512, 256, true, 2>>(q, k, v, bias, out, lse, B, Lq, Lk, heads, d,
                                           scale_d, s);

@@ -68,21 +68,25 @@
 //     block) fit 160 registers by taking dP in two 64-key halves, the
 //     second half's product beside the first half's dQ; at d <= 80 2
 //     consumers take all 128 keys at once.
-// Design at 80 < d <= 128 (the 128-wide heads of other head counts):
-// FlashAttention-3's d = 128 backward in the same two kernels. dk/dv: 2
-// consumer warpgroups of 64 keys (128 a block) with dK and dV in registers
-// (64 + 64 a thread), 64-row q steps in 3 stages (owned K, V 64 KB + 3 x
-// (Q, G) 32 KB = 160 KB); dq: 2 consumer warpgroups of 64 q rows over
-// 128-key tiles, dP in two 64-key halves beside dQ, 2 stages (Q, G 64 KB +
-// 2 x (K, V) 64 KB = 192 KB). Hidden key tiles are passed over as at d <=
+// Design at d = 64 and 80 < d <= 128 (the 64- and 128-wide heads of other
+// head counts), at the head's own width (`DkvOwn`, `DqOwn`): the same two
+// kernels with s and dp contracted over d rounded up to 16 and d gradient
+// columns (d = 64 took d <= 80's depth of 80, 88..120 a depth of 128).
+// dk/dv: 2 consumer warpgroups of 64 keys (128 a block) with dK and dV in
+// registers, 64-row q steps in 3 stages; dq: consumer warpgroups of 64 q
+// rows (3 at d = 64, 2 above) over 128-key tiles, dP in two 64-key halves
+// beside dQ, 3 stages up to 96 columns and 2 above (at d = 128: Q, G 64 KB
+// + 2 x (K, V) 64 KB = 192 KB). Hidden key tiles are passed over as at d <=
 // 80, and no atomics: dQ keeps its own kernel.
 // Layouts: a tile is [boxes][rows][box columns]. At d = 40 (and every d not
 // a multiple of 16 up to 120) TMA boxes of 8 columns land as the no-swizzle
-// core-matrix layout, as in the forward; at d = 48, 64 and 80, boxes of 16
+// core-matrix layout, as in the forward; at d = 48 and 80, boxes of 16
 // columns in the 32-byte swizzle, which halves the box rows TMA fetches (at
-// level 1 the 16-byte rows bounded both kernels); at d = 128, whole 64-column
-// boxes in the 128-byte swizzle (a head is two of them, so a box never reads
-// the next head), as the d = 512 kernels take them. Either layout serves a
+// level 1 the 16-byte rows bounded both kernels); at the own widths the
+// widest box that divides d: whole 64-column boxes in the 128-byte swizzle
+// at 64 and 128 (a head is one or two of them, so a box never reads the
+// next head), as the d = 512 kernels take them, 32 columns in the 64-byte
+// swizzle at 96, 16 in the 32-byte swizzle at 112. Either layout serves a
 // tile as a K-major and as an MN-major operand. A box reads only its head's
 // columns, so never past C at the last head; the contracted pad boxes are
 // zeroed once. TMA maps are 3-D (C, L, B): rows past L read zeros, never the
@@ -162,8 +166,9 @@ constexpr float kLseFloor = -5e8f;    // a row above it sees some key
 
 // DQK: the contracted depth of s and dp (d padded to 16); DV: the gradient's
 // columns (N of its products); CW: columns of one TMA box, 8 (no swizzle),
-// 16 (32-byte swizzle) or 64 (128-byte swizzle); NC: consumer warpgroups, each owning 64 rows of
-// the block (keys for dk/dv, q rows for dq); BS: rows of one streamed step
+// 16 (32-byte swizzle), 32 (64-byte swizzle) or 64 (128-byte swizzle); NC:
+// consumer warpgroups, each owning 64 rows of the block (keys for dk/dv, q
+// rows for dq); BS: rows of one streamed step
 // (q rows for dk/dv, keys for dq); DPN: the keys of each dp product of the
 // dq kernel, BS or BS / 2 (dp in two halves, for 3 consumers' registers).
 template <int DQK_, int DV_, int CW_, int NC_, int BS_, int STAGES_, int DPN_ = BS_>
@@ -176,12 +181,15 @@ struct BwdCfg {
   static constexpr int STAGES = STAGES_;
   static constexpr int DPN = DPN_;
   static_assert(BS % DPN == 0, "dp parts");
-  static_assert((CW == 8 || CW == 16 || CW == 64) && DQK % CW == 0 && DV % 8 == 0, "layout");
+  static_assert((CW == 8 || CW == 16 || CW == 32 || CW == 64) && DQK % CW == 0 && DV % 8 == 0,
+                "layout");
   static constexpr uint32_t LAYOUT =
-      CW == 64 ? kSwizzle128B : CW == 16 ? kSwizzle32B : kNoSwizzle;
+      CW == 64 ? kSwizzle128B : CW == 32 ? kSwizzle64B : CW == 16 ? kSwizzle32B : kNoSwizzle;
   static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
-      CW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-               : CW == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_NONE;
+      CW == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : CW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : CW == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                 : CU_TENSOR_MAP_SWIZZLE_NONE;
   static constexpr int THREADS = 128 * (NC + 1);  // + the producer warpgroup
   // setmaxnreg: the producer's registers go to the consumers
   static constexpr int PRODUCER_REGS = 24;
@@ -309,6 +317,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* r1, const CUtensorMap
 template <class C>
 __device__ __forceinline__ uint32_t kstep(int kk, int rows) {
   if constexpr (C::CW == 64) return (kk / 4) * rows * 128 + (kk % 4) * 32;
+  else if constexpr (C::CW == 32) return (kk / 2) * rows * 64 + (kk % 2) * 32;
   else return kk * rows * 32;
 }
 
@@ -318,6 +327,7 @@ template <class C>
 __device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile, int rows, int r0) {
   const uint32_t addr = smem_u32(tile) + r0 * C::CW * 2;
   if constexpr (C::CW == 64) return gmma_desc(addr, 16, 1024, C::LAYOUT);
+  else if constexpr (C::CW == 32) return gmma_desc(addr, 16, 512, C::LAYOUT);
   else if constexpr (C::CW == 16) return gmma_desc(addr, 16, 256, C::LAYOUT);
   else return gmma_desc(addr, rows * 16, 128, C::LAYOUT);
 }
@@ -326,6 +336,7 @@ __device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile, int r
 template <class C>
 __device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile, int rows) {
   if constexpr (C::CW == 64) return gmma_desc(smem_u32(tile), rows * 128, 1024, C::LAYOUT);
+  else if constexpr (C::CW == 32) return gmma_desc(smem_u32(tile), rows * 64, 512, C::LAYOUT);
   else if constexpr (C::CW == 16) return gmma_desc(smem_u32(tile), rows * 32, 256, C::LAYOUT);
   else return gmma_desc(smem_u32(tile), 128, rows * 16, C::LAYOUT);
 }
@@ -767,13 +778,21 @@ using DkvCfg80s = BwdCfg<80, 80, 16, 2, 64, 3>;
 using DqCfg48 = BwdCfg<48, 40, 8, 3, 128, 3, 64>;
 using DqCfg80 = BwdCfg<80, 80, 8, 2, 128, 3>;
 using DqCfg80s = BwdCfg<80, 80, 16, 2, 128, 3>;
-// 80 < d <= 128 (contracted depth 128, 128 gradient columns): 2 consumers,
-// 64-row q steps in 3 stages for dk/dv, 128-key tiles in 2 stages with dP in
-// 64-key halves for dq; 128-byte swizzle at d = 128, 8-column boxes at 88..120.
-using DkvCfg128 = BwdCfg<128, 128, 8, 2, 64, 3>;
-using DkvCfg128w = BwdCfg<128, 128, 64, 2, 64, 3>;
-using DqCfg128 = BwdCfg<128, 128, 8, 2, 128, 2, 64>;
-using DqCfg128w = BwdCfg<128, 128, 64, 2, 128, 2, 64>;
+// d = 64 and 80 < d <= 128 at the head's own width: s and dp contracted
+// over W = d rounded up to 16 (64, 96, 112, 128; 88, 104 and 120 in the next
+// one's tiles, their contracted pad zeroed), W gradient columns (those past
+// d not stored), in the widest box that divides d: 64 columns in the
+// 128-byte swizzle at 64 and 128, 32 in the 64-byte swizzle at 96, 16 in
+// the 32-byte swizzle at 112, 8 without swizzle at 88, 104 and 120
+// (`DkvOwn<W, CW>`). dk/dv: 2 consumers on 64-row q steps in 3 stages. dq:
+// 128-key tiles, dP in 64-key halves, 3 stages up to 96 columns and 2 above
+// (as shared memory holds); 3 consumers (192 q rows a block) at 64, where
+// they fit 160 registers, 2 above (at 64 on the H100 3 took 8.759 ms to 2's
+// 9.244, `flash_variants --own dq_two_consumers`).
+template <int W, int CW>
+using DkvOwn = BwdCfg<W, W, CW, 2, 64, 3>;
+template <int W, int CW>
+using DqOwn = BwdCfg<W, W, CW, W == 64 ? 3 : 2, 128, W <= 96 ? 3 : 2, 64>;
 
 // ---- d = 512: wgmma on a TMA ring, one kernel per gradient -----------------
 
@@ -1544,13 +1563,15 @@ extern "C" int hv_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 int x_exchange, int x_smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 0 || d % 8 != 0 || scale_d < 1 || scale_d > d) return (int)cudaErrorInvalidValue;
-#define DKV(Cfg) \
-  launch_dkv<Cfg>(q, k, v, bias, g, lse, delta, dk, dv, B, Lq, Lk, heads, d, scale_d, s)
+#define DKV(...) \
+  launch_dkv<__VA_ARGS__>(q, k, v, bias, g, lse, delta, dk, dv, B, Lq, Lk, heads, d, scale_d, s)
   if (d <= 40) return DKV(DkvCfg48);
+  if (d == 64) return DKV(DkvOwn<64, 64>);
   if (d <= 80 && d % 16 == 0) return DKV(DkvCfg80s);
   if (d <= 80) return DKV(DkvCfg80);
-  if (d < 128) return DKV(DkvCfg128);
-  if (d == 128) return DKV(DkvCfg128w);
+  if (d <= 96) return d == 96 ? DKV(DkvOwn<96, 32>) : DKV(DkvOwn<96, 8>);
+  if (d <= 112) return d == 112 ? DKV(DkvOwn<112, 16>) : DKV(DkvOwn<112, 8>);
+  if (d <= 128) return d == 128 ? DKV(DkvOwn<128, 64>) : DKV(DkvOwn<128, 8>);
 #undef DKV
   if (d == 512) {
     const int err = launch_wide<WideDv>(flash_bwd_dv_wide_kernel, q, k, v, bias, g, lse, delta,
@@ -1580,12 +1601,15 @@ extern "C" int hv_flash_bwd_dq(const void* q, const void* k, const void* v,
                                int x_smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 0 || d % 8 != 0 || scale_d < 1 || scale_d > d) return (int)cudaErrorInvalidValue;
-#define DQ(Cfg) launch_dq<Cfg>(q, k, v, bias, g, lse, delta, dq, B, Lq, Lk, heads, d, scale_d, s)
+#define DQ(...) \
+  launch_dq<__VA_ARGS__>(q, k, v, bias, g, lse, delta, dq, B, Lq, Lk, heads, d, scale_d, s)
   if (d <= 40) return DQ(DqCfg48);
+  if (d == 64) return DQ(DqOwn<64, 64>);
   if (d <= 80 && d % 16 == 0) return DQ(DqCfg80s);
   if (d <= 80) return DQ(DqCfg80);
-  if (d < 128) return DQ(DqCfg128);
-  if (d == 128) return DQ(DqCfg128w);
+  if (d <= 96) return d == 96 ? DQ(DqOwn<96, 32>) : DQ(DqOwn<96, 8>);
+  if (d <= 112) return d == 112 ? DQ(DqOwn<112, 16>) : DQ(DqOwn<112, 8>);
+  if (d <= 128) return d == 128 ? DQ(DqOwn<128, 64>) : DQ(DqOwn<128, 8>);
 #undef DQ
   if (d == 512)
     return launch_wide<WideDq>(flash_bwd_dq_wide_kernel, q, k, v, bias, g, lse, delta, dq, B,

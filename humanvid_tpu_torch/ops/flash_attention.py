@@ -17,7 +17,10 @@ the dk/dv entry point launches a dV and a dK kernel), on a CPU tensor
 through :func:`flash_attention_backward_plain`.
 
 Head widths (:func:`flash_plan`): the kernels hold d a multiple of 8 up to
-128, and d = 512. Any other d up to 512 runs through a zero pad
+128, and d = 512; d = 64 and every width from 88 to 128 run at the head's
+own width (:func:`own_plan`: the products over d rounded up to 16, each
+head in the widest TMA box that divides it). Any other d up to 512 runs
+through a zero pad
 (``head_pad.resize_heads``) to the next multiple of 8, with the softmax
 scale of the true d; between 128 and 512 the forward runs at that width in
 the mid kernel (its layout from :func:`mid_plan`), and so does the
@@ -54,7 +57,9 @@ _DQ_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 # forward and the backward's two entry points.
 launches = {"d<=128": 0, "128<d<512": 0, "d>128": 0, "d>512": 0, "bwd_dkv": 0, "bwd_dq": 0,
             "bwd_dkv_128<d<512": 0, "bwd_dq_128<d<512": 0, "bwd_dkv_d>128": 0,
-            "bwd_dq_d>128": 0, "bwd_dkv_d>512": 0, "bwd_dq_d>512": 0}
+            "bwd_dq_d>128": 0, "bwd_dkv_d>512": 0, "bwd_dq_d>512": 0,
+            # of the "d<=128" ones, those at the head's own width (own_plan)
+            "own": 0, "bwd_dkv_own": 0, "bwd_dq_own": 0}
 # The forward's and the backward's launches by the caller's head width
 # (before any pad): {d: count}; and those of them that ran through the zero
 # pad past the next multiple of 8.
@@ -62,20 +67,27 @@ forward_launches_by_d: dict = {}
 backward_launches_by_d: dict = {}
 forward_pad_launches_by_d: dict = {}
 backward_pad_launches_by_d: dict = {}
+# The forward's and the backward's launches by the caller's head width and
+# the configuration they ran in (``flash_plan``'s names): {(d, name): count}.
+forward_launches_by_config: dict = {}
+backward_launches_by_config: dict = {}
 
 
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
     for counts in (forward_launches_by_d, backward_launches_by_d, forward_pad_launches_by_d,
-                   backward_pad_launches_by_d):
+                   backward_pad_launches_by_d, forward_launches_by_config,
+                   backward_launches_by_config):
         counts.clear()
 
 
-def _count(by_d: dict, pad_by_d: dict, d: int, width: int) -> None:
+def _count(by_d: dict, pad_by_d: dict, by_config: dict, d: int, width: int,
+           config: str) -> None:
     by_d[d] = by_d.get(d, 0) + 1
     if width > round_up8(d):
         pad_by_d[d] = pad_by_d.get(d, 0) + 1
+    by_config[d, config] = by_config.get((d, config), 0) + 1
 
 
 class FlashPlan(NamedTuple):
@@ -115,6 +127,35 @@ def mid_plan(d: int) -> MidPlan:
     return MidPlan(w, MID_LAYOUTS[w])
 
 
+# The own-width kernels (``flash_fwd_own_kernel``, ``DkvOwn``/``DqOwn``):
+# the TMA boxes a head may arrive in, the widest that divides it (64, 32
+# and 16 columns in the 128-, 64- and 32-byte swizzles, 8 without).
+OWN_BOXES = (64, 32, 16, 8)
+
+
+class OwnPlan(NamedTuple):
+    width: int  # the products' width: QK^T's depth, PV's N
+    box: int    # columns of one TMA box
+
+
+def is_own(width: int) -> bool:
+    """Whether a head ``width`` wide (a multiple of 8) runs in the
+    own-width kernels: 64, and 88 to 128."""
+    return width == 64 or 80 < width <= 128
+
+
+@functools.lru_cache(maxsize=None)
+def own_plan(d: int) -> OwnPlan:
+    """The own-width kernels' plan for d = 64 or 80 < d <= 128 (a multiple
+    of 8): products over d rounded up to 16, boxes of the widest of
+    OWN_BOXES that divides d where that rounding adds nothing, else 8."""
+    if d % 8 or not is_own(d):
+        raise ValueError(f"head width {d}: the own-width kernels take d = 64 or "
+                         "80 < d <= 128, a multiple of 8")
+    w = -(-d // 16) * 16
+    return OwnPlan(w, next(c for c in OWN_BOXES if d % c == 0) if w == d else 8)
+
+
 @functools.lru_cache(maxsize=None)
 def flash_plan(d: int) -> FlashPlan:
     """The kernels' plan for a head of d columns (the C entry points pick
@@ -126,13 +167,12 @@ def flash_plan(d: int) -> FlashPlan:
         return FlashPlan(w, "Xwide", "XwideDkv/XwideDq", w)
     if w <= 40:
         return FlashPlan(w, "Cfg<48, 40>", "DkvCfg48/DqCfg48", w)
+    if is_own(w):
+        own = f"<{own_plan(w).width}, {own_plan(w).box}>"
+        return FlashPlan(w, f"Own{own}", f"DkvOwn{own}/DqOwn{own}", w)
     if w <= 80:
         return FlashPlan(w, "Cfg<80, 80>", "DkvCfg80s/DqCfg80s" if w % 16 == 0
                          else "DkvCfg80/DqCfg80", w)
-    if w < 128:
-        return FlashPlan(w, "Cfg<128, 128>", "DkvCfg128/DqCfg128", w)
-    if w == 128:
-        return FlashPlan(w, "Cfg<128, 128, swizzled>", "DkvCfg128w/DqCfg128w", w)
     if w == WIDE_HEAD_DIM:
         return FlashPlan(w, "Cfg<512, 256, wide>", "WideDv+WideDk/WideDq", w)
     mid = mid_plan(w)
@@ -415,7 +455,10 @@ def flash_attention_cuda(q, k, v, heads, key_bias=None):
              cuda_build.stream_handle(q.device))
     cuda_build.check(err, "flash attention launch")
     launches[_width_key(plan.width)] += 1
-    _count(forward_launches_by_d, forward_pad_launches_by_d, d, plan.width)
+    if is_own(plan.width):
+        launches["own"] += 1
+    _count(forward_launches_by_d, forward_pad_launches_by_d, forward_launches_by_config, d,
+           plan.width, plan.forward)
     return resize_heads(out, heads, d), lse
 
 
@@ -486,14 +529,18 @@ def flash_attention_backward_cuda(q, k, v, key_bias, g, lse, delta, heads: int):
     source, mid = (("flash_attention_mid_bwd", "_mid") if 128 < width < WIDE_HEAD_DIM
                    else ("flash_attention_bwd", ""))
     fn = cuda_build.function(source, f"hv_flash_bwd{mid}_dkv", _DKV_ARGTYPES)
+    own = is_own(width)
     cuda_build.check(fn(*common, dk.data_ptr(), dv.data_ptr(), *sizes,
                         *_plan_args(width, "dkv"), stream), "flash attention dk/dv launch")
     launches["bwd_dkv" + wide] += 1
+    launches["bwd_dkv_own"] += own
     fn = cuda_build.function(source, f"hv_flash_bwd{mid}_dq", _DQ_ARGTYPES)
     cuda_build.check(fn(*common, dq.data_ptr(), *sizes, *_plan_args(width, "dq"), stream),
                      "flash attention dq launch")
     launches["bwd_dq" + wide] += 1
-    _count(backward_launches_by_d, backward_pad_launches_by_d, d, width)
+    launches["bwd_dq_own"] += own
+    _count(backward_launches_by_d, backward_pad_launches_by_d, backward_launches_by_config, d,
+           width, plan.backward)
     return tuple(resize_heads(t, heads, d) for t in (dq, dk, dv))
 
 

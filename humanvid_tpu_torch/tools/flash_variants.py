@@ -21,6 +21,8 @@
         [--against FILE] [--iters N]
     python -m humanvid_tpu_torch.tools.flash_variants --mid-bwd [variant ...]
         [--against FILE] [--iters N]
+    python -m humanvid_tpu_torch.tools.flash_variants --own [variant ...]
+        [--against FWD_FILE] [--against BWD_FILE] [--iters N]
 
 Each variant is ``csrc/flash_attention.cu`` with a few named text edits
 (``VARIANTS``), built by nvcc with the port's flags into ``build/`` and
@@ -125,6 +127,17 @@ backward under each backend that runs the shape; ``--against`` takes an
 earlier backward source, which runs these widths through the zero pad to
 512: it is called on inputs padded beforehand (the four pad copies in and
 the three slices out, timed apart, are ``pad_ms``; its ``ms`` adds them).
+With ``--own`` those of kernel A at the head's own width (d = 64 and 80 < d
+<= 128: ``flash_fwd_own_kernel`` and the backward's ``DkvOwn``/``DqOwn``;
+``OWN_VARIANTS``: the pad on as before the own width, consumer counts, d =
+128 without the ping-pong or the overlap, the overlap at every width, ring
+depths, the backward's consumer counts and ring depth, hidden key tiles
+computed instead of passed over, and the bias path on zero-bias tiles), the
+forward at the smoke's heads64 and head-width shapes (``OWN_SHAPES``) and
+the backward's dk/dv and dq entry points timed apart at its stage-2 shapes
+(``OWN_BWD_SHAPES``), each held to its plain version and to the bits of
+``kernel``, beside SDPA; ``--against`` takes a forward source and a
+backward source (the parent commit's).
 At each of kernel A's main-path shapes (``SHAPES``, those of
 ``chip_smoke.py``) every variant that computes the same function is first
 held to the plain version on 128 query rows (``chip_smoke.py``'s limits);
@@ -351,6 +364,79 @@ def xwide_variant_sources(name: str) -> Tuple[str, str]:
     table = {name: (edits, False)}
     return (variant_source(name, table, "flash_attention.cu"),
             variant_source(name, table, "flash_attention_bwd.cu"))
+
+# kernel A at the head's own width (d = 64 and 80 < d <= 128: the forward's
+# `flash_fwd_own_kernel`, the backward's `DkvOwn`/`DqOwn`) at the smoke's
+# heads64 and head-width shapes: the forward's (name, B, Lq, Lk, heads, d,
+# bias rows) and the backward's
+OWN_SHAPES = (("heads64 level0 cond (ref KV) d64", 24, 6144, 12288, 5, 64, 0),
+              ("heads64 level0 batched CFG bias d64", 48, 6144, 12288, 5, 64, 24),
+              ("heads64 level1 cond (ref KV) d128", 24, 1536, 3072, 5, 128, 0),
+              ("heads64 level1 batched CFG bias d128", 48, 1536, 3072, 5, 128, 24),
+              ("level1-size d96", 24, 1536, 3072, 4, 96, 0),
+              ("level1-size d112", 24, 1536, 3072, 4, 112, 0))
+OWN_BWD_SHAPES = (("heads64 level0 cond (ref KV) d64", 24, 7168, 14336, 5, 64, 0),
+                  ("heads64 level0 uncond (CFG dropout bias) d64", 24, 7168, 14336, 5, 64, 24),
+                  ("heads64 level1 cond (ref KV) d128", 24, 1792, 3584, 5, 128, 0),
+                  ("heads64 level1 uncond (CFG dropout bias) d128", 24, 1792, 3584, 5, 128, 24),
+                  ("level1-size d96", 24, 1792, 3584, 4, 96, 0),
+                  ("level1-size d112", 24, 1792, 3584, 4, 112, 0))
+_OWN_ALIAS = "using Own = OwnCfg<W, CW, W <= 96 ? 3 : 2, W == 64 ? 4 : 3, W == 128, W == 128>;"
+_DKV_OWN = "using DkvOwn = BwdCfg<W, W, CW, 2, 64, 3>;"
+_DQ_OWN = "using DqOwn = BwdCfg<W, W, CW, W == 64 ? 3 : 2, 128, W <= 96 ? 3 : 2, 64>;"
+
+
+def _own_alias(nc: str, stages: str, overlap: str, pp: str) -> Edit:
+    return (_OWN_ALIAS, None, f"using Own = OwnCfg<W, CW, {nc}, {stages}, {overlap}, {pp}>;")
+
+
+# name: (edits of the forward's source, edits of the backward's, ablation)
+OWN_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], Tuple[Edit, ...], bool]] = {
+    "kernel": ((), (), False),
+    # the pad on: d = 64 in d <= 80's tiles (depth and N 80), 96 and 112 in
+    # the 128-wide tiles on 8-column boxes, as before the own width
+    "pad_on": ((("  if (d == 64) return OWN(64, 64);\n", None, ""),
+                ("return d == 96 ? OWN(96, 32) : OWN(96, 8);", None, "return OWN(128, 8);"),
+                ("return d == 112 ? OWN(112, 16) : OWN(112, 8);", None, "return OWN(128, 8);")),
+               (("  if (d == 64) return DKV(DkvOwn<64, 64>);\n", None, ""),
+                ("  if (d == 64) return DQ(DqOwn<64, 64>);\n", None, ""),
+                ("d == 96 ? DKV(DkvOwn<96, 32>) : DKV(DkvOwn<96, 8>)", None,
+                 "DKV(DkvOwn<128, 8>)"),
+                ("d == 112 ? DKV(DkvOwn<112, 16>) : DKV(DkvOwn<112, 8>)", None,
+                 "DKV(DkvOwn<128, 8>)"),
+                ("d == 96 ? DQ(DqOwn<96, 32>) : DQ(DqOwn<96, 8>)", None, "DQ(DqOwn<128, 8>)"),
+                ("d == 112 ? DQ(DqOwn<112, 16>) : DQ(DqOwn<112, 8>)", None,
+                 "DQ(DqOwn<128, 8>)")), False),
+    # consumer counts: 2 consumer warpgroups (BQ = 128) at 64 and 96
+    "two_consumers": ((_own_alias("2", "W == 64 ? 4 : 3", "W == 128", "W == 128"),), (), False),
+    # d = 128 without the ping-pong, or without the overlap either; the
+    # overlap at every width
+    "no_pingpong": ((_own_alias("W <= 96 ? 3 : 2", "W == 64 ? 4 : 3", "W == 128", "false"),),
+                    (), False),
+    "no_overlap": ((_own_alias("W <= 96 ? 3 : 2", "W == 64 ? 4 : 3", "false", "false"),),
+                   (), False),
+    "overlap_all": ((_own_alias("W <= 96 ? 3 : 2", "W == 64 ? 4 : 3", "true", "W == 128"),),
+                    (), False),
+    # rings: 3 stages at 64, 2 at 128
+    "fewer_stages": ((_own_alias("W <= 96 ? 3 : 2", "W == 128 ? 2 : 3", "W == 128",
+                                 "W == 128"),), (), False),
+    # the backward: dk/dv on 3 consumer warpgroups (192 keys) at 64; dk/dv
+    # on a ring of 4
+    "dkv_three_consumers": ((), ((_DKV_OWN, None,
+                                  "using DkvOwn = BwdCfg<W, W, CW, W == 64 ? 3 : 2, 64, 3>;"),),
+                            False),
+    # dq at 64 on 2 consumer warpgroups, dP over all 128 keys at once
+    "dq_two_consumers": ((), ((_DQ_OWN, None, "using DqOwn = BwdCfg<W, W, CW, 2, 128, "
+                                              "W <= 96 ? 3 : 2, W == 64 ? 128 : 64>;"),), False),
+    "dkv_four_stages": ((), ((_DKV_OWN, None, "using DkvOwn = BwdCfg<W, W, CW, 2, 64, 4>;"),),
+                        False),
+    # hidden key tiles loaded and multiplied
+    "no_skip": (_NO_SKIP, _NO_SKIP, False),
+    # the forward's bias path on every tile (zero-bias tiles too)
+    "bias_every_tile": ((("return !reinterpret_cast<const int*>(bt)[BK + 1]; };", None,
+                          "return bt != nullptr; };"),), (), False),
+}
+
 
 # kernel A's forward between 128 and 512 columns (the mid kernel) at the
 # aim shapes: (name, B, Lq, Lk, heads, d, bias rows)
@@ -1333,6 +1419,174 @@ def run_xwide(names: Sequence[str], iters: int = 5,
     return records
 
 
+def run_own(names: Sequence[str], iters: int = 5, against: Sequence[str] = ()) -> List[dict]:
+    """Kernel A's variants at the head's own width: the forward at
+    ``OWN_SHAPES`` and the backward (dk/dv and dq entry points timed apart)
+    at ``OWN_BWD_SHAPES``, each held to its plain version (the forward's
+    limits on 128 q rows; the backward's per gradient, all rows, hidden keys'
+    dk and dv exactly zero) and to the bits of ``kernel``, timed by CUDA
+    events in turns beside SDPA (its backward through autograd).
+    ``against``: another forward source and/or backward source of the same
+    entry points (the parent commit's), timed as ``against``. Returns the
+    records (also printed, one JSON line each)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the variants run on the CUDA card, and none is available")
+    dev = torch.device("cuda")
+    texts, calls = {}, {}  # one build a distinct source; name -> (fwd label, bwd label)
+    for name in names:
+        fwd_edits, bwd_edits, _ = OWN_VARIANTS[name]
+        labels = []
+        for kind, edits, src in (("fwd", fwd_edits, "flash_attention.cu"),
+                                 ("bwd", bwd_edits, "flash_attention_bwd.cu")):
+            text = variant_source(name, {name: (edits, False)}, src)
+            labels.append(texts.setdefault((kind, text), f"own_{kind}_{name}"))
+        calls[name] = tuple(labels)
+    against_labels = [None, None]
+    for path in against:
+        text = Path(path).read_text()
+        kind = "bwd" if "hv_flash_bwd_dkv" in text else "fwd"
+        against_labels[kind == "bwd"] = texts.setdefault((kind, text), f"own_{kind}_against")
+    if against:
+        calls["against"] = tuple(against_labels)
+    libs = _build({label: text for (_, text), label in texts.items()}, "flash_own_variant")
+    entry = {label: _entry_ints(text) for (_, text), label in texts.items()}
+    fns = {}
+    for label, lib in libs.items():
+        n = entry[label]
+        if label.startswith("own_fwd"):
+            fn = lib.hv_flash_fwd
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns[label] = fn
+        else:
+            dkv, dq = lib.hv_flash_bwd_dkv, lib.hv_flash_bwd_dq
+            dkv.restype = dq.restype = ctypes.c_int
+            dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * n + [ctypes.c_void_p]
+            dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * n + [ctypes.c_void_p]
+            fns[label] = (dkv, dq)
+    stream = cuda_build.stream_handle(dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    card = torch.cuda.get_device_name()
+    records = []
+
+    def ablation(name):
+        return name in OWN_VARIANTS and OWN_VARIANTS[name][2]
+
+    def inputs(B, lq, lk, c, bias_rows, with_g):
+        q = torch.randn((B, lq, c), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((B, lk, c), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        g = torch.randn((B, lq, c), generator=gen, device=dev).to(torch.bfloat16) \
+            if with_g else None
+        bias, unmasked = None, B * lk
+        if bias_rows:
+            bias = torch.zeros((B, lk), device=dev)
+            bias[:bias_rows, lk // 2:] = -1e9
+            unmasked -= bias_rows * (lk // 2)
+        return q, k, v, g, bias, unmasked
+
+    for shape, B, lq, lk, heads, d, bias_rows in OWN_SHAPES:
+        q, k, v, _, bias, unmasked = inputs(B, lq, lk, heads * d, bias_rows, False)
+        out, lse = torch.empty_like(q), torch.empty((B, heads, lq), device=dev)
+        runs = {n: c[0] for n, c in calls.items() if c[0] is not None}
+
+        def call(name):
+            label = runs[name]
+            sizes = _entry_sizes(entry[label], (B, lq, lk, heads, d), d, "fwd")
+            cuda_build.check(fns[label](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                        None if bias is None else bias.data_ptr(),
+                                        out.data_ptr(), lse.data_ptr(), *sizes, stream),
+                             f"own variant {name}")
+
+        rows = torch.cat([torch.arange(64, device=dev), torch.arange(lq - 64, lq, device=dev)])
+        ref, ref_lse = fa.flash_attention_plain(q[:, rows], k, v, heads, bias)
+        checks, first = {}, None
+        for name in runs:
+            call(name)
+            torch.cuda.synchronize()
+            ok, rel = _agree(out[:, rows], ref, FLASH_TOL)
+            lse_err = (lse[:, :, rows] - ref_lse).abs().max().item()
+            if first is None:
+                first = out.clone()
+            checks[name] = (ok and lse_err <= LSE_TOL, rel, lse_err, torch.equal(out, first))
+        del first, ref, ref_lse
+        turns = _turns({name: (lambda name=name: call(name)) for name in runs}, iters)
+        qh, kh, vh = (t.view(B, t.shape[1], heads, d).transpose(1, 2) for t in (q, k, v))
+        mask = None if bias is None else bias.to(torch.bfloat16)[:, None, None, :]
+        sdpa_ms = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask), iters)
+        flops = 4.0 * heads * lq * unmasked * d
+        for name in runs:
+            ms = min(turns[name])
+            ok, rel, lse_err, same = checks[name]
+            rec = dict(mode="own_fwd", variant=name, shape=shape, d=d, ms=ms,
+                       turns=turns[name], tflops=flops / ms / 1e9, sdpa_ms=sdpa_ms,
+                       ablation=ablation(name), ok=None if ablation(name) else ok, rel_l2=rel,
+                       lse_err=lse_err, same_bits_as_first=same, device=card)
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        del q, k, v, out, lse, qh, kh, vh
+        torch.cuda.empty_cache()
+
+    for shape, B, lq, lk, heads, d, bias_rows in OWN_BWD_SHAPES:
+        q, k, v, g, bias, unmasked = inputs(B, lq, lk, heads * d, bias_rows, True)
+        o, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
+        delta = fa.attention_delta(g, o, heads)
+        del o
+        refs = fa.flash_attention_backward_plain(q, k, v, bias, g, lse, delta, heads)
+        grads = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  None if bias is None else bias.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr())
+        runs = {n: c[1] for n, c in calls.items() if c[1] is not None}
+
+        def sizes(name):
+            return _entry_sizes(entry[runs[name]], (B, lq, lk, heads, d), d, "dkv")
+
+        def call_dkv(name):
+            cuda_build.check(fns[runs[name]][0](*common, grads[1].data_ptr(),
+                                                grads[2].data_ptr(), *sizes(name), stream),
+                             f"own variant {name} dk/dv")
+
+        def call_dq(name):
+            cuda_build.check(fns[runs[name]][1](*common, grads[0].data_ptr(), *sizes(name),
+                                                stream), f"own variant {name} dq")
+
+        checks, first = {}, None
+        for name in runs:
+            call_dkv(name)
+            call_dq(name)
+            torch.cuda.synchronize()
+            agreed = [_agree(got, ref, FLASH_BWD_TOL) for got, ref in zip(grads, refs)]
+            hidden_zero = not bias_rows or all(
+                bool((t[:bias_rows, lk // 2:] == 0).all()) for t in grads[1:])
+            if first is None:
+                first = [t.clone() for t in grads]
+            checks[name] = (all(a[0] for a in agreed) and hidden_zero,
+                            max(a[1] for a in agreed), hidden_zero,
+                            all(torch.equal(a, b) for a, b in zip(grads, first)))
+        del first, refs
+        torch.cuda.empty_cache()
+        turns_dkv = _turns({name: (lambda name=name: call_dkv(name)) for name in runs}, iters)
+        turns_dq = _turns({name: (lambda name=name: call_dq(name)) for name in runs}, iters)
+        sdpa_ms = _sdpa_backward_ms(q, k, v, g, heads, bias, iters)
+        flops = 10.0 * heads * lq * unmasked * d
+        for name in runs:
+            dkv_ms, dq_ms = min(turns_dkv[name]), min(turns_dq[name])
+            ok, rel, hidden_zero, same = checks[name]
+            rec = dict(mode="own_bwd", variant=name, shape=shape, d=d, ms=dkv_ms + dq_ms,
+                       dkv_ms=dkv_ms, dq_ms=dq_ms, dkv_turns=turns_dkv[name],
+                       dq_turns=turns_dq[name], tflops=flops / (dkv_ms + dq_ms) / 1e9,
+                       sdpa_ms=sdpa_ms, ablation=ablation(name),
+                       ok=None if ablation(name) else ok, rel_l2=rel,
+                       hidden_keys_zero=hidden_zero, same_bits_as_first=same, device=card)
+            print(json.dumps(rec), flush=True)
+            records.append(rec)
+        del q, k, v, g, lse, delta, grads
+        torch.cuda.empty_cache()
+    return records
+
+
 def run_pvt(names: Sequence[str], iters: int = 5, against: Optional[str] = None) -> List[dict]:
     """Kernel 9's variants at every shape of ``PVT_SHAPES``: each held to
     ``pvt_plain`` on 128 query rows (``chip_smoke.py``'s limits, lse in log2
@@ -2157,7 +2411,8 @@ def main(argv: Sequence[str] = None) -> int:
                              f"{LONG_AT_FRAMES}; "
                              f"with --xwide: {', '.join(XWIDE_VARIANTS)}; with --mid: "
                              f"{', '.join(MID_VARIANTS)}; with --mid-bwd: "
-                             f"{', '.join(MID_BWD_VARIANTS)}")
+                             f"{', '.join(MID_BWD_VARIANTS)}; with --own: "
+                             f"{', '.join(OWN_VARIANTS)}")
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--bwd", action="store_true", help="the backward's variants")
     mode.add_argument("--pvt", action="store_true", help="kernel 9's variants")
@@ -2173,10 +2428,13 @@ def main(argv: Sequence[str] = None) -> int:
                       help="kernel A's forward variants between 128 and 512 columns")
     mode.add_argument("--mid-bwd", action="store_true",
                       help="kernel A's backward variants between 128 and 512 columns")
+    mode.add_argument("--own", action="store_true",
+                      help="kernel A's variants at the head's own width (d = 64, 80 < d <= "
+                           "128), forward and backward")
     parser.add_argument("--against", metavar="FILE", action="append", default=[],
                         help="with any mode but the forward's: another source of the same "
-                             "kernels, timed as 'against' (with --xwide a forward source, "
-                             "a backward source or one of each: give it twice)")
+                             "kernels, timed as 'against' (with --xwide or --own a forward "
+                             "source, a backward source or one of each: give it twice)")
     parser.add_argument("--iters", type=int, default=5,
                         help="launches per timed turn (20 times as many with --dmajor, --hbm, "
                              "--gn, --temporal, --temporal-bwd)")
@@ -2189,7 +2447,7 @@ def main(argv: Sequence[str] = None) -> int:
              "temporal_bwd": ({**TEMPORAL_BWD_VARIANTS, **FRAMES_BWD_VARIANTS, **LONG_VARIANTS,
                                **LONG_BWD_VARIANTS, LONG_AT_FRAMES: None}, run_temporal_bwd),
              "xwide": (XWIDE_VARIANTS, run_xwide), "mid": (MID_VARIANTS, run_mid),
-             "mid_bwd": (MID_BWD_VARIANTS, run_mid_bwd)}
+             "mid_bwd": (MID_BWD_VARIANTS, run_mid_bwd), "own": (OWN_VARIANTS, run_own)}
     mode_name = next((m for m in modes if getattr(args, m)), None)
     table = modes[mode_name][0] if mode_name else VARIANTS
     names = args.variants or list(table)
@@ -2198,13 +2456,13 @@ def main(argv: Sequence[str] = None) -> int:
         parser.error(f"unknown variants {unknown}; the variants are {', '.join(table)}")
     if args.against and not mode_name:
         parser.error("--against needs --bwd, --pvt, --dmajor, --hbm, --gn, --temporal, "
-                     "--temporal-bwd, --xwide, --mid or --mid-bwd")
-    if len(args.against) > (2 if mode_name == "xwide" else 1):
-        parser.error("--against takes one source (with --xwide two)")
+                     "--temporal-bwd, --xwide, --mid, --mid-bwd or --own")
+    if len(args.against) > (2 if mode_name in ("xwide", "own") else 1):
+        parser.error("--against takes one source (with --xwide or --own two)")
     if "kernel" not in names:
         names = ["kernel", *names]
-    if mode_name == "xwide":
-        records = run_xwide(names, args.iters, args.against)
+    if mode_name in ("xwide", "own"):
+        records = modes[mode_name][1](names, args.iters, args.against)
     elif mode_name:
         records = modes[mode_name][1](names, args.iters,
                                       args.against[0] if args.against else None)

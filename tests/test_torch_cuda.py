@@ -77,8 +77,16 @@ def _randn(shape, seed, dev):
     (2, 300, 700, 5, 64, True),    # 5 heads of 64 (level 0 of 5-head configs), the bias
     (2, 300, 700, 5, 128, True),   # 5 heads of 128: the 128-byte swizzle, the bias
     (2, 130, 129, 5, 128, False),  # d = 128, ragged Lq and Lk 1 past a key tile
-    (2, 256, 512, 4, 96, False),   # d = 96: 8-column boxes, depth padded to 128
-    (1, 100, 200, 3, 120, True),   # d = 120
+    (2, 256, 512, 4, 96, False),   # d = 96: 32-column boxes in the 64-byte swizzle
+    (1, 100, 200, 3, 120, True),   # d = 120: 8-column boxes, depth 128
+    # the own widths ragged with the bias, and Lq / Lk one past a block and a tile
+    (2, 300, 700, 4, 96, True),
+    (2, 300, 700, 4, 112, True),   # d = 112: 16-column boxes in the 32-byte swizzle
+    (2, 300, 700, 3, 88, True),    # d = 88: 8-column boxes, depth 96
+    (2, 300, 700, 3, 104, True),   # d = 104: depth 112
+    (2, 193, 129, 5, 64, False),   # 3 consumer warpgroups: 192 rows a block
+    (2, 193, 129, 4, 96, False),
+    (2, 129, 129, 4, 112, False),
     (2, 300, 700, 5, 36, True),    # d = 36: zero-padded to 40
     (2, 200, 300, 2, 192, True),   # d = 192: the mid kernel
     (1, 100, 200, 3, 260, False),  # d = 260: the mid kernel (depth 320), at a head offset
@@ -106,6 +114,40 @@ def test_flash_kernel_matches_plain(b, lq, lk, heads, d, with_bias):
     assert (lse - ref_lse).abs().max().item() <= 1e-3
     again, lse_again = fa.flash_attention_packed(q, k, v, heads, bias)
     assert torch.equal(out, again) and torch.equal(lse, lse_again)  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,heads", [(64, 5), (96, 4), (112, 4), (128, 5), (88, 3), (120, 3)])
+def test_flash_own_forward_passes_hidden_tiles_over(d, heads):
+    """The forward at the head's own width, on batch rows that hide whole
+    128-key tiles (row 0 from key 128 to a ragged end, row 1 its first 256
+    keys): it agrees with the plain version, the hidden keys' values add
+    exactly nothing, and the tiles it passes over give the same bits as
+    computing them (a bias of -0.99e9 hides the same keys but is above the
+    -1e9 at which tiles are passed over)."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
+
+    dev = _card()
+    b, lq, lk = 2, 200, 700
+    q, k, v = (_randn((b, n, heads * d), 20 + s, dev) for s, n in enumerate((lq, lk, lk)))
+    bias = torch.zeros((b, lk), device=dev)
+    bias[0, 128:] = -1e9
+    bias[1, :256] = -1e9
+    before = fa.launches["own"]
+    out, lse = fa.flash_attention_cuda(q, k, v, heads, bias)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, heads, bias)
+    torch.cuda.synchronize()
+    assert fa.launches["own"] == before + 1
+    for h in range(heads):
+        cols = slice(h * d, (h + 1) * d)
+        _assert_close(out[..., cols], ref[..., cols], FLASH_TOL)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    v2 = v.clone()
+    v2[0, 128:] = _randn((lk - 128, heads * d), 30, dev)
+    v2[1, :256] = _randn((256, heads * d), 31, dev)
+    assert torch.equal(out, fa.flash_attention_cuda(q, k, v2, heads, bias)[0])
+    computed = fa.flash_attention_cuda(q, k, v, heads, torch.where(bias <= -1e9, -0.99e9, bias))
+    assert torch.equal(out, computed[0]) and torch.equal(lse, computed[1])
 
 
 TEMPORAL_WIDE = [
@@ -205,8 +247,18 @@ def test_temporal_kernel_every_head_and_no_leak_across_samples(b, f, l, c, heads
     # d = 128, every row hides whole 128-key tiles up to a ragged end
     (2, 300, 700, 4, 128, ((0, 256, 700), (1, 256, 700))),
     (2, 130, 129, 5, 128, ()),   # d = 128, ragged Lq, Lk 1 past a tile
-    (2, 200, 300, 4, 96, ()),    # d = 96: 8-column boxes, depth padded to 128
-    (1, 100, 200, 3, 120, ((0, 100, 200),)),  # d = 120
+    (2, 200, 300, 4, 96, ()),    # d = 96: 32-column boxes in the 64-byte swizzle
+    (1, 100, 200, 3, 120, ((0, 100, 200),)),  # d = 120: 8-column boxes, depth 128
+    # the own widths: every row hides whole 128-key tiles up to a ragged end,
+    # and Lq / Lk one past a block and a tile
+    (2, 300, 700, 5, 64, ((0, 256, 700), (1, 128, 700))),
+    (2, 300, 700, 4, 96, ((0, 256, 700), (1, 384, 700))),
+    (2, 300, 700, 4, 112, ((0, 256, 700), (1, 128, 700))),
+    (2, 300, 700, 3, 88, ((0, 350, 700),)),
+    (2, 300, 700, 3, 104, ((1, 128, 700),)),
+    (2, 129, 129, 5, 64, ()),
+    (2, 129, 129, 4, 96, ()),
+    (2, 129, 129, 4, 112, ()),
     (2, 300, 700, 5, 36, ((0, 350, 700),)),   # d = 36, zero-padded to 40
     (2, 200, 300, 2, 192, ((0, 150, 300),)),  # d = 192: the mid backward, merged
     (1, 100, 200, 1, 320, ((0, 100, 200),)),  # d = 320 (long_wide's level 0), the same
@@ -394,12 +446,14 @@ def test_temporal_heads_and_positions_isolated_from_an_inf(c, hot, direction):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,hot", [(40, 1), (40, 7), (80, 1), (80, 7), (64, 1), (128, 1),
                                    (128, 7), (96, 7), (36, 1), (192, 7), (136, 1), (200, 7),
-                                   (264, 1), (320, 7), (448, 1), (504, 7)],
+                                   (264, 1), (320, 7), (448, 1), (504, 7), (96, 1), (112, 1),
+                                   (112, 7), (64, 7)],
                          ids=["d40-head1", "d40-last-head", "d80-head1", "d80-last-head",
                               "d64-head1", "d128-head1", "d128-last-head", "d96-last-head",
                               "d36-padded", "d192-mid-last-head", "d136-mid-head1",
                               "d200-mid-last-head", "d264-mid-head1", "d320-mid-last-head",
-                              "d448-mid-head1", "d504-mid-last-head"])
+                              "d448-mid-head1", "d504-mid-last-head", "d96-head1", "d112-head1",
+                              "d112-last-head", "d64-last-head"])
 @pytest.mark.parametrize("with_bias", [False, True], ids=["no-bias", "bias"])
 @pytest.mark.parametrize("direction", ["forward", "backward"])
 def test_flash_heads_isolated_from_an_inf(d, hot, with_bias, direction):

@@ -52,6 +52,8 @@ def _inputs(b, lq, lk, heads, d, with_bias, seed=0):
     (2, 100, 300, 2, 128, True),     # d = 128 (5 heads at level 1), ragged, the bias
     (1, 100, 200, 3, 36, True),      # no multiple of 8: the kernels pad it to 40
     (1, 64, 96, 2, 192, True),       # 128 < d < 512: the kernels pad it to 512
+    (1, 100, 200, 2, 96, True),      # d = 96 and 112: the own-width kernels' boxes of 32
+    (1, 100, 200, 2, 112, True),     # and 16 columns
 ])
 def test_plain_matches_pallas_interpret(b, lq, lk, heads, d, with_bias):
     q, k, v, bias = _inputs(b, lq, lk, heads, d, with_bias)
@@ -81,6 +83,8 @@ def test_plain_matches_pallas_interpret(b, lq, lk, heads, d, with_bias):
     (2, 100, 300, 2, 128, "all rows"),  # d = 128, ragged, the CFG-dropout bias on every row
     (1, 100, 200, 3, 36, True),      # padded to 40 by the kernels' wrapper
     (1, 64, 96, 2, 192, True),       # padded to 512
+    (1, 100, 200, 2, 96, True),      # d = 96 and 112 (the own-width kernels' widths)
+    (1, 100, 200, 2, 112, "all rows"),
 ])
 def test_plain_backward_matches_pallas_vjp(b, lq, lk, heads, d, with_bias):
     q, k, v, bias = _inputs(b, lq, lk, heads, d, with_bias, seed=1)

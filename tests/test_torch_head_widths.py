@@ -178,13 +178,13 @@ WIDE_BWD = "WideDv+WideDk/WideDq"
     (8, 8, "Cfg<48, 40>", "DkvCfg48/DqCfg48", 8),
     (36, 40, "Cfg<48, 40>", "DkvCfg48/DqCfg48", 40),
     (40, 40, "Cfg<48, 40>", "DkvCfg48/DqCfg48", 40),
-    (64, 64, "Cfg<80, 80>", "DkvCfg80s/DqCfg80s", 64),
+    (64, 64, "Own<64, 64>", "DkvOwn<64, 64>/DqOwn<64, 64>", 64),
     (72, 72, "Cfg<80, 80>", "DkvCfg80/DqCfg80", 72),
     (80, 80, "Cfg<80, 80>", "DkvCfg80s/DqCfg80s", 80),
-    (81, 88, "Cfg<128, 128>", "DkvCfg128/DqCfg128", 88),
-    (96, 96, "Cfg<128, 128>", "DkvCfg128/DqCfg128", 96),
-    (120, 120, "Cfg<128, 128>", "DkvCfg128/DqCfg128", 120),
-    (128, 128, "Cfg<128, 128, swizzled>", "DkvCfg128w/DqCfg128w", 128),
+    (81, 88, "Own<96, 8>", "DkvOwn<96, 8>/DqOwn<96, 8>", 88),
+    (96, 96, "Own<96, 32>", "DkvOwn<96, 32>/DqOwn<96, 32>", 96),
+    (120, 120, "Own<128, 8>", "DkvOwn<128, 8>/DqOwn<128, 8>", 120),
+    (128, 128, "Own<128, 64>", "DkvOwn<128, 64>/DqOwn<128, 64>", 128),
     # 128 < d < 512: the mid forward and backward at d (to 8), their depth
     # d rounded up to 64; one dk/dv kernel up to 320, a dV and a dK past it
     (129, 136, "Mid<192, rows>", "MidDkv<192>/MidDq<192>", 136),

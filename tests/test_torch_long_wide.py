@@ -196,7 +196,7 @@ XWIDE = ("Xwide", "XwideDkv/XwideDq")
     (1280, fa.FlashPlan(1280, *XWIDE, 1280)),  # one head at levels 2-3
     (4100, fa.FlashPlan(4104, *XWIDE, 4104)),
     (40, fa.FlashPlan(40, "Cfg<48, 40>", "DkvCfg48/DqCfg48", 40)),  # unchanged below
-    (128, fa.FlashPlan(128, "Cfg<128, 128, swizzled>", "DkvCfg128w/DqCfg128w", 128)),
+    (128, fa.FlashPlan(128, "Own<128, 64>", "DkvOwn<128, 64>/DqOwn<128, 64>", 128)),
     # level 0's one head: the mid forward and backward at 320
     (320, fa.FlashPlan(320, "Mid<320, rows>", "MidDkv<320>/MidDq<320>", 320)),
     (512, fa.FlashPlan(512, "Cfg<512, 256, wide>", "WideDv+WideDk/WideDq", 512)),

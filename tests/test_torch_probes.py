@@ -270,6 +270,23 @@ def test_xwide_variant_edits_apply_to_the_kernel_sources(name):
     assert max(fa.xwide_smem(plan, k) for k in ("fwd", "bwd")) <= fa.SMEM_LIMIT
 
 
+
+@pytest.mark.parametrize("name", sorted(flash_variants.OWN_VARIANTS))
+def test_own_variant_edits_apply_to_the_kernel_sources(name):
+    """The own-width variants: each edit found exactly once in the forward's
+    or the backward's source, and every shape the tool times runs at a
+    width the own-width kernels take."""
+    from humanvid_tpu_torch.ops import flash_attention as fa
+
+    fwd_edits, bwd_edits, _ = flash_variants.OWN_VARIANTS[name]
+    for edits, source in ((fwd_edits, "flash_attention.cu"),
+                          (bwd_edits, "flash_attention_bwd.cu")):
+        text = flash_variants.variant_source(name, {name: (edits, False)}, source)
+        assert (text == (cuda_build.CSRC / source).read_text()) == (not edits)
+    for shape in flash_variants.OWN_SHAPES + flash_variants.OWN_BWD_SHAPES:
+        assert fa.is_own(shape[5]) and fa.flash_plan(shape[5]).forward.startswith("Own<")
+
+
 @pytest.mark.parametrize("name", sorted(flash_variants.FRAMES_BWD_VARIANTS))
 def test_frames_bwd_variants_apply_and_fit_one_block(name):
     """Kernel B's frames-kernel variants: each edit found exactly once in
