@@ -178,7 +178,8 @@ a rank that fails fails the phase):
 ``python3 chip_smoke.py --long-wide-steps TREE`` times the long_wide path
 alone with the port of the checkout at TREE (its own kernels, built into
 its own ``build/``), so that two commits compare in one call, in turns:
-``long_wide_steps``.
+``long_wide_steps``; ``--heads64-steps TREE`` the heads64 path the same
+way.
 
 Every head width the JAX kernels take adds (after the probes, and
 ``heads64`` before stage 1):
@@ -612,9 +613,12 @@ def phase_temporal(torch, results, dev, cases):
         torch.cuda.synchronize()
         err, rel, ok = agreement(out, ref, TEMPORAL_TOL)
         same = torch.equal(out, ta.temporal_attention_cuda(q, k, v, heads))
+        # over one frame p = 1: the output is v, exactly
+        exact = torch.equal(out, v) if f == 1 else None
+        same = same and exact is not False
         event_ms = time_ms(torch, lambda: ta.temporal_attention_cuda(q, k, v, heads), 10)
         long = f > ta.ITEM_FRAMES
-        key = ("temporal_fwd_long_kernel" if long else "temporal_fwd_wide_kernel"
+        key = ("temporal_fwd_long_kernel" if long else "temporal_fwd_split_kernel"
                if d > ta.CHUNK_COLUMNS else "temporal_fwd_kernel")
         kernel = "temporal_fwd_long" if long else "temporal_fwd"
         headline = _is_headline(results, kernel, name)
@@ -632,9 +636,12 @@ def phase_temporal(torch, results, dev, cases):
         b_ms, b_by = bound(flops, 2.0 * 4 * q.numel())
         print(f"  {name}: b={b} f={f} l={l} c={c} heads={heads} d={d} "
               f"{_temporal_route(ta, c, heads, f)} max_abs_err={err:.3e} "
-              f"rel_l2={rel:.3e} same_bits={same} device_ms={ms:.4f} ({ms_from}) "
+              f"rel_l2={rel:.3e} same_bits={same} "
+              + (f"one frame exact (out = v)={exact} " if exact is not None else "")
+              + f"device_ms={ms:.4f} ({ms_from}) "
               f"event_ms={event_ms:.4f} plain_ms={plain_ms:.3f} library_ms={lib} "
-              f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+              f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / ms if ms else 0:.2f} "
+              f"{'ok' if ok else 'FAIL'}")
         results.append(dict(kernel=kernel, shape=name, d=d, f=f, max_abs_err=err, rel_l2=rel,
                             ms=ms, event_ms=event_ms, device_ms=ms, device_ms_from=ms_from,
                             plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
@@ -643,7 +650,7 @@ def phase_temporal(torch, results, dev, cases):
 
 def _temporal_route(ta, c, heads, f, backward=False):
     """Which item kernel B runs a head of c // heads columns over f frames
-    in: whole heads, or column chunks (the wide kernels), after any zero
+    in: whole heads, or column slices (the split kernels' plan), after any zero
     pad; past ITEM_FRAMES frames the long kernels' plans (whole heads, or
     one head streamed in panels and chunks), or the backward's frames
     kernel and its plan."""
@@ -663,7 +670,10 @@ def _temporal_route(ta, c, heads, f, backward=False):
                      f"{ta.LONG_PANEL}-frame panels")
         return f"({pad}long kernel: {item}, {p.stages} stages, {p.smem} bytes)"
     if plan.chunks > 1:
-        return f"({pad}{plan.chunks} chunks of {plan.cols} columns)"
+        p = ta.split_plan(width, f, backward)
+        mode = " streamed" if p.mode == ta.MODE_SPLIT_STREAMED else ""
+        return (f"({pad}split{mode}: {p.positions} positions x {p.slices} slices of {p.cols} "
+                f"columns, {p.stages} slots, {p.smem} bytes)")
     return f"({pad}{plan.heads} heads an item)"
 
 
@@ -946,12 +956,15 @@ def phase_temporal_bwd(torch, results, dev, cases):
         ratios = "/".join(f"{e[0] / max(r.float().pow(2).mean().sqrt().item(), 1e-30):.3e}"
                           for e, r in zip(errs, refs))
         same = all(torch.equal(a, b_) for a, b_ in zip(grads, run()))
-        ok = all(e[2] for e in errs) and same
+        # over one frame p = 1 and ds = 0: dq = dk = 0 and dv = g, exactly
+        exact = (f != 1 or (not grads[0].any() and not grads[1].any()
+                            and torch.equal(grads[2], g)))
+        ok = all(e[2] for e in errs) and same and exact
         del grads, refs
         event_ms = time_ms(torch, run, 10)
         long = f > ta.ITEM_FRAMES
         key = ("temporal_bwd_long_kernel" if f > ta.FRAMES_KERNEL_FRAMES
-               else "temporal_bwd_frames_kernel" if long else "temporal_bwd_wide_kernel"
+               else "temporal_bwd_frames_kernel" if long else "temporal_bwd_split_kernel"
                if d > ta.CHUNK_COLUMNS else "temporal_bwd_kernel")
         kernel = ("temporal_bwd_long" if f > ta.FRAMES_KERNEL_FRAMES
                   else "temporal_bwd_frames" if long else "temporal_bwd")
@@ -974,8 +987,10 @@ def phase_temporal_bwd(torch, results, dev, cases):
               f"{_temporal_route(ta, c, heads, f, backward=True)} "
               f"rel_l2 dq/dk/dv={errs[0][1]:.3e}/{errs[1][1]:.3e}/{errs[2][1]:.3e} "
               f"max_err/rms dq/dk/dv={ratios} same_bits={same} "
-              f"device_ms={ms:.4f} ({ms_from}) event_ms={event_ms:.4f} plain_ms={plain_ms:.3f} "
-              f"library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}")
+              + (f"one frame exact (dq = dk = 0, dv = g)={exact} " if f == 1 else "")
+              + f"device_ms={ms:.4f} ({ms_from}) event_ms={event_ms:.4f} plain_ms={plain_ms:.3f} "
+              f"library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) "
+              f"share_of_bound={b_ms / ms if ms else 0:.2f} {'ok' if ok else 'FAIL'}")
         results.append(dict(kernel=kernel, shape=name, d=d, f=f,
                             max_abs_err=max(e[0] for e in errs),
                             rel_l2=max(e[1] for e in errs), ms=ms, event_ms=event_ms,
@@ -989,7 +1004,8 @@ def phase_temporal_bwd(torch, results, dev, cases):
 
 def phase_temporal_isolation(torch, dev):
     """Kernel B's backward past 32 frames (the frames kernel, and the long
-    kernel past 128) with an Inf in one head's q, k, v and g columns at
+    kernel past 128), and both split kernels (heads wider than 160 columns
+    up to 32 frames), with an Inf in one head's q, k, v and g columns at
     every third position: every element outside that head's columns at
     those positions must be finite and the same bits as the clean run.
     Returns ok."""
@@ -997,7 +1013,8 @@ def phase_temporal_isolation(torch, dev):
 
     ok = True
     b, l = 2, 30
-    for f, c, heads, hot in ((33, 320, 8, 1), (48, 320, 8, 3), (48, 640, 8, 7), (48, 1280, 8, 2),
+    for f, c, heads, hot in ((24, 1280, 4, 1), (13, 2640, 10, 3), (24, 1280, 5, 4),
+                             (33, 320, 8, 1), (48, 320, 8, 3), (48, 640, 8, 7), (48, 1280, 8, 2),
                              (64, 1280, 5, 4), (96, 1280, 5, 2), (96, 320, 8, 7),
                              (100, 320, 8, 1), (128, 640, 8, 3), (128, 1280, 5, 2),
                              (136, 320, 8, 1), (200, 320, 8, 5), (200, 1280, 8, 6)):
@@ -1011,12 +1028,18 @@ def phase_temporal_isolation(torch, dev):
         hit = torch.zeros((b, f, l, c), dtype=torch.bool, device=dev)
         hit[:, :, 1::3, hot * d:(hot + 1) * d] = True
         grads = [ta.temporal_attention_backward_cuda(*ts, heads) for ts in (clean, hot_in)]
+        runs = [("backward", grads)]
+        if f <= ta.ITEM_FRAMES:
+            runs.append(("forward", [[ta.temporal_attention_cuda(*ts[:3], heads)]
+                                     for ts in (clean, hot_in)]))
         torch.cuda.synchronize()
-        finite = all(bool(torch.isfinite(got[~hit]).all()) for got in grads[1])
-        same = all(torch.equal(want[~hit], got[~hit]) for want, got in zip(*grads))
-        ok = ok and finite and same
-        print(f"  isolation backward f={f} d={d} Inf in head {hot}: other heads and positions "
-              f"finite {finite}, same bits {same} {'ok' if finite and same else 'FAIL'}")
+        for direction, (want_all, got_all) in runs:
+            finite = all(bool(torch.isfinite(got[~hit]).all()) for got in got_all)
+            same = all(torch.equal(want[~hit], got[~hit]) for want, got in zip(want_all, got_all))
+            ok = ok and finite and same
+            print(f"  isolation {direction} f={f} d={d} Inf in head {hot}: other heads and "
+                  f"positions finite {finite}, same bits {same} "
+                  f"{'ok' if finite and same else 'FAIL'}")
     return ok
 
 
@@ -1081,17 +1104,17 @@ def head_width_bwd_cases():
 def temporal_width_cases():
     """Kernel B's forward at the heads64 motion modules' shapes (768x512:
     d = 64, 128 and 256 at levels 0-3, the camera encoder's d = 64) and at
-    d = 320, 640 and 1280 (column chunks), 36 (padded to 40), at f = 24
-    and one frame: (name, b, f, l, c, heads)."""
+    d = 320, 640 and 1280 (column slices: the split kernel), 36 (padded to
+    40), at f = 24 and one frame: (name, b, f, l, c, heads)."""
     return [
         ("heads64 motion level0 d64", 1, 24, 6144, 320, 5),
         ("heads64 motion level1 d128", 1, 24, 1536, 640, 5),
         ("heads64 motion level2 d256", 1, 24, 384, 1280, 5),
         ("heads64 motion level3/mid d256", 1, 24, 96, 1280, 5),
         ("heads64 camera encoder d64", 1, 24, 6144, 320, 5),
-        ("d320 (2 chunks)", 1, 24, 384, 1280, 4),
-        ("d640 (4 chunks)", 1, 24, 384, 1280, 2),
-        ("d1280 (8 chunks)", 1, 24, 384, 1280, 1),
+        ("d320 (2 slices)", 1, 24, 384, 1280, 4),
+        ("d640 (4 slices)", 1, 24, 384, 1280, 2),
+        ("d1280 (8 slices)", 1, 24, 384, 1280, 1),
         ("d1280 one frame", 8, 1, 384, 1280, 1),
         ("d256 one frame", 8, 1, 448, 1280, 5),
         ("pad d36 to 40", 1, 24, 1536, 180, 5),
@@ -1108,9 +1131,9 @@ def temporal_width_bwd_cases():
         ("heads64 motion level2 d256", 1, 24, 448, 1280, 5),
         ("heads64 motion level3/mid d256", 1, 24, 112, 1280, 5),
         ("heads64 camera encoder d64", 1, 24, 7168, 320, 5),
-        ("d320 (2 chunks)", 1, 24, 448, 1280, 4),
-        ("d640 (4 chunks)", 1, 24, 448, 1280, 2),
-        ("d1280 (8 chunks)", 1, 24, 448, 1280, 1),
+        ("d320 (2 slices)", 1, 24, 448, 1280, 4),
+        ("d640 (4 slices)", 1, 24, 448, 1280, 2),
+        ("d1280 (8 slices)", 1, 24, 448, 1280, 1),
         ("d1280 one frame", 8, 1, 448, 1280, 1),
         ("d256 one frame", 8, 1, 448, 1280, 5),
         ("pad d36 to 40", 1, 24, 1792, 180, 5),
@@ -1221,7 +1244,7 @@ def phase_heads64(torch, np, dev, card):
     kernel B's at 64, 128 and 256 (forward and backward), and no plain
     attention on CUDA tensors but the short-sequence route. Returns (ok,
     {run: launches})."""
-    from humanvid_tpu_torch.pipelines import CamAnimate, Pose2VideoPipeline
+    from humanvid_tpu_torch.pipelines import CamAnimate
     from humanvid_tpu_torch.train import (
         OptimizerConfig, TrainConfig, TrainState, sample_draws, stage2_trainable,
         stage_config, train_step)
@@ -1229,12 +1252,10 @@ def phase_heads64(torch, np, dev, card):
     F, H, W = MAIN_SIZE
     ok, runs = True, {}
     t0 = time.perf_counter()
-    system = CamAnimate(heads64_config(), device=dev, dtype=torch.bfloat16).init_random(0)
+    system, pipe, inputs = _pipeline(torch, np, dev, heads64_config(), MAIN_SIZE)
     n_params = sum(p.numel() for m in system.components().values() for p in m.parameters())
     print(f"[heads64] {card}: CamAnimate with 5 heads, {n_params / 1e9:.3f} B params, built in "
           f"{time.perf_counter() - t0:.1f} s")
-    pipe = Pose2VideoPipeline(system)
-    inputs = _inputs(np, F, H, W, system.config.clip.image_size, 0)
     for mode in ("sequential", "batched"):
         torch.cuda.synchronize()
         _reset_launches()
@@ -1399,13 +1420,13 @@ def long_wide_config():
         camera_encoder=CameraEncoderConfig(position_encoding_max_len=48))
 
 
-def _long_wide_pipeline(torch, np, dev):
-    """``long_wide_config()`` at full width, seeded random weights, bf16:
-    (system, its Pose2VideoPipeline, the seeded 768x512x48f inputs)."""
+def _pipeline(torch, np, dev, config, size):
+    """``config`` at full width, seeded random weights, bf16: (system, its
+    Pose2VideoPipeline, seeded inputs of ``size`` (frames, height, width))."""
     from humanvid_tpu_torch.pipelines import CamAnimate, Pose2VideoPipeline
 
-    F, H, W = LONG_WIDE_SIZE
-    system = CamAnimate(long_wide_config(), device=dev, dtype=torch.bfloat16).init_random(0)
+    F, H, W = size
+    system = CamAnimate(config, device=dev, dtype=torch.bfloat16).init_random(0)
     return system, Pose2VideoPipeline(system), _inputs(np, F, H, W,
                                                        system.config.clip.image_size, 0)
 
@@ -1488,7 +1509,7 @@ def phase_long_wide(torch, np, dev, card):
     F, H, W = LONG_WIDE_SIZE
     ok, runs = True, {}
     t0 = time.perf_counter()
-    system, pipe, inputs = _long_wide_pipeline(torch, np, dev)
+    system, pipe, inputs = _pipeline(torch, np, dev, long_wide_config(), LONG_WIDE_SIZE)
     n_params = sum(p.numel() for m in system.components().values() for p in m.parameters())
     print(f"[long_wide] {card}: CamAnimate with one spatial head and {F}-frame tables, "
           f"{n_params / 1e9:.3f} B params, built in {time.perf_counter() - t0:.1f} s")
@@ -1571,12 +1592,14 @@ def phase_long_wide(torch, np, dev, card):
     return ok, runs
 
 
-def long_wide_steps(tree):
+def long_wide_steps(tree, path="long_wide"):
     """The long_wide path end to end with the port of the checkout at
     ``tree``: pose2vid at 768x512x48f, 3 DDIM steps in each CFG mode, and 3
     uncond stage-2 steps at 896x512x48f (the first of each cold), then one
     more under torch.profiler; prints one JSON line: the steps' seconds,
-    the peaks and the stage-2 step's device ms by kernel. Returns 0."""
+    the peaks and the stage-2 step's device ms by kernel. With ``path``
+    "heads64" the same of the heads64 path (``heads64_config()``, pose2vid
+    at 768x512x24f, the stage-2 step at 896x512x24f). Returns 0."""
     import os
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -1587,19 +1610,23 @@ def long_wide_steps(tree):
     from humanvid_tpu_torch.train import TrainConfig, train_step
 
     dev = torch.device("cuda")
-    rec = {"tree": tree}
-    system, pipe, inputs = _long_wide_pipeline(torch, np, dev)
+    rec = {"tree": tree, "path": path}
+    if path == "heads64":
+        config, size, train_size = heads64_config(), MAIN_SIZE, TRAIN_SIZE
+    else:
+        config, size, train_size = long_wide_config(), LONG_WIDE_SIZE, LONG_WIDE_TRAIN_SIZE
+    system, pipe, inputs = _pipeline(torch, np, dev, config, size)
     for mode in ("sequential", "batched"):
         torch.cuda.reset_peak_memory_stats()
         out = pipe(**inputs, num_inference_steps=3, guidance_scale=3.5,
-                   context_frames=LONG_WIDE_SIZE[0], cfg_mode=mode, decode_chunk=8,
+                   context_frames=size[0], cfg_mode=mode, decode_chunk=8,
                    generator=torch.Generator(device=dev).manual_seed(0))
         rec[f"{mode}_steps"] = [round(x, 4) for x in out.seconds["denoise_steps"]]
         rec[f"{mode}_peak_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
     del pipe, system, out
     gc.collect()
     torch.cuda.empty_cache()
-    setup = _stage2_step_setup(torch, np, dev, long_wide_config(), LONG_WIDE_TRAIN_SIZE)
+    setup = _stage2_step_setup(torch, np, dev, config, train_size)
     torch.cuda.reset_peak_memory_stats()
     steps = []
     for _ in range(3):
@@ -2297,9 +2324,9 @@ def phase_main(torch, np, dev):
 
 KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match wins
     ("kernel A (flash_fwd)", ("flash_fwd_kernel",)),
-    ("kernel B (temporal_fwd)", ("temporal_fwd_kernel", "temporal_fwd_wide_kernel")),
+    ("kernel B (temporal_fwd)", ("temporal_fwd_kernel", "temporal_fwd_split_kernel")),
     ("kernel A bwd (flash_bwd)", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
-    ("kernel B bwd (temporal_bwd)", ("temporal_bwd_kernel", "temporal_bwd_wide_kernel")),
+    ("kernel B bwd (temporal_bwd)", ("temporal_bwd_kernel", "temporal_bwd_split_kernel")),
     # ahead of the cuDNN group ("nhwc") and the norm group ("norm")
     ("kernel C (group_norm)", ("gn_cluster_", "gn_stats_", "gn_finalize", "gn_apply_")),
     ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "nchw",
@@ -4078,6 +4105,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--long-wide-steps"]:
         return long_wide_steps(sys.argv[2])
+    if sys.argv[1:2] == ["--heads64-steps"]:
+        return long_wide_steps(sys.argv[2], "heads64")
     try:
         import humanvid_tpu_torch  # noqa: F401
     except ImportError as err:

@@ -74,6 +74,7 @@
 
 #include "hopper.cuh"
 #include "mma_tiles.cuh"
+#include "temporal_split.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -85,6 +86,7 @@ constexpr int kConsumers = 4;   // consumer warps
 constexpr int kStages = 3;      // items in flight
 constexpr int kPositions = 1;   // positions per item
 constexpr int kOTiles = kStages + 1;  // O tiles: one item's store drains under the next
+constexpr int kChunkColumns = 160;  // the widest item (the wrapper's CHUNK_COLUMNS)
 constexpr int kThreads = 32 * (kConsumers + 1);
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -401,205 +403,230 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int F,
   return (int)cudaGetLastError();
 }
 
-// ---- heads wider than 160 columns: one head walked in column chunks --------
+// ---- heads wider than 160 columns: one head split in column slices ---------
 //
-// An item is kWidePositions positions x all F frames x one head of d > 160
-// columns, walked in `chunks` chunks of CW columns (the last d - (chunks -
-// 1) * CW). A stage of the ring holds one chunk of the item in two slots of
-// kWidePositions tiles [F][CWP] each, one tile a position and a consumer
-// warp a position. The producer walks each item in 2 * chunks steps:
-//   steps 0 .. chunks-1: Q and K of chunk c (slots 0 and 1); each warp adds
-//     Q_c K_c^T to its position's S (f x f, in registers: the whole head's
-//     logits accumulate over the chunks before the softmax);
-//   then the softmax, once an item, to P in registers;
-//   steps chunks .. 2*chunks-1: V of chunk c (slot 0); each warp writes
-//     O_c = P V_c to slot 1, which the producer stores by one bulk copy per
-//     (position, frame row) when the stage comes back, before reloading it.
-// A chunk's box is CWP columns from the chunk's first: its columns past the
-// chunk are the next chunk's, the next head's or zeros past C, removed from
-// the last 16-deep step by a select as at d <= 160, so an Inf in another
-// head reaches no output of this one. Positions past L are neither loaded
-// nor stored. No atomics: the same inputs give the same bits.
-constexpr int kWidePositions = kConsumers;  // positions of a wide item: one a consumer warp
-constexpr int kWideStages = 2;
-constexpr int kChunkColumns = 160;  // the widest chunk (the wrapper's CHUNK_COLUMNS)
-constexpr int kPiece = 64;          // columns of one partial sum of S
+// Replaces, for 160 < d <= 1280 at f <= 32: the same Pallas kernel
+// `_fwd_kernel` (humanvid_tpu/ops/temporal_attention.py:81), whose block
+// holds a head of any width.
+//
+// What bounds it on the H100: device-memory bytes, as at d <= 160. At the
+// heads64 motion modules' level 2 (1,24,384,1280), d = 256, a call reads q,
+// k and v and writes out, 94 MB (28 us at 3.35 TB/s), against 0.6 GFLOP.
+// The first design of these heads (column chunks: 4 consumer warps a position
+// each, one warp walking all of a head's chunks in sequence, O stored by a
+// bulk copy a frame row from one producer thread that waited for its own
+// stores before every reload) reached 47-64% of that bound.
+//
+// What this design does about it (csrc/temporal_split.cuh):
+// - The head's columns are spread over split::kWarps consumer warps: an
+//   item is `positions` positions x one head in `slices` slices of at most
+//   160 columns, a warp a (position, slice), so at d = 1280 the chain of
+//   one head's 8 slices runs in 8 warps at once and the grid has a
+//   position a head as items (384 at level 2).
+// - Each warp's S part is summed through shared memory in slice order
+//   (split::exchange); each warp then takes the softmax and O = P V of its
+//   slice.
+// - The ring's unit is one tensor of an item: Q's and K's slots go back as
+//   soon as S's parts are taken, so the next item's Q and K load under this
+//   item's exchange, softmax and P V; V's slot goes back once O, written
+//   over V, has been read by its TMA stores.
+// - O leaves by one 5-D TMA store a warp (split::make_store_maps), issued by
+//   a store warp once every consumer has written its tile, so that no
+//   consumer waits for a store: nothing past the slice, the head or frame
+//   F is written.
+// - Loads come from maps whose columns past the head read zeros, and the
+//   columns past a slice (the next slice's) are removed from S by a select,
+//   so an Inf in another head or position reaches no output of this one.
+// No atomics: the same inputs give the same bits. At one frame P = 1
+// exactly, so the output is V.
 
-// The stages' two slots of kWidePositions tiles, the room for the mma tiles'
-// rows past F, the mbarriers.
-__host__ __device__ inline size_t wide_smem_bytes(int F, int cwp) {
-  return 128 +
-         ((size_t)kWideStages * 2 * kWidePositions * tile_elems(F, cwp) +
-          (size_t)(kMaxFrames - F) * cwp) * 2 +
-         2 * kWideStages * 8;
+// The softmax over key frames of S (scaled here, keys >= F masked), P
+// normalized and packed as the A fragments of O = P V: pa[row tile][16-key
+// step]. Element e of tile (mt, j) is key frame 8j + 2*(lane%4) + (e&1) of
+// query frame 16mt + lane/4 + 8*(e>>1).
+template <int MT>
+__device__ __forceinline__ void softmax_rows(float (&s)[MT][2 * MT][4],
+                                             uint32_t (&pa)[MT][MT][4], int F, float scale_log2,
+                                             int lane) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2 * MT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = 8 * j + 2 * (lane % 4) + (e & 1);
+        s[mt][j][e] = key < F ? s[mt][j][e] * scale_log2 : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][j][e]);
+      }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * MT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[mt][j][e] = exp2f(s[mt][j][e] - mx[e >> 1]);
+        sum[e >> 1] += s[mt][j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      sum[r] = 1.f / sum[r];
+    }
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+      pa[mt][t][0] = pack_bf16(s[mt][2 * t][0] * sum[0], s[mt][2 * t][1] * sum[0]);
+      pa[mt][t][1] = pack_bf16(s[mt][2 * t][2] * sum[1], s[mt][2 * t][3] * sum[1]);
+      pa[mt][t][2] = pack_bf16(s[mt][2 * t + 1][0] * sum[0], s[mt][2 * t + 1][1] * sum[0]);
+      pa[mt][t][3] = pack_bf16(s[mt][2 * t + 1][2] * sum[1], s[mt][2 * t + 1][3] * sum[1]);
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-temporal_fwd_wide_kernel(const __grid_constant__ CUtensorMap q_map,
-                         const __grid_constant__ CUtensorMap k_map,
-                         const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
-                         int B, int F, int L, int C, int d, int CW, int CWP, int chunks,
-                         float scale_log2) {
-  constexpr int P = kWidePositions, S = kWideStages;
+// Threads of a block: the consumers, the producer and the store warp (a
+// store warp, not each consumer, stores O: on the H100 1-4% faster in
+// turns at four of the five wide shapes: PERF.md section 6, the split
+// kernels' finding).
+constexpr int kSplitThreads = 32 * (split::kWarps + 2);
+
+// grid: persistent, at most one block per item; block kSplitThreads.
+// Items are (sample, block of `positions` positions, head), tiles 16 MT
+// frames tall in the mma (MT = 1 at f <= 16).
+template <int MT>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+temporal_fwd_split_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap o_map,
+                          const __grid_constant__ CUtensorMap o_last_map, int B, int F, int L,
+                          int heads, int d, int CW, int CWP, int slices, int positions,
+                          int stages, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
-  bf16* tiles = reinterpret_cast<bf16*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~static_cast<uintptr_t>(127));
-  const int TILE = tile_elems(F, CWP);
-  const int SLOT = P * TILE, STAGE = 2 * SLOT;
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(tiles + (size_t)S * STAGE + (size_t)(kMaxFrames - F) * CWP);
-  uint64_t* empty = full + S;
+  const int warps = slices * positions;  // the working consumer warps
+  const split::Layout m = split::layout<MT>(smem_raw, F, CWP, stages, warps);
+  const int TILE = split::tile_elems(F, CWP);
+  const size_t SLOT = (size_t)warps * TILE;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int heads = C / d;
-  const int pblocks = (L + P - 1) / P;
-  const int items = B * pblocks * heads;
-  const int steps = 2 * chunks;
+  const int pblocks = (L + positions - 1) / positions;
+  const long long items = (long long)B * pblocks * heads;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumers);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&m.full[s], 1);
+      mbar_init(&m.empty[s], warps);
     }
+    for (int k = 0; k < split::kReady; ++k) mbar_init(&m.ready[k], warps);
     fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp == kConsumers) {
-    // producer (one thread)
+  if (warp == split::kWarps) {
+    // producer (one thread): Q, K and V of each item, a slot each; a slot
+    // is loaded once every warp has freed its previous tensor
     if (lane != 0) return;
-    // the O of step m (a V step) leaves slot 1 of its stage, one bulk copy
-    // per (position, frame row)
-    auto store = [&](int m) {
-      const int it = blockIdx.x + (m / steps) * gridDim.x, c = m % steps - chunks;
-      const int h = it % heads, pos0 = ((it / heads) % pblocks) * P, b = it / (heads * pblocks);
-      const bf16* o = tiles + (size_t)(m % S) * STAGE + SLOT;
-      const int dc = min(CW, d - c * CW);
-      for (int p = 0; p < P && pos0 + p < L; ++p)
-        for (int r = 0; r < F; ++r)
-          bulk_store(out + (((size_t)b * F + r) * L + pos0 + p) * C + (size_t)h * d + c * CW,
-                     o + (size_t)p * TILE + (size_t)r * CWP, (uint32_t)dc * 2);
-    };
+    const CUtensorMap* maps[3] = {&q_map, &k_map, &v_map};
+    const uint32_t slot_bytes = (uint32_t)warps * F * CWP * 2;
     int n = 0;
-    for (int it = blockIdx.x; it < items; it += gridDim.x) {
-      const int h = it % heads, pos0 = ((it / heads) % pblocks) * P, b = it / (heads * pblocks);
-      const int valid = min(P, L - pos0);
-      for (int j = 0; j < steps; ++j, ++n) {
-        const int s = n % S;
-        bf16* t = tiles + (size_t)s * STAGE;
-        if (n >= S) {
-          mbar_wait(&empty[s], ((n / S) - 1) & 1);
-          if ((n - S) % steps >= chunks) {
-            store(n - S);
-            bulk_commit();
-            bulk_wait<0, true>();  // slot 1 is read before it is loaded again
-          }
-        }
-        const bool qk = j < chunks;
-        const int col = h * d + (j % chunks) * CW;
-        mbar_arrive_expect_tx(&full[s], (qk ? 2u : 1u) * valid * F * CWP * 2);
-        for (int p = 0; p < valid; ++p) {
-          if (qk) {
-            tma_load_4d(t + (size_t)p * TILE, &q_map, &full[s], col, pos0 + p, 0, b);
-            tma_load_4d(t + SLOT + (size_t)p * TILE, &k_map, &full[s], col, pos0 + p, 0, b);
-          } else {
-            tma_load_4d(t + (size_t)p * TILE, &v_map, &full[s], col, pos0 + p, 0, b);
-          }
+    for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+      const int h = (int)(it % heads), l0 = (int)((it / heads) % pblocks) * positions;
+      const int b = (int)(it / heads / pblocks);
+      for (int t = 0; t < 3; ++t, ++n) {
+        const int s = n % stages;
+        if (n >= stages) mbar_wait(&m.empty[s], ((n / stages) - 1) & 1);
+        bf16* slot = m.tiles + (size_t)s * SLOT;
+        mbar_arrive_expect_tx(&m.full[s], slot_bytes);
+        for (int w = 0; w < warps; ++w) {
+          // a position past L loads the last one (computed, never stored)
+          const int l = min(l0 + w / slices, L - 1);
+          tma_load_4d(slot + (size_t)w * TILE, maps[t], &m.full[s], (w % slices) * CW,
+                      l * heads + h, 0, b);
         }
       }
     }
-    for (int m = n > S ? n - S : 0; m < n; ++m) {
-      mbar_wait(&empty[m % S], (m / S) & 1);
-      if (m % steps >= chunks) {
-        store(m);
-        bulk_commit();
-      }
+    return;
+  }
+  if (warp == split::kWarps + 1) {
+    // store warp (one thread): each item's O, written over V's slot
+    if (lane != 0) return;
+    int k = 0;
+    for (long long it = blockIdx.x; it < items; it += gridDim.x, ++k) {
+      const int h = (int)(it % heads), l0 = (int)((it / heads) % pblocks) * positions;
+      const int b = (int)(it / heads / pblocks);
+      split::store_output(m, k, (3 * k + 2) % stages, TILE, warps, slices, &o_map, &o_last_map,
+                          l0, L, heads, h, b);
     }
     bulk_wait<0, false>();
     return;
   }
+  if (warp >= warps) return;
 
-  // consumers: warp p takes position p of every item (past L: stale tiles,
-  // never stored), and frees every stage
-  int n = 0;
-  for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    float sacc[2][4][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sacc[mt][j][0] = sacc[mt][j][1] = sacc[mt][j][2] = sacc[mt][j][3] = 0.f;
-    for (int c = 0; c < chunks; ++c, ++n) {
-      const int s = n % S;
-      mbar_wait(&full[s], (n / S) & 1);
-      const bf16* t = tiles + (size_t)s * STAGE + (size_t)warp * TILE;
-      // the sums over each kPiece columns start from zero and are added in
-      // fp32 after: the tensor cores' accumulation, not rounded to nearest,
-      // then spans at most 4 16-deep steps (at d = 1280 one accumulator over
-      // the head read 2x the d <= 160 kernel's error against the plain
-      // version)
-      const int dc = min(CW, d - c * CW);
-      for (int off = 0; off < dc; off += kPiece) {
-        float sc[2][4][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) sc[mt][j][0] = sc[mt][j][1] = sc[mt][j][2] = sc[mt][j][3] = 0.f;
-        qk_accumulate<kPiece>(sc, t + off, t + SLOT + off, CWP, min(kPiece, dc - off), lane);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) sacc[mt][j][e] += sc[mt][j][e];
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
+  // consumers: warp (p, sl) takes slice sl of position p of every item
+  const int p = warp / slices, sl = warp % slices;
+  const int dc = min(CW, d - sl * CW);  // the slice's columns
+  int n = 0, k = 0;                     // the item's first tensor, its output
+  for (long long it = blockIdx.x; it < items; it += gridDim.x, n += 3, ++k) {
+    const int sq = n % stages, sk = (n + 1) % stages, sv = (n + 2) % stages;
+    mbar_wait(&m.full[sq], (n / stages) & 1);
+    mbar_wait(&m.full[sk], ((n + 1) / stages) & 1);
+    __syncwarp();
+    float s[MT][2 * MT][4];
+    split::partial_abt<MT>(s, m.tiles + sq * SLOT + (size_t)warp * TILE,
+                           m.tiles + sk * SLOT + (size_t)warp * TILE, CWP, dc, lane);
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(&m.empty[sq]);
+      mbar_arrive(&m.empty[sk]);
     }
-    uint32_t pa[2][2][4];
-    softmax_p(sacc, pa, F, scale_log2, lane);
-    for (int c = 0; c < chunks; ++c, ++n) {
-      const int s = n % S;
-      mbar_wait(&full[s], (n / S) & 1);
-      bf16* t = tiles + (size_t)s * STAGE + (size_t)warp * TILE;
-      pv_store<kChunkColumns>(pa, t, t + SLOT, CWP, CWP, F, min(CW, d - c * CW), lane);
-      fence_proxy_async();  // O's writes before the bulk copies read them
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
-    }
+    split::exchange<MT>(s, m.xbuf, warp, p * slices, slices, 1 + p, lane);
+    uint32_t pa[MT][MT][4];
+    softmax_rows<MT>(s, pa, F, scale_log2, lane);
+    mbar_wait(&m.full[sv], ((n + 2) / stages) & 1);
+    __syncwarp();
+    bf16* tv = m.tiles + sv * SLOT + (size_t)warp * TILE;
+    split::product_stage<MT>(pa, tv, CWP, tv, CWP, F, dc, 1.f, lane);  // O = P V, over V
+    fence_proxy_async();  // O's writes before the TMA store reads them
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&m.ready[k % split::kReady]);  // the store warp takes O
   }
 }
 
-int launch_wide(const void* q, const void* k, const void* v, void* out, int B, int F, int L,
-                int heads, int d, int CW, int CWP, int chunks, int scale_d,
-                cudaStream_t stream) {
-  const int C = heads * d;
-  CUtensorMap maps[3];
-  int err = make_map_4d(&maps[0], q, C, L, F, B, CWP, 1, F);
-  if (!err) err = make_map_4d(&maps[1], k, C, L, F, B, CWP, 1, F);
-  if (!err) err = make_map_4d(&maps[2], v, C, L, F, B, CWP, 1, F);
+template <int MT>
+int launch_split(const void* q, const void* k, const void* v, void* out, int B, int F, int L,
+                 int heads, int d, int CW, int CWP, int slices, int positions, int stages,
+                 int smem, int scale_d, cudaStream_t stream) {
+  CUtensorMap maps[3], omaps[2];
+  int err = split::make_load_map(&maps[0], q, d, heads, L, F, B, CWP);
+  if (!err) err = split::make_load_map(&maps[1], k, d, heads, L, F, B, CWP);
+  if (!err) err = split::make_load_map(&maps[2], v, d, heads, L, F, B, CWP);
+  if (!err) err = split::make_store_maps(omaps, out, d, heads, L, F, B, slices, CW, CWP);
   if (err) return err;
-  const int bytes = (int)wide_smem_bytes(F, CWP);
-  const void* fn = reinterpret_cast<const void*>(temporal_fwd_wide_kernel);
-  cudaError_t e = host_cache.reserve_smem(fn, bytes);
+  auto kernel = temporal_fwd_split_kernel<MT>;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  cudaError_t e = host_cache.reserve_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
   int slots = 0;  // blocks the card holds at once: the persistent grid
-  e = host_cache.get(fn, bytes, 0, &slots, [&](int* value) {
+  e = host_cache.get(fn, smem, 0, &slots, [&](int* value) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t r = cudaGetDevice(&dev);
     if (r == cudaSuccess) r = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (r == cudaSuccess)
-      r = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, temporal_fwd_wide_kernel,
-                                                        kThreads, bytes);
+      r = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kSplitThreads, smem);
     *value = sms * per_sm;
     return r;
   });
   if (e != cudaSuccess) return (int)e;
   if (slots < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long items = (long long)B * ((L + kWidePositions - 1) / kWidePositions) * heads;
+  const long long items = (long long)B * ((L + positions - 1) / positions) * heads;
   const int grid = (int)(items < slots ? items : slots);
-  temporal_fwd_wide_kernel<<<grid, kThreads, bytes, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<bf16*>(out), B, F, L, C, d, CW, CWP, chunks,
-      kLog2e / sqrtf((float)scale_d));
+  kernel<<<grid, kSplitThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], omaps[0], omaps[1], B, F, L, heads, d, CW, CWP, slices,
+      positions, stages, kLog2e / sqrtf((float)scale_d));
   return (int)cudaGetLastError();
 }
 
@@ -931,26 +958,33 @@ int launch_long(const void* q, const void* k, const void* v, void* out, int B, i
 // Head widths the kernel takes: d a multiple of 8, d <= 160 (the motion
 // modules' d = 40/80/160, QK^T's depth padded to 48 / 80 / 160), as items of
 // `heads_per_item` whole heads (CW = heads_per_item * d columns, chunks =
-// 1); and 160 < d <= 1280, one head an item walked in `chunks` chunks of CW
-// = ceil(d / chunks) rounded up to 8 columns (heads_per_item = 1). Either is
-// loaded `cwp` columns wide (the wrapper's `temporal_plan`). The logits are
-// scaled by scale_d^-1/2, 1 <= scale_d <= d (the true width of a head the
-// wrapper zero-pads, else d). Up to kMaxFrames frames `mode` is kModeItems
-// and `stages` and `smem` are not read. Past them (any f) the long kernel
-// runs the wrapper's `long_fwd_plan`: `mode` kModeResident (whole heads
-// of d <= 160, CW = heads_per_item * d, f rounded up to 16 at most 256) or
-// kModeStreamed (one head in `chunks` chunks of at most kLongChunk
-// columns), a ring of `stages` stages and `smem` the bytes the plan
-// reckons for them (the kernel checks them against its own).
+// 1); and 160 < d <= 1280, one head in `chunks` column slices of CW =
+// ceil(d / chunks) rounded up to 8 columns. Either is loaded `cwp` columns
+// wide (the wrapper's `temporal_plan`). The logits are scaled by
+// scale_d^-1/2, 1 <= scale_d <= d (the true width of a head the wrapper
+// zero-pads, else d). Up to kMaxFrames frames `mode` is kModeItems for
+// whole heads (`stages` and `smem` not read), and split::kModeSplit for a
+// head in slices: the split kernel with `heads_per_item` positions an item,
+// a ring of `stages` tensor slots and `smem` the bytes the wrapper's
+// `split_plan` reckons for them (checked against the kernel's own). Past
+// kMaxFrames (any f) the long kernel runs the wrapper's `long_fwd_plan`:
+// `mode` kModeResident (whole heads of d <= 160, CW = heads_per_item * d, f
+// rounded up to 16 at most 256) or kModeStreamed (one head in `chunks`
+// chunks of at most kLongChunk columns), a ring of `stages` stages and
+// `smem` the bytes the plan reckons for them (the kernel checks them
+// against its own).
 extern "C" int hv_temporal_fwd(const void* q, const void* k, const void* v, void* out, int B,
                                int F, int L, int heads, int d, int heads_per_item, int cwp,
                                int chunks, int scale_d, int mode, int stages, int smem,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (chunks < 1 || (chunks > 1 && heads_per_item != 1)) return (int)cudaErrorInvalidValue;
-  const int CW = chunks == 1 ? heads_per_item * d : ((d + chunks - 1) / chunks + 7) / 8 * 8;
+  // a head in slices at f <= kMaxFrames takes heads_per_item as its positions an item
+  const bool sliced = F <= kMaxFrames && chunks > 1;
+  const int per = sliced ? 1 : heads_per_item;  // heads an item
+  if (chunks < 1 || (chunks > 1 && per != 1)) return (int)cudaErrorInvalidValue;
+  const int CW = chunks == 1 ? per * d : ((d + chunks - 1) / chunks + 7) / 8 * 8;
   if (B < 1 || L < 1 || F < 1 || d <= 0 || d % 8 != 0 || d > 8 * kChunkColumns || heads < 1 ||
-      heads_per_item < 1 || heads % heads_per_item != 0 || cwp > 256 || cwp % 8 != 0 ||
+      per < 1 || heads % per != 0 || cwp > 256 || cwp % 8 != 0 ||
       cwp < CW + 8 || (cwp / 8) % 2 != 1 || scale_d < 1 || scale_d > d ||
       (chunks > 1 && (chunks - 1) * CW >= d) || (long long)B * heads * d * F * L >= (1LL << 40))
     return (int)cudaErrorInvalidValue;
@@ -982,11 +1016,17 @@ extern "C" int hv_temporal_fwd(const void* q, const void* k, const void* v, void
     return launch_long<true, 20>(q, k, v, out, B, F, L, heads, d, 1, CW, cwp, chunks, stages,
                                  smem, scale_d, s);
   }
-  if (mode != kModeItems) return (int)cudaErrorInvalidValue;
-  if (chunks > 1) {
-    if (d <= kChunkColumns || CW > kChunkColumns) return (int)cudaErrorInvalidValue;
-    return launch_wide(q, k, v, out, B, F, L, heads, d, CW, cwp, chunks, scale_d, s);
+  if (sliced) {
+    if (mode != split::kModeSplit || d <= kChunkColumns ||
+        !split::plan_ok(F, d, chunks, heads_per_item, CW, cwp, stages, 2, smem))
+      return (int)cudaErrorInvalidValue;
+#define SPLIT(MT)                                                                         \
+  launch_split<MT>(q, k, v, out, B, F, L, heads, d, CW, cwp, chunks, heads_per_item, stages, \
+                   smem, scale_d, s)
+    return F <= 16 ? SPLIT(1) : SPLIT(2);
+#undef SPLIT
   }
+  if (mode != kModeItems) return (int)cudaErrorInvalidValue;
   if (d <= 48) return launch<48>(q, k, v, out, B, F, L, heads, d, CW, cwp, scale_d, s);
   if (d <= 80) return launch<80>(q, k, v, out, B, F, L, heads, d, CW, cwp, scale_d, s);
   if (d <= 160) return launch<160>(q, k, v, out, B, F, L, heads, d, CW, cwp, scale_d, s);

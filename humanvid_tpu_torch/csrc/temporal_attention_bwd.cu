@@ -72,6 +72,7 @@
 
 #include "hopper.cuh"
 #include "mma_tiles.cuh"
+#include "temporal_split.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -86,6 +87,8 @@ constexpr bool kMovmatrix = true;  // P^T, dS^T by movmatrix (else through share
 constexpr int kOTiles = kInPlace ? 0 : kStages;  // sets of dQ, dK, dV tiles
 constexpr int kThreads = 32 * (kConsumers + 1);
 constexpr int LP = kMaxFrames + 8;  // row stride of a warp's transpose tile (80 bytes)
+constexpr int kChunkColumns = 160;  // the widest item (the wrapper's CHUNK_COLUMNS)
+constexpr int kPiece = 64;          // columns of one partial sum of S and dP
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Elements of one stage's Q, K, V or G tile ([F][cwp]) and of a gradient
@@ -559,228 +562,255 @@ int launch_frames(const void* q, const void* k, const void* v, const void* g, vo
   return launch<DP, 2>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, CWP, scale_d, s);
 }
 
-// ---- heads wider than 160 columns: one head walked in column chunks --------
+// ---- heads wider than 160 columns: one head split in column slices ---------
 //
-// An item is kWideConsumers positions x all F frames x one head of d > 160
-// columns, walked in `chunks` chunks of CW columns (the last d - (chunks -
-// 1) * CW); a consumer warp a position. A stage holds one chunk in four
-// slots (Q, K, V, G) of kWideConsumers tiles [F][CWP]. The producer walks
-// each item in 2 * chunks steps:
-//   steps 0 .. chunks-1: Q, K, V and G of chunk c; each warp adds Q_c K_c^T
-//     to its position's S and G_c V_c^T to its dP (f x f each, in
-//     registers: the whole head's sums before the softmax);
-//   then P, delta and dS, once an item, in registers;
-//   steps chunks .. 2*chunks-1: Q, K and G of chunk c again (V is not
-//     needed); each warp writes dV_c = P^T G_c into the V slot (not
-//     loaded), dQ_c = dS K_c over G_c and dK_c = dS^T Q_c over K_c, and the
-//     producer stores them, one bulk copy per (gradient, position, frame
-//     row), when the stage comes back, before reloading it.
-// The second pass reads q, k and g again (7 tensor reads where the least is
-// 4, from L2 while the item's chunks stay there); an f x f sum is all that
-// crosses chunks. Four slots of two positions at f = 32 and 168 columns are
-// 86 KB a stage: two stages, one block an SM. Columns past a chunk and
-// frames past F are removed by selects as at d <= 160; positions past L
-// are neither loaded nor stored. No atomics: the same inputs give the same
-// bits.
-constexpr int kWideConsumers = 2;  // consumer warps of a wide item, one position each
-constexpr int kWideStages = 2;
-constexpr int kWideThreads = 32 * (kWideConsumers + 1);
-constexpr int kChunkColumns = 160;  // the widest chunk (the wrapper's CHUNK_COLUMNS)
-constexpr int kPiece = 64;          // columns of one partial sum of S and dP
+// Replaces, for 160 < d <= 1280 at f <= 32: the same Pallas kernel
+// `_bwd_kernel` (humanvid_tpu/ops/temporal_attention.py:116), whose block
+// holds a head of any width.
+//
+// What bounds it on the H100: device-memory bytes, as at d <= 160. At the
+// heads64 stage-2 step's level 2 (1,24,448,1280), d = 256, a call reads q,
+// k, v and g and writes dq, dk and dv, 193 MB (58 us at 3.35 TB/s), against
+// 2.6 GFLOP. The first design of these heads (column chunks: 2 consumer warps a
+// position each, one warp walking all of a head's chunks twice in
+// sequence, q, k and g read again through a 2-stage ring, the gradients
+// stored by a bulk copy a frame row from one producer thread that waited
+// for its own stores before every reload) reached 30-43% of that bound.
+//
+// What this design does about it (the forward's split item,
+// csrc/temporal_split.cuh):
+// - The head's columns are spread over split::kWarps consumer warps, a
+//   warp a (position, slice); the parts of S = Q K^T and dP = G V^T are
+//   summed through shared memory in slice order, then each warp takes P,
+//   delta and dS (`probs_and_ds`) and its slice of dV = P^T G, dQ = dS K *
+//   scale and dK = dS^T Q * scale, each written over the tile it is
+//   computed from and stored by one 5-D TMA store a warp; a warp waits for
+//   a store to read its slot only once it has issued the next one.
+// - The ring's unit is one tensor of an item. Where 6 slots fit
+//   (kModeSplit: f <= 16 at every width), an item's Q, K, V and G are
+//   loaded once and kept for the second sweep: V's slot goes back after
+//   dP, G's, K's and Q's once the gradient written over each has been read
+//   by its stores. Where they do not (kModeSplitStreamed), the second sweep
+//   loads G, K and Q again (from L2: the item's first loads are a few
+//   microseconds old) into slots of their own, and the first sweep's four
+//   go back as soon as S's and dP's parts are taken, so the next item's
+//   loads run under this item's second sweep.
+// - Loads come from maps whose columns past the head read zeros; rows past
+//   f, the columns past a slice and P and dS at frames past f are removed
+//   by selects, so an Inf in another head or position reaches no gradient
+//   of this one.
+// No atomics: a repeat launch gives the same bits. At one frame P = 1 and
+// dS = 0 exactly: dq = dk = 0 and dv = g.
 
-// The stages' four slots of kWideConsumers tiles, the room past them, the
-// warps' transpose tiles, the mbarriers.
-__host__ __device__ inline size_t wide_smem_bytes(int F, int cwp) {
-  return 128 +
-         ((size_t)kWideStages * 4 * kWideConsumers * tile_elems(F, cwp) +
-          (size_t)room_elems(F, cwp) +
-          (kMovmatrix ? 0 : (size_t)kWideConsumers * kMaxFrames * LP)) * 2 +
-         2 * kWideStages * 8;
+// y = the A fragments of X^T, for x the A fragments of X (16 MT square).
+template <int MT>
+__device__ __forceinline__ void transpose_frags(const uint32_t (&x)[MT][MT][4],
+                                                uint32_t (&y)[MT][MT][4]) {
+  // the 8x8 blocks of x[t][mk] are (rows, columns) (0,0), (8,0), (0,8), (8,8)
+#pragma unroll
+  for (int mk = 0; mk < MT; ++mk)
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+      y[mk][t][0] = movmatrix_trans(x[t][mk][0]);
+      y[mk][t][1] = movmatrix_trans(x[t][mk][2]);
+      y[mk][t][2] = movmatrix_trans(x[t][mk][1]);
+      y[mk][t][3] = movmatrix_trans(x[t][mk][3]);
+    }
 }
 
-template <int MT>
-__global__ void __launch_bounds__(kWideThreads)
-temporal_bwd_wide_kernel(const __grid_constant__ CUtensorMap q_map,
-                         const __grid_constant__ CUtensorMap k_map,
-                         const __grid_constant__ CUtensorMap v_map,
-                         const __grid_constant__ CUtensorMap g_map, bf16* __restrict__ dq,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int F, int L,
-                         int C, int d, int CW, int CWP, int chunks, float scale_log2,
-                         float scale) {
-  constexpr int P = kWideConsumers, S = kWideStages;
+// Threads of a block: the consumers and the producer. Each consumer stores
+// its own gradients: a store warp, as the forward's, was 11-16% slower in
+// turns on the H100 at d 320-1280 and 6% faster at d 256: PERF.md section
+// 6, the split kernels' finding.
+constexpr int kSplitThreads = 32 * (split::kWarps + 1);
+
+// grid: persistent, at most one block per item; block kSplitThreads.
+// Items are (sample, block of `positions` positions, head), tiles 16 MT
+// frames tall in the mma (MT = 1 at f <= 16). An item is 4 loads (Q, K, V,
+// G) kept for both sweeps, or STREAMED 7 (Q, K, V, G, then G, K, Q again),
+// and 3 outputs: dV over (the second) G, dQ over K, dK over Q.
+template <int MT, bool STREAMED>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+temporal_bwd_split_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap g_map,
+                          const __grid_constant__ CUtensorMap dq_map,
+                          const __grid_constant__ CUtensorMap dq_last_map,
+                          const __grid_constant__ CUtensorMap dk_map,
+                          const __grid_constant__ CUtensorMap dk_last_map,
+                          const __grid_constant__ CUtensorMap dv_map,
+                          const __grid_constant__ CUtensorMap dv_last_map, int B, int F, int L,
+                          int heads, int d, int CW, int CWP, int slices, int positions,
+                          int stages, float scale_log2, float scale) {
+  constexpr int kLoads = STREAMED ? 7 : 4;  // tensor loads an item
   extern __shared__ unsigned char smem_raw[];
-  bf16* tiles = reinterpret_cast<bf16*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~static_cast<uintptr_t>(127));
-  const int TILE = tile_elems(F, CWP);
-  const int SLOT = P * TILE, STAGE = 4 * SLOT;  // Q, K, V, G
-  bf16* scratch = tiles + (size_t)S * STAGE + room_elems(F, CWP);
-  uint64_t* full = reinterpret_cast<uint64_t*>(
-      scratch + (kMovmatrix ? 0 : (size_t)P * kMaxFrames * LP));
-  uint64_t* empty = full + S;
+  const int warps = slices * positions;  // the working consumer warps
+  const split::Layout m = split::layout<MT>(smem_raw, F, CWP, stages, warps);
+  const int TILE = split::tile_elems(F, CWP);
+  const size_t SLOT = (size_t)warps * TILE;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int heads = C / d;
-  const int pblocks = (L + P - 1) / P;
-  const int items = B * pblocks * heads;
-  const int steps = 2 * chunks;
+  const int pblocks = (L + positions - 1) / positions;
+  const long long items = (long long)B * pblocks * heads;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], P);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&m.full[s], 1);
+      mbar_init(&m.empty[s], warps);
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp == P) {
-    // producer (one thread)
+  if (warp == split::kWarps) {
+    // producer (one thread): an item's tensors a slot each, in order; a
+    // slot is loaded once every warp has freed its previous tensor
     if (lane != 0) return;
-    // the gradients of step m (a second-pass step) leave their stage: dQ
-    // from the G slot, dK from the K slot, dV from the V slot
-    auto store = [&](int m) {
-      const int it = blockIdx.x + (m / steps) * gridDim.x, c = m % steps - chunks;
-      const int h = it % heads, pos0 = ((it / heads) % pblocks) * P, b = it / (heads * pblocks);
-      const bf16* t = tiles + (size_t)(m % S) * STAGE;
-      const bf16* src[3] = {t + 3 * SLOT, t + SLOT, t + 2 * SLOT};
-      bf16* dst[3] = {dq, dk, dv};
-      const int dc = min(CW, d - c * CW);
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-        for (int p = 0; p < P && pos0 + p < L; ++p)
-          for (int r = 0; r < F; ++r)
-            bulk_store(dst[i] + (((size_t)b * F + r) * L + pos0 + p) * C + (size_t)h * d + c * CW,
-                       src[i] + (size_t)p * TILE + (size_t)r * CWP, (uint32_t)dc * 2);
-    };
+    const CUtensorMap* maps[7] = {&q_map, &k_map, &v_map, &g_map, &g_map, &k_map, &q_map};
+    const uint32_t slot_bytes = (uint32_t)warps * F * CWP * 2;
     int n = 0;
-    for (int it = blockIdx.x; it < items; it += gridDim.x) {
-      const int h = it % heads, pos0 = ((it / heads) % pblocks) * P, b = it / (heads * pblocks);
-      const int valid = min(P, L - pos0);
-      for (int j = 0; j < steps; ++j, ++n) {
-        const int s = n % S;
-        bf16* t = tiles + (size_t)s * STAGE;
-        if (n >= S) {
-          mbar_wait(&empty[s], ((n / S) - 1) & 1);
-          if ((n - S) % steps >= chunks) {
-            store(n - S);
-            bulk_commit();
-            bulk_wait<0, true>();  // the gradients are read before the stage is loaded again
-          }
-        }
-        const bool first = j < chunks;  // the first pass loads V too
-        const int col = h * d + (j % chunks) * CW;
-        mbar_arrive_expect_tx(&full[s], (first ? 4u : 3u) * valid * F * CWP * 2);
-        for (int p = 0; p < valid; ++p) {
-          const int pos = pos0 + p;
-          bf16* tp = t + (size_t)p * TILE;
-          tma_load_4d(tp, &q_map, &full[s], col, pos, 0, b);
-          tma_load_4d(tp + SLOT, &k_map, &full[s], col, pos, 0, b);
-          if (first) tma_load_4d(tp + 2 * SLOT, &v_map, &full[s], col, pos, 0, b);
-          tma_load_4d(tp + 3 * SLOT, &g_map, &full[s], col, pos, 0, b);
+    for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+      const int h = (int)(it % heads), l0 = (int)((it / heads) % pblocks) * positions;
+      const int b = (int)(it / heads / pblocks);
+      for (int t = 0; t < kLoads; ++t, ++n) {
+        const int s = n % stages;
+        if (n >= stages) mbar_wait(&m.empty[s], ((n / stages) - 1) & 1);
+        bf16* slot = m.tiles + (size_t)s * SLOT;
+        mbar_arrive_expect_tx(&m.full[s], slot_bytes);
+        for (int w = 0; w < warps; ++w) {
+          // a position past L loads the last one (computed, never stored)
+          const int l = min(l0 + w / slices, L - 1);
+          tma_load_4d(slot + (size_t)w * TILE, maps[t], &m.full[s], (w % slices) * CW,
+                      l * heads + h, 0, b);
         }
       }
     }
-    for (int m = n > S ? n - S : 0; m < n; ++m) {
-      mbar_wait(&empty[m % S], (m / S) & 1);
-      if (m % steps >= chunks) {
-        store(m);
-        bulk_commit();
-      }
-    }
-    bulk_wait<0, false>();
     return;
   }
+  if (warp >= warps) return;
 
-  // consumers: warp p takes position p of every item (past L: stale tiles,
-  // never stored), and frees every stage
-  bf16* own = scratch + (size_t)warp * kMaxFrames * LP;
-  int n = 0;
-  for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    float p[MT][2 * MT][4], dp[MT][2 * MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < 2 * MT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) p[mt][j][e] = dp[mt][j][e] = 0.f;
-    for (int c = 0; c < chunks; ++c, ++n) {
-      const int s = n % S;
-      mbar_wait(&full[s], (n / S) & 1);
-      const bf16* t = tiles + (size_t)s * STAGE + (size_t)warp * TILE;
-      const int dc = min(CW, d - c * CW);
-      // the sums over each kPiece columns start from zero and are added in
-      // fp32 after: the tensor cores' accumulation, not rounded to nearest,
-      // then spans at most 4 16-deep steps (at d = 1280 one accumulator over
-      // the head read 2x the d <= 160 kernel's error against the plain
-      // version)
-      for (int off = 0; off < dc; off += kPiece) {
-        float pc[MT][2 * MT][4], dpc[MT][2 * MT][4];
-        const int w = min(kPiece, dc - off);
-        rows_by_rows<kPiece, MT>(pc, t + off, t + SLOT + off, CWP, w, lane);  // Q K^T
-        rows_by_rows<kPiece, MT>(dpc, t + 3 * SLOT + off, t + 2 * SLOT + off, CWP, w,
-                                 lane);  // G V^T
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int j = 0; j < 2 * MT; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              p[mt][j][e] += pc[mt][j][e];
-              dp[mt][j][e] += dpc[mt][j][e];
-            }
+  // consumers: warp (p, sl) takes slice sl of position p of every item
+  const int p = warp / slices, sl = warp % slices;
+  const int dc = min(CW, d - sl * CW);  // the slice's columns
+  const bool last = sl == slices - 1;
+  const CUtensorMap* maps[3] = {last ? &dv_last_map : &dv_map, last ? &dq_last_map : &dq_map,
+                                last ? &dk_last_map : &dk_map};
+  int n = 0;                            // the item's first load
+  // load i of the item: its tile, once it has landed; its slot freed
+  auto tile = [&](int i) -> bf16* {
+    const int s = (n + i) % stages;
+    mbar_wait(&m.full[s], ((n + i) / stages) & 1);
+    __syncwarp();
+    return m.tiles + s * SLOT + (size_t)warp * TILE;
+  };
+  auto release = [&](int i) { mbar_arrive(&m.empty[(n + i) % stages]); };
+  // output o of the item (dV, dQ, dK) written over `t`, which load i holds
+  // (`row`: the position and head; `store`: the position is < L): the
+  // warp stores it, and frees the slot of the output before it once that
+  // one's store has read it, and its own at the last
+  int row = 0, b = 0, prev = 0;
+  bool store = false;
+  auto written = [&](int o, const bf16* t, int i) {
+    fence_proxy_async();  // the gradient's writes before its TMA store reads them
+    __syncwarp();
+    if (lane != 0) return;
+    if (store) {
+      tma_store_5d(maps[o], t, 0, last ? 0 : sl, row, 0, b);
+      bulk_commit();
+    }
+    if (o > 0) {
+      if (store) bulk_wait<1, true>();
+      release(prev);
+    }
+    if (o == 2) {
+      if (store) bulk_wait<0, true>();
+      release(i);
+    }
+    prev = i;
+  };
+  for (long long it = blockIdx.x; it < items; it += gridDim.x, n += kLoads) {
+    const int h = (int)(it % heads), l = (int)((it / heads) % pblocks) * positions + p;
+    b = (int)(it / heads / pblocks);
+    row = l * heads + h;
+    store = l < L;
+    float s[MT][2 * MT][4], dp[MT][2 * MT][4];
+    bf16* tq = tile(0);
+    bf16* tk = tile(1);
+    split::partial_abt<MT>(s, tq, tk, CWP, dc, lane);  // Q K^T
+    if constexpr (STREAMED) {
+      __syncwarp();
+      if (lane == 0) {
+        release(0);
+        release(1);
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
     }
-    uint32_t pa[MT][MT][4], da[MT][MT][4];
-    probs_and_ds<MT>(p, dp, pa, da, F, scale_log2, lane);
-    for (int c = 0; c < chunks; ++c, ++n) {
-      const int s = n % S;
-      mbar_wait(&full[s], (n / S) & 1);
-      bf16* t = tiles + (size_t)s * STAGE + (size_t)warp * TILE;
-      grads_store<kChunkColumns, MT>(pa, da, t, t + SLOT, t + 3 * SLOT, CWP, t + 3 * SLOT,
-                                     t + SLOT, t + 2 * SLOT, CWP, own, F, min(CW, d - c * CW),
-                                     scale, lane);
-      fence_proxy_async();  // the gradients' writes before the bulk copies read them
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
+    bf16* tv = tile(2);
+    bf16* tg = tile(3);
+    split::partial_abt<MT>(dp, tg, tv, CWP, dc, lane);  // G V^T
+    __syncwarp();
+    if (lane == 0) {
+      release(2);
+      if constexpr (STREAMED) release(3);
     }
+    split::exchange<MT>(s, m.xbuf, warp, p * slices, slices, 1 + p, lane);
+    split::exchange<MT>(dp, m.xbuf, warp, p * slices, slices, 1 + p, lane);
+    uint32_t pa[MT][MT][4], da[MT][MT][4], ta[MT][MT][4];
+    probs_and_ds<MT>(s, dp, pa, da, F, scale_log2, lane);
+    // dV = P^T G, over G
+    transpose_frags<MT>(pa, ta);
+    if constexpr (STREAMED) tg = tile(4);
+    split::product_stage<MT>(ta, tg, CWP, tg, CWP, F, dc, 1.f, lane);
+    written(0, tg, STREAMED ? 4 : 3);
+    // dQ = dS K * scale, over K
+    if constexpr (STREAMED) tk = tile(5);
+    split::product_stage<MT>(da, tk, CWP, tk, CWP, F, dc, scale, lane);
+    written(1, tk, STREAMED ? 5 : 1);
+    // dK = dS^T Q * scale, over Q
+    transpose_frags<MT>(da, ta);
+    if constexpr (STREAMED) tq = tile(6);
+    split::product_stage<MT>(ta, tq, CWP, tq, CWP, F, dc, scale, lane);
+    written(2, tq, STREAMED ? 6 : 0);
   }
+  if (lane == 0) bulk_wait<0, false>();
 }
 
-template <int MT>
-int launch_wide(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
-                void* dv, int B, int F, int L, int heads, int d, int CW, int CWP, int chunks,
-                int scale_d, cudaStream_t stream) {
-  const int C = heads * d;
-  CUtensorMap maps[4];
-  int err = make_map_4d(&maps[0], q, C, L, F, B, CWP, 1, F);
-  if (!err) err = make_map_4d(&maps[1], k, C, L, F, B, CWP, 1, F);
-  if (!err) err = make_map_4d(&maps[2], v, C, L, F, B, CWP, 1, F);
-  if (!err) err = make_map_4d(&maps[3], g, C, L, F, B, CWP, 1, F);
+template <int MT, bool STREAMED>
+int launch_split(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
+                 void* dv, int B, int F, int L, int heads, int d, int CW, int CWP, int slices,
+                 int positions, int stages, int smem, int scale_d, cudaStream_t stream) {
+  CUtensorMap maps[4], outs[3][2];
+  const void* ins[4] = {q, k, v, g};
+  void* grads[3] = {dq, dk, dv};
+  int err = 0;
+  for (int i = 0; i < 4 && !err; ++i)
+    err = split::make_load_map(&maps[i], ins[i], d, heads, L, F, B, CWP);
+  for (int i = 0; i < 3 && !err; ++i)
+    err = split::make_store_maps(outs[i], grads[i], d, heads, L, F, B, slices, CW, CWP);
   if (err) return err;
-  const int bytes = (int)wide_smem_bytes(F, CWP);
-  auto kernel = temporal_bwd_wide_kernel<MT>;
+  auto kernel = temporal_bwd_split_kernel<MT, STREAMED>;
   const void* fn = reinterpret_cast<const void*>(kernel);
-  cudaError_t e = host_cache.reserve_smem(fn, bytes);
+  cudaError_t e = host_cache.reserve_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
   int slots = 0;  // blocks the card holds at once: the persistent grid
-  e = host_cache.get(fn, bytes, 0, &slots, [&](int* value) {
+  e = host_cache.get(fn, smem, 0, &slots, [&](int* value) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t r = cudaGetDevice(&dev);
     if (r == cudaSuccess) r = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (r == cudaSuccess)
-      r = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWideThreads, bytes);
+      r = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kSplitThreads, smem);
     *value = sms * per_sm;
     return r;
   });
   if (e != cudaSuccess) return (int)e;
   if (slots < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long items = (long long)B * ((L + kWideConsumers - 1) / kWideConsumers) * heads;
+  const long long items = (long long)B * ((L + positions - 1) / positions) * heads;
   const int grid = (int)(items < slots ? items : slots);
   const float scale = 1.f / sqrtf((float)scale_d);
-  kernel<<<grid, kWideThreads, bytes, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), B, F, L, C, d, CW, CWP, chunks, scale * kLog2e, scale);
+  kernel<<<grid, kSplitThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], outs[0][0], outs[0][1], outs[1][0], outs[1][1],
+      outs[2][0], outs[2][1], B, F, L, heads, d, CW, CWP, slices, positions, stages,
+      scale * kLog2e, scale);
   return (int)cudaGetLastError();
 }
 
@@ -2090,12 +2120,17 @@ int launch_frames_kernel(const void* q, const void* k, const void* v, const void
 // Head widths the kernel takes: d a multiple of 8, d <= 160 (the motion
 // modules' d = 40/80/160, QK^T's depth padded to 48 / 80 / 160), as items of
 // `heads_per_item` whole heads (CW = heads_per_item * d columns, chunks =
-// 1); and 160 < d <= 1280, one head an item walked in `chunks` chunks of CW
-// = ceil(d / chunks) rounded up to 8 columns (heads_per_item = 1). Either is
-// loaded `cwp` columns wide (the wrapper's `temporal_plan`). The logits are
-// scaled by scale_d^-1/2, 1 <= scale_d <= d (the true width of a head the
-// wrapper zero-pads, else d). `mode` names the kernel: kModeItems up to
-// kMaxFrames frames (`stages` and `smem` not read); past them kModeFrames,
+// 1); and 160 < d <= 1280, one head in `chunks` chunks (slices) of CW =
+// ceil(d / chunks) rounded up to 8 columns. Either is loaded `cwp` columns
+// wide (the wrapper's `temporal_plan`). The logits are scaled by
+// scale_d^-1/2, 1 <= scale_d <= d (the true width of a head the wrapper
+// zero-pads, else d). `mode` names the kernel: up to kMaxFrames frames
+// kModeItems for whole heads (`stages` and `smem` not read), and for a head
+// in slices the split kernel of the wrapper's `split_plan`,
+// split::kModeSplit (the item kept for both sweeps, a ring of at least 4
+// tensor slots) or split::kModeSplitStreamed (Q, K and G loaded again for
+// the second sweep, at least 2), with `heads_per_item` positions an item,
+// `stages` slots and `smem` bytes; past kMaxFrames kModeFrames,
 // up to 16 kFramesTiles (128) frames, the frames kernel with the items of
 // `long_backward_plan` (any d a multiple of 8 up to 1280, in chunks of at
 // most 160 columns, whole heads or one head in chunks) in a ring of
@@ -2109,10 +2144,13 @@ extern "C" int hv_temporal_bwd(const void* q, const void* k, const void* v, cons
                                int d, int heads_per_item, int cwp, int chunks, int scale_d,
                                int mode, int stages, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (chunks < 1 || (chunks > 1 && heads_per_item != 1)) return (int)cudaErrorInvalidValue;
-  const int CW = chunks == 1 ? heads_per_item * d : ((d + chunks - 1) / chunks + 7) / 8 * 8;
+  // a head in slices at f <= kMaxFrames takes heads_per_item as its positions an item
+  const bool sliced = F <= kMaxFrames && chunks > 1;
+  const int per = sliced ? 1 : heads_per_item;  // heads an item
+  if (chunks < 1 || (chunks > 1 && per != 1)) return (int)cudaErrorInvalidValue;
+  const int CW = chunks == 1 ? per * d : ((d + chunks - 1) / chunks + 7) / 8 * 8;
   if (B < 1 || L < 1 || F < 1 || d <= 0 || d % 8 != 0 || d > 8 * kChunkColumns || heads < 1 ||
-      heads_per_item < 1 || heads % heads_per_item != 0 || cwp > 256 || cwp % 8 != 0 ||
+      per < 1 || heads % per != 0 || cwp > 256 || cwp % 8 != 0 ||
       cwp < CW + 8 || (cwp / 8) % 2 != 1 || scale_d < 1 || scale_d > d ||
       (chunks > 1 && (chunks - 1) * CW >= d) || (long long)B * heads * d * F * L >= (1LL << 40))
     return (int)cudaErrorInvalidValue;
@@ -2162,15 +2200,19 @@ extern "C" int hv_temporal_bwd(const void* q, const void* k, const void* v, cons
     return launch_long<true, false, 0>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, 1, CW, cwp,
                                        chunks, stages, smem, scale_d, s);
   }
-  if (mode != kModeItems) return (int)cudaErrorInvalidValue;
-  if (chunks > 1) {
-    if (d <= kChunkColumns || CW > kChunkColumns) return (int)cudaErrorInvalidValue;
-    if (F <= 16)
-      return launch_wide<1>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, cwp, chunks, scale_d,
-                            s);
-    return launch_wide<2>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, cwp, chunks, scale_d,
-                          s);
+  if (sliced) {
+    const bool streamed = mode == split::kModeSplitStreamed;
+    if ((mode != split::kModeSplit && !streamed) || d <= kChunkColumns ||
+        !split::plan_ok(F, d, chunks, heads_per_item, CW, cwp, stages, streamed ? 2 : 4, smem))
+      return (int)cudaErrorInvalidValue;
+#define SPLIT(MT, STREAMED)                                                                  \
+  launch_split<MT, STREAMED>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, cwp, chunks,       \
+                             heads_per_item, stages, smem, scale_d, s)
+    if (F <= 16) return streamed ? SPLIT(1, true) : SPLIT(1, false);
+    return streamed ? SPLIT(2, true) : SPLIT(2, false);
+#undef SPLIT
   }
+  if (mode != kModeItems) return (int)cudaErrorInvalidValue;
 #define FRAMES(DP) \
   launch_frames<DP>(q, k, v, g, dq, dk, dv, B, F, L, heads, d, CW, cwp, scale_d, s)
   if (d <= 48) return FRAMES(48);

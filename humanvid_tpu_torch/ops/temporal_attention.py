@@ -9,8 +9,9 @@ On a CUDA tensor it launches the hand-written kernel in
 ``csrc/temporal_attention.cu`` (bf16 only, any f, d <= 1280) or raises; on
 a CPU tensor it runs :func:`temporal_attention_plain`. Up to ITEM_FRAMES
 frames the kernel's work item is a run of positions x all frames x a chunk
-of whole heads, or, for a head wider than CHUNK_COLUMNS, one head walked in
-column chunks; past ITEM_FRAMES the long forward takes one position x all
+of whole heads, or, for a head wider than CHUNK_COLUMNS, a few positions x
+one head in column slices, a consumer warp a slice (:func:`split_plan`);
+past ITEM_FRAMES the long forward takes one position x all
 frames x whole heads where they fit its ring, else one head in panels of
 LONG_PANEL frames and column chunks (:func:`long_fwd_plan`). A head whose
 width is no multiple of 8 runs zero-padded to the next one
@@ -19,7 +20,9 @@ width is no multiple of 8 runs zero-padded to the next one
 The gradient (:class:`TemporalAttention`, an autograd Function) keeps only
 q, k and v: on a CUDA tensor the one-pass kernel of
 ``csrc/temporal_attention_bwd.cu`` recomputes the softmax and writes dq, dk
-and dv, over the forward's items; past ITEM_FRAMES frames, up to
+and dv, over the forward's items (a head in slices: :func:`split_plan`'s
+ring, which keeps an item for both sweeps or loads q, k and g again); past
+ITEM_FRAMES frames, up to
 FRAMES_KERNEL_FRAMES, the frames kernel takes the same kind of item (one
 position x all frames x whole heads, or one head in column chunks) in a ring
 whose stages :func:`long_backward_plan` fits to shared memory, and past
@@ -79,8 +82,29 @@ LONG_PANEL_LD = 72
 LONG_HELD_FRAMES = 256
 # The entry points' `mode`: the item kernels (up to ITEM_FRAMES), the
 # backward's frames kernel, the long kernels with whole items in the ring
-# or with one head streamed in panels and chunks.
+# or with one head streamed in panels and chunks, and up to ITEM_FRAMES a
+# head wider than CHUNK_COLUMNS in column slices (the split kernels; the
+# backward's item kept for its second sweep, or q, k and g loaded again).
 MODE_ITEMS, MODE_FRAMES, MODE_RESIDENT, MODE_STREAMED = 0, 1, 2, 3
+MODE_SPLIT, MODE_SPLIT_STREAMED = 4, 5
+# The split kernels (csrc/temporal_split.cuh): consumer warps a block
+# (split::kWarps, a (position, slice) each), the deepest ring of tensor
+# slots (split::kMaxStages), and the slots from which the backward keeps
+# an item for both sweeps (four hold one item; with eight the next item's
+# loads run under this one's: at seven, streaming q, k and g again was
+# 1-5% faster at heads64's level 2 on the H100, 0.1000 against 0.1051 ms
+# and 0.1035 against 0.1044 in two runs in turns: PERF.md section 6, the
+# split kernels' finding).
+SPLIT_WARPS = 8
+SPLIT_MAX_STAGES = 8
+SPLIT_RESIDENT_STAGES = 8
+SPLIT_READY = 16  # the forward's store warp's ring of `ready` barriers (split::kReady)
+# The backward's slices where 2, 4 or 8 of them cover the head and the
+# ring of 160-column slices is not as deep as it may be: narrower tiles, a
+# deeper ring (on the H100 0.1002 against 0.1070 ms at d 320 over 24
+# frames; over one frame, whose ring is full either way, 0.3379 against
+# 0.2161: PERF.md section 6, the split kernels' finding).
+SPLIT_BWD_SLICE = 80
 
 # Launches by kernel: the item kernels ("temporal", "temporal_bwd"), and past
 # ITEM_FRAMES frames the long forward ("temporal_long"), the backward's frames
@@ -117,24 +141,127 @@ class TemporalPlan(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def temporal_plan(c: int, heads: int, frames: int = 1) -> TemporalPlan:
     """The most whole heads whose columns fit CHUNK_COLUMNS (at least
-    one), or for a wider head the fewest chunks of at most CHUNK_COLUMNS
-    columns, a multiple of 8, that cover it; and the width the kernel loads
-    them at. ``csrc/temporal_attention*.cu`` derive the same chunk width
-    from d and the chunk count. Past ITEM_FRAMES frames: the long forward's
-    item (:func:`long_fwd_plan`)."""
+    one), or for a wider head its column slices (:func:`split_slices`);
+    and the width the kernel loads them at. ``csrc/temporal_attention*.cu``
+    derive the same slice width from d and the slice count. Past
+    ITEM_FRAMES frames: the long forward's item (:func:`long_fwd_plan`)."""
     d = c // heads
     if frames > ITEM_FRAMES:
         p = long_fwd_plan(c, heads, frames)
         return TemporalPlan(p.heads, p.cols, p.padded, p.chunks)
     if d > CHUNK_COLUMNS:
-        chunks = -(-d // CHUNK_COLUMNS)
-        per, cols = 1, round_up8(-(-d // chunks))
+        per = 1
+        chunks, cols = split_slices(d)
     else:
         chunks = 1
         per = max(h for h in range(1, heads + 1)
                   if heads % h == 0 and h * d <= CHUNK_COLUMNS)
         cols = per * d
     return TemporalPlan(per, cols, _padded_width(cols), chunks)
+
+
+class SplitPlan(NamedTuple):
+    """A split kernel's plan (a head wider than CHUNK_COLUMNS, up to
+    ITEM_FRAMES frames): items of ``positions`` positions x one head in
+    ``slices`` column slices of ``cols`` columns (the last narrower where
+    slices * cols > d), a consumer warp a (position, slice), each slice
+    loaded ``padded`` columns wide (as :class:`TemporalPlan`); a ring of
+    ``stages`` tensor slots (one tile a working warp), ``smem`` the bytes of
+    shared memory a block lays out; ``mode`` MODE_SPLIT, or for the
+    backward MODE_SPLIT_STREAMED (q, k and g loaded again for the second
+    sweep)."""
+    mode: int
+    slices: int
+    cols: int
+    padded: int
+    positions: int
+    stages: int
+    smem: int
+
+
+def split_slices(d: int, max_slice: int = CHUNK_COLUMNS, warps: int = SPLIT_WARPS) -> tuple:
+    """The column slices of a d-wide head: the fewest of 2, 4, 8 ... (a
+    divisor of ``warps``) whose width, ceil(d / slices) rounded up to 8,
+    is at most ``max_slice``, each slice non-empty; (slices, width).
+    ``csrc/temporal_attention*.cu`` derive the same width from d and the
+    slices."""
+    n = 2
+    while n <= warps:
+        cols = round_up8(-(-d // n))
+        if warps % n == 0 and cols <= max_slice and (n - 1) * cols < d:
+            return n, cols
+        n *= 2
+    raise ValueError(f"no column slices of at most {max_slice} for d={d} over {warps} warps")
+
+
+def split_smem(frames: int, padded: int, stages: int, warps: int = SPLIT_WARPS) -> int:
+    """Bytes of shared memory a split kernel lays out for ``warps`` working
+    warps: 128 bytes of alignment, ``stages`` slots of one [frames][padded]
+    bf16 tile a warp (rounded to 128 bytes), the exchange of S's (and
+    dP's) parts (one 16 MT x 16 MT fp32 tile a warp, MT = 1 up to 16 frames,
+    else 2), the room past it that the mma tiles' 16 MT rows of the last
+    tile read, two barriers a slot and SPLIT_READY ``ready`` barriers
+    (``split::smem_bytes`` in csrc/temporal_split.cuh)."""
+    mt = 1 if frames <= 16 else 2
+    tile = -(-frames * padded // 64) * 64
+    exchange = warps * 1024 * mt * mt
+    room = max(0, -(-((16 * mt - frames) * padded * 2 - exchange) // 16) * 16)
+    return 128 + stages * warps * tile * 2 + exchange + room + stages * 16 + SPLIT_READY * 8
+
+
+def split_plan(d: int, frames: int, backward: bool = False) -> SplitPlan:
+    """The split kernels' plan for a head of CHUNK_COLUMNS < d <=
+    MAX_HEAD_DIM over ``frames`` <= ITEM_FRAMES: the head's slices
+    (:func:`split_slices`: of at most CHUNK_COLUMNS; the backward's of at
+    most SPLIT_BWD_SLICE where SPLIT_WARPS slices that wide cover the head
+    and the wider slices' ring is shallower than SPLIT_MAX_STAGES),
+    SPLIT_WARPS // slices positions an item (every consumer warp working),
+    a ring as deep as fits SMEM_LIMIT up to SPLIT_MAX_STAGES. The backward
+    keeps the item for both sweeps (MODE_SPLIT) where SPLIT_RESIDENT_STAGES
+    slots fit, else loads q, k and g again (MODE_SPLIT_STREAMED)."""
+    return _split_plan(d, frames, backward)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_plan(d: int, frames: int, backward: bool = False, max_slice: Optional[int] = None,
+                max_stages: int = SPLIT_MAX_STAGES, positions: Optional[int] = None,
+                mode: Optional[int] = None, warps: int = SPLIT_WARPS) -> SplitPlan:
+    """:func:`split_plan` with the variants' arguments: ``max_slice``,
+    ``max_stages``, ``positions`` (fewer working warps) and ``mode`` off
+    their defaults, and ``warps`` that of a source built with other
+    consumer warps."""
+    if not CHUNK_COLUMNS < d <= MAX_HEAD_DIM or not 1 <= frames <= ITEM_FRAMES:
+        raise ValueError(f"the split kernels take {CHUNK_COLUMNS} < d <= {MAX_HEAD_DIM} over "
+                         f"at most {ITEM_FRAMES} frames, got d={d}, frames={frames}")
+    if max_slice is None:
+        # the backward's narrower slices where they cover the head and the
+        # ring of the wider ones is not as deep as it may be
+        max_slice = CHUNK_COLUMNS
+        if backward:
+            try:
+                split_slices(d, SPLIT_BWD_SLICE, warps)
+                wide = _split_plan(d, frames, True, CHUNK_COLUMNS, max_stages, positions,
+                                   MODE_SPLIT_STREAMED, warps)
+                if wide.stages < max_stages:
+                    max_slice = SPLIT_BWD_SLICE
+            except ValueError:
+                pass
+    slices, cols = split_slices(d, max_slice, warps)
+    padded = _padded_width(cols)
+    per = positions or warps // slices
+    if not 1 <= per * slices <= warps:
+        raise ValueError(f"{per} positions of {slices} slices exceed {warps} warps")
+    fits = [n for n in range(1, max_stages + 1)
+            if split_smem(frames, padded, n, per * slices) <= SMEM_LIMIT]
+    stages = fits[-1] if fits else 0
+    if mode is None:
+        mode = (MODE_SPLIT if not backward or stages >= SPLIT_RESIDENT_STAGES
+                else MODE_SPLIT_STREAMED)
+    least = 4 if backward and mode == MODE_SPLIT else 2
+    if stages < least:
+        raise ValueError(f"no split plan for d={d} at {frames} frames: {stages} slots fit")
+    return SplitPlan(mode, slices, cols, padded, per, stages,
+                     split_smem(frames, padded, stages, per * slices))
 
 
 class LongBackwardPlan(NamedTuple):
@@ -392,26 +519,40 @@ def launch_sizes(shape, heads: int, scale_d: Optional[int] = None):
 def forward_launch_sizes(shape, heads: int, scale_d: Optional[int] = None):
     """The size arguments the forward kernel takes for q of ``shape``:
     :func:`launch_sizes`, then the mode, the ring's stages and its
-    shared-memory bytes, those of :func:`long_fwd_plan` past ITEM_FRAMES
-    frames (zeros up to it)."""
+    shared-memory bytes: up to ITEM_FRAMES zeros, or for a head in slices
+    :func:`split_plan`'s (its positions an item in place of the heads an
+    item), past it :func:`long_fwd_plan`'s."""
     sizes = launch_sizes(shape, heads, scale_d)
     if shape[1] <= ITEM_FRAMES:
-        return (*sizes, MODE_ITEMS, 0, 0)
+        return _items_sizes(sizes, False)
     p = long_fwd_plan(shape[-1], heads, shape[1])
     return (*sizes, p.mode, p.stages, p.smem)
+
+
+def _items_sizes(sizes, backward: bool) -> tuple:
+    """Up to ITEM_FRAMES frames: :func:`launch_sizes`' ints with the mode,
+    stages and bytes; a head in slices takes :func:`split_plan`'s, its
+    positions an item in place of the heads an item."""
+    b, f, l, heads, d, per, padded, chunks, scale_d = sizes
+    if chunks == 1:
+        return (*sizes, MODE_ITEMS, 0, 0)
+    p = split_plan(d, f, backward)
+    return (b, f, l, heads, d, p.positions, p.padded, p.slices, scale_d, p.mode, p.stages,
+            p.smem)
 
 
 def backward_launch_sizes(shape, heads: int, scale_d: Optional[int] = None):
     """The size arguments the backward kernel takes for q of ``shape``:
     :func:`launch_sizes`, then the mode, the ring's stages and its
-    shared-memory bytes: up to ITEM_FRAMES the item kernels' (zeros), up
+    shared-memory bytes: up to ITEM_FRAMES the item kernels' (zeros), or
+    for a head in slices :func:`split_plan`'s (as the forward's), up
     to FRAMES_KERNEL_FRAMES the frames kernel's item, ring and bytes
     (:func:`long_backward_plan`, MODE_FRAMES), past it the long backward's
     (:func:`long_bwd_plan`)."""
     sizes = launch_sizes(shape, heads, scale_d)
     b, f, l, c = shape
     if f <= ITEM_FRAMES:
-        return (*sizes, MODE_ITEMS, 0, 0)
+        return _items_sizes(sizes, True)
     frames = long_backward_plan(c, heads, f)
     if frames is not None:
         return (*sizes[:5], frames.heads, frames.padded, frames.chunks, sizes[8], MODE_FRAMES,

@@ -69,24 +69,33 @@ appends to each source it builds), beside
 entry point ``hv_group_norm_fwd``. With ``--temporal`` those of kernel B's
 forward, ``csrc/temporal_attention.cu`` (``TEMPORAL_VARIANTS``: positions
 per item, ring depth, consumer warps, and ablations without the loads, the
-products or the stores), at the motion modules' four shapes
-(``TEMPORAL_SHAPES``), and past 32 frames those of its long kernel
+products or the stores), at the motion modules' four shapes, and those
+of its split kernel (``SPLIT_VARIANTS``, ``SPLIT_FWD_VARIANTS``: half or
+one position an item, slices of 80 columns, 2 ring slots, 4 consumer
+warps, O stored by each consumer, ablations without the loads, the
+exchange, the products or the stores) at the wide heads' shapes and one
+frame (``TEMPORAL_SHAPES``), and past 32 frames those of its long kernel
 (``LONG_VARIANTS``: the ring's depth and the heads an item through the
 plan, the streamed panels where whole items fit, 32-frame panels, four
 consumer warps) at ``chip_smoke.py``'s long cases
 (``TEMPORAL_LONG_SHAPES``), beside SDPA on the head-split permuted views;
 ``against`` may be an earlier design with the earlier entry point (past 32
 frames the earlier long kernel, whose per-warp cp.async copies are the
-comparison the TMA items answer). With
+comparison the TMA items answer; at the wide heads, an earlier source
+without the split kernel runs its column-chunk kernels). With
 ``--temporal-bwd`` those of kernel B's backward,
 ``csrc/temporal_attention_bwd.cu`` (``TEMPORAL_BWD_VARIANTS``: ring depth,
 consumer warps, gradients in tiles of their own against over dead inputs,
 P^T and dS^T through shared memory against ``movmatrix``, 32-row tiles at
 f <= 16, and ablations without the loads, the products or the stores), at
-the five stage-2 shapes and the stage-1 camera encoder's
-(``TEMPORAL_BWD_SHAPES``), and past 32 frames those of its frames kernel
-(``FRAMES_BWD_VARIANTS``: ring depth and chunk width through the plan,
-other numbers of consumer groups, registers for two blocks an SM) at the
+the five stage-2 shapes and the stage-1 camera encoder's, and those of its
+split kernel (``SPLIT_VARIANTS``, ``SPLIT_BWD_VARIANTS``: also the item
+kept or q, k and g loaded again against the plan's choice, slices of 160
+columns, the gradients stored by a store warp) at the wide heads' shapes
+and one frame (``TEMPORAL_BWD_SHAPES``), and past 32 frames those of its
+frames kernel (``FRAMES_BWD_VARIANTS``: ring depth and chunk width
+through the plan, other numbers of consumer groups, registers for two
+blocks an SM) at the
 long_wide stage-2 shapes and f = 33, 64, 96, 100 and 128
 (``TEMPORAL_BWD_LONG_SHAPES``, each variant up to its own frame count),
 and past 128 frames those of its long kernel (``LONG_VARIANTS``) at
@@ -737,7 +746,17 @@ def gn_variant_plan(c: int, hw: int, groups: int, rule):
 TEMPORAL_SHAPES = (("motion level0", 1, 24, 6144, 320, 8),
                    ("motion level1", 1, 24, 1536, 640, 8),
                    ("motion level2", 1, 24, 384, 1280, 8),
-                   ("motion level3/mid", 1, 24, 96, 1280, 8))
+                   ("motion level3/mid", 1, 24, 96, 1280, 8),
+                   # heads wider than 160 columns (the split kernel): heads64's
+                   # motion levels 2-3 (5 heads of 256), one 320-, 640- and
+                   # 1280-wide head's shapes, and one frame
+                   ("heads64 motion level2 d256", 1, 24, 384, 1280, 5),
+                   ("heads64 motion level3/mid d256", 1, 24, 96, 1280, 5),
+                   ("d320", 1, 24, 384, 1280, 4),
+                   ("d640", 1, 24, 384, 1280, 2),
+                   ("d1280", 1, 24, 384, 1280, 1),
+                   ("d256 one frame", 8, 1, 448, 1280, 5),
+                   ("d1280 one frame", 8, 1, 448, 1280, 1))
 # and past 32 frames, chip_smoke.py's long cases (long_wide's motion levels
 # at 768x512x48f, f = 33, 64, 96, 200 and 256)
 TEMPORAL_LONG_SHAPES = (("long_wide motion level0 f48", 1, 48, 6144, 320, 8),
@@ -780,6 +799,116 @@ TEMPORAL_VARIANTS: Dict[str, Tuple[Tuple[Edit, ...], bool]] = {
                    ("      tma_store_4d(&o_map, otiles + (size_t)(m % kOTiles) * OTILE, w.chunk * CW, "
                     "w.pos0, 0, w.b);\n", None, "")), True),
 }
+
+
+# kernel B's split kernels (heads wider than 160 columns up to 32 frames):
+# name -> (edits of csrc/temporal_split.cuh (inlined into the source where
+# any), edits of the forward's source, of the backward's, arguments of
+# ``_split_plan``, whether it drops work and so is only timed). "half"
+# halves the positions an item (fewer working warps; none where one
+# position takes them all). The ablations: no loads (the ring still turns,
+# the products read stale tiles), no exchange of S's parts, no products,
+# no stores.
+SplitVariant = Tuple[Tuple[Tuple[str, str], ...], Tuple[Edit, ...], Tuple[Edit, ...],
+                     Dict[str, object], bool]
+_SPLIT_LOADS = ("        mbar_arrive_expect_tx(&m.full[s], slot_bytes);\n"
+                "        for (int w = 0; w < warps; ++w) {",
+                None,
+                "        mbar_arrive(&m.full[s]);\n"
+                "        for (int w = 0; w < warps && !slot_bytes; ++w) {")
+SPLIT_VARIANTS: Dict[str, SplitVariant] = {
+    # half the positions an item (4 working warps of 8 at d <= 320), or one
+    # (more items: the last wave of a small call is shorter)
+    "split_positions_half": ((), (), (), {"positions": "half"}, False),
+    "split_positions_1": ((), (), (), {"positions": 1}, False),
+    # rings of at most 2 tensor slots (as deep as fits by default)
+    "split_stages_2": ((), (), (), {"max_stages": 2}, False),
+    # 4 consumer warps a block instead of 8 (up to 4 slices: d <= 640)
+    "split_warps_4": ((("constexpr int kWarps = 8;", "constexpr int kWarps = 4;"),), (), (),
+                      {"warps": 4}, False),
+    "split_no_loads": ((), (_SPLIT_LOADS,), (_SPLIT_LOADS,), {}, True),
+    "split_no_exchange": ((("  hopper::named_bar_sync(bar, 32 * n);\n  zero<MT>(acc);\n",
+                            "  return;\n  zero<MT>(acc);\n"),), (), (), {}, True),
+    "split_no_products": ((("  for (int off = 0; off < w; off += kPiece) {",
+                            "  for (int off = 0; off < w && !w; off += kPiece) {"),
+                           ("    if (n0 >= w) break;", "    if (n0 >= w || w) break;")),
+                          (), (), {}, True),
+    "split_no_stores": ((("    if (l < L)\n      hopper::tma_store_5d(",
+                          "    if (l < L && !L)\n      hopper::tma_store_5d("),), (),
+                        (("      tma_store_5d(maps[o], t, 0,", None,
+                          "      if (!L) tma_store_5d(maps[o], t, 0,"),), {}, True),
+}
+# the forward's alone: slices of at most 80 columns (twice the slices, half
+# the positions; the backward's default where they cover the head)
+SPLIT_FWD_VARIANTS: Dict[str, SplitVariant] = {
+    "split_slices_80": ((), (), (), {"max_slice": 80}, False),
+}
+# the backward's alone: the second sweep's q, k and g loaded again where the
+# item would be kept (f <= 16), the item kept with half the positions where
+# it is not (f > 16), or where 4 slots hold it
+SPLIT_BWD_VARIANTS: Dict[str, SplitVariant] = {
+    "split_streamed": ((), (), (), {"mode": 5}, False),
+    "split_resident_half": ((), (), (), {"positions": "half", "mode": 4}, False),
+    "split_resident": ((), (), (), {"mode": 4}, False),
+    # slices of at most 160 columns (at most 80 where 8 warps hold them by default)
+    "split_slices_160": ((), (), (), {"max_slice": 160}, False),
+}
+
+
+def _split_table(backward: bool) -> Dict[str, SplitVariant]:
+    return {**SPLIT_VARIANTS, **(SPLIT_BWD_VARIANTS if backward else SPLIT_FWD_VARIANTS)}
+
+
+def split_variant_source(name: str, backward: bool) -> str:
+    """Kernel B's source with the split variant's edits, its header inlined
+    and edited where the variant edits it; raises if an edit's text is not
+    found exactly once."""
+    header_edits, fwd_edits, bwd_edits = _split_table(backward)[name][:3]
+    source = "temporal_attention_bwd.cu" if backward else "temporal_attention.cu"
+    edits = bwd_edits if backward else fwd_edits
+    if header_edits:
+        header = (cuda_build.CSRC / "temporal_split.cuh").read_text()
+        for old, new in header_edits:
+            if header.count(old) != 1:
+                raise ValueError(f"variant {name}: header anchor {old!r} not found exactly once")
+            header = header.replace(old, new)
+        edits = (*edits, ('#include "temporal_split.cuh"\n', None, header))
+    return variant_source(name, {name: (edits, True)}, source)
+
+
+def split_variant_plan(name: str, d: int, f: int, backward: bool):
+    """The split plan the variant runs a d-wide head over f frames on
+    (``kernel``: the wrapper's); None where the variant does not apply
+    there (no plan, or the same plan as the kernel's)."""
+    from ..ops import temporal_attention as ta
+
+    table = _split_table(backward)
+    base = ta.split_plan(d, f, backward)
+    if name not in table:
+        return base
+    kwargs = dict(table[name][3])
+    if kwargs.get("positions") == "half":
+        del kwargs["positions"]
+        try:
+            half = ta._split_plan(d, f, backward, **kwargs).positions // 2
+        except ValueError:
+            return None
+        if half < 1:
+            return None
+        kwargs["positions"] = half
+    try:
+        p = ta._split_plan(d, f, backward, **kwargs)
+    except ValueError:
+        return None
+    return None if p == base and not any(table[name][:3]) else p
+
+
+def split_variant_sizes(plan, shape, heads: int) -> tuple:
+    """The entry point's twelve size ints for a split plan."""
+    b, f, l, c = shape
+    d = c // heads
+    return (b, f, l, heads, d, plan.positions, plan.padded, plan.slices, d, plan.mode,
+            plan.stages, plan.smem)
 
 
 # kernel B's long kernels (past 32 frames forward, past the frames kernel's
@@ -874,7 +1003,17 @@ TEMPORAL_BWD_SHAPES = (("motion level0", 1, 24, 7168, 320, 8),
                        ("motion level2", 1, 24, 448, 1280, 8),
                        ("motion level3/mid", 1, 24, 112, 1280, 8),
                        ("camera encoder", 1, 24, 7168, 320, 8),
-                       ("stage1 camera encoder", 8, 1, 7168, 320, 8))
+                       ("stage1 camera encoder", 8, 1, 7168, 320, 8),
+                       # heads wider than 160 columns (the split kernel): the
+                       # heads64 stage-2 step's levels 2-3 (5 heads of 256), one
+                       # 320-, 640- and 1280-wide head's shapes, and one frame
+                       ("heads64 motion level2 d256", 1, 24, 448, 1280, 5),
+                       ("heads64 motion level3/mid d256", 1, 24, 112, 1280, 5),
+                       ("d320", 1, 24, 448, 1280, 4),
+                       ("d640", 1, 24, 448, 1280, 2),
+                       ("d1280", 1, 24, 448, 1280, 1),
+                       ("d256 one frame", 8, 1, 448, 1280, 5),
+                       ("d1280 one frame", 8, 1, 448, 1280, 1))
 # and past 32 frames, at the long_wide stage-2 step's motion levels
 # (896x512x48f) and at f = 33, 64 and 96
 TEMPORAL_BWD_LONG_SHAPES = (("long_wide motion level0 f48", 1, 48, 7168, 320, 8),
@@ -1962,7 +2101,10 @@ def run_temporal(names: Sequence[str], iters: int = 5,
         raise RuntimeError("the variants run on the CUDA card, and none is available")
     dev = torch.device("cuda")
     table = {**TEMPORAL_VARIANTS, **_long_table(False)}
-    texts = _named_sources(names, table, "temporal_attention.cu", against)
+    split_table = _split_table(False)
+    texts = _named_sources([n for n in names if n not in split_table], table,
+                           "temporal_attention.cu", against)
+    texts.update({n: split_variant_source(n, False) for n in names if n in split_table})
     n_sizes = {n: _temporal_sizes_taken(t) for n, t in texts.items()}
     fns = {}
     for name, lib in _build(texts, "temporal_variant").items():
@@ -1974,11 +2116,19 @@ def run_temporal(names: Sequence[str], iters: int = 5,
     records = []
     for shape_name, b, f, l, c, heads in TEMPORAL_SHAPES + TEMPORAL_LONG_SHAPES:
         long = f > ta.ITEM_FRAMES
-        runs = [n for n in fns if n in ("kernel", "against")
-                or (n in LONG_VARIANTS or n in LONG_FWD_VARIANTS) == long]
+        d = c // heads
+        wide = not long and d > ta.CHUNK_COLUMNS
+
+        def runs_at(n):
+            if n in ("kernel", "against"):
+                return True
+            if n in split_table:
+                return wide and split_variant_plan(n, d, f, False) is not None
+            return (n in LONG_VARIANTS or n in LONG_FWD_VARIANTS) == long and not wide
+
+        runs = [n for n in fns if runs_at(n)]
         if runs == ["kernel"] and names != ["kernel"]:
             continue  # none of the named variants differs from the kernel here
-        d = c // heads
         q, k, v = (torch.randn((b, f, l, c), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
         out = torch.empty_like(q)
@@ -1986,7 +2136,11 @@ def run_temporal(names: Sequence[str], iters: int = 5,
         calls = {}
         for name in runs:
             n = n_sizes[name]
-            if n == 12:
+            if wide and (name != "against" or "kModeSplit" in texts[name]):
+                sizes = split_variant_sizes(split_variant_plan(name, d, f, False), q.shape, heads)
+            elif wide and n == 12:  # an earlier source: its column chunks' kernel
+                sizes = (*ta.launch_sizes(tuple(q.shape), heads), ta.MODE_ITEMS, 0, 0)
+            elif n == 12:
                 sizes = long_variant_sizes(name, q.shape, heads, False)
             elif name == "against":
                 sizes = earlier_sizes(n, tuple(q.shape), heads, False)
@@ -2000,7 +2154,8 @@ def run_temporal(names: Sequence[str], iters: int = 5,
         ref = ta.temporal_attention_plain(q, k, v, heads)
         checks = {}
         for name in runs:
-            if name in TEMPORAL_VARIANTS and TEMPORAL_VARIANTS[name][1]:
+            if (name in TEMPORAL_VARIANTS and TEMPORAL_VARIANTS[name][1]
+                    or name in split_table and split_table[name][4]):
                 checks[name] = (None, None, None)
                 continue
             out.zero_()
@@ -2026,10 +2181,13 @@ def run_temporal(names: Sequence[str], iters: int = 5,
                 p = ta._long_plan(False, c, heads, f, **{**LONG_VARIANTS, **LONG_FWD_VARIANTS}
                                   .get(name, ((), {}))[1])
                 plan = p._asdict()
+            elif wide and name != "against":
+                plan = split_variant_plan(name, d, f, False)._asdict()
             rec = dict(variant=name, shape=f"{shape_name} {(b, f, l, c)} heads={heads}", ms=ms,
                        turns=turns[name], library_ms=sdpa_ms, bound_ms=bound_ms,
                        share_of_bound=bound_ms / ms,
-                       ablation=name in TEMPORAL_VARIANTS and TEMPORAL_VARIANTS[name][1],
+                       ablation=(name in TEMPORAL_VARIANTS and TEMPORAL_VARIANTS[name][1]
+                                 or name in split_table and split_table[name][4]),
                        ok=ok, rel_l2=rel, same_bits_on_repeat=same, plan=plan,
                        device=torch.cuda.get_device_name())
             print(json.dumps(rec), flush=True)
@@ -2063,7 +2221,10 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
     table = {**TEMPORAL_BWD_VARIANTS,
              **{n: (v[0], False) for n, v in FRAMES_BWD_VARIANTS.items()},
              **_long_table(True), LONG_AT_FRAMES: ((), False)}
-    texts = _named_sources(names, table, "temporal_attention_bwd.cu", against)
+    split_table = _split_table(True)
+    texts = _named_sources([n for n in names if n not in split_table], table,
+                           "temporal_attention_bwd.cu", against)
+    texts.update({n: split_variant_source(n, True) for n in names if n in split_table})
     n_sizes = {n: _temporal_sizes_taken(t) for n, t in texts.items()}
     reach = frames_reach(texts["against"]) if "against" in texts else None
     fns = {}
@@ -2078,17 +2239,21 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
     for shape_name, b, f, l, c, heads in shapes:
         frames = ta.ITEM_FRAMES < f <= ta.FRAMES_KERNEL_FRAMES
         past = f > ta.FRAMES_KERNEL_FRAMES
+        d = c // heads
+        wide = f <= ta.ITEM_FRAMES and d > ta.CHUNK_COLUMNS
 
         def runs_at(n):
             if n in ("kernel", "against"):
                 return True
+            if n in split_table:
+                return wide and split_variant_plan(n, d, f, True) is not None
             if n in FRAMES_BWD_VARIANTS:
                 return frames and f <= FRAMES_BWD_VARIANTS[n][2]
             if n == LONG_AT_FRAMES:
                 return frames
             if n in LONG_VARIANTS or n in LONG_BWD_VARIANTS:
                 return past
-            return not frames and not past
+            return not frames and not past and not wide
 
         runs = [n for n in fns if runs_at(n)]
         if runs == ["kernel"] and names != ["kernel"]:
@@ -2100,7 +2265,11 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
         calls = {}
         for name in runs:
             n = n_sizes[name]
-            if name == "against" and n != 12:
+            if wide and (name != "against" or "kModeSplit" in texts[name]):
+                sizes = split_variant_sizes(split_variant_plan(name, d, f, True), q.shape, heads)
+            elif wide and n == 12:  # an earlier source: its column chunks' kernel
+                sizes = (*ta.launch_sizes(tuple(q.shape), heads), ta.MODE_ITEMS, 0, 0)
+            elif name == "against" and n != 12:
                 sizes = earlier_sizes(n, tuple(q.shape), heads, True, reach)
             elif name in FRAMES_BWD_VARIANTS:
                 sizes = frames_variant_sizes(name, q.shape, heads)
@@ -2112,7 +2281,8 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
         checks = {}
         for name in runs:
             if (name in TEMPORAL_BWD_VARIANTS and TEMPORAL_BWD_VARIANTS[name][1]
-                    or name in FRAMES_BWD_ABLATIONS or name in LONG_BWD_ABLATIONS):
+                    or name in FRAMES_BWD_ABLATIONS or name in LONG_BWD_ABLATIONS
+                    or name in split_table and split_table[name][4]):
                 checks[name] = (None, None, None)
                 continue
             for t in grads:
@@ -2140,7 +2310,9 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
             ms = min(turns[name])
             ok, rel, same = checks[name]
             plan = None
-            if name in FRAMES_BWD_VARIANTS or (frames and name == "kernel"):
+            if wide and name != "against":
+                plan = split_variant_plan(name, d, f, True)._asdict()
+            elif name in FRAMES_BWD_VARIANTS or (frames and name == "kernel"):
                 plan = ta.long_backward_plan(
                     c, heads, f, **FRAMES_BWD_VARIANTS.get(name, ((), {}, 0))[1])._asdict()
             elif name != "against" and (past or name == LONG_AT_FRAMES):
@@ -2150,7 +2322,8 @@ def run_temporal_bwd(names: Sequence[str], iters: int = 5,
                        turns=turns[name], library_ms=sdpa_ms, bound_ms=bound_ms,
                        share_of_bound=bound_ms / ms,
                        ablation=(name in TEMPORAL_BWD_VARIANTS and TEMPORAL_BWD_VARIANTS[name][1]
-                                 or name in FRAMES_BWD_ABLATIONS or name in LONG_BWD_ABLATIONS),
+                                 or name in FRAMES_BWD_ABLATIONS or name in LONG_BWD_ABLATIONS
+                                 or name in split_table and split_table[name][4]),
                        ok=ok, rel_l2=rel, same_bits_on_repeat=same, plan=plan,
                        device=torch.cuda.get_device_name())
             print(json.dumps(rec), flush=True)
@@ -2404,11 +2577,13 @@ def main(argv: Sequence[str] = None) -> int:
                              f"{', '.join(DMAJOR_VARIANTS)}; with --hbm: {', '.join(HBM_VARIANTS)}; "
                              f"with --gn: {', '.join(GN_VARIANTS)}; with --temporal: "
                              f"{', '.join([*TEMPORAL_VARIANTS, *LONG_VARIANTS])}, "
-                             f"{', '.join(LONG_FWD_VARIANTS)}; with "
+                             f"{', '.join([*LONG_FWD_VARIANTS, *SPLIT_VARIANTS])}, "
+                             f"{', '.join(SPLIT_FWD_VARIANTS)}; with "
                              f"--temporal-bwd: "
                              f"{', '.join([*TEMPORAL_BWD_VARIANTS, *FRAMES_BWD_VARIANTS])}, "
                              f"{', '.join([*LONG_VARIANTS, *LONG_BWD_VARIANTS])}, "
-                             f"{LONG_AT_FRAMES}; "
+                             f"{LONG_AT_FRAMES}, "
+                             f"{', '.join([*SPLIT_VARIANTS, *SPLIT_BWD_VARIANTS])}; "
                              f"with --xwide: {', '.join(XWIDE_VARIANTS)}; with --mid: "
                              f"{', '.join(MID_VARIANTS)}; with --mid-bwd: "
                              f"{', '.join(MID_BWD_VARIANTS)}; with --own: "
@@ -2442,10 +2617,11 @@ def main(argv: Sequence[str] = None) -> int:
     modes = {"bwd": (BWD_VARIANTS, run_bwd), "pvt": (PVT_VARIANTS, run_pvt),
              "dmajor": (DMAJOR_VARIANTS, run_dmajor), "hbm": (HBM_VARIANTS, run_hbm),
              "gn": (GN_VARIANTS, run_gn),
-             "temporal": ({**TEMPORAL_VARIANTS, **LONG_VARIANTS, **LONG_FWD_VARIANTS},
-                          run_temporal),
+             "temporal": ({**TEMPORAL_VARIANTS, **LONG_VARIANTS, **LONG_FWD_VARIANTS,
+                           **SPLIT_VARIANTS, **SPLIT_FWD_VARIANTS}, run_temporal),
              "temporal_bwd": ({**TEMPORAL_BWD_VARIANTS, **FRAMES_BWD_VARIANTS, **LONG_VARIANTS,
-                               **LONG_BWD_VARIANTS, LONG_AT_FRAMES: None}, run_temporal_bwd),
+                               **LONG_BWD_VARIANTS, LONG_AT_FRAMES: None, **SPLIT_VARIANTS,
+                               **SPLIT_BWD_VARIANTS}, run_temporal_bwd),
              "xwide": (XWIDE_VARIANTS, run_xwide), "mid": (MID_VARIANTS, run_mid),
              "mid_bwd": (MID_BWD_VARIANTS, run_mid_bwd), "own": (OWN_VARIANTS, run_own)}
     mode_name = next((m for m in modes if getattr(args, m)), None)

@@ -1,7 +1,9 @@
-"""Kernel B's backward past 32 frames, head by head, against rounding.
+"""Kernel B's backward past 32 frames and in column slices, head by head,
+against rounding.
 
-The card tests hold the frames backward's gradients whole by relative L2
-and each head by its largest error, the long backward's each head by both.
+The card tests hold the frames backward's and the split backward's
+gradients whole by relative L2 and each head by its largest error, the
+long backward's each head by both.
 This tool prints, for each gradient and each head, the relative L2 of the
 kernel's result from the plain version on the card, beside two readings
 of rounding alone at the same inputs: the plain version on the CPU (the same steps, other summation
@@ -10,8 +12,9 @@ reversed (the softmax's sums and the products' reductions in another
 order; reversed back after). A head whose kernel reading stands far above
 both is a fault, not rounding.
 
-The inputs are the card test's (``test_temporal_long_redesign_matches_plain``
-and ``test_temporal_frames_backward_matches_plain``): b = 2, a ragged L, each
+The inputs are the card test's (``test_temporal_long_redesign_matches_plain``,
+``test_temporal_frames_backward_matches_plain`` and
+``test_temporal_split_kernels_match_plain``): b = 2, a ragged L, each
 tensor drawn from its own seed on the card, bf16.
 
     python -m humanvid_tpu_torch.tools.temporal_heads \\
@@ -26,13 +29,20 @@ import json
 import torch
 
 # (name, f, l, c, heads, first seed): the long backward's test shapes at
-# d = 8 and 40, and the frames kernel's at 128 frames (its widest reach)
+# d = 8 and 40, the frames kernel's at 128 frames (its widest reach), and
+# the split kernel's at d = 264 (slices of 72, 72, 72 and 48 columns) and
+# at heads64's d = 256
 CASES = (("long f200 d8", 200, 7, 32, 4, 120),
          ("long f136 d8", 136, 7, 32, 4, 120),
          ("long f256 d8", 256, 7, 32, 4, 120),
          ("long f200 d40", 200, 7, 320, 8, 120),
          ("frames f128 d8", 128, 11, 32, 4, 80),
-         ("frames f128 d40", 128, 11, 320, 8, 80))
+         ("frames f128 d40", 128, 11, 320, 8, 80),
+         ("split f13 d264", 13, 11, 2640, 10, 140),
+         ("split f16 d264", 16, 11, 2640, 10, 140),
+         ("split f24 d264", 24, 11, 2640, 10, 140),
+         ("split f32 d264", 32, 11, 2640, 10, 140),
+         ("split f24 d256", 24, 11, 1280, 5, 140))
 
 
 def rel_l2(got, want) -> float:

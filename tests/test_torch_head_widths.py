@@ -239,12 +239,15 @@ def test_temporal_plan_walks_a_wide_head_in_chunks(d, plan):
 
 
 def test_temporal_plan_chunks_cover_every_wide_width():
-    """For every width 168..1280 (a multiple of 8): the fewest chunks of at
-    most 160 columns, each a multiple of 8, that cover the head with every
-    chunk non-empty, loaded at the padded width both entry points accept."""
+    """For every width 168..1280 (a multiple of 8): the fewest column slices
+    of 2, 4 or 8 (a consumer warp of the split kernels each) of at most 160
+    columns, each a multiple of 8, that cover the head with every slice
+    non-empty, loaded at the padded width both entry points accept."""
     for d in range(168, ta.MAX_HEAD_DIM + 1, 8):
         p = ta.temporal_plan(d, 1)
-        assert p.heads == 1 and p.chunks == -(-d // ta.CHUNK_COLUMNS)
+        assert p.heads == 1 and p.chunks in (2, 4, 8) and ta.SPLIT_WARPS % p.chunks == 0
+        fewer = p.chunks // 2
+        assert fewer == 1 or ta.round_up8(-(-d // fewer)) > ta.CHUNK_COLUMNS
         assert p.cols % 8 == 0 and p.cols <= ta.CHUNK_COLUMNS
         assert (p.chunks - 1) * p.cols < d <= p.chunks * p.cols
         assert p.cols + 8 <= p.padded <= p.cols + 16 and (p.padded // 8) % 2 == 1

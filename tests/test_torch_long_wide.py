@@ -277,7 +277,8 @@ def test_xwide_smem_reckons_as_the_kernels_header():
     ((1, 48, 1792, 640), 8, (1, 48, 1792, 8, 80, 2, 168, 1, 80)),
     ((1, 96, 96, 1280), 8, (1, 96, 96, 8, 160, 1, 168, 1, 160)),
     ((1, 64, 9, 1280), 1, (1, 64, 9, 1, 1280, 1, 168, 8, 1280)),
-    # up to 32 frames: the item kernels' plans as before
+    # up to 32 frames: the item kernels' plans as before (a 256-wide head in
+    # two column slices: the split kernels, whose plan the tail carries)
     ((1, 32, 8, 256), 1, (1, 32, 8, 1, 256, 1, 136, 2, 256)),
     ((1, 24, 7168, 320), 8, (1, 24, 7168, 8, 40, 4, 168, 1, 40)),
     ((8, 1, 7168, 320), 8, (8, 1, 7168, 8, 40, 4, 168, 1, 40)),
@@ -288,8 +289,11 @@ def test_launch_sizes_past_32_frames_and_below(shape, heads, sizes):
     plan = ta.temporal_plan(shape[-1], heads, shape[1])
     assert (plan.heads, plan.padded, plan.chunks) == sizes[5:8]
     tail = ta.forward_launch_sizes(shape, heads)[9:]
-    if shape[1] <= ta.ITEM_FRAMES:
+    if shape[1] <= ta.ITEM_FRAMES and sizes[7] == 1:
         assert tail == (ta.MODE_ITEMS, 0, 0)
+    elif shape[1] <= ta.ITEM_FRAMES:
+        p = ta.split_plan(sizes[4], shape[1])
+        assert tail == (ta.MODE_SPLIT, p.stages, p.smem) and p.mode == ta.MODE_SPLIT
     else:
         p = ta.long_fwd_plan(shape[-1], heads, shape[1])
         assert tail == (p.mode, p.stages, p.smem)
